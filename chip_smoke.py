@@ -9,21 +9,42 @@ Phases, in order; any failure exits non-zero and prints no result:
    compute capability, which must be (9, 0);
 2. build   — compiles every kernel under dmlc_core_tpu_torch/kernels/
    with nvcc, one process per source, all at once;
-3. kernels — each kernel on the card at the serving path's shapes, held
-   against its plain PyTorch version (rtol = atol = 1e-5; zero fill must
-   give exact zeros), with CUDA-event times of kernel, plain version and,
-   where one PyTorch call computes the same function, that call;
+3. kernels — each kernel on the card at the shapes of the path that runs
+   it (serving: the ragged gather and fm terms; training: the embed bag
+   forward and backward at 4096 x 64 and the ragged gather forward and
+   backward at cap 131072 / 4096 rows, with out-of-range ids and
+   padding), held against its plain PyTorch version (rtol = atol = 1e-5;
+   zero fill must give exact zeros), with CUDA-event times of kernel,
+   plain version and, where one PyTorch call computes the same function,
+   that call;
 4. serving — FactorizationMachine(num_features=2^20, dim=32) from seeded
    weights, saved and restored through the port's CheckpointManager and
    served by InferenceEngine + MicroBatcher in padded and ragged mode
    with sigmoid scores: 72 requests per mode from 8 threads, every answer
    held against the plain path on the card and a few against a float64
    numpy FM; then a hot-reload to a second step, and one row-major
-   forward.  The kernels' launch counts are read around this phase.
+   forward.  The kernels' launch counts are read around this phase;
+5. training — DCNv2(2^20, dim=32, layers=3) on row-major and flat
+   batches and FactorizationMachine(2^20, dim=32) on flat batches: seeded
+   libsvm text through the port's parser and DeviceLoader, 8 Adam(1e-3)
+   steps of 4096 rows on the kernels, held against the same seeded model
+   on the plain path (one step's gradients at rtol = atol = 1e-5 and
+   within 1e-4 of each parameter's largest gradient, the per-step losses
+   at rtol = 1e-4 and within a tenth of their drift, the trained
+   parameters within 1e-3 of how far they moved, evaluate_stream
+   accuracy within one row and AUC within 1e-4), with steps/s, a
+   per-step breakdown and the device's idle share.  Launch counts are
+   read around each path.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
 without the package beside it, exit non-zero.
+
+    python3 chip_smoke.py --plant dtable|forward
+
+plants a fault on the kernel path (a zeroed table gradient, or a zeroed
+forward, of the D = 32 tables) and runs phases 1, 2 and 5 only; it
+exits 0 only if phase 5's checks catch the fault on every path.
 """
 
 from __future__ import annotations
@@ -44,6 +65,15 @@ F_FEATURES = 1 << 20
 DIM = 32
 CAP, ROWS = 8192, 128            # the ladders' largest bucket
 B_RM, K_RM = 128, 64             # row-major batch: the ladder's nnz_per_row
+# training batches (benchmarks/bench_suite.py bench_dcn_train and the
+# row-major integrity config): 4096 rows, k_cap 64 or nnz_cap 131072
+ROWS_TR, K_TR, CAP_TR = 4096, 64, 131072
+LAYERS = 3
+LR = 1e-3
+TRAIN_STEPS = 8
+EVAL_ROWS = 2 * ROWS_TR
+BAD_IDS = [-1, -F_FEATURES - 3, F_FEATURES, F_FEATURES + 7]
+SPIN_CYCLES = 100_000_000        # device spin that covers a step's enqueue
 RTOL = ATOL = 1e-5               # kernel vs plain version, same f32 inputs
 ATOL_F64 = 1e-4                  # f32 scores vs a float64 FM (sums of up
                                  # to 8192 f32 terms)
@@ -254,6 +284,238 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
         results["fm_terms"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None,
                                    max_abs_err=err)
+    results.update(_training_kernels(torch, timer, power, rng))
+    return results
+
+
+def _rowmajor_train_batch(torch, rng):
+    """ids/vals [ROWS_TR, K_TR] with rows of 5-39 values, padding (id 0,
+    value 0) after them, and the out-of-range ids in row 0."""
+    counts = rng.integers(5, 40, ROWS_TR)
+    ids = rng.integers(0, 1_000_000, (ROWS_TR, K_TR)).astype(np.int32)
+    vals = rng.random((ROWS_TR, K_TR), dtype=np.float32)
+    pad = np.arange(K_TR)[None, :] >= counts[:, None]
+    ids[pad], vals[pad] = 0, 0.0
+    ids[0, :4] = BAD_IDS
+    return torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda()
+
+
+def _flat_train_batch(torch, rng):
+    """A pack_flat batch of ROWS_TR rows of 5-39 values in CAP_TR slots
+    (padding: id 0, value 0, segment ROWS_TR), out-of-range ids first.
+    Returns the device tensors, the live count and the row counts."""
+    counts = rng.integers(5, 40, ROWS_TR)
+    nnz = int(counts.sum())
+    ids = np.zeros(CAP_TR, np.int32)
+    vals = np.zeros(CAP_TR, np.float32)
+    segs = np.full(CAP_TR, ROWS_TR, np.int32)
+    ids[:nnz] = rng.integers(0, 1_000_000, nnz)
+    ids[:4] = BAD_IDS
+    vals[:nnz] = rng.random(nnz, dtype=np.float32)
+    segs[:nnz] = np.repeat(np.arange(ROWS_TR, dtype=np.int32), counts)
+    dev = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return dev(ids), dev(vals), dev(segs), nnz, counts
+
+
+def _library_grad(torch, ids, vals, offsets, table, g):
+    """``() -> dtable``: the autograd backward of ``F.embedding_bag`` on
+    in-range (clamped) ids, one PyTorch call's yardstick for the
+    backward kernels (it sends out-of-range ids' gradient to the
+    clamped row, so it is timed, not compared)."""
+    from torch.nn import functional as Fn
+
+    from dmlc_core_tpu_torch.kernels.common import clamp_ids
+    t = table.detach().clone().requires_grad_()
+    with torch.enable_grad():
+        out = Fn.embedding_bag(clamp_ids(ids, table.shape[0]).int(), t,
+                               offsets, mode="sum", per_sample_weights=vals)
+    return lambda: torch.autograd.grad(out, t, g, retain_graph=True)
+
+
+def _training_forward(torch, timer: Timer, power: str, table, fids, fvals,
+                      fsegs, nnz, rows_read, foffsets) -> dict:
+    """The ragged-gather forward at the flat training batch's shapes, as
+    the training paths call it (every entry live, padding on the scratch
+    row): fm at D=32 (FM), embed at D=1 (the linear terms) and at D=32
+    (DCNv2's x0).  Returns ``{"<name>_train[_d32]": numbers}``."""
+    from torch.nn import functional as Fn
+
+    from dmlc_core_tpu_torch.kernels import (ragged_gather,
+                                             ragged_gather_reference)
+    from dmlc_core_tpu_torch.kernels.common import clamp_ids
+    results = {}
+    D = table.shape[1]
+    for fm, Dg in ((True, D), (False, 1), (False, D)):
+        tab = table if Dg == D else table[:, :1].contiguous()
+        name = "ragged_gather_fm" if fm else "ragged_gather_embed"
+        run = lambda: ragged_gather(  # noqa: E731
+            fids, fvals, fsegs, None, tab, ROWS_TR, fm=fm, engine="kernel")
+        plain = lambda: ragged_gather_reference(  # noqa: E731
+            fids, fvals, fsegs, None, tab, ROWS_TR, fm=fm)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = max(_close(f"{name} (training) D={Dg}", g, w)
+                  for g, w in zip(got, want) if g is not None)
+        ms, plain_ms = timer.ms(run), timer.ms(plain)
+        nout = 2 if fm else 1
+        b_ms, b_by = bound(rows_read * Dg * 4 + 12 * CAP_TR
+                           + nout * (ROWS_TR + 1) * Dg * 4,
+                           (4 if fm else 2) * nnz * Dg)
+        lib_ms = None
+        if not fm:
+            lib = lambda: Fn.embedding_bag(  # noqa: E731
+                clamp_ids(fids[:nnz], tab.shape[0]).int(), tab, foffsets,
+                mode="sum", per_sample_weights=fvals[:nnz])
+            _close(f"embedding_bag (flat) D={Dg}", lib(), want[0][:ROWS_TR])
+            lib_ms = timer.ms(lib)
+        key = f"{name}_train" + ("_d32" if not fm and Dg == D else "")
+        results[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms,
+                            max_abs_err=err)
+        log(f"[kernels] {name} (training) cap={CAP_TR} nnz={nnz} rows="
+            f"{ROWS_TR} D={Dg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+            f" embedding_bag {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+    return results
+
+
+def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
+    """The embed-bag kernels (forward and backward) and the ragged-gather
+    kernels (forward and backward) at the training paths' shapes,
+    against their plain versions, with out-of-range ids and padding in
+    the inputs."""
+    from torch.nn import functional as Fn
+
+    from dmlc_core_tpu_torch.kernels import (embed_bag_forward,
+                                             embed_bag_grad,
+                                             embed_bag_grad_reference,
+                                             embed_bag_reference,
+                                             ragged_gather_grad,
+                                             ragged_gather_grad_reference)
+    from dmlc_core_tpu_torch.kernels.common import clamp_ids
+    results = {}
+    F, D = F_FEATURES, DIM
+    table = torch.from_numpy(rng.standard_normal(
+        (F, D), dtype=np.float32) * 0.05).cuda()
+    ids, vals = _rowmajor_train_batch(torch, rng)
+    g = torch.from_numpy(rng.standard_normal(
+        (ROWS_TR, D), dtype=np.float32)).cuda()
+    BK = ROWS_TR * K_TR
+    live = int((vals != 0).sum())
+    rows_read = int(torch.unique(clamp_ids(ids, F)).numel())
+    offsets = torch.arange(0, BK, K_TR, dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        for square in (False, True):
+            run = lambda: embed_bag_forward(  # noqa: E731
+                ids, vals, table, square, engine="kernel")
+            plain = lambda: embed_bag_reference(  # noqa: E731
+                ids, vals, table, square)
+            got, want = run(), plain()
+            torch.cuda.synchronize()
+            err = _close(f"embed_bag square={square}", got, want)
+            ms, plain_ms = timer.ms(run), timer.ms(plain)
+            b_ms, b_by = bound(rows_read * D * 4 + BK * 8 + ROWS_TR * D * 4,
+                               (3 if square else 2) * BK * D)
+            lib_ms = None
+            if not square:
+                lib = lambda: Fn.embedding_bag(  # noqa: E731
+                    clamp_ids(ids, F).int().reshape(-1), table, offsets,
+                    mode="sum", per_sample_weights=vals.reshape(-1))
+                _close("embedding_bag (row-major)", lib(), want)
+                lib_ms = timer.ms(lib)
+                # the training path runs square=False
+                results["embed_bag"] = dict(
+                    ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                    library_ms=lib_ms, max_abs_err=err)
+            log(f"[kernels] embed_bag square={square} B={ROWS_TR} K={K_TR} "
+                f"D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"embedding_bag "
+                f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+
+        lib_bwd = _library_grad(torch, ids.reshape(-1), vals.reshape(-1),
+                                offsets, table, g)
+        for square in (False, True):
+            for need_dvals in (False, True):
+                run = lambda: embed_bag_grad(  # noqa: E731
+                    ids, vals, table, g, square, need_dvals,
+                    engine="kernel")
+                plain = lambda: embed_bag_grad_reference(  # noqa: E731
+                    ids, vals, table, g, square, need_dvals)
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                err = max(_close(f"embed_bag_grad square={square} "
+                                 f"dvals={need_dvals}", a, b)
+                          for a, b in zip(got, want) if a is not None)
+                ms, plain_ms = timer.ms(run), timer.ms(plain)
+                need_x = square or need_dvals
+                nbytes = (BK * 8 + ROWS_TR * D * 4 + F * D * 4
+                          + (rows_read * D * 4 if need_x else 0)
+                          + (BK * 4 if need_dvals else 0))
+                b_ms, b_by = bound(nbytes, (2 + 2 * need_x) * live * D)
+                lib_ms = None
+                if not square and not need_dvals:
+                    lib_ms = timer.ms(lib_bwd)
+                    # the training path: square=False, no dvals
+                    results["embed_bag_grad"] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+                log(f"[kernels] embed_bag_grad square={square} dvals="
+                    f"{need_dvals} B={ROWS_TR} K={K_TR} D={D}: kernel "
+                    f"{ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag "
+                    f"backward "
+                    f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                    f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+        del lib_bwd
+
+        fids, fvals, fsegs, nnz, counts = _flat_train_batch(torch, rng)
+        rows_read = int(torch.unique(clamp_ids(fids[:nnz], F)).numel())
+        foffsets = torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(counts)[:-1]]).astype(np.int32)).cuda()
+        results.update(_training_forward(torch, timer, power, table, fids,
+                                         fvals, fsegs, nnz, rows_read,
+                                         foffsets))
+        for fm, Dg in ((True, D), (False, 1), (False, D)):
+            tab = table if Dg == D else table[:, :1].contiguous()
+            g1 = torch.from_numpy(rng.standard_normal(
+                (ROWS_TR + 1, Dg), dtype=np.float32)).cuda()
+            g2 = (torch.from_numpy(rng.standard_normal(
+                (ROWS_TR + 1, Dg), dtype=np.float32)).cuda() if fm else None)
+            name = "ragged_gather_grad_fm" if fm else "ragged_gather_grad_embed"
+            for need_dvals in (False, True):
+                run = lambda: ragged_gather_grad(  # noqa: E731
+                    fids, fvals, fsegs, None, tab, g1, g2, ROWS_TR,
+                    need_dvals=need_dvals, engine="kernel")
+                plain = lambda: ragged_gather_grad_reference(  # noqa: E731
+                    fids, fvals, fsegs, None, tab, g1, g2, ROWS_TR,
+                    need_dvals=need_dvals)
+                got, want = run(), plain()
+                torch.cuda.synchronize()
+                err = max(_close(f"{name} D={Dg} dvals={need_dvals}", a, b)
+                          for a, b in zip(got, want) if a is not None)
+                ms, plain_ms = timer.ms(run), timer.ms(plain)
+                need_x = fm or need_dvals
+                nbytes = (12 * CAP_TR + (1 + fm) * (ROWS_TR + 1) * Dg * 4
+                          + F * Dg * 4 + (rows_read * Dg * 4 if need_x else 0)
+                          + (CAP_TR * 4 if need_dvals else 0))
+                b_ms, b_by = bound(nbytes, ((6 if fm else 1)
+                                            + 2 * need_dvals) * nnz * Dg)
+                lib_ms = None
+                if not fm and not need_dvals:
+                    lib_ms = timer.ms(_library_grad(
+                        torch, fids[:nnz], fvals[:nnz], foffsets, tab,
+                        g1[:ROWS_TR]))
+                # the training path runs no dvals: fm at D=32, embed at
+                # D=1 (the linear term; DCNv2 also runs it at D=32)
+                if not need_dvals and (fm or Dg == 1):
+                    results[name] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                        bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+                log(f"[kernels] {name} cap={CAP_TR} nnz={nnz} rows="
+                    f"{ROWS_TR} D={Dg} dvals={need_dvals}: kernel {ms:.4f} "
+                    f"ms, plain {plain_ms:.4f} ms, embedding_bag backward "
+                    f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+                    f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
     return results
 
 
@@ -475,6 +737,336 @@ def phase_serving(torch, timer: Timer, power: str) -> dict:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# -- phase 5 ----------------------------------------------------------------
+
+TRAIN_PATHS = (            # (name, model, layout, nnz_cap or k_cap)
+    ("dcn_rowmajor", "dcn", "rowmajor", K_TR),
+    ("dcn_flat", "dcn", "flat", CAP_TR),
+    ("fm_flat", "fm", "flat", CAP_TR),
+)
+
+
+def _write_libsvm(path: str, rows: int, seed: int) -> None:
+    """Seeded libsvm text in the shape of benchmarks/bench_suite.py's
+    _gen_libsvm: 5-39 sorted distinct ids below 1,000,000 per row,
+    values U[0,1), labels i & 1."""
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for i in range(rows):
+            n = int(rng.integers(5, 40))
+            idx = np.sort(rng.choice(1_000_000, size=n, replace=False))
+            toks = b" ".join(b"%d:%.4f" % (j, v) for j, v in
+                             zip(idx.tolist(), rng.random(n).tolist()))
+            f.write(b"%d " % (i & 1) + toks + b"\n")
+
+
+def _model(torch, kind: str, engine: str):
+    from dmlc_core_tpu_torch import DCNv2, FactorizationMachine
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if kind == "dcn":
+        return DCNv2(F_FEATURES, DIM, LAYERS, engine=engine, device="cuda",
+                     generator=gen)
+    return FactorizationMachine(F_FEATURES, DIM, engine=engine,
+                                device="cuda", generator=gen)
+
+
+def _grads(model, batch) -> dict:
+    model.zero_grad(set_to_none=True)
+    model.loss(batch).backward()
+    return {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+
+
+def _step_breakdown(torch, model, opt, loader, steps: int = 4) -> dict:
+    """Per-step stages of more training steps: parse + pack + H2D on the
+    host clock (to the end of the copy), forward, backward and optimizer
+    in CUDA events.  A spin kernel queued first keeps the device busy
+    while the host enqueues the step, so the events time device work."""
+    host, fwd, bwd, optm, busy, spin_ok = [], [], [], [], [], True
+    loader.before_first()
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        batch = loader.next_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        opt.zero_grad(set_to_none=True)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        ev[1].record()
+        t2 = time.perf_counter()
+        loss = model.loss(batch)
+        ev[2].record()
+        loss.backward()
+        ev[3].record()
+        opt.step()
+        ev[4].record()
+        t_enq = (time.perf_counter() - t2) * 1e3
+        torch.cuda.synchronize()
+        spin_ok &= ev[0].elapsed_time(ev[1]) > t_enq
+        host.append((t1 - t0) * 1e3)
+        fwd.append(ev[1].elapsed_time(ev[2]))
+        bwd.append(ev[2].elapsed_time(ev[3]))
+        optm.append(ev[3].elapsed_time(ev[4]))
+        busy.append(ev[1].elapsed_time(ev[4]))
+    if not spin_ok:
+        raise RuntimeError("the spin kernel ended before the host had "
+                           "enqueued the step; raise SPIN_CYCLES")
+    return {k: float(np.median(v)) for k, v in (
+        ("host_ms", host), ("forward_ms", fwd), ("backward_ms", bwd),
+        ("optimizer_ms", optm), ("device_ms", busy))}
+
+
+# phase 5's checks of the kernel path against the plain path; a reading
+# beyond its limit fails the path (see _train_checks)
+GRAD_SCALED_TOL = 1e-4     # max|err| over max|g_plain|, each parameter
+LOSS_DRIFT_TOL = 0.1       # max|loss diff| over how far the losses moved
+PARAM_TOL = 1e-3           # ||p_kernel - p_plain|| over ||p_plain - p_init||
+
+
+def _train_checks(torch, g_kernel, g_plain, lk, lp, ev_kernel,
+                  ev_plain, model, plain, p_init) -> list:
+    """Every comparison of the kernel path with the plain path, as
+    ``(check, reading, limit, ok)`` rows.  A check must be able to fail
+    on a fault as small as the thing it compares: gradients are also
+    held against each parameter's own scale, the losses against how far
+    they moved, and the trained parameters against how far they moved."""
+    rows = []
+    # one step's gradients, elementwise (rtol = atol = 1e-5)
+    worst = max(g_plain, key=lambda k: float(
+        (g_kernel[k] - g_plain[k]).abs().max()))
+    err = float((g_kernel[worst] - g_plain[worst]).abs().max())
+    ok = all(torch.allclose(g_kernel[k], g_plain[k], rtol=RTOL, atol=ATOL)
+             for k in g_plain)
+    rows.append((f"gradients max|err| ({worst})", err, ATOL, ok))
+    # ... and against each parameter's own scale
+    ratios = {k: float((g_kernel[k] - g_plain[k]).abs().max())
+              / max(float(g_plain[k].abs().max()), 1e-30) for k in g_plain}
+    worst = max(ratios, key=ratios.get)
+    rows.append((f"gradients max|err|/max|g| ({worst})", ratios[worst],
+                 GRAD_SCALED_TOL, ratios[worst] <= GRAD_SCALED_TOL))
+    # 8 losses, relative, and against the drift of the plain losses
+    fin = bool(np.isfinite(lk).all())
+    rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
+    rows.append(("losses max rel err", rel, 1e-4, fin and rel <= 1e-4))
+    drift = float(np.max(np.abs(lp - lp[0])))
+    share = float(np.max(np.abs(lk - lp))) / max(drift, 1e-30)
+    rows.append((f"losses max|diff|/drift (drift {drift:.3g})", share,
+                 LOSS_DRIFT_TOL, fin and share <= LOSS_DRIFT_TOL))
+    # the trained parameters, each against how far it moved
+    ratios = {}
+    for k, p in plain.named_parameters():
+        moved = float((p.detach() - p_init[k]).norm())
+        diff = float((dict(model.named_parameters())[k].detach()
+                      - p.detach()).norm())
+        ratios[k] = diff / max(moved, 1e-30)
+    worst = max(ratios, key=ratios.get)
+    rows.append((f"parameters ||k-p||/||p-p0|| ({worst})", ratios[worst],
+                 PARAM_TOL, ratios[worst] <= PARAM_TOL))
+    # eval: accuracy within one row, AUC within 1e-4, every row evaluated
+    acc_rows = abs(ev_kernel["accuracy"] - ev_plain["accuracy"]) * \
+        ev_plain["weight"]
+    rows.append(("eval accuracy |diff| in rows", acc_rows, 1.0,
+                 acc_rows <= 1.0 + 1e-6
+                 and ev_plain["weight"] == EVAL_ROWS
+                 and ev_kernel["weight"] == EVAL_ROWS))
+    auc = abs(ev_kernel["auc"] - ev_plain["auc"])
+    rows.append(("eval auc |diff|", auc, 1e-4, auc <= 1e-4))
+    return rows
+
+
+class PathDeparts(RuntimeError):
+    """A training path's kernel run disagrees with its plain run."""
+
+
+def _train_path(torch, name, kind, layout, cap, train_file, eval_file,
+                power) -> dict:
+    """One training path on engine='kernel', held against the same
+    seeded model on engine='torch'.  Returns the path's launch counts;
+    raises, after logging every check's reading, if any check fails."""
+    from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
+                                     evaluate_stream, make_train_step)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    def loader(path):
+        return DeviceLoader(create_parser(path), ROWS_TR, cap, layout=layout,
+                            device="cuda")
+
+    model = _model(torch, kind, "kernel")
+    train_ld, eval_ld = loader(train_file), loader(eval_file)
+    opt = adam(model, LR)
+    step = make_train_step(model, opt)
+
+    reset_launch_counts()                      # the path starts here
+    g_kernel = _grads(model, train_ld.next_batch())
+    train_ld.before_first()
+    batches, losses = [], []
+    t0 = time.perf_counter()
+    for batch in train_ld:
+        batches.append(batch)
+        losses.append(step(batch))
+    last = float(losses[-1])                   # the host clock stops here
+    wall = time.perf_counter() - t0
+    ev_kernel = evaluate_stream(model, eval_ld)
+    torch.cuda.synchronize()
+    launches = launch_counts()                 # the path ends here
+    if len(batches) != TRAIN_STEPS:
+        raise RuntimeError(f"{name}: {len(batches)} batches, expected "
+                           f"{TRAIN_STEPS}")
+
+    # the same seeded model on the plain path, on the same batches
+    plain = _model(torch, kind, "torch")
+    p_init = {k: p.detach().clone() for k, p in plain.named_parameters()}
+    g_plain = _grads(plain, batches[0])
+    p_step = make_train_step(plain, adam(plain, LR))
+    p_losses = [p_step(b) for b in batches]
+    lk = torch.stack(losses).cpu().numpy()
+    lp = torch.stack(p_losses).cpu().numpy()
+    eval_ld.before_first()
+    ev_plain = evaluate_stream(plain, eval_ld)
+    checks = _train_checks(torch, g_kernel, g_plain, lk, lp,
+                           ev_kernel, ev_plain, model, plain, p_init)
+    del plain, p_step, batches, p_init, g_kernel, g_plain
+    log(f"[train] {name} checks against the plain path: " + "; ".join(
+        f"{c} {r:.3g} (limit {lim:g}{'' if ok else ', FAILED'})"
+        for c, r, lim, ok in checks))
+    failed = [c for c, _, _, ok in checks if not ok]
+    if failed:
+        train_ld.close()
+        eval_ld.close()
+        raise PathDeparts(f"{name}: kernel path departs from the plain "
+                          f"path: {failed}")
+
+    stages = _step_breakdown(torch, model, opt, train_ld)
+    idle = 1.0 - TRAIN_STEPS * stages["device_ms"] / (wall * 1e3)
+    train_ld.close()
+    eval_ld.close()
+    log(f"[train] {name}: {TRAIN_STEPS} steps of {ROWS_TR} rows in "
+        f"{wall:.4f} s: {TRAIN_STEPS / wall:.3f} steps/s, "
+        f"{TRAIN_STEPS * ROWS_TR / wall:.1f} rows/s; loss {lk[0]:.6f} -> "
+        f"{last:.6f} (plain {lp[-1]:.6f}); eval accuracy "
+        f"{ev_kernel['accuracy']:.6f} (plain {ev_plain['accuracy']:.6f}), "
+        f"auc {ev_kernel['auc']:.6f} (plain {ev_plain['auc']:.6f}) "
+        f"[{power}]")
+    log(f"[train] {name} per step (median of 4): parse + pack + H2D "
+        f"{stages['host_ms']:.4f} ms (host clock), forward "
+        f"{stages['forward_ms']:.4f} ms, backward {stages['backward_ms']:.4f}"
+        f" ms, optimizer {stages['optimizer_ms']:.4f} ms (device), device "
+        f"busy {stages['device_ms']:.4f} ms/step; device idle share of the "
+        f"timed steps {idle:.4f} [{power}]")
+    log(f"[train] {name} kernel launches: {launches}")
+    return launches
+
+
+def phase_training(torch, power: str, planted: bool = False) -> dict:
+    """DCNv2 (row-major and flat) and FM (flat) at full width: 8 Adam
+    steps each through the port's parser, loader and train step on the
+    kernels, against the plain path.  Returns the launch counts summed
+    over the three paths; with ``planted`` (a fault planted on the kernel
+    path), ``{path: True if its checks caught the fault}`` instead."""
+    data = os.path.join(ROOT, ".chip_smoke_data")
+    shutil.rmtree(data, ignore_errors=True)
+    os.makedirs(data)
+    try:
+        train_file = os.path.join(data, "train.libsvm")
+        eval_file = os.path.join(data, "eval.libsvm")
+        _write_libsvm(train_file, TRAIN_STEPS * ROWS_TR, SEED + 10)
+        _write_libsvm(eval_file, EVAL_ROWS, SEED + 11)
+        total: dict = {}
+        caught: dict = {}
+        for name, kind, layout, cap in TRAIN_PATHS:
+            try:
+                launches = _train_path(torch, name, kind, layout, cap,
+                                       train_file, eval_file, power)
+                caught[name] = False
+            except PathDeparts as e:
+                if not planted:
+                    raise
+                log(f"[plant] {name}: caught: {e}")
+                caught[name] = True
+                continue
+            finally:
+                torch.cuda.empty_cache()
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+        return caught if planted else total
+    finally:
+        shutil.rmtree(data, ignore_errors=True)
+
+
+# -- planted faults -----------------------------------------------------------
+
+PLANTS = ("dtable", "forward")
+
+
+def _plant(kind: str) -> None:
+    """Break the kernel path on purpose, on the factor tables (D > 1)
+    only, leaving the plain path alone: ``dtable`` zeroes the backward
+    kernels' table gradient, ``forward`` the forward kernels' output.
+    Phase 5's checks must catch either on every path."""
+    import importlib
+
+    from dmlc_core_tpu_torch.kernels.common import use_kernel
+    # the modules, not the functions the packages export under their names
+    rg = importlib.import_module("dmlc_core_tpu_torch.kernels.ragged_gather")
+    emb = importlib.import_module("dmlc_core_tpu_torch.ops.embed")
+
+    if kind == "dtable":
+        grad_kernel, bag_grad = rg._grad_kernel, emb.embed_bag_grad
+
+        def ragged(*a):
+            dvals, dtable = grad_kernel(*a)
+            if dtable is not None and dtable.shape[1] > 1:
+                dtable.zero_()
+            return dvals, dtable
+
+        def bag(ids, vals, table, g, *a, engine="auto", **kw):
+            dvals, dtable = bag_grad(ids, vals, table, g, *a, engine=engine,
+                                     **kw)
+            if (dtable is not None and table.shape[1] > 1
+                    and use_kernel(engine, table.device)):
+                dtable.zero_()
+            return dvals, dtable
+        rg._grad_kernel, emb.embed_bag_grad = ragged, bag
+    else:
+        gather_kernel, bag_fwd = rg._ragged_gather_kernel, \
+            emb.embed_bag_forward
+
+        def ragged(ids, vals, segments, nnz_used, table, num_rows, fm):
+            out1, out2 = gather_kernel(ids, vals, segments, nnz_used, table,
+                                       num_rows, fm)
+            if table.shape[1] > 1:
+                out1.zero_()
+                if out2 is not None:
+                    out2.zero_()
+            return out1, out2
+
+        def bag(ids, vals, table, square=False, engine="auto"):
+            out = bag_fwd(ids, vals, table, square, engine)
+            if table.shape[1] > 1 and use_kernel(engine, table.device):
+                out.zero_()
+            return out
+        rg._ragged_gather_kernel, emb.embed_bag_forward = ragged, bag
+
+
+def main_planted(kind: str) -> int:
+    """``--plant KIND``: the device and build phases, then phase 5 with a
+    fault planted on the kernel path.  Exits 0 only if every path's
+    checks caught it; the last line names what each path did."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    power = phase_device(torch)
+    phase_build()
+    _plant(kind)
+    caught = phase_training(torch, power, planted=True)
+    print(json.dumps({"plant": kind, "caught": caught}))
+    return 0 if all(caught.values()) else 1
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -490,28 +1082,51 @@ def main() -> int:
     phase_build()
     timer = Timer(torch)
     kern = phase_kernels(torch, timer, power)
-    launches = phase_serving(torch, timer, power)
-    on_path = {"ragged_gather_fm", "ragged_gather_embed", "fm_terms"}
-    missing = [k for k in sorted(on_path) if launches.get(k, 0) < 1]
-    if missing:
-        raise RuntimeError(f"main path never launched: {missing}")
+    serving = phase_serving(torch, timer, power)
+    training = phase_training(torch, power)
     src = "dmlc_core_tpu_torch/kernels/"
+    # name: (source, TPU kernel, the path whose launches it reports)
     meta = {
         "ragged_gather_fm": ("ragged_gather.cu",
-                             "dmlc_core_tpu/ops/ragged_csr.py:166"),
+                             "dmlc_core_tpu/ops/ragged_csr.py:166", serving),
         "ragged_gather_embed": ("ragged_gather.cu",
-                                "dmlc_core_tpu/ops/ragged_csr.py:166"),
-        "fm_terms": ("fm_terms.cu", "dmlc_core_tpu/ops/pallas_embed.py:326"),
+                                "dmlc_core_tpu/ops/ragged_csr.py:166",
+                                serving),
+        "fm_terms": ("fm_terms.cu", "dmlc_core_tpu/ops/pallas_embed.py:326",
+                     serving),
+        "embed_bag": ("embed_bag.cu", "dmlc_core_tpu/ops/pallas_embed.py:290",
+                      training),
+        "embed_bag_grad": ("embed_bag.cu",
+                           "dmlc_core_tpu/ops/pallas_embed.py:290", training),
+        "ragged_gather_grad_fm": ("ragged_gather_grad.cu",
+                                  "dmlc_core_tpu/ops/ragged_csr.py:166",
+                                  training),
+        "ragged_gather_grad_embed": ("ragged_gather_grad.cu",
+                                     "dmlc_core_tpu/ops/ragged_csr.py:166",
+                                     training),
     }
+    missing = [k for k, (_, _, path) in meta.items() if path.get(k, 0) < 1]
+    # the forward gathers run on the training paths too
+    missing += [f"{k} (training)" for k in ("ragged_gather_fm",
+                                            "ragged_gather_embed")
+                if training.get(k, 0) < 1]
+    if missing:
+        raise RuntimeError(f"main path never launched: {missing}")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
     rows = []
-    for name, (cu, replaces) in meta.items():
+    for name, (cu, replaces, path) in meta.items():
         k = kern[name]
-        rows.append({"name": name, "route": "cuda", "source": src + cu,
-                     "replaces": replaces, "launches": launches.get(name, 0),
-                     "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-                     "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
-                     "bound_by": k["bound_by"],
-                     "library_ms": k["library_ms"]})
+        row = {"name": name, "route": "cuda", "source": src + cu,
+               "replaces": replaces, "launches": path.get(name, 0),
+               **{key: k[key] for key in keys}}
+        if name + "_train" in kern:
+            # the serving row's numbers, then the same kernel at the
+            # flat training batch's shapes, with the training launches
+            row["training"] = {"launches": training.get(name, 0),
+                               **{key: kern[name + "_train"][key]
+                                  for key in keys}}
+        rows.append(row)
     log(f"[done] {time.monotonic() - t_start:.1f}s")
     print(power)
     print(json.dumps({"kernels": rows}))
@@ -522,8 +1137,14 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--plant", choices=PLANTS, default=None,
+                    help="plant a fault on the kernel path and show that "
+                         "phase 5's checks catch it")
+    args = ap.parse_args()
     try:
-        rc = main()
+        rc = main() if args.plant is None else main_planted(args.plant)
     except Exception as e:  # noqa: BLE001 — any failed phase fails
         import traceback
         traceback.print_exc()

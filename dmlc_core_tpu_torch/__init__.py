@@ -2,32 +2,47 @@
 
 Runs on an NVIDIA H100 (Hopper, ``sm_90a``) with kernels written by hand
 in CUDA C++ where the JAX package had Pallas kernels.  Its layout mirrors
-the JAX package (``ops/``, ``models/``, ``serving/``, ``utils/``, plus
-``kernels/``), and each module names its JAX counterpart.  It imports
+the JAX package (``data/``, ``pipeline/``, ``ops/``, ``models/``,
+``serving/``, ``utils/``, plus ``kernels/``), and each module names its
+JAX counterpart.  It imports
 ``torch`` and ``numpy`` and nothing of JAX or of ``dmlc_core_tpu``.
 
 Entry points run on ``cuda`` unless given ``device="cpu"``; on the CPU
 every op runs its kernel's plain PyTorch version.
 
-This slice serves the factorization machine::
+It trains the factorization machine and DCNv2::
 
-    from dmlc_core_tpu_torch import (FactorizationMachine, InferenceEngine,
-                                     MicroBatcher)
+    from dmlc_core_tpu_torch import (DCNv2, DeviceLoader, adam,
+                                     create_parser, fit_stream)
+    model = DCNv2(num_features=1 << 20, dim=32, layers=3)
+    loader = DeviceLoader(create_parser("train.libsvm"), batch_rows=4096,
+                          nnz_cap=64, layout="rowmajor")
+    fit_stream(model, loader, optimizer=adam(model, 1e-3))
+
+and serves the factorization machine::
+
+    from dmlc_core_tpu_torch import InferenceEngine, MicroBatcher
     model = FactorizationMachine(num_features=1 << 20, dim=32)
     engine = InferenceEngine(model, postprocess="sigmoid", warmup=True)
     with MicroBatcher(engine) as batcher:
         scores = batcher.submit(ids, vals, row_ptr).result()
 """
 
-from . import kernels, models, ops, serving, utils  # noqa: F401
-from .models import (FactorizationMachine, SparseLogReg,  # noqa: F401
+from . import (data, kernels, models, ops, pipeline,  # noqa: F401
+               serving, utils)
+from .data import create_parser  # noqa: F401
+from .models import (DCNv2, FactorizationMachine, SparseLogReg,  # noqa: F401
+                     adam, evaluate_stream, fit_stream, make_train_step,
                      params_from_jax, params_to_numpy)
+from .pipeline import DeviceLoader  # noqa: F401
 from .serving import (BucketLadder, InferenceEngine,  # noqa: F401
                       MicroBatcher)
 from .utils import CheckpointManager, DMLCError  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["FactorizationMachine", "SparseLogReg", "params_from_jax",
-           "params_to_numpy", "InferenceEngine", "BucketLadder",
-           "MicroBatcher", "CheckpointManager", "DMLCError"]
+__all__ = ["FactorizationMachine", "SparseLogReg", "DCNv2",
+           "params_from_jax", "params_to_numpy", "create_parser",
+           "DeviceLoader", "make_train_step", "fit_stream", "evaluate_stream",
+           "adam", "InferenceEngine", "BucketLadder", "MicroBatcher",
+           "CheckpointManager", "DMLCError"]

@@ -1,10 +1,11 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ctypes.
 
 Every ``*.cu`` file beside this module is one kernel source with a plain
-``extern "C"`` launcher.  At first use each source is compiled for Hopper
+``extern "C"`` launcher; the device helpers they share (the id rules)
+are in ``common.cuh``.  At first use each source is compiled for Hopper
 (``sm_90a``) into its own shared library under ``_build/``, all sources
 at once, one ``nvcc`` process each.  A library is rebuilt when the hash
-of its source and flags changes (the scheme of
+of its source, the shared headers and the flags changes (the scheme of
 ``dmlc_core_tpu/native/build.py``).  A failed build raises: there is no
 fallback.
 
@@ -66,9 +67,12 @@ def nvcc_path() -> str:
 
 
 def _digest(name: str) -> str:
+    """Hash of the source, every shared header beside it and the flags."""
     h = hashlib.sha256()
-    with open(os.path.join(_DIR, name + ".cu"), "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(_DIR) if f.endswith(".cuh"))
+    for fname in [name + ".cu"] + headers:
+        with open(os.path.join(_DIR, fname), "rb") as f:
+            h.update(f.read())
     h.update(" ".join(_FLAGS).encode())
     return h.hexdigest()
 

@@ -7,8 +7,8 @@
 //     s1[b] = sum_k vals[b,k] * x_bk          x_bk = table[ids[b,k]]
 //     s2[b] = sum_k vals[b,k]^2 * x_bk^2
 //
-// reading each gathered row once for both sums.  Ids follow XLA's gather:
-// negative ids count from the end, then clamp into [0, F).
+// reading each gathered row once for both sums.  Ids follow XLA's gather
+// (clamp_id in common.cuh).
 //
 // What bounds it: bytes (one D-float row per (b, k), two flops per element
 // per sum).  Design: one block per row b, threads over d, so each gathered
@@ -18,16 +18,9 @@
 // thread.  The TPU kernel's 8-row blocks, SMEM scalar chunking and DMA ring
 // are TPU artifacts and have no counterpart here.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ int64_t clamp_id(int id, int F) {
-  int64_t r = id;
-  if (r < 0) r += F;
-  return r < 0 ? 0 : (r >= F ? F - 1 : r);
-}
 
 __global__ void fm_terms_kernel(const int* __restrict__ ids,
                                 const float* __restrict__ vals,

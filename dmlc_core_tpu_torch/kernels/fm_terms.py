@@ -17,7 +17,7 @@ import torch
 
 from ..utils.logging import DMLCError
 from . import build
-from .common import (check_tensor, clamp_ids, count_launch, stream_handle,
+from .common import (check_tensor, count_launch, gather_rows, stream_handle,
                      use_kernel)
 
 __all__ = ["fm_terms", "fm_terms_reference"]
@@ -40,8 +40,9 @@ def fm_terms_reference(ids: torch.Tensor, vals: torch.Tensor,
                        table: torch.Tensor
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: one gather, two einsums (the JAX xla
-    branch of ``fm_embed_terms``)."""
-    g = table[clamp_ids(ids, table.shape[0])]            # [B, K, D]
+    branch of ``fm_embed_terms``).  Differentiable, with the gradient
+    rule of :func:`.common.gather_rows`."""
+    g = gather_rows(table, ids)                          # [B, K, D]
     s1 = torch.einsum("bk,bkd->bd", vals, g)
     s2 = torch.einsum("bk,bkd->bd", vals * vals, g * g)
     return s1, s2
@@ -64,8 +65,10 @@ def fm_terms(ids: torch.Tensor, vals: torch.Tensor, table: torch.Tensor,
         return fm_terms_reference(ids, vals, table)
     if torch.is_grad_enabled() and (table.requires_grad
                                     or vals.requires_grad):
-        raise DMLCError("the fm-terms kernel has no backward yet; run it "
-                        "under torch.no_grad() or use engine='torch'")
+        raise DMLCError("the fm-terms kernel has no backward yet (the VJP "
+                        "of dmlc_core_tpu/ops/pallas_embed.py:199-209 is not "
+                        "ported): run it under torch.no_grad() or use "
+                        "engine='torch'")
     B, K = ids.shape
     if B * D == 0:
         return (torch.zeros(B, D, device=dev), torch.zeros(B, D, device=dev))

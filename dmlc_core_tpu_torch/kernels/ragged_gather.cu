@@ -9,7 +9,7 @@
 // Outputs are [num_rows + 1, D] and zero-initialised by the caller; row
 // num_rows is the scratch row of the padded layout.  Entries whose segment
 // lies outside [0, num_rows] are dropped (jax.ops.segment_sum drops them).
-// Ids follow XLA's gather: negative ids count from the end, then clamp.
+// Ids follow XLA's gather (clamp_id in common.cuh).
 //
 // What bounds it: bytes.  Each live entry reads one D-float table row,
 // three 4-byte words (id, segment, value) and does 2 (4 for fm) flops per
@@ -31,20 +31,9 @@
 // The TPU kernel's SMEM chunking and DMA ring are TPU artifacts and have no
 // counterpart here.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
-
-__device__ __forceinline__ int64_t clamp_id(int id, int F) {
-  int64_t r = id;
-  if (r < 0) r += F;
-  return r < 0 ? 0 : (r >= F ? F - 1 : r);
-}
-
-__device__ __forceinline__ void add_nonzero(float* p, float c) {
-  if (c != 0.0f) atomicAdd(p, c);
-}
 
 template <bool FM>
 __device__ __forceinline__ void accumulate(float* o1, float* o2, float x,
@@ -92,21 +81,13 @@ __global__ void ragged_gather_kernel(const int* __restrict__ ids,
   }
 }
 
-int pow2_at_least(int n) {
-  int p = 1;
-  while (p < n) p <<= 1;
-  return p;
-}
-
 template <bool FM>
 cudaError_t launch(const int* ids, const int* segs, const float* vals,
                    const int* nnz_used, const float* table, float* out1,
                    float* out2, int cap, int num_rows, int F, int D, int vec4,
                    cudaStream_t stream) {
   const int threads = 256;
-  const int width = vec4 ? D / 4 : D;
-  int group = pow2_at_least(width);
-  if (group > 32) group = 32;
+  const int group = group_size(D, vec4);
   const int per_block = threads / group;
   const int blocks = (cap + per_block - 1) / per_block;
   if (vec4) {

@@ -6,9 +6,11 @@ Counterpart of ``dmlc_core_tpu/models/sparse.py``.  Each model is an
 tree loads with ``load_state_dict`` (see :mod:`.convert`).
 
 Both batch layouts are served: flat CSR (``ids[nnz]`` + ``segments``,
-the ragged-gather kernel on CUDA) and row-padded ``ids[B, K]`` (the
-fm-terms kernel on CUDA).  ``engine`` picks kernel or plain PyTorch as
-in :mod:`dmlc_core_tpu_torch.kernels.common`.
+the ragged-gather kernels on CUDA, forward and backward) and row-padded
+``ids[B, K]`` (the fm-terms kernel on CUDA, forward only: FM's row-major
+branch trains only on ``engine="torch"`` until the fm-terms backward is
+ported).  ``engine`` picks kernel or plain PyTorch as in
+:mod:`dmlc_core_tpu_torch.kernels.common`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..kernels.common import clamp_ids
+from ..kernels.common import gather_rows
 from ..ops.csr import csr_dense_matvec, fm_pairwise, fm_reduce
 from ..ops.embed import fm_embed_terms
 from ..utils.device import resolve_device
@@ -38,8 +40,9 @@ def _is_rowmajor(batch: Batch) -> bool:
 
 def _rowmajor_matvec(batch: Batch, w: torch.Tensor) -> torch.Tensor:
     # the [B, K] gather of a weight vector is tiny next to the factor
-    # table: plain PyTorch on every engine, as XLA in the JAX package
-    picked = w[clamp_ids(batch["ids"], w.shape[0])]
+    # table: plain PyTorch on every engine, as XLA in the JAX package;
+    # gather_rows gives it XLA's gradient rule for out-of-range ids
+    picked = gather_rows(w, batch["ids"])
     return torch.einsum("bk,bk->b", batch["vals"], picked)
 
 

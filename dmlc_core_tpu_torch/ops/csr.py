@@ -10,7 +10,10 @@ entry live (``nnz_used = cap``): with padding pointing at the scratch
 row, the kernel's sums over the first ``num_rows`` rows are exactly the
 segment sums these ops define.  ``csr_dense_matvec`` is the embed
 variant over the weight vector seen as a ``[F, 1]`` table.  On CPU
-tensors they run the kernel's plain PyTorch version.
+tensors they run the kernel's plain PyTorch version.  All three are
+differentiable with respect to ``vals`` and the table: the backward is
+the ragged-gather backward kernel (or its plain version), as the JAX
+package differentiates the segment sums with XLA.
 """
 
 from __future__ import annotations

@@ -13,7 +13,9 @@ nnz_used`` are arbitrary garbage and never reach a result.
   the tail: no load, no flop.  Its sums are allclose to the plain ones.
 
 ``nnz_used`` may be an int or a one-element int32 tensor on the batch's
-device.  ``ragged_embed_grad`` comes with the training slice.
+device.  Every op is differentiable with respect to ``vals`` and the
+table (the ragged-gather backward kernel on CUDA tensors);
+``ragged_embed_grad`` calls that backward's embed variant directly.
 """
 
 from __future__ import annotations
@@ -22,11 +24,13 @@ from typing import Dict, Union
 
 import torch
 
-from ..kernels.ragged_gather import ragged_gather
+from ..kernels.common import clamp_ids
+from ..kernels.ragged_gather import ragged_gather, ragged_gather_table_grad
 from .csr import fm_reduce
 
 __all__ = ["mask_ragged", "mask_batch", "ragged_segment_sum",
-           "ragged_dense_matvec", "ragged_embed_sum", "ragged_fm_pairwise"]
+           "ragged_dense_matvec", "ragged_embed_sum", "ragged_embed_grad",
+           "ragged_fm_pairwise"]
 
 NnzUsed = Union[int, torch.Tensor]
 
@@ -98,6 +102,30 @@ def ragged_embed_sum(ids: torch.Tensor, vals: torch.Tensor,
     out, _ = ragged_gather(ids, vals, segments, nnz_used, table, num_rows,
                            fm=False, engine=engine)
     return out[:num_rows]
+
+
+def ragged_embed_grad(ids: torch.Tensor, vals: torch.Tensor,
+                      segments: torch.Tensor, nnz_used: NnzUsed,
+                      g_rows: torch.Tensor, num_table_rows: int,
+                      engine: str = "auto") -> torch.Tensor:
+    """Backward twin of :func:`ragged_embed_sum` with respect to the
+    table: ``grad[ids[i]] += vals[i]·g_rows[segments[i]]`` over live
+    entries, ``grad`` of shape ``[num_table_rows, D]`` for ``g_rows`` of
+    shape ``[num_rows, D]``.  The backward kernel's embed variant with no
+    ``dvals`` (:func:`~dmlc_core_tpu_torch.kernels.ragged_gather.
+    ragged_gather_table_grad`).  Entries past ``nnz_used`` never reach
+    the result; ids follow the scatter rule (a negative id wraps once,
+    then out-of-range ids are dropped).  A live entry's segment is read
+    as the JAX version reads ``g_rows[min(seg, num_rows - 1)]``: a
+    negative segment counts from the end, then it is clamped into
+    ``[0, num_rows)``."""
+    num_rows, D = g_rows.shape
+    if num_rows == 0:
+        return g_rows.new_zeros(num_table_rows, D)
+    seg = clamp_ids(segments, num_rows).to(torch.int32)
+    return ragged_gather_table_grad(ids, vals, seg, nnz_used,
+                                    g_rows.contiguous(), num_rows - 1,
+                                    num_table_rows, engine=engine)
 
 
 def ragged_fm_pairwise(ids: torch.Tensor, vals: torch.Tensor,

@@ -4,8 +4,10 @@ logging, device choice, checkpoints."""
 from .checkpoint import (CheckpointManager, load_for_inference,  # noqa: F401
                          load_pytree, save_pytree)
 from .device import resolve_device  # noqa: F401
-from .logging import DMLCError, check, log_info  # noqa: F401
+from .logging import (DMLCError, IdOverflowError, check,  # noqa: F401
+                      log_info, log_warning)
 
-__all__ = ["DMLCError", "check", "log_info", "resolve_device",
+__all__ = ["DMLCError", "IdOverflowError", "check", "log_info",
+           "log_warning", "resolve_device",
            "save_pytree", "load_pytree", "CheckpointManager",
            "load_for_inference"]

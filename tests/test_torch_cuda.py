@@ -3,8 +3,11 @@ the card.  CUDA kernels have no CPU mode, so every test here is marked
 ``cuda`` and skips on a host without a card; this file imports no JAX so
 that it runs on a card machine that has none.
 
-Tolerance ``rtol = atol = 1e-5``: the ragged gather adds with atomics in
-no fixed order, fm_terms sums in order but with fused multiply-adds.
+Tolerance ``rtol = atol = 1e-5``: the ragged gather and both backward
+kernels add with atomics in no fixed order, fm_terms and the embed-bag
+forward sum in order but with fused multiply-adds.  The autograd
+``Function``s are checked with ``torch.autograd.gradcheck`` in float64 on
+their plain path (the kernels take float32 only).
 """
 
 import numpy as np
@@ -12,16 +15,20 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from dmlc_core_tpu_torch.kernels import (fm_terms,  # noqa: E402
-                                         fm_terms_reference, launch_counts,
-                                         ragged_gather,
-                                         ragged_gather_reference)
+from dmlc_core_tpu_torch.kernels import (  # noqa: E402
+    embed_bag_forward, embed_bag_grad, embed_bag_grad_reference,
+    embed_bag_reference, fm_terms, fm_terms_reference, launch_counts,
+    ragged_gather, ragged_gather_grad, ragged_gather_grad_reference,
+    ragged_gather_reference)
+from dmlc_core_tpu_torch.ops import embed_bag, ragged_embed_grad  # noqa: E402
+from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
 F = 4096
 TOL = dict(rtol=1e-5, atol=1e-5)
 BAD_IDS = [-1, F, F + 7]
+BAD_IDS_GRAD = [-1, -F - 3, F, F + 7]     # wrap, drop, drop, drop
 
 
 @pytest.fixture
@@ -72,9 +79,151 @@ def test_fm_terms_kernel_matches_plain(dev, D):
         torch.testing.assert_close(g, w, **TOL)
 
 
-def test_kernels_refuse_autograd(dev):
-    ids = torch.zeros(4, dtype=torch.int32, device=dev)
-    table = torch.ones(8, 4, device=dev, requires_grad=True)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ragged_gather(ids, torch.ones(4, device=dev), ids, None, table, 2,
-                      fm=True)
+def _count(name):
+    return launch_counts().get(name, 0)
+
+
+def _rowmajor(rng, dev, B, K, D):
+    """ids/vals [B, K] with out-of-range ids, padding entries (id 0,
+    value 0) and a table [F, D]."""
+    ids = rng.integers(0, F, (B, K)).astype(np.int32)
+    vals = rng.normal(size=(B, K)).astype(np.float32)
+    ids[0, :4] = BAD_IDS_GRAD
+    ids[1:, K // 2:], vals[1:, K // 2:] = 0, 0.0             # padding
+    table = rng.normal(size=(F, D)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (ids, vals, table)]
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("D", [1, 8, 32, 33])
+def test_embed_bag_kernel_matches_plain(dev, square, D):
+    ids, vals, table = _rowmajor(np.random.default_rng(D), dev, 16, 8, D)
+    before = _count("embed_bag")
+    got = embed_bag_forward(ids, vals, table, square)
+    torch.testing.assert_close(
+        got, embed_bag_reference(ids, vals, table, square), **TOL)
+    assert _count("embed_bag") == before + 1
+
+
+@pytest.mark.parametrize("need_dvals", [False, True])
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("D", [1, 8, 32, 33])
+def test_embed_bag_grad_kernel_matches_plain(dev, square, need_dvals, D):
+    rng = np.random.default_rng(100 + D)
+    ids, vals, table = _rowmajor(rng, dev, 16, 8, D)
+    g = torch.from_numpy(rng.normal(size=(16, D)).astype(np.float32)).to(dev)
+    before = _count("embed_bag_grad")
+    got = embed_bag_grad(ids, vals, table, g, square, need_dvals)
+    want = embed_bag_grad_reference(ids, vals, table, g, square, need_dvals)
+    assert _count("embed_bag_grad") == before + 1
+    assert (got[0] is None) == (not need_dvals)
+    for a, b in zip(got, want):
+        if a is not None:
+            torch.testing.assert_close(a, b, **TOL)
+    # the dropped ids send nothing: rows F-1 (from -1) only via -1
+    assert bool((got[1][F - 3] == want[1][F - 3]).all())
+
+
+@pytest.mark.parametrize("need_dvals", [False, True])
+@pytest.mark.parametrize("fm", [False, True])
+@pytest.mark.parametrize("D", [1, 8, 32, 33])
+def test_ragged_gather_grad_kernel_matches_plain(dev, fm, need_dvals, D):
+    rng = np.random.default_rng(200 + D)
+    rows, cap, n = 16, 512, 300
+    ids = rng.integers(0, F, cap).astype(np.int32)
+    ids[:4] = BAD_IDS_GRAD
+    vals = rng.normal(size=cap).astype(np.float32)
+    vals[n - 20:n] = 0.0                                    # padding-like
+    segs = rng.integers(0, rows + 1, cap).astype(np.int32)  # unsorted
+    segs[5] = rows + 3                                      # dropped
+    ids[n:], vals[n:], segs[n:] = 2 ** 31 - 1, np.nan, -3   # garbage tail
+    table = rng.normal(size=(F, D)).astype(np.float32)
+    g1, g2 = (rng.normal(size=(rows + 1, D)).astype(np.float32)
+              for _ in range(2))
+    a = [torch.from_numpy(x).to(dev) for x in (ids, vals, segs)]
+    nnz = torch.tensor([n], dtype=torch.int32, device=dev)
+    t = [torch.from_numpy(x).to(dev) for x in (table, g1, g2)]
+    g2t = t[2] if fm else None
+    name = "ragged_gather_grad_fm" if fm else "ragged_gather_grad_embed"
+    before = _count(name)
+    got = ragged_gather_grad(*a, nnz, t[0], t[1], g2t, rows, need_dvals)
+    want = ragged_gather_grad_reference(*a, nnz, t[0], t[1], g2t, rows,
+                                        need_dvals)
+    assert _count(name) == before + 1
+    for x, y in zip(got, want):
+        if x is not None:
+            assert torch.isfinite(x).all()
+            torch.testing.assert_close(x, y, **TOL)
+    if need_dvals:
+        assert not bool(got[0][n:].any())
+
+
+def test_ragged_embed_grad_kernel_matches_plain(dev):
+    rng = np.random.default_rng(3)
+    rows, cap, n, D = 8, 64, 40, 32
+    ids = rng.integers(0, F, cap).astype(np.int32)
+    ids[:4] = BAD_IDS_GRAD
+    vals = rng.normal(size=cap).astype(np.float32)
+    segs = np.sort(rng.integers(0, rows, cap)).astype(np.int32)
+    segs[[6, 9, 12]] = [rows + 5, -2, -rows - 4]     # live, clamped
+    ids[n:], vals[n:], segs[n:] = -7, np.nan, rows + 2
+    a = [torch.from_numpy(x).to(dev) for x in (ids, vals, segs)]
+    g = torch.from_numpy(rng.normal(size=(rows, D)).astype(np.float32))
+    got = ragged_embed_grad(*a, n, g.to(dev), F)
+    want = ragged_embed_grad(*[x.cpu() for x in a], n, g, F)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+
+
+def test_ragged_gather_has_a_backward_and_fm_terms_refuses(dev):
+    rng = np.random.default_rng(4)
+    ids = torch.tensor([1, 2, -1, F + 7], dtype=torch.int32, device=dev)
+    segs = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
+    vals = torch.ones(4, device=dev)
+    table = torch.from_numpy(rng.normal(size=(F, 4)).astype(np.float32))
+    for fm in (False, True):
+        grads = []
+        for engine in ("kernel", "torch"):
+            t = table.to(dev).requires_grad_()
+            o1, o2 = ragged_gather(ids, vals, segs, None, t, 2, fm=fm,
+                                   engine=engine)
+            (o1.sum() + (o2.sum() if fm else 0)).backward()
+            grads.append(t.grad)
+        torch.testing.assert_close(grads[0], grads[1], **TOL)
+    t = table.to(dev).requires_grad_()
+    with pytest.raises(DMLCError, match="no backward"):
+        fm_terms(ids.reshape(2, 2), vals.reshape(2, 2), t)
+
+
+def _gradcheck_inputs(dev):
+    rng = np.random.default_rng(5)
+    Fs, D = 6, 3
+    table = torch.from_numpy(rng.normal(size=(Fs, D))).to(dev)
+    return rng, Fs, D, table.requires_grad_()
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_embed_bag_function_gradcheck_plain_f64(dev, square):
+    rng, Fs, D, table = _gradcheck_inputs(dev)
+    # ids where the forward and backward rules agree (finite differences
+    # see the clamped read; the dropped gradient is by design)
+    ids = torch.tensor([[0, 5, -1], [4, -6, 2]], dtype=torch.int32,
+                       device=dev)
+    vals = torch.from_numpy(rng.normal(size=(2, 3))).to(dev)
+    vals.requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda v, t: embed_bag(ids, v, t, engine="torch", square=square),
+        (vals, table))
+
+
+@pytest.mark.parametrize("fm", [False, True])
+def test_ragged_gather_function_gradcheck_plain_f64(dev, fm):
+    rng, Fs, D, table = _gradcheck_inputs(dev)
+    ids = torch.tensor([0, 5, -1, -Fs, 2, 1], dtype=torch.int32,
+                       device=dev)
+    segs = torch.tensor([0, 1, 1, 2, 3, 0], dtype=torch.int32, device=dev)
+    vals = torch.from_numpy(rng.normal(size=6)).to(dev).requires_grad_()
+
+    def f(v, t):
+        o1, o2 = ragged_gather(ids, v, segs, 5, t, 2, fm=fm, engine="torch")
+        return (o1, o2) if fm else o1
+    assert torch.autograd.gradcheck(f, (vals, table))

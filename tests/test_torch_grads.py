@@ -1,0 +1,278 @@
+"""The port's embed bag (forward and backward) and the backward of its
+ragged gather, held against the JAX package on the CPU.
+
+The JAX side reaches the Pallas embed-bag kernel in interpret mode
+(``embed_bag(..., engine="pallas")``), whose backward is the custom VJP
+of ``_embed_bag_pallas_diff``; the flat ops are differentiated with
+``jax.grad`` of ``dmlc_core_tpu.ops.csr``.  The port runs its kernels'
+plain versions through the same ``torch.autograd.Function`` s that
+launch the kernels on the card.
+
+Ids include the out-of-range cases that separate XLA's two rules:
+``-1`` (wraps to row F-1 in both directions), ``-F-3`` (reads row 0,
+sends no gradient), ``F`` and ``F+7`` (read row F-1, send no gradient).
+
+Tolerances: ``rtol = 1e-5, atol = 1e-6``; both sides sum the same
+float32 terms in different orders.
+"""
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+jnp = jax.numpy
+
+from dmlc_core_tpu.ops import csr as jcsr  # noqa: E402
+from dmlc_core_tpu.ops import pallas_embed as jpe  # noqa: E402
+from dmlc_core_tpu.ops import ragged_csr as jrag  # noqa: E402
+from dmlc_core_tpu_torch import ops as tops  # noqa: E402
+from dmlc_core_tpu_torch.kernels import (embed_bag_grad_reference,  # noqa
+                                         embed_bag_reference,
+                                         ragged_gather_grad,
+                                         ragged_gather_grad_reference)
+from dmlc_core_tpu_torch.kernels.common import (clamp_ids,  # noqa: E402
+                                                gather_rows, grad_rows)
+
+F = 512
+TOL = dict(rtol=1e-5, atol=1e-6)
+BAD = [-1, -F - 3, F, F + 7]
+
+
+@pytest.fixture(autouse=True)
+def _no_engine_pin(monkeypatch):
+    monkeypatch.delenv("DMLC_EMBED_ENGINE", raising=False)
+
+
+def _t(a, grad=False):
+    return torch.from_numpy(np.ascontiguousarray(a)).requires_grad_(grad)
+
+
+def _rowmajor(rng, B, K, D, bad=True):
+    ids = rng.integers(0, F, (B, K)).astype(np.int32)
+    if bad:
+        ids[0, :4] = BAD
+        ids[1, :2] = [F - 1, 0]            # the rows the bad ids read
+    vals = rng.normal(size=(B, K)).astype(np.float32)
+    ids[2:, K - 2:], vals[2:, K - 2:] = 0, 0.0              # padding
+    table = rng.normal(size=(F, D)).astype(np.float32)
+    return ids, vals, table
+
+
+# ---------------------------------------------------------------------------
+# the gradient rule (repair of the clamped backward)
+# ---------------------------------------------------------------------------
+
+def test_grad_rule_matches_jax_scatter_add():
+    ids = np.array([-1, 4, 11, 1, -100, -4, -5, 3], np.int32)
+    Fs = 4
+    t = np.arange(Fs, dtype=np.float32)
+    fwd = np.asarray(jnp.asarray(t)[jnp.asarray(ids)])
+    np.testing.assert_array_equal(
+        gather_rows(_t(t), _t(ids)).detach().numpy(), fwd)
+    g = np.arange(1, len(ids) + 1, dtype=np.float32)
+    want = jax.grad(lambda x: jnp.sum(x[jnp.asarray(ids)] * g))(
+        jnp.asarray(t))
+    tt = _t(t, grad=True)
+    (gather_rows(tt, _t(ids)) * _t(g)).sum().backward()
+    np.testing.assert_array_equal(tt.grad.numpy(), np.asarray(want))
+    # -1 → row 3, 1 → row 1, -4 → row 0, 3 → row 3; the rest drop
+    np.testing.assert_array_equal(np.asarray(want), [6, 4, 0, 1 + 8])
+    rows = grad_rows(_t(ids), Fs).tolist()
+    assert rows == [3, 4, 4, 1, 4, 0, 4, 3]          # 4 = dropped
+
+
+def test_clamped_autograd_would_disagree_with_jax():
+    """Autograd through ``clamp_ids`` (the plain path before the
+    two-rule gather) sends out-of-range ids' gradient to the clamped
+    row; the custom VJP of the Pallas embed bag does not."""
+    rng = np.random.default_rng(0)
+    ids, vals, table = _rowmajor(rng, 4, 6, 8)
+    g = rng.normal(size=(4, 8)).astype(np.float32)
+    _, vjp = jax.vjp(lambda t: jpe.embed_bag(
+        jnp.asarray(ids), jnp.asarray(vals), t, engine="pallas"),
+        jnp.asarray(table))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    tt = _t(table, grad=True)
+    old = torch.einsum("bk,bkd->bd", _t(vals),
+                       tt[clamp_ids(_t(ids), F)])
+    (old * _t(g)).sum().backward()
+    assert not np.allclose(tt.grad.numpy(), want, **TOL)
+    assert not np.allclose(tt.grad.numpy()[[0, F - 1]], want[[0, F - 1]],
+                           **TOL)
+    tt.grad = None
+    (tops.embed_bag(_t(ids), _t(vals), tt) * _t(g)).sum().backward()
+    np.testing.assert_allclose(tt.grad.numpy(), want, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# embed bag
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("D", [1, 8, 32])
+def test_embed_bag_forward_matches_pallas(square, D):
+    rng = np.random.default_rng(D)
+    ids, vals, table = _rowmajor(rng, 16, 8, D)
+    want = np.asarray(jpe.embed_bag_pallas(
+        jnp.asarray(ids), jnp.asarray(vals), jnp.asarray(table),
+        square=square, interpret=True))
+    got = tops.embed_bag(_t(ids), _t(vals), _t(table), square=square)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    ref = embed_bag_reference(_t(ids), _t(vals), _t(table), square)
+    np.testing.assert_allclose(ref.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("D", [1, 8, 32])
+def test_embed_bag_grads_match_custom_vjp(square, D):
+    rng = np.random.default_rng(10 + D)
+    ids, vals, table = _rowmajor(rng, 16, 8, D)
+    g = rng.normal(size=(16, D)).astype(np.float32)
+    out, vjp = jax.vjp(lambda v, t: jpe.embed_bag(
+        jnp.asarray(ids), v, t, engine="pallas", square=square),
+        jnp.asarray(vals), jnp.asarray(table))
+    dv, dt = (np.asarray(x) for x in vjp(jnp.asarray(g)))
+    v, t = _t(vals, grad=True), _t(table, grad=True)
+    got = tops.embed_bag(_t(ids), v, t, square=square)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(out), **TOL)
+    (got * _t(g)).sum().backward()
+    np.testing.assert_allclose(v.grad.numpy(), dv, **TOL)
+    np.testing.assert_allclose(t.grad.numpy(), dt, **TOL)
+    # the plain backward alone, and with only one of the two asked for
+    gd, gt = embed_bag_grad_reference(_t(ids), _t(vals), _t(table), _t(g),
+                                      square)
+    np.testing.assert_allclose(gd.numpy(), dv, **TOL)
+    np.testing.assert_allclose(gt.numpy(), dt, **TOL)
+    t2 = _t(table, grad=True)
+    (tops.embed_bag(_t(ids), _t(vals), t2, square=square)
+     * _t(g)).sum().backward()
+    np.testing.assert_allclose(t2.grad.numpy(), dt, **TOL)
+
+
+def test_embed_bag_refuses_a_bad_engine_and_bad_shapes():
+    from dmlc_core_tpu_torch.utils.logging import DMLCError
+    ids = torch.zeros(2, 3, dtype=torch.int32)
+    with pytest.raises(DMLCError, match="unknown engine"):
+        tops.embed_bag(ids, torch.ones(2, 3), torch.ones(4, 2), engine="x")
+    with pytest.raises(DMLCError, match="differ"):
+        tops.embed_bag(ids, torch.ones(2, 4), torch.ones(4, 2))
+    with pytest.raises(DMLCError, match="needs CUDA"):
+        tops.embed_bag(ids, torch.ones(2, 3), torch.ones(4, 2),
+                       engine="kernel")
+
+
+# ---------------------------------------------------------------------------
+# ragged gather backward, through the flat ops
+# ---------------------------------------------------------------------------
+
+def _flat(rng, rows, cap, D):
+    counts = rng.integers(0, 9, rows)
+    nnz = int(min(counts.sum(), cap))
+    ids = np.zeros(cap, np.int32)
+    vals = np.zeros(cap, np.float32)
+    segs = np.full(cap, rows, np.int32)
+    ids[:nnz] = rng.integers(0, F, nnz)
+    ids[:4] = BAD
+    vals[:nnz] = rng.normal(size=nnz).astype(np.float32)
+    segs[:nnz] = np.repeat(np.arange(rows), counts)[:nnz]
+    table = (rng.normal(size=(F, D)) * 0.3).astype(np.float32)
+    return ids, vals, segs, table
+
+
+@pytest.mark.parametrize("op,D", [("csr_dense_matvec", 1),
+                                  ("csr_embed_sum", 1), ("csr_embed_sum", 8),
+                                  ("csr_embed_sum", 32), ("fm_pairwise", 8),
+                                  ("fm_pairwise", 32)])
+def test_flat_op_grads_match_jax(op, D):
+    rng = np.random.default_rng(20 + D)
+    rows, cap = 12, 128
+    ids, vals, segs, table = _flat(rng, rows, cap, D)
+    if op == "csr_dense_matvec":
+        table = table[:, 0].copy()
+    out_shape = (rows,) if op != "csr_embed_sum" else (rows, D)
+    g = rng.normal(size=out_shape).astype(np.float32)
+    jf = getattr(jcsr, op)
+
+    def jloss(v, t):
+        return jnp.sum(jf(jnp.asarray(ids), v, jnp.asarray(segs), t, rows)
+                       * jnp.asarray(g))
+    dv, dt = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(vals),
+                                             jnp.asarray(table))
+    v, t = _t(vals, grad=True), _t(table, grad=True)
+    (getattr(tops, op)(_t(ids), v, _t(segs), t, rows) * _t(g)).sum() \
+        .backward()
+    np.testing.assert_allclose(v.grad.numpy(), np.asarray(dv), **TOL)
+    np.testing.assert_allclose(t.grad.numpy(), np.asarray(dt), **TOL)
+
+
+@pytest.mark.parametrize("fill", [0, 23, 64])
+def test_ragged_embed_grad_matches_jax(fill):
+    rng = np.random.default_rng(fill)
+    rows, cap, D = 8, 64, 8
+    ids = rng.integers(0, F, cap).astype(np.int32)
+    ids[:4] = BAD
+    vals = rng.normal(size=cap).astype(np.float32)
+    segs = np.sort(rng.integers(0, rows, cap)).astype(np.int32)
+    ids[fill:], vals[fill:], segs[fill:] = 2 ** 31 - 1, np.nan, -3
+    g = rng.normal(size=(rows, D)).astype(np.float32)
+    want = jrag.ragged_embed_grad(jnp.asarray(ids), jnp.asarray(vals),
+                                  jnp.asarray(segs), jnp.int32(fill),
+                                  jnp.asarray(g), F)
+    got = tops.ragged_embed_grad(_t(ids), _t(vals), _t(segs), fill, _t(g), F)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    nnz = torch.tensor([fill], dtype=torch.int32)
+    got2 = tops.ragged_embed_grad(_t(ids), _t(vals), _t(segs), nnz, _t(g), F)
+    np.testing.assert_array_equal(got2.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("segs_bad", [[8, 10, 2 ** 30],
+                                      [-1, -3, -100],
+                                      [8, -1, -8]])
+def test_ragged_embed_grad_clamps_live_segments_as_jax(segs_bad):
+    """A live entry whose segment lies outside ``[0, num_rows)`` reads
+    ``g_rows`` where the JAX version's ``g_rows[min(seg, num_rows - 1)]``
+    reads it: a negative segment counts from the end, then the clamp."""
+    rng = np.random.default_rng(11)
+    rows, cap, fill, D = 8, 48, 40, 4
+    ids = rng.integers(8, F, cap).astype(np.int32)
+    vals = rng.normal(size=cap).astype(np.float32)
+    segs = np.sort(rng.integers(0, rows, cap)).astype(np.int32)
+    segs[[3, 17, 30]] = segs_bad
+    ids[[3, 17, 30]] = [5, 6, 7]          # rows that get nothing else
+    ids[fill:], vals[fill:], segs[fill:] = 1, np.nan, -2
+    g = rng.normal(size=(rows, D)).astype(np.float32)
+    want = np.asarray(jrag.ragged_embed_grad(
+        jnp.asarray(ids), jnp.asarray(vals), jnp.asarray(segs),
+        jnp.int32(fill), jnp.asarray(g), F))
+    got = tops.ragged_embed_grad(_t(ids), _t(vals), _t(segs), fill, _t(g),
+                                 F).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    for i in (3, 17, 30):                # each bad segment's row is read
+        assert np.abs(want[ids[i]]).max() > 0
+
+
+@pytest.mark.parametrize("fm", [False, True])
+def test_ragged_gather_grad_plain_pieces(fm):
+    """The backward's two outputs, asked for one at a time, equal the
+    pair; entries past nnz_used get dvals 0."""
+    rng = np.random.default_rng(7)
+    rows, cap, n, D = 6, 40, 30, 8
+    ids = rng.integers(0, F, cap).astype(np.int32)
+    vals = rng.normal(size=cap).astype(np.float32)
+    segs = rng.integers(0, rows + 1, cap).astype(np.int32)
+    ids[n:], vals[n:], segs[n:] = -9, np.nan, rows + 4
+    table = rng.normal(size=(F, D)).astype(np.float32)
+    g1, g2 = (_t(rng.normal(size=(rows + 1, D)).astype(np.float32))
+              for _ in range(2))
+    a = (_t(ids), _t(vals), _t(segs), n, _t(table), g1, g2 if fm else None,
+         rows)
+    dv, dt = ragged_gather_grad(*a)
+    assert torch.isfinite(dv).all() and torch.isfinite(dt).all()
+    assert not dv[n:].any()
+    only_dv = ragged_gather_grad_reference(*a, need_dtable=False)
+    only_dt = ragged_gather_grad_reference(*a, need_dvals=False)
+    assert only_dv[1] is None and only_dt[0] is None
+    np.testing.assert_array_equal(only_dv[0].numpy(), dv.numpy())
+    np.testing.assert_array_equal(only_dt[1].numpy(), dt.numpy())

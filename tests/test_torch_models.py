@@ -167,8 +167,12 @@ def test_params_roundtrip_keeps_names_shapes_and_dtypes():
     jp = jsparse.FactorizationMachine(F, 8).init(jax.random.PRNGKey(0))
     model.load_state_dict(params_from_jax(
         {k: np.asarray(v) for k, v in jp.items()}, "cpu"))
-    with pytest.raises(DMLCError, match="nested"):
-        params_from_jax({"params": p}, "cpu")
+    # a nested tree flattens to dotted names (the state_dict's layout);
+    # a name that already holds a dot would be ambiguous and is refused
+    nested = params_from_jax({"params": p}, "cpu")
+    assert set(nested) == {f"params.{k}" for k in p}
+    with pytest.raises(DMLCError, match="without '.'"):
+        params_from_jax({"a.b": p["w"]}, "cpu")
 
 
 def test_fm_init_draws_from_the_generator():
