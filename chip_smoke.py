@@ -11,12 +11,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    with nvcc, one process per source, all at once;
 3. kernels — each kernel on the card at the shapes of the path that runs
    it (serving: the ragged gather and fm terms; training: the embed bag
-   forward and backward at 4096 x 64 and the ragged gather forward and
-   backward at cap 131072 / 4096 rows, with out-of-range ids and
-   padding), held against its plain PyTorch version (rtol = atol = 1e-5;
-   zero fill must give exact zeros), with CUDA-event times of kernel,
-   plain version and, where one PyTorch call computes the same function,
-   that call;
+   and fm terms, forward and backward, at 4096 x 64 and the ragged
+   gather forward and backward at cap 131072 / 4096 rows, with
+   out-of-range ids and padding), held against its plain PyTorch
+   version (rtol = atol = 1e-5; zero fill must give exact zeros), with
+   CUDA-event times of kernel, plain version and, where one PyTorch call
+   computes the same function, that call;
 4. serving — FactorizationMachine(num_features=2^20, dim=32) from seeded
    weights, saved and restored through the port's CheckpointManager and
    served by InferenceEngine + MicroBatcher in padded and ragged mode
@@ -24,17 +24,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    held against the plain path on the card and a few against a float64
    numpy FM; then a hot-reload to a second step, and one row-major
    forward.  The kernels' launch counts are read around this phase;
-5. training — DCNv2(2^20, dim=32, layers=3) on row-major and flat
-   batches and FactorizationMachine(2^20, dim=32) on flat batches: seeded
-   libsvm text through the port's parser and DeviceLoader, 8 Adam(1e-3)
-   steps of 4096 rows on the kernels, held against the same seeded model
-   on the plain path (one step's gradients at rtol = atol = 1e-5 and
-   within 1e-4 of each parameter's largest gradient, the per-step losses
-   at rtol = 1e-4 and within a tenth of their drift, the trained
-   parameters within 1e-3 of how far they moved, evaluate_stream
-   accuracy within one row and AUC within 1e-4), with steps/s, a
-   per-step breakdown and the device's idle share.  Launch counts are
-   read around each path.
+5. training — six paths: DCNv2(2^20, dim=32, layers=3) and
+   DeepFM(2^20, dim=32, layers=2) on row-major and flat batches,
+   FactorizationMachine(2^20, dim=32) on flat and row-major batches:
+   seeded libsvm text through the port's parser and DeviceLoader, 8
+   Adam(1e-3) steps of 4096 rows on the kernels, held against the same
+   seeded model on the plain path (one step's gradients at rtol = atol
+   = 1e-5 and within 1e-4 of each parameter's largest gradient, the
+   per-step losses at rtol = 1e-4 and within a tenth of their drift,
+   the trained parameters within 1e-3 of how far they moved,
+   evaluate_stream accuracy within one row and AUC within 1e-4), with
+   steps/s, a per-step breakdown and the device's idle share.  Launch
+   counts are read around each path;
+6. cli — the port's dmlc-train (python -m dmlc_core_tpu_torch.models.cli)
+   in subprocesses: DeepFM at the same width trained 8 steps on the card
+   with a validation file and a checkpoint, then mode=predict on the
+   eval file; the 8192 printed scores must match the restored
+   checkpoint's scores on the plain path within 2e-6.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -43,12 +49,14 @@ without the package beside it, exit non-zero.
     python3 chip_smoke.py --plant dtable|forward
 
 plants a fault on the kernel path (a zeroed table gradient, or a zeroed
-forward, of the D = 32 tables) and runs phases 1, 2 and 5 only; it
-exits 0 only if phase 5's checks catch the fault on every path.
+forward, of the D = 32 tables, in every kernel family) and runs phases
+1, 2 and 5 only; it exits 0 only if phase 5's checks catch the fault on
+every path.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -68,7 +76,8 @@ B_RM, K_RM = 128, 64             # row-major batch: the ladder's nnz_per_row
 # training batches (benchmarks/bench_suite.py bench_dcn_train and the
 # row-major integrity config): 4096 rows, k_cap 64 or nnz_cap 131072
 ROWS_TR, K_TR, CAP_TR = 4096, 64, 131072
-LAYERS = 3
+LAYERS = 3                       # DCNv2's cross layers
+DEEPFM_LAYERS = 2                # bench_suite.py bench_deepfm_train
 LR = 1e-3
 TRAIN_STEPS = 8
 EVAL_ROWS = 2 * ROWS_TR
@@ -379,6 +388,74 @@ def _training_forward(torch, timer: Timer, power: str, table, fids, fvals,
     return results
 
 
+def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
+                       g, rows_read: int, live: int) -> dict:
+    """The fm-terms kernels at the row-major training batch's shapes
+    (DeepFM and FM row-major: B 4096, K 64, D 32, F 2^20, out-of-range
+    ids in row 0, padding), forward and backward, against their plain
+    versions.  Returns ``fm_terms_train`` and ``fm_terms_grad``."""
+    from torch.nn import functional as Fn
+
+    from dmlc_core_tpu_torch.kernels import (fm_terms, fm_terms_grad,
+                                             fm_terms_grad_reference,
+                                             fm_terms_reference)
+    from dmlc_core_tpu_torch.kernels.common import clamp_ids
+    results = {}
+    F, D = table.shape
+    BK = ids.numel()
+    run = lambda: fm_terms(ids, vals, table, engine="kernel")  # noqa: E731
+    plain = lambda: fm_terms_reference(ids, vals, table)  # noqa: E731
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max(_close("fm_terms (training)", a, b) for a, b in zip(got, want))
+    ms, plain_ms = timer.ms(run), timer.ms(plain)
+    offsets = torch.arange(0, BK, K_TR, dtype=torch.int32, device="cuda")
+    lib_s1 = lambda: Fn.embedding_bag(  # noqa: E731
+        clamp_ids(ids, F).int().reshape(-1), table, offsets, mode="sum",
+        per_sample_weights=vals.reshape(-1))
+    _close("embedding_bag s1 (training)", lib_s1(), want[0])
+    s1_lib_ms = timer.ms(lib_s1)
+    b_ms, b_by = bound(rows_read * D * 4 + BK * 8 + 2 * ROWS_TR * D * 4,
+                       4 * BK * D)
+    results["fm_terms_train"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, library_ms=None,
+                                     max_abs_err=err)
+    log(f"[kernels] fm_terms (training) B={ROWS_TR} K={K_TR} D={D}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag (s1 only) "
+        f"{s1_lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max|err| "
+        f"{err:.3g} [{power}]")
+
+    g2 = torch.from_numpy(np.random.default_rng(SEED + 5).standard_normal(
+        (ROWS_TR, D), dtype=np.float32)).cuda()
+    lib_bwd = _library_grad(torch, ids.reshape(-1), vals.reshape(-1),
+                            offsets, table, g)
+    s1_lib_bwd_ms = timer.ms(lib_bwd)
+    del lib_bwd
+    for need_dvals in (False, True):
+        run = lambda: fm_terms_grad(  # noqa: E731
+            ids, vals, table, g, g2, need_dvals, engine="kernel")
+        plain = lambda: fm_terms_grad_reference(  # noqa: E731
+            ids, vals, table, g, g2, need_dvals)
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = max(_close(f"fm_terms_grad dvals={need_dvals}", a, b)
+                  for a, b in zip(got, want) if a is not None)
+        ms, plain_ms = timer.ms(run), timer.ms(plain)
+        nbytes = (BK * 8 + 2 * ROWS_TR * D * 4 + rows_read * D * 4
+                  + F * D * 4 + (BK * 4 if need_dvals else 0))
+        b_ms, b_by = bound(nbytes, (4 + 2 * need_dvals) * live * D)
+        if not need_dvals:              # the training paths ask no dvals
+            results["fm_terms_grad"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=err)
+        log(f"[kernels] fm_terms_grad dvals={need_dvals} B={ROWS_TR} "
+            f"K={K_TR} D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"no library call computes both terms (embedding_bag backward, "
+            f"s1 half only, {s1_lib_bwd_ms:.4f} ms), bound {b_ms:.4f} ms "
+            f"({b_by}), max|err| {err:.3g} [{power}]")
+    return results
+
+
 def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
     """The embed-bag kernels (forward and backward) and the ragged-gather
     kernels (forward and backward) at the training paths' shapes,
@@ -467,6 +544,8 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                     f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                     f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
         del lib_bwd
+        results.update(_training_fm_terms(torch, timer, power, ids, vals,
+                                          table, g, rows_read, live))
 
         fids, fvals, fsegs, nnz, counts = _flat_train_batch(torch, rng)
         rows_read = int(torch.unique(clamp_ids(fids[:nnz], F)).numel())
@@ -743,6 +822,9 @@ TRAIN_PATHS = (            # (name, model, layout, nnz_cap or k_cap)
     ("dcn_rowmajor", "dcn", "rowmajor", K_TR),
     ("dcn_flat", "dcn", "flat", CAP_TR),
     ("fm_flat", "fm", "flat", CAP_TR),
+    ("deepfm_rowmajor", "deepfm", "rowmajor", K_TR),
+    ("deepfm_flat", "deepfm", "flat", CAP_TR),
+    ("fm_rowmajor", "fm", "rowmajor", K_TR),
 )
 
 
@@ -761,11 +843,14 @@ def _write_libsvm(path: str, rows: int, seed: int) -> None:
 
 
 def _model(torch, kind: str, engine: str):
-    from dmlc_core_tpu_torch import DCNv2, FactorizationMachine
+    from dmlc_core_tpu_torch import DCNv2, DeepFM, FactorizationMachine
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     if kind == "dcn":
         return DCNv2(F_FEATURES, DIM, LAYERS, engine=engine, device="cuda",
                      generator=gen)
+    if kind == "deepfm":
+        return DeepFM(F_FEATURES, DIM, DEEPFM_LAYERS, engine=engine,
+                      device="cuda", generator=gen)
     return FactorizationMachine(F_FEATURES, DIM, engine=engine,
                                 device="cuda", generator=gen)
 
@@ -957,12 +1042,10 @@ def _train_path(torch, name, kind, layout, cap, train_file, eval_file,
     return launches
 
 
-def phase_training(torch, power: str, planted: bool = False) -> dict:
-    """DCNv2 (row-major and flat) and FM (flat) at full width: 8 Adam
-    steps each through the port's parser, loader and train step on the
-    kernels, against the plain path.  Returns the launch counts summed
-    over the three paths; with ``planted`` (a fault planted on the kernel
-    path), ``{path: True if its checks caught the fault}`` instead."""
+@contextlib.contextmanager
+def _data_files():
+    """``(directory, train file, eval file)``: seeded libsvm text for
+    phases 5 and 6, removed afterwards."""
     data = os.path.join(ROOT, ".chip_smoke_data")
     shutil.rmtree(data, ignore_errors=True)
     os.makedirs(data)
@@ -971,26 +1054,111 @@ def phase_training(torch, power: str, planted: bool = False) -> dict:
         eval_file = os.path.join(data, "eval.libsvm")
         _write_libsvm(train_file, TRAIN_STEPS * ROWS_TR, SEED + 10)
         _write_libsvm(eval_file, EVAL_ROWS, SEED + 11)
-        total: dict = {}
-        caught: dict = {}
-        for name, kind, layout, cap in TRAIN_PATHS:
-            try:
-                launches = _train_path(torch, name, kind, layout, cap,
-                                       train_file, eval_file, power)
-                caught[name] = False
-            except PathDeparts as e:
-                if not planted:
-                    raise
-                log(f"[plant] {name}: caught: {e}")
-                caught[name] = True
-                continue
-            finally:
-                torch.cuda.empty_cache()
-            for k, n in launches.items():
-                total[k] = total.get(k, 0) + n
-        return caught if planted else total
+        yield data, train_file, eval_file
     finally:
         shutil.rmtree(data, ignore_errors=True)
+
+
+def phase_training(torch, power: str, train_file: str, eval_file: str,
+                   planted: bool = False) -> dict:
+    """DCNv2 and DeepFM (row-major and flat each) and FM (flat and
+    row-major) at full width: 8 Adam steps each through the port's
+    parser, loader and train step on the kernels, against the plain
+    path.  Returns the launch counts summed over the six paths; with
+    ``planted`` (a fault planted on the kernel path), ``{path: True if
+    its checks caught the fault}`` instead."""
+    total: dict = {}
+    caught: dict = {}
+    for name, kind, layout, cap in TRAIN_PATHS:
+        try:
+            launches = _train_path(torch, name, kind, layout, cap,
+                                   train_file, eval_file, power)
+            caught[name] = False
+        except PathDeparts as e:
+            if not planted:
+                raise
+            log(f"[plant] {name}: caught: {e}")
+            caught[name] = True
+            continue
+        finally:
+            torch.cuda.empty_cache()
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return caught if planted else total
+
+
+# -- phase 6 ----------------------------------------------------------------
+
+CLI_TOL = 2e-6             # printed scores ('%.6f') vs the in-process ones
+
+
+def phase_cli(torch, power: str, data: str, train_file: str,
+              eval_file: str) -> None:
+    """The port's ``dmlc-train`` in subprocesses, as a user runs it:
+    DeepFM(2^20, dim=32, layers=2) trained for one epoch (8 steps) on
+    the card with a validation file and a checkpoint, then ``mode=
+    predict`` on the eval file.  The scores must match what the restored
+    checkpoint gives in-process on the plain path."""
+    from dmlc_core_tpu_torch import (CheckpointManager, DeepFM,
+                                     DeviceLoader, create_parser,
+                                     params_from_jax)
+    ckpt = os.path.join(data, "cli_ckpt")
+    out = os.path.join(data, "predictions.txt")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    cli = [sys.executable, "-m", "dmlc_core_tpu_torch.models.cli",
+           "model=deepfm", f"features={F_FEATURES}", f"dim={DIM}",
+           f"layers={DEEPFM_LAYERS}"]
+
+    def run(*args):
+        t0 = time.monotonic()
+        r = subprocess.run(cli + list(args), cwd=ROOT, env=env,
+                           capture_output=True, text=True, timeout=600)
+        secs = time.monotonic() - t0
+        for ln in r.stdout.splitlines():
+            log(f"[cli] {ln}")
+        if r.returncode != 0:
+            raise RuntimeError(f"dmlc-train {' '.join(args)} exited "
+                               f"{r.returncode}: {r.stderr[-2000:]}")
+        return r.stdout, secs
+
+    train_out, train_s = run(f"data={train_file}", f"valid={eval_file}",
+                             f"ckpt_dir={ckpt}")
+    want = f"trained deepfm: {TRAIN_STEPS} steps"
+    if want not in train_out:
+        raise RuntimeError(f"the CLI's log lacks {want!r}")
+    _, pred_s = run("mode=predict", f"data={eval_file}", f"ckpt_dir={ckpt}",
+                    f"output={out}")
+    with open(out) as f:
+        got = np.array([float(x) for x in f.read().split()])
+    if got.shape != (EVAL_ROWS,):
+        raise RuntimeError(f"{got.shape[0]} predictions, expected "
+                           f"{EVAL_ROWS}")
+
+    step, state = CheckpointManager(ckpt).restore()
+    model = DeepFM(F_FEATURES, DIM, DEEPFM_LAYERS, engine="torch",
+                   device="cuda")
+    model.load_state_dict(params_from_jax(state["params"], "cuda"))
+    loader = DeviceLoader(create_parser(eval_file), ROWS_TR, CAP_TR,
+                          id_mod=F_FEATURES, device="cuda")
+    with torch.no_grad():
+        want_scores = torch.cat([torch.sigmoid(model(b)) for b in loader])
+    loader.close()
+    want_scores = want_scores[:EVAL_ROWS].double().cpu().numpy()
+    err = float(np.abs(got - want_scores).max())
+    count = int(np.asarray(state["opt_state"][0][0]))
+    log(f"[cli] train {train_s:.1f} s, predict {pred_s:.1f} s (host clock, "
+        f"process start included); checkpoint step {step}, Adam count "
+        f"{count}; {got.shape[0]} predictions, max|err| against the "
+        f"restored checkpoint on the plain path {err:.3g} (limit "
+        f"{CLI_TOL:g}) [{power}]")
+    if step != TRAIN_STEPS or count != TRAIN_STEPS:
+        raise RuntimeError(f"checkpoint step {step}, Adam count {count}; "
+                           f"expected {TRAIN_STEPS}")
+    if not np.isfinite(got).all() or err > CLI_TOL:
+        raise RuntimeError(f"CLI predictions depart from the checkpoint's "
+                           f"scores: max|err| {err:.3g}")
 
 
 # -- planted faults -----------------------------------------------------------
@@ -1001,8 +1169,9 @@ PLANTS = ("dtable", "forward")
 def _plant(kind: str) -> None:
     """Break the kernel path on purpose, on the factor tables (D > 1)
     only, leaving the plain path alone: ``dtable`` zeroes the backward
-    kernels' table gradient, ``forward`` the forward kernels' output.
-    Phase 5's checks must catch either on every path."""
+    kernels' table gradient (ragged gather, embed bag, fm terms),
+    ``forward`` the forward kernels' output.  Phase 5's checks must
+    catch either on every path."""
     import importlib
 
     from dmlc_core_tpu_torch.kernels.common import use_kernel
@@ -1012,6 +1181,7 @@ def _plant(kind: str) -> None:
 
     if kind == "dtable":
         grad_kernel, bag_grad = rg._grad_kernel, emb.embed_bag_grad
+        fm_grad = emb.fm_terms_grad
 
         def ragged(*a):
             dvals, dtable = grad_kernel(*a)
@@ -1026,10 +1196,19 @@ def _plant(kind: str) -> None:
                     and use_kernel(engine, table.device)):
                 dtable.zero_()
             return dvals, dtable
+        def fm(ids, vals, table, g1, g2, *a, engine="auto", **kw):
+            dvals, dtable = fm_grad(ids, vals, table, g1, g2, *a,
+                                    engine=engine, **kw)
+            if (dtable is not None and table.shape[1] > 1
+                    and use_kernel(engine, table.device)):
+                dtable.zero_()
+            return dvals, dtable
         rg._grad_kernel, emb.embed_bag_grad = ragged, bag
+        emb.fm_terms_grad = fm
     else:
         gather_kernel, bag_fwd = rg._ragged_gather_kernel, \
             emb.embed_bag_forward
+        fm_fwd = emb.fm_terms
 
         def ragged(ids, vals, segments, nnz_used, table, num_rows, fm):
             out1, out2 = gather_kernel(ids, vals, segments, nnz_used, table,
@@ -1045,7 +1224,14 @@ def _plant(kind: str) -> None:
             if table.shape[1] > 1 and use_kernel(engine, table.device):
                 out.zero_()
             return out
+        def fm(ids, vals, table, engine="auto"):
+            s1, s2 = fm_fwd(ids, vals, table, engine)
+            if table.shape[1] > 1 and use_kernel(engine, table.device):
+                s1.zero_()
+                s2.zero_()
+            return s1, s2
         rg._ragged_gather_kernel, emb.embed_bag_forward = ragged, bag
+        emb.fm_terms = fm
 
 
 def main_planted(kind: str) -> int:
@@ -1062,7 +1248,9 @@ def main_planted(kind: str) -> int:
     power = phase_device(torch)
     phase_build()
     _plant(kind)
-    caught = phase_training(torch, power, planted=True)
+    with _data_files() as (_, train_file, eval_file):
+        caught = phase_training(torch, power, train_file, eval_file,
+                                planted=True)
     print(json.dumps({"plant": kind, "caught": caught}))
     return 0 if all(caught.values()) else 1
 
@@ -1083,7 +1271,9 @@ def main() -> int:
     timer = Timer(torch)
     kern = phase_kernels(torch, timer, power)
     serving = phase_serving(torch, timer, power)
-    training = phase_training(torch, power)
+    with _data_files() as (data, train_file, eval_file):
+        training = phase_training(torch, power, train_file, eval_file)
+        phase_cli(torch, power, data, train_file, eval_file)
     src = "dmlc_core_tpu_torch/kernels/"
     # name: (source, TPU kernel, the path whose launches it reports)
     meta = {
@@ -1104,11 +1294,14 @@ def main() -> int:
         "ragged_gather_grad_embed": ("ragged_gather_grad.cu",
                                      "dmlc_core_tpu/ops/ragged_csr.py:166",
                                      training),
+        "fm_terms_grad": ("fm_terms.cu",
+                          "dmlc_core_tpu/ops/pallas_embed.py:326", training),
     }
     missing = [k for k, (_, _, path) in meta.items() if path.get(k, 0) < 1]
-    # the forward gathers run on the training paths too
+    # the forward kernels run on the training paths too
     missing += [f"{k} (training)" for k in ("ragged_gather_fm",
-                                            "ragged_gather_embed")
+                                            "ragged_gather_embed",
+                                            "fm_terms")
                 if training.get(k, 0) < 1]
     if missing:
         raise RuntimeError(f"main path never launched: {missing}")
@@ -1122,7 +1315,7 @@ def main() -> int:
                **{key: k[key] for key in keys}}
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
-            # flat training batch's shapes, with the training launches
+            # training batch's shapes, with the training launches
             row["training"] = {"launches": training.get(name, 0),
                                **{key: kern[name + "_train"][key]
                                   for key in keys}}

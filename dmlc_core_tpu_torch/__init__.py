@@ -10,14 +10,18 @@ JAX counterpart.  It imports
 Entry points run on ``cuda`` unless given ``device="cpu"``; on the CPU
 every op runs its kernel's plain PyTorch version.
 
-It trains the factorization machine and DCNv2::
+It trains the factorization machine, DeepFM and DCNv2::
 
-    from dmlc_core_tpu_torch import (DCNv2, DeviceLoader, adam,
+    from dmlc_core_tpu_torch import (DeepFM, DeviceLoader, adam,
                                      create_parser, fit_stream)
-    model = DCNv2(num_features=1 << 20, dim=32, layers=3)
+    model = DeepFM(num_features=1 << 20, dim=32, layers=2)
     loader = DeviceLoader(create_parser("train.libsvm"), batch_rows=4096,
                           nnz_cap=64, layout="rowmajor")
     fit_stream(model, loader, optimizer=adam(model, 1e-3))
+
+or from the command line, as the JAX package's ``dmlc-train``::
+
+    python -m dmlc_core_tpu_torch.models.cli model=deepfm data=train.libsvm
 
 and serves the factorization machine::
 
@@ -31,9 +35,9 @@ and serves the factorization machine::
 from . import (data, kernels, models, ops, pipeline,  # noqa: F401
                serving, utils)
 from .data import create_parser  # noqa: F401
-from .models import (DCNv2, FactorizationMachine, SparseLogReg,  # noqa: F401
-                     adam, evaluate_stream, fit_stream, make_train_step,
-                     params_from_jax, params_to_numpy)
+from .models import (DCNv2, DeepFM, FactorizationMachine,  # noqa: F401
+                     SparseLogReg, adam, evaluate_stream, fit_stream,
+                     make_train_step, params_from_jax, params_to_numpy)
 from .pipeline import DeviceLoader  # noqa: F401
 from .serving import (BucketLadder, InferenceEngine,  # noqa: F401
                       MicroBatcher)
@@ -41,7 +45,7 @@ from .utils import CheckpointManager, DMLCError  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["FactorizationMachine", "SparseLogReg", "DCNv2",
+__all__ = ["FactorizationMachine", "SparseLogReg", "DCNv2", "DeepFM",
            "params_from_jax", "params_to_numpy", "create_parser",
            "DeviceLoader", "make_train_step", "fit_stream", "evaluate_stream",
            "adam", "InferenceEngine", "BucketLadder", "MicroBatcher",

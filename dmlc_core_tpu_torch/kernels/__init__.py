@@ -7,7 +7,8 @@ at first use (:mod:`.build`) and bound with ctypes:
   ``dmlc_core_tpu/ops/ragged_csr.py::_ragged_gather_kernel``, forward
   (``ragged_gather.cu``) and backward (``ragged_gather_grad.cu``);
 * :mod:`.fm_terms` — counterpart of
-  ``dmlc_core_tpu/ops/pallas_embed.py::_fm_kernel`` (forward);
+  ``dmlc_core_tpu/ops/pallas_embed.py::_fm_kernel``, forward and the
+  backward of its custom VJP (``fm_terms.cu``);
 * :mod:`.embed_bag` — counterpart of
   ``dmlc_core_tpu/ops/pallas_embed.py::_kernel``, forward and backward
   (``embed_bag.cu``).
@@ -18,7 +19,8 @@ Nothing is compiled or loaded at import time.
 from .common import launch_counts, reset_launch_counts  # noqa: F401
 from .embed_bag import (embed_bag_forward, embed_bag_grad,  # noqa: F401
                         embed_bag_grad_reference, embed_bag_reference)
-from .fm_terms import fm_terms, fm_terms_reference  # noqa: F401
+from .fm_terms import (fm_terms, fm_terms_grad,  # noqa: F401
+                       fm_terms_grad_reference, fm_terms_reference)
 from .ragged_gather import (ragged_gather,  # noqa: F401
                             ragged_gather_grad, ragged_gather_grad_reference,
                             ragged_gather_reference,
@@ -26,7 +28,8 @@ from .ragged_gather import (ragged_gather,  # noqa: F401
 
 __all__ = ["ragged_gather", "ragged_gather_reference", "ragged_gather_grad",
            "ragged_gather_grad_reference", "ragged_gather_table_grad",
-           "fm_terms", "fm_terms_reference",
+           "fm_terms", "fm_terms_reference", "fm_terms_grad",
+           "fm_terms_grad_reference",
            "embed_bag_forward", "embed_bag_reference", "embed_bag_grad",
            "embed_bag_grad_reference", "launch_counts",
            "reset_launch_counts"]

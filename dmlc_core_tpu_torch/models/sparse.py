@@ -5,11 +5,10 @@ Counterpart of ``dmlc_core_tpu/models/sparse.py``.  Each model is an
 (``w``, ``b`` for logreg; ``w0``, ``w``, ``v`` for FM), so a JAX param
 tree loads with ``load_state_dict`` (see :mod:`.convert`).
 
-Both batch layouts are served: flat CSR (``ids[nnz]`` + ``segments``,
-the ragged-gather kernels on CUDA, forward and backward) and row-padded
-``ids[B, K]`` (the fm-terms kernel on CUDA, forward only: FM's row-major
-branch trains only on ``engine="torch"`` until the fm-terms backward is
-ported).  ``engine`` picks kernel or plain PyTorch as in
+Both batch layouts are served and trained: flat CSR (``ids[nnz]`` +
+``segments``, the ragged-gather kernels on CUDA) and row-padded
+``ids[B, K]`` (the fm-terms kernels on CUDA), forward and backward on
+every engine.  ``engine`` picks kernel or plain PyTorch as in
 :mod:`dmlc_core_tpu_torch.kernels.common`.
 """
 

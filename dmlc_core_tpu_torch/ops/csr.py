@@ -18,12 +18,14 @@ package differentiates the segment sums with XLA.
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from ..kernels.ragged_gather import ragged_gather
 
-__all__ = ["csr_dense_matvec", "csr_embed_sum", "fm_pairwise",
-           "fm_reduce"]
+__all__ = ["csr_dense_matvec", "csr_embed_sum", "csr_fm_terms",
+           "fm_pairwise", "fm_reduce"]
 
 
 def fm_reduce(s1: torch.Tensor, s2: torch.Tensor) -> torch.Tensor:
@@ -49,11 +51,23 @@ def csr_embed_sum(ids: torch.Tensor, vals: torch.Tensor,
     return out[:num_rows]
 
 
+def csr_fm_terms(ids: torch.Tensor, vals: torch.Tensor,
+                 segments: torch.Tensor, table: torch.Tensor, num_rows: int,
+                 engine: str = "auto") -> Tuple[torch.Tensor, torch.Tensor]:
+    """The FM pair ``(Σ v·x, Σ (v·x)²)`` per row, each ``[num_rows, D]``,
+    from one pass of the ragged gather's fm variant.  The JAX package
+    has no such op: its DeepFM makes two ``csr_embed_sum`` calls, the
+    second on ``v*v`` against a materialised ``table*table``; the sums
+    are the same up to rounding."""
+    s1, s2 = ragged_gather(ids, vals, segments, None, table, num_rows,
+                           fm=True, engine=engine)
+    return s1[:num_rows], s2[:num_rows]
+
+
 def fm_pairwise(ids: torch.Tensor, vals: torch.Tensor,
                 segments: torch.Tensor, table: torch.Tensor, num_rows: int,
                 engine: str = "auto") -> torch.Tensor:
     """FM second-order term per row, 0.5·Σ_d[(Σ v·x)² − Σ (v·x)²];
     returns ``[num_rows]``."""
-    s1, s2 = ragged_gather(ids, vals, segments, None, table, num_rows,
-                           fm=True, engine=engine)
-    return fm_reduce(s1[:num_rows], s2[:num_rows])
+    return fm_reduce(*csr_fm_terms(ids, vals, segments, table, num_rows,
+                                   engine=engine))

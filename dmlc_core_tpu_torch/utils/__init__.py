@@ -1,13 +1,18 @@
 """Host utilities of the port (counterpart of ``dmlc_core_tpu/utils``):
-logging, device choice, checkpoints."""
+logging, device choice, checkpoints, and the parameter, config and
+registry system of the CLI."""
 
 from .checkpoint import (CheckpointManager, load_for_inference,  # noqa: F401
                          load_pytree, save_pytree)
+from .config import Config  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .logging import (DMLCError, IdOverflowError, check,  # noqa: F401
                       log_info, log_warning)
+from .parameter import ParamError, Parameter, field  # noqa: F401
+from .registry import Registry  # noqa: F401
 
 __all__ = ["DMLCError", "IdOverflowError", "check", "log_info",
            "log_warning", "resolve_device",
            "save_pytree", "load_pytree", "CheckpointManager",
-           "load_for_inference"]
+           "load_for_inference", "Config", "Parameter", "field",
+           "ParamError", "Registry"]

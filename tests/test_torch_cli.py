@@ -1,0 +1,234 @@
+"""The port's ``dmlc-train`` (``dmlc_core_tpu_torch.models.cli``) on the
+CPU, held against the JAX package's CLI.
+
+Both CLIs run in-process on the same small libsvm files (DeepFM,
+features 4096, dim 8, 2 layers, 16-row batches).  The JAX CLI's
+DeviceLoader is held to its python packer (the native one sizes flat
+batches to an nnz bucket, not to ``nnz_cap``), so both packages see the
+same batches.  Checkpoints cross in both directions: predictions from a
+JAX checkpoint, and a run resumed by the other package's CLI, with the
+optimizer state carried in ``optax.adam``'s layout.
+
+Tolerances: predictions within ``2e-6`` (both print ``%.6f``; the models
+agree to float32 rounding); parameters after two resumed epochs at
+``rtol = 1e-4, atol = 1e-6`` (Adam trajectories whose rounding
+differences grow step by step, as in ``test_torch_train.py``).
+"""
+
+import os
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+optax = pytest.importorskip("optax")
+
+from dmlc_core_tpu import native as jnative  # noqa: E402
+from dmlc_core_tpu.models import cli as jcli  # noqa: E402
+from dmlc_core_tpu.models import deep as jdeep  # noqa: E402
+from dmlc_core_tpu.utils.checkpoint import \
+    CheckpointManager as JCheckpointManager  # noqa: E402
+from dmlc_core_tpu_torch.models import cli  # noqa: E402
+from dmlc_core_tpu_torch.utils import CheckpointManager  # noqa: E402
+
+F, D, L = 4096, 8, 2
+MODEL = ["model=deepfm", f"features={F}", f"dim={D}", f"layers={L}",
+         "batch_rows=16", "nnz_cap=128", "lr=0.01", "l2=0.0001",
+         "log_every=1"]
+PREDICT_TOL = 2e-6
+PARAMS = dict(rtol=1e-4, atol=1e-6)
+
+
+@pytest.fixture(autouse=True)
+def _python_packer(monkeypatch):
+    monkeypatch.setattr(jnative, "has_packer", lambda: False)
+    monkeypatch.delenv("DMLC_EMBED_ENGINE", raising=False)
+
+
+def _write(path, rows, seed):
+    rng = np.random.default_rng(seed)
+    with open(path, "w") as f:
+        for i in range(rows):
+            n = int(rng.integers(2, 9))
+            idx = np.sort(rng.choice(F + 8, size=n, replace=False))
+            toks = " ".join(f"{j}:{v:.4f}" for j, v in
+                            zip(idx.tolist(), rng.random(n).tolist()))
+            f.write(f"{int(rng.random() < 0.5)} {toks}\n")
+    return str(path)
+
+
+@pytest.fixture
+def data(tmp_path):
+    return (_write(tmp_path / "train.libsvm", 40, 1),
+            _write(tmp_path / "eval.libsvm", 21, 2))
+
+
+def _port(*args):
+    return cli.main(MODEL + ["device=cpu", "eval_auc=false", *args])
+
+
+def _jax(*args):
+    return jcli.main(MODEL + ["eval_auc=false", *args])
+
+
+def _params(directory):
+    step, state = CheckpointManager(str(directory)).restore()
+    flat = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, prefix + k + ".")
+            else:
+                flat[prefix + k] = np.asarray(v)
+    walk(state["params"])
+    return step, flat, state
+
+
+def test_config_file_and_overrides(tmp_path, data, capsys):
+    conf = tmp_path / "train.conf"
+    conf.write_text(f'# DeepFM\nmodel = deepfm\ndim = 4  # overridden\n'
+                    f'data = "{data[0]}"\nlayers=3\nepochs = 2\n')
+    got = cli._parse_argv([str(conf), "dim=8", "device=cpu"])
+    assert got == {"model": "deepfm", "dim": "8", "data": data[0],
+                   "layers": "3", "epochs": "2", "device": "cpu"}
+    p = cli.TrainParams()
+    p.init(got)
+    assert (p.model, p.dim, p.layers, p.epochs, p.batch_rows) == \
+        ("deepfm", 8, 3, 2, 4096)
+    assert cli.main([str(conf), "dim=8", "device=cpu", "features=4096",
+                     "batch_rows=16", "nnz_cap=128"]) == 0
+    out = capsys.readouterr().out
+    assert "trained deepfm: 6 steps, final loss " in out
+    assert "train AUC " in out
+    # the JAX CLI reads the same file the same way
+    assert jcli._parse_argv([str(conf), "dim=8"]) == \
+        {k: v for k, v in got.items() if k != "device"}
+
+
+@pytest.mark.parametrize("args,message", [
+    (["model=deepfm", "bogus=1"], "unknown parameter 'bogus'"),
+    (["model=xgb"], "expected one of"),
+    (["dim=2.5"], "not integral"),
+    (["dim=0"], "below lower bound"),
+    (["model=fm"], "required parameters ['data']"),
+    (["model=ffm"], "libfm fields"),
+    (["format=libfm"], "format=libfm is not ported"),
+    (["format=csv"], "format=csv is not ported"),
+    (["data=train.csv"], "format=csv is not ported"),
+    (["data=x.libsvm?format=libfm"], "format=libfm is not ported"),
+    (["workers=h1:9000"], "workers= "),
+    (["kstep=4"], "FusedTrainer"),
+    (["data=s3://bucket/train.libsvm"], "only local files"),
+    (["ckpt_dir=hdfs://nn/ckpt"], "only local files"),
+    (["ckpt_every=5"], "ckpt_every needs ckpt_dir"),
+    (["resume=true"], "resume=true needs ckpt_dir"),
+    (["mode=predict"], "predict mode needs ckpt_dir and output"),
+    (["device=tpu"], "expected one of ['cuda', 'cpu']"),
+])
+def test_loud_errors(data, capsys, args, message):
+    argv = ["device=cpu", f"data={data[0]}", "features=64"] + args
+    if "model=fm" in args and "required" in message:
+        argv = [a for a in argv if not a.startswith("data=")]
+    assert cli.main(argv) == 2
+    assert message in capsys.readouterr().err
+
+
+def test_no_card_exits_2_and_never_falls_back(data, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    assert cli.main([f"data={data[0]}", "features=64"]) == 2
+    assert "no CUDA device" in capsys.readouterr().err
+
+
+def test_help(capsys):
+    assert cli.main(["--help"]) == 0
+    out = capsys.readouterr().out
+    assert "python -m dmlc_core_tpu_torch.models.cli" in out
+    assert "Parameters of TrainParams" in out
+    for key in jcli.TrainParams.__param_fields__:
+        assert f"\n{key} : " in out, key
+    assert "\ndevice : str (default='cuda')" in out
+
+
+def test_ckpt_every_saves_at_the_jax_steps(tmp_path, data, capsys):
+    ck = tmp_path / "ck"
+    assert _port(f"data={data[0]}", f"ckpt_dir={ck}", "ckpt_every=2",
+                 "epochs=2") == 0
+    out = capsys.readouterr().out
+    # 3 batches an epoch: saves at steps 2, 4, 6 and nothing more at the end
+    mgr = CheckpointManager(str(ck))
+    assert mgr.steps == [2, 4, 6]
+    assert out.count("checkpoint step 6 -> ") == 1
+    assert "epoch 1 step 6 loss " in out
+
+
+def test_port_predicts_from_a_jax_checkpoint(tmp_path, data, capsys):
+    ck = tmp_path / "ck"
+    assert _jax(f"data={data[0]}", f"ckpt_dir={ck}") == 0
+    assert "trained deepfm: 3 steps" in capsys.readouterr().out
+    out_j, out_t = tmp_path / "jax.txt", tmp_path / "port.txt"
+    assert _jax("mode=predict", f"data={data[1]}", f"ckpt_dir={ck}",
+                f"output={out_j}") == 0
+    assert _port("mode=predict", f"data={data[1]}", f"ckpt_dir={ck}",
+                 f"output={out_t}") == 0
+    assert "wrote 21 predictions from step 3 -> " in \
+        capsys.readouterr().out
+    want = np.loadtxt(out_j)
+    got = np.loadtxt(out_t)
+    assert got.shape == want.shape == (21,)
+    np.testing.assert_allclose(got, want, rtol=0, atol=PREDICT_TOL)
+    assert np.ptp(got) > 1e-4                 # the model is not constant
+    # a checkpoint of another model is refused
+    assert cli.main(["model=fm", "device=cpu", f"features={F}",
+                     f"dim={D}", "mode=predict", f"data={data[1]}",
+                     f"ckpt_dir={ck}", f"output={out_t}"]) == 2
+    assert "trained as 'deepfm'" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_resume_across_packages(tmp_path, data, capsys, first):
+    """One epoch in one package, then ``resume=true`` for one more in
+    the other, lands where two epochs in the first package land."""
+    run_first, run_second = (_jax, _port) if first == "jax" else (_port,
+                                                                   _jax)
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert run_first(f"data={data[0]}", f"ckpt_dir={a}") == 0
+    assert run_second(f"data={data[0]}", f"ckpt_dir={a}", "resume=true") == 0
+    out = capsys.readouterr().out
+    assert f"resumed from step 3 in {a}" in out
+    assert "trained deepfm: 6 steps" in out
+    assert run_first(f"data={data[0]}", f"ckpt_dir={b}", "epochs=2") == 0
+    step_a, got, state_a = _params(a)
+    step_b, want, state_b = _params(b)
+    assert step_a == step_b == 6
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **PARAMS, err_msg=k)
+    (count_a, mu_a, _), _ = state_a["opt_state"]
+    (count_b, mu_b, _), _ = state_b["opt_state"]
+    assert int(count_a) == int(count_b) == 6
+    np.testing.assert_allclose(mu_a["v"], mu_b["v"], **PARAMS)
+
+
+def test_port_opt_state_restores_with_the_jax_template(tmp_path, data,
+                                                        capsys):
+    ck = tmp_path / "ck"
+    assert _port(f"data={data[0]}", f"ckpt_dir={ck}", "epochs=2") == 0
+    jm = jdeep.DeepFM(F, D, L)
+    params = jm.init(jax.random.PRNGKey(0))
+    template = {"params": params, "opt_state": optax.adam(1e-2).init(params)}
+    step, state = JCheckpointManager(str(ck)).restore(template=template)
+    assert step == 6
+    adam_state, empty = state["opt_state"]
+    assert type(adam_state).__name__ == "ScaleByAdamState"
+    assert type(empty).__name__ == "EmptyState"
+    assert adam_state.count.dtype == np.int32 and int(adam_state.count) == 6
+    _, flat, ours = _params(ck)
+    (count, mu, nu), _ = ours["opt_state"]
+    np.testing.assert_array_equal(np.asarray(adam_state.mu["tower"]["w"]),
+                                  mu["tower"]["w"])
+    np.testing.assert_array_equal(np.asarray(adam_state.nu["v"]), nu["v"])
+    assert np.abs(nu["v"]).max() > 0
+    assert os.path.isfile(ck / "MANIFEST.json")

@@ -3,7 +3,7 @@ the card.  CUDA kernels have no CPU mode, so every test here is marked
 ``cuda`` and skips on a host without a card; this file imports no JAX so
 that it runs on a card machine that has none.
 
-Tolerance ``rtol = atol = 1e-5``: the ragged gather and both backward
+Tolerance ``rtol = atol = 1e-5``: the ragged gather and the backward
 kernels add with atomics in no fixed order, fm_terms and the embed-bag
 forward sum in order but with fused multiply-adds.  The autograd
 ``Function``s are checked with ``torch.autograd.gradcheck`` in float64 on
@@ -17,11 +17,12 @@ torch = pytest.importorskip("torch")
 
 from dmlc_core_tpu_torch.kernels import (  # noqa: E402
     embed_bag_forward, embed_bag_grad, embed_bag_grad_reference,
-    embed_bag_reference, fm_terms, fm_terms_reference, launch_counts,
-    ragged_gather, ragged_gather_grad, ragged_gather_grad_reference,
-    ragged_gather_reference)
-from dmlc_core_tpu_torch.ops import embed_bag, ragged_embed_grad  # noqa: E402
-from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
+    embed_bag_reference, fm_terms, fm_terms_grad, fm_terms_grad_reference,
+    fm_terms_reference, launch_counts, ragged_gather, ragged_gather_grad,
+    ragged_gather_grad_reference, ragged_gather_reference)
+from dmlc_core_tpu_torch.models import DeepFM, adam  # noqa: E402
+from dmlc_core_tpu_torch.ops import (embed_bag, fm_embed_terms,  # noqa: E402
+                                     ragged_embed_grad)
 
 pytestmark = pytest.mark.cuda
 
@@ -174,7 +175,30 @@ def test_ragged_embed_grad_kernel_matches_plain(dev):
     torch.testing.assert_close(got.cpu(), want, **TOL)
 
 
-def test_ragged_gather_has_a_backward_and_fm_terms_refuses(dev):
+@pytest.mark.parametrize("need_dvals", [False, True])
+@pytest.mark.parametrize("D", [1, 8, 32, 33])
+def test_fm_terms_grad_kernel_matches_plain(dev, need_dvals, D):
+    rng = np.random.default_rng(300 + D)
+    ids, vals, table = _rowmajor(rng, dev, 16, 8, D)
+    g1, g2 = (torch.from_numpy(rng.normal(size=(16, D)).astype(np.float32))
+              .to(dev) for _ in range(2))
+    before = _count("fm_terms_grad")
+    got = fm_terms_grad(ids, vals, table, g1, g2, need_dvals)
+    want = fm_terms_grad_reference(ids, vals, table, g1, g2, need_dvals)
+    assert _count("fm_terms_grad") == before + 1
+    assert (got[0] is None) == (not need_dvals)
+    for a, b in zip(got, want):
+        if a is not None:
+            assert torch.isfinite(a).all()
+            torch.testing.assert_close(a, b, **TOL)
+    only_dv = fm_terms_grad(ids, vals, table, g1, g2, need_dtable=False)
+    assert only_dv[1] is None
+    torch.testing.assert_close(only_dv[0], want[0] if need_dvals else
+                               fm_terms_grad_reference(ids, vals, table, g1,
+                                                       g2)[0], **TOL)
+
+
+def test_ragged_gather_and_fm_terms_have_a_backward(dev):
     rng = np.random.default_rng(4)
     ids = torch.tensor([1, 2, -1, F + 7], dtype=torch.int32, device=dev)
     segs = torch.tensor([0, 0, 1, 1], dtype=torch.int32, device=dev)
@@ -189,9 +213,58 @@ def test_ragged_gather_has_a_backward_and_fm_terms_refuses(dev):
             (o1.sum() + (o2.sum() if fm else 0)).backward()
             grads.append(t.grad)
         torch.testing.assert_close(grads[0], grads[1], **TOL)
-    t = table.to(dev).requires_grad_()
-    with pytest.raises(DMLCError, match="no backward"):
-        fm_terms(ids.reshape(2, 2), vals.reshape(2, 2), t)
+    grads = []
+    for engine in ("kernel", "torch"):
+        t = table.to(dev).requires_grad_()
+        v = vals.reshape(2, 2).clone().requires_grad_()
+        s1, s2 = fm_embed_terms(ids.reshape(2, 2), v, t, engine=engine)
+        (s1.sum() + 3.0 * s2.sum()).backward()
+        grads.append((v.grad, t.grad))
+    for a, b in zip(*grads):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+def _deepfm_step(dev, layout, engine):
+    """One DeepFM loss, backward and Adam step on a seeded batch: the
+    loss, the gradients and the stepped parameters."""
+    rng = np.random.default_rng(21)
+    B, K, D = 32, 12, 32
+    ids = rng.integers(-2, F + 4, (B, K)).astype(np.int32)
+    vals = rng.random((B, K)).astype(np.float32)
+    ids[:, K - 3:], vals[:, K - 3:] = 0, 0.0                 # padding
+    labels = (rng.random(B) < 0.5).astype(np.float32)
+    batch = {"labels": labels, "weights": np.ones(B, np.float32)}
+    if layout == "rowmajor":
+        batch.update(ids=ids, vals=vals)
+    else:
+        batch.update(ids=ids.reshape(-1), vals=vals.reshape(-1),
+                     segments=np.repeat(np.arange(B, dtype=np.int32), K))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in batch.items()}
+    model = DeepFM(F, D, 2, l2=1e-4, init_scale=0.3, engine=engine,
+                   device=dev, generator=torch.Generator(dev).manual_seed(5))
+    opt = adam(model, 1e-2)
+    loss = model.loss(batch)
+    loss.backward()
+    grads = {k: p.grad.clone() for k, p in model.named_parameters()}
+    opt.step()
+    return loss.detach(), grads, {k: p.detach() for k, p in
+                                  model.named_parameters()}
+
+
+@pytest.mark.parametrize("layout", ["rowmajor", "flat"])
+def test_deepfm_step_kernel_matches_plain(dev, layout):
+    name = "fm_terms_grad" if layout == "rowmajor" else "ragged_gather_grad_fm"
+    before = _count(name)
+    lk, gk, pk = _deepfm_step(dev, layout, "kernel")
+    assert _count(name) == before + 1
+    lp, gp, pp = _deepfm_step(dev, layout, "torch")
+    torch.testing.assert_close(lk, lp, **TOL)
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        assert scale > 0, k
+        assert float((gk[k] - gp[k]).abs().max()) <= 1e-4 * scale, k
+        torch.testing.assert_close(pk[k], pp[k], rtol=1e-5, atol=1e-5)
 
 
 def _gradcheck_inputs(dev):
@@ -227,3 +300,14 @@ def test_ragged_gather_function_gradcheck_plain_f64(dev, fm):
         o1, o2 = ragged_gather(ids, v, segs, 5, t, 2, fm=fm, engine="torch")
         return (o1, o2) if fm else o1
     assert torch.autograd.gradcheck(f, (vals, table))
+
+
+def test_fm_terms_function_gradcheck_plain_f64(dev):
+    rng, Fs, D, table = _gradcheck_inputs(dev)
+    ids = torch.tensor([[0, 5, -1], [4, -6, 2]], dtype=torch.int32,
+                       device=dev)
+    vals = torch.from_numpy(rng.normal(size=(2, 3))).to(dev)
+    vals.requires_grad_()
+    assert torch.autograd.gradcheck(
+        lambda v, t: fm_embed_terms(ids, v, t, engine="torch"),
+        (vals, table))

@@ -1,10 +1,13 @@
-"""The port's embed bag (forward and backward) and the backward of its
-ragged gather, held against the JAX package on the CPU.
+"""The port's embed bag (forward and backward), the backward of its fm
+terms and the backward of its ragged gather, held against the JAX
+package on the CPU.
 
 The JAX side reaches the Pallas embed-bag kernel in interpret mode
 (``embed_bag(..., engine="pallas")``), whose backward is the custom VJP
-of ``_embed_bag_pallas_diff``; the flat ops are differentiated with
-``jax.grad`` of ``dmlc_core_tpu.ops.csr``.  The port runs its kernels'
+of ``_embed_bag_pallas_diff``, and the Pallas fm kernel
+(``fm_embed_terms(..., engine="pallas")``) with the custom VJP of
+``fm_embed_terms``; the flat ops are differentiated with ``jax.grad`` of
+``dmlc_core_tpu.ops.csr``.  The port runs its kernels'
 plain versions through the same ``torch.autograd.Function`` s that
 launch the kernels on the card.
 
@@ -29,6 +32,7 @@ from dmlc_core_tpu.ops import ragged_csr as jrag  # noqa: E402
 from dmlc_core_tpu_torch import ops as tops  # noqa: E402
 from dmlc_core_tpu_torch.kernels import (embed_bag_grad_reference,  # noqa
                                          embed_bag_reference,
+                                         fm_terms_grad_reference,
                                          ragged_gather_grad,
                                          ragged_gather_grad_reference)
 from dmlc_core_tpu_torch.kernels.common import (clamp_ids,  # noqa: E402
@@ -160,6 +164,72 @@ def test_embed_bag_refuses_a_bad_engine_and_bad_shapes():
     with pytest.raises(DMLCError, match="needs CUDA"):
         tops.embed_bag(ids, torch.ones(2, 3), torch.ones(4, 2),
                        engine="kernel")
+
+
+# ---------------------------------------------------------------------------
+# fm terms backward
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("D", [1, 8, 32])
+def test_fm_terms_grads_match_custom_vjp(D):
+    """``dvals`` and ``dtable`` of the port's ``_FMTerms`` backward (the
+    plain version here) against ``jax.vjp`` of the Pallas fm terms, with
+    the out-of-range ids and padding."""
+    rng = np.random.default_rng(30 + D)
+    ids, vals, table = _rowmajor(rng, 16, 8, D)
+    table *= 0.3                 # dvals' x² sums of order 1, not D
+    g1, g2 = (rng.normal(size=(16, D)).astype(np.float32) for _ in range(2))
+    out, vjp = jax.vjp(lambda v, t: jpe.fm_embed_terms(
+        jnp.asarray(ids), v, t, engine="pallas"),
+        jnp.asarray(vals), jnp.asarray(table))
+    dv, dt = (np.asarray(x) for x in vjp((jnp.asarray(g1), jnp.asarray(g2))))
+    v, t = _t(vals, grad=True), _t(table, grad=True)
+    s1, s2 = tops.fm_embed_terms(_t(ids), v, t)
+    for got, want in zip((s1, s2), out):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                                   **TOL)
+    ((s1 * _t(g1)).sum() + (s2 * _t(g2)).sum()).backward()
+    np.testing.assert_allclose(v.grad.numpy(), dv, **TOL)
+    np.testing.assert_allclose(t.grad.numpy(), dt, **TOL)
+    # the dropped ids sent nothing: rows 0 and F-1 got only their own ids'
+    # and -1's gradient, as the JAX scatter-add's
+    assert np.abs(dt[F - 1]).max() > 0
+    # the plain backward alone, and with only one of the two asked for
+    gd, gt = fm_terms_grad_reference(_t(ids), _t(vals), _t(table), _t(g1),
+                                     _t(g2))
+    np.testing.assert_allclose(gd.numpy(), dv, **TOL)
+    np.testing.assert_allclose(gt.numpy(), dt, **TOL)
+    only_dv = fm_terms_grad_reference(_t(ids), _t(vals), _t(table), _t(g1),
+                                      _t(g2), need_dtable=False)
+    only_dt = fm_terms_grad_reference(_t(ids), _t(vals), _t(table), _t(g1),
+                                      _t(g2), need_dvals=False)
+    assert only_dv[1] is None and only_dt[0] is None
+    np.testing.assert_array_equal(only_dv[0].numpy(), gd.numpy())
+    np.testing.assert_array_equal(only_dt[1].numpy(), gt.numpy())
+
+
+def test_fm_terms_clamped_autograd_would_disagree_with_jax():
+    """Autograd through a clamped gather sends the out-of-range ids'
+    gradient to rows 0 and F-1; the Pallas fm VJP, and the port, drop
+    it."""
+    rng = np.random.default_rng(6)
+    ids, vals, table = _rowmajor(rng, 4, 6, 8)
+    g1, g2 = (rng.normal(size=(4, 8)).astype(np.float32) for _ in range(2))
+    _, vjp = jax.vjp(lambda t: jpe.fm_embed_terms(
+        jnp.asarray(ids), jnp.asarray(vals), t, engine="pallas"),
+        jnp.asarray(table))
+    want = np.asarray(vjp((jnp.asarray(g1), jnp.asarray(g2)))[0])
+    tt = _t(table, grad=True)
+    x = tt[clamp_ids(_t(ids), F)]
+    s1 = torch.einsum("bk,bkd->bd", _t(vals), x)
+    s2 = torch.einsum("bk,bkd->bd", _t(vals) ** 2, x * x)
+    ((s1 * _t(g1)).sum() + (s2 * _t(g2)).sum()).backward()
+    assert not np.allclose(tt.grad.numpy()[[0, F - 1]], want[[0, F - 1]],
+                           **TOL)
+    tt.grad = None
+    s1, s2 = tops.fm_embed_terms(_t(ids), _t(vals), tt)
+    ((s1 * _t(g1)).sum() + (s2 * _t(g2)).sum()).backward()
+    np.testing.assert_allclose(tt.grad.numpy(), want, **TOL)
 
 
 # ---------------------------------------------------------------------------
