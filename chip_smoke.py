@@ -13,8 +13,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    it (serving: the ragged gather and fm terms; training: the embed bag
    and fm terms, forward and backward, at 4096 x 64 and the ragged
    gather forward and backward at cap 131072 / 4096 rows, with
-   out-of-range ids and padding), held against its plain PyTorch
-   version (rtol = atol = 1e-5; zero fill must give exact zeros), with
+   out-of-range ids and padding; the ragged-gather forward also with
+   the batch's entries shuffled and with all of them in one row), held
+   against its plain PyTorch version (rtol = atol = 1e-5; zero fill must
+   give exact zeros; two fm-terms calls must be bit-equal), with
    CUDA-event times of kernel, plain version and, where one PyTorch call
    computes the same function, that call;
 4. serving — FactorizationMachine(num_features=2^20, dim=32) from seeded
@@ -194,6 +196,13 @@ def _close(name, got, ref, exact_zero=False):
     return err
 
 
+def _bit_equal(name, first, second) -> None:
+    """Two calls of a kernel whose every sum has a fixed order."""
+    torch = sys.modules["torch"]
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise RuntimeError(f"{name}: two calls differ")
+
+
 def phase_kernels(torch, timer: Timer, power: str) -> dict:
     from torch.nn import functional as Fn
 
@@ -202,6 +211,12 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
                                              ragged_gather_reference)
     rng = np.random.default_rng(SEED)
     results = {}
+    # what the Timer reads for one launch that does next to nothing: the
+    # floor under every kernel time below (a wrapper that zeroes its
+    # outputs first pays it twice)
+    floor_ms = timer.ms(lambda: torch.zeros(1, device="cuda"))
+    log(f"[kernels] timer floor: one torch.zeros(1) launch {floor_ms:.4f} "
+        f"ms [{power}]")
     with torch.inference_mode():
         for D, variants in ((DIM, (True, False)), (1, (False,))):
             table = torch.from_numpy(rng.standard_normal(
@@ -266,6 +281,8 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
         got = fm_terms(ids, vals, table, engine="kernel")
         want = fm_terms_reference(ids, vals, table)
         err = max(_close("fm_terms", g, w) for g, w in zip(got, want))
+        _bit_equal("fm_terms", got, fm_terms(ids, vals, table,
+                                             engine="kernel"))
         # out-of-range ids clamp the same way on both
         bad = ids.clone()
         bad[:, :3] = torch.tensor([-1, F_FEATURES, F_FEATURES + 7],
@@ -341,50 +358,86 @@ def _library_grad(torch, ids, vals, offsets, table, g):
     return lambda: torch.autograd.grad(out, t, g, retain_graph=True)
 
 
-def _training_forward(torch, timer: Timer, power: str, table, fids, fvals,
-                      fsegs, nnz, rows_read, foffsets) -> dict:
-    """The ragged-gather forward at the flat training batch's shapes, as
-    the training paths call it (every entry live, padding on the scratch
-    row): fm at D=32 (FM), embed at D=1 (the linear terms) and at D=32
-    (DCNv2's x0).  Returns ``{"<name>_train[_d32]": numbers}``."""
+def _gather_case(torch, timer: Timer, power: str, label: str, fids, fvals,
+                 fsegs, tab, fm: bool, nnz: int, rows_read: int,
+                 foffsets=None) -> dict:
+    """One ragged-gather forward at the flat training batch's shapes
+    (every entry live, padding on the scratch row) against its plain
+    version, timed; with ``foffsets`` (sorted segments) also the one
+    PyTorch call that computes the embed sum."""
     from torch.nn import functional as Fn
 
     from dmlc_core_tpu_torch.kernels import (ragged_gather,
                                              ragged_gather_reference)
     from dmlc_core_tpu_torch.kernels.common import clamp_ids
+    Dg = tab.shape[1]
+    name = "ragged_gather_fm" if fm else "ragged_gather_embed"
+    run = lambda: ragged_gather(  # noqa: E731
+        fids, fvals, fsegs, None, tab, ROWS_TR, fm=fm, engine="kernel")
+    plain = lambda: ragged_gather_reference(  # noqa: E731
+        fids, fvals, fsegs, None, tab, ROWS_TR, fm=fm)
+    got, want = run(), plain()
+    torch.cuda.synchronize()
+    err = max(_close(f"{name} ({label}) D={Dg}", g, w)
+              for g, w in zip(got, want) if g is not None)
+    ms, plain_ms = timer.ms(run), timer.ms(plain)
+    nout = 2 if fm else 1
+    b_ms, b_by = bound(rows_read * Dg * 4 + 12 * CAP_TR
+                       + nout * (ROWS_TR + 1) * Dg * 4,
+                       (4 if fm else 2) * nnz * Dg)
+    lib_ms = None
+    if not fm and foffsets is not None:
+        lib = lambda: Fn.embedding_bag(  # noqa: E731
+            clamp_ids(fids[:nnz], tab.shape[0]).int(), tab, foffsets,
+            mode="sum", per_sample_weights=fvals[:nnz])
+        _close(f"embedding_bag (flat) D={Dg}", lib(), want[0][:ROWS_TR])
+        lib_ms = timer.ms(lib)
+    log(f"[kernels] {name} ({label}) cap={CAP_TR} nnz={nnz} rows="
+        f"{ROWS_TR} D={Dg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+        f" embedding_bag {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+        f", bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, max_abs_err=err)
+
+
+def _training_forward(torch, timer: Timer, power: str, table, fids, fvals,
+                      fsegs, nnz, rows_read, foffsets) -> dict:
+    """The ragged-gather forward at the flat training batch's shapes, as
+    the training paths call it: fm at D=32 (FM), embed at D=1 (the
+    linear terms) and at D=32 (DCNv2's x0).  Then fm and D=1 on the same
+    batch with its live entries shuffled (unsorted segments), and on a
+    batch whose live entries all fall in one row; that batch's values
+    and table lie on a coarse dyadic grid, so every partial sum of its
+    90,553-entry row is exact in float32 and any order of adds agrees
+    with the plain version.  Returns ``{"<name>_train[_d32|_unsorted|
+    _one_row]": numbers}``."""
     results = {}
     D = table.shape[1]
-    for fm, Dg in ((True, D), (False, 1), (False, D)):
-        tab = table if Dg == D else table[:, :1].contiguous()
+    col = lambda t: t[:, :1].contiguous()  # noqa: E731
+    for fm, tab in ((True, table), (False, col(table)), (False, table)):
         name = "ragged_gather_fm" if fm else "ragged_gather_embed"
-        run = lambda: ragged_gather(  # noqa: E731
-            fids, fvals, fsegs, None, tab, ROWS_TR, fm=fm, engine="kernel")
-        plain = lambda: ragged_gather_reference(  # noqa: E731
-            fids, fvals, fsegs, None, tab, ROWS_TR, fm=fm)
-        got, want = run(), plain()
-        torch.cuda.synchronize()
-        err = max(_close(f"{name} (training) D={Dg}", g, w)
-                  for g, w in zip(got, want) if g is not None)
-        ms, plain_ms = timer.ms(run), timer.ms(plain)
-        nout = 2 if fm else 1
-        b_ms, b_by = bound(rows_read * Dg * 4 + 12 * CAP_TR
-                           + nout * (ROWS_TR + 1) * Dg * 4,
-                           (4 if fm else 2) * nnz * Dg)
-        lib_ms = None
-        if not fm:
-            lib = lambda: Fn.embedding_bag(  # noqa: E731
-                clamp_ids(fids[:nnz], tab.shape[0]).int(), tab, foffsets,
-                mode="sum", per_sample_weights=fvals[:nnz])
-            _close(f"embedding_bag (flat) D={Dg}", lib(), want[0][:ROWS_TR])
-            lib_ms = timer.ms(lib)
-        key = f"{name}_train" + ("_d32" if not fm and Dg == D else "")
-        results[key] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms,
-                            max_abs_err=err)
-        log(f"[kernels] {name} (training) cap={CAP_TR} nnz={nnz} rows="
-            f"{ROWS_TR} D={Dg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-            f" embedding_bag {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-            f", bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+        key = f"{name}_train" + ("_d32" if not fm and tab.shape[1] == D
+                                 else "")
+        results[key] = _gather_case(torch, timer, power, "training", fids,
+                                    fvals, fsegs, tab, fm, nnz, rows_read,
+                                    foffsets)
+    rng = np.random.default_rng(SEED + 7)
+    perm = torch.from_numpy(np.concatenate([rng.permutation(nnz), np.arange(
+        nnz, CAP_TR)])).cuda()
+    one_segs = torch.where(fsegs < ROWS_TR, 0, fsegs)
+    exact_vals = torch.from_numpy(
+        rng.integers(1, 5, CAP_TR) / 4).float().cuda() * (fvals != 0)
+    exact_tab = torch.from_numpy(
+        rng.integers(-4, 5, table.shape) / 64).float().cuda()
+    cases = (("unsorted", fids[perm], fvals[perm], fsegs[perm], table),
+             ("one_row", fids, exact_vals, one_segs, exact_tab))
+    for label, ids_c, vals_c, segs_c, tab_c in cases:
+        for fm, tab in ((True, tab_c), (False, col(tab_c))):
+            name = "ragged_gather_fm" if fm else "ragged_gather_embed"
+            results[f"{name}_train_{label}"] = _gather_case(
+                torch, timer, power, label, ids_c, vals_c, segs_c, tab, fm,
+                nnz, rows_read)
+    del exact_tab
     return results
 
 
@@ -408,6 +461,7 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
     got, want = run(), plain()
     torch.cuda.synchronize()
     err = max(_close("fm_terms (training)", a, b) for a, b in zip(got, want))
+    _bit_equal("fm_terms (training)", got, run())
     ms, plain_ms = timer.ms(run), timer.ms(plain)
     offsets = torch.arange(0, BK, K_TR, dtype=torch.int32, device="cuda")
     lib_s1 = lambda: Fn.embedding_bag(  # noqa: E731
@@ -1319,6 +1373,11 @@ def main() -> int:
             row["training"] = {"launches": training.get(name, 0),
                                **{key: kern[name + "_train"][key]
                                   for key in keys}}
+        for case in ("unsorted", "one_row"):
+            # the same training batch, entries shuffled or in one row
+            if f"{name}_train_{case}" in kern:
+                row[f"training_{case}"] = {
+                    key: kern[f"{name}_train_{case}"][key] for key in keys}
         rows.append(row)
     log(f"[done] {time.monotonic() - t_start:.1f}s")
     print(power)

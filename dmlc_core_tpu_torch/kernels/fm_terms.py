@@ -116,9 +116,10 @@ def fm_terms(ids: torch.Tensor, vals: torch.Tensor, table: torch.Tensor,
     if B * D == 0:
         return s1, s2
     with torch.cuda.device(dev):
-        err = _launcher("fm_terms_launch", 5, 4)(
+        err = _launcher("fm_terms_launch", 5, 5)(
             ids.data_ptr(), vals.data_ptr(), table.data_ptr(),
-            s1.data_ptr(), s2.data_ptr(), B, K, F, D, stream_handle(dev))
+            s1.data_ptr(), s2.data_ptr(), B, K, F, D,
+            int(vec4_ok(D, table, s1, s2)), stream_handle(dev))
     if err != 0:
         raise DMLCError(f"fm_terms launch failed: cudaError {err}")
     count_launch("fm_terms")

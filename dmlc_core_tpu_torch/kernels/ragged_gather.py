@@ -121,8 +121,10 @@ def _ragged_gather_kernel(ids, vals, segments, nnz_used, table, num_rows,
     nnz_used = _nnz_tensor(nnz_used, dev)
     cap = ids.shape[0]
     F, D = table.shape
-    out1 = torch.zeros(num_rows + 1, D, dtype=torch.float32, device=dev)
-    out2 = torch.zeros_like(out1) if fm else None
+    # one buffer, so one memset clears both outputs
+    buf = torch.zeros(1 + fm, num_rows + 1, D, dtype=torch.float32,
+                      device=dev)
+    out1, out2 = buf[0], (buf[1] if fm else None)
     if cap == 0:
         return out1, out2
     with torch.cuda.device(dev):
@@ -131,7 +133,8 @@ def _ragged_gather_kernel(ids, vals, segments, nnz_used, table, num_rows,
             None if nnz_used is None else nnz_used.data_ptr(),
             table.data_ptr(), out1.data_ptr(),
             None if out2 is None else out2.data_ptr(),
-            cap, num_rows, F, D, int(vec4_ok(D, table)), stream_handle(dev))
+            cap, num_rows, F, D, int(vec4_ok(D, table, *buf)),
+            stream_handle(dev))
     if err != 0:
         raise DMLCError(f"ragged_gather launch failed: cudaError {err}")
     count_launch("ragged_gather_fm" if fm else "ragged_gather_embed")

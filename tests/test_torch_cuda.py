@@ -5,7 +5,8 @@ that it runs on a card machine that has none.
 
 Tolerance ``rtol = atol = 1e-5``: the ragged gather and the backward
 kernels add with atomics in no fixed order, fm_terms and the embed-bag
-forward sum in order but with fused multiply-adds.  The autograd
+forward sum in a fixed order (so fm_terms is also held bit-equal from
+call to call) but not the plain version's.  The autograd
 ``Function``s are checked with ``torch.autograd.gradcheck`` in float64 on
 their plain path (the kernels take float32 only).
 """
@@ -39,18 +40,63 @@ def dev():
     return torch.device("cuda")
 
 
+# entries one warp iteration of the ragged gather covers (WarpShape in
+# common.cuh): a tile is a whole number of them
+RG_STEP = {1: 128, 8: 64, 32: 32, 33: 8, 256: 8}
+RG_LAYOUTS = ["unsorted", "sorted", "one_row", "each_own", "empty_rows",
+              "long_run"]
+RG_FILLS = ["step-1", "step", "step+1", "cap", "many_tiles"]
+
+
+def _ragged_case(rng, layout, fill, D):
+    """(segments, rows, cap, n): ``cap`` is never a multiple of a tile;
+    ``n`` (nnz_used) sits on an iteration boundary, next to one, at the
+    capacity, or inside a ``cap`` large enough that each warp's tile
+    spans several iterations (twice the ~8 warps per SM the launcher
+    aims at, on a 132-SM H100)."""
+    step = RG_STEP[D]
+    cap = (2 * 8 * 132 * step if fill == "many_tiles" else 9 * step) + 5
+    n = {"step-1": step - 1, "step": step, "step+1": step + 1,
+         "cap": cap, "many_tiles": cap - 3 * step - 1}[fill]
+    rows = 16
+    if layout == "unsorted":
+        segs = rng.integers(0, rows + 1, cap)
+    elif layout == "sorted":                   # runs shorter than a tile
+        segs = np.sort(rng.integers(0, rows + 1, cap))
+    elif layout == "one_row":
+        segs = np.full(cap, 3)
+    elif layout == "each_own":
+        rows = cap
+        segs = np.arange(cap)
+    elif layout == "empty_rows":               # rows 1-4, 6-15 stay empty
+        segs = np.sort(rng.choice([0, 5, rows], cap))
+    else:                                      # one run over several tiles
+        segs = np.sort(np.concatenate([
+            rng.integers(0, 8, cap // 4), np.full(cap // 2, 8),
+            rng.integers(9, rows + 1, cap - cap // 4 - cap // 2)]))
+    return segs.astype(np.int32), rows, cap, n
+
+
+@pytest.mark.parametrize("fill", RG_FILLS)
+@pytest.mark.parametrize("layout", RG_LAYOUTS)
 @pytest.mark.parametrize("fm", [False, True])
-@pytest.mark.parametrize("D", [1, 8, 32, 33])
-def test_ragged_gather_kernel_matches_plain(dev, fm, D):
+@pytest.mark.parametrize("D", [1, 8, 32, 33, 256])
+def test_ragged_gather_kernel_matches_plain(dev, fm, D, layout, fill):
     rng = np.random.default_rng(D)
-    rows, cap, n = 16, 512, 300
+    segs, rows, cap, n = _ragged_case(rng, layout, fill, D)
     ids = rng.integers(0, F, cap).astype(np.int32)
     ids[:3] = BAD_IDS
     vals = rng.normal(size=cap).astype(np.float32)
-    segs = rng.integers(0, rows + 1, cap).astype(np.int32)   # unsorted
+    table = rng.normal(size=(F, D)).astype(np.float32)
+    if fill == "many_tiles":
+        # rows of ~10^4-10^5 entries: values on a coarse dyadic grid keep
+        # every partial sum exact, so any order of adds agrees to 1e-5
+        vals = (rng.integers(-2, 3, cap) / 4).astype(np.float32)
+        table = (rng.integers(-4, 5, (F, D)) / 64).astype(np.float32)
+    vals[rng.random(cap) < 0.1] = 0.0                       # padding-like
     ids[n:], vals[n:] = 2 ** 31 - 1, np.nan                 # garbage tail
     segs[n:] = -3
-    table = rng.normal(size=(F, D)).astype(np.float32)
+    segs[n // 2] = rows + 4                                 # dropped
     args = [torch.from_numpy(a).to(dev) for a in (ids, vals, segs)]
     nnz = torch.tensor([n], dtype=torch.int32, device=dev)
     tab = torch.from_numpy(table).to(dev)
@@ -65,19 +111,30 @@ def test_ragged_gather_kernel_matches_plain(dev, fm, D):
                            else "ragged_gather_embed"] == before + 1
     zero, _ = ragged_gather(*args, torch.zeros_like(nnz), tab, rows, fm=fm)
     assert not bool(zero.any())
+    # a NaN in a live entry reaches its row
+    args[1][1] = float("nan")
+    got, _ = ragged_gather(*args, nnz, tab, rows, fm=fm)
+    assert bool(got[int(segs[1])].isnan().all())
 
 
-@pytest.mark.parametrize("D", [8, 32, 40])
-def test_fm_terms_kernel_matches_plain(dev, D):
+FM_SHAPES = [(B, K) for B in (1, 127, 128, 4097) for K in (1, 7, 64, 65, 200)]
+
+
+@pytest.mark.parametrize("B,K", FM_SHAPES)
+@pytest.mark.parametrize("D", [8, 32, 33, 40, 256])
+def test_fm_terms_kernel_matches_plain(dev, D, B, K):
     rng = np.random.default_rng(12)
-    B, K = 16, 8
     ids = rng.integers(0, F, (B, K)).astype(np.int32)
-    ids[:, :3] = BAD_IDS
+    ids[:, :3] = BAD_IDS[:K]
     vals = rng.random((B, K)).astype(np.float32)
     table = rng.random((F, D)).astype(np.float32)
     a = [torch.from_numpy(x).to(dev) for x in (ids, vals, table)]
-    for g, w in zip(fm_terms(*a), fm_terms_reference(*a)):
+    got = fm_terms(*a)
+    for g, w in zip(got, fm_terms_reference(*a)):
         torch.testing.assert_close(g, w, **TOL)
+    # the order of every sum is fixed: a second call is bit-equal
+    for g, h in zip(got, fm_terms(*a)):
+        assert torch.equal(g, h)
 
 
 def _count(name):
