@@ -16,9 +16,12 @@ Phases, in order; any failure exits non-zero and prints no result:
    out-of-range ids and padding; the ragged-gather forward also with
    the batch's entries shuffled and with all of them in one row), held
    against its plain PyTorch version (rtol = atol = 1e-5; zero fill must
-   give exact zeros; two fm-terms calls must be bit-equal), with
-   CUDA-event times of kernel, plain version and, where one PyTorch call
-   computes the same function, that call;
+   give exact zeros, the D = 1 backward also in a freed NaN-filled
+   block; two fm-terms or embed-bag calls must be bit-equal, at B 4096
+   and B 128), with CUDA-event times of kernel, plain version, the same
+   call with next to no work (embed bag B 1 K 1, D = 1 backward with
+   nnz_used = 0) and, where one PyTorch call computes the same function,
+   that call;
 4. serving — FactorizationMachine(num_features=2^20, dim=32) from seeded
    weights, saved and restored through the port's CheckpointManager and
    served by InferenceEngine + MicroBatcher in padded and ragged mode
@@ -510,6 +513,35 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
     return results
 
 
+def _zero_work_grad(torch, timer: Timer, power: str, fids, fvals, fsegs,
+                    tab, g1) -> float:
+    """The D = 1 ragged backward (the linear term's) at the training shape
+    with ``nnz_used = 0``: after a freed NaN-filled ``[F, 1]`` block, so
+    the caching allocator may hand it back, the gradient must be exact
+    zeros (the kernel zeroes it, whatever the memory held).  Returns the
+    call's time, the floor under the kernel's time at this shape."""
+    from dmlc_core_tpu_torch.kernels import ragged_gather_grad
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    run = lambda: ragged_gather_grad(  # noqa: E731
+        fids, fvals, fsegs, zero, tab, g1, None, ROWS_TR, need_dvals=False,
+        engine="kernel")[1]
+    poison = torch.full(tab.shape, float("nan"), device="cuda")
+    torch.cuda.synchronize()
+    ptr = poison.data_ptr()
+    del poison
+    got = run()
+    torch.cuda.synchronize()
+    if not bool((got == 0).all()):
+        raise RuntimeError("ragged_gather_grad D=1 nnz_used=0: not all zeros "
+                           "after a NaN-filled allocation")
+    floor_ms = timer.ms(run)
+    log(f"[kernels] ragged_gather_grad_embed cap={CAP_TR} D=1 nnz_used=0: "
+        f"{floor_ms:.4f} ms, exact zeros in "
+        f"{'the freed NaN block' if got.data_ptr() == ptr else 'a new block'}"
+        f" [{power}]")
+    return floor_ms
+
+
 def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
     """The embed-bag kernels (forward and backward) and the ragged-gather
     kernels (forward and backward) at the training paths' shapes,
@@ -536,6 +568,14 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
     rows_read = int(torch.unique(clamp_ids(ids, F)).numel())
     offsets = torch.arange(0, BK, K_TR, dtype=torch.int32, device="cuda")
     with torch.no_grad():
+        # the same call with next to no work (B 1, K 1): what a launch of
+        # this kernel costs on the Timer
+        one = (ids[:1, :1].contiguous(), vals[:1, :1].contiguous())
+        _close("embed_bag B=1 K=1", embed_bag_forward(*one, table,
+                                                      engine="kernel"),
+               embed_bag_reference(*one, table))
+        bag_floor_ms = timer.ms(lambda: embed_bag_forward(*one, table,
+                                                          engine="kernel"))
         for square in (False, True):
             run = lambda: embed_bag_forward(  # noqa: E731
                 ids, vals, table, square, engine="kernel")
@@ -544,6 +584,15 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
             got, want = run(), plain()
             torch.cuda.synchronize()
             err = _close(f"embed_bag square={square}", got, want)
+            _bit_equal(f"embed_bag square={square}", [got], [run()])
+            # B 128 takes the launcher's k split
+            few = (ids[:B_RM].contiguous(), vals[:B_RM].contiguous())
+            got_few = embed_bag_forward(*few, table, square, engine="kernel")
+            _close(f"embed_bag square={square} B={B_RM}", got_few,
+                   embed_bag_reference(*few, table, square))
+            _bit_equal(f"embed_bag square={square} B={B_RM}", [got_few],
+                       [embed_bag_forward(*few, table, square,
+                                          engine="kernel")])
             ms, plain_ms = timer.ms(run), timer.ms(plain)
             b_ms, b_by = bound(rows_read * D * 4 + BK * 8 + ROWS_TR * D * 4,
                                (3 if square else 2) * BK * D)
@@ -557,12 +606,14 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                 # the training path runs square=False
                 results["embed_bag"] = dict(
                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                    library_ms=lib_ms, max_abs_err=err)
+                    library_ms=lib_ms, max_abs_err=err, floor_ms=bag_floor_ms)
             log(f"[kernels] embed_bag square={square} B={ROWS_TR} K={K_TR} "
-                f"D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"embedding_bag "
+                f"D={D}: kernel {ms:.4f} ms (B=1 K=1: {bag_floor_ms:.4f} "
+                f"ms, above it {ms - bag_floor_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, embedding_bag "
                 f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
-                f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+                f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g}; bit-equal "
+                f"across two calls at B={ROWS_TR} and B={B_RM} [{power}]")
 
         lib_bwd = _library_grad(torch, ids.reshape(-1), vals.reshape(-1),
                                 offsets, table, g)
@@ -615,6 +666,9 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
             g2 = (torch.from_numpy(rng.standard_normal(
                 (ROWS_TR + 1, Dg), dtype=np.float32)).cuda() if fm else None)
             name = "ragged_gather_grad_fm" if fm else "ragged_gather_grad_embed"
+            floor_ms = (_zero_work_grad(torch, timer, power, fids, fvals,
+                                        fsegs, tab, g1)
+                        if Dg == 1 and not fm else None)
             for need_dvals in (False, True):
                 run = lambda: ragged_gather_grad(  # noqa: E731
                     fids, fvals, fsegs, None, tab, g1, g2, ROWS_TR,
@@ -644,9 +698,15 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                     results[name] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                         bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+                    if floor_ms is not None:
+                        results[name]["floor_ms"] = floor_ms
+                above = ("" if floor_ms is None else
+                         f" (nnz_used=0: {floor_ms:.4f} ms, above it "
+                         f"{ms - floor_ms:.4f} ms)")
                 log(f"[kernels] {name} cap={CAP_TR} nnz={nnz} rows="
                     f"{ROWS_TR} D={Dg} dvals={need_dvals}: kernel {ms:.4f} "
-                    f"ms, plain {plain_ms:.4f} ms, embedding_bag backward "
+                    f"ms{above}, plain {plain_ms:.4f} ms, embedding_bag "
+                    f"backward "
                     f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                     f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
     return results
@@ -1367,6 +1427,9 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src + cu,
                "replaces": replaces, "launches": path.get(name, 0),
                **{key: k[key] for key in keys}}
+        if "floor_ms" in k:
+            # the same kernel with next to no work (see the log)
+            row["floor_ms"] = k["floor_ms"]
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
             # training batch's shapes, with the training launches

@@ -16,12 +16,15 @@
 // What bounds it: bytes.  Each (b, k) reads one D-float table row and two
 // 4-byte words; the flops (2 or 3 per element) are far below the card's rate.
 // Design:
-//   * forward: a group of threads per batch row b, one float4 per thread when
-//     D % 4 == 0 and the table is 16-byte aligned (D/4 = 8 threads at D = 32),
-//     so a gathered row is one coalesced read.  The sum over k runs in order
-//     in registers: deterministic, no atomics, no output memset.  Every entry
-//     is computed, padding included, as the JAX forward does (a padding entry
-//     multiplies table row 0 by 0, which matters if that row holds inf/NaN).
+//   * forward: the warp-per-row loop of warp_rows.cuh, shared with the
+//     fm-terms forward, with one sum (BagSum below): a warp per row b, 32/G
+//     groups of G = D/4 lanes each issuing 16 float4 row loads before it
+//     sums any (at D = 32 a row's 64 gathers in flight together), a fixed
+//     xor shuffle tree, a k split in k order at small B.  Deterministic
+//     (bit-equal from call to call), no atomics, no output memset.  Every
+//     entry is computed, padding included, as the JAX forward does (a
+//     padding entry multiplies table row 0 by 0, which matters if that row
+//     holds inf/NaN).
 //   * backward: a group per entry (b, k).  dvals comes from a shuffle
 //     reduction inside the group (written for every entry, so the output
 //     needs no memset); dtable is a dense zeroed buffer the caller allocates
@@ -33,7 +36,7 @@
 // The TPU kernel's 8-row grid, SMEM scalar chunking and DMA ring are TPU
 // artifacts and have no counterpart here.
 
-#include "common.cuh"
+#include "warp_rows.cuh"
 
 namespace {
 
@@ -44,48 +47,14 @@ __device__ __forceinline__ float tx(float x) {
 
 // ---------------------------------------------------------------- forward --
 
-template <bool SQUARE, bool VEC4>
-__global__ void embed_bag_fwd(const int* __restrict__ ids,
-                              const float* __restrict__ vals,
-                              const float* __restrict__ table,
-                              float* __restrict__ out, int B, int K, int F,
-                              int D, int group) {
-  const int per_block = blockDim.x / group;
-  const int b = blockIdx.x * per_block + threadIdx.x / group;
-  const int lane = threadIdx.x % group;
-  if (b >= B) return;
-  const int* id_row = ids + (int64_t)b * K;
-  const float* val_row = vals + (int64_t)b * K;
-  float* o = out + (int64_t)b * D;
-  if (VEC4) {
-    for (int c = lane; c < D / 4; c += group) {
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float v = __ldg(val_row + k);
-        const float4 x = __ldg(reinterpret_cast<const float4*>(
-                                   table + clamp_id(__ldg(id_row + k), F) * D) +
-                               c);
-        acc.x += v * tx<SQUARE>(x.x);
-        acc.y += v * tx<SQUARE>(x.y);
-        acc.z += v * tx<SQUARE>(x.z);
-        acc.w += v * tx<SQUARE>(x.w);
-      }
-      reinterpret_cast<float4*>(o)[c] = acc;
-    }
-  } else {
-    for (int d = lane; d < D; d += group) {
-      float acc = 0.f;
-#pragma unroll 8
-      for (int k = 0; k < K; ++k) {
-        const float v = __ldg(val_row + k);
-        const float x = __ldg(table + clamp_id(__ldg(id_row + k), F) * D + d);
-        acc += v * tx<SQUARE>(x);
-      }
-      o[d] = acc;
-    }
+// One entry's term of the bag's single sum, for warp_rows.cuh.
+template <bool SQUARE>
+struct BagSum {
+  static constexpr int N = 1;
+  static __device__ __forceinline__ void add(float v, float x, float (&a)[1]) {
+    a[0] += v * tx<SQUARE>(x);
   }
-}
+};
 
 // --------------------------------------------------------------- backward --
 
@@ -149,23 +118,6 @@ __global__ void embed_bag_bwd(const int* __restrict__ ids,
 
 constexpr int kThreads = 128;
 
-template <bool SQUARE>
-cudaError_t launch_fwd(const int* ids, const float* vals, const float* table,
-                       float* out, int B, int K, int F, int D, int vec4,
-                       cudaStream_t s) {
-  const int group = group_size(D, vec4);
-  const int per_block = kThreads / group;
-  const int blocks = (B + per_block - 1) / per_block;
-  if (vec4) {
-    embed_bag_fwd<SQUARE, true><<<blocks, kThreads, 0, s>>>(
-        ids, vals, table, out, B, K, F, D, group);
-  } else {
-    embed_bag_fwd<SQUARE, false><<<blocks, kThreads, 0, s>>>(
-        ids, vals, table, out, B, K, F, D, group);
-  }
-  return cudaGetLastError();
-}
-
 template <bool SQUARE, bool NEED_X>
 cudaError_t launch_bwd(const int* ids, const float* vals, const float* table,
                        const float* g, float* dvals, float* dtable, int B,
@@ -192,11 +144,12 @@ extern "C" int embed_bag_launch(const int* ids, const float* vals,
                                 const float* table, float* out, int B, int K,
                                 int F, int D, int square, int vec4,
                                 void* stream) {
-  if (B <= 0 || D <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return square ? launch_fwd<true>(ids, vals, table, out, B, K, F, D, vec4, s)
-                : launch_fwd<false>(ids, vals, table, out, B, K, F, D, vec4,
-                                    s);
+  return square ? launch_warp_rows<BagSum<true>>(ids, vals, table, out,
+                                                 nullptr, B, K, F, D, vec4, s)
+                : launch_warp_rows<BagSum<false>>(ids, vals, table, out,
+                                                  nullptr, B, K, F, D, vec4,
+                                                  s);
 }
 
 // dvals ([B, K], written in full) and dtable ([F, D], zeroed by the caller)

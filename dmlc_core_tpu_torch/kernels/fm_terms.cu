@@ -21,22 +21,10 @@
 // rows plus g1 and g2, and the dense [F, D] gradient the caller zeroes
 // (128 MiB at F = 2^20, D = 32, the floor of the call).
 // Design:
-//   * forward: one warp per row b, several rows per 256-thread block.  The
-//     warp loads the row's ids and values with coalesced loads, E at a time
-//     (WarpShape in common.cuh), and splits into 32/G groups of G = D/4
-//     lanes (float4; D lanes, capped at 32 and looping over columns, when
-//     the rows are not 16-byte aligned).  Group j takes k = j mod 32/G and
-//     issues the float4 row loads of U = 16 such k before it sums any, so
-//     at D = 32 a row's 64 gathers are in flight at once: one round trip
-//     for the ids and one for the rows, not K/8 x 2 (16 k a group ran
-//     faster than 8 at B 4096 on the H100).  The
-//     groups' partial s1 and s2 meet in a fixed xor shuffle tree and are
-//     written as float4.  When B alone leaves the card short of about eight
-//     warps per SM (the serving bucket, B 128), the launcher splits k over
-//     up to 8 warps a row, and the block adds their partials from shared
-//     memory in k order.  Every order is fixed by B, K and D, so results
-//     are bit-equal from call to call; they are allclose, not bit-equal,
-//     to the in-order sum of the plain version.
+//   * forward: the warp-per-row loop of warp_rows.cuh (shared with the
+//     embed-bag forward) with both sums, FmSums below: a warp per row b,
+//     the row's gathers in flight together, a fixed shuffle tree, a k split
+//     at small B (the serving bucket, B 128).  Bit-equal from call to call.
 //   * backward: one fused pass, a group of D/4 threads per entry (b, k) with
 //     float4 loads when D % 4 == 0 and the rows are 16-byte aligned (D
 //     threads without), as embed_bag_bwd in embed_bag.cu.  The gathered row
@@ -48,124 +36,20 @@
 // The TPU kernel's 8-row blocks, SMEM scalar chunking and DMA ring are TPU
 // artifacts and have no counterpart here.
 
-#include "common.cuh"
+#include "warp_rows.cuh"
 
 namespace {
 
 // ---------------------------------------------------------------- forward --
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kFwdThreads = 256;
-constexpr int kFwdWarps = kFwdThreads / 32;
-
-// `split` warps per row b, each over a contiguous slice of k; kFwdWarps /
-// split rows per block.  Every warp reaches every shuffle and barrier (a
-// warp past the last row loads nothing and writes nothing).
-template <bool VEC4, int G>
-__global__ void __launch_bounds__(kFwdThreads)
-fm_terms_kernel(const int* __restrict__ ids, const float* __restrict__ vals,
-                const float* __restrict__ table, float* __restrict__ s1,
-                float* __restrict__ s2, int B, int K, int F, int D,
-                int split) {
-  using S = WarpShape<G, 16>;
-  constexpr int P = S::P, U = S::U, E = S::E, M = S::M;
-  constexpr int W = VEC4 ? 4 : 1;
-  __shared__ float part[kFwdWarps][2][32 * W];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
-  const int g = lane / G;                 // this lane's k in a step
-  const int j = lane % G;                 // this lane's column in the group
-  const int64_t b = (int64_t)blockIdx.x * (kFwdWarps / split) + warp / split;
-  const bool live = b < B;                // warp-uniform
-  const int kc = (K + split - 1) / split;
-  const int k0 = min(K, (warp % split) * kc), k1 = min(K, k0 + kc);
-  const int* id_row = ids + b * K;
-  const float* val_row = vals + b * K;
-  const int ncols = VEC4 ? D / 4 : D;
-
-  for (int c0 = 0; c0 < ncols; c0 += G) {
-    const int col = c0 + j;
-    const bool has_col = col < ncols;
-    float a1[W], a2[W];
-#pragma unroll
-    for (int w = 0; w < W; ++w) a1[w] = a2[w] = 0.0f;
-    for (int base = k0; live && base < k1; base += E) {
-      // the iteration's ids and values, coalesced
-      int mid[M];
-      float mval[M];
-#pragma unroll
-      for (int m = 0; m < M; ++m) {
-        const int k = base + m * 32 + lane;
-        const bool ok = m * 32 + lane < E && k < k1;
-        mid[m] = ok ? __ldg(id_row + k) : 0;
-        mval[m] = ok ? __ldg(val_row + k) : 0.0f;
-      }
-      // group g takes k = base + u * P + g: every row in flight first
-      float v[U], x[U][W];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int slot = (u * P) >> 5, src = (u * P + g) & 31;
-        const int id = __shfl_sync(kFull, mid[slot], src);
-        v[u] = __shfl_sync(kFull, mval[slot], src);
-        if (has_col && base + u * P + g < k1) {
-          load_row<W>(table + clamp_id(id, F) * D + (int64_t)col * W, x[u]);
-        } else {
-#pragma unroll
-          for (int w = 0; w < W; ++w) x[u][w] = 0.0f;
-          v[u] = 0.0f;
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          a1[w] += v[u] * x[u][w];
-          a2[w] += (v[u] * v[u]) * (x[u][w] * x[u][w]);
-        }
-      }
-    }
-    // the groups' partial sums, by a fixed xor tree
-#pragma unroll
-    for (int off = G; off < 32; off <<= 1) {
-#pragma unroll
-      for (int w = 0; w < W; ++w) {
-        a1[w] += __shfl_xor_sync(kFull, a1[w], off);
-        a2[w] += __shfl_xor_sync(kFull, a2[w], off);
-      }
-    }
-    if (split > 1) {                      // the row's warps, in k order
-      if (g == 0) {
-#pragma unroll
-        for (int w = 0; w < W; ++w) {
-          part[warp][0][j * W + w] = a1[w];
-          part[warp][1][j * W + w] = a2[w];
-        }
-      }
-      __syncthreads();
-      if (warp % split == 0 && g == 0) {
-        for (int r = 1; r < split; ++r) {
-#pragma unroll
-          for (int w = 0; w < W; ++w) {
-            a1[w] += part[warp + r][0][j * W + w];
-            a2[w] += part[warp + r][1][j * W + w];
-          }
-        }
-      }
-      __syncthreads();
-    }
-    if (live && warp % split == 0 && g == 0 && has_col) {
-      const int64_t at = b * D + (int64_t)col * W;
-      if constexpr (W == 4) {
-        *reinterpret_cast<float4*>(s1 + at) =
-            make_float4(a1[0], a1[1], a1[2], a1[3]);
-        *reinterpret_cast<float4*>(s2 + at) =
-            make_float4(a2[0], a2[1], a2[2], a2[3]);
-      } else {
-        s1[at] = a1[0];
-        s2[at] = a2[0];
-      }
-    }
+// Both FM sums of one entry, in the order the forward has always added them.
+struct FmSums {
+  static constexpr int N = 2;
+  static __device__ __forceinline__ void add(float v, float x, float (&a)[2]) {
+    a[0] += v * x;
+    a[1] += (v * v) * (x * x);
   }
-}
+};
 
 // --------------------------------------------------------------- backward --
 
@@ -242,29 +126,8 @@ extern "C" int fm_terms_launch(const int* ids, const float* vals,
                                const float* table, float* s1, float* s2,
                                int B, int K, int F, int D, int vec4,
                                void* stream) {
-  if (B <= 0 || D <= 0) return 0;
-  // split k over up to kFwdWarps warps a row while B alone leaves the card
-  // short of ~8 warps per SM and each warp keeps >= 8 k
-  const int64_t warps_wanted = 8 * (int64_t)sm_count();
-  int split = 1;
-  while (split < kFwdWarps && (int64_t)B * split < warps_wanted &&
-         K / (2 * split) >= 8) {
-    split *= 2;
-  }
-  const int rows = kFwdWarps / split;
-  const unsigned blocks = (unsigned)((B + rows - 1) / rows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return with_group(group_size(D, vec4), [&](auto gc) {
-    constexpr int G = decltype(gc)::value;
-    if (vec4) {
-      fm_terms_kernel<true, G><<<blocks, kFwdThreads, 0, s>>>(
-          ids, vals, table, s1, s2, B, K, F, D, split);
-    } else {
-      fm_terms_kernel<false, G><<<blocks, kFwdThreads, 0, s>>>(
-          ids, vals, table, s1, s2, B, K, F, D, split);
-    }
-    return cudaGetLastError();
-  });
+  return launch_warp_rows<FmSums>(ids, vals, table, s1, s2, B, K, F, D,
+                                  vec4, static_cast<cudaStream_t>(stream));
 }
 
 // dvals ([B, K], written in full) and dtable ([F, D], zeroed by the caller)

@@ -183,17 +183,23 @@ def _grad_reference(ids, vals, segments, nnz_used, table, F, g1, g2,
 def _grad_kernel(ids, vals, segments, nnz_used, table, F, g1, g2, num_rows,
                  need_dvals, need_dtable):
     """Launch ``ragged_gather_grad.cu``; ``table`` as in
-    :func:`_grad_reference`."""
+    :func:`_grad_reference`.  The embed variant at D = 1 (the linear
+    term) is one cooperative launch that zeroes ``dtable`` and scatters
+    into it; a launch that does not fit raises, as any failed launch."""
     dev = g1.device
     D = g1.shape[1]
     nnz_used = _nnz_tensor(nnz_used, dev)
     cap = ids.shape[0]
     dvals = (torch.empty(cap, dtype=torch.float32, device=dev)
              if need_dvals else None)
-    dtable = (torch.zeros(F, D, dtype=torch.float32, device=dev)
+    # the launcher zeroes dtable itself (inside the one launch at D = 1,
+    # by a memset before the kernel otherwise)
+    dtable = (torch.empty(F, D, dtype=torch.float32, device=dev)
               if need_dtable else None)
-    if cap == 0 or not (need_dvals or need_dtable):
+    if not (need_dvals or need_dtable):
         return dvals, dtable
+    if cap == 0:
+        return dvals, (dtable.zero_() if dtable is not None else None)
     ptrs = [t for t in (table, g1, g2, dtable) if t is not None]
     with torch.cuda.device(dev):
         err = _grad_launcher()(

@@ -5,8 +5,8 @@ that it runs on a card machine that has none.
 
 Tolerance ``rtol = atol = 1e-5``: the ragged gather and the backward
 kernels add with atomics in no fixed order, fm_terms and the embed-bag
-forward sum in a fixed order (so fm_terms is also held bit-equal from
-call to call) but not the plain version's.  The autograd
+forward sum in a fixed order (so both are also held bit-equal from call
+to call) but not the plain version's.  The autograd
 ``Function``s are checked with ``torch.autograd.gradcheck`` in float64 on
 their plain path (the kernels take float32 only).
 """
@@ -20,7 +20,8 @@ from dmlc_core_tpu_torch.kernels import (  # noqa: E402
     embed_bag_forward, embed_bag_grad, embed_bag_grad_reference,
     embed_bag_reference, fm_terms, fm_terms_grad, fm_terms_grad_reference,
     fm_terms_reference, launch_counts, ragged_gather, ragged_gather_grad,
-    ragged_gather_grad_reference, ragged_gather_reference)
+    ragged_gather_grad_reference, ragged_gather_reference,
+    ragged_gather_table_grad)
 from dmlc_core_tpu_torch.models import DeepFM, adam  # noqa: E402
 from dmlc_core_tpu_torch.ops import (embed_bag, fm_embed_terms,  # noqa: E402
                                      ragged_embed_grad)
@@ -146,21 +147,39 @@ def _rowmajor(rng, dev, B, K, D):
     value 0) and a table [F, D]."""
     ids = rng.integers(0, F, (B, K)).astype(np.int32)
     vals = rng.normal(size=(B, K)).astype(np.float32)
-    ids[0, :4] = BAD_IDS_GRAD
+    ids[0, :4] = BAD_IDS_GRAD[:K]
     ids[1:, K // 2:], vals[1:, K // 2:] = 0, 0.0             # padding
     table = rng.normal(size=(F, D)).astype(np.float32)
     return [torch.from_numpy(a).to(dev) for a in (ids, vals, table)]
 
 
 @pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("B,K", FM_SHAPES)
 @pytest.mark.parametrize("D", [1, 8, 32, 33])
-def test_embed_bag_kernel_matches_plain(dev, square, D):
-    ids, vals, table = _rowmajor(np.random.default_rng(D), dev, 16, 8, D)
+def test_embed_bag_kernel_matches_plain(dev, square, D, B, K):
+    """The warp-per-row forward over the fm-terms grid: k split at small
+    B, iteration boundaries of K, float4 and scalar rows; out-of-range
+    ids in row 0, padding (id 0, value 0) in every other row."""
+    ids, vals, table = _rowmajor(np.random.default_rng(D), dev, B, K, D)
     before = _count("embed_bag")
     got = embed_bag_forward(ids, vals, table, square)
     torch.testing.assert_close(
         got, embed_bag_reference(ids, vals, table, square), **TOL)
     assert _count("embed_bag") == before + 1
+    # the order of every sum is fixed: a second call is bit-equal
+    assert torch.equal(got, embed_bag_forward(ids, vals, table, square))
+
+
+@pytest.mark.parametrize("square", [False, True])
+def test_embed_bag_padding_reads_row_zero(dev, square):
+    """A padding entry multiplies table row 0 by 0, as the JAX forward
+    does: an inf there makes the rows with padding NaN on both paths."""
+    ids, vals, table = _rowmajor(np.random.default_rng(9), dev, 64, 40, 32)
+    table[0] = float("inf")
+    got = embed_bag_forward(ids, vals, table, square)
+    want = embed_bag_reference(ids, vals, table, square)
+    assert bool(got[1:].isnan().all())
+    torch.testing.assert_close(got, want, equal_nan=True, **TOL)
 
 
 @pytest.mark.parametrize("need_dvals", [False, True])
@@ -214,6 +233,65 @@ def test_ragged_gather_grad_kernel_matches_plain(dev, fm, need_dvals, D):
             torch.testing.assert_close(x, y, **TOL)
     if need_dvals:
         assert not bool(got[0][n:].any())
+
+
+D1_CASES = ["unsorted", "nnz_used_0", "cap_0", "segments_out", "odd_F",
+            "many_batches"]
+
+
+@pytest.mark.parametrize("need_dvals", [False, True])
+@pytest.mark.parametrize("case", D1_CASES)
+def test_ragged_grad_d1_matches_plain(dev, case, need_dvals):
+    """The embed backward at D = 1 (the linear term), one cooperative
+    launch that zeroes its gradient and scatters into it.  Every case
+    follows a freed NaN-filled block of the gradient's size, so a kernel
+    that relied on the allocator's memory would show NaN.  Unsorted
+    segments; a garbage tail (NaN values, in-range ids and segments) past
+    nnz_used; ``many_batches`` gives every thread of the largest grid
+    several batches (dyadic data: every sum exact in any order)."""
+    rng = np.random.default_rng(400 + D1_CASES.index(case))
+    Fc = 4099 if case == "odd_F" else F                # not a multiple of 4
+    rows = 16
+    cap = {"cap_0": 0, "many_batches": 2_500_000}.get(case, 700)
+    n = 0 if case == "nnz_used_0" else cap - cap // 7
+    ids = rng.integers(0, Fc, cap).astype(np.int32)
+    ids[:min(cap, 4)] = [-1, -Fc - 3, Fc, Fc + 7][:cap]
+    vals = rng.normal(size=cap).astype(np.float32)
+    segs = rng.integers(0, rows + 1, cap).astype(np.int32)
+    table = rng.normal(size=(Fc, 1)).astype(np.float32)
+    g1 = rng.normal(size=(rows + 1, 1)).astype(np.float32)
+    if case == "segments_out":
+        segs = rng.choice(np.array([-5, rows + 1, 2 ** 30], np.int32), cap)
+    if case == "many_batches":
+        vals = (rng.integers(-2, 3, cap) / 4).astype(np.float32)
+        table = (rng.integers(-4, 5, (Fc, 1)) / 64).astype(np.float32)
+        g1 = (rng.integers(-4, 5, (rows + 1, 1)) / 64).astype(np.float32)
+    vals[rng.random(cap) < 0.1] = 0.0                       # padding-like
+    vals[n:] = np.nan                                       # garbage tail
+    ids[n:] = rng.integers(0, Fc, cap - n)
+    a = [torch.from_numpy(x).to(dev) for x in (ids, vals, segs)]
+    nnz = torch.tensor([n], dtype=torch.int32, device=dev)
+    tab, g = (torch.from_numpy(x).to(dev) for x in (table, g1))
+    poison = torch.full((Fc, 1), float("nan"), device=dev)
+    del poison
+    before = _count("ragged_gather_grad_embed")
+    got = ragged_gather_grad(*a, nnz, tab, g, None, rows, need_dvals)
+    assert _count("ragged_gather_grad_embed") == before + (cap > 0)
+    want = ragged_gather_grad_reference(*a, nnz, tab, g, None, rows,
+                                        need_dvals)
+    for x, y in zip(got, want):
+        if x is not None:
+            assert torch.isfinite(x).all()
+            torch.testing.assert_close(x, y, **TOL)
+    if case in ("nnz_used_0", "cap_0", "segments_out"):
+        assert not bool(got[1].any())
+        if need_dvals:
+            assert not bool(got[0].any())
+    # the table-less entry point (ragged_embed_grad's) gives the same
+    poison = torch.full((Fc, 1), float("nan"), device=dev)
+    del poison
+    only = ragged_gather_table_grad(*a, nnz, g, rows, Fc)
+    torch.testing.assert_close(only, want[1], **TOL)
 
 
 def test_ragged_embed_grad_kernel_matches_plain(dev):

@@ -19,6 +19,8 @@ Tolerances: ``rtol = 1e-5, atol = 1e-6``; both sides sum the same
 float32 terms in different orders.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
@@ -55,8 +57,9 @@ def _t(a, grad=False):
 def _rowmajor(rng, B, K, D, bad=True):
     ids = rng.integers(0, F, (B, K)).astype(np.int32)
     if bad:
-        ids[0, :4] = BAD
-        ids[1, :2] = [F - 1, 0]            # the rows the bad ids read
+        ids[0, :4] = BAD[:K]
+        if B > 1:
+            ids[1, :2] = [F - 1, 0][:K]    # the rows the bad ids read
     vals = rng.normal(size=(B, K)).astype(np.float32)
     ids[2:, K - 2:], vals[2:, K - 2:] = 0, 0.0              # padding
     table = rng.normal(size=(F, D)).astype(np.float32)
@@ -113,14 +116,44 @@ def test_clamped_autograd_would_disagree_with_jax():
 # embed bag
 # ---------------------------------------------------------------------------
 
+BAG_B = (1, 9, 17)
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_bags(K, D, square):
+    """One batch per B of ``BAG_B`` at this K, D (out-of-range ids in each
+    batch's row 0, padding from row 2 on), one shared table, and the
+    Pallas embed bag in interpret mode of all of them stacked, cut back
+    into the batches: rows are independent, so one interpret-mode
+    compile serves the three B (each compile takes seconds).  Values and
+    table lie on a coarse dyadic grid, so every partial sum is exact and
+    a sum of 65 terms agrees in any order."""
+    rng = np.random.default_rng(K * 100 + D)
+    table = (rng.integers(-8, 9, (F, D)) / 64).astype(np.float32)
+    batches = []
+    for B in BAG_B:
+        ids, vals, _ = _rowmajor(rng, B, K, D)
+        vals = np.where(vals == 0, 0, rng.integers(-8, 9, (B, K)) / 8)
+        batches.append((ids, vals.astype(np.float32)))
+    want = np.asarray(jpe.embed_bag_pallas(
+        jnp.asarray(np.concatenate([i for i, _ in batches])),
+        jnp.asarray(np.concatenate([v for _, v in batches])),
+        jnp.asarray(table), square=square, interpret=True))
+    cuts = np.cumsum((0,) + BAG_B)
+    return table, [(i, v, want[a:b]) for (i, v), a, b in
+                   zip(batches, cuts[:-1], cuts[1:])]
+
+
 @pytest.mark.parametrize("square", [False, True])
 @pytest.mark.parametrize("D", [1, 8, 32])
-def test_embed_bag_forward_matches_pallas(square, D):
-    rng = np.random.default_rng(D)
-    ids, vals, table = _rowmajor(rng, 16, 8, D)
-    want = np.asarray(jpe.embed_bag_pallas(
-        jnp.asarray(ids), jnp.asarray(vals), jnp.asarray(table),
-        square=square, interpret=True))
+@pytest.mark.parametrize("K", [1, 7, 17, 65])
+@pytest.mark.parametrize("B", BAG_B)
+def test_embed_bag_forward_matches_pallas(B, K, D, square):
+    """At the shapes the card's warp-per-row forward branches on: one
+    row, a B that is no multiple of the Pallas kernel's 8-row block, K
+    below and across a warp iteration and past the k split's threshold."""
+    table, batches = _pallas_bags(K, D, square)
+    ids, vals, want = batches[BAG_B.index(B)]
     got = tops.embed_bag(_t(ids), _t(vals), _t(table), square=square)
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     ref = embed_bag_reference(_t(ids), _t(vals), _t(table), square)
@@ -276,10 +309,13 @@ def test_flat_op_grads_match_jax(op, D):
     np.testing.assert_allclose(t.grad.numpy(), np.asarray(dt), **TOL)
 
 
+@pytest.mark.parametrize("D", [1, 8])
 @pytest.mark.parametrize("fill", [0, 23, 64])
-def test_ragged_embed_grad_matches_jax(fill):
+def test_ragged_embed_grad_matches_jax(fill, D):
+    """D = 1 is the linear term's gradient (the card's one-launch path);
+    fill 0, partial and full."""
     rng = np.random.default_rng(fill)
-    rows, cap, D = 8, 64, 8
+    rows, cap = 8, 64
     ids = rng.integers(0, F, cap).astype(np.int32)
     ids[:4] = BAD
     vals = rng.normal(size=cap).astype(np.float32)
