@@ -8,11 +8,13 @@ Phases, in order; any failure exits non-zero and prints no result:
 1. device  — the card's name and power limit (nvidia-smi) and its
    compute capability, which must be (9, 0);
 2. build   — compiles every kernel under dmlc_core_tpu_torch/kernels/
-   with nvcc, one process per source, all at once;
+   with nvcc, one process per source, all at once, and beside them the
+   native parse and pack library with g++;
 3. kernels — each kernel on the card at the shapes of the path that runs
    it (serving: the ragged gather and fm terms; training: the embed bag
    and fm terms, forward and backward, at 4096 x 64 and the ragged
-   gather forward and backward at cap 131072 / 4096 rows, with
+   gather forward and backward at 4096 rows in the native packer's nnz
+   bucket of cap 131072 (as the flat training batches come), with
    out-of-range ids and padding; the ragged-gather forward also with
    the batch's entries shuffled and with all of them in one row), held
    against its plain PyTorch version (rtol = atol = 1e-5; zero fill must
@@ -29,23 +31,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    held against the plain path on the card and a few against a float64
    numpy FM; then a hot-reload to a second step, and one row-major
    forward.  The kernels' launch counts are read around this phase;
+   feed    — the host feed's stages apart over the training file: python
+   and native parse, streampack, python and native pack (ms per
+   4096-row batch), the H2D copy and device decode of each fused batch
+   (CUDA events; the card's decode array_equal to the CPU's), and each
+   loader on its own;
 5. training — six paths: DCNv2(2^20, dim=32, layers=3) and
    DeepFM(2^20, dim=32, layers=2) on row-major and flat batches,
    FactorizationMachine(2^20, dim=32) on flat and row-major batches:
-   seeded libsvm text through the port's parser and DeviceLoader, 8
-   Adam(1e-3) steps of 4096 rows on the kernels, held against the same
-   seeded model on the plain path (one step's gradients at rtol = atol
+   seeded libsvm text, labelled by a planted linear model, through the
+   port's native parser and DeviceLoader (engine="native"; the native
+   packer on the flat layout, in nnz buckets), 8 Adam(1e-3) steps of
+   4096 rows on the kernels, held against the same seeded model on the
+   plain path on the same batches (one step's gradients at rtol = atol
    = 1e-5 and within 1e-4 of each parameter's largest gradient, the
    per-step losses at rtol = 1e-4 and within a tenth of their drift,
    the trained parameters within 1e-3 of how far they moved,
-   evaluate_stream accuracy within one row and AUC within 1e-4), with
-   steps/s, a per-step breakdown and the device's idle share.  Launch
-   counts are read around each path;
+   evaluate_stream accuracy within one row and AUC within 1e-4) and
+   against the planted model (the eval AUC of each row's change in
+   score over the 8 steps at least LEARN_AUC_MIN), with steps/s over
+   the 8 steps and in steady state over 4 epochs, the consumer's wait
+   in next_batch per step, the device's per-step breakdown and its idle
+   share.  Launch counts are read around each path;
 6. cli — the port's dmlc-train (python -m dmlc_core_tpu_torch.models.cli)
    in subprocesses: DeepFM at the same width trained 8 steps on the card
    with a validation file and a checkpoint, then mode=predict on the
    eval file; the 8192 printed scores must match the restored
-   checkpoint's scores on the plain path within 2e-6.
+   checkpoint's scores on the plain path within 2e-6.  Each wall is
+   split into the interpreter's start and imports and the CLI's own
+   stages (set-up, build checks, first batch, steps, ...).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -88,6 +102,9 @@ TRAIN_STEPS = 8
 EVAL_ROWS = 2 * ROWS_TR
 BAD_IDS = [-1, -F_FEATURES - 3, F_FEATURES, F_FEATURES + 7]
 SPIN_CYCLES = 100_000_000        # device spin that covers a step's enqueue
+FEED_EPOCHS = 3                  # passes of the [feed] timings
+STEADY_EPOCHS = 4                # passes of each path's steady-state run
+HOT_IDS = 64                     # the planted model's ids
 RTOL = ATOL = 1e-5               # kernel vs plain version, same f32 inputs
 ATOL_F64 = 1e-4                  # f32 scores vs a float64 FM (sums of up
                                  # to 8192 f32 terms)
@@ -160,10 +177,22 @@ def phase_device(torch) -> str:
 
 def phase_build() -> None:
     from dmlc_core_tpu_torch.kernels import build
+    from dmlc_core_tpu_torch.native import build as native_build
     t0 = time.monotonic()
-    took = build.build_all(force=True)
+    native = {}
+    th = threading.Thread(target=lambda: native.update(
+        out=native_build.build_native(force=True)))
+    th.start()
+    try:
+        took = build.build_all(force=True)
+    finally:
+        th.join()
+    ok, report = native["out"]
+    if not ok:
+        raise RuntimeError(f"the native library failed to build: {report}")
     log(f"[build] {len(took)} kernels in {time.monotonic() - t0:.1f}s: "
         + ", ".join(f"{k} {v:.1f}s" for k, v in took.items()))
+    log(f"[build] native: {report}")
     for name in took:
         for ln in (build.ptxas_report(name) or "").splitlines():
             if "registers" in ln or "spill" in ln:
@@ -329,15 +358,24 @@ def _rowmajor_train_batch(torch, rng):
     return torch.from_numpy(ids).cuda(), torch.from_numpy(vals).cuda()
 
 
+def _bucket(nnz: int) -> int:
+    """The native packer's nnz bucket for a flat batch of ``nnz`` values
+    under ``CAP_TR``: ``nnz`` rounded up to ``CAP_TR // 8``."""
+    q = CAP_TR // 8
+    return min(CAP_TR, max(q, -(-nnz // q) * q))
+
+
 def _flat_train_batch(torch, rng):
-    """A pack_flat batch of ROWS_TR rows of 5-39 values in CAP_TR slots
+    """A flat batch of ROWS_TR rows of 5-39 values, as the native packer
+    lays it out for the training paths: in its nnz bucket of slots
     (padding: id 0, value 0, segment ROWS_TR), out-of-range ids first.
     Returns the device tensors, the live count and the row counts."""
     counts = rng.integers(5, 40, ROWS_TR)
     nnz = int(counts.sum())
-    ids = np.zeros(CAP_TR, np.int32)
-    vals = np.zeros(CAP_TR, np.float32)
-    segs = np.full(CAP_TR, ROWS_TR, np.int32)
+    cap = _bucket(nnz)
+    ids = np.zeros(cap, np.int32)
+    vals = np.zeros(cap, np.float32)
+    segs = np.full(cap, ROWS_TR, np.int32)
     ids[:nnz] = rng.integers(0, 1_000_000, nnz)
     ids[:4] = BAD_IDS
     vals[:nnz] = rng.random(nnz, dtype=np.float32)
@@ -385,7 +423,7 @@ def _gather_case(torch, timer: Timer, power: str, label: str, fids, fvals,
               for g, w in zip(got, want) if g is not None)
     ms, plain_ms = timer.ms(run), timer.ms(plain)
     nout = 2 if fm else 1
-    b_ms, b_by = bound(rows_read * Dg * 4 + 12 * CAP_TR
+    b_ms, b_by = bound(rows_read * Dg * 4 + 12 * fids.shape[0]
                        + nout * (ROWS_TR + 1) * Dg * 4,
                        (4 if fm else 2) * nnz * Dg)
     lib_ms = None
@@ -395,7 +433,7 @@ def _gather_case(torch, timer: Timer, power: str, label: str, fids, fvals,
             mode="sum", per_sample_weights=fvals[:nnz])
         _close(f"embedding_bag (flat) D={Dg}", lib(), want[0][:ROWS_TR])
         lib_ms = timer.ms(lib)
-    log(f"[kernels] {name} ({label}) cap={CAP_TR} nnz={nnz} rows="
+    log(f"[kernels] {name} ({label}) cap={fids.shape[0]} nnz={nnz} rows="
         f"{ROWS_TR} D={Dg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
         f" embedding_bag {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
         f", bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
@@ -426,10 +464,10 @@ def _training_forward(torch, timer: Timer, power: str, table, fids, fvals,
                                     foffsets)
     rng = np.random.default_rng(SEED + 7)
     perm = torch.from_numpy(np.concatenate([rng.permutation(nnz), np.arange(
-        nnz, CAP_TR)])).cuda()
+        nnz, fids.shape[0])])).cuda()
     one_segs = torch.where(fsegs < ROWS_TR, 0, fsegs)
     exact_vals = torch.from_numpy(
-        rng.integers(1, 5, CAP_TR) / 4).float().cuda() * (fvals != 0)
+        rng.integers(1, 5, fids.shape[0]) / 4).float().cuda() * (fvals != 0)
     exact_tab = torch.from_numpy(
         rng.integers(-4, 5, table.shape) / 64).float().cuda()
     cases = (("unsorted", fids[perm], fvals[perm], fsegs[perm], table),
@@ -535,7 +573,8 @@ def _zero_work_grad(torch, timer: Timer, power: str, fids, fvals, fsegs,
         raise RuntimeError("ragged_gather_grad D=1 nnz_used=0: not all zeros "
                            "after a NaN-filled allocation")
     floor_ms = timer.ms(run)
-    log(f"[kernels] ragged_gather_grad_embed cap={CAP_TR} D=1 nnz_used=0: "
+    log(f"[kernels] ragged_gather_grad_embed cap={fids.shape[0]} D=1 "
+        f"nnz_used=0: "
         f"{floor_ms:.4f} ms, exact zeros in "
         f"{'the freed NaN block' if got.data_ptr() == ptr else 'a new block'}"
         f" [{power}]")
@@ -682,9 +721,10 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                           for a, b in zip(got, want) if a is not None)
                 ms, plain_ms = timer.ms(run), timer.ms(plain)
                 need_x = fm or need_dvals
-                nbytes = (12 * CAP_TR + (1 + fm) * (ROWS_TR + 1) * Dg * 4
-                          + F * Dg * 4 + (rows_read * Dg * 4 if need_x else 0)
-                          + (CAP_TR * 4 if need_dvals else 0))
+                nbytes = (12 * fids.shape[0]
+                          + (1 + fm) * (ROWS_TR + 1) * Dg * 4 + F * Dg * 4
+                          + (rows_read * Dg * 4 if need_x else 0)
+                          + (fids.shape[0] * 4 if need_dvals else 0))
                 b_ms, b_by = bound(nbytes, ((6 if fm else 1)
                                             + 2 * need_dvals) * nnz * Dg)
                 lib_ms = None
@@ -703,7 +743,7 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                 above = ("" if floor_ms is None else
                          f" (nnz_used=0: {floor_ms:.4f} ms, above it "
                          f"{ms - floor_ms:.4f} ms)")
-                log(f"[kernels] {name} cap={CAP_TR} nnz={nnz} rows="
+                log(f"[kernels] {name} cap={fids.shape[0]} nnz={nnz} rows="
                     f"{ROWS_TR} D={Dg} dvals={need_dvals}: kernel {ms:.4f} "
                     f"ms{above}, plain {plain_ms:.4f} ms, embedding_bag "
                     f"backward "
@@ -930,6 +970,165 @@ def phase_serving(torch, timer: Timer, power: str) -> dict:
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# -- phase 4b: the host feed -------------------------------------------------
+
+def _median_ms(fn, items, reps: int) -> float:
+    """Median host-clock ms of ``fn(item)`` over ``reps`` passes."""
+    ts = []
+    for _ in range(reps):
+        for it in items:
+            t = time.perf_counter()
+            fn(it)
+            ts.append((time.perf_counter() - t) * 1e3)
+    return float(np.median(ts))
+
+
+def _loader_ms(torch, make, epochs: int) -> float:
+    """Median ms a loader takes to hand over a batch when nothing
+    consumes it (``epochs`` passes, ``before_first`` between them): what
+    the feed can deliver on its own."""
+    waits = []
+    ld = make()
+    try:
+        for epoch in range(epochs):
+            if epoch:
+                ld.before_first()
+            while True:
+                t = time.perf_counter()
+                if ld.next_batch() is None:
+                    break
+                waits.append((time.perf_counter() - t) * 1e3)
+            torch.cuda.synchronize()
+    finally:
+        ld.close()
+    return float(np.median(waits))
+
+
+def phase_feed(torch, power: str, train_file: str) -> None:
+    """[feed]: the host feed's stages apart, over the training file cut
+    into its 8 batches of text (ms per 4096-row batch, host clock,
+    median over FEED_EPOCHS passes; the python parser over one): python
+    parse, native parse (its OpenMP team and one thread), streampack
+    parse-and-pack, python pack (flat into the fused wire; row-major) and
+    native pack; then the H2D copy of each fused batch from pinned memory
+    and its device decode in CUDA events; then each loader on its own.
+    The card's decode of every batch of one epoch must be array_equal to
+    the CPU's decode of the same buffer."""
+    from dmlc_core_tpu_torch import native
+    from dmlc_core_tpu_torch.data import RowBlock, create_parser, parse_libsvm
+    from dmlc_core_tpu_torch.data.parser import _default_nthreads
+    from dmlc_core_tpu_torch.pipeline import (DeviceLoader, fused_words,
+                                              make_decoder, pack_flat,
+                                              pack_rowmajor)
+    from dmlc_core_tpu_torch.pipeline.loader import (_decode_on_host,
+                                                     _host_fused)
+    t0 = time.monotonic()
+    if not native.available():
+        raise RuntimeError("the native library is unavailable")
+    nt = _default_nthreads()
+    log(f"[feed] native library ready in {time.monotonic() - t0:.2f} s; "
+        f"parse threads {nt} (OpenMP default {native.num_threads()}), "
+        f"torch intra-op threads {torch.get_num_threads()}, cores "
+        f"{os.cpu_count()}")
+    with open(train_file, "rb") as f:
+        lines = f.read().splitlines(keepends=True)
+    texts = [b"".join(lines[i:i + ROWS_TR])
+             for i in range(0, len(lines), ROWS_TR)]
+    blocks = []
+    for t in texts:
+        d = native.parse_libsvm(t, nt)
+        blocks.append(RowBlock(d["offsets"], d["labels"], d["indices"],
+                               d["values"], d["weights"]))
+
+    def streampack(text):
+        sp = native.SpPacker(ROWS_TR, CAP_TR)
+        list(sp.feed_text(text))
+        sp.flush()
+        sp.close()
+
+    def native_pack(blk):
+        pk = native.Packer(ROWS_TR, CAP_TR)
+        list(pk.feed(blk))
+        pk.flush()
+        pk.close()
+
+    def python_flat(blk):
+        _host_fused(pack_flat(blk, ROWS_TR, CAP_TR, want_segments=False),
+                    ROWS_TR, CAP_TR)
+
+    st = {"python parse": _median_ms(parse_libsvm, texts, 1),
+          f"native parse ({nt} threads)": _median_ms(
+              lambda t: native.parse_libsvm(t, nt), texts, FEED_EPOCHS),
+          "native parse (1 thread)": _median_ms(
+              lambda t: native.parse_libsvm(t, 1), texts, FEED_EPOCHS),
+          "streampack parse+pack": _median_ms(streampack, texts,
+                                              FEED_EPOCHS),
+          "python pack flat (fused wire)": _median_ms(python_flat, blocks,
+                                                      FEED_EPOCHS),
+          "python pack row-major": _median_ms(
+              lambda b: pack_rowmajor(b, ROWS_TR, K_TR), blocks,
+              FEED_EPOCHS),
+          "native pack": _median_ms(native_pack, blocks, FEED_EPOCHS)}
+    log("[feed] host stages, ms per 4096-row batch (median): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in st.items()) + f" [{power}]")
+
+    # the fused buffers of one epoch, as the native loader emits them;
+    # the card's decode of each against the CPU's
+    ld = DeviceLoader(create_parser(train_file, engine="native"), ROWS_TR,
+                      CAP_TR, device="cuda", engine="native", emit="host")
+    items = []
+    try:
+        for _, buf, meta, _ in ld:
+            items.append((buf.copy(), int(meta)))
+            ld.recycle(buf)
+    finally:
+        ld.close()
+    h2d, dec, nbytes = [], [], []
+    for buf, meta in items:
+        words = fused_words(ROWS_TR, meta)
+        host = torch.empty(words, dtype=torch.int32, pin_memory=True)
+        host.numpy()[:] = buf[:words]
+        dev = torch.empty(words, dtype=torch.int32, device="cuda")
+        decode = make_decoder(ROWS_TR, meta)
+        for _ in range(FEED_EPOCHS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            torch.cuda._sleep(1_000_000)
+            ev[0].record()
+            dev.copy_(host, non_blocking=True)
+            ev[1].record()
+            got = decode(dev)
+            ev[2].record()
+            torch.cuda.synchronize()
+            h2d.append(ev[0].elapsed_time(ev[1]))
+            dec.append(ev[1].elapsed_time(ev[2]))
+        nbytes.append(words * 4)
+        want = _decode_on_host(buf, ROWS_TR, meta)
+        for k, w in want.items():
+            if not torch.equal(got[k].cpu(), w):
+                raise RuntimeError(f"[feed] the card's decode of {k} differs "
+                                   f"from the CPU's")
+    log(f"[feed] {len(items)} fused batches (nnz buckets "
+        f"{sorted({m for _, m in items})}): H2D from pinned memory "
+        f"{np.median(h2d):.4f} ms ({np.median(nbytes) / 1e6:.3f} MB, "
+        f"{np.median(nbytes) / np.median(h2d) / 1e6:.2f} GB/s), device "
+        f"decode {np.median(dec):.4f} ms (CUDA events, median); the card's "
+        f"decode of every batch array_equal to the CPU's [{power}]")
+
+    def loader(layout, cap, engine, **parser):
+        return lambda: DeviceLoader(
+            create_parser(train_file, engine="native", **parser), ROWS_TR,
+            cap, layout=layout, device="cuda", engine=engine)
+    alone = {"native flat": loader("flat", CAP_TR, "native"),
+             "streampack flat": loader("flat", CAP_TR, "native",
+                                       threaded=False, nthreads=1),
+             "python flat": loader("flat", CAP_TR, "python"),
+             "row-major (python pack)": loader("rowmajor", K_TR, "native")}
+    log("[feed] each loader alone, ms per batch handed over (median, "
+        f"{FEED_EPOCHS} epochs): " + ", ".join(
+            f"{k} {_loader_ms(torch, make, FEED_EPOCHS):.4f}"
+            for k, make in alone.items()) + f" [{power}]")
+
+
 # -- phase 5 ----------------------------------------------------------------
 
 TRAIN_PATHS = (            # (name, model, layout, nnz_cap or k_cap)
@@ -942,18 +1141,42 @@ TRAIN_PATHS = (            # (name, model, layout, nnz_cap or k_cap)
 )
 
 
+def _planted():
+    """The planted linear model every data file's labels come from:
+    HOT_IDS ids below 1,000,000 with N(0, 1) weights, from a seed of
+    their own (the same for every file)."""
+    rng = np.random.default_rng(SEED + 99)
+    hot = rng.choice(1_000_000, size=HOT_IDS, replace=False)
+    return hot, rng.standard_normal(HOT_IDS)
+
+
 def _write_libsvm(path: str, rows: int, seed: int) -> None:
     """Seeded libsvm text in the shape of benchmarks/bench_suite.py's
     _gen_libsvm: 5-39 sorted distinct ids below 1,000,000 per row,
-    values U[0,1), labels i & 1."""
+    values U[0,1).  Every row carries 2-4 of the planted model's hot ids
+    among them; its label is 1 where the planted score (the sum of value
+    times weight over its hot ids) lies above the file's median, so the
+    classes are balanced and a model that learns ranks the eval rows."""
     rng = np.random.default_rng(seed)
+    hot, w = _planted()
+    lines, scores = [], np.empty(rows)
+    for i in range(rows):
+        n = int(rng.integers(5, 40))
+        k = int(rng.integers(2, 5))
+        which = rng.choice(HOT_IDS, size=k, replace=False)
+        rest = rng.choice(1_000_000, size=n + k, replace=False)
+        rest = rest[~np.isin(rest, hot)][:n - k]
+        idx = np.concatenate([hot[which], rest])
+        vals = rng.random(n)
+        scores[i] = float(vals[:k] @ w[which])
+        order = np.argsort(idx)
+        lines.append(b" ".join(b"%d:%.4f" % (j, v) for j, v in
+                               zip(idx[order].tolist(),
+                                   vals[order].tolist())))
+    labels = scores > np.median(scores)
     with open(path, "wb") as f:
-        for i in range(rows):
-            n = int(rng.integers(5, 40))
-            idx = np.sort(rng.choice(1_000_000, size=n, replace=False))
-            toks = b" ".join(b"%d:%.4f" % (j, v) for j, v in
-                             zip(idx.tolist(), rng.random(n).tolist()))
-            f.write(b"%d " % (i & 1) + toks + b"\n")
+        f.write(b"".join(b"%d %s\n" % (y, ln)
+                         for y, ln in zip(labels.tolist(), lines)))
 
 
 def _model(torch, kind: str, engine: str):
@@ -976,17 +1199,19 @@ def _grads(model, batch) -> dict:
 
 
 def _step_breakdown(torch, model, opt, loader, steps: int = 4) -> dict:
-    """Per-step stages of more training steps: parse + pack + H2D on the
-    host clock (to the end of the copy), forward, backward and optimizer
-    in CUDA events.  A spin kernel queued first keeps the device busy
-    while the host enqueues the step, so the events time device work."""
-    host, fwd, bwd, optm, busy, spin_ok = [], [], [], [], [], True
+    """Device time of the forward, the backward and the optimizer of a
+    few more steps, in CUDA events, and the host's time to enqueue each
+    while the feed's threads sit idle.  A spin kernel queued first keeps
+    the device busy while the host enqueues the step, so the events time
+    device work (the batch's wait is read in steady state instead)."""
+    fwd, bwd, optm, busy, enq, spin_ok = [], [], [], [], [], True
     loader.before_first()
-    for _ in range(steps):
-        t0 = time.perf_counter()
-        batch = loader.next_batch()
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
+    batches = [loader.next_batch() for _ in range(steps)]
+    # let the pack thread run to the end of the epoch first: a python
+    # pack (row-major) holds the interpreter lock and would stretch the
+    # host's enqueue past the spin
+    time.sleep(1.0)
+    for batch in batches:
         opt.zero_grad(set_to_none=True)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
@@ -1002,7 +1227,7 @@ def _step_breakdown(torch, model, opt, loader, steps: int = 4) -> dict:
         t_enq = (time.perf_counter() - t2) * 1e3
         torch.cuda.synchronize()
         spin_ok &= ev[0].elapsed_time(ev[1]) > t_enq
-        host.append((t1 - t0) * 1e3)
+        enq.append(t_enq)
         fwd.append(ev[1].elapsed_time(ev[2]))
         bwd.append(ev[2].elapsed_time(ev[3]))
         optm.append(ev[3].elapsed_time(ev[4]))
@@ -1011,8 +1236,60 @@ def _step_breakdown(torch, model, opt, loader, steps: int = 4) -> dict:
         raise RuntimeError("the spin kernel ended before the host had "
                            "enqueued the step; raise SPIN_CYCLES")
     return {k: float(np.median(v)) for k, v in (
-        ("host_ms", host), ("forward_ms", fwd), ("backward_ms", bwd),
-        ("optimizer_ms", optm), ("device_ms", busy))}
+        ("forward_ms", fwd), ("backward_ms", bwd), ("optimizer_ms", optm),
+        ("device_ms", busy), ("enqueue_idle_ms", enq))}
+
+
+def _steady_state(torch, step, loader, epochs: int) -> dict:
+    """``epochs`` passes over the training file (``before_first`` between
+    them), one step a batch, as fast as the feed allows: steps/s on the
+    host clock from the first batch request to the last loss read back,
+    the consumer's wait in ``next_batch`` per step, and the host time to
+    enqueue a step."""
+    waits, enqueue, last = [], [], None
+    loader.before_first()
+    t0 = time.perf_counter()
+    for epoch in range(epochs):
+        if epoch:
+            loader.before_first()
+        while True:
+            a = time.perf_counter()
+            batch = loader.next_batch()
+            b = time.perf_counter()
+            if batch is None:
+                break
+            last = step(batch)
+            enqueue.append((time.perf_counter() - b) * 1e3)
+            waits.append((b - a) * 1e3)
+    float(last)
+    wall = time.perf_counter() - t0
+    return {"steps": len(waits), "wall_s": wall,
+            "wait_median_ms": float(np.median(waits)),
+            "wait_mean_ms": float(np.mean(waits)),
+            "wait_max_ms": float(np.max(waits)),
+            "enqueue_median_ms": float(np.median(enqueue))}
+
+
+def _eval_scores(torch, model, loader):
+    """Each real eval row's score (float64) and label, in file order."""
+    scores, labels = [], []
+    with torch.no_grad():
+        for batch in loader:
+            keep = batch["weights"] > 0
+            scores.append(model(batch)[keep])
+            labels.append(batch["labels"][keep])
+    return (torch.cat(scores).double().cpu().numpy(),
+            torch.cat(labels).cpu().numpy())
+
+
+def _auc(score: np.ndarray, label: np.ndarray) -> float:
+    """ROC-AUC of ``score`` against ``label > 0`` by the rank sum."""
+    ranks = np.empty(len(score))
+    ranks[np.argsort(score, kind="stable")] = np.arange(1, len(score) + 1)
+    pos = label > 0
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / max(n_pos * n_neg, 1))
 
 
 # phase 5's checks of the kernel path against the plain path; a reading
@@ -1020,15 +1297,22 @@ def _step_breakdown(torch, model, opt, loader, steps: int = 4) -> dict:
 GRAD_SCALED_TOL = 1e-4     # max|err| over max|g_plain|, each parameter
 LOSS_DRIFT_TOL = 0.1       # max|loss diff| over how far the losses moved
 PARAM_TOL = 1e-3           # ||p_kernel - p_plain|| over ||p_plain - p_init||
+# the kernel run's eval AUC of each row's change in score over the 8
+# steps (trained minus initial) must reach this: it reads about 0.5
+# (+-0.006, one standard deviation over 8192 rows) for a run that does
+# not learn (a broken backward or optimizer), and read 0.867-0.871 on
+# the six paths on an NVIDIA H100 80GB HBM3 at 700 W
+LEARN_AUC_MIN = 0.75
 
 
 def _train_checks(torch, g_kernel, g_plain, lk, lp, ev_kernel,
-                  ev_plain, model, plain, p_init) -> list:
-    """Every comparison of the kernel path with the plain path, as
-    ``(check, reading, limit, ok)`` rows.  A check must be able to fail
-    on a fault as small as the thing it compares: gradients are also
-    held against each parameter's own scale, the losses against how far
-    they moved, and the trained parameters against how far they moved."""
+                  ev_plain, model, plain, p_init, learn_auc) -> list:
+    """Every check of the kernel path, as ``(check, reading, limit, ok)``
+    rows.  A check must be able to fail on a fault as small as the
+    thing it compares: gradients are also held against each parameter's
+    own scale, the losses against how far they moved, and the trained
+    parameters against how far they moved.  The last row is the kernel
+    run's learning: the eval AUC of the change in score."""
     rows = []
     # one step's gradients, elementwise (rtol = atol = 1e-5)
     worst = max(g_plain, key=lambda k: float(
@@ -1070,6 +1354,8 @@ def _train_checks(torch, g_kernel, g_plain, lk, lp, ev_kernel,
                  and ev_kernel["weight"] == EVAL_ROWS))
     auc = abs(ev_kernel["auc"] - ev_plain["auc"])
     rows.append(("eval auc |diff|", auc, 1e-4, auc <= 1e-4))
+    rows.append(("learning: eval auc of the change in score, at least",
+                 learn_auc, LEARN_AUC_MIN, learn_auc >= LEARN_AUC_MIN))
     return rows
 
 
@@ -1080,78 +1366,99 @@ class PathDeparts(RuntimeError):
 def _train_path(torch, name, kind, layout, cap, train_file, eval_file,
                 power) -> dict:
     """One training path on engine='kernel', held against the same
-    seeded model on engine='torch'.  Returns the path's launch counts;
-    raises, after logging every check's reading, if any check fails."""
+    seeded model on engine='torch', both fed by native loaders (the
+    threaded native parser; the native packer on the flat layout).
+    Returns the path's launch counts; raises, after logging every
+    check's reading, if any check fails."""
     from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
                                      evaluate_stream, make_train_step)
     from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     def loader(path):
-        return DeviceLoader(create_parser(path), ROWS_TR, cap, layout=layout,
-                            device="cuda")
+        return DeviceLoader(create_parser(path, engine="native"), ROWS_TR,
+                            cap, layout=layout, device="cuda",
+                            engine="native")
 
     model = _model(torch, kind, "kernel")
     train_ld, eval_ld = loader(train_file), loader(eval_file)
-    opt = adam(model, LR)
-    step = make_train_step(model, opt)
+    try:
+        opt = adam(model, LR)
+        step = make_train_step(model, opt)
 
-    reset_launch_counts()                      # the path starts here
-    g_kernel = _grads(model, train_ld.next_batch())
-    train_ld.before_first()
-    batches, losses = [], []
-    t0 = time.perf_counter()
-    for batch in train_ld:
-        batches.append(batch)
-        losses.append(step(batch))
-    last = float(losses[-1])                   # the host clock stops here
-    wall = time.perf_counter() - t0
-    ev_kernel = evaluate_stream(model, eval_ld)
-    torch.cuda.synchronize()
-    launches = launch_counts()                 # the path ends here
-    if len(batches) != TRAIN_STEPS:
-        raise RuntimeError(f"{name}: {len(batches)} batches, expected "
-                           f"{TRAIN_STEPS}")
+        reset_launch_counts()                      # the path starts here
+        s_init, y_eval = _eval_scores(torch, model, eval_ld)
+        g_kernel = _grads(model, train_ld.next_batch())
+        train_ld.before_first()
+        batches, losses = [], []
+        t0 = time.perf_counter()
+        for batch in train_ld:
+            batches.append(batch)
+            losses.append(step(batch))
+        last = float(losses[-1])                   # the host clock stops
+        wall = time.perf_counter() - t0
+        eval_ld.before_first()
+        ev_kernel = evaluate_stream(model, eval_ld)
+        eval_ld.before_first()
+        s_trained, _ = _eval_scores(torch, model, eval_ld)
+        torch.cuda.synchronize()
+        launches = launch_counts()                 # the path ends here
+        if len(batches) != TRAIN_STEPS:
+            raise RuntimeError(f"{name}: {len(batches)} batches, expected "
+                               f"{TRAIN_STEPS}")
+        shapes = sorted({tuple(b["ids"].shape) for b in batches})
+        learn_auc = _auc(s_trained - s_init, y_eval)
 
-    # the same seeded model on the plain path, on the same batches
-    plain = _model(torch, kind, "torch")
-    p_init = {k: p.detach().clone() for k, p in plain.named_parameters()}
-    g_plain = _grads(plain, batches[0])
-    p_step = make_train_step(plain, adam(plain, LR))
-    p_losses = [p_step(b) for b in batches]
-    lk = torch.stack(losses).cpu().numpy()
-    lp = torch.stack(p_losses).cpu().numpy()
-    eval_ld.before_first()
-    ev_plain = evaluate_stream(plain, eval_ld)
-    checks = _train_checks(torch, g_kernel, g_plain, lk, lp,
-                           ev_kernel, ev_plain, model, plain, p_init)
-    del plain, p_step, batches, p_init, g_kernel, g_plain
-    log(f"[train] {name} checks against the plain path: " + "; ".join(
-        f"{c} {r:.3g} (limit {lim:g}{'' if ok else ', FAILED'})"
-        for c, r, lim, ok in checks))
-    failed = [c for c, _, _, ok in checks if not ok]
-    if failed:
+        # the same seeded model on the plain path, on the same batches
+        plain = _model(torch, kind, "torch")
+        p_init = {k: p.detach().clone() for k, p in plain.named_parameters()}
+        g_plain = _grads(plain, batches[0])
+        p_step = make_train_step(plain, adam(plain, LR))
+        p_losses = [p_step(b) for b in batches]
+        lk = torch.stack(losses).cpu().numpy()
+        lp = torch.stack(p_losses).cpu().numpy()
+        eval_ld.before_first()
+        ev_plain = evaluate_stream(plain, eval_ld)
+        checks = _train_checks(torch, g_kernel, g_plain, lk, lp, ev_kernel,
+                               ev_plain, model, plain, p_init, learn_auc)
+        del plain, p_step, batches, p_init, g_kernel, g_plain
+        log(f"[train] {name} checks: " + "; ".join(
+            f"{c} {r:.3g} (limit {lim:g}{'' if ok else ', FAILED'})"
+            for c, r, lim, ok in checks))
+        failed = [c for c, _, _, ok in checks if not ok]
+        if failed:
+            raise PathDeparts(f"{name}: the kernel path fails {failed}")
+
+        stages = _step_breakdown(torch, model, opt, train_ld)
+        steady = _steady_state(torch, step, train_ld, STEADY_EPOCHS)
+    finally:
         train_ld.close()
         eval_ld.close()
-        raise PathDeparts(f"{name}: kernel path departs from the plain "
-                          f"path: {failed}")
-
-    stages = _step_breakdown(torch, model, opt, train_ld)
     idle = 1.0 - TRAIN_STEPS * stages["device_ms"] / (wall * 1e3)
-    train_ld.close()
-    eval_ld.close()
+    st_rate = steady["steps"] / steady["wall_s"]
+    st_idle = 1.0 - steady["steps"] * stages["device_ms"] / (
+        steady["wall_s"] * 1e3)
     log(f"[train] {name}: {TRAIN_STEPS} steps of {ROWS_TR} rows in "
         f"{wall:.4f} s: {TRAIN_STEPS / wall:.3f} steps/s, "
-        f"{TRAIN_STEPS * ROWS_TR / wall:.1f} rows/s; loss {lk[0]:.6f} -> "
-        f"{last:.6f} (plain {lp[-1]:.6f}); eval accuracy "
-        f"{ev_kernel['accuracy']:.6f} (plain {ev_plain['accuracy']:.6f}), "
-        f"auc {ev_kernel['auc']:.6f} (plain {ev_plain['auc']:.6f}) "
-        f"[{power}]")
-    log(f"[train] {name} per step (median of 4): parse + pack + H2D "
-        f"{stages['host_ms']:.4f} ms (host clock), forward "
+        f"{TRAIN_STEPS * ROWS_TR / wall:.1f} rows/s, device idle "
+        f"{idle:.4f}; loss {lk[0]:.6f} -> {last:.6f} (plain {lp[-1]:.6f}); "
+        f"eval accuracy {ev_kernel['accuracy']:.6f} (plain "
+        f"{ev_plain['accuracy']:.6f}), auc {ev_kernel['auc']:.6f} (plain "
+        f"{ev_plain['auc']:.6f}), auc of the change in score "
+        f"{learn_auc:.6f}; batch ids shapes {shapes} [{power}]")
+    log(f"[train] {name} steady state, {STEADY_EPOCHS} epochs "
+        f"({steady['steps']} steps): {st_rate:.3f} steps/s, "
+        f"{st_rate * ROWS_TR:.1f} rows/s; wait in next_batch median "
+        f"{steady['wait_median_ms']:.4f} ms, mean "
+        f"{steady['wait_mean_ms']:.4f} ms, max {steady['wait_max_ms']:.4f} "
+        f"ms; host enqueue of a step median "
+        f"{steady['enqueue_median_ms']:.4f} ms; device busy "
+        f"{stages['device_ms']:.4f} ms/step; device idle share "
+        f"{st_idle:.4f} [{power}]")
+    log(f"[train] {name} per step (device, median of 4): forward "
         f"{stages['forward_ms']:.4f} ms, backward {stages['backward_ms']:.4f}"
-        f" ms, optimizer {stages['optimizer_ms']:.4f} ms (device), device "
-        f"busy {stages['device_ms']:.4f} ms/step; device idle share of the "
-        f"timed steps {idle:.4f} [{power}]")
+        f" ms, optimizer {stages['optimizer_ms']:.4f} ms, busy "
+        f"{stages['device_ms']:.4f} ms; host enqueue of the step with the "
+        f"feed's threads idle {stages['enqueue_idle_ms']:.4f} ms [{power}]")
     log(f"[train] {name} kernel launches: {launches}")
     return launches
 
@@ -1235,6 +1542,16 @@ def phase_cli(torch, power: str, data: str, train_file: str,
         if r.returncode != 0:
             raise RuntimeError(f"dmlc-train {' '.join(args)} exited "
                                f"{r.returncode}: {r.stderr[-2000:]}")
+        # the CLI's own split of its main(); what precedes main() is the
+        # interpreter's start and the imports
+        stages = [ln.split("INFO ", 1)[-1] for ln in r.stderr.splitlines()
+                  if "dmlc-train stages" in ln]
+        if not stages:
+            raise RuntimeError("the CLI logged no stage times")
+        main_s = float(stages[-1].split("main ", 1)[1].split("s", 1)[0])
+        what = "predict" if "mode=predict" in args else "train"
+        log(f"[cli] {what}: wall {secs:.3f} s = interpreter start and "
+            f"imports {secs - main_s:.3f} s + {stages[-1]} [{power}]")
         return r.stdout, secs
 
     train_out, train_s = run(f"data={train_file}", f"valid={eval_file}",
@@ -1254,8 +1571,9 @@ def phase_cli(torch, power: str, data: str, train_file: str,
     model = DeepFM(F_FEATURES, DIM, DEEPFM_LAYERS, engine="torch",
                    device="cuda")
     model.load_state_dict(params_from_jax(state["params"], "cuda"))
-    loader = DeviceLoader(create_parser(eval_file), ROWS_TR, CAP_TR,
-                          id_mod=F_FEATURES, device="cuda")
+    loader = DeviceLoader(create_parser(eval_file, engine="native"), ROWS_TR,
+                          CAP_TR, id_mod=F_FEATURES, device="cuda",
+                          engine="native")
     with torch.no_grad():
         want_scores = torch.cat([torch.sigmoid(model(b)) for b in loader])
     loader.close()
@@ -1386,6 +1704,7 @@ def main() -> int:
     kern = phase_kernels(torch, timer, power)
     serving = phase_serving(torch, timer, power)
     with _data_files() as (data, train_file, eval_file):
+        phase_feed(torch, power, train_file)
         training = phase_training(torch, power, train_file, eval_file)
         phase_cli(torch, power, data, train_file, eval_file)
     src = "dmlc_core_tpu_torch/kernels/"

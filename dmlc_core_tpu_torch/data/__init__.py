@@ -1,8 +1,10 @@
 """Host-side data of the port (counterpart of ``dmlc_core_tpu/data``):
-libsvm parsing into :class:`RowBlock` s."""
+libsvm parsing into :class:`RowBlock` s, natively or in python, on the
+caller's thread or ahead of it on a thread."""
 
-from .parser import LibSVMParser, create_parser, parse_libsvm  # noqa: F401
+from .parser import (ENGINES, LibSVMParser, TextParser,  # noqa: F401
+                     ThreadedParser, create_parser, parse_libsvm)
 from .row_block import RowBlock, concat_blocks  # noqa: F401
 
 __all__ = ["RowBlock", "concat_blocks", "parse_libsvm", "LibSVMParser",
-           "create_parser"]
+           "TextParser", "ThreadedParser", "create_parser", "ENGINES"]

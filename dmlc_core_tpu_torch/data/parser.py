@@ -2,28 +2,36 @@
 
 Counterpart of ``dmlc_core_tpu/data/py_parsers.py::parse_libsvm`` (the
 per-line semantics) and of the local-file part of
-``dmlc_core_tpu/data/parser.py`` (``create_parser(path, part, nparts,
-"libsvm")`` over a line-aligned byte-range split, as
+``dmlc_core_tpu/data/parser.py``: ``create_parser(path, part, nparts,
+"libsvm")`` over a line-aligned byte-range split (as
 ``io/input_split.py``'s ``InputSplitBase.reset_partition`` and
-``LineSplitter`` cut it).  Remote schemes, libfm/csv, the native parser
-and the threaded prefetch stay with the JAX package for now.
+``LineSplitter`` cut it), a :class:`TextParser` that parses each chunk
+with the native library (:mod:`..native`) or the python
+:func:`parse_libsvm`, and a :class:`ThreadedParser` that parses ahead on
+a thread.  Remote schemes and libfm/csv stay with the JAX package for
+now.
 
 :func:`parse_libsvm` keeps the JAX fallback parser's rules exactly: a
 bad label skips its line, a bad feature token ends its row, a value-less
-token ``idx`` has value 1.0.
+token ``idx`` has value 1.0.  The native parser follows the same rules.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, Optional, Union
+from typing import Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 
-from ..utils.logging import DMLCError, check
+from .. import native
+from ..utils.logging import DMLCError, check, log_info
+from ..utils.threaded_iter import ThreadedIter
 from .row_block import RowBlock
 
-__all__ = ["parse_libsvm", "LibSVMParser", "create_parser"]
+__all__ = ["parse_libsvm", "LibSVMParser", "TextParser", "ThreadedParser",
+           "create_parser", "resolve_engine", "ENGINES"]
+
+ENGINES = ("auto", "native", "python")
 
 CHUNK_BYTES = 2 << 20            # the JAX InputSplit's default chunk
 
@@ -86,11 +94,12 @@ def _to_block(d: Dict) -> RowBlock:
 
 
 class LibSVMParser:
-    """Iterates :class:`RowBlock` s, one per chunk of whole lines, over
-    part ``part_index`` of ``num_parts`` of a local file (or of ``data``
-    bytes).  The byte range is cut as the JAX ``InputSplitBase`` cuts it:
-    ``ceil(size / num_parts)`` bytes per part, each end moved forward to
-    the next line start."""
+    """The line-aligned byte-range split of a local libsvm file (or of
+    ``data`` bytes) that a :class:`TextParser` parses: chunks of whole
+    lines of part ``part_index`` of ``num_parts`` (the JAX
+    ``InputSplit``'s role).  The byte range is cut as the JAX
+    ``InputSplitBase`` cuts it: ``ceil(size / num_parts)`` bytes per
+    part, each end moved forward to the next line start."""
 
     def __init__(self, path: Optional[str] = None, part_index: int = 0,
                  num_parts: int = 1, data: Optional[bytes] = None) -> None:
@@ -124,7 +133,9 @@ class LibSVMParser:
     def before_first(self) -> None:
         self._cur = self.begin
 
-    def _next_chunk(self) -> Optional[bytes]:
+    def next_chunk(self) -> Optional[bytes]:
+        """The next chunk of whole lines of this part, or None at its
+        end."""
         while self._cur < self.end:
             stop = min(self._cur + self.chunk_bytes, self.end)
             if stop < self.end:
@@ -139,15 +150,6 @@ class LibSVMParser:
             return chunk
         return None
 
-    def __iter__(self) -> Iterator[RowBlock]:
-        while True:
-            chunk = self._next_chunk()
-            if chunk is None:
-                return
-            blk = _to_block(parse_libsvm(chunk))
-            if blk.size:
-                yield blk
-
     def close(self) -> None:
         self._data = b""
         self.begin = self.end = self._cur = 0
@@ -159,10 +161,146 @@ class LibSVMParser:
         self.close()
 
 
+class TextParser:
+    """Chunk → :class:`RowBlock` parser over a line-aligned split (the JAX
+    ``TextParser``): ``source`` has ``next_chunk()``, ``before_first()``
+    and ``close()`` (a :class:`LibSVMParser`), and ``parse_fn(chunk)``
+    is the native or the python parse kernel.  Chunks whose lines are all
+    bad give no block."""
+
+    text_format = "libsvm"
+
+    def __init__(self, source: LibSVMParser,
+                 parse_fn: Callable[[bytes], Dict], nthreads: int = 0,
+                 engine: str = "python") -> None:
+        self.source = source
+        self.parse_fn = parse_fn
+        self.nthreads = nthreads
+        self.engine = engine
+        self.bytes_read = 0
+
+    @property
+    def chunk_bytes(self) -> int:
+        return self.source.chunk_bytes
+
+    @chunk_bytes.setter
+    def chunk_bytes(self, n: int) -> None:
+        self.source.chunk_bytes = n
+
+    def parse_next(self) -> Optional[RowBlock]:
+        while True:
+            chunk = self.source.next_chunk()
+            if chunk is None:
+                return None
+            self.bytes_read += len(chunk)
+            blk = _to_block(self.parse_fn(chunk))
+            if blk.size:
+                return blk
+
+    def __iter__(self) -> Iterator[RowBlock]:
+        while True:
+            blk = self.parse_next()
+            if blk is None:
+                return
+            yield blk
+
+    def before_first(self) -> None:
+        self.source.before_first()
+
+    def close(self) -> None:
+        self.source.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class ThreadedParser(TextParser):
+    """Parses ahead of its consumer on a thread (the JAX
+    ``ThreadedParser``, queue of ``max_capacity`` blocks).  The thread
+    starts at the first block asked for, so settings such as
+    ``chunk_bytes`` made after construction still apply."""
+
+    def __init__(self, base: TextParser, max_capacity: int = 8) -> None:
+        super().__init__(base.source, base.parse_fn, base.nthreads,
+                         base.engine)
+        self.base = base
+        self._capacity = max_capacity
+        self._iter: Optional[ThreadedIter] = None
+
+    def _started(self) -> ThreadedIter:
+        if self._iter is None:
+            self._iter = ThreadedIter(self._capacity)
+            self._iter.init(lambda _cell: self.base.parse_next(),
+                            self.base.before_first, name="dmlc-parse")
+        return self._iter
+
+    def parse_next(self) -> Optional[RowBlock]:
+        out = self._started().next()
+        self.bytes_read = self.base.bytes_read
+        return out
+
+    def before_first(self) -> None:
+        if self._iter is None:
+            self.base.before_first()
+        else:
+            self._iter.before_first()
+
+    def close(self) -> None:
+        if self._iter is not None:
+            self._iter.destroy()
+        self.base.close()
+
+
+def _default_nthreads() -> int:
+    """Parse threads when the caller passes 0: ``DMLC_NUM_THREADS``, then
+    ``OMP_NUM_THREADS``, then the cores this process may run on (8 when
+    that reads 1: a container quota on a multicore host, where the extra
+    threads cost next to nothing), as the JAX package counts them."""
+    for var in ("DMLC_NUM_THREADS", "OMP_NUM_THREADS"):
+        val = os.environ.get(var, "").strip()
+        if val.isdigit() and int(val) > 0:
+            return int(val)
+    try:
+        n = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        n = os.cpu_count() or 1
+    return n if n > 1 else 8
+
+
+def resolve_engine(engine: str) -> str:
+    """``"native"`` or ``"python"``: ``auto`` takes native wherever g++
+    exists (a failed build raises) and python only without a compiler;
+    ``native`` raises when the library cannot be built."""
+    if engine not in ENGINES:
+        raise DMLCError(f"bad parse engine {engine!r}; one of {ENGINES}")
+    if engine == "python":
+        return engine
+    if native.available():
+        return "native"
+    if engine == "native":
+        raise DMLCError("engine='native' needs the native library, and it "
+                        "cannot be built: g++ not found")
+    return "python"
+
+
+def _make_kernel(engine: str, nthreads: int) -> Callable[[bytes], Dict]:
+    if engine == "native":
+        return lambda b: native.parse_libsvm(b, nthreads)
+    return parse_libsvm
+
+
 def create_parser(path: str, part_index: int = 0, num_parts: int = 1,
-                  parser_type: str = "libsvm") -> LibSVMParser:
-    """The JAX package's ``create_parser`` for a local libsvm file: a
-    plain path or a ``file://`` URI."""
+                  parser_type: str = "libsvm", nthreads: int = 0,
+                  threaded: bool = True, engine: str = "auto"):
+    """The JAX package's ``create_parser`` for a local libsvm file (a
+    plain path or a ``file://`` URI): a :class:`TextParser` over part
+    ``part_index`` of ``num_parts``, wrapped in a :class:`ThreadedParser`
+    unless ``threaded`` is False.  ``engine`` picks the parse kernel
+    (``"auto"``, ``"native"`` or ``"python"``); ``nthreads`` is the
+    native parser's OpenMP team (0: :func:`_default_nthreads`)."""
     if parser_type not in ("libsvm", "auto"):
         raise DMLCError(f"parser format {parser_type!r} is not ported yet; "
                         f"only 'libsvm' is")
@@ -172,4 +310,12 @@ def create_parser(path: str, part_index: int = 0, num_parts: int = 1,
         raise DMLCError(f"only local files are supported, got {path!r}")
     if not os.path.isfile(path):
         raise DMLCError(f"no such file: {path}")
-    return LibSVMParser(path, part_index, num_parts)
+    chosen = resolve_engine(engine)
+    if nthreads <= 0:
+        nthreads = _default_nthreads()
+    if engine == "auto":
+        log_info("parser: engine %s%s", chosen,
+                 f" ({nthreads} threads)" if chosen == "native" else "")
+    parser = TextParser(LibSVMParser(path, part_index, num_parts),
+                        _make_kernel(chosen, nthreads), nthreads, chosen)
+    return ThreadedParser(parser) if threaded else parser

@@ -12,12 +12,19 @@ path), the counterpart of ``JAX_PLATFORMS``; it is never read from the
 environment, and without a card ``device=cuda`` exits 2.
 
 It trains on the flat layout, through ``DeviceLoader(create_parser(...),
-batch_rows, nnz_cap, id_mod=features)``, with ``optax.adam``'s update
+batch_rows, nnz_cap, id_mod=features)`` (the threaded native parser and
+the native packer wherever g++ exists, as the JAX CLI's loader), with
+``optax.adam``'s update
 (``models.train.adam``).  A checkpoint holds ``params`` (the JAX param
 tree) and ``opt_state`` in ``optax.adam``'s layout
 (:func:`.convert.adam_state_to_optax`), so either package's ``resume``
 and ``mode=predict`` read the other's checkpoints.  ``ckpt_every`` saves
 synchronously at the steps where the JAX CLI's ``save_async`` saves.
+At the end of a run one line on stderr gives the host-clock seconds of
+its stages from ``main`` on: set-up, the kernel and native build checks,
+the optimizer's set-up (or a resume), the wait for the first batch, the
+steps, validation, the train AUC and the checkpoint (or, to predict, the
+scoring).
 
 Not ported yet; each exits 2 naming what is missing: ``model=ffm`` (libfm
 fields), ``format=libfm|csv``, ``workers=`` (remote ingest), ``kstep>1``
@@ -27,12 +34,13 @@ fields), ``format=libfm|csv``, ``workers=`` (remote ingest), ``kstep>1``
 from __future__ import annotations
 
 import sys
+import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from ..utils.config import Config
-from ..utils.logging import DMLCError
+from ..utils.logging import DMLCError, log_info
 from ..utils.parameter import ParamError, Parameter, field
 from ..utils.registry import Registry
 
@@ -191,14 +199,34 @@ def _refusal(p: TrainParams) -> Optional[str]:
     return None
 
 
+class _Stages:
+    """Host-clock seconds of a run's stages, logged once at the end."""
+
+    def __init__(self) -> None:
+        self.t0 = self.last = time.monotonic()
+        self.secs: Dict[str, float] = {}
+
+    def mark(self, name: str) -> None:
+        """The time since the last mark goes to stage ``name``."""
+        now = time.monotonic()
+        self.secs[name] = self.secs.get(name, 0.0) + now - self.last
+        self.last = now
+
+    def report(self) -> None:
+        log_info("dmlc-train stages (host clock): main %.3fs = %s",
+                 time.monotonic() - self.t0, ", ".join(
+                     f"{k} {v:.3f}s" for k, v in self.secs.items()))
+
+
 def _make_loader(p: TrainParams, uri: str, device: torch.device):
     """The one place a run's loader is configured: train, validation,
     end-of-run AUC and predict all see the same batch shape and
     hashing."""
     from ..data import create_parser
     from ..pipeline import DeviceLoader
-    return DeviceLoader(create_parser(_local(uri)), batch_rows=p.batch_rows,
-                        nnz_cap=p.nnz_cap, id_mod=p.features, device=device)
+    return DeviceLoader(create_parser(_local(uri), 0, 1, "libsvm"),
+                        batch_rows=p.batch_rows, nnz_cap=p.nnz_cap,
+                        id_mod=p.features, device=device)
 
 
 def _load_params(model, params, device: torch.device) -> None:
@@ -210,7 +238,8 @@ def _load_params(model, params, device: torch.device) -> None:
             from None
 
 
-def _predict(p: TrainParams, model, device: torch.device) -> int:
+def _predict(p: TrainParams, model, device: torch.device,
+             stages: _Stages) -> int:
     """Restore the latest checkpoint and write one score per input row to
     ``p.output`` (text, '%.6f\\n'; sigmoid for binary task)."""
     from ..utils.checkpoint import CheckpointManager
@@ -241,6 +270,8 @@ def _predict(p: TrainParams, model, device: torch.device) -> int:
             # and trim the last batch
             held = None
             for batch in loader:
+                if n == 0 and held is None:
+                    stages.mark("first batch")
                 scores = model(batch)
                 if p.task == "binary":
                     scores = torch.sigmoid(scores)
@@ -254,6 +285,7 @@ def _predict(p: TrainParams, model, device: torch.device) -> int:
                 n += len(tail)
     finally:
         loader.close()
+    stages.mark("predict")
     print(f"wrote {n} predictions from step {step_no} -> {p.output}",
           flush=True)
     return 0
@@ -280,7 +312,8 @@ def _resume(p: TrainParams, model, opt, device: torch.device) -> int:
     return start_n
 
 
-def _train(p: TrainParams, model, device: torch.device) -> int:
+def _train(p: TrainParams, model, device: torch.device,
+           stages: _Stages) -> int:
     from ..utils.checkpoint import CheckpointManager
     from .convert import adam_state_to_optax, params_to_numpy
     from .train import (adam, auc_from_histograms, evaluate_stream,
@@ -297,6 +330,7 @@ def _train(p: TrainParams, model, device: torch.device) -> int:
     start_n = _resume(p, model, opt, device) if p.resume else 0
     step = make_train_step(model, opt)
     mgr = CheckpointManager(_local(p.ckpt_dir)) if p.ckpt_dir else None
+    stages.mark("optimizer set-up")
 
     def save(n: int) -> None:
         mgr.save(n, {"params": params_to_numpy(model, nested=True),
@@ -306,6 +340,7 @@ def _train(p: TrainParams, model, device: torch.device) -> int:
     def eval_valid(epoch: int) -> None:
         if not p.valid:
             return
+        stages.mark("steps")
         vl = _make_loader(p, p.valid, device)
         try:
             r = evaluate_stream(model, vl, auc=p.task == "binary")
@@ -314,12 +349,15 @@ def _train(p: TrainParams, model, device: torch.device) -> int:
         auc = f" auc {r['auc']:.4f}" if "auc" in r else ""
         print(f"epoch {epoch} valid acc {r['accuracy']:.4f}{auc}",
               flush=True)
+        stages.mark("valid")
 
     n, loss, saved = start_n, None, -1
     loader = _make_loader(p, p.data, device)
     try:
         for epoch in range(p.epochs):
             for batch in loader:
+                if loss is None:
+                    stages.mark("first batch")
                 loss = step(batch)
                 old, n = n, n + 1
                 if p.log_every and old // p.log_every != n // p.log_every:
@@ -336,6 +374,7 @@ def _train(p: TrainParams, model, device: torch.device) -> int:
             return 3
         print(f"trained {p.model}: {n} steps, final loss {float(loss):.5f}",
               flush=True)
+        stages.mark("steps")
         if p.eval_auc and p.task == "binary":
             hist: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
             with torch.no_grad():
@@ -346,12 +385,14 @@ def _train(p: TrainParams, model, device: torch.device) -> int:
                                                         hist[1] + b)
             print(f"train AUC {float(auc_from_histograms(*hist)):.4f}",
                   flush=True)
+            stages.mark("train auc")
     finally:
         loader.close()
     if mgr is not None:
         if saved != n:
             save(n)
         print(f"checkpoint step {n} -> {p.ckpt_dir}", flush=True)
+        stages.mark("checkpoint")
     return 0
 
 
@@ -372,14 +413,26 @@ def main(argv: Optional[List[str]] = None) -> int:
     if why:
         print(f"dmlc-train: {why}", file=sys.stderr)
         return 2
+    from .. import native
+    from ..kernels import build
     from ..utils.device import resolve_device
+    stages = _Stages()
     try:
         device = resolve_device(p.device)
         gen = torch.Generator(device=device).manual_seed(p.seed)
         model = MODEL_REGISTRY[p.model](p, device, gen)
+        stages.mark("setup")
+        if device.type == "cuda":
+            build.build_all()           # a no-op when every kernel is fresh
+            stages.mark("kernel build check")
+        native.available()
+        stages.mark("native build check")
         if p.mode == "predict":
-            return _predict(p, model, device)
-        return _train(p, model, device)
+            rc = _predict(p, model, device, stages)
+        else:
+            rc = _train(p, model, device, stages)
+        stages.report()
+        return rc
     except DMLCError as e:
         print(f"dmlc-train: {e}", file=sys.stderr)
         return 2

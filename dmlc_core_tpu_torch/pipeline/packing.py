@@ -2,7 +2,8 @@
 
 Counterpart of ``dmlc_core_tpu/pipeline/packing.py`` (``batch_slices``,
 ``pack_flat`` with its water-fill truncation, ``pack_rowmajor``,
-``_ids32`` with ``id_mod``, ``PackStats``).  Pure numpy, and bit-equal to
+``ragged_slices`` and ``pack_ragged``, ``_ids32`` with ``id_mod``,
+``PackStats``).  Pure numpy, and bit-equal to
 the JAX package's packing on the same blocks:
 
 * :func:`pack_flat` — flat CSR: ``ids[nnz_cap]``, ``vals[nnz_cap]``,
@@ -12,6 +13,10 @@ the JAX package's packing on the same blocks:
   ``nnz_cap`` is truncated row by row with the fewest values dropped.
 * :func:`pack_rowmajor` — row-padded ``ids/vals[batch_rows, k_cap]``,
   padding id 0 and value 0.
+* :func:`pack_ragged` — the flat layout as a capacity buffer: entries
+  valid only below the ``nnz_used`` prefix word (the tail is garbage by
+  contract), batches cut by cumulative nnz (:func:`ragged_slices`), and
+  never a value truncated.
 
 Padding rows carry weight 0, so losses ignore them without masking.  Any
 truncation is counted in :class:`PackStats` and logged (at most once a
@@ -31,7 +36,8 @@ import numpy as np
 from ..data.row_block import RowBlock
 from ..utils.logging import IdOverflowError, log_warning
 
-__all__ = ["pack_flat", "pack_rowmajor", "batch_slices", "PackStats"]
+__all__ = ["pack_flat", "pack_rowmajor", "pack_ragged", "batch_slices",
+           "ragged_slices", "PackStats"]
 
 
 @dataclass
@@ -126,9 +132,11 @@ def _row_tail(block: RowBlock, batch_rows: int):
 
 
 def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
-              stats: Optional[PackStats] = None,
-              id_mod: int = 0) -> Dict[str, np.ndarray]:
-    """Flat-CSR fixed-shape batch; ``block.size`` must be ≤ batch_rows."""
+              stats: Optional[PackStats] = None, id_mod: int = 0,
+              want_segments: bool = True) -> Dict[str, np.ndarray]:
+    """Flat-CSR fixed-shape batch; ``block.size`` must be ≤ batch_rows.
+    ``want_segments=False`` leaves out ``segments`` (the fused wire
+    rebuilds them from ``row_ptr``)."""
     n = block.size
     if n > batch_rows:
         raise ValueError(f"block rows {n} > batch_rows {batch_rows}")
@@ -139,7 +147,8 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
 
     ids = np.zeros(nnz_cap, np.int32)
     vals = np.zeros(nnz_cap, np.float32)
-    segments = np.full(nnz_cap, batch_rows, np.int32)   # padding → scratch
+    segments = (np.full(nnz_cap, batch_rows, np.int32)  # padding → scratch
+                if want_segments else None)
     row_ptr = np.empty(batch_rows + 1, np.int32)
 
     truncated = trunc_rows = 0
@@ -147,7 +156,9 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
         src = slice(int(offsets[0]), int(offsets[0]) + total)
         ids[:total] = _ids32(block.indices[src], id_mod)
         vals[:total] = block.values[src] if block.values is not None else 1.0
-        segments[:total] = np.repeat(np.arange(n, dtype=np.int32), counts)
+        if want_segments:
+            segments[:total] = np.repeat(np.arange(n, dtype=np.int32),
+                                         counts)
         row_ptr[:n + 1] = rel
         row_ptr[n + 1:] = total
     else:
@@ -161,7 +172,8 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
             ids[pos:pos + k] = _ids32(block.indices[b:b + k], id_mod)
             vals[pos:pos + k] = (block.values[b:b + k]
                                  if block.values is not None else 1.0)
-            segments[pos:pos + k] = r
+            if want_segments:
+                segments[pos:pos + k] = r
             pos += k
         truncated = total - pos
         _note_truncation(truncated, trunc_rows, "pack_flat")
@@ -177,8 +189,11 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
         stats.truncated_rows += trunc_rows
         stats.true_nnz += total - truncated
         stats.padded_nnz += nnz_cap
-    return {"ids": ids, "vals": vals, "segments": segments,
-            "row_ptr": row_ptr, "labels": labels, "weights": weights}
+    out = {"ids": ids, "vals": vals, "row_ptr": row_ptr, "labels": labels,
+           "weights": weights}
+    if want_segments:
+        out["segments"] = segments
+    return out
 
 
 def pack_rowmajor(block: RowBlock, batch_rows: int, k_cap: int,
@@ -210,3 +225,65 @@ def pack_rowmajor(block: RowBlock, batch_rows: int, k_cap: int,
         stats.true_nnz += int(offsets[n] - offsets[0]) - truncated
         stats.padded_nnz += batch_rows * k_cap
     return {"ids": ids, "vals": vals, "labels": labels, "weights": weights}
+
+
+def ragged_slices(block: RowBlock, batch_rows: int,
+                  nnz_cap: int) -> Iterator[RowBlock]:
+    """Consecutive slices of ``block`` cut by cumulative nnz against
+    ``nnz_cap`` and by rows against ``batch_rows`` (O(1) views).  A row
+    that alone holds more than ``nnz_cap`` values raises: the ragged path
+    never truncates."""
+    offsets = block.offsets.astype(np.int64)
+    rel = offsets - offsets[0]
+    start = 0
+    while start < block.size:
+        end = int(np.searchsorted(rel, rel[start] + nnz_cap,
+                                  side="right")) - 1
+        end = min(end, start + batch_rows, block.size)
+        if end <= start:
+            raise ValueError(
+                f"row {start} holds {int(rel[start + 1] - rel[start])} "
+                f"values > nnz_cap={nnz_cap}; the ragged path never "
+                f"truncates — raise the capacity")
+        yield block.slice(start, end)
+        start = end
+
+
+def pack_ragged(block: RowBlock, batch_rows: int, nnz_cap: int,
+                stats: Optional[PackStats] = None,
+                id_mod: int = 0) -> Dict[str, np.ndarray]:
+    """Flat capacity batch: :func:`pack_flat`'s keys and shapes plus the
+    int32 words ``nnz_used`` and ``rows_used``.  The nnz-sized arrays are
+    ``np.empty`` and written only below ``nnz_used`` (their tails are
+    garbage by contract); the row-sized arrays get clean tails.  Raises
+    when ``block`` exceeds either capacity (cut it with
+    :func:`ragged_slices`)."""
+    n = block.size
+    if n > batch_rows:
+        raise ValueError(f"block rows {n} > batch_rows {batch_rows}")
+    offsets = block.offsets.astype(np.int64)
+    rel = offsets - offsets[0]
+    total = int(rel[-1])
+    if total > nnz_cap:
+        raise ValueError(
+            f"block nnz {total} > nnz_cap {nnz_cap}; the ragged path "
+            f"never truncates — cut with ragged_slices")
+    ids = np.empty(nnz_cap, np.int32)
+    vals = np.empty(nnz_cap, np.float32)
+    segments = np.empty(nnz_cap, np.int32)
+    src = slice(int(offsets[0]), int(offsets[0]) + total)
+    ids[:total] = _ids32(block.indices[src], id_mod)
+    vals[:total] = block.values[src] if block.values is not None else 1.0
+    segments[:total] = np.repeat(np.arange(n, dtype=np.int32), np.diff(rel))
+    row_ptr = np.empty(batch_rows + 1, np.int32)
+    row_ptr[:n + 1] = rel
+    row_ptr[n + 1:] = total
+    labels, weights = _row_tail(block, batch_rows)
+    if stats is not None:
+        stats.rows += n
+        stats.padded_rows += batch_rows - n
+        stats.true_nnz += total
+        stats.padded_nnz += total          # ragged math reduces true nnz
+    return {"ids": ids, "vals": vals, "segments": segments,
+            "row_ptr": row_ptr, "labels": labels, "weights": weights,
+            "nnz_used": np.int32(total), "rows_used": np.int32(n)}

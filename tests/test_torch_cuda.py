@@ -446,3 +446,83 @@ def test_fm_terms_function_gradcheck_plain_f64(dev):
     assert torch.autograd.gradcheck(
         lambda v, t: fm_embed_terms(ids, v, t, engine="torch"),
         (vals, table))
+
+
+# -- the host feed on the card -------------------------------------------------
+
+def _feed_file(path, rows=1037, seed=5):
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for i in range(rows):
+            n = int(rng.integers(5, 40))
+            idx = np.sort(rng.choice(1_000_000, size=n, replace=False))
+            f.write(b"%d " % (i & 1) + b" ".join(
+                b"%d:%.4f" % (j, v) for j, v in
+                zip(idx.tolist(), rng.random(n).tolist())) + b"\n")
+    return str(path)
+
+
+FEED_CASES = {
+    "native": dict(),
+    "native_pool": dict(put_threads=3),
+    "streampack": dict(parser=dict(threaded=False, nthreads=1)),
+    "python_flat": dict(engine="python"),
+    "rowmajor": dict(layout="rowmajor"),
+    "ragged": dict(ragged=True),
+}
+
+
+def _feed(path, device, kw, epochs=2, stream=None):
+    from dmlc_core_tpu_torch.data import create_parser
+    from dmlc_core_tpu_torch.pipeline import DeviceLoader
+    kw = dict(kw)
+    parser = kw.pop("parser", {})
+    cap = 64 if kw.get("layout") == "rowmajor" else 4096
+    out, sums = [], []
+    with DeviceLoader(create_parser(path, engine="native", **parser), 128,
+                      cap, device=device, **kw) as ld, \
+            torch.cuda.stream(stream):
+        for e in range(epochs):
+            if e:
+                ld.before_first()
+            for b in ld:
+                out.append(b)
+                if stream is not None:
+                    sums.append(b["vals"].double().sum())
+    return out, sums
+
+
+@pytest.mark.parametrize("case", sorted(FEED_CASES))
+def test_loader_on_the_card_matches_the_cpu(dev, tmp_path, case):
+    """Batches the card receives (held until the end, while the loader
+    recycles its pinned buffers and the allocator its blocks) equal the
+    CPU loader's; ragged batches on their live prefix."""
+    path = _feed_file(tmp_path / "d.libsvm")
+    card, _ = _feed(path, "cuda", FEED_CASES[case])
+    torch.cuda.synchronize()
+    cpu, _ = _feed(path, "cpu", FEED_CASES[case])
+    assert len(card) == len(cpu) == 18
+    for c, w in zip(card, cpu):
+        assert set(c) == set(w)
+        for k in w:
+            assert c[k].device.type == "cuda"
+            got, want = c[k].cpu(), w[k]
+            if "nnz_used" in w and k in ("ids", "vals", "segments"):
+                n = int(w["nnz_used"])
+                got, want = got[:n], want[:n]
+            assert got.dtype == want.dtype and got.shape == want.shape, k
+            assert torch.equal(got, want), (case, k)
+
+
+def test_loader_batches_are_ready_on_the_consumers_stream(dev, tmp_path):
+    """A consumer on a stream of its own reads each batch after its copy
+    and decode: the sums it takes there equal the CPU's."""
+    path = _feed_file(tmp_path / "d.libsvm", seed=6)
+    side = torch.cuda.Stream()
+    _, sums = _feed(path, "cuda", {}, stream=side)
+    cpu, _ = _feed(path, "cpu", {})
+    side.synchronize()
+    want = [b["vals"].double().sum() for b in cpu]
+    assert len(sums) == len(want)
+    for s, w in zip(sums, want):
+        assert float(s) == float(w)

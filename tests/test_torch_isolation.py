@@ -1,7 +1,9 @@
 """The PyTorch port stands alone: importing it and every one of its
-modules pulls in neither JAX nor the JAX package, and no source file of
-the port (nor ``chip_smoke.py``) names them in an import.  Importing
-compiles nothing."""
+modules (the native library's binding, the threaded parser and the
+loader's pack and transfer threads among them) pulls in neither JAX nor
+the JAX package, and no source file of the port (nor ``chip_smoke.py``)
+names them in an import.  Importing compiles nothing and starts no
+thread."""
 
 import ast
 import os
@@ -19,6 +21,12 @@ import dmlc_core_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for n in names:
     importlib.import_module(n)
+new = ("dmlc_core_tpu_torch.native", "dmlc_core_tpu_torch.native.build",
+       "dmlc_core_tpu_torch.utils.threaded_iter",
+       "dmlc_core_tpu_torch.pipeline.loader", "dmlc_core_tpu_torch.data.parser")
+assert all(n in sys.modules for n in new), new
+import threading
+assert threading.active_count() == 1, threading.enumerate()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "optax", "dmlc_core_tpu"))
 print(len(names), bad)
@@ -31,9 +39,10 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.strip().split(" ", 1)
-    assert int(count) >= 15
+    assert int(count) >= 20
     assert bad == "[]", f"port imported {bad}"
     assert "kernels: built" not in out.stderr       # nothing compiled
+    assert "native: built" not in out.stderr
 
 
 def _sources():

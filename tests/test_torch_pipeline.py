@@ -149,13 +149,15 @@ def test_loader_batches_equal_jax_device_loader(tmp_path, monkeypatch,
     from dmlc_core_tpu.pipeline.device_loader import \
         DeviceLoader as JDeviceLoader
     # the JAX loader's numpy pack path pads every batch to nnz_cap (its
-    # native packer sizes batches to an nnz bucket instead)
+    # native packer sizes batches to an nnz bucket instead); the port's
+    # loader takes the same path with engine="python"
     monkeypatch.setattr(native, "has_packer", lambda: False)
     path = tmp_path / "d.libsvm"
     path.write_bytes(libsvm_text(101, seed=5))
     parser = create_parser(str(path))
     parser.chunk_bytes = 2048                 # partial batches get carried
-    with DeviceLoader(parser, 32, cap, layout=layout, device="cpu") as ld:
+    with DeviceLoader(parser, 32, cap, layout=layout, device="cpu",
+                      engine="python") as ld:
         got = [{k: v.numpy().copy() for k, v in b.items()} for b in ld]
         ld.before_first()
         again = [b["ids"].numpy().copy() for b in ld]
