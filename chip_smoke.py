@@ -23,7 +23,11 @@ Phases, in order; any failure exits non-zero and prints no result:
    and B 128), with CUDA-event times of kernel, plain version, the same
    call with next to no work (embed bag B 1 K 1, D = 1 backward with
    nnz_used = 0) and, where one PyTorch call computes the same function,
-   that call;
+   that call; then the fused Adam and FTRL kernels (kernels/optim.cu)
+   over every parameter of FM, DCNv2 (and logreg, FTRL) at 2^20
+   features, 8 steps against their plain versions (rtol 1e-6, atol
+   1e-7), timed beside a launch over no tensors, the plain version and,
+   for Adam, torch.optim.Adam (foreach, and fused + capturable);
 4. serving — FactorizationMachine(num_features=2^20, dim=32) from seeded
    weights, saved and restored through the port's CheckpointManager and
    served by InferenceEngine + MicroBatcher in padded and ragged mode
@@ -52,14 +56,28 @@ Phases, in order; any failure exits non-zero and prints no result:
    score over the 8 steps at least LEARN_AUC_MIN), with steps/s over
    the 8 steps and in steady state over 4 epochs, the consumer's wait
    in next_batch per step, the device's per-step breakdown and its idle
-   share.  Launch counts are read around each path;
+   share.  Launch counts are read around each path; the six paths run
+   the port's fused Adam;
+   kstep — the k-step trainer: DCNv2, DeepFM and FM flat (Adam) and
+   SparseLogReg flat (FTRL), 2^20 features, through DeviceLoader(emit=
+   "host") and FusedTrainer(k=8): the epoch's 8 batches are one replay of
+   one captured CUDA graph, held against the same seeded model on the
+   plain path, eager and one step a batch, with phase 5's checks
+   (learning included), then again at k=3 (graphs of 3 and 2 steps);
+   steps/s over the 8 steps (the capture apart) and in steady state over
+   4 epochs, the host's time a dispatch, the device's time of a replay
+   and its idle share; a replay counts the launches its graph recorded
+   at capture;
 6. cli — the port's dmlc-train (python -m dmlc_core_tpu_torch.models.cli)
    in subprocesses: DeepFM at the same width trained 8 steps on the card
    with a validation file and a checkpoint, then mode=predict on the
    eval file; the 8192 printed scores must match the restored
-   checkpoint's scores on the plain path within 2e-6.  Each wall is
+   checkpoint's scores on the plain path within 2e-6; then the same
+   training with kstep=8, whose checkpoint must match the kstep=1 one's
+   (each parameter within 1e-3 of how far it moved).  Each wall is
    split into the interpreter's start and imports and the CLI's own
-   stages (set-up, build checks, first batch, steps, ...).
+   stages (set-up, build checks, optimizer set-up, first batch, steps,
+   ...); a fresh interpreter times building a torch.optim.Adam.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -343,6 +361,7 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
                                    bound_by=b_by, library_ms=None,
                                    max_abs_err=err)
     results.update(_training_kernels(torch, timer, power, rng))
+    results.update(_optimizer_kernels(torch, timer, power))
     return results
 
 
@@ -749,6 +768,124 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                     f"backward "
                     f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                     f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+    return results
+
+
+# the optimizer kernels against their plain versions after 8 steps: the
+# same float32 operations in the same order, each rounded on its own
+OPT_RTOL, OPT_ATOL = 1e-6, 1e-7
+OPT_STEPS = 8
+# FTRL on the logreg path: the JAX package's defaults but l1, which at 1.0
+# would hold every weight at 0 over 8 steps of gradients near 0.01
+FTRL_ARGS = dict(alpha=0.1, beta=1.0, l1=0.01, l2=1.0)
+OPT_FLOPS = {"adam": 15, "ftrl": 16}     # operations an element
+
+
+def _optimizer_kernels(torch, timer: Timer, power: str) -> dict:
+    """The fused Adam and FTRL kernels over every parameter of the FM,
+    DCNv2 and logreg models (2^20 features): 8 steps against the plain
+    version from the same state and gradients (OPT_RTOL / OPT_ATOL), then
+    CUDA-event times of one step: kernel, a launch over no tensors (the
+    floor), the plain version and, for Adam, torch.optim.Adam (foreach,
+    its default, and fused=True, capturable=True) over the same tensors.
+    Bound: p, g and the two state tensors read, p and the state written,
+    once each: 28 bytes an element over the memory rate."""
+    from dmlc_core_tpu_torch.kernels.optim import (adam_step,
+                                                   adam_step_reference,
+                                                   empty_launch, ftrl_step,
+                                                   ftrl_step_reference)
+    dev = torch.device("cuda")
+    floors = {w: timer.ms(lambda w=w: empty_launch(w, dev))
+              for w in ("adam", "ftrl")}
+    results = {}
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    for kind, whichs in (("fm", ("adam", "ftrl")), ("dcn", ("adam", "ftrl")),
+                         ("logreg", ("ftrl",))):
+        params = [p.detach() for p in _model(torch, kind, "torch")
+                  .parameters()]
+        n = sum(p.numel() for p in params)
+        grads = [torch.randn(p.shape, generator=gen, device="cuda") * 1e-2
+                 for p in params]
+        negs = [-g for g in grads]
+
+        def state():
+            ps = [p.clone() for p in params]
+            return (ps, [torch.zeros_like(p) for p in ps],
+                    [torch.zeros_like(p) for p in ps],
+                    torch.zeros((), dtype=torch.int32, device="cuda"),
+                    torch.zeros(1, dtype=torch.int32, device="cuda"))
+
+        for which in whichs:
+            def kernel(st, g):
+                if which == "adam":
+                    adam_step(st[0], g, st[1], st[2], st[3], st[4], lr=LR,
+                              engine="kernel")
+                else:
+                    ftrl_step(st[0], g, st[1], st[2], engine="kernel",
+                              **FTRL_ARGS)
+
+            def plain(st, g):
+                if which == "adam":
+                    adam_step_reference(st[0], g, st[1], st[2], st[3], lr=LR)
+                else:
+                    ftrl_step_reference(st[0], g, st[1], st[2], **FTRL_ARGS)
+
+            sk, sp = state(), state()
+            for i in range(OPT_STEPS):
+                kernel(sk, grads if i % 2 == 0 else negs)
+                plain(sp, grads if i % 2 == 0 else negs)
+            torch.cuda.synchronize()
+            err = 0.0
+            for a, b in zip(sk[0] + sk[1] + sk[2], sp[0] + sp[1] + sp[2]):
+                err = max(err, float((a - b).abs().max()))
+                if not torch.allclose(a, b, rtol=OPT_RTOL, atol=OPT_ATOL):
+                    raise RuntimeError(
+                        f"{which} {kind}: kernel departs from the plain "
+                        f"version after {OPT_STEPS} steps: max|err| "
+                        f"{err:.3g} beyond rtol {OPT_RTOL} atol {OPT_ATOL}")
+            if which == "adam" and not (int(sk[3]) == int(sp[3])
+                                        == OPT_STEPS and int(sk[4]) == 0):
+                raise RuntimeError(f"adam {kind}: count {int(sk[3])}, "
+                                   f"ticket {int(sk[4])}")
+            ms = timer.ms(lambda: kernel(sk, grads))
+            plain_ms = timer.ms(lambda: plain(sp, grads))
+            del sp
+            b_ms, b_by = bound(28 * n, OPT_FLOPS[which] * n)
+            lib = {}
+            if which == "adam":
+                for label, kw in (("foreach", {}),
+                                  ("fused", dict(fused=True,
+                                                 capturable=True))):
+                    prm = [torch.nn.Parameter(p.clone()) for p in params]
+                    for p, g in zip(prm, grads):
+                        p.grad = g
+                    opt = torch.optim.Adam(prm, lr=LR, betas=(0.9, 0.999),
+                                           eps=1e-8, **kw)
+                    lib[label] = timer.ms(opt.step)
+                    del opt, prm
+            results[f"{which}_{kind}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib.get("fused"), max_abs_err=err,
+                floor_ms=floors[which],
+                library_foreach_ms=lib.get("foreach"), elements=n)
+            lib_txt = (f", torch.optim.Adam foreach {lib['foreach']:.4f} ms, "
+                       f"fused+capturable {lib['fused']:.4f} ms"
+                       if lib else ", no PyTorch call")
+            log(f"[kernels] {which} over {kind}'s {len(params)} tensors "
+                f"({n} elements): kernel {ms:.4f} ms (a launch over no "
+                f"tensors {floors[which]:.4f} ms), plain {plain_ms:.4f} ms"
+                f"{lib_txt}, bound {b_ms:.4f} ms ({b_by}; {b_ms / ms:.1%} "
+                f"of it reached); after {OPT_STEPS} steps max|err| "
+                f"{err:.3g} (limit rtol {OPT_RTOL} atol {OPT_ATOL}) "
+                f"[{power}]")
+            del sk
+        del params, grads, negs
+        torch.cuda.empty_cache()
+    # the rows of the kernels line: Adam on the FM path, FTRL on the logreg
+    # path, each with its DCNv2 (and FM) figures beside
+    results["adam"] = dict(results["adam_fm"], dcn=results["adam_dcn"])
+    results["ftrl"] = dict(results["ftrl_logreg"], fm=results["ftrl_fm"],
+                           dcn=results["ftrl_dcn"])
     return results
 
 
@@ -1180,8 +1317,11 @@ def _write_libsvm(path: str, rows: int, seed: int) -> None:
 
 
 def _model(torch, kind: str, engine: str):
-    from dmlc_core_tpu_torch import DCNv2, DeepFM, FactorizationMachine
+    from dmlc_core_tpu_torch import (DCNv2, DeepFM, FactorizationMachine,
+                                     SparseLogReg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if kind == "logreg":
+        return SparseLogReg(F_FEATURES, engine=engine, device="cuda")
     if kind == "dcn":
         return DCNv2(F_FEATURES, DIM, LAYERS, engine=engine, device="cuda",
                      generator=gen)
@@ -1412,7 +1552,7 @@ def _train_path(torch, name, kind, layout, cap, train_file, eval_file,
         plain = _model(torch, kind, "torch")
         p_init = {k: p.detach().clone() for k, p in plain.named_parameters()}
         g_plain = _grads(plain, batches[0])
-        p_step = make_train_step(plain, adam(plain, LR))
+        p_step = make_train_step(plain, adam(plain, LR, engine="torch"))
         p_losses = [p_step(b) for b in batches]
         lk = torch.stack(losses).cpu().numpy()
         lp = torch.stack(p_losses).cpu().numpy()
@@ -1508,6 +1648,208 @@ def phase_training(torch, power: str, train_file: str, eval_file: str,
     return caught if planted else total
 
 
+# -- phase 5b: the k-step trainer ---------------------------------------------
+
+KSTEP = 8                  # one epoch of the training file is one group
+KSTEP_PARTIAL = 3          # groups of 3, 3 and 2: a partial-group graph
+KSTEP_PATHS = (            # (name, model, optimizer)
+    ("dcn_flat_kstep", "dcn", "adam"),
+    ("deepfm_flat_kstep", "deepfm", "adam"),
+    ("fm_flat_kstep", "fm", "adam"),
+    ("logreg_flat_ftrl_kstep", "logreg", "ftrl"),
+)
+
+
+def _optimizer(kind: str, model, engine: str):
+    from dmlc_core_tpu_torch import FTRL, Adam
+    if kind == "ftrl":
+        return FTRL(model.parameters(), engine=engine, **FTRL_ARGS)
+    return Adam(model.parameters(), lr=LR, engine=engine)
+
+
+def _fused_epoch(torch, trainer, loader) -> list:
+    """One pass of a host-emitting loader through ``trainer``: every
+    dispatch's losses, in order (a copy each, on the device)."""
+    losses, steps = [], trainer.steps
+    for item in loader:
+        trainer.feed(item)
+        if trainer.steps != steps:
+            losses.append(trainer.losses)
+            steps = trainer.steps
+    trainer.flush()
+    if trainer.steps != steps:
+        losses.append(trainer.losses)
+    return losses
+
+
+def _kstep_path(torch, name, kind, opt_kind, train_file, eval_file,
+                power) -> dict:
+    """One flat path through DeviceLoader(emit="host") and FusedTrainer:
+    k = 8 (the epoch's 8 batches, one replay) held against the same seeded
+    model on the plain path, eager and per step, with _train_checks'
+    limits; k = 3 (groups 3, 3, 2) held against the same plain run; then
+    the steady state over STEADY_EPOCHS with k = 8.  Returns the launch
+    counts of the k = 8 run."""
+    from dmlc_core_tpu_torch import (DeviceLoader, FusedTrainer,
+                                     create_parser, evaluate_stream,
+                                     make_train_step)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    def loader(path, emit="device"):
+        return DeviceLoader(create_parser(path, engine="native"), ROWS_TR,
+                            CAP_TR, device="cuda", engine="native",
+                            emit=emit)
+
+    model = _model(torch, kind, "kernel")
+    opt = _optimizer(opt_kind, model, "kernel")
+    train_ld, eval_ld = loader(train_file), loader(eval_file)
+    host_ld = loader(train_file, emit="host")
+    try:
+        reset_launch_counts()                      # the path starts here
+        s_init, y_eval = _eval_scores(torch, model, eval_ld)
+        g_kernel = _grads(model, train_ld.next_batch())
+        model.zero_grad(set_to_none=True)
+        trainer = FusedTrainer(model, opt, host_ld, k=KSTEP)
+        t0 = time.perf_counter()
+        lk = torch.cat(_fused_epoch(torch, trainer, host_ld))
+        last = float(lk[-1])                       # the host clock stops
+        wall = time.perf_counter() - t0
+        eval_ld.before_first()
+        ev_kernel = evaluate_stream(model, eval_ld)
+        eval_ld.before_first()
+        s_trained, _ = _eval_scores(torch, model, eval_ld)
+        torch.cuda.synchronize()
+        launches = launch_counts()                 # the path ends here
+        graphs = {key: fn for key, fn in trainer._kstep_cache.items()}
+        if trainer.steps != TRAIN_STEPS or [kk for _, kk in graphs] != [
+                KSTEP]:
+            raise RuntimeError(f"{name}: {trainer.steps} steps in graphs "
+                               f"{sorted(graphs)}; expected one graph of "
+                               f"{KSTEP}")
+        capture_s = sum(fn.capture_s for fn in graphs.values())
+        learn_auc = _auc(s_trained - s_init, y_eval)
+
+        # the same seeded model on the plain path, eager, one step a batch
+        train_ld.before_first()
+        batches = list(train_ld)
+        plain = _model(torch, kind, "torch")
+        p_init = {k: p.detach().clone() for k, p in plain.named_parameters()}
+        g_plain = _grads(plain, batches[0])
+        p_step = make_train_step(plain, _optimizer(opt_kind, plain, "torch"))
+        lp = torch.stack([p_step(b) for b in batches]).cpu().numpy()
+        eval_ld.before_first()
+        ev_plain = evaluate_stream(plain, eval_ld)
+        lk = lk.cpu().numpy()
+        checks = _train_checks(torch, g_kernel, g_plain, lk, lp, ev_kernel,
+                               ev_plain, model, plain, p_init, learn_auc)
+
+        # k = 3: partial groups, from the same seeded start
+        part = _model(torch, kind, "kernel")
+        tr3 = FusedTrainer(part, _optimizer(opt_kind, part, "kernel"),
+                           host_ld, k=KSTEP_PARTIAL)
+        host_ld.before_first()
+        l3 = torch.cat(_fused_epoch(torch, tr3, host_ld)).cpu().numpy()
+        sizes3 = sorted(kk for _, kk in tr3._kstep_cache)
+        rel3 = float(np.max(np.abs(l3 - lp) / np.abs(lp)))
+        ratios = {}
+        for k, p in plain.named_parameters():
+            moved = float((p.detach() - p_init[k]).norm())
+            diff = float((dict(part.named_parameters())[k].detach()
+                          - p.detach()).norm())
+            ratios[k] = diff / max(moved, 1e-30)
+        worst = max(ratios, key=ratios.get)
+        checks += [
+            (f"k={KSTEP_PARTIAL}: graphs of {sizes3} steps, losses max rel "
+             "err", rel3, 1e-4, tr3.steps == TRAIN_STEPS and sizes3 == [
+                 KSTEP_PARTIAL - 1, KSTEP_PARTIAL] and rel3 <= 1e-4),
+            (f"k={KSTEP_PARTIAL}: parameters ||k-p||/||p-p0|| ({worst})",
+             ratios[worst], PARAM_TOL, ratios[worst] <= PARAM_TOL)]
+        del plain, p_step, batches, p_init, g_kernel, g_plain, part, tr3
+        log(f"[kstep] {name} checks: " + "; ".join(
+            f"{c} {r:.3g} (limit {lim:g}{'' if ok else ', FAILED'})"
+            for c, r, lim, ok in checks))
+        failed = [c for c, _, _, ok in checks if not ok]
+        if failed:
+            raise PathDeparts(f"{name}: the k-step path fails {failed}")
+
+        # steady state: STEADY_EPOCHS passes, k = 8, the host's time in
+        # each dispatch (stack, copy, replay and the losses' copy enqueued)
+        flush = trainer._flush_group
+        host = []
+
+        def timed_flush():
+            if trainer._group:
+                a = time.perf_counter()
+                flush()
+                host.append(time.perf_counter() - a)
+        trainer._flush_group = timed_flush
+        steps0 = trainer.steps
+        t0 = time.perf_counter()
+        for _ in range(STEADY_EPOCHS):
+            host_ld.before_first()
+            _fused_epoch(torch, trainer, host_ld)
+        float(trainer.losses[-1])
+        st_wall = time.perf_counter() - t0
+        st_steps = trainer.steps - steps0
+        trainer._flush_group = flush
+        # the device's time of one replay (8 steps), behind a spin kernel
+        fn = next(iter(graphs.values()))
+        dev_ms = []
+        for _ in range(3):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            torch.cuda._sleep(SPIN_CYCLES)
+            ev[1].record()
+            fn.run()
+            ev[2].record()
+            torch.cuda.synchronize()
+            dev_ms.append(ev[1].elapsed_time(ev[2]))
+    finally:
+        train_ld.close()
+        eval_ld.close()
+        host_ld.close()
+    step_ms = float(np.median(dev_ms)) / KSTEP
+    run_s = wall - capture_s
+    idle = 1.0 - TRAIN_STEPS * step_ms / (run_s * 1e3)
+    st_rate = st_steps / st_wall
+    st_idle = 1.0 - st_steps * step_ms / (st_wall * 1e3)
+    per_graph = {kk: dict(fn.launches) for (_, kk), fn in graphs.items()}
+    log(f"[kstep] {name}: {TRAIN_STEPS} steps of {ROWS_TR} rows in "
+        f"{wall:.4f} s of which capture {capture_s:.4f} s: "
+        f"{TRAIN_STEPS / wall:.3f} steps/s with the capture, "
+        f"{TRAIN_STEPS / run_s:.3f} without it, device idle {idle:.4f} "
+        f"without it; loss {lk[0]:.6f} -> {last:.6f} (plain {lp[-1]:.6f}); "
+        f"eval auc {ev_kernel['auc']:.6f} (plain {ev_plain['auc']:.6f}), "
+        f"auc of the change in score {learn_auc:.6f}; launches of one "
+        f"replay {per_graph} [{power}]")
+    log(f"[kstep] {name} steady state, {STEADY_EPOCHS} epochs ({st_steps} "
+        f"steps, {len(host)} dispatches): {st_rate:.3f} steps/s, "
+        f"{st_rate * ROWS_TR:.1f} rows/s; host time a dispatch median "
+        f"{np.median(host) * 1e3:.4f} ms, a step "
+        f"{np.median(host) * 1e3 / KSTEP:.4f} ms; device "
+        f"{step_ms:.4f} ms/step (one replay {np.median(dev_ms):.4f} ms, "
+        f"CUDA events); device idle share {st_idle:.4f} [{power}]")
+    log(f"[kstep] {name} kernel launches: {launches}")
+    return launches
+
+
+def phase_kstep(torch, power: str, train_file: str, eval_file: str) -> dict:
+    """The k-step trainer on the card: DCNv2, DeepFM and FM flat with
+    Adam, and SparseLogReg flat with FTRL, at full width, each as one
+    replayed CUDA graph an epoch.  Returns the launch counts summed over
+    the four paths."""
+    total: dict = {}
+    for name, kind, opt_kind in KSTEP_PATHS:
+        try:
+            launches = _kstep_path(torch, name, kind, opt_kind, train_file,
+                                   eval_file, power)
+        finally:
+            torch.cuda.empty_cache()
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
 # -- phase 6 ----------------------------------------------------------------
 
 CLI_TOL = 2e-6             # printed scores ('%.6f') vs the in-process ones
@@ -1591,6 +1933,47 @@ def phase_cli(torch, power: str, data: str, train_file: str,
     if not np.isfinite(got).all() or err > CLI_TOL:
         raise RuntimeError(f"CLI predictions depart from the checkpoint's "
                            f"scores: max|err| {err:.3g}")
+
+    # kstep=8: the epoch's 8 steps as one replayed graph; its checkpoint
+    # against the kstep=1 run's, each parameter against how far it moved
+    ckpt8 = os.path.join(data, "cli_ckpt_kstep")
+    out8, train8_s = run(f"data={train_file}", f"ckpt_dir={ckpt8}",
+                         "kstep=8")
+    if want not in out8:
+        raise RuntimeError(f"the kstep=8 CLI's log lacks {want!r}")
+    step8, state8 = CheckpointManager(ckpt8).restore()
+    init = DeepFM(F_FEATURES, DIM, DEEPFM_LAYERS, engine="torch",
+                  device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(0))
+    p0 = {k: v.detach() for k, v in init.named_parameters()}
+    p1 = params_from_jax(state["params"], "cuda")
+    p8 = params_from_jax(state8["params"], "cuda")
+    ratios = {k: float((p8[k] - p1[k]).norm())
+              / max(float((p1[k] - p0[k]).norm()), 1e-30) for k in p0}
+    worst = max(ratios, key=ratios.get)
+    count8 = int(np.asarray(state8["opt_state"][0][0]))
+    log(f"[cli] train kstep=8 {train8_s:.1f} s; checkpoint step {step8}, "
+        f"Adam count {count8}; parameters ||k8-k1||/||k1-p0|| "
+        f"({worst}) {ratios[worst]:.3g} (limit {PARAM_TOL:g}) [{power}]")
+    if (step8 != TRAIN_STEPS or count8 != TRAIN_STEPS
+            or ratios[worst] > PARAM_TOL):
+        raise RuntimeError("the kstep=8 CLI run departs from kstep=1")
+
+    # what "optimizer set-up" cost before the port's own Adam: building a
+    # torch.optim.Adam in a fresh interpreter, and what it imported
+    probe = ("import json, sys, time; t0 = time.perf_counter(); "
+             "import torch; t1 = time.perf_counter(); "
+             "p = torch.nn.Parameter(torch.zeros(8, device='cuda')); "
+             "t2 = time.perf_counter(); had = 'torch._dynamo' in "
+             "sys.modules; torch.optim.Adam([p], lr=1e-3); "
+             "t3 = time.perf_counter(); "
+             "print(json.dumps({'import_torch_s': t1 - t0, "
+             "'cuda_init_s': t2 - t1, 'torch_optim_adam_s': t3 - t2, "
+             "'dynamo_imported_before': had, 'dynamo_imported_after': "
+             "'torch._dynamo' in sys.modules}))")
+    r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                       text=True, timeout=300, check=True)
+    log(f"[cli] a fresh interpreter: {r.stdout.strip()} [{power}]")
 
 
 # -- planted faults -----------------------------------------------------------
@@ -1706,6 +2089,7 @@ def main() -> int:
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
         training = phase_training(torch, power, train_file, eval_file)
+        kstep = phase_kstep(torch, power, train_file, eval_file)
         phase_cli(torch, power, data, train_file, eval_file)
     src = "dmlc_core_tpu_torch/kernels/"
     # name: (source, TPU kernel, the path whose launches it reports)
@@ -1729,6 +2113,10 @@ def main() -> int:
                                      training),
         "fm_terms_grad": ("fm_terms.cu",
                           "dmlc_core_tpu/ops/pallas_embed.py:326", training),
+        # no Pallas counterpart: the JAX package's optimizer updates, XLA
+        "adam": ("optim.cu", "dmlc_core_tpu/models/train.py:106",
+                 {"adam": training.get("adam", 0) + kstep.get("adam", 0)}),
+        "ftrl": ("optim.cu", "dmlc_core_tpu/models/ftrl.py:57", kstep),
     }
     missing = [k for k, (_, _, path) in meta.items() if path.get(k, 0) < 1]
     # the forward kernels run on the training paths too
@@ -1736,6 +2124,10 @@ def main() -> int:
                                             "ragged_gather_embed",
                                             "fm_terms")
                 if training.get(k, 0) < 1]
+    # every kernel of the flat paths runs inside the k-step graphs
+    missing += [f"{k} (kstep)" for k in (
+        "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
+        "ragged_gather_grad_embed", "adam", "ftrl") if kstep.get(k, 0) < 1]
     if missing:
         raise RuntimeError(f"main path never launched: {missing}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -1746,9 +2138,11 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src + cu,
                "replaces": replaces, "launches": path.get(name, 0),
                **{key: k[key] for key in keys}}
-        if "floor_ms" in k:
-            # the same kernel with next to no work (see the log)
-            row["floor_ms"] = k["floor_ms"]
+        for extra in ("floor_ms", "library_foreach_ms", "dcn", "fm"):
+            # the same kernel with next to no work; torch.optim.Adam's
+            # default (foreach); the optimizers at the other models' shapes
+            if extra in k:
+                row[extra] = k[extra]
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
             # training batch's shapes, with the training launches

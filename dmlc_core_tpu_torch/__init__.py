@@ -19,6 +19,12 @@ It trains the factorization machine, DeepFM and DCNv2::
                           nnz_cap=64, layout="rowmajor")
     fit_stream(model, loader, optimizer=adam(model, 1e-3))
 
+k steps a dispatch, each dispatch one replay of a captured CUDA graph::
+
+    loader = DeviceLoader(create_parser("train.libsvm"), batch_rows=4096,
+                          nnz_cap=131072, emit="host")
+    fit_stream(model, loader, optimizer=adam(model, 1e-3), kstep=8)
+
 or from the command line, as the JAX package's ``dmlc-train``::
 
     python -m dmlc_core_tpu_torch.models.cli model=deepfm data=train.libsvm
@@ -35,9 +41,10 @@ and serves the factorization machine::
 from . import (data, kernels, models, ops, pipeline,  # noqa: F401
                serving, utils)
 from .data import create_parser  # noqa: F401
-from .models import (DCNv2, DeepFM, FactorizationMachine,  # noqa: F401
-                     SparseLogReg, adam, evaluate_stream, fit_stream,
-                     make_train_step, params_from_jax, params_to_numpy)
+from .models import (FTRL, Adam, DCNv2, DeepFM,  # noqa: F401
+                     FactorizationMachine, FusedTrainer, SparseLogReg, adam,
+                     evaluate_stream, fit_stream, make_train_step,
+                     params_from_jax, params_to_numpy)
 from .pipeline import DeviceLoader  # noqa: F401
 from .serving import (BucketLadder, InferenceEngine,  # noqa: F401
                       MicroBatcher)
@@ -48,5 +55,5 @@ __version__ = "0.1.0"
 __all__ = ["FactorizationMachine", "SparseLogReg", "DCNv2", "DeepFM",
            "params_from_jax", "params_to_numpy", "create_parser",
            "DeviceLoader", "make_train_step", "fit_stream", "evaluate_stream",
-           "adam", "InferenceEngine", "BucketLadder", "MicroBatcher",
+           "adam", "Adam", "FTRL", "FusedTrainer", "InferenceEngine", "BucketLadder", "MicroBatcher",
            "CheckpointManager", "DMLCError"]

@@ -11,12 +11,16 @@ at first use (:mod:`.build`) and bound with ctypes:
   backward of its custom VJP (``fm_terms.cu``);
 * :mod:`.embed_bag` — counterpart of
   ``dmlc_core_tpu/ops/pallas_embed.py::_kernel``, forward and backward
-  (``embed_bag.cu``).
+  (``embed_bag.cu``);
+* :mod:`.optim` — the fused Adam and FTRL steps (``optim.cu``), which
+  have no Pallas counterpart (the JAX package leaves them to XLA).
 
 Nothing is compiled or loaded at import time.
 """
 
 from .common import launch_counts, reset_launch_counts  # noqa: F401
+from .optim import (adam_step, adam_step_reference,  # noqa: F401
+                    ftrl_step, ftrl_step_reference)
 from .embed_bag import (embed_bag_forward, embed_bag_grad,  # noqa: F401
                         embed_bag_grad_reference, embed_bag_reference)
 from .fm_terms import (fm_terms, fm_terms_grad,  # noqa: F401
@@ -31,5 +35,6 @@ __all__ = ["ragged_gather", "ragged_gather_reference", "ragged_gather_grad",
            "fm_terms", "fm_terms_reference", "fm_terms_grad",
            "fm_terms_grad_reference",
            "embed_bag_forward", "embed_bag_reference", "embed_bag_grad",
-           "embed_bag_grad_reference", "launch_counts",
+           "embed_bag_grad_reference", "adam_step", "adam_step_reference",
+           "ftrl_step", "ftrl_step_reference", "launch_counts",
            "reset_launch_counts"]

@@ -31,9 +31,10 @@ No single JAX counterpart: the JAX package resolves engines per module
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
-from typing import Dict, Tuple, Union
+from typing import Dict, Iterator, Optional, Tuple, Union
 
 import torch
 
@@ -41,21 +42,28 @@ from ..utils.logging import DMLCError
 
 __all__ = ["ENGINES", "use_kernel", "clamp_ids", "grad_rows",
            "scatter_rows", "gather_rows", "check_tensor", "launch_counts",
-           "reset_launch_counts", "count_launch", "stream_handle",
-           "vec4_ok", "float_types"]
+           "reset_launch_counts", "count_launch", "record_launches",
+           "add_launches", "stream_handle", "vec4_ok", "float_types"]
 
 ENGINES = ("auto", "kernel", "torch")
 
 # kernel name -> launches since the last reset; each wrapper adds one
 # right where it launches its kernel, and nowhere else.  Wrappers run on
-# the batcher's worker thread too, hence the lock.
+# the batcher's worker thread and autograd's device thread too, hence the
+# lock.  A launch into a stream that a CUDA graph is capturing runs at
+# each replay, not now: while record_launches() is open it goes to that
+# graph's counts, which the graph's owner adds (add_launches) per replay.
 _launches: Dict[str, int] = {}
 _launches_lock = threading.Lock()
+_recording: Optional[Dict[str, int]] = None
 
 
 def count_launch(name: str) -> None:
+    rec = _recording
+    target = (rec if rec is not None
+              and torch.cuda.is_current_stream_capturing() else _launches)
     with _launches_lock:
-        _launches[name] = _launches.get(name, 0) + 1
+        target[name] = target.get(name, 0) + 1
 
 
 def launch_counts() -> Dict[str, int]:
@@ -66,6 +74,33 @@ def launch_counts() -> Dict[str, int]:
 def reset_launch_counts() -> None:
     with _launches_lock:
         _launches.clear()
+
+
+@contextlib.contextmanager
+def record_launches() -> Iterator[Dict[str, int]]:
+    """Around a CUDA graph's capture: yields the dict that collects the
+    launches made into capturing streams (from any thread: autograd runs
+    backward on its own).  One capture at a time in a process."""
+    global _recording
+    rec: Dict[str, int] = {}
+    with _launches_lock:
+        if _recording is not None:
+            raise DMLCError("a CUDA graph capture is already recording "
+                            "launches")
+        _recording = rec
+    try:
+        yield rec
+    finally:
+        with _launches_lock:
+            _recording = None
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` (a captured graph's launches) to the launch counts:
+    once per replay of the graph."""
+    with _launches_lock:
+        for name, n in counts.items():
+            _launches[name] = _launches.get(name, 0) + n
 
 
 def use_kernel(engine: str, device: torch.device) -> bool:

@@ -112,6 +112,12 @@ def _nnz_tensor(nnz_used: NnzUsed, dev: torch.device
                 ) -> Optional[torch.Tensor]:
     if nnz_used is None or isinstance(nnz_used, torch.Tensor):
         return nnz_used
+    if torch.cuda.is_current_stream_capturing():
+        # the int would cross in a pageable copy, which a capture forbids
+        # (and a graph would replay with this call's value forever)
+        raise DMLCError("nnz_used given as an int while a CUDA graph is "
+                        "capturing: pass it as an int32 tensor on the "
+                        "device, or None")
     return torch.tensor([int(nnz_used)], dtype=torch.int32, device=dev)
 
 

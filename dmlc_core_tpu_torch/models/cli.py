@@ -14,12 +14,17 @@ environment, and without a card ``device=cuda`` exits 2.
 It trains on the flat layout, through ``DeviceLoader(create_parser(...),
 batch_rows, nnz_cap, id_mod=features)`` (the threaded native parser and
 the native packer wherever g++ exists, as the JAX CLI's loader), with
-``optax.adam``'s update
-(``models.train.adam``).  A checkpoint holds ``params`` (the JAX param
-tree) and ``opt_state`` in ``optax.adam``'s layout
-(:func:`.convert.adam_state_to_optax`), so either package's ``resume``
-and ``mode=predict`` read the other's checkpoints.  ``ckpt_every`` saves
-synchronously at the steps where the JAX CLI's ``save_async`` saves.
+``optax.adam``'s update (``models.train.adam``, the port's fused Adam).
+With ``kstep > 1`` the loader emits the fused wire's host buffers and
+:class:`.train.FusedTrainer` runs ``kstep`` steps a dispatch (one CUDA
+graph replay on the card); logging and checkpoints then fire at group
+granularity, as in the JAX CLI, and the end-of-run AUC reads a fresh
+device-emitting loader over the same file.  A checkpoint holds
+``params`` (the JAX param tree) and ``opt_state`` in ``optax.adam``'s
+layout (:func:`.convert.adam_state_to_optax`), so either package's
+``resume`` and ``mode=predict`` read the other's checkpoints.
+``ckpt_every`` saves synchronously at the steps where the JAX CLI's
+``save_async`` saves.
 At the end of a run one line on stderr gives the host-clock seconds of
 its stages from ``main`` on: set-up, the kernel and native build checks,
 the optimizer's set-up (or a resume), the wait for the first batch, the
@@ -27,8 +32,8 @@ steps, validation, the train AUC and the checkpoint (or, to predict, the
 scoring).
 
 Not ported yet; each exits 2 naming what is missing: ``model=ffm`` (libfm
-fields), ``format=libfm|csv``, ``workers=`` (remote ingest), ``kstep>1``
-(the fused k-step trainer) and URIs other than local files.
+fields), ``format=libfm|csv``, ``workers=`` (remote ingest) and URIs
+other than local files.
 """
 
 from __future__ import annotations
@@ -130,8 +135,8 @@ class TrainParams(Parameter):
     eval_auc = field(bool, default=True,
                      help="streaming AUC over the train stream at the end")
     kstep = field(int, default=1, lower_bound=1,
-                  help="train steps fused per device dispatch (not "
-                       "ported: must stay 1)")
+                  help="train steps fused per device dispatch (>1: the "
+                       "k-step trainer, one CUDA graph replay a group)")
     log_every = field(int, default=100)
     device = field(str, default="cuda", enum=["cuda", "cpu"],
                    help="where to train: 'cuda' (the kernels) or 'cpu' "
@@ -188,9 +193,6 @@ def _refusal(p: TrainParams) -> Optional[str]:
     if p.workers:
         return ("workers= (remote ingest workers and the fused wire) is "
                 "not ported yet; train on local files")
-    if p.kstep > 1:
-        return (f"kstep={p.kstep} needs the fused k-step trainer "
-                f"(FusedTrainer), which is not ported yet; use kstep=1")
     for key in ("data", "valid", "output", "ckpt_dir"):
         uri = getattr(p, key)
         if "://" in uri and not uri.startswith("file://"):
@@ -218,7 +220,8 @@ class _Stages:
                      f"{k} {v:.3f}s" for k, v in self.secs.items()))
 
 
-def _make_loader(p: TrainParams, uri: str, device: torch.device):
+def _make_loader(p: TrainParams, uri: str, device: torch.device,
+                 emit: str = "device"):
     """The one place a run's loader is configured: train, validation,
     end-of-run AUC and predict all see the same batch shape and
     hashing."""
@@ -226,7 +229,7 @@ def _make_loader(p: TrainParams, uri: str, device: torch.device):
     from ..pipeline import DeviceLoader
     return DeviceLoader(create_parser(_local(uri), 0, 1, "libsvm"),
                         batch_rows=p.batch_rows, nnz_cap=p.nnz_cap,
-                        id_mod=p.features, device=device)
+                        id_mod=p.features, device=device, emit=emit)
 
 
 def _load_params(model, params, device: torch.device) -> None:
@@ -316,8 +319,8 @@ def _train(p: TrainParams, model, device: torch.device,
            stages: _Stages) -> int:
     from ..utils.checkpoint import CheckpointManager
     from .convert import adam_state_to_optax, params_to_numpy
-    from .train import (adam, auc_from_histograms, evaluate_stream,
-                        make_train_step, streaming_auc)
+    from .train import (FusedTrainer, adam, auc_from_histograms,
+                        evaluate_stream, make_train_step, streaming_auc)
 
     if p.resume and not p.ckpt_dir:
         print("dmlc-train: resume=true needs ckpt_dir", file=sys.stderr)
@@ -327,8 +330,10 @@ def _train(p: TrainParams, model, device: torch.device,
         print("dmlc-train: ckpt_every needs ckpt_dir", file=sys.stderr)
         return 2
     opt = adam(model, p.lr)
+    # loaded in place, before any graph captures the tensors' addresses
     start_n = _resume(p, model, opt, device) if p.resume else 0
-    step = make_train_step(model, opt)
+    fused = p.kstep > 1
+    step = None if fused else make_train_step(model, opt)
     mgr = CheckpointManager(_local(p.ckpt_dir)) if p.ckpt_dir else None
     stages.mark("optimizer set-up")
 
@@ -352,21 +357,48 @@ def _train(p: TrainParams, model, device: torch.device,
         stages.mark("valid")
 
     n, loss, saved = start_n, None, -1
-    loader = _make_loader(p, p.data, device)
+
+    def after_steps(epoch: int, new_n: int, get_loss) -> None:
+        """Log and checkpoint cadence of both loops; with kstep the step
+        count jumps a group at a time and each boundary fires once per
+        crossed multiple (the JAX CLI's group granularity)."""
+        nonlocal n, saved
+        old, n = n, new_n
+        if p.log_every and old // p.log_every != n // p.log_every:
+            print(f"epoch {epoch} step {n} loss {float(get_loss()):.5f}",
+                  flush=True)
+        if (mgr is not None and p.ckpt_every
+                and old // p.ckpt_every != n // p.ckpt_every):
+            save(n)
+            saved = n
+
+    loader = _make_loader(p, p.data, device,
+                          emit="host" if fused else "device")
+    trainer = FusedTrainer(model, opt, loader, k=p.kstep) if fused else None
+
+    def sync(epoch: int) -> None:
+        if start_n + trainer.steps != n:
+            after_steps(epoch, start_n + trainer.steps,
+                        lambda: trainer.losses[-1])
+
+    first = True
     try:
         for epoch in range(p.epochs):
-            for batch in loader:
-                if loss is None:
+            for item in loader:
+                if first:
                     stages.mark("first batch")
-                loss = step(batch)
-                old, n = n, n + 1
-                if p.log_every and old // p.log_every != n // p.log_every:
-                    print(f"epoch {epoch} step {n} loss {float(loss):.5f}",
-                          flush=True)
-                if (mgr is not None and p.ckpt_every
-                        and old // p.ckpt_every != n // p.ckpt_every):
-                    save(n)
-                    saved = n
+                    first = False
+                if trainer is not None:
+                    trainer.feed(item)
+                    sync(epoch)
+                else:
+                    loss = step(item)
+                    after_steps(epoch, n + 1, lambda: loss)
+            if trainer is not None:
+                trainer.flush()
+                sync(epoch)
+                if trainer.losses is not None:
+                    loss = trainer.losses[-1]
             loader.before_first()
             eval_valid(epoch)
         if loss is None:
@@ -376,13 +408,20 @@ def _train(p: TrainParams, model, device: torch.device,
               flush=True)
         stages.mark("steps")
         if p.eval_auc and p.task == "binary":
+            # the train loader of kstep emits host buffers: score through
+            # a fresh device-emitting loader over the same file
+            auc_loader = _make_loader(p, p.data, device) if fused else loader
             hist: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-            with torch.no_grad():
-                for batch in loader:
-                    a, b = streaming_auc(model(batch), batch["labels"],
-                                         batch["weights"])
-                    hist = (a, b) if hist is None else (hist[0] + a,
-                                                        hist[1] + b)
+            try:
+                with torch.no_grad():
+                    for batch in auc_loader:
+                        a, b = streaming_auc(model(batch), batch["labels"],
+                                             batch["weights"])
+                        hist = (a, b) if hist is None else (hist[0] + a,
+                                                            hist[1] + b)
+            finally:
+                if auc_loader is not loader:
+                    auc_loader.close()
             print(f"train AUC {float(auc_from_histograms(*hist)):.4f}",
                   flush=True)
             stages.mark("train auc")

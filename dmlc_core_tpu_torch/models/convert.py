@@ -11,14 +11,16 @@ numpy, so both packages can compute with the same weights and share
 checkpoints.
 
 ``adam_state_to_optax`` / ``adam_state_from_optax`` do the same for the
-optimizer: a ``torch.optim.Adam`` state against the state of
+optimizer: the port's :class:`.optim.Adam` against the state of
 ``optax.adam``, ``(ScaleByAdamState(count, mu, nu), EmptyState())``,
 which a checkpoint stores as the tuples ``((count, mu, nu), ())``
 (``dmlc_core_tpu/utils/checkpoint.py`` saves a NamedTuple as
-``__tuple__``).  ``count`` is Adam's ``step`` as int32; ``mu`` / ``nu``
-are param trees of ``exp_avg`` / ``exp_avg_sq``.  So a checkpoint of
-either package's ``dmlc-train`` resumes in the other.  No JAX
-counterpart.
+``__tuple__``): ``count`` an int32 scalar, ``mu`` / ``nu`` param trees.
+``ftrl_state_to_optax`` / ``ftrl_state_from_optax`` carry the port's
+:class:`.ftrl.FTRL` as ``FTRLState(z, n)``, stored as ``(z, n)``.  So a
+checkpoint of either package resumes in the other.  Loading copies into
+the optimizer's own tensors, whose addresses a captured CUDA graph may
+hold.  No JAX counterpart.
 """
 
 from __future__ import annotations
@@ -31,9 +33,12 @@ from torch import nn
 
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError
+from .ftrl import FTRL
+from .optim import Adam
 
 __all__ = ["params_from_jax", "params_to_numpy", "adam_state_to_optax",
-           "adam_state_from_optax"]
+           "adam_state_from_optax", "ftrl_state_to_optax",
+           "ftrl_state_from_optax"]
 
 
 def params_from_jax(params: Mapping[str, Any],
@@ -88,36 +93,61 @@ def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]],
     return tree
 
 
-def adam_state_to_optax(model: nn.Module, optimizer: torch.optim.Adam
+def _slots(model: nn.Module, optimizer) -> Dict[str, int]:
+    """Each of ``model``'s parameter names → its index in
+    ``optimizer.params``."""
+    index = {id(p): i for i, p in enumerate(optimizer.params)}
+    out = {}
+    for name, p in model.named_parameters():
+        if id(p) not in index:
+            raise DMLCError(f"{name} is not a parameter of the optimizer")
+        out[name] = index[id(p)]
+    return out
+
+
+def _trees(model: nn.Module, optimizer, *states) -> Tuple[Dict[str, Any],
+                                                         ...]:
+    """Per-parameter state lists → nested numpy trees of the param
+    names."""
+    slots = _slots(model, optimizer)
+    return tuple(params_to_numpy({name: st[i] for name, i in slots.items()},
+                                 nested=True) for st in states)
+
+
+def _load_trees(model: nn.Module, optimizer, what: Tuple[str, ...],
+                trees: Tuple[Any, ...], states) -> None:
+    """Copy each tree (``what`` names them) into the optimizer's state
+    list beside it, in place, after checking every shape."""
+    slots = _slots(model, optimizer)
+    flat = [params_from_jax(t, "cpu") for t in trees]
+    for name, i in slots.items():
+        shape = tuple(optimizer.params[i].shape)
+        for label, tree in zip(what, flat):
+            if name not in tree or tuple(tree[name].shape) != shape:
+                raise DMLCError(f"optimizer state {label} has no {name} "
+                                f"of shape {shape}")
+    with torch.no_grad():
+        for tree, st in zip(flat, states):
+            for name, i in slots.items():
+                st[i].copy_(tree[name])
+
+
+def adam_state_to_optax(model: nn.Module, optimizer: Adam
                         ) -> Tuple[Tuple[np.ndarray, Dict[str, Any],
                                          Dict[str, Any]], Tuple[()]]:
     """``((count, mu, nu), ())`` of ``optimizer`` over ``model``'s
     parameters, as numpy: the layout ``optax.adam``'s state takes in a
-    checkpoint.  A parameter without state yet has zero moments."""
-    steps = []
-    mu: Dict[str, torch.Tensor] = {}
-    nu: Dict[str, torch.Tensor] = {}
-    for name, p in model.named_parameters():
-        st = optimizer.state.get(p)
-        if st:
-            steps.append(int(st["step"]))
-            mu[name], nu[name] = st["exp_avg"], st["exp_avg_sq"]
-        else:
-            mu[name], nu[name] = torch.zeros_like(p), torch.zeros_like(p)
-    if len(set(steps)) > 1:
-        raise DMLCError(f"parameters disagree on Adam's step: "
-                        f"{sorted(set(steps))}")
-    count = np.asarray(steps[0] if steps else 0, np.int32)
-    return ((count, params_to_numpy(mu, nested=True),
-             params_to_numpy(nu, nested=True)), ())
+    checkpoint."""
+    mu, nu = _trees(model, optimizer, optimizer.mu, optimizer.nu)
+    count = np.asarray(int(optimizer.count), np.int32)
+    return ((count, mu, nu), ())
 
 
-def adam_state_from_optax(model: nn.Module, optimizer: torch.optim.Adam,
+def adam_state_from_optax(model: nn.Module, optimizer: Adam,
                           opt_state: Any) -> None:
     """Load an ``optax.adam`` state, ``((count, mu, nu), ())`` with
     param trees of numpy arrays (as a checkpoint restores it), into
-    ``optimizer``, whose parameters are ``model``'s.  ``count`` 0 leaves
-    the optimizer fresh."""
+    ``optimizer``, whose parameters are ``model``'s, in place."""
     try:
         (count, mu, nu), rest = opt_state
     except (TypeError, ValueError) as e:
@@ -125,24 +155,25 @@ def adam_state_from_optax(model: nn.Module, optimizer: torch.optim.Adam,
                         f"{e}") from None
     if rest not in ((), []):
         raise DMLCError(f"not an optax.adam state: trailing {rest!r}")
-    step = int(np.asarray(count))
-    if step == 0:
-        return
-    mu_t = params_from_jax(mu, "cpu")
-    nu_t = params_from_jax(nu, "cpu")
-    index = {id(p): i for i, p in enumerate(
-        p for group in optimizer.param_groups for p in group["params"])}
-    state = {}
-    for name, p in model.named_parameters():
-        for what, tree in (("mu", mu_t), ("nu", nu_t)):
-            if name not in tree or tuple(tree[name].shape) != tuple(p.shape):
-                raise DMLCError(f"optimizer state {what} has no {name} of "
-                                f"shape {tuple(p.shape)}")
-        if id(p) not in index:
-            raise DMLCError(f"{name} is not a parameter of the optimizer")
-        state[index[id(p)]] = {"step": torch.tensor(float(step)),
-                               "exp_avg": mu_t[name],
-                               "exp_avg_sq": nu_t[name]}
-    sd = optimizer.state_dict()
-    sd["state"] = state
-    optimizer.load_state_dict(sd)
+    _load_trees(model, optimizer, ("mu", "nu"), (mu, nu),
+                (optimizer.mu, optimizer.nu))
+    optimizer.count.fill_(int(np.asarray(count)))
+
+
+def ftrl_state_to_optax(model: nn.Module, optimizer: FTRL
+                        ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(z, n)`` of ``optimizer`` over ``model``'s parameters, as numpy
+    param trees: ``FTRLState(z, n)`` as a checkpoint stores it."""
+    return _trees(model, optimizer, optimizer.z, optimizer.n)
+
+
+def ftrl_state_from_optax(model: nn.Module, optimizer: FTRL,
+                          opt_state: Any) -> None:
+    """Load an ``FTRLState(z, n)`` (or the tuple ``(z, n)`` a checkpoint
+    restores) into ``optimizer``, in place."""
+    try:
+        z, n = opt_state
+    except (TypeError, ValueError) as e:
+        raise DMLCError(f"not an FTRL state (z, n): {e}") from None
+    _load_trees(model, optimizer, ("z", "n"), (z, n),
+                (optimizer.z, optimizer.n))

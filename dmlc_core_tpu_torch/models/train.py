@@ -1,42 +1,65 @@
-"""Training and evaluation loops.
+"""Training and evaluation loops, per step and k steps at a time.
 
 Counterpart of ``dmlc_core_tpu/models/train.py``, for one card:
 ``make_train_step``, ``make_eval_step``, ``streaming_auc``,
-``auc_from_histograms``, ``evaluate_stream`` and ``fit_stream`` with its
-per-step loop.  A model is an ``nn.Module`` with ``forward(batch)`` and
-``loss(batch)``; the optimizer is a ``torch.optim`` one.  ``optax.adam``
-maps to ``torch.optim.Adam(params, lr, betas=(0.9, 0.999), eps=1e-8)``:
-both step by ``lr·m̂/(√v̂ + eps)``.
+``auc_from_histograms``, ``evaluate_stream``, ``fit_stream``, and the
+k-step trainer: ``make_train_step_fused``, ``FusedTrainer``,
+``make_train_step_kbatch`` and ``stack_batches``.  A model is an
+``nn.Module`` with ``forward(batch)`` and ``loss(batch)``; the optimizer
+is one of the port's (:class:`.optim.Adam`, the port's ``optax.adam``,
+or :class:`.ftrl.FTRL`), or anything with ``zero_grad`` and ``step``.
 
 No step reads a value back to the host: losses and eval sums stay on
-the device until the caller reads them.  The k-step fused trainer, mesh
-shardings and the fused wire stay with the JAX package for now.
+the device until the caller reads them.
+
+Where the JAX package runs k steps as one jitted ``lax.scan``, the port
+runs them as one CUDA graph: the k steps' Python (decode, forward,
+backward, optimizer) runs once, at capture, and each dispatch is one
+replay over static inputs.  Before its capture a graph warms up with one
+forward and backward on a side stream over its first inputs (cuBLAS
+handles, autograd's buffers), whose gradients are dropped: the warm-up
+takes no optimizer step, and the optimizers allocate their state when
+they are built, so the trajectory is the per-step loop's.  Parameters,
+optimizer state and the static inputs are never reallocated, since the
+graph holds their addresses.  The graphs of one trainer share one memory
+pool and run one after another on the caller's stream.  Launch counts of
+the kernels (:func:`..kernels.launch_counts`) are recorded at capture and
+added at each replay.  On the CPU the same k steps run eagerly.  Mesh
+shardings stay with the JAX package for now.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import (Any, Callable, Dict, List, Optional, Sequence, Tuple,
+                    Union)
 
+import numpy as np
 import torch
 
-from ..utils.logging import log_info
+from ..kernels.common import add_launches, record_launches
+from ..native import fused_words
+from ..pipeline.loader import _decode_meta, make_decoder
+from ..utils.device import resolve_device
+from ..utils.logging import DMLCError, log_info
+from .optim import Adam
 
 __all__ = ["make_train_step", "make_eval_step", "streaming_auc",
-           "auc_from_histograms", "evaluate_stream", "fit_stream", "adam"]
+           "auc_from_histograms", "evaluate_stream", "fit_stream", "adam",
+           "make_train_step_fused", "FusedTrainer", "make_train_step_kbatch",
+           "stack_batches"]
 
 Batch = Dict[str, torch.Tensor]
 
 
-def adam(model: torch.nn.Module, lr: float = 1e-3) -> torch.optim.Adam:
-    """The port's ``optax.adam(lr)``: same betas and eps, and the same
-    place for eps (outside the square root)."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+def adam(model: torch.nn.Module, lr: float = 1e-3,
+         engine: str = "auto") -> Adam:
+    """The port's ``optax.adam(lr)`` over ``model``'s parameters: the
+    fused kernel on the card, its plain version on the CPU."""
+    return Adam(model.parameters(), lr=lr, engine=engine)
 
 
-def make_train_step(model: torch.nn.Module,
-                    optimizer: torch.optim.Optimizer
+def make_train_step(model: torch.nn.Module, optimizer
                     ) -> Callable[[Batch], torch.Tensor]:
     """``step(batch) -> loss``: one gradient step; the loss is a 0-d
     tensor on the model's device (no host sync)."""
@@ -121,17 +144,351 @@ def evaluate_stream(model: torch.nn.Module, loader, *,
     return out
 
 
+
+
+# -- k steps a dispatch --------------------------------------------------------
+
+Inputs = Union[torch.Tensor, Dict[str, torch.Tensor]]
+
+
+def _model_device(model: torch.nn.Module) -> torch.device:
+    try:
+        return next(model.parameters()).device
+    except StopIteration:
+        raise DMLCError("the model has no parameters") from None
+
+
+def _copy_into(static: Inputs, inputs: Inputs) -> None:
+    if isinstance(static, torch.Tensor):
+        static.copy_(inputs, non_blocking=True)
+        return
+    if set(static) != set(inputs):
+        raise DMLCError(f"inputs {sorted(inputs)} differ from the "
+                        f"captured {sorted(static)}")
+    for key, t in static.items():
+        t.copy_(inputs[key], non_blocking=True)
+
+
+class KSteps:
+    """``kstep(inputs) -> losses[k]``: k train steps of ``model`` and
+    ``optimizer``, step ``i`` on ``batch_of(inputs, i)``, in order.
+
+    On the card the k steps are one CUDA graph over static inputs of the
+    given shapes (``static``), captured at the first call from its inputs
+    and replayed at every call; :meth:`run` replays over whatever
+    ``static`` holds and returns the static losses (overwritten by the
+    next replay).  ``__call__`` copies its inputs in and returns a copy of
+    the losses.  On the CPU the steps run eagerly."""
+
+    def __init__(self, model: torch.nn.Module, optimizer, k: int,
+                 static: Inputs, batch_of: Callable[[Inputs, int], Batch],
+                 pool=None) -> None:
+        if k < 1:
+            raise DMLCError(f"k must be >= 1, got {k}")
+        self.model, self.optimizer, self.k = model, optimizer, int(k)
+        self.device = _model_device(model)
+        self.static = static
+        self.batch_of = batch_of
+        self.pool = pool
+        self.losses = torch.empty(self.k, device=self.device)
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.launches: Dict[str, int] = {}   # a replay's kernel launches
+        self.capture_s = 0.0                 # warm-up + capture, host clock
+
+    def _steps(self, inputs: Inputs, losses: torch.Tensor) -> None:
+        for i in range(self.k):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss = self.model.loss(self.batch_of(inputs, i))
+            loss.backward()
+            self.optimizer.step()
+            losses[i].copy_(loss.detach())
+
+    def _capture(self) -> None:
+        t0 = time.perf_counter()
+        opt, dev = self.optimizer, self.device
+        # warm-up: forward and backward only, on a side stream; the
+        # gradients are dropped and no optimizer step is taken
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        opt.zero_grad(set_to_none=True)
+        with torch.cuda.stream(side):
+            self.model.loss(self.batch_of(self.static, 0)).backward()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        opt.zero_grad(set_to_none=True)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the loader's threads may copy on their own
+        # streams while this thread captures
+        with record_launches() as launches:
+            with torch.cuda.graph(graph, pool=self.pool,
+                                  capture_error_mode="thread_local"):
+                self._steps(self.static, self.losses)
+        # the captured gradients live in the graph's pool: nothing outside
+        # the graph may keep them
+        opt.zero_grad(set_to_none=True)
+        self.graph, self.launches = graph, launches
+        self.capture_s = time.perf_counter() - t0
+
+    def run(self) -> torch.Tensor:
+        """Replay the k steps over the static inputs (capturing them at
+        the first call); returns the static losses."""
+        if self.device.type != "cuda":
+            raise DMLCError("run() replays a CUDA graph; on the CPU call "
+                            "kstep(inputs)")
+        if self.graph is None:
+            self._capture()
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.losses
+
+    def __call__(self, inputs: Inputs) -> torch.Tensor:
+        if self.device.type != "cuda":
+            losses = torch.empty(self.k, device=self.device)
+            self._steps(inputs, losses)
+            return losses
+        _copy_into(self.static, inputs)
+        return self.run().clone()
+
+
+def make_train_step_fused(model: torch.nn.Module, optimizer, *, rows: int,
+                          meta: int, k: int, pool=None) -> KSteps:
+    """k train steps in one dispatch over a stack of k fused wire buffers
+    (``[k, words]`` int32, the loader's v2 layout for ``rows`` and
+    ``meta``), each decoded inside the steps with :func:`make_decoder`
+    (one ``searchsorted``).  Returns ``kstep(bufs) -> losses[k]`` (a
+    :class:`KSteps`): on the card one CUDA graph whose input is the static
+    ``kstep.static`` buffer, on the CPU the same steps run eagerly.  The
+    model's parameters and the optimizer's state update in place.  Graphs
+    that share ``pool`` (``torch.cuda.graph_pool_handle()``) must replay
+    one at a time."""
+    decode = make_decoder(rows, meta)
+    words = fused_words(rows, _decode_meta(meta))
+    dev = _model_device(model)
+    static = (torch.empty(k, words, dtype=torch.int32, device=dev)
+              if dev.type == "cuda" else None)
+    return KSteps(model, optimizer, k, static,
+                  lambda bufs, i: decode(bufs[i]), pool)
+
+
+class FusedTrainer:
+    """Stream-order k-step training over a host-emitting DeviceLoader.
+
+    Consumes ``("fused", buf, meta, rows)`` items of a loader built with
+    ``emit="host"``, groups CONSECUTIVE same-meta buffers up to ``k``, and
+    dispatches each group as one copy and one k-step call
+    (:func:`make_train_step_fused`).  A meta change flushes the open group,
+    and partial groups step with their own length, so steps run in stream
+    order: the per-step loop's trajectory with fewer dispatches.
+
+    On the card each group is stacked into a pinned staging buffer the
+    trainer owns (two, used in turn; one is refilled only once its last
+    copy has completed), the loader's buffers are recycled right after,
+    and one non-blocking copy moves the group into the graph's static
+    input.  One graph is captured per ``(meta, group length)``, all in
+    one memory pool.  ``params`` and ``opt_state`` are the model's and the
+    optimizer's own tensors, updated in place; ``losses`` is a copy of the
+    last dispatch's ``[kk]`` losses."""
+
+    def __init__(self, model: torch.nn.Module, optimizer, loader, *,
+                 k: int = 16) -> None:
+        if k < 1:
+            raise DMLCError(f"k must be >= 1, got {k}")
+        self.model = model
+        self.optimizer = optimizer
+        self.loader = loader
+        self.k = int(k)
+        self.rows = loader.batch_rows
+        self.device = _model_device(model)
+        self._cuda = self.device.type == "cuda"
+        self.losses: Optional[torch.Tensor] = None
+        self.steps = 0
+        self.rows_dispatched = 0
+        self._kstep_cache: Dict[Tuple[int, int], KSteps] = {}
+        self._pool = torch.cuda.graph_pool_handle() if self._cuda else None
+        self._group: List[Tuple[np.ndarray, Optional[int]]] = []
+        self._group_meta: Optional[int] = None
+        self._staging: List[Optional[torch.Tensor]] = [None, None]
+        self._copied: List[Optional["torch.cuda.Event"]] = [None, None]
+        self._turn = 0
+
+    @property
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.model.named_parameters())
+
+    @property
+    def opt_state(self):
+        return self.optimizer.state
+
+    def _kstep(self, meta: int, kk: int) -> KSteps:
+        key = (meta, kk)
+        fn = self._kstep_cache.get(key)
+        if fn is None:
+            fn = make_train_step_fused(self.model, self.optimizer,
+                                       rows=self.rows, meta=meta, k=kk,
+                                       pool=self._pool)
+            self._kstep_cache[key] = fn
+        return fn
+
+    def _stage(self, words: int) -> Tuple[torch.Tensor, int]:
+        """The next pinned staging buffer of at least ``words``, once its
+        last copy has completed."""
+        turn = self._turn
+        self._turn ^= 1
+        if self._copied[turn] is not None:
+            self._copied[turn].synchronize()
+        buf = self._staging[turn]
+        if buf is None or buf.numel() < words:
+            buf = torch.empty(words, dtype=torch.int32, pin_memory=True)
+            self._staging[turn] = buf
+        return buf, turn
+
+    def _flush_group(self) -> None:
+        if not self._group:
+            return
+        meta, kk = self._group_meta, len(self._group)
+        words = fused_words(self.rows, _decode_meta(meta))
+        fn = self._kstep(meta, kk)
+        if self._cuda:
+            buf, turn = self._stage(kk * words)
+            stacked = buf[:kk * words].view(kk, words)
+            host = stacked.numpy()
+            for i, (b, _) in enumerate(self._group):
+                host[i] = b[:words]
+        else:
+            stacked = torch.from_numpy(
+                np.stack([b[:words] for b, _ in self._group]))
+        for b, _ in self._group:
+            self.loader.recycle(b)
+        if self._cuda:
+            fn.static.copy_(stacked, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record()
+            self._copied[turn] = event
+            self.losses = fn.run().clone()
+        else:
+            self.losses = fn(stacked)
+        self.steps += kk
+        self.rows_dispatched += sum(
+            r if r is not None else self.rows for _, r in self._group)
+        self._group = []
+        self._group_meta = None
+
+    def feed(self, item) -> None:
+        """Add one host-emitted loader item; dispatches when a group fills
+        or the wire meta changes (stream order is kept either way)."""
+        kind, buf, meta, rows_real = item
+        if kind != "fused":
+            raise DMLCError(f"FusedTrainer needs fused host items, got "
+                            f"{kind!r}")
+        if self._group and (meta != self._group_meta
+                            or len(self._group) >= self.k):
+            self._flush_group()
+        self._group_meta = meta
+        self._group.append((buf, rows_real))
+        if len(self._group) >= self.k:
+            self._flush_group()
+
+    def flush(self) -> None:
+        """Dispatch any open partial group (end of stream / epoch)."""
+        self._flush_group()
+
+    def finish(self) -> float:
+        """Flush the tail group and read back the last loss."""
+        self._flush_group()
+        return float(self.losses[-1]) if self.losses is not None else 0.0
+
+    def run_epoch(self) -> float:
+        """One pass over the loader; returns the final loss (read back)."""
+        for item in self.loader:
+            self.feed(item)
+        return self.finish()
+
+
+def make_train_step_kbatch(model: torch.nn.Module, optimizer
+                           ) -> Callable[[Dict[str, torch.Tensor]],
+                                         torch.Tensor]:
+    """k steps a dispatch over device batches stacked leaf-wise
+    (``batches[leaf].shape == (k, ...)``, see :func:`stack_batches`):
+    ``kstep(batches) -> losses[k]``, step ``i`` on ``{leaf: v[i]}``.  On
+    the card one CUDA graph per set of leaf shapes and dtypes, captured at
+    its first call; on the CPU the steps run eagerly.  The single-card
+    form of the JAX function (its mesh form is not ported)."""
+    graphs: Dict[tuple, KSteps] = {}
+    dev = _model_device(model)
+    pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+
+    def batch_of(batches: Dict[str, torch.Tensor], i: int) -> Batch:
+        return {key: v[i] for key, v in batches.items()}
+
+    def kstep(batches: Dict[str, torch.Tensor]) -> torch.Tensor:
+        k = {int(v.shape[0]) for v in batches.values()}
+        if len(k) != 1:
+            raise DMLCError(f"stacked leaves disagree on k: {sorted(k)}")
+        key = tuple(sorted((name, tuple(v.shape), v.dtype)
+                           for name, v in batches.items()))
+        fn = graphs.get(key)
+        if fn is None:
+            static = ({name: torch.empty_like(v, device=dev)
+                       for name, v in batches.items()}
+                      if pool is not None else None)
+            fn = graphs[key] = KSteps(model, optimizer, k.pop(), static,
+                                      batch_of, pool)
+        return fn(batches)
+    return kstep
+
+
+def stack_batches(batches: Sequence[Dict[str, Any]],
+                  device: Optional[Union[str, torch.device]] = None
+                  ) -> Dict[str, torch.Tensor]:
+    """Stack same-shaped batch dicts leaf-wise along a new leading k axis,
+    for :func:`make_train_step_kbatch`.  Numpy leaves stack on the host
+    and cross to ``device`` (the card unless ``"cpu"`` is given) in one
+    copy; tensor leaves stack where they are."""
+    out = {}
+    for key in batches[0]:
+        leaves = [b[key] for b in batches]
+        if isinstance(leaves[0], np.ndarray):
+            out[key] = torch.from_numpy(np.stack(leaves)).to(
+                resolve_device(device))
+        else:
+            out[key] = torch.stack(leaves)
+    return out
+
+
 def fit_stream(model: torch.nn.Module, loader, *, epochs: int = 1,
-               optimizer: Optional[torch.optim.Optimizer] = None,
-               log_every: int = 100) -> List[float]:
-    """Streaming training, one pass of the loader per epoch, one step per
-    batch.  The optimizer defaults to Adam(1e-2), as the JAX package's
-    ``optax.adam(1e-2)``.  Returns the losses sampled every
-    ``log_every`` steps (reading one back syncs the host)."""
+               optimizer=None, log_every: int = 100,
+               kstep: Optional[int] = None) -> List[float]:
+    """Streaming training, one pass of the loader per epoch.  The
+    optimizer defaults to Adam(1e-2), as the JAX package's
+    ``optax.adam(1e-2)``.
+
+    A loader built with ``emit="host"`` trains through
+    :class:`FusedTrainer`, ``kstep`` steps a dispatch (default 16); the
+    history then holds one end-of-epoch loss per epoch when
+    ``log_every`` is nonzero.  A device-emitting loader runs one step a
+    batch and samples the loss every ``log_every`` steps (reading one
+    back syncs the host); ``kstep`` there raises rather than being
+    ignored."""
     optimizer = optimizer or adam(model, 1e-2)
+    history: List[float] = []
+    if getattr(loader, "emit", "device") == "host":
+        trainer = FusedTrainer(model, optimizer, loader,
+                               k=16 if kstep is None else kstep)
+        for epoch in range(epochs):
+            t0 = time.monotonic()
+            loss = trainer.run_epoch()
+            loader.before_first()
+            if log_every:
+                history.append(loss)
+            log_info("epoch %d done in %.2fs (%d steps, loss %.5f)", epoch,
+                     time.monotonic() - t0, trainer.steps, loss)
+        return history
+    if kstep is not None:
+        raise DMLCError(
+            "kstep requires a loader built with emit='host' (the fused "
+            "wire); this loader emits device batches, so the k-step "
+            "dispatch cannot engage")
     step_fn = make_train_step(model, optimizer)
     step = 0
-    history: List[float] = []
     for epoch in range(epochs):
         t0 = time.monotonic()
         for batch in loader:

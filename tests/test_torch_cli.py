@@ -12,7 +12,9 @@ optimizer state carried in ``optax.adam``'s layout.
 Tolerances: predictions within ``2e-6`` (both print ``%.6f``; the models
 agree to float32 rounding); parameters after two resumed epochs at
 ``rtol = 1e-4, atol = 1e-6`` (Adam trajectories whose rounding
-differences grow step by step, as in ``test_torch_train.py``).
+differences grow step by step, as in ``test_torch_train.py``).  ``kstep``
+runs the same steps in the same order as ``kstep=1`` on the CPU, so
+their checkpoints' parameters and moments are equal.
 """
 
 import os
@@ -119,7 +121,7 @@ def test_config_file_and_overrides(tmp_path, data, capsys):
     (["data=train.csv"], "format=csv is not ported"),
     (["data=x.libsvm?format=libfm"], "format=libfm is not ported"),
     (["workers=h1:9000"], "workers= "),
-    (["kstep=4"], "FusedTrainer"),
+    (["kstep=4", "workers=h1:9000"], "workers= "),
     (["data=s3://bucket/train.libsvm"], "only local files"),
     (["ckpt_dir=hdfs://nn/ckpt"], "only local files"),
     (["ckpt_every=5"], "ckpt_every needs ckpt_dir"),
@@ -232,3 +234,69 @@ def test_port_opt_state_restores_with_the_jax_template(tmp_path, data,
     np.testing.assert_array_equal(np.asarray(adam_state.nu["v"]), nu["v"])
     assert np.abs(nu["v"]).max() > 0
     assert os.path.isfile(ck / "MANIFEST.json")
+
+
+def test_kstep_trains_the_kstep_1_trajectory(tmp_path, data, capsys):
+    """kstep=4 (groups of the same nnz bucket, flushed at each epoch's
+    end) lands on kstep=1's parameters and Adam state; logs and
+    checkpoints fire at group ends."""
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert _port(f"data={data[0]}", f"ckpt_dir={a}", "epochs=2") == 0
+    capsys.readouterr()
+    assert _port(f"data={data[0]}", f"ckpt_dir={b}", "epochs=2",
+                 "kstep=4", "ckpt_every=2", "eval_auc=true") == 0
+    out = capsys.readouterr().out
+    assert "trained deepfm: 6 steps" in out and "train AUC " in out
+    logged = [int(ln.split(" step ")[1].split()[0]) for ln in
+              out.splitlines() if ln.startswith("epoch ") and " loss " in ln]
+    steps_b = CheckpointManager(str(b)).steps
+    assert logged[-1] == 6 and set(steps_b) <= set(logged)
+    assert steps_b[-1] == 6
+    step_a, got, state_a = _params(a)
+    step_b, want, state_b = _params(b)
+    assert step_a == step_b == 6 and set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    (count_a, mu_a, _), _ = state_a["opt_state"]
+    (count_b, mu_b, _), _ = state_b["opt_state"]
+    assert int(count_a) == int(count_b) == 6
+    np.testing.assert_array_equal(mu_a["v"], mu_b["v"])
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_kstep_checkpoint_resumes_across_packages(tmp_path, data, capsys,
+                                                  first):
+    """One epoch with kstep=4 in one package, resumed (kstep=4) for one
+    more in the other, lands where two per-step epochs of the first
+    package land (each package initialises from its own generator)."""
+    run_first, run_second = (_jax, _port) if first == "jax" else (_port,
+                                                                   _jax)
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert run_first(f"data={data[0]}", f"ckpt_dir={a}", "kstep=4") == 0
+    assert run_second(f"data={data[0]}", f"ckpt_dir={a}", "resume=true",
+                      "kstep=4") == 0
+    out = capsys.readouterr().out
+    assert f"resumed from step 3 in {a}" in out
+    assert run_first(f"data={data[0]}", f"ckpt_dir={b}", "epochs=2") == 0
+    _, got, state_a = _params(a)
+    _, want, _ = _params(b)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **PARAMS, err_msg=k)
+    (count, _, _), _ = state_a["opt_state"]
+    assert int(count) == 6
+
+
+def test_resume_loads_params_in_place():
+    """A resume loads the checkpoint's params into the model's own
+    tensors, whose addresses a captured k-step graph holds."""
+    from dmlc_core_tpu_torch.models import DeepFM, params_to_numpy
+    model = DeepFM(F, D, L, device="cpu")
+    ptrs = [p.data_ptr() for p in model.parameters()]
+    other = DeepFM(F, D, L, device="cpu",
+                   generator=torch.Generator().manual_seed(9))
+    cli._load_params(model, params_to_numpy(other, nested=True),
+                     torch.device("cpu"))
+    assert [p.data_ptr() for p in model.parameters()] == ptrs
+    for (k, a), (_, b) in zip(model.named_parameters(),
+                              other.named_parameters()):
+        assert torch.equal(a, b), k

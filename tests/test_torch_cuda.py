@@ -526,3 +526,206 @@ def test_loader_batches_are_ready_on_the_consumers_stream(dev, tmp_path):
     assert len(sums) == len(want)
     for s, w in zip(sums, want):
         assert float(s) == float(w)
+
+
+# -- the fused optimizers and the k-step graphs ----------------------------------
+
+# Optimizer kernels against their plain versions after 8 steps: the same
+# float32 operations in the same order, each rounded on its own, so they
+# differ only where PyTorch's CUDA ops round differently (a division by a
+# Python scalar becomes a multiply by its reciprocal): rtol 1e-6.
+OPT_TOL = dict(rtol=1e-6, atol=1e-7)
+
+
+def _opt_tensors(dev, layout, seed=9):
+    """Parameter-shaped tensors: a 0-d leaf, a short vector, a tail that
+    is no multiple of 4, a matrix; ``offset`` starts each one float past
+    a 16-byte boundary (no float4), ``many`` has more tensors than one
+    launch takes."""
+    from dmlc_core_tpu_torch.kernels.optim import MAX_TENSORS
+    rng = np.random.default_rng(seed)
+    shapes = [(), (7,), ((1 << 16) + 3,), (1000, 32)]
+    if layout == "many":
+        shapes = shapes * (MAX_TENSORS // len(shapes) + 2)
+    out = []
+    for s in shapes:
+        a = rng.normal(size=s).astype(np.float32)
+        if layout == "offset":
+            buf = torch.empty(a.size + 1, device=dev)
+            t = buf[1:].view(s)
+            t.copy_(torch.from_numpy(a))
+        else:
+            t = torch.from_numpy(a).to(dev)
+        out.append(t)
+    return out
+
+
+def _opt_grads(dev, params, step):
+    rng = np.random.default_rng(100 + step)
+    gs = []
+    for p in params:
+        g = rng.normal(size=tuple(p.shape)).astype(np.float32)
+        g *= 10.0 ** rng.integers(-9, 2, size=g.shape)
+        gs.append(torch.from_numpy(np.asarray(g, np.float32)).to(dev))
+    return gs
+
+
+@pytest.mark.parametrize("layout", ["aligned", "offset", "many"])
+@pytest.mark.parametrize("which", ["adam", "ftrl"])
+def test_optimizer_kernel_matches_plain(dev, which, layout):
+    from dmlc_core_tpu_torch.kernels.optim import (adam_step,
+                                                   adam_step_reference,
+                                                   ftrl_step,
+                                                   ftrl_step_reference)
+    runs = {}
+    for engine in ("kernel", "torch"):
+        ps = _opt_tensors(dev, layout)
+        s1 = [torch.zeros_like(p) for p in ps]
+        s2 = [torch.zeros_like(p) for p in ps]
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        ticket = torch.zeros(1, dtype=torch.int32, device=dev)
+        for step in range(8):
+            gs = _opt_grads(dev, ps, step)
+            if which == "adam" and engine == "kernel":
+                adam_step(ps, gs, s1, s2, count, ticket, lr=1e-2,
+                          engine="kernel")
+            elif which == "adam":
+                adam_step_reference(ps, gs, s1, s2, count, lr=1e-2)
+            elif engine == "kernel":
+                ftrl_step(ps, gs, s1, s2, l1=0.5, engine="kernel")
+            else:
+                ftrl_step_reference(ps, gs, s1, s2, alpha=0.1, beta=1.0,
+                                    l1=0.5, l2=1.0)
+        torch.cuda.synchronize()
+        runs[engine] = (ps, s1, s2, count, ticket)
+    (pk, ak, bk, ck, tk), (pp, ap, bp, cp, _) = runs["kernel"], runs["torch"]
+    for got, want in zip(pk + ak + bk, pp + ap + bp):
+        torch.testing.assert_close(got, want, **OPT_TOL)
+    if which == "adam":
+        assert int(ck) == int(cp) == 8 and int(tk) == 0
+    else:          # the L1 threshold's exact zeros agree
+        for got, want in zip(pk, pp):
+            assert torch.equal(got == 0, want == 0)
+
+
+def _kstep_file(path, rows, seed=11):
+    """8 values a row, so every 16-row batch falls in one nnz bucket."""
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for i in range(rows):
+            n = 8
+            idx = np.sort(rng.choice(F, size=n, replace=False))
+            f.write(b"%d " % (i & 1) + b" ".join(
+                b"%d:%.4f" % (j, v) for j, v in
+                zip(idx.tolist(), rng.random(n).tolist())) + b"\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("kind", ["fm", "logreg_ftrl", "deepfm"])
+def test_captured_ksteps_match_eager_per_step(dev, tmp_path, kind):
+    """FusedTrainer (k=3 over 7 batches: graphs of 3 and 1 steps) against
+    the per-step loop on a twin model, on the same batches; a replay
+    counts its graph's launches."""
+    from dmlc_core_tpu_torch import (FTRL, DeviceLoader, FactorizationMachine,
+                                     FusedTrainer, SparseLogReg, adam,
+                                     create_parser, make_train_step)
+    from dmlc_core_tpu_torch.kernels import reset_launch_counts
+    path = _kstep_file(tmp_path / "k.libsvm", 16 * 7)
+
+    def build():
+        gen = torch.Generator(dev).manual_seed(3)
+        if kind == "fm":
+            m = FactorizationMachine(F, 8, l2=1e-4, device=dev,
+                                     generator=gen)
+        elif kind == "deepfm":
+            m = DeepFM(F, 8, 2, device=dev, generator=gen)
+        else:
+            m = SparseLogReg(F, device=dev)
+        opt = (FTRL(m.parameters(), l1=0.01) if kind == "logreg_ftrl"
+               else adam(m, 1e-2))
+        return m, opt
+
+    model, opt = build()
+    with DeviceLoader(create_parser(path, engine="native"), 16, 1024,
+                      device=dev, emit="host") as ld:
+        tr = FusedTrainer(model, opt, ld, k=3)
+        ptrs = [p.data_ptr() for p in model.parameters()]
+        reset_launch_counts()
+        tr.run_epoch()
+        counts = _counts()
+    assert tr.steps == 7
+    assert sorted(kk for _, kk in tr._kstep_cache) == [1, 3]
+    assert [p.data_ptr() for p in model.parameters()] == ptrs
+    name = "ftrl" if kind == "logreg_ftrl" else "adam"
+    assert counts[name] == 7                     # one launch a step
+    assert counts["ragged_gather_grad_embed"] >= 7
+
+    twin, topt = build()
+    step = make_train_step(twin, topt)
+    losses = []
+    with DeviceLoader(create_parser(path, engine="native"), 16, 1024,
+                      device=dev) as ld:
+        for b in ld:
+            losses.append(step(b))
+    torch.testing.assert_close(tr.losses, torch.stack(losses[-1:]),
+                               rtol=1e-5, atol=1e-6)
+    for (k, p), (_, q) in zip(model.named_parameters(),
+                              twin.named_parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=k)
+
+
+def _counts():
+    from dmlc_core_tpu_torch.kernels import launch_counts
+    return launch_counts()
+
+
+def test_kbatch_graph_matches_eager(dev):
+    from dmlc_core_tpu_torch import FactorizationMachine, adam
+    from dmlc_core_tpu_torch.models import (make_train_step,
+                                            make_train_step_kbatch,
+                                            stack_batches)
+    from dmlc_core_tpu_torch.pipeline import pack_flat
+    from dmlc_core_tpu_torch.data import RowBlock, parse_libsvm
+    rng = np.random.default_rng(4)
+    lines = b"\n".join(b"%d " % (i & 1) + b" ".join(
+        b"%d:%.3f" % (j, rng.random()) for j in
+        np.sort(rng.choice(F, 6, replace=False)).tolist())
+        for i in range(16 * 4)) + b"\n"
+    d = parse_libsvm(lines)
+    blk = RowBlock(d["offsets"], d["labels"], d["indices"], d["values"],
+                   d["weights"])
+    batches = []
+    for lo in range(0, 64, 16):
+        b = pack_flat(blk.slice(lo, lo + 16), 16, 128)
+        b.pop("row_ptr")
+        batches.append(b)
+    a = FactorizationMachine(F, 8, device=dev,
+                             generator=torch.Generator(dev).manual_seed(1))
+    b = FactorizationMachine(F, 8, device=dev,
+                             generator=torch.Generator(dev).manual_seed(1))
+    kstep = make_train_step_kbatch(a, adam(a, 1e-2))
+    got = torch.cat([kstep(stack_batches(batches[:2], dev)),
+                     kstep(stack_batches(batches[2:], dev))])
+    step = make_train_step(b, adam(b, 1e-2))
+    want = torch.stack([step({k: torch.from_numpy(v).to(dev)
+                              for k, v in x.items()}) for x in batches])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    for (k, p), (_, q) in zip(a.named_parameters(), b.named_parameters()):
+        torch.testing.assert_close(p, q, rtol=1e-5, atol=1e-6, msg=k)
+
+
+def test_capture_refuses_a_pageable_copy(dev):
+    """An int ``nnz_used`` would cross in a pageable copy: under a
+    capture the wrapper raises instead."""
+    from dmlc_core_tpu_torch.utils import DMLCError
+    ids = torch.zeros(8, dtype=torch.int32, device=dev)
+    segs = torch.zeros(8, dtype=torch.int32, device=dev)
+    vals = torch.ones(8, device=dev)
+    table = torch.ones(16, 4, device=dev)
+    nnz = torch.tensor([5], dtype=torch.int32, device=dev)
+    ragged_gather(ids, vals, segs, nnz, table, 2, fm=False)   # loads it
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(DMLCError, match="while a CUDA graph is capturing"):
+        with torch.cuda.graph(g):
+            ragged_gather(ids, vals, segs, 5, table, 2, fm=False)
