@@ -30,11 +30,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    for Adam, torch.optim.Adam (foreach, and fused + capturable);
 4. serving — FactorizationMachine(num_features=2^20, dim=32) from seeded
    weights, saved and restored through the port's CheckpointManager and
-   served by InferenceEngine + MicroBatcher in padded and ragged mode
-   with sigmoid scores: 72 requests per mode from 8 threads, every answer
-   held against the plain path on the card and a few against a float64
-   numpy FM; then a hot-reload to a second step, and one row-major
-   forward.  The kernels' launch counts are read around this phase;
+   served by InferenceEngine (every bucket one captured CUDA graph) +
+   MicroBatcher in padded and ragged mode with sigmoid scores: 72
+   requests per mode from 8 threads, every answer held against the plain
+   path on the card and a few against a float64 numpy FM; then a
+   hot-reload to a second step, and one row-major forward.  The kernels'
+   launch counts are read around this phase; a predict of the largest
+   request is split into pad, H2D, replay (host enqueue, synchronised,
+   device) and copy-out;
+   server  — the same model and checkpoint behind PredictionServer
+   (warm-up captures every bucket), padded and ragged: phase 4's
+   requests through PredictClient from 8 connections, held against the
+   plain path on the card (rtol = atol = 1e-5), a replay against the
+   eager kernel path on the same batch, run_load at 2^20 features (2000
+   requests of 128 rows at 8 connections one in flight each, and 2000
+   of 4 rows at 8 connections 8 in flight each: qps, rows/s, latency
+   quantiles, overloads, and the server's own metrics: engine calls and
+   queue-to-answer quantiles), on the padded server also from the load
+   generator's command line in a process of its own, a hot-reload to
+   step 2 while one request streams (no failure, one switch, the last
+   answers step 2's plain scores), and the breakdown again.  This
+   slice's main path: the launch counts are read around it and must be
+   one a call of each ragged-gather forward plus one a capture's
+   warm-up;
    feed    — the host feed's stages apart over the training file: python
    and native parse, streampack, python and native pack (ms per
    4096-row batch), the H2D copy and device decode of each fused batch
@@ -77,7 +95,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    (each parameter within 1e-3 of how far it moved).  Each wall is
    split into the interpreter's start and imports and the CLI's own
    stages (set-up, build checks, optimizer set-up, first batch, steps,
-   ...); a fresh interpreter times building a torch.optim.Adam.
+   ...); the port's server (python -m dmlc_core_tpu_torch.serving.server
+   model=deepfm) on the trained checkpoint scores the eval file's first
+   512 rows over TCP, within 2e-6 of mode=predict's scores, and stops on
+   SIGINT; a fresh interpreter times building a torch.optim.Adam.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -89,6 +110,11 @@ plants a fault on the kernel path (a zeroed table gradient, or a zeroed
 forward, of the D = 32 tables, in every kernel family) and runs phases
 1, 2 and 5 only; it exits 0 only if phase 5's checks catch the fault on
 every path.
+
+    python3 chip_smoke.py --serving
+
+runs phases 1, 2, 4 and the server only, and prints the server's
+numbers as its last line.
 """
 
 from __future__ import annotations
@@ -923,9 +949,10 @@ def _requests(rng, n: int):
     return reqs
 
 
-def _serve(batcher, reqs, threads: int = 8):
-    """Closed-loop clients: each thread sends its share one at a time.
-    Returns (answers, per-request latencies in ms, wall seconds)."""
+def _serve(call, reqs, threads: int = 8):
+    """Closed-loop clients: thread k sends its share one at a time, each
+    through ``call(k, request)``.  Returns (answers, per-request latencies
+    in ms, wall seconds)."""
     answers = [None] * len(reqs)
     lat = [0.0] * len(reqs)
     errors = []
@@ -934,7 +961,7 @@ def _serve(batcher, reqs, threads: int = 8):
         try:
             for j in range(k, len(reqs), threads):
                 t0 = time.perf_counter()
-                answers[j] = batcher.submit(*reqs[j]).result(timeout=120)
+                answers[j] = call(k, reqs[j])
                 lat[j] = (time.perf_counter() - t0) * 1e3
         except Exception as e:  # noqa: BLE001 — re-raised below
             errors.append(e)
@@ -951,38 +978,57 @@ def _serve(batcher, reqs, threads: int = 8):
     return answers, lat, wall
 
 
+def _batcher_call(batcher):
+    return lambda _k, req: batcher.submit(*req).result(timeout=120)
+
+
 def breakdown(torch, timer: Timer, engines, reqs, power: str,
-              reps: int = 20) -> None:
-    """Where one ``predict`` of the largest request spends its time: each
-    host stage run alone and synchronised (host clock, median of
-    ``reps``), and the device time of the forward on a batch already on
-    the card (CUDA events)."""
-    from dmlc_core_tpu_torch.serving.engine import _batch_to_device
+              reps: int = 20) -> dict:
+    """Where one ``predict`` of the largest request spends its time, each
+    stage run alone on the host clock (median of ``reps``): the pad, the
+    H2D copy into the bucket's static input (pinned staging, then one
+    non-blocking copy, synchronised), the graph's replay as the host
+    enqueues it and as the host sees it end (synchronised), the copy of
+    the scores out (copy and event wait), and the whole predict; beside
+    them the replay's device time (CUDA events).  Returns the medians
+    by mode."""
+    out = {}
     for mode, eng in engines.items():
         ids, vals, rp = max(reqs[mode], key=lambda r: len(r[0]))
-        bucket = eng.ladder.best_fit(len(rp) - 1, len(ids))
-        stages = {"pad": [], "h2d": [], "forward": [], "predict": []}
+        rows = len(rp) - 1
+        bucket = eng.ladder.best_fit(rows, len(ids))
+        g = eng._graphs[bucket]
+        stages = {k: [] for k in ("pad", "h2d", "replay_enqueue",
+                                  "replay_synced", "copy_out", "predict")}
         for _ in range(reps):
             t0 = time.perf_counter()
             batch = eng._pad(bucket, ids, vals, rp)
             t1 = time.perf_counter()
-            dev_batch = _batch_to_device(batch, eng.device)
+            eng._stage(g, batch)
             torch.cuda.synchronize()
             t2 = time.perf_counter()
-            eng._forward_device(eng._params, dev_batch)
-            torch.cuda.synchronize()
+            eng._replay(g)
             t3 = time.perf_counter()
-            eng.predict(ids, vals, rp)
+            torch.cuda.synchronize()
             t4 = time.perf_counter()
-            for k, a, b in (("pad", t0, t1), ("h2d", t1, t2),
-                            ("forward", t2, t3), ("predict", t3, t4)):
-                stages[k].append((b - a) * 1e3)
-        dev_ms = timer.ms(lambda: eng._forward_device(eng._params,
-                                                      dev_batch))
-        log(f"[breakdown] {mode} bucket {tuple(bucket)} nnz={len(ids)}: "
-            + ", ".join(f"{k} {np.median(v):.3f} ms"
-                        for k, v in stages.items())
-            + f", forward on the device {dev_ms:.4f} ms [{power}]")
+            eng._copy_out(g, rows)
+            t5 = time.perf_counter()
+            eng.predict(ids, vals, rp)
+            t6 = time.perf_counter()
+            for k, x, y in (("pad", t0, t1), ("h2d", t1, t2),
+                            ("replay_enqueue", t2, t3),
+                            ("replay_synced", t2, t4), ("copy_out", t4, t5),
+                            ("predict", t5, t6)):
+                stages[k].append((y - x) * 1e3)
+        med = {k: float(np.median(v)) for k, v in stages.items()}
+        med["replay_device"] = timer.ms(lambda: eng._replay(g))
+        log(f"[breakdown] {mode} bucket {tuple(bucket)} nnz={len(ids)}, "
+            f"one captured graph: "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in med.items())
+            + f"; {sum(g.launches.values())} kernel launches a replay "
+            f"{g.launches} [{power}]")
+        out[mode] = med
+    return out
 
 
 def phase_serving(torch, timer: Timer, power: str) -> dict:
@@ -1027,12 +1073,13 @@ def phase_serving(torch, timer: Timer, power: str) -> dict:
                 return out
             eng.predict = timed
             with MicroBatcher(eng, default_deadline_s=60.0) as batcher:
-                answers[mode], lat, wall = _serve(batcher, reqs[mode])
+                answers[mode], lat, wall = _serve(_batcher_call(batcher),
+                                                  reqs[mode])
                 nbatches = batcher.batches
             eng.predict = predict
-            if eng.compile_count > len(eng.ladder):
-                raise RuntimeError(f"{mode}: {eng.compile_count} buckets "
-                                   f"prepared for a ladder of "
+            if eng.compile_count != len(eng.ladder):
+                raise RuntimeError(f"{mode}: {eng.compile_count} graphs "
+                                   f"captured for a ladder of "
                                    f"{len(eng.ladder)}")
             rows = sum(len(r[2]) - 1 for r in reqs[mode])
             stats[mode] = dict(
@@ -1051,7 +1098,7 @@ def phase_serving(torch, timer: Timer, power: str) -> dict:
         if eng.reload_from_checkpoint(ckpt) != 2:
             raise RuntimeError("hot-reload restored the wrong step")
         with MicroBatcher(eng, default_deadline_s=60.0) as batcher:
-            reloaded, _, _ = _serve(batcher, reload_reqs)
+            reloaded, _, _ = _serve(_batcher_call(batcher), reload_reqs)
 
         # the row-major branch of the same forward
         rm_batch = {"ids": torch.from_numpy(rm_ids).cuda(),
@@ -1103,6 +1150,277 @@ def phase_serving(torch, timer: Timer, power: str) -> dict:
         log("[serving] hot-reload to step 2 followed; row-major forward "
             "matches its plain version")
         return launches
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+# -- phase 4a: the TCP server ------------------------------------------------
+
+LOAD_REQUESTS = 2000
+LOADS = (                  # (name, run_load's shape), at 2^20 features
+    # the 10 ms request-p99 budget's case: 128 rows a request
+    ("load1", dict(concurrency=8, pipeline_depth=1, rows_per_req=128,
+                   nnz_per_row=32)),
+    # the JAX load generator's defaults, at 8 connections
+    ("load2", dict(concurrency=8, pipeline_depth=8, rows_per_req=4,
+                   nnz_per_row=32)),
+)
+RELOAD_STREAM = 40         # answers streamed before and after a hot-reload
+
+
+def _one_switch(results, s1, s2) -> int:
+    """Where a stream of answers to one request moved from step 1's
+    scores to step 2's: each answer must be one step's (rtol = atol =
+    RTOL) and the stream must switch once.  A replay that read half-copied
+    weights matches neither."""
+    steps = []
+    for r in results:
+        one = np.allclose(r, s1, rtol=RTOL, atol=ATOL)
+        two = np.allclose(r, s2, rtol=RTOL, atol=ATOL)
+        if one == two:
+            raise RuntimeError("a hot-reload answer matches neither step's "
+                               "scores (or both)")
+        steps.append(2 if two else 1)
+    if steps[0] != 1 or steps[-1] != 2 or steps != sorted(steps):
+        raise RuntimeError(f"the answers do not switch steps once: {steps}")
+    return steps.index(2)
+
+
+def _reload_mid_stream(srv, client, req, ckpt: str) -> tuple:
+    """Stream ``req`` through ``client`` while the server hot-reloads step
+    2, then RELOAD_STREAM answers more; returns (answers, the answers done
+    before the reload began and by the time it returned, its seconds)."""
+    stop = threading.Event()
+    results, failures = [], []
+
+    def stream():
+        while not stop.is_set():
+            try:
+                results.append(client.predict(*req, timeout=60))
+            except Exception as e:  # noqa: BLE001 — raised below
+                failures.append(e)
+                return
+
+    t = threading.Thread(target=stream, daemon=True)
+    t.start()
+    try:
+        deadline = time.monotonic() + 120
+        while len(results) < RELOAD_STREAM and not failures:
+            if time.monotonic() > deadline:
+                raise RuntimeError("the stream stalled before the reload")
+            time.sleep(0.001)
+        before = len(results)
+        t0 = time.perf_counter()
+        if srv.reload_from_checkpoint(ckpt, 2) != 2:
+            raise RuntimeError("hot-reload restored the wrong step")
+        reload_s = time.perf_counter() - t0
+        at = len(results)
+        while len(results) < at + RELOAD_STREAM and not failures:
+            if time.monotonic() > deadline:
+                raise RuntimeError("the stream stalled after the reload")
+            time.sleep(0.001)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+    if failures:
+        raise RuntimeError(f"a request failed during the hot-reload: "
+                           f"{failures[0]!r}")
+    return results, before, at, reload_s
+
+
+def _load_main(host: str, port: int, shape: dict) -> dict:
+    """The load generator as a user runs it, in its own interpreter
+    (``python -m dmlc_core_tpu_torch.serving.client``): its JSON
+    report."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    r = subprocess.run(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.serving.client",
+         f"{host}:{port}", f"requests={LOAD_REQUESTS}",
+         f"features={F_FEATURES}", f"seed={SEED}"]
+        + [f"{k}={v}" for k, v in shape.items()],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        raise RuntimeError(f"the load generator exited {r.returncode}: "
+                           f"{r.stderr[-2000:]}")
+    return json.loads(r.stdout)
+
+
+def _server_side(snap: dict) -> dict:
+    """What the server's own metrics saw of a load: engine calls,
+    requests a call, and each request's time from the batcher's queue to
+    its answer (``serving.latency_s``)."""
+    calls = snap["serving.batcher.batches"]["value"]
+    lat = snap["serving.latency_s"]
+    return {"calls": calls, "requests_per_call": lat["count"] / max(1, calls),
+            "p50_ms": lat["p50"] * 1e3, "p99_ms": lat["p99"] * 1e3}
+
+
+def phase_server(torch, timer: Timer, power: str) -> dict:
+    """The slice's main path: ``PredictionServer`` over
+    FactorizationMachine(2^20, 32) from phase 4's checkpoint, padded and
+    ragged ladders, every bucket a captured CUDA graph; phase 4's
+    requests through ``PredictClient`` from 8 connections, two load
+    mixes through ``run_load``, a hot-reload mid-stream.  Returns the
+    kernel launches counted over it and its numbers."""
+    from dmlc_core_tpu_torch import (BucketLadder, CheckpointManager,
+                                     FactorizationMachine, InferenceEngine,
+                                     PredictClient, PredictionServer,
+                                     run_load)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+
+    ckpt = os.path.join(ROOT, ".chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        p1, p2 = _np_params(SEED + 1), _np_params(SEED + 2)
+        mgr = CheckpointManager(ckpt)
+        mgr.save(1, {"params": p1}, meta={"model": "fm"})
+        mgr.save(2, {"params": p2}, meta={"model": "fm"})
+        rng = np.random.default_rng(SEED + 3)     # phase 4's requests
+        reqs = {m: _requests(rng, 72) for m in ("padded", "ragged")}
+        ladders = {"padded": BucketLadder.default(),
+                   "ragged": BucketLadder.ragged_default()}
+        engines, answers, stats, reloads = {}, {}, {}, {}
+        graphs = batches = answered = 0
+        reset_launch_counts()                 # the main path starts here
+        for mode, ladder in ladders.items():
+            model = FactorizationMachine(F_FEATURES, DIM, device="cuda")
+            eng = InferenceEngine(model, buckets=ladder,
+                                  postprocess="sigmoid",
+                                  ragged=mode == "ragged", device="cuda")
+            if eng.reload_from_checkpoint(ckpt, step=1) != 1:
+                raise RuntimeError("restored the wrong step")
+            t0 = time.perf_counter()
+            srv = PredictionServer(eng, warmup=True,
+                                   default_deadline_s=60.0)
+            capture_s = time.perf_counter() - t0
+            if not eng.compile_count == len(ladder) == len(eng._graphs):
+                raise RuntimeError(f"{mode}: {eng.compile_count} graphs "
+                                   f"for a ladder of {len(ladder)}")
+            srv.start()
+            try:
+                clients = [PredictClient(srv.host, srv.port)
+                           for _ in range(8)]
+                try:
+                    answers[mode], lat, wall = _serve(
+                        lambda k, r: clients[k].predict(*r, timeout=120),
+                        reqs[mode])
+                    loads = {}
+                    for name, shape in LOADS:
+                        for where in ("in process", "own process"):
+                            if where == "own process" and mode != "padded":
+                                continue
+                            metrics.reset()
+                            rep = (run_load(srv.host, srv.port,
+                                            requests=LOAD_REQUESTS,
+                                            features=F_FEATURES, seed=SEED,
+                                            timeout=120.0, **shape)
+                                   if where == "in process" else
+                                   _load_main(srv.host, srv.port, shape))
+                            if (rep["rejected"] or rep["errors"]
+                                    or rep["ok"] + rep["overload"]
+                                    != LOAD_REQUESTS):
+                                raise RuntimeError(f"{mode} {name}: {rep}")
+                            rep["server"] = _server_side(metrics.snapshot())
+                            loads[f"{name}, client {where}"] = rep
+                    stream_req = reqs[mode][0]
+                    reloads[mode] = (stream_req,) + _reload_mid_stream(
+                        srv, clients[0], stream_req, ckpt)
+                finally:
+                    for c in clients:
+                        c.close()
+            finally:
+                srv.stop()
+            graphs += eng.compile_count
+            batches += srv.batcher.batches
+            answered += (len(reqs[mode]) + len(reloads[mode][1])
+                         + sum(r["ok"] for r in loads.values()))
+            stats[mode] = dict(request_p50_ms=float(np.percentile(lat, 50)),
+                               request_p99_ms=float(np.percentile(lat, 99)),
+                               wall_s=wall, capture_s=capture_s,
+                               graphs=eng.compile_count, ladder=len(ladder),
+                               loads=loads)
+            engines[mode] = eng
+        torch.cuda.synchronize()
+        launches = launch_counts()            # the main path ends here
+        log(f"[server] kernel launches on the main path: {launches}, over "
+            f"{batches} engine calls and {graphs} warm-up forwards (one "
+            f"before each capture); {answered} requests answered, "
+            + ", ".join(f"{k} {(v - graphs) / answered:.4f}"
+                        for k, v in sorted(launches.items()))
+            + " launches a request")
+        for name in ("ragged_gather_fm", "ragged_gather_embed"):
+            if launches.get(name, 0) != batches + graphs:
+                raise RuntimeError(f"{name}: {launches.get(name, 0)} "
+                                   f"launches, expected one a call and one "
+                                   f"a warm-up ({batches + graphs})")
+
+        # -- checks against the plain path on the card ----------------------
+        for mode, eng in engines.items():
+            pm = FactorizationMachine(F_FEATURES, DIM, engine="torch",
+                                      device="cuda")
+            ref = InferenceEngine(pm, buckets=ladders[mode],
+                                  postprocess="sigmoid",
+                                  ragged=mode == "ragged", device="cuda")
+            ref.reload_from_checkpoint(ckpt, step=1)
+            worst = 0.0
+            for j, (ids, vals, rp) in enumerate(reqs[mode]):
+                got, want = answers[mode][j], ref.predict(ids, vals, rp)
+                if got.shape != (len(rp) - 1,) or not np.isfinite(got).all():
+                    raise RuntimeError(f"{mode}: bad answer shape/values")
+                if not np.allclose(got, want, rtol=RTOL, atol=ATOL):
+                    raise RuntimeError(
+                        f"{mode} request {j} over TCP: max |err| against "
+                        f"the plain path {np.abs(got - want).max():.3g}")
+                worst = max(worst, float(np.abs(got - want).max()))
+            stream_req, results, before, at, reload_s = reloads[mode]
+            s1 = ref.predict(*stream_req)
+            ref.reload_from_checkpoint(ckpt, step=2)
+            s2 = ref.predict(*stream_req)
+            switch = _one_switch(results, s1, s2)
+            if not before <= switch <= at + 1:
+                raise RuntimeError(f"{mode}: the answers switched at "
+                                   f"{switch}, outside the reload's "
+                                   f"answers {before}..{at + 1}")
+            # a replay against the eager kernel path on the same batch
+            ids, vals, rp = max(reqs[mode], key=lambda r: len(r[0]))
+            bucket = eng.ladder.best_fit(len(rp) - 1, len(ids))
+            batch = eng._pad(bucket, ids, vals, rp)
+            replay = eng.predict(ids, vals, rp)
+            eager = eng._forward(eng._params, batch).cpu().numpy()
+            eager = eager[:len(rp) - 1]
+            if not np.allclose(replay, eager, rtol=RTOL, atol=ATOL):
+                raise RuntimeError(f"{mode}: the replay departs from the "
+                                   f"eager kernel path")
+            st = stats[mode]
+            log(f"[server] {mode}: {st['graphs']}/{st['ladder']} buckets "
+                f"captured in {st['capture_s']:.3f} s; 72 requests over TCP "
+                f"from 8 connections, request p50 "
+                f"{st['request_p50_ms']:.3f} ms p99 "
+                f"{st['request_p99_ms']:.3f} ms, max |err| against the plain "
+                f"path {worst:.3g} (limit rtol=atol={RTOL}); replay vs eager "
+                f"kernel path max |err| {np.abs(replay - eager).max():.3g}; "
+                f"hot-reload to step 2 in {reload_s * 1e3:.1f} ms "
+                f"mid-stream: {len(results)} answers, no failure, one "
+                f"switch, at answer {switch} ({before} done before the "
+                f"reload began, {at} by its return) [{power}]")
+            for name, rep in st["loads"].items():
+                lm, sv = rep["latency_ms"], rep["server"]
+                log(f"[server] {mode} {name} (concurrency "
+                    f"{rep['concurrency']}, depth {rep['pipeline_depth']}, "
+                    f"{rep['rows_per_req']} rows x U[1,{rep['nnz_per_row']}]"
+                    f" nnz, {rep['requests']} requests): qps {rep['qps']:.1f}"
+                    f", rows/s {rep['rows_per_s']:.0f}, latency p50 "
+                    f"{lm['p50']:.3f} p95 {lm['p95']:.3f} p99 "
+                    f"{lm['p99']:.3f} ms, overload {rep['overload']}; in the "
+                    f"server: {sv['calls']} engine calls of "
+                    f"{sv['requests_per_call']:.2f} requests, enqueue to "
+                    f"answer p50 {sv['p50_ms']:.3f} p99 {sv['p99_ms']:.3f} ms"
+                    f" [{power}]")
+        stats["breakdown"] = breakdown(torch, timer, engines, reqs, power)
+        return {"launches": launches, "stats": stats}
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
 
@@ -1934,6 +2252,8 @@ def phase_cli(torch, power: str, data: str, train_file: str,
         raise RuntimeError(f"CLI predictions depart from the checkpoint's "
                            f"scores: max|err| {err:.3g}")
 
+    _serve_main_check(power, env, ckpt, eval_file, got)
+
     # kstep=8: the epoch's 8 steps as one replayed graph; its checkpoint
     # against the kstep=1 run's, each parameter against how far it moved
     ckpt8 = os.path.join(data, "cli_ckpt_kstep")
@@ -1974,6 +2294,90 @@ def phase_cli(torch, power: str, data: str, train_file: str,
     r = subprocess.run([sys.executable, "-c", probe], capture_output=True,
                        text=True, timeout=300, check=True)
     log(f"[cli] a fresh interpreter: {r.stdout.strip()} [{power}]")
+
+
+SERVE_ROWS, SERVE_CHUNK = 512, 128    # eval rows scored over TCP, a request
+
+
+def _libsvm_rows(path: str, n: int):
+    """The first ``n`` rows of a libsvm file as one CSR request."""
+    ids, vals, ptr = [], [], [0]
+    with open(path, "rb") as f:
+        for _, line in zip(range(n), f):
+            for tok in line.split()[1:]:
+                i, v = tok.split(b":")
+                ids.append(int(i))
+                vals.append(float(v))
+            ptr.append(len(ids))
+    return (np.array(ids, np.int32), np.array(vals, np.float32),
+            np.array(ptr, np.int64))
+
+
+def _serve_main_check(power: str, env: dict, ckpt: str, eval_file: str,
+                      predicted: np.ndarray) -> None:
+    """The port's server as a user starts it, on the checkpoint
+    dmlc-train just wrote: the eval file's first rows scored through
+    ``PredictClient`` must match what ``mode=predict`` wrote for them
+    (after the same link, printed '%.6f') within CLI_TOL."""
+    import select
+    import signal
+
+    from dmlc_core_tpu_torch import PredictClient
+    log_path = os.path.join(os.path.dirname(ckpt), "server.log")
+    t0 = time.monotonic()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dmlc_core_tpu_torch.serving.server",
+             f"ckpt_dir={ckpt}", "model=deepfm", f"features={F_FEATURES}",
+             f"dim={DIM}", "host=127.0.0.1", "port=0"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=log_file,
+            text=True)
+        try:
+            line = ""
+            while "serving on" not in line:
+                left = t0 + 300 - time.monotonic()
+                if left <= 0 or proc.poll() is not None:
+                    with open(log_path) as f:
+                        raise RuntimeError(f"serve_main did not come up: "
+                                           f"{f.read()[-2000:]}")
+                if select.select([proc.stdout], [], [], left)[0]:
+                    line = proc.stdout.readline()
+            up_s = time.monotonic() - t0
+            host, port = line.split()[-1].rsplit(":", 1)
+            ids, vals, ptr = _libsvm_rows(eval_file, SERVE_ROWS)
+            t1 = time.monotonic()
+            scores = []
+            with PredictClient(host, int(port)) as client:
+                for a in range(0, SERVE_ROWS, SERVE_CHUNK):
+                    lo, hi = ptr[a], ptr[a + SERVE_CHUNK]
+                    scores.append(client.predict(
+                        ids[lo:hi], vals[lo:hi],
+                        ptr[a:a + SERVE_CHUNK + 1] - lo, timeout=120))
+            score_s = time.monotonic() - t1
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+    scores = np.concatenate(scores).astype(np.float64)
+    err = float(np.abs(scores - predicted[:SERVE_ROWS]).max())
+    with open(log_path) as f:
+        served = [ln.split("INFO ", 1)[-1].strip() for ln in f
+                  if "hot-reloaded" in ln or "captured bucket" in ln]
+    log(f"[cli] serve_main (python -m dmlc_core_tpu_torch.serving.server "
+        f"model=deepfm): up in {up_s:.3f} s ({served[-1] if served else ''}"
+        f"), {SERVE_ROWS} eval rows in {SERVE_ROWS // SERVE_CHUNK} requests "
+        f"over TCP in {score_s * 1e3:.1f} ms; max|err| against mode=predict "
+        f"{err:.3g} (limit {CLI_TOL:g}); exit {proc.returncode} [{power}]")
+    if proc.returncode != 0:
+        raise RuntimeError(f"serve_main exited {proc.returncode} on SIGINT")
+    if not np.isfinite(scores).all() or err > CLI_TOL:
+        raise RuntimeError(f"served scores depart from mode=predict's: "
+                           f"max|err| {err:.3g}")
+    if not any("hot-reloaded step" in ln for ln in served):
+        raise RuntimeError("serve_main never loaded the checkpoint")
 
 
 # -- planted faults -----------------------------------------------------------
@@ -2070,6 +2474,24 @@ def main_planted(kind: str) -> int:
     return 0 if all(caught.values()) else 1
 
 
+def main_serving() -> int:
+    """``--serving``: phases 1, 2, 4 and 4a only (the serving numbers,
+    for a comparison on one card); the last line is phase 4a's numbers."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    power = phase_device(torch)
+    phase_build()
+    timer = Timer(torch)
+    phase_serving(torch, timer, power)
+    out = phase_server(torch, timer, power)
+    print(power)
+    print(json.dumps(out["stats"]))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2086,6 +2508,7 @@ def main() -> int:
     timer = Timer(torch)
     kern = phase_kernels(torch, timer, power)
     serving = phase_serving(torch, timer, power)
+    server = phase_server(torch, timer, power)["launches"]
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
         training = phase_training(torch, power, train_file, eval_file)
@@ -2124,6 +2547,10 @@ def main() -> int:
                                             "ragged_gather_embed",
                                             "fm_terms")
                 if training.get(k, 0) < 1]
+    # the server's path: both ragged-gather forwards, in every replay
+    missing += [f"{k} (server)" for k in ("ragged_gather_fm",
+                                          "ragged_gather_embed")
+                if server.get(k, 0) < 1]
     # every kernel of the flat paths runs inside the k-step graphs
     missing += [f"{k} (kstep)" for k in (
         "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
@@ -2143,6 +2570,9 @@ def main() -> int:
             # default (foreach); the optimizers at the other models' shapes
             if extra in k:
                 row[extra] = k[extra]
+        if name in ("ragged_gather_fm", "ragged_gather_embed"):
+            # this slice's path: the TCP server, one graph replay a call
+            row["server"] = {"launches": server.get(name, 0)}
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
             # training batch's shapes, with the training launches
@@ -2170,9 +2600,12 @@ if __name__ == "__main__":
     ap.add_argument("--plant", choices=PLANTS, default=None,
                     help="plant a fault on the kernel path and show that "
                          "phase 5's checks catch it")
+    ap.add_argument("--serving", action="store_true",
+                    help="run the serving phases only (4 and 4a)")
     args = ap.parse_args()
     try:
-        rc = main() if args.plant is None else main_planted(args.plant)
+        rc = (main_planted(args.plant) if args.plant is not None
+              else main_serving() if args.serving else main())
     except Exception as e:  # noqa: BLE001 — any failed phase fails
         import traceback
         traceback.print_exc()

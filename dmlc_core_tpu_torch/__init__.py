@@ -3,7 +3,7 @@
 Runs on an NVIDIA H100 (Hopper, ``sm_90a``) with kernels written by hand
 in CUDA C++ where the JAX package had Pallas kernels.  Its layout mirrors
 the JAX package (``data/``, ``pipeline/``, ``ops/``, ``models/``,
-``serving/``, ``utils/``, plus ``kernels/``), and each module names its
+``serving/``, ``transport/``, ``utils/``, plus ``kernels/``), and each module names its
 JAX counterpart.  It imports
 ``torch`` and ``numpy`` and nothing of JAX or of ``dmlc_core_tpu``.
 
@@ -36,10 +36,22 @@ and serves the factorization machine::
     engine = InferenceEngine(model, postprocess="sigmoid", warmup=True)
     with MicroBatcher(engine) as batcher:
         scores = batcher.submit(ids, vals, row_ptr).result()
+
+over TCP, on the JAX package's wire (each bucket one captured CUDA
+graph)::
+
+    with PredictionServer(engine, port=9200).start():
+        with PredictClient("127.0.0.1", 9200) as client:
+            scores = client.predict(ids, vals, row_ptr)
+
+or from the command line::
+
+    python -m dmlc_core_tpu_torch.serving.server ckpt_dir=ck features=1048576 model=fm dim=32 port=9200
+    python -m dmlc_core_tpu_torch.serving.client 127.0.0.1:9200 requests=2000 concurrency=8
 """
 
 from . import (data, kernels, models, ops, pipeline,  # noqa: F401
-               serving, utils)
+               serving, transport, utils)
 from .data import create_parser  # noqa: F401
 from .models import (FTRL, Adam, DCNv2, DeepFM,  # noqa: F401
                      FactorizationMachine, FusedTrainer, SparseLogReg, adam,
@@ -47,7 +59,8 @@ from .models import (FTRL, Adam, DCNv2, DeepFM,  # noqa: F401
                      params_from_jax, params_to_numpy)
 from .pipeline import DeviceLoader  # noqa: F401
 from .serving import (BucketLadder, InferenceEngine,  # noqa: F401
-                      MicroBatcher)
+                      MicroBatcher, PredictClient, PredictionServer,
+                      run_load)
 from .utils import CheckpointManager, DMLCError  # noqa: F401
 
 __version__ = "0.1.0"
@@ -55,5 +68,6 @@ __version__ = "0.1.0"
 __all__ = ["FactorizationMachine", "SparseLogReg", "DCNv2", "DeepFM",
            "params_from_jax", "params_to_numpy", "create_parser",
            "DeviceLoader", "make_train_step", "fit_stream", "evaluate_stream",
-           "adam", "Adam", "FTRL", "FusedTrainer", "InferenceEngine", "BucketLadder", "MicroBatcher",
-           "CheckpointManager", "DMLCError"]
+           "adam", "Adam", "FTRL", "FusedTrainer", "InferenceEngine",
+           "BucketLadder", "MicroBatcher", "PredictionServer",
+           "PredictClient", "run_load", "CheckpointManager", "DMLCError"]

@@ -1,8 +1,7 @@
 """Dynamic micro-batcher: aggregate concurrent requests into engine calls.
 
-Counterpart of ``dmlc_core_tpu/serving/batcher.py`` without its
-telemetry spans and metrics.  A micro-batch is cut on whichever trigger
-fires first:
+Counterpart of ``dmlc_core_tpu/serving/batcher.py``.  A micro-batch is
+cut on whichever trigger fires first:
 
 * **size** — queued true rows/values would fill the largest bucket, or
 * **delay** — the oldest queued request has waited ``max_delay_s``.
@@ -11,7 +10,17 @@ The queue is bounded: :meth:`MicroBatcher.submit` rejects with
 :class:`Overloaded` beyond ``max_queue``.  Requests that expire while
 queued fail with :class:`DeadlineExceeded` without taking an engine slot.
 ``close(drain=True)`` serves everything queued before the worker exits;
-``drain=False`` fails it with :class:`Shutdown`.
+``drain=False`` fails it with :class:`Shutdown`.  :meth:`MicroBatcher.
+apply_knobs` changes the triggers live.
+
+Metrics, as the JAX batcher's: ``serving.batcher.queue_depth``,
+``.occupancy``, ``.overloads``, ``.deadline_drops``, ``.batches``,
+``.requests``, ``.batch_nnz``, ``.batch_fill`` and ``serving.latency_s``
+(enqueue to answer).  A request carries the trace ids it arrived with
+(``trace_ctx``, on ``_Pending.ctx``) across to the worker thread; the
+spans that would read them come with the port's telemetry (ROADMAP queue
+A.12), and so do the per-request wide events and the flight recorder's
+note of an engine failure.
 """
 
 from __future__ import annotations
@@ -19,11 +28,12 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
-from typing import List, Optional
+from typing import Any, List, Optional
 
 import numpy as np
 
 from ..utils.logging import DMLCError, check
+from ..utils.metrics import metrics
 from .engine import InferenceEngine, RequestTooLarge
 
 __all__ = ["MicroBatcher", "Overloaded", "DeadlineExceeded", "Shutdown"]
@@ -43,9 +53,9 @@ class Shutdown(DMLCError):
 
 class _Pending:
     __slots__ = ("ids", "vals", "row_ptr", "rows", "nnz", "deadline",
-                 "t_enq", "future")
+                 "t_enq", "future", "ctx")
 
-    def __init__(self, ids, vals, row_ptr, deadline, t_enq):
+    def __init__(self, ids, vals, row_ptr, deadline, t_enq, ctx=None):
         self.ids = ids
         self.vals = vals
         self.row_ptr = row_ptr
@@ -54,6 +64,7 @@ class _Pending:
         self.deadline = deadline
         self.t_enq = t_enq
         self.future: Future = Future()
+        self.ctx = ctx                 # the request's trace ids, or None
 
 
 class MicroBatcher:
@@ -81,23 +92,43 @@ class MicroBatcher:
         self._closing = False
         self._drain = True
         self.batches = 0
+        self._bind_metrics()
         self._worker = threading.Thread(target=self._run,
                                         name="serving-batcher", daemon=True)
         self._worker.start()
 
+    def _bind_metrics(self) -> None:
+        m = metrics
+        self._m_gen = m.generation
+        self._m_depth = m.gauge("serving.batcher.queue_depth")
+        self._m_occ = m.gauge("serving.batcher.occupancy")
+        self._m_overload = m.counter("serving.batcher.overloads")
+        self._m_expired = m.counter("serving.batcher.deadline_drops")
+        self._m_batches = m.counter("serving.batcher.batches")
+        self._m_reqs = m.throughput("serving.batcher.requests")
+        self._m_latency = m.histogram("serving.latency_s")
+        self._m_nnz = m.histogram("serving.batcher.batch_nnz")
+        self._m_fill = m.gauge("serving.batcher.batch_fill")
+
+    def _maybe_rebind(self) -> None:
+        if self._m_gen != metrics.generation:
+            self._bind_metrics()
+
     # -- producer side ---------------------------------------------------
     def submit(self, ids: np.ndarray, vals: np.ndarray,
                row_ptr: Optional[np.ndarray] = None,
-               deadline_s: Optional[float] = None) -> Future:
+               deadline_s: Optional[float] = None,
+               trace_ctx: Any = None) -> Future:
         """Enqueue one CSR request; the Future resolves to its float32
         scores or raises Overloaded/DeadlineExceeded/Shutdown.  Oversized
         and malformed requests fail here, before they can join a
-        batch."""
+        batch.  ``trace_ctx`` (the request's trace ids) rides along."""
         ids = np.asarray(ids, np.int32)
         vals = np.asarray(vals, np.float32)
         if row_ptr is None:
             row_ptr = np.array([0, len(ids)], np.int64)
         row_ptr = np.asarray(row_ptr, np.int64)
+        self._maybe_rebind()
         rows, nnz = len(row_ptr) - 1, len(ids)
         f: Future = Future()
         if rows < 1 or len(ids) != len(vals) or int(row_ptr[0]) != 0 \
@@ -113,17 +144,19 @@ class MicroBatcher:
         now = time.monotonic()
         p = _Pending(ids, vals, row_ptr,
                      now + (self.default_deadline_s if deadline_s is None
-                            else deadline_s), now)
+                            else deadline_s), now, trace_ctx)
         with self._cv:
             if self._closing:
                 p.future.set_exception(Shutdown("batcher is shut down"))
                 return p.future
             if len(self._q) >= self.max_queue:
+                self._m_overload.add(1)
                 p.future.set_exception(Overloaded(
                     f"queue full ({self.max_queue} requests) — retry with "
                     f"backoff"))
                 return p.future
             self._q.append(p)
+            self._m_depth.set(len(self._q))
             self._cv.notify()
         return p.future
 
@@ -164,6 +197,7 @@ class MicroBatcher:
                 batch.append(self._q.pop(0))
                 rows += p.rows
                 nnz += p.nnz
+            self._m_depth.set(len(self._q))
             return batch
 
     def _run(self) -> None:
@@ -171,10 +205,12 @@ class MicroBatcher:
             batch = self._cut_batch()
             if batch is None:
                 return
+            self._maybe_rebind()
             now = time.monotonic()
             live: List[_Pending] = []
             for p in batch:
                 if p.deadline < now:
+                    self._m_expired.add(1)
                     p.future.set_exception(DeadlineExceeded(
                         f"request expired after {now - p.t_enq:.3f}s in "
                         f"queue"))
@@ -200,10 +236,40 @@ class MicroBatcher:
                         p.future.set_exception(e)
                 continue
             self.batches += 1
+            self._m_batches.add(1)
+            self._m_occ.set(sum(p.rows for p in live)
+                            / max(1, self.max_batch_rows))
+            self._m_nnz.observe(len(ids))
+            self._m_fill.set(len(ids) / max(1, self.max_batch_nnz))
+            done_t = time.monotonic()
             r0 = 0
             for p in live:
                 p.future.set_result(scores[r0:r0 + p.rows])
                 r0 += p.rows
+                self._m_latency.observe(done_t - p.t_enq)
+                self._m_reqs.add(1)
+
+    # -- knobs -------------------------------------------------------------
+    def apply_knobs(self, *, max_delay_s: Optional[float] = None,
+                    max_batch_rows: Optional[int] = None,
+                    max_batch_nnz: Optional[int] = None) -> None:
+        """Change the cut triggers live, under the queue lock, bounded as
+        the constructor bounds them (a batch budget never exceeds the
+        engine's largest bucket); the worker reads them at its next
+        cut."""
+        with self._cv:
+            if max_delay_s is not None:
+                check(max_delay_s >= 0, "max_delay_s must be >= 0")
+                self.max_delay_s = float(max_delay_s)
+            if max_batch_rows is not None:
+                check(1 <= max_batch_rows <= self.engine.ladder.max_rows,
+                      "max_batch_rows outside [1, ladder max]")
+                self.max_batch_rows = int(max_batch_rows)
+            if max_batch_nnz is not None:
+                check(1 <= max_batch_nnz <= self.engine.ladder.max_nnz,
+                      "max_batch_nnz outside [1, ladder max]")
+                self.max_batch_nnz = int(max_batch_nnz)
+            self._cv.notify_all()
 
     # -- lifecycle -------------------------------------------------------
     def close(self, drain: bool = True, timeout: float = 30.0) -> None:
@@ -216,8 +282,14 @@ class MicroBatcher:
                 for p in self._q:
                     p.future.set_exception(Shutdown("batcher shut down"))
                 self._q.clear()
+                self._m_depth.set(0)
             self._cv.notify_all()
         self._worker.join(timeout=timeout)
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cv:
+            return len(self._q)
 
     def __enter__(self):
         return self

@@ -1,4 +1,5 @@
-"""Shape-bucketed inference engine with atomic hot-reload.
+"""Shape-bucketed inference engine, one captured CUDA graph a bucket,
+with atomic hot-reload.
 
 Counterpart of ``dmlc_core_tpu/serving/engine.py``.  A request (CSR
 ``ids``, ``vals``, ``row_ptr``) is padded up to the smallest bucket of a
@@ -8,19 +9,31 @@ flat (``_pad_to_bucket``, padding at the scratch row) or, with
 ``rows_used`` words (``_pad_to_capacity``; the forward masks the tails
 with ``mask_batch``, as the JAX engine does inside its compiled program).
 
-PyTorch runs eagerly, so there is nothing to compile: a bucket is
-*prepared* on its first use (or by :meth:`InferenceEngine.warmup_all`)
-by running one dummy batch through it, which builds the kernels and
-warms the allocator.  ``compile_count`` counts prepared buckets and can
-never exceed the ladder's size.  Capturing one CUDA graph per bucket is
-later work.
+Where the JAX engine compiles each bucket ahead of time, this one
+captures each bucket's forward as a CUDA graph, at the bucket's first
+use or in :meth:`InferenceEngine.warmup_all`, and replays it on every
+later call; ``compile_count`` counts the captured graphs and can never
+exceed the ladder's size.  A bucket owns a pinned staging buffer and a
+static device buffer, both in the packed int32 layout of
+:func:`_batch_to_device` (every array of the padded batch end to end,
+viewed back with its own dtype and shape), and the graph's static output
+with a pinned copy of it.  A call pads into the staging buffer, copies it
+to the static buffer (non-blocking, outside the graph), replays, copies
+the scores out and waits on an event, all under the engine's one lock:
+a replay's inputs and outputs are static, and every graph of the engine
+shares one memory pool, which is safe only because replays run one at a
+time and each output is copied out before the next.  Before its capture
+a bucket's forward runs once on a side stream, which builds the kernels
+and whatever library workspace the forward needs.  A capture that fails
+raises.  On the CPU the forward runs eagerly (a bucket is *prepared* by
+one dummy batch, which ``compile_count`` counts).
 
-The padded batch travels to the card in one host-to-device copy: every
-array is packed into one int32 buffer and viewed back on the device.
-
-Hot-reload swaps the parameter dict atomically (one reference assignment
-under a lock) after checking names, shapes and dtypes; requests already
-holding the old dict finish on it.  The model is called with
+A graph holds the addresses of the weights, so a hot-reload copies the
+new weights into the engine's tensors in place: it stages them on the
+device first, checks names, shapes and dtypes, then copies under the
+same lock a replay holds, so every call sees either the old weights or
+the new ones.  The engine clones its weights at construction, so a
+reload never writes into the caller's module.  The model is called with
 ``torch.func.functional_call`` on the engine's parameter dict.
 """
 
@@ -36,6 +49,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..kernels.common import add_launches, record_launches
 from ..models.convert import params_from_jax
 from ..ops.ragged_csr import mask_batch
 from ..utils.device import resolve_device
@@ -173,19 +187,29 @@ def _pad_to_capacity(bucket: ShapeBucket, ids: np.ndarray,
             "nnz_used": np.int32(nnz), "rows_used": np.int32(rows)}
 
 
-def _batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
-                     ) -> Dict[str, torch.Tensor]:
-    """Pack every array into one int32 buffer, copy it once, and view
-    the pieces back with their own dtypes and shapes."""
-    parts, layout, off = [], [], 0
+Layout = List[Tuple[str, int, Tuple[int, ...], np.dtype]]
+
+
+def _layout(batch: Dict[str, np.ndarray]) -> Tuple[Layout, int]:
+    """The packed int32 layout of a padded batch: ``(name, first word,
+    shape, dtype)`` of every array end to end, and the total words."""
+    layout, off = [], 0
     for name, arr in batch.items():
         arr = np.asarray(arr)
         check(arr.dtype.itemsize == 4, f"batch field {name} is not 32-bit")
-        flat = np.ascontiguousarray(arr).reshape(-1).view(np.int32)
-        parts.append(flat)
         layout.append((name, off, arr.shape, arr.dtype))
-        off += flat.size
-    buf = torch.from_numpy(np.concatenate(parts)).to(device)
+        off += arr.size
+    return layout, off
+
+
+def _pack_into(batch: Dict[str, np.ndarray], out: np.ndarray) -> None:
+    """Write ``batch`` into ``out`` (int32 words) in its packed layout."""
+    np.concatenate([np.ascontiguousarray(a).reshape(-1).view(np.int32)
+                    for a in batch.values()], out=out)
+
+
+def _views(buf: torch.Tensor, layout: Layout) -> Dict[str, torch.Tensor]:
+    """The batch's arrays as views of a packed int32 tensor."""
     out = {}
     for name, start, shape, dtype in layout:
         n = int(np.prod(shape, dtype=np.int64))
@@ -196,30 +220,71 @@ def _batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
     return out
 
 
-def _signature(params: Mapping[str, Any]) -> Dict[str, Tuple]:
-    """name → (shape, dtype name), for numpy and torch leaves alike."""
-    sig = {}
+def _batch_to_device(batch: Dict[str, np.ndarray], device: torch.device
+                     ) -> Dict[str, torch.Tensor]:
+    """Pack every array into one int32 buffer, copy it once, and view
+    the pieces back with their own dtypes and shapes."""
+    layout, words = _layout(batch)
+    host = np.empty(words, np.int32)
+    _pack_into(batch, host)
+    return _views(torch.from_numpy(host).to(device), layout)
+
+
+def _device_params(params: Mapping[str, Any], device: torch.device
+                   ) -> Dict[str, torch.Tensor]:
+    """A param tree, nested (the JAX layout) or with dotted names (a
+    ``state_dict``), → ``{dotted.name: tensor}`` on ``device``."""
+    tree: Dict[str, Any] = {}
     for name, value in params.items():
-        if isinstance(value, torch.Tensor):
-            sig[name] = (tuple(value.shape),
-                         str(value.dtype).removeprefix("torch."))
-        else:
-            arr = np.asarray(value)
-            sig[name] = (tuple(arr.shape), str(arr.dtype))
-    return sig
+        *path, leaf = name.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = value
+    return params_from_jax(tree, device)
+
+
+def _signature(params: Mapping[str, torch.Tensor]) -> Dict[str, Tuple]:
+    """name → (shape, dtype name)."""
+    return {name: (tuple(v.shape), str(v.dtype).removeprefix("torch."))
+            for name, v in params.items()}
+
+
+class _BucketGraph:
+    """One bucket on the card: the pinned staging buffer and the static
+    device input (packed layout), the captured forward, its static output
+    and the pinned copy of it."""
+
+    __slots__ = ("host", "host_np", "static", "batch", "graph", "out",
+                 "host_out", "out_np", "done", "launches")
+
+    def __init__(self, layout: Layout, words: int, rows: int,
+                 device: torch.device) -> None:
+        self.host = torch.empty(words, dtype=torch.int32, pin_memory=True)
+        self.host_np = self.host.numpy()
+        self.static = torch.empty(words, dtype=torch.int32, device=device)
+        self.batch = _views(self.static, layout)
+        self.host_out = torch.empty(rows, dtype=torch.float32,
+                                    pin_memory=True)
+        self.out_np = self.host_out.numpy()
+        self.done = torch.cuda.Event()
+        self.graph: Optional["torch.cuda.CUDAGraph"] = None
+        self.out: Optional[torch.Tensor] = None
+        self.launches: Dict[str, int] = {}   # a replay's kernel launches
 
 
 class InferenceEngine:
-    """Bucketed forward engine over a model module, with atomic
-    hot-reload.
+    """Bucketed forward engine over a model module, one captured CUDA
+    graph a bucket on the card, with atomic hot-reload.
 
     ``model`` is an ``nn.Module`` whose ``forward(batch)`` returns
-    scores; its parameters are replaced, at every call, by the engine's
-    own dict (``params``, or the model's state when omitted).  ``device``
-    defaults to ``cuda`` and raises when no card is present; pass
-    ``"cpu"`` for the plain PyTorch path.  ``postprocess="sigmoid"``
-    applies the binary link on the device.  ``predict`` may be called
-    from any thread and ``reload`` from any other.
+    scores; it is called on the engine's own copy of the weights
+    (``params``, or the model's state when omitted; a nested JAX param
+    tree of numpy arrays is taken too).  ``device`` defaults to ``cuda``
+    and raises when no card is present; pass ``"cpu"`` for the plain
+    PyTorch path.  ``postprocess="sigmoid"`` applies the binary link on the
+    device.  ``predict`` may be called from any thread and ``reload``
+    from any other.
     """
 
     def __init__(self, model: nn.Module,
@@ -238,16 +303,22 @@ class InferenceEngine:
         self._postprocess = postprocess
         if params is None:
             params = dict(model.state_dict())
-        self._signature = _signature(params)
+        # the engine's own tensors: a reload copies into them in place
+        # (the graphs hold their addresses), never into the caller's
+        self._params = {k: v.clone() for k, v in
+                        _device_params(params, self.device).items()}
+        self._signature = _signature(self._params)
         model_sig = _signature(model.state_dict())
         if self._signature != model_sig:
             raise DMLCError(f"params do not match the model's parameters\n"
                             f"  model:  {model_sig}\n"
                             f"  params: {self._signature}")
-        self._params = params_from_jax(params, self.device)
-        self._prepared: set = set()
-        self._prepare_lock = threading.Lock()
-        self._reload_lock = threading.Lock()
+        # held by capture, every call's copy-in / replay / copy-out, and
+        # the in-place copy of a reload
+        self._lock = threading.Lock()
+        self._graphs: Dict[ShapeBucket, _BucketGraph] = {}
+        self._prepared: set = set()          # the CPU's eager buckets
+        self._pool = None                    # the graphs' memory pool
         self.compile_count = 0
         self.params_version = 0
         if warmup:
@@ -274,29 +345,79 @@ class InferenceEngine:
         pad = _pad_to_capacity if self.ragged else _pad_to_bucket
         return pad(bucket, ids, vals, row_ptr)
 
-    def _prepare(self, bucket: ShapeBucket) -> None:
-        """First use of a bucket: one dummy batch through the forward."""
-        if bucket in self._prepared:
-            return
-        with self._prepare_lock:
-            if bucket in self._prepared:
-                return
-            t0 = time.monotonic()
-            dummy = self._pad(bucket, np.zeros(1, np.int32),
-                              np.zeros(1, np.float32),
-                              np.array([0, 1], np.int64))
-            self._forward(self._params, dummy).cpu()
+    def _dummy(self, bucket: ShapeBucket) -> Dict[str, np.ndarray]:
+        return self._pad(bucket, np.zeros(1, np.int32),
+                         np.zeros(1, np.float32), np.array([0, 1], np.int64))
+
+    def _capture(self, bucket: ShapeBucket) -> _BucketGraph:
+        """The bucket's graph, under the lock: warm-up on a side stream,
+        then the capture of one forward over the static input."""
+        dev = self.device
+        dummy = self._dummy(bucket)
+        g = _BucketGraph(*_layout(dummy), bucket.rows, dev)
+        self._stage(g, dummy)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._forward_device(self._params, g.batch)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the server's reader threads and the checkpoint
+        # watcher keep running while this thread captures
+        with record_launches() as launches:
+            with torch.cuda.graph(graph, pool=self._pool,
+                                  capture_error_mode="thread_local"):
+                g.out = self._forward_device(self._params, g.batch)
+        g.graph, g.launches = graph, launches
+        return g
+
+    def _ready(self, bucket: ShapeBucket) -> Optional[_BucketGraph]:
+        """Under the lock: on the card the bucket's graph, captured at
+        its first use; on the CPU None, after one dummy forward at the
+        bucket's first use."""
+        g = self._graphs.get(bucket)
+        if g is not None or bucket in self._prepared:
+            return g
+        t0 = time.monotonic()
+        if self.device.type == "cuda":
+            with torch.cuda.device(self.device):
+                g = self._graphs[bucket] = self._capture(bucket)
+        else:
+            self._forward(self._params, self._dummy(bucket))
             self._prepared.add(bucket)
-            self.compile_count += 1
-            log_info("serving: prepared bucket rows=%d nnz=%d in %.2fs "
-                     "(%d/%d buckets hot)", bucket.rows, bucket.nnz,
-                     time.monotonic() - t0, len(self._prepared),
-                     len(self.ladder))
+        self.compile_count += 1
+        log_info("serving: %s bucket rows=%d nnz=%d in %.2fs (%d/%d buckets "
+                 "hot)", "captured" if g is not None else "prepared",
+                 bucket.rows, bucket.nnz, time.monotonic() - t0,
+                 self.compile_count, len(self.ladder))
+        return g
 
     def warmup_all(self) -> None:
-        """Prepare every bucket of the ladder before serving."""
+        """Capture (on the CPU: prepare) every bucket of the ladder before
+        serving."""
         for bucket in self.ladder:
-            self._prepare(bucket)
+            with self._lock:
+                self._ready(bucket)
+
+    # -- a call on the card: copy in, replay, copy out --------------------
+    def _stage(self, g: _BucketGraph, batch: Dict[str, np.ndarray]) -> None:
+        """The padded batch into the pinned staging buffer, then one
+        non-blocking copy into the graph's static input."""
+        _pack_into(batch, g.host_np)
+        g.static.copy_(g.host, non_blocking=True)
+
+    def _replay(self, g: _BucketGraph) -> None:
+        g.graph.replay()
+        add_launches(g.launches)
+
+    def _copy_out(self, g: _BucketGraph, rows: int) -> np.ndarray:
+        """The scores of the last replay, once they are on the host."""
+        g.host_out.copy_(g.out, non_blocking=True)
+        g.done.record(torch.cuda.current_stream(self.device))
+        g.done.synchronize()
+        return g.out_np[:rows].copy()
 
     # -- serving path ---------------------------------------------------
     def predict(self, ids: np.ndarray, vals: np.ndarray,
@@ -315,25 +436,35 @@ class InferenceEngine:
         check(int(row_ptr[0]) == 0 and int(row_ptr[-1]) == len(ids),
               "row_ptr does not cover ids")
         bucket = self.ladder.best_fit(rows, max(len(ids), 1))
-        self._prepare(bucket)
-        params = self._params          # one read: hot-reload safe
-        out = self._forward(params, self._pad(bucket, ids, vals, row_ptr))
-        return out.cpu().numpy()[:rows]
+        batch = self._pad(bucket, ids, vals, row_ptr)
+        with self._lock:
+            g = self._ready(bucket)
+            if g is None:
+                return self._forward(self._params, batch).numpy()[:rows]
+            with torch.cuda.device(self.device):
+                self._stage(g, batch)
+                self._replay(g)
+                return self._copy_out(g, rows)
 
     # -- hot reload -----------------------------------------------------
     def reload(self, params: Mapping[str, Any]) -> None:
         """Swap the weights atomically.  Names, shapes and dtypes must
         match the serving ones, or the reload is refused and the old
-        weights keep serving."""
-        sig = _signature(params)
+        weights keep serving.  The new weights are staged on the device,
+        then copied into the engine's tensors under the lock."""
+        new = _device_params(params, self.device)
+        sig = _signature(new)
         if sig != self._signature:
             raise DMLCError(
                 "hot-reload refused: new params do not match the serving "
                 f"model's shapes/dtypes\n  serving: {self._signature}\n"
                 f"  reload:  {sig}")
-        new = params_from_jax(params, self.device)
-        with self._reload_lock:
-            self._params = new
+        with self._lock:
+            for name, t in self._params.items():
+                t.copy_(new[name])
+            if self.device.type == "cuda":
+                # complete before any replay, whichever stream it is on
+                torch.cuda.current_stream(self.device).synchronize()
             self.params_version += 1
 
     def reload_from_checkpoint(self, directory: str,

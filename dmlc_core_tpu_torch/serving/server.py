@@ -1,0 +1,492 @@
+"""Threaded TCP prediction server over the engine and the micro-batcher.
+
+Counterpart of ``dmlc_core_tpu/serving/server.py``, on the same wire,
+byte for byte, so that the JAX package's client talks to this server and
+this package's client to the JAX server.  Length-prefixed little-endian
+frames over TCP with ``TCP_NODELAY``; requests and responses are matched
+by a client-chosen ``req_id``, so one connection can pipeline many
+requests and receive the answers in completion order::
+
+    request:   [req_id u64][trace_id u64][parent_span u64][rows u32][nnz u32]
+               [row_ptr i32 × (rows+1)][ids i32 × nnz][vals f32 × nnz]
+    response:  [req_id u64][status u8][n u32]
+               status 0 (OK):  [scores f32 × n]      (n == rows)
+               status ≠ 0:     [utf-8 message × n]
+    statuses:  0 OK, 1 OVERLOADED, 2 DEADLINE_EXCEEDED, 3 TOO_LARGE,
+               4 SHUTDOWN, 5 BAD_REQUEST
+    hello:     a request frame with req_id == (1<<64)-1 declares the
+               model: rows == 0 and the payload is nnz utf-8 bytes naming
+               the model_id (see pack_hello); a server of another model
+               answers BAD_REQUEST and drops the connection
+
+Overload is an answer, not a dropped connection, so that a client can
+tell "back off and retry" from "server died".  ``trace_id`` /
+``parent_span`` are read and travel with the request to the batcher
+(0 = untraced); the spans that would use them come with the port's
+telemetry (ROADMAP queue A.12).
+
+Hot reload: :meth:`PredictionServer.reload_from_checkpoint` swaps the
+weights mid-stream, and :meth:`PredictionServer.watch_checkpoints` polls a
+checkpoint directory and reloads whenever a trainer publishes a new step.
+
+Not ported, each refused when asked for (a deployment that sets one must
+not be served silently without it): the telemetry exporter
+(``metrics_port=`` / ``DMLC_METRICS_PORT``), the SLO monitor
+(``DMLC_SLO_SPEC``), the flight recorder (``DMLC_FLIGHT_DIR``), trace
+sampling (``DMLC_TRACE_SAMPLE``) and the fault points
+(``DMLC_FAULT_SPEC``), all ROADMAP queue A.12; the fleet agent
+(``DMLC_ROUTER_REGISTRY``, A.11); the autotuned :meth:`serve_forever`
+(``DMLC_AUTOTUNE``, A.9).
+
+    python -m dmlc_core_tpu_torch.serving.server ckpt_dir=DIR features=N \\
+        [model=fm] [dim=16] [port=0] [device=cuda|cpu] ...
+"""
+
+from __future__ import annotations
+
+import socket
+import struct
+import sys
+import threading
+import time
+from typing import Dict, Optional
+
+import numpy as np
+
+from ..transport.frames import send_all
+from ..transport.listener import Listener, serve_connection
+from ..utils.logging import DMLCError, log_info, log_warning
+from ..utils.metrics import metrics
+from ..utils.parameter import get_env
+from .batcher import DeadlineExceeded, MicroBatcher, Overloaded, Shutdown
+from .engine import InferenceEngine, RequestTooLarge
+
+__all__ = ["PredictionServer", "REQ_HEADER", "RSP_HEADER", "STATUS_OK",
+           "STATUS_OVERLOADED", "STATUS_DEADLINE", "STATUS_TOO_LARGE",
+           "STATUS_SHUTDOWN", "STATUS_BAD_REQUEST", "STATUS_NAMES",
+           "HELLO_REQ_ID", "pack_hello", "serve_main"]
+
+REQ_HEADER = struct.Struct("<QQQII")    # req_id, trace_id, parent_span,
+                                        # rows, nnz (trace ids 0 = untraced)
+RSP_HEADER = struct.Struct("<QBI")      # req_id, status, n
+
+#: reserved req_id of the hello preamble: the header's ``nnz`` counts the
+#: utf-8 model_id bytes that follow (rows and trace fields are 0).  Real
+#: req_ids are small counters, so it never collides.
+HELLO_REQ_ID = (1 << 64) - 1
+_MAX_MODEL_ID = 4096
+
+
+def pack_hello(model_id: str) -> bytes:
+    """The model-declaration frame, sent once per connection before the
+    first request."""
+    blob = model_id.encode("utf-8")[:_MAX_MODEL_ID]
+    return REQ_HEADER.pack(HELLO_REQ_ID, 0, 0, 0, len(blob)) + blob
+
+
+STATUS_OK = 0
+STATUS_OVERLOADED = 1
+STATUS_DEADLINE = 2
+STATUS_TOO_LARGE = 3
+STATUS_SHUTDOWN = 4
+STATUS_BAD_REQUEST = 5
+STATUS_NAMES = {0: "OK", 1: "OVERLOADED", 2: "DEADLINE_EXCEEDED",
+                3: "TOO_LARGE", 4: "SHUTDOWN", 5: "BAD_REQUEST"}
+
+#: parse-time caps: a corrupt header must not allocate gigabytes
+_MAX_ROWS = 1 << 20
+_MAX_NNZ = 1 << 26
+
+# what is not ported, by the environment variable that asks for it
+_REFUSED_ENV = {
+    "DMLC_SLO_SPEC": "the SLO monitor is not ported yet (ROADMAP queue "
+                     "A.12, telemetry)",
+    "DMLC_FLIGHT_DIR": "the flight recorder is not ported yet (ROADMAP "
+                       "queue A.12, telemetry)",
+    "DMLC_TRACE_SAMPLE": "trace sampling is not ported yet (ROADMAP queue "
+                         "A.12, telemetry)",
+    "DMLC_FAULT_SPEC": "the fault points are not ported yet (ROADMAP queue "
+                       "A.12, telemetry)",
+    "DMLC_ROUTER_REGISTRY": "the serving fleet's replica agent is not "
+                            "ported yet (ROADMAP queue A.11, serving "
+                            "fleet)",
+}
+
+
+def _refuse_unported(metrics_port: Optional[int]) -> None:
+    """Raise for any part of the JAX server that this one lacks and the
+    caller or the environment asks for."""
+    if metrics_port is not None or get_env("DMLC_METRICS_PORT", -1) >= 0:
+        raise DMLCError("metrics_port= / DMLC_METRICS_PORT: the telemetry "
+                        "exporter (TelemetryServer) is not ported yet "
+                        "(ROADMAP queue A.12, telemetry)")
+    for key, why in _REFUSED_ENV.items():
+        if get_env(key, ""):
+            raise DMLCError(f"{key} is set, but {why}")
+
+
+def _refuse_autotune() -> None:
+    tune = get_env("DMLC_AUTOTUNE", "").strip()
+    if tune and tune != "0":
+        raise DMLCError("DMLC_AUTOTUNE is set, but the serving autotuner "
+                        "is not ported yet (ROADMAP queue A.9, "
+                        "disaggregated ingest and autotuning)")
+
+
+def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        r = sock.recv_into(view[got:], n - got)
+        if not r:
+            return None
+        got += r
+    return bytes(buf)
+
+
+def _status_of(exc: BaseException) -> int:
+    if isinstance(exc, Overloaded):
+        return STATUS_OVERLOADED
+    if isinstance(exc, DeadlineExceeded):
+        return STATUS_DEADLINE
+    if isinstance(exc, RequestTooLarge):
+        return STATUS_TOO_LARGE
+    if isinstance(exc, Shutdown):
+        return STATUS_SHUTDOWN
+    return STATUS_BAD_REQUEST
+
+
+class PredictionServer:
+    """Accept loop and one reader thread a connection; answers are
+    written from the batcher's completion callbacks under a
+    per-connection write lock (pipelined requests finish out of order).
+    ``metrics_port`` is refused (the telemetry exporter is not
+    ported)."""
+
+    def __init__(self, engine: InferenceEngine, *,
+                 host: str = "127.0.0.1", port: int = 0,
+                 max_delay_s: float = 0.002, max_queue: int = 256,
+                 default_deadline_s: float = 1.0,
+                 warmup: bool = True, backlog: int = 64,
+                 metrics_port: Optional[int] = None,
+                 model_id: Optional[str] = None) -> None:
+        _refuse_unported(metrics_port)
+        self.engine = engine
+        # which checkpoint lineage this replica serves; "default" keeps
+        # single-replica deployments hello-free
+        self.model_id = model_id or "default"
+        if warmup:
+            engine.warmup_all()
+        self.batcher = MicroBatcher(
+            engine, max_delay_s=max_delay_s, max_queue=max_queue,
+            default_deadline_s=default_deadline_s)
+        self._listener = Listener(host, port, backlog=backlog)
+        self.host, self.port = self._listener.host, self._listener.port
+        self._conns: Dict[int, socket.socket] = {}
+        self._conn_lock = threading.Lock()
+        self._next_conn = 0
+        self._stopping = False
+        self._accept_thread: Optional[threading.Thread] = None
+        self._watcher: Optional[threading.Thread] = None
+        self._watch_stop = threading.Event()
+        self._m_conns = metrics.gauge("serving.server.connections")
+        self._inflight = 0             # submitted, not yet answered
+        self._inflight_lock = threading.Lock()
+        self._m_inflight = metrics.gauge("serving.server.inflight")
+        # the queue-depth fraction above which health degrades before
+        # admission control starts shedding
+        self._degraded_ratio = float(
+            get_env("DMLC_SERVING_DEGRADED_RATIO", 0.75))
+
+    # -- lifecycle -------------------------------------------------------
+    def start(self) -> "PredictionServer":
+        self._accept_thread = self._listener.spawn(
+            self._on_conn, name="serving-accept",
+            stopping=lambda: self._stopping)
+        log_info("serving: listening on %s:%d (%d buckets, queue=%d)",
+                 self.host, self.port, len(self.engine.ladder),
+                 self.batcher.max_queue)
+        return self
+
+    def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
+        """Graceful shutdown: stop accepting, drain the batcher (requests
+        in flight get their answers), then drop the connections."""
+        self._stopping = True
+        self._watch_stop.set()
+        self._listener.close()
+        self.batcher.close(drain=drain, timeout=timeout)
+        with self._conn_lock:
+            conns = list(self._conns.values())
+            self._conns.clear()
+        for c in conns:
+            try:
+                c.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                c.close()
+            except OSError:
+                pass
+        if self._watcher is not None:
+            self._watcher.join(timeout=5.0)
+        if self._accept_thread is not None:
+            self._accept_thread.join(timeout=5.0)
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
+
+    def serve_forever(self, window_s: float = 5.0,
+                      max_windows: Optional[int] = None) -> int:
+        """Block until :meth:`stop` (or ``max_windows`` windows of
+        ``window_s``); returns the windows run.  The JAX server drives
+        its serving autotuner here when ``DMLC_AUTOTUNE`` opts in; that
+        is refused (not ported, ROADMAP queue A.9)."""
+        _refuse_autotune()
+        windows = 0
+        while (not self._stopping
+               and (max_windows is None or windows < max_windows)):
+            t0 = time.monotonic()
+            while not self._stopping and time.monotonic() - t0 < window_s:
+                time.sleep(min(0.05, window_s))
+            windows += 1
+        return windows
+
+    # -- health ----------------------------------------------------------
+    @property
+    def health(self) -> str:
+        """``ok`` | ``degraded`` | ``overloaded`` from the batcher's queue
+        depth: ``degraded`` from ``DMLC_SERVING_DEGRADED_RATIO`` (0.75)
+        of ``max_queue``, ``overloaded`` once admission sheds.  Also the
+        gauge ``serving.server.health`` (0 / 1 / 2).  (The JAX server
+        also degrades on a breached SLO; the SLO monitor is not
+        ported.)"""
+        depth = self.batcher.queue_depth
+        cap = max(1, self.batcher.max_queue)
+        if depth >= cap:
+            state, level = "overloaded", 2
+        elif depth >= self._degraded_ratio * cap:
+            state, level = "degraded", 1
+        else:
+            state, level = "ok", 0
+        metrics.gauge("serving.server.health").set(level)
+        return state
+
+    def health_doc(self) -> Dict[str, object]:
+        """The health status word plus the load facts a balancer weights
+        on: queue depth, its fraction of ``max_queue``, requests in
+        flight."""
+        depth = self.batcher.queue_depth
+        cap = max(1, self.batcher.max_queue)
+        with self._inflight_lock:
+            inflight = self._inflight
+        return {"status": self.health, "model_id": self.model_id,
+                "queue_depth": depth,
+                "queue_fraction": round(depth / cap, 4),
+                "inflight": inflight}
+
+    # -- hot reload ------------------------------------------------------
+    def reload_from_checkpoint(self, directory: str,
+                               step: Optional[int] = None) -> int:
+        return self.engine.reload_from_checkpoint(directory, step)
+
+    def watch_checkpoints(self, directory: str,
+                          interval_s: float = 10.0) -> None:
+        """Load the directory's latest checkpoint now, then poll its
+        manifest and hot-reload each newer step.  A failed poll or
+        reload logs and keeps serving the current weights."""
+        from ..utils.checkpoint import CheckpointManager
+        mgr = CheckpointManager(directory)
+        state = {"step": None}
+
+        def poll_once() -> None:
+            latest = mgr.latest_step
+            if latest is not None and latest != state["step"]:
+                self.reload_from_checkpoint(directory, latest)
+                state["step"] = latest
+
+        try:
+            poll_once()
+        except DMLCError as e:
+            log_warning("serving: initial checkpoint load failed: %s", e)
+
+        def run() -> None:
+            while not self._watch_stop.wait(interval_s):
+                try:
+                    poll_once()
+                except DMLCError as e:
+                    log_warning("serving: checkpoint watch failed "
+                                "(%s) — keeping current weights", e)
+
+        self._watcher = threading.Thread(target=run, name="serving-watch",
+                                         daemon=True)
+        self._watcher.start()
+
+    # -- connections -----------------------------------------------------
+    def _on_conn(self, conn: socket.socket, _addr) -> None:
+        with self._conn_lock:
+            cid = self._next_conn
+            self._next_conn += 1
+            self._conns[cid] = conn
+            self._m_conns.set(len(self._conns))
+        serve_connection(self._serve_conn, cid, conn,
+                         name=f"serving-conn-{cid}")
+
+    def _drop_conn(self, cid: int, conn: socket.socket) -> None:
+        with self._conn_lock:
+            self._conns.pop(cid, None)
+            self._m_conns.set(len(self._conns))
+        try:
+            conn.close()
+        except OSError:
+            pass
+
+    def _serve_conn(self, cid: int, conn: socket.socket) -> None:
+        wlock = threading.Lock()
+
+        def respond(req_id: int, status: int, payload: bytes) -> None:
+            # n counts SCORES for OK (payload is n×f32), BYTES otherwise
+            n = len(payload) // 4 if status == STATUS_OK else len(payload)
+            try:
+                with wlock:
+                    send_all(conn, RSP_HEADER.pack(req_id, status, n)
+                             + payload)
+            except OSError:
+                pass                   # client gone; the reader notices
+
+        def on_done(req_id: int, fut) -> None:
+            with self._inflight_lock:
+                self._inflight -= 1
+                self._m_inflight.set(self._inflight)
+            exc = fut.exception()
+            if exc is None:
+                scores = np.ascontiguousarray(fut.result(),
+                                              dtype=np.float32)
+                respond(req_id, STATUS_OK, scores.tobytes())
+                return
+            status = _status_of(exc)
+            if status == STATUS_OVERLOADED:
+                metrics.counter("serving.server.shed").add(1)
+            respond(req_id, status, str(exc).encode("utf-8", "replace"))
+
+        try:
+            while True:
+                head = _recv_exact(conn, REQ_HEADER.size)
+                if head is None:
+                    return
+                req_id, trace_id, parent_span, rows, nnz = \
+                    REQ_HEADER.unpack(head)
+                if req_id == HELLO_REQ_ID:
+                    # checked before the rows == 0 guard: a hello has
+                    # rows 0 and nnz utf-8 bytes of model_id, not CSR
+                    if nnz > _MAX_MODEL_ID:
+                        respond(req_id, STATUS_BAD_REQUEST,
+                                b"oversized hello")
+                        return
+                    blob = _recv_exact(conn, nnz)
+                    if blob is None:
+                        return
+                    wanted = blob.decode("utf-8", "replace") or "default"
+                    if wanted != self.model_id:
+                        respond(req_id, STATUS_BAD_REQUEST,
+                                f"model {wanted!r} not served here "
+                                f"(this is {self.model_id!r})".encode())
+                        return         # wrong fleet: drop the connection
+                    continue
+                if rows == 0 or rows > _MAX_ROWS or nnz > _MAX_NNZ:
+                    respond(req_id, STATUS_BAD_REQUEST,
+                            f"bad header rows={rows} nnz={nnz}".encode())
+                    return             # framing is broken: drop the conn
+                payload = _recv_exact(conn, 4 * (rows + 1) + 8 * nnz)
+                if payload is None:
+                    return
+                row_ptr = np.frombuffer(payload, np.int32, rows + 1, 0)
+                ids = np.frombuffer(payload, np.int32, nnz,
+                                    4 * (rows + 1))
+                vals = np.frombuffer(payload, np.float32, nnz,
+                                     4 * (rows + 1) + 4 * nnz)
+                with self._inflight_lock:
+                    self._inflight += 1
+                    self._m_inflight.set(self._inflight)
+                try:
+                    fut = self.batcher.submit(
+                        ids, vals, row_ptr.astype(np.int64),
+                        trace_ctx=((trace_id, parent_span) if trace_id
+                                   else None))
+                except BaseException:
+                    with self._inflight_lock:
+                        self._inflight -= 1
+                        self._m_inflight.set(self._inflight)
+                    raise
+                fut.add_done_callback(
+                    lambda f, rid=req_id: on_done(rid, f))
+        except OSError as e:
+            log_info("serving: connection %d ended: %r", cid, e)
+        finally:
+            self._drop_conn(cid, conn)
+
+
+def serve_main(argv=None) -> int:
+    """CLI: ``python -m dmlc_core_tpu_torch.serving.server ckpt_dir=DIR
+    features=N [model=fm] [dim=16] [port=N] [watch_s=SEC] [device=cuda]
+    ...``: build the model, load the latest checkpoint, serve until
+    interrupted.  The model's weights before the first load come from a
+    ``torch.Generator`` seeded with 0 (the JAX CLI's ``PRNGKey(0)``)."""
+    args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None
+                                          else argv))
+    if not args.get("ckpt_dir") or not args.get("features"):
+        print("usage: serving.server ckpt_dir=DIR features=N [model=fm] "
+              "[dim=16] [task=binary] [port=0] [host=0.0.0.0] "
+              "[watch_s=10] [max_delay_ms=2] [max_queue=256] "
+              "[model_id=default] [ragged=0|1] [device=cuda|cpu]   (env "
+              "DMLC_SERVE_RAGGED=1 is the default for ragged=)",
+              file=sys.stderr)
+        return 2
+    import torch
+
+    from ..models.cli import _NOT_PORTED, MODEL_REGISTRY, TrainParams
+    from ..utils.device import resolve_device
+    p = TrainParams()
+    try:
+        p.init({"data": "unused", "model": args.get("model", "fm"),
+                "features": args["features"], "dim": args.get("dim", "16"),
+                "task": args.get("task", "binary"),
+                "device": args.get("device", "cuda")})
+        if p.model in _NOT_PORTED:
+            raise DMLCError(_NOT_PORTED[p.model])
+        _refuse_unported(None)
+        _refuse_autotune()
+        device = resolve_device(p.device)
+    except DMLCError as e:
+        print(f"serving.server: {e}", file=sys.stderr)
+        return 2
+    gen = torch.Generator(device=device).manual_seed(0)
+    model = MODEL_REGISTRY[p.model](p, device, gen)
+    # the ragged engine: the key wins, the env var is the fleet default
+    ragged = args.get("ragged", get_env("DMLC_SERVE_RAGGED", "0"))
+    engine = InferenceEngine(
+        model, postprocess="sigmoid" if p.task == "binary" else "none",
+        ragged=str(ragged).lower() in ("1", "true", "yes", "on"),
+        device=device)
+    srv = PredictionServer(
+        engine, host=args.get("host", "0.0.0.0"),
+        port=int(args.get("port", "0")),
+        max_delay_s=float(args.get("max_delay_ms", "2")) / 1e3,
+        max_queue=int(args.get("max_queue", "256")),
+        model_id=args.get("model_id"))
+    srv.watch_checkpoints(args["ckpt_dir"],
+                          interval_s=float(args.get("watch_s", "10")))
+    srv.start()
+    print(f"serving on {srv.host}:{srv.port}", flush=True)
+    try:
+        srv.serve_forever()
+    except KeyboardInterrupt:
+        srv.stop()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(serve_main())

@@ -5,8 +5,10 @@ Counterpart of ``dmlc_core_tpu/utils/parameter.py``, reduced to what
 descriptors with defaults, required fields, inclusive lower bounds,
 enum domains (a list, or a callable read at each check), ``init``
 from a ``{key: value}`` dict that rejects unknown keys, and
-``doc_string``.  Bad values raise :class:`ParamError`.  The port keeps
-its own copy so that it never imports the JAX package::
+``doc_string``.  Bad values raise :class:`ParamError`.  Beside them,
+:func:`get_env`, the typed environment read of the serving layer's
+deployment settings.  The port keeps its own copy so that it never
+imports the JAX package::
 
     class TrainParams(Parameter):
         data = field(str, help="training data URI")       # required
@@ -19,11 +21,12 @@ its own copy so that it never imports the JAX package::
 from __future__ import annotations
 
 import math
+import os
 from typing import Any, Callable, Dict, Iterable, List, Optional, Type, Union
 
 from .logging import DMLCError
 
-__all__ = ["Parameter", "field", "ParamError"]
+__all__ = ["Parameter", "field", "ParamError", "get_env"]
 
 _NOTHING = object()
 
@@ -183,3 +186,18 @@ class Parameter(metaclass=_ParamMeta):
         lines = [f"Parameters of {cls.__name__}", "-" * 30]
         lines += [e.doc() for e in cls.__param_fields__.values()]
         return "\n".join(lines)
+
+
+def get_env(key: str, default: Any) -> Any:
+    """Typed environment read: the value of ``key`` converted to
+    ``type(default)`` (bools accept true/false/1/0), ``default`` when
+    unset, the raw string when ``default`` is None."""
+    raw = os.environ.get(key)
+    if raw is None:
+        return default
+    t = type(default)
+    if t is bool:
+        return _parse_bool(raw)
+    if default is None:
+        return raw
+    return t(raw)

@@ -11,6 +11,9 @@ to call) but not the plain version's.  The autograd
 their plain path (the kernels take float32 only).
 """
 
+import threading
+import time
+
 import numpy as np
 import pytest
 
@@ -729,3 +732,239 @@ def test_capture_refuses_a_pageable_copy(dev):
     with pytest.raises(DMLCError, match="while a CUDA graph is capturing"):
         with torch.cuda.graph(g):
             ragged_gather(ids, vals, segs, 5, table, 2, fm=False)
+
+
+# ---------------------------------------------------------------------------
+# serving: one captured CUDA graph a bucket
+# ---------------------------------------------------------------------------
+
+SERVE_D = 32
+
+
+def _serve_params(kind, seed):
+    """Seeded numpy weights (the JAX tree) of a FactorizationMachine or
+    DeepFM (layers 2) over F features."""
+    rng = np.random.default_rng(seed)
+    p = {"w0": np.asarray(0.1 * (seed + 1), np.float32),
+         "w": (rng.normal(size=F) * 0.1).astype(np.float32),
+         "v": (rng.normal(size=(F, SERVE_D)) * 0.05).astype(np.float32)}
+    if kind == "deepfm":
+        p["tower"] = {"w": (rng.normal(size=(2, SERVE_D, SERVE_D))
+                            / np.sqrt(SERVE_D)).astype(np.float32),
+                      "b": np.zeros((2, SERVE_D), np.float32)}
+        p["head"] = {"w": (rng.normal(size=SERVE_D)
+                           / np.sqrt(SERVE_D)).astype(np.float32),
+                     "b": np.zeros((), np.float32)}
+    return p
+
+
+def _serve_model(kind, device):
+    from dmlc_core_tpu_torch import FactorizationMachine
+    if kind == "deepfm":
+        return DeepFM(F, SERVE_D, 2, device=device)
+    return FactorizationMachine(F, SERVE_D, device=device)
+
+
+def _serve_engines(dev, kind, ragged, seed=1):
+    """The engine on the card and its plain twin on the CPU."""
+    from dmlc_core_tpu_torch import InferenceEngine
+    p = _serve_params(kind, seed)
+    kw = dict(postprocess="sigmoid", ragged=ragged)
+    return (InferenceEngine(_serve_model(kind, dev), p, device=dev, **kw),
+            InferenceEngine(_serve_model(kind, "cpu"), p, device="cpu",
+                            **kw))
+
+
+def _serve_req(rng, rows, nnz):
+    """``rows`` rows holding ``nnz`` entries in all (each row >= 0)."""
+    cuts = np.sort(rng.integers(0, nnz + 1, rows - 1))
+    row_ptr = np.concatenate([[0], cuts, [nnz]]).astype(np.int64)
+    return (rng.integers(0, F, nnz).astype(np.int32),
+            rng.random(nnz, dtype=np.float32), row_ptr)
+
+
+@pytest.mark.parametrize("kind", ["fm", "deepfm"])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_serving_graph_replay_matches_eager_every_bucket(dev, ragged, kind):
+    """Each bucket of both ladders, filled to its size and (ragged) to
+    part of it: the replay against the eager kernel path on the same
+    padded batch and against the plain path on the CPU."""
+    eng, plain = _serve_engines(dev, kind, ragged)
+    rng = np.random.default_rng(2)
+    for b in eng.ladder:
+        for rows, nnz in ((b.rows, b.nnz), (max(1, b.rows // 3),
+                                            max(1, b.nnz // 5))):
+            req = _serve_req(rng, rows, nnz)
+            if rows == b.rows:
+                assert eng.ladder.best_fit(rows, nnz) == b
+            got = eng.predict(*req)
+            fit = eng.ladder.best_fit(rows, nnz)
+            eager = eng._forward(eng._params, eng._pad(fit, *req))
+            eager = eager.cpu().numpy()[:rows]
+            assert got.shape == (rows,) and np.isfinite(got).all()
+            np.testing.assert_allclose(got, eager, **TOL)
+            np.testing.assert_allclose(got, plain.predict(*req), **TOL)
+    assert eng.compile_count == len(eng._graphs) <= len(eng.ladder)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_serving_compile_count_counts_captured_graphs(dev, ragged):
+    from dmlc_core_tpu_torch.serving import RequestTooLarge
+    eng, _ = _serve_engines(dev, "fm", ragged)
+    eng.warmup_all()
+    assert eng.compile_count == len(eng.ladder) == len(eng._graphs)
+    rng = np.random.default_rng(3)
+    for _ in range(30):
+        rows = int(rng.integers(1, 129))
+        eng.predict(*_serve_req(rng, rows, int(rng.integers(rows, 8193))))
+    eng.warmup_all()
+    assert eng.compile_count == len(eng.ladder)
+    with pytest.raises(RequestTooLarge):
+        eng.predict(*_serve_req(rng, 129, 200))
+
+
+def test_serving_reload_copies_in_place_and_every_graph_follows(dev,
+                                                                tmp_path):
+    from dmlc_core_tpu_torch import CheckpointManager, InferenceEngine
+    model = _serve_model("fm", dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    eng = InferenceEngine(model, postprocess="sigmoid", device=dev,
+                          warmup=True)
+    ptrs = {k: v.data_ptr() for k, v in eng._params.items()}
+    p2 = _serve_params("fm", 7)
+    CheckpointManager(str(tmp_path)).save(2, {"params": p2})
+    assert eng.reload_from_checkpoint(str(tmp_path)) == 2
+    _, plain = _serve_engines(dev, "fm", False, seed=7)
+    rng = np.random.default_rng(4)
+    for b in eng.ladder:                  # every captured graph
+        req = _serve_req(rng, b.rows, b.nnz)
+        np.testing.assert_allclose(eng.predict(*req), plain.predict(*req),
+                                   **TOL)
+    assert {k: v.data_ptr() for k, v in eng._params.items()} == ptrs
+    for k, v in model.state_dict().items():     # the caller's module
+        assert torch.equal(v, before[k]), k
+    assert eng.compile_count == len(eng.ladder)
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+def test_serving_replay_launches_equal_an_eager_forward(dev, ragged):
+    from dmlc_core_tpu_torch.kernels import reset_launch_counts
+    eng, _ = _serve_engines(dev, "deepfm", ragged)
+    eng.warmup_all()
+    rng = np.random.default_rng(5)
+    for b in eng.ladder:
+        req = _serve_req(rng, b.rows, b.nnz)
+        reset_launch_counts()
+        eng._forward(eng._params, eng._pad(b, *req))
+        torch.cuda.synchronize()
+        eager = _counts()
+        assert eager and eng._graphs[b].launches == eager
+        reset_launch_counts()
+        eng.predict(*req)
+        assert _counts() == eager
+
+
+def test_serving_concurrent_predicts_match_plain(dev):
+    eng, plain = _serve_engines(dev, "fm", False)
+    rng = np.random.default_rng(6)
+    reqs = [_serve_req(rng, int(r), int(r) * int(rng.integers(1, 40)))
+            for r in rng.integers(1, 129, 64)]
+    got = [None] * len(reqs)
+    errors = []
+
+    def worker(k):
+        try:
+            for j in range(k, len(reqs), 8):
+                got[j] = eng.predict(*reqs[j])
+        except Exception as e:  # noqa: BLE001 — asserted below
+            errors.append(e)
+
+    ts = [threading.Thread(target=worker, args=(k,)) for k in range(8)]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+        assert not t.is_alive()
+    assert errors == []
+    for r, g in zip(reqs, got):
+        np.testing.assert_allclose(g, plain.predict(*r), **TOL)
+
+
+def test_server_on_the_card_matches_plain(dev):
+    from dmlc_core_tpu_torch import PredictClient, PredictionServer
+    eng, plain = _serve_engines(dev, "fm", True)
+    rng = np.random.default_rng(8)
+    reqs = [_serve_req(rng, int(r), int(r) * 20)
+            for r in rng.integers(1, 100, 16)]
+    with PredictionServer(eng).start() as srv:
+        assert eng.compile_count == len(eng.ladder)
+        with PredictClient(srv.host, srv.port) as c:
+            futs = [c.submit(*r) for r in reqs]
+            for r, f in zip(reqs, futs):
+                np.testing.assert_allclose(f.result(timeout=60),
+                                           plain.predict(*r), **TOL)
+
+
+@pytest.mark.parametrize("via", ["engine", "batcher", "server"])
+def test_serving_reload_mid_stream_switches_once(dev, tmp_path, via):
+    """One request streams from another thread (straight into the engine,
+    through a MicroBatcher, or over TCP) while the weights are reloaded:
+    no failure, and the answers move from the old scores to the new ones
+    exactly once."""
+    from dmlc_core_tpu_torch import (CheckpointManager, MicroBatcher,
+                                     PredictClient, PredictionServer)
+    eng, _ = _serve_engines(dev, "fm", False, seed=1)
+    eng.warmup_all()
+    _, plain1 = _serve_engines(dev, "fm", False, seed=1)
+    _, plain2 = _serve_engines(dev, "fm", False, seed=9)
+    CheckpointManager(str(tmp_path)).save(2, {"params": _serve_params(
+        "fm", 9)})
+    req = _serve_req(np.random.default_rng(10), 32, 900)
+    s1, s2 = plain1.predict(*req), plain2.predict(*req)
+    srv = batcher = client = None
+    if via == "engine":
+        call = lambda: eng.predict(*req)  # noqa: E731
+    elif via == "batcher":
+        batcher = MicroBatcher(eng, max_delay_s=0.0)
+        call = lambda: batcher.submit(*req).result(timeout=60)  # noqa: E731
+    else:
+        srv = PredictionServer(eng).start()
+        client = PredictClient(srv.host, srv.port)
+        call = lambda: client.predict(*req, timeout=60)  # noqa: E731
+    results, failures, stop = [], [], threading.Event()
+
+    def stream():
+        while not stop.is_set():
+            try:
+                results.append(call())
+            except Exception as e:  # noqa: BLE001 — asserted below
+                failures.append(e)
+                return
+
+    t = threading.Thread(target=stream)
+    t.start()
+    try:
+        while len(results) < 30 and not failures:
+            time.sleep(0.001)
+        before = len(results)
+        assert eng.reload_from_checkpoint(str(tmp_path)) == 2
+        at = len(results)              # answers done by its return
+        while len(results) < at + 30 and not failures:
+            time.sleep(0.001)
+    finally:
+        stop.set()
+        t.join(timeout=60)
+        if client is not None:
+            client.close()
+        if srv is not None:
+            srv.stop()
+        if batcher is not None:
+            batcher.close()
+    assert not t.is_alive() and failures == []
+    steps = [1 if np.allclose(r, s1, **TOL) else
+             2 if np.allclose(r, s2, **TOL) else 0 for r in results]
+    direct = eng.predict(*req)
+    assert steps == sorted(steps) and steps[0] == 1 and 0 not in steps, (
+        steps, float(np.abs(direct - s1).max()),
+        float(np.abs(direct - s2).max()))
+    assert steps[-1] == 2 and before <= steps.index(2) <= at + 1
