@@ -23,7 +23,10 @@ Phases, in order; any failure exits non-zero and prints no result:
    and B 128), with CUDA-event times of kernel, plain version, the same
    call with next to no work (embed bag B 1 K 1, D = 1 backward with
    nnz_used = 0) and, where one PyTorch call computes the same function,
-   that call; then the fused Adam and FTRL kernels (kernels/optim.cu)
+   that call; the ragged-gather forward and backward at the field-aware
+   FM's shape (D = 40 x 4 over 4096 x 40 segments, F 2^18, segments
+   unsorted within a row), with a sparse CSR product as the library
+   call; then the fused Adam and FTRL kernels (kernels/optim.cu)
    over every parameter of FM, DCNv2 (and logreg, FTRL) at 2^20
    features, 8 steps against their plain versions (rtol 1e-6, atol
    1e-7), timed beside a launch over no tensors, the plain version and,
@@ -76,6 +79,14 @@ Phases, in order; any failure exits non-zero and prints no result:
    in next_batch per step, the device's per-step breakdown and its idle
    share.  Launch counts are read around each path; the six paths run
    the port's fused Adam;
+   ffm — FieldAwareFM(2^18, 40 fields, dim 4), the repo's
+   bench_ffm_train, on the same rows as libfm text (id j in field
+   j % 40) through DeviceLoader(fields=True): 8 Adam steps on the flat
+   layout and 8 on the row-major (k_cap 64), with phase 5's checks
+   (learning included), steady state and per-step breakdown, and the
+   forward's bucket sum G (the ragged-gather kernel at D = 160) and
+   cross term timed apart.  Its launch counts must show the ragged-
+   gather forward and backward;
    kstep — the k-step trainer: DCNv2, DeepFM and FM flat (Adam) and
    SparseLogReg flat (FTRL), 2^20 features, through DeviceLoader(emit=
    "host") and FusedTrainer(k=8): the epoch's 8 batches are one replay of
@@ -98,7 +109,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    ...); the port's server (python -m dmlc_core_tpu_torch.serving.server
    model=deepfm) on the trained checkpoint scores the eval file's first
    512 rows over TCP, within 2e-6 of mode=predict's scores, and stops on
-   SIGINT; a fresh interpreter times building a torch.optim.Adam.
+   SIGINT; dmlc-train model=ffm at its defaults (2^20 features, 40
+   fields, dim 16: D = 640 in the kernels, 8 GB of parameters and Adam
+   moments) for 8 steps on the libfm file, then mode=predict, and
+   dmlc-train model=fm format=csv on seeded 32-column csv (label column
+   0 from the URI), each prediction within 2e-6 of its restored
+   checkpoint on the plain path; a fresh interpreter times building a
+   torch.optim.Adam.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -152,6 +169,12 @@ HOT_IDS = 64                     # the planted model's ids
 RTOL = ATOL = 1e-5               # kernel vs plain version, same f32 inputs
 ATOL_F64 = 1e-4                  # f32 scores vs a float64 FM (sums of up
                                  # to 8192 f32 terms)
+# the field-aware FM (benchmarks/bench_suite.py bench_ffm_train):
+# FieldAwareFM(2^18 hashed features, 40 fields, dim 4) over libfm text
+# whose fields are j % 40; its bucket sum is the ragged gather at
+# D = 40 * 4 over 4096 * 40 segments
+F_FFM, NF_FFM, DIM_FFM = 1 << 18, 40, 4
+BAD_IDS_FFM = [-1, -F_FFM - 3, F_FFM, F_FFM + 7]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 SEED = 0
@@ -387,6 +410,7 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
                                    bound_by=b_by, library_ms=None,
                                    max_abs_err=err)
     results.update(_training_kernels(torch, timer, power, rng))
+    results.update(_ffm_kernels(torch, timer, power, rng))
     results.update(_optimizer_kernels(torch, timer, power))
     return results
 
@@ -794,6 +818,116 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                     f"backward "
                     f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
                     f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+    return results
+
+
+def _ffm_batch(torch, rng):
+    """FFM's bucket sum as the flat training path calls it: ROWS_TR rows
+    of 5-39 entries (ids below 1,000,000 hashed into F_FFM, sorted in a
+    row, so their fields j % 40 are not), in the native packer's nnz
+    bucket; segment row * 40 + field, padding (value 0) on the scratch
+    row ROWS_TR * 40; out-of-range ids first.  Returns the device
+    tensors and the live count."""
+    counts = rng.integers(5, 40, ROWS_TR)
+    nnz = int(counts.sum())
+    cap = _bucket(nnz)
+    raw = np.concatenate([np.sort(rng.choice(1_000_000, size=c,
+                                             replace=False))
+                          for c in counts])
+    ids = np.zeros(cap, np.int32)
+    ids[:nnz] = raw % F_FFM
+    ids[:4] = BAD_IDS_FFM
+    vals = np.zeros(cap, np.float32)
+    vals[:nnz] = rng.random(nnz, dtype=np.float32)
+    segs = np.full(cap, ROWS_TR * NF_FFM, np.int32)
+    segs[:nnz] = (np.repeat(np.arange(ROWS_TR), counts) * NF_FFM
+                  + raw % NF_FFM)
+    dev = lambda a: torch.from_numpy(a).cuda()  # noqa: E731
+    return dev(ids), dev(vals), dev(segs), nnz
+
+
+def _sparse_rows(torch, rows, cols, vals, shape):
+    """A CSR matrix of ``shape`` with ``vals`` at (rows, cols), for the
+    one PyTorch call (a sparse product) that computes the same sum."""
+    coo = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, shape)
+    return coo.coalesce().to_sparse_csr()
+
+
+def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
+    """The ragged-gather forward and backward at FFM's shape (D = 160,
+    163,840 segments, F 2^18, unsorted segments within a row, padding
+    on the scratch row, out-of-range ids) against their plain versions,
+    timed, with the sparse product that computes the same function
+    (built beforehand, ids clamped or dropped as each kernel's rule
+    says).  Returns ``<name>_ffm`` numbers."""
+    from dmlc_core_tpu_torch.kernels import (ragged_gather,
+                                             ragged_gather_grad,
+                                             ragged_gather_grad_reference,
+                                             ragged_gather_reference)
+    from dmlc_core_tpu_torch.kernels.common import clamp_ids, grad_rows
+    results = {}
+    D, S = NF_FFM * DIM_FFM, ROWS_TR * NF_FFM
+    table = torch.from_numpy(rng.standard_normal(
+        (F_FFM, D), dtype=np.float32) * 0.05).cuda()
+    fids, fvals, fsegs, nnz = _ffm_batch(torch, rng)
+    cap = fids.shape[0]
+    live_ids = fids[:nnz]
+    rows_read = int(torch.unique(clamp_ids(live_ids, F_FFM)).numel())
+    segs_hit = int(torch.unique(fsegs[:nnz]).numel())
+    with torch.no_grad():
+        run = lambda: ragged_gather(  # noqa: E731
+            fids, fvals, fsegs, None, table, S, fm=False, engine="kernel")[0]
+        plain = lambda: ragged_gather_reference(  # noqa: E731
+            fids, fvals, fsegs, None, table, S, fm=False)[0]
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = _close("ragged_gather_embed (ffm) D=160", got, want)
+        ms, plain_ms = timer.ms(run), timer.ms(plain)
+        b_ms, b_by = bound(rows_read * D * 4 + 12 * cap + (S + 1) * D * 4,
+                           2 * nnz * D)
+        fwd_m = _sparse_rows(torch, fsegs[:nnz].long(),
+                             clamp_ids(live_ids, F_FFM), fvals[:nnz],
+                             (S + 1, F_FFM))
+        lib = lambda: fwd_m @ table  # noqa: E731
+        _close("sparse CSR @ table (ffm)", lib(), want)
+        lib_ms = timer.ms(lib)
+        results["ragged_gather_embed_ffm"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, max_abs_err=err)
+        log(f"[kernels] ragged_gather_embed (ffm) cap={cap} nnz={nnz} "
+            f"segments={S} D={D} F={F_FFM}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sparse CSR product {lib_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+        del got, want, fwd_m
+
+        g1 = torch.from_numpy(rng.standard_normal(
+            (S + 1, D), dtype=np.float32)).cuda()
+        run = lambda: ragged_gather_grad(  # noqa: E731
+            fids, fvals, fsegs, None, table, g1, None, S, need_dvals=False,
+            engine="kernel")[1]
+        plain = lambda: ragged_gather_grad_reference(  # noqa: E731
+            fids, fvals, fsegs, None, table, g1, None, S,
+            need_dvals=False)[1]
+        got, want = run(), plain()
+        torch.cuda.synchronize()
+        err = _close("ragged_gather_grad_embed (ffm) D=160", got, want)
+        ms, plain_ms = timer.ms(run), timer.ms(plain)
+        b_ms, b_by = bound(12 * cap + segs_hit * D * 4 + F_FFM * D * 4,
+                           2 * nnz * D)
+        keep = grad_rows(live_ids, F_FFM) < F_FFM
+        bwd_m = _sparse_rows(torch, grad_rows(live_ids, F_FFM)[keep],
+                             fsegs[:nnz].long()[keep], fvals[:nnz][keep],
+                             (F_FFM, S + 1))
+        lib = lambda: bwd_m @ g1  # noqa: E731
+        _close("sparse CSR @ g1 (ffm)", lib(), want)
+        lib_ms = timer.ms(lib)
+        results["ragged_gather_grad_embed_ffm"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=lib_ms, max_abs_err=err)
+        log(f"[kernels] ragged_gather_grad_embed (ffm) cap={cap} nnz={nnz} "
+            f"segments={S} D={D} dtable [{F_FFM}, {D}]: kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, sparse CSR product {lib_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
     return results
 
 
@@ -1605,13 +1739,16 @@ def _planted():
     return hot, rng.standard_normal(HOT_IDS)
 
 
-def _write_libsvm(path: str, rows: int, seed: int) -> None:
+def _write_libsvm(path: str, rows: int, seed: int,
+                  libfm: bool = False) -> None:
     """Seeded libsvm text in the shape of benchmarks/bench_suite.py's
     _gen_libsvm: 5-39 sorted distinct ids below 1,000,000 per row,
     values U[0,1).  Every row carries 2-4 of the planted model's hot ids
     among them; its label is 1 where the planted score (the sum of value
     times weight over its hot ids) lies above the file's median, so the
-    classes are balanced and a model that learns ranks the eval rows."""
+    classes are balanced and a model that learns ranks the eval rows.
+    With ``libfm`` the same rows as libfm text, id j in field j % 40
+    (``_gen_libsvm(libfm=True)``)."""
     rng = np.random.default_rng(seed)
     hot, w = _planted()
     lines, scores = [], np.empty(rows)
@@ -1625,9 +1762,10 @@ def _write_libsvm(path: str, rows: int, seed: int) -> None:
         vals = rng.random(n)
         scores[i] = float(vals[:k] @ w[which])
         order = np.argsort(idx)
-        lines.append(b" ".join(b"%d:%.4f" % (j, v) for j, v in
-                               zip(idx[order].tolist(),
-                                   vals[order].tolist())))
+        pairs = zip(idx[order].tolist(), vals[order].tolist())
+        lines.append(b" ".join(
+            b"%d:%d:%.4f" % (j % NF_FFM, j, v) if libfm else
+            b"%d:%.4f" % (j, v) for j, v in pairs))
     labels = scores > np.median(scores)
     with open(path, "wb") as f:
         f.write(b"".join(b"%d %s\n" % (y, ln)
@@ -1636,8 +1774,11 @@ def _write_libsvm(path: str, rows: int, seed: int) -> None:
 
 def _model(torch, kind: str, engine: str):
     from dmlc_core_tpu_torch import (DCNv2, DeepFM, FactorizationMachine,
-                                     SparseLogReg)
+                                     FieldAwareFM, SparseLogReg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    if kind == "ffm":
+        return FieldAwareFM(F_FFM, NF_FFM, DIM_FFM, engine=engine,
+                            device="cuda", generator=gen)
     if kind == "logreg":
         return SparseLogReg(F_FEATURES, engine=engine, device="cuda")
     if kind == "dcn":
@@ -1825,17 +1966,21 @@ def _train_path(torch, name, kind, layout, cap, train_file, eval_file,
                 power) -> dict:
     """One training path on engine='kernel', held against the same
     seeded model on engine='torch', both fed by native loaders (the
-    threaded native parser; the native packer on the flat layout).
+    threaded native parser; the native packer on the flat layout; FFM's
+    libfm fields through the python packs, hashed into F_FFM).
     Returns the path's launch counts; raises, after logging every
     check's reading, if any check fails."""
     from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
                                      evaluate_stream, make_train_step)
     from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    ffm = kind == "ffm"
 
     def loader(path):
-        return DeviceLoader(create_parser(path, engine="native"), ROWS_TR,
-                            cap, layout=layout, device="cuda",
-                            engine="native")
+        return DeviceLoader(
+            create_parser(path, parser_type="libfm" if ffm else "libsvm",
+                          engine="native"), ROWS_TR, cap, layout=layout,
+            device="cuda", engine="native", fields=ffm,
+            id_mod=F_FFM if ffm else 0)
 
     model = _model(torch, kind, "kernel")
     train_ld, eval_ld = loader(train_file), loader(eval_file)
@@ -1964,6 +2109,78 @@ def phase_training(torch, power: str, train_file: str, eval_file: str,
         for k, n in launches.items():
             total[k] = total.get(k, 0) + n
     return caught if planted else total
+
+
+# -- phase 5a: the field-aware FM ---------------------------------------------
+
+FFM_PATHS = (("ffm_flat", "flat", CAP_TR), ("ffm_rowmajor", "rowmajor", K_TR))
+
+
+def _libfm_files(data: str):
+    """``(train, eval)``: phase 5's rows as libfm text (fields j % 40),
+    written once into ``data``."""
+    train_file = os.path.join(data, "train.libfm")
+    eval_file = os.path.join(data, "eval.libfm")
+    if not os.path.exists(eval_file):
+        _write_libsvm(train_file, TRAIN_STEPS * ROWS_TR, SEED + 10,
+                      libfm=True)
+        _write_libsvm(eval_file, EVAL_ROWS, SEED + 11, libfm=True)
+    return train_file, eval_file
+
+
+def _ffm_split(torch, timer: Timer, power: str, name: str, layout: str,
+               cap: int, train_file: str) -> dict:
+    """The forward's two parts on one training batch, each timed alone on
+    the device: the bucket sum G (the ragged-gather kernel at D = 160)
+    and the cross term (G against its transpose, plain PyTorch)."""
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    from dmlc_core_tpu_torch.ops.csr import csr_embed_sum
+    nf = NF_FFM
+    with DeviceLoader(create_parser(train_file, parser_type="libfm",
+                                    engine="native"), ROWS_TR, cap,
+                      layout=layout, device="cuda", fields=True,
+                      id_mod=F_FFM) as ld:
+        batch = ld.next_batch()
+    f = batch["fields"].clamp(0, nf - 1).int()
+    if layout == "rowmajor":
+        rows = torch.arange(ROWS_TR, dtype=torch.int32, device="cuda")
+        seg = (rows[:, None] * nf + f).reshape(-1)
+        ids, vals = batch["ids"].reshape(-1), batch["vals"].reshape(-1)
+    else:
+        seg, ids, vals = batch["segments"] * nf + f, batch["ids"], \
+            batch["vals"]
+    table = _model(torch, "ffm", "kernel").v.detach().view(F_FFM, -1)
+    with torch.no_grad():
+        g_fwd = lambda: csr_embed_sum(  # noqa: E731
+            ids, vals, seg, table, ROWS_TR * nf, engine="kernel")
+        G = g_fwd().view(ROWS_TR, nf, nf, DIM_FFM)
+        cross = lambda: (G * G.transpose(1, 2)).sum(dim=(1, 2, 3))  # noqa
+        out = {"g_forward_ms": timer.ms(g_fwd), "cross_ms": timer.ms(cross)}
+    log(f"[ffm] {name} forward parts (device, one batch of {ROWS_TR} rows, "
+        f"ids {tuple(batch['ids'].shape)}): G {out['g_forward_ms']:.4f} ms,"
+        f" cross {out['cross_ms']:.4f} ms [{power}]")
+    return out
+
+
+def phase_ffm(torch, timer: Timer, power: str, data: str) -> dict:
+    """FieldAwareFM(2^18, 40 fields, dim 4) on phase 5's rows as libfm
+    text, through DeviceLoader(fields=True): 8 Adam steps on the flat
+    layout and 8 on the row-major (k_cap 64), each held against the
+    plain path and the planted model as phase 5 holds its paths, with
+    the forward's G and cross timed apart.  Returns the launch counts
+    summed over both paths."""
+    train_file, eval_file = _libfm_files(data)
+    total: dict = {}
+    for name, layout, cap in FFM_PATHS:
+        try:
+            launches = _train_path(torch, name, "ffm", layout, cap,
+                                   train_file, eval_file, power)
+            _ffm_split(torch, timer, power, name, layout, cap, train_file)
+        finally:
+            torch.cuda.empty_cache()
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total
 
 
 # -- phase 5b: the k-step trainer ---------------------------------------------
@@ -2173,6 +2390,156 @@ def phase_kstep(torch, power: str, train_file: str, eval_file: str) -> dict:
 CLI_TOL = 2e-6             # printed scores ('%.6f') vs the in-process ones
 
 
+def _cli_env() -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (ROOT, env.get("PYTHONPATH")) if p)
+    return env
+
+
+def _run_cli(args: list, env: dict, power: str):
+    """``python -m dmlc_core_tpu_torch.models.cli *args`` in a process of
+    its own; logs its stdout and its wall split into the interpreter's
+    start and imports and the CLI's own stage line.  Returns ``(stdout,
+    wall seconds)``."""
+    t0 = time.monotonic()
+    r = subprocess.run([sys.executable, "-m", "dmlc_core_tpu_torch.models.cli",
+                        *args], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    secs = time.monotonic() - t0
+    for ln in r.stdout.splitlines():
+        log(f"[cli] {ln}")
+    if r.returncode != 0:
+        raise RuntimeError(f"dmlc-train {' '.join(args)} exited "
+                           f"{r.returncode}: {r.stderr[-2000:]}")
+    # the CLI's own split of its main(); what precedes main() is the
+    # interpreter's start and the imports
+    stages = [ln.split("INFO ", 1)[-1] for ln in r.stderr.splitlines()
+              if "dmlc-train stages" in ln]
+    if not stages:
+        raise RuntimeError("the CLI logged no stage times")
+    main_s = float(stages[-1].split("main ", 1)[1].split("s", 1)[0])
+    what = " ".join(a for a in args if a.startswith("model="))
+    what += " predict" if "mode=predict" in args else " train"
+    log(f"[cli] {what}: wall {secs:.3f} s = interpreter start and "
+        f"imports {secs - main_s:.3f} s + {stages[-1]} [{power}]")
+    return r.stdout, secs
+
+
+def _plain_scores(torch, model, loader) -> np.ndarray:
+    """sigmoid scores of every batch of ``loader`` on the plain path, in
+    float64, the loader closed afterwards."""
+    try:
+        with torch.no_grad():
+            s = torch.cat([torch.sigmoid(model(b)) for b in loader])
+    finally:
+        loader.close()
+    return s.double().cpu().numpy()
+
+
+def _check_predictions(name: str, out: str, want: np.ndarray, rows: int,
+                       power: str) -> None:
+    with open(out) as f:
+        got = np.array([float(x) for x in f.read().split()])
+    if got.shape != (rows,):
+        raise RuntimeError(f"{name}: {got.shape[0]} predictions, expected "
+                           f"{rows}")
+    err = float(np.abs(got - want[:rows]).max())
+    log(f"[cli] {name}: {rows} predictions, max|err| against the restored "
+        f"checkpoint on the plain path {err:.3g} (limit {CLI_TOL:g}) "
+        f"[{power}]")
+    if not np.isfinite(got).all() or err > CLI_TOL:
+        raise RuntimeError(f"{name}: CLI predictions depart from the "
+                           f"checkpoint's scores: max|err| {err:.3g}")
+
+
+def _cli_ffm(torch, power: str, data: str, env: dict) -> None:
+    """``dmlc-train model=ffm`` at its defaults (features 2^20, fields 40,
+    dim 16: v is 2.7 GB, 8 GB with Adam's moments; D = 640 in the
+    ragged-gather kernels), libfm implied by the model: one epoch (8
+    steps) with a checkpoint, then ``mode=predict`` on the eval file,
+    held against the restored checkpoint on the plain path."""
+    from dmlc_core_tpu_torch import (CheckpointManager, DeviceLoader,
+                                     FieldAwareFM, create_parser,
+                                     params_from_jax)
+    train_file, eval_file = _libfm_files(data)
+    ckpt = os.path.join(data, "cli_ffm_ckpt")
+    out = os.path.join(data, "ffm_predictions.txt")
+    free = shutil.disk_usage(data).free / 2 ** 30
+    log(f"[cli] model=ffm: {free:.1f} GiB free for its checkpoint")
+    train_out, _ = _run_cli(["model=ffm", f"data={train_file}",
+                             f"ckpt_dir={ckpt}"], env, power)
+    if f"trained ffm: {TRAIN_STEPS} steps" not in train_out:
+        raise RuntimeError("the ffm CLI's log lacks its steps")
+    _run_cli(["model=ffm", "mode=predict", f"data={eval_file}",
+              f"ckpt_dir={ckpt}", f"output={out}"], env, power)
+    step, state = CheckpointManager(ckpt).restore()
+    model = FieldAwareFM(1 << 20, 40, 16, engine="torch", device="cuda")
+    model.load_state_dict(params_from_jax(state["params"], "cuda"))
+    count = int(np.asarray(state["opt_state"][0][0]))
+    del state
+    want = _plain_scores(torch, model, DeviceLoader(
+        create_parser(eval_file, parser_type="libfm", engine="native"),
+        ROWS_TR, CAP_TR, id_mod=1 << 20, device="cuda", engine="native",
+        fields=True))
+    del model
+    torch.cuda.empty_cache()
+    if step != TRAIN_STEPS or count != TRAIN_STEPS:
+        raise RuntimeError(f"ffm checkpoint step {step}, Adam count "
+                           f"{count}; expected {TRAIN_STEPS}")
+    _check_predictions("model=ffm predict", out, want, EVAL_ROWS, power)
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
+CSV_COLS = 32              # the label column and 31 value columns
+
+
+def _write_csv(path: str, rows: int, seed: int) -> None:
+    """Seeded dense csv: column 0 the label, 1 where a planted linear
+    score of the other 31 columns (U[0, 1), '%.4f') lies above the
+    file's median."""
+    rng = np.random.default_rng(seed)
+    x = rng.random((rows, CSV_COLS - 1))
+    w = np.random.default_rng(SEED + 98).standard_normal(CSV_COLS - 1)
+    score = x @ w
+    y = score > np.median(score)
+    with open(path, "wb") as f:
+        f.write(b"".join(b"%d," % t + b",".join(b"%.4f" % v for v in row)
+                         + b"\n" for t, row in zip(y.tolist(), x)))
+
+
+def _cli_csv(torch, power: str, data: str, env: dict) -> None:
+    """``dmlc-train model=fm format=csv`` on seeded 32-column csv whose
+    label column comes from the URI (``?label_column=0``): one epoch (8
+    steps) with a checkpoint, ``mode=predict`` on the eval file, held
+    against the restored checkpoint on the plain path."""
+    from dmlc_core_tpu_torch import (CheckpointManager, DeviceLoader,
+                                     FactorizationMachine, create_parser,
+                                     params_from_jax)
+    train_file = os.path.join(data, "train.csv")
+    eval_file = os.path.join(data, "eval.csv")
+    _write_csv(train_file, TRAIN_STEPS * ROWS_TR, SEED + 20)
+    _write_csv(eval_file, EVAL_ROWS, SEED + 21)
+    ckpt = os.path.join(data, "cli_csv_ckpt")
+    out = os.path.join(data, "csv_predictions.txt")
+    model = ["model=fm", "format=csv", f"features={CSV_COLS}"]
+    train_out, _ = _run_cli(model + [f"data={train_file}?label_column=0",
+                                     f"ckpt_dir={ckpt}"], env, power)
+    if f"trained fm: {TRAIN_STEPS} steps" not in train_out:
+        raise RuntimeError("the csv CLI's log lacks its steps")
+    _run_cli(model + ["mode=predict", f"data={eval_file}?label_column=0",
+                      f"ckpt_dir={ckpt}", f"output={out}"], env, power)
+    _, state = CheckpointManager(ckpt).restore()
+    fm = FactorizationMachine(CSV_COLS, 16, engine="torch", device="cuda")
+    fm.load_state_dict(params_from_jax(state["params"], "cuda"))
+    want = _plain_scores(torch, fm, DeviceLoader(
+        create_parser(f"{eval_file}?label_column=0", parser_type="csv",
+                      engine="native"), ROWS_TR, CAP_TR,
+        id_mod=CSV_COLS, device="cuda", engine="native"))
+    _check_predictions("model=fm format=csv predict", out, want, EVAL_ROWS,
+                       power)
+
+
 def phase_cli(torch, power: str, data: str, train_file: str,
               eval_file: str) -> None:
     """The port's ``dmlc-train`` in subprocesses, as a user runs it:
@@ -2185,34 +2552,12 @@ def phase_cli(torch, power: str, data: str, train_file: str,
                                      params_from_jax)
     ckpt = os.path.join(data, "cli_ckpt")
     out = os.path.join(data, "predictions.txt")
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.pathsep.join(
-        p for p in (ROOT, env.get("PYTHONPATH")) if p)
-    cli = [sys.executable, "-m", "dmlc_core_tpu_torch.models.cli",
-           "model=deepfm", f"features={F_FEATURES}", f"dim={DIM}",
-           f"layers={DEEPFM_LAYERS}"]
+    env = _cli_env()
+    deepfm = ["model=deepfm", f"features={F_FEATURES}", f"dim={DIM}",
+              f"layers={DEEPFM_LAYERS}"]
 
     def run(*args):
-        t0 = time.monotonic()
-        r = subprocess.run(cli + list(args), cwd=ROOT, env=env,
-                           capture_output=True, text=True, timeout=600)
-        secs = time.monotonic() - t0
-        for ln in r.stdout.splitlines():
-            log(f"[cli] {ln}")
-        if r.returncode != 0:
-            raise RuntimeError(f"dmlc-train {' '.join(args)} exited "
-                               f"{r.returncode}: {r.stderr[-2000:]}")
-        # the CLI's own split of its main(); what precedes main() is the
-        # interpreter's start and the imports
-        stages = [ln.split("INFO ", 1)[-1] for ln in r.stderr.splitlines()
-                  if "dmlc-train stages" in ln]
-        if not stages:
-            raise RuntimeError("the CLI logged no stage times")
-        main_s = float(stages[-1].split("main ", 1)[1].split("s", 1)[0])
-        what = "predict" if "mode=predict" in args else "train"
-        log(f"[cli] {what}: wall {secs:.3f} s = interpreter start and "
-            f"imports {secs - main_s:.3f} s + {stages[-1]} [{power}]")
-        return r.stdout, secs
+        return _run_cli(deepfm + list(args), env, power)
 
     train_out, train_s = run(f"data={train_file}", f"valid={eval_file}",
                              f"ckpt_dir={ckpt}")
@@ -2278,6 +2623,9 @@ def phase_cli(torch, power: str, data: str, train_file: str,
     if (step8 != TRAIN_STEPS or count8 != TRAIN_STEPS
             or ratios[worst] > PARAM_TOL):
         raise RuntimeError("the kstep=8 CLI run departs from kstep=1")
+
+    _cli_ffm(torch, power, data, env)
+    _cli_csv(torch, power, data, env)
 
     # what "optimizer set-up" cost before the port's own Adam: building a
     # torch.optim.Adam in a fresh interpreter, and what it imported
@@ -2512,6 +2860,7 @@ def main() -> int:
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
         training = phase_training(torch, power, train_file, eval_file)
+        ffm = phase_ffm(torch, timer, power, data)
         kstep = phase_kstep(torch, power, train_file, eval_file)
         phase_cli(torch, power, data, train_file, eval_file)
     src = "dmlc_core_tpu_torch/kernels/"
@@ -2538,7 +2887,8 @@ def main() -> int:
                           "dmlc_core_tpu/ops/pallas_embed.py:326", training),
         # no Pallas counterpart: the JAX package's optimizer updates, XLA
         "adam": ("optim.cu", "dmlc_core_tpu/models/train.py:106",
-                 {"adam": training.get("adam", 0) + kstep.get("adam", 0)}),
+                 {"adam": training.get("adam", 0) + kstep.get("adam", 0)
+                  + ffm.get("adam", 0)}),
         "ftrl": ("optim.cu", "dmlc_core_tpu/models/ftrl.py:57", kstep),
     }
     missing = [k for k, (_, _, path) in meta.items() if path.get(k, 0) < 1]
@@ -2551,6 +2901,10 @@ def main() -> int:
     missing += [f"{k} (server)" for k in ("ragged_gather_fm",
                                           "ragged_gather_embed")
                 if server.get(k, 0) < 1]
+    # FFM's bucket sum G and its gradient, on both of its paths
+    missing += [f"{k} (ffm)" for k in ("ragged_gather_embed",
+                                       "ragged_gather_grad_embed")
+                if ffm.get(k, 0) < 1]
     # every kernel of the flat paths runs inside the k-step graphs
     missing += [f"{k} (kstep)" for k in (
         "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
@@ -2579,6 +2933,11 @@ def main() -> int:
             row["training"] = {"launches": training.get(name, 0),
                                **{key: kern[name + "_train"][key]
                                   for key in keys}}
+        if name + "_ffm" in kern:
+            # the same kernel at FFM's shape (D = 160, 163,840 segments),
+            # with the [ffm] paths' launches
+            row["ffm"] = {"launches": ffm.get(name, 0),
+                          **{key: kern[name + "_ffm"][key] for key in keys}}
         for case in ("unsorted", "one_row"):
             # the same training batch, entries shuffled or in one row
             if f"{name}_train_{case}" in kern:

@@ -10,13 +10,21 @@ JAX counterpart.  It imports
 Entry points run on ``cuda`` unless given ``device="cpu"``; on the CPU
 every op runs its kernel's plain PyTorch version.
 
-It trains the factorization machine, DeepFM and DCNv2::
+It trains logistic regression, the factorization machine, the
+field-aware FM, DeepFM and DCNv2 on libsvm, libfm or csv text::
 
     from dmlc_core_tpu_torch import (DeepFM, DeviceLoader, adam,
                                      create_parser, fit_stream)
     model = DeepFM(num_features=1 << 20, dim=32, layers=2)
     loader = DeviceLoader(create_parser("train.libsvm"), batch_rows=4096,
                           nnz_cap=64, layout="rowmajor")
+    fit_stream(model, loader, optimizer=adam(model, 1e-3))
+
+the field-aware FM on libfm text, its fields beside the ids::
+
+    model = FieldAwareFM(num_features=1 << 18, num_fields=40, dim=4)
+    loader = DeviceLoader(create_parser("train.libfm", parser_type="libfm"),
+                          batch_rows=4096, nnz_cap=131072, fields=True)
     fit_stream(model, loader, optimizer=adam(model, 1e-3))
 
 k steps a dispatch, each dispatch one replay of a captured CUDA graph::
@@ -54,7 +62,8 @@ from . import (data, kernels, models, ops, pipeline,  # noqa: F401
                serving, transport, utils)
 from .data import create_parser  # noqa: F401
 from .models import (FTRL, Adam, DCNv2, DeepFM,  # noqa: F401
-                     FactorizationMachine, FusedTrainer, SparseLogReg, adam,
+                     FactorizationMachine, FieldAwareFM, FusedTrainer,
+                     SparseLogReg, adam,
                      evaluate_stream, fit_stream, make_train_step,
                      params_from_jax, params_to_numpy)
 from .pipeline import DeviceLoader  # noqa: F401
@@ -65,7 +74,8 @@ from .utils import CheckpointManager, DMLCError  # noqa: F401
 
 __version__ = "0.1.0"
 
-__all__ = ["FactorizationMachine", "SparseLogReg", "DCNv2", "DeepFM",
+__all__ = ["FactorizationMachine", "FieldAwareFM", "SparseLogReg", "DCNv2",
+           "DeepFM",
            "params_from_jax", "params_to_numpy", "create_parser",
            "DeviceLoader", "make_train_step", "fit_stream", "evaluate_stream",
            "adam", "Adam", "FTRL", "FusedTrainer", "InferenceEngine",

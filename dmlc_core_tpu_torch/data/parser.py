@@ -1,43 +1,65 @@
-"""libsvm text → :class:`RowBlock` batches, from a local file or bytes.
+"""libsvm, libfm and csv text → :class:`RowBlock` batches, from a local
+file or bytes.
 
-Counterpart of ``dmlc_core_tpu/data/py_parsers.py::parse_libsvm`` (the
-per-line semantics) and of the local-file part of
+Counterpart of ``dmlc_core_tpu/data/py_parsers.py`` (the per-line
+semantics of :func:`parse_libsvm`, :func:`parse_libfm` and
+:func:`parse_csv`) and of the local-file part of
 ``dmlc_core_tpu/data/parser.py``: ``create_parser(path, part, nparts,
-"libsvm")`` over a line-aligned byte-range split (as
-``io/input_split.py``'s ``InputSplitBase.reset_partition`` and
-``LineSplitter`` cut it), a :class:`TextParser` that parses each chunk
-with the native library (:mod:`..native`) or the python
-:func:`parse_libsvm`, and a :class:`ThreadedParser` that parses ahead on
-a thread.  Remote schemes and libfm/csv stay with the JAX package for
-now.
+fmt)`` over a line-aligned byte-range split (as ``io/input_split.py``'s
+``InputSplitBase.reset_partition`` and ``LineSplitter`` cut it), a
+:class:`TextParser` that parses each chunk with the native library
+(:mod:`..native`) or the python parsers, and a :class:`ThreadedParser`
+that parses ahead on a thread.  The format comes from ``parser_type``,
+or for ``"auto"`` from the path's ``?format=`` argument (then libsvm);
+csv reads ``?label_column=`` and ``?delimiter=`` (:class:`CSVParserParam`).
+Remote schemes stay with the JAX package for now.
 
-:func:`parse_libsvm` keeps the JAX fallback parser's rules exactly: a
-bad label skips its line, a bad feature token ends its row, a value-less
-token ``idx`` has value 1.0.  The native parser follows the same rules.
+The python parsers keep the JAX fallback parsers' rules exactly: a bad
+label skips its line, a bad feature token ends its row, a value-less
+libsvm token ``idx`` has value 1.0, a libfm token needs all three of
+``field:idx:value``; a csv row with a cell that is not a number is
+dropped whole, an empty cell reads 0, and column ``label_column`` (-1:
+none, every label 0) is the label.  The native parsers follow the same
+rules.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Iterator, Optional, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 
 from .. import native
 from ..utils.logging import DMLCError, check, log_info
+from ..utils.parameter import Parameter, field
 from ..utils.threaded_iter import ThreadedIter
 from .row_block import RowBlock
 
-__all__ = ["parse_libsvm", "LibSVMParser", "TextParser", "ThreadedParser",
-           "create_parser", "resolve_engine", "ENGINES"]
+__all__ = ["parse_libsvm", "parse_libfm", "parse_csv", "CSVParserParam",
+           "LibSVMParser", "TextParser", "ThreadedParser", "create_parser",
+           "resolve_engine", "ENGINES", "FORMATS"]
 
 ENGINES = ("auto", "native", "python")
+FORMATS = ("libsvm", "libfm", "csv")
 
 CHUNK_BYTES = 2 << 20            # the JAX InputSplit's default chunk
 
 
-def _finish(offsets, labels, weights, indices, values, bad) -> Dict:
-    return {
+class CSVParserParam(Parameter):
+    """csv options, read from the path's ``?key=value`` arguments (the
+    JAX package's ``CSVParserParam``)."""
+    format = field(str, default="csv")
+    label_column = field(int, default=-1,
+                         help="column index holding the label; -1 = none")
+    delimiter = field(str, default=",")
+
+
+def _finish(offsets, labels, weights, indices, values, fields,
+            bad) -> Dict:
+    """The parsers' output dict; ``fields`` (libfm only, else None) adds
+    ``fields`` and ``max_field``."""
+    out = {
         "offsets": np.asarray(offsets, np.int64),
         "labels": np.asarray(labels, np.float32),
         "weights": np.asarray(weights, np.float32),
@@ -46,19 +68,19 @@ def _finish(offsets, labels, weights, indices, values, bad) -> Dict:
         "max_index": int(max(indices)) if len(indices) else 0,
         "bad_lines": bad,
     }
+    if fields is not None:
+        out["fields"] = np.asarray(fields, np.uint32)
+        out["max_field"] = int(max(fields)) if fields else 0
+    return out
 
 
-def parse_libsvm(data: Union[bytes, memoryview]) -> Dict:
-    """One chunk of libsvm text → the CSR arrays of the JAX package's
-    parsers (``offsets``, ``labels``, ``weights``, ``indices``,
-    ``values``, ``max_index``, ``bad_lines``), equal to its fallback
-    parser's output on the same bytes (``py_parsers._parse_sparse``
-    without fields)."""
+def _parse_sparse(data: Union[bytes, memoryview], with_fields: bool) -> Dict:
     offsets = [0]
     labels: list = []
     weights: list = []
     indices: list = []
     values: list = []
+    fields: Optional[list] = [] if with_fields else None
     bad = 0
     for line in bytes(data).splitlines():
         toks = line.split()
@@ -77,27 +99,85 @@ def parse_libsvm(data: Union[bytes, memoryview]) -> Dict:
         for tok in toks[1:]:
             parts = tok.split(b":")
             try:
-                indices.append(int(parts[0]))
-                # value-less token 'idx' → implicit 1.0
-                values.append(float(parts[1]) if len(parts) > 1 else 1.0)
+                if with_fields:
+                    if len(parts) != 3:
+                        raise ValueError(tok)
+                    # all three parse before any is kept
+                    f, i, v = int(parts[0]), int(parts[1]), float(parts[2])
+                    fields.append(f)
+                    indices.append(i)
+                    values.append(v)
+                else:
+                    indices.append(int(parts[0]))
+                    # value-less token 'idx' → implicit 1.0
+                    values.append(float(parts[1]) if len(parts) > 1 else 1.0)
             except ValueError:
                 bad += 1
                 break
             n += 1
         offsets.append(offsets[-1] + n)
-    return _finish(offsets, labels, weights, indices, values, bad)
+    return _finish(offsets, labels, weights, indices, values, fields, bad)
+
+
+def parse_libsvm(data: Union[bytes, memoryview]) -> Dict:
+    """One chunk of libsvm text → the CSR arrays of the JAX package's
+    parsers (``offsets``, ``labels``, ``weights``, ``indices``,
+    ``values``, ``max_index``, ``bad_lines``), equal to its fallback
+    parser's output on the same bytes."""
+    return _parse_sparse(data, with_fields=False)
+
+
+def parse_libfm(data: Union[bytes, memoryview]) -> Dict:
+    """One chunk of libfm text (``label[:weight] field:idx:value ...``)
+    → :func:`parse_libsvm`'s arrays plus ``fields`` (uint32) and
+    ``max_field``."""
+    return _parse_sparse(data, with_fields=True)
+
+
+def parse_csv(data: Union[bytes, memoryview], label_col: int = -1,
+              delim: str = ",") -> Dict:
+    """One chunk of dense csv → :func:`parse_libsvm`'s arrays: every
+    column but ``label_col`` a value, its id its place among them."""
+    d = delim.encode()
+    offsets = [0]
+    labels: list = []
+    weights: list = []
+    indices: list = []
+    values: list = []
+    bad = 0
+    for line in bytes(data).splitlines():
+        if not line.strip():
+            continue
+        row_vals = []
+        label = 0.0
+        try:
+            for ci, tok in enumerate(line.split(d)):
+                v = float(tok) if tok.strip() else 0.0
+                if ci == label_col:
+                    label = v
+                else:
+                    row_vals.append(v)
+        except ValueError:
+            bad += 1
+            continue
+        labels.append(label)
+        weights.append(1.0)
+        indices.extend(range(len(row_vals)))
+        values.extend(row_vals)
+        offsets.append(offsets[-1] + len(row_vals))
+    return _finish(offsets, labels, weights, indices, values, None, bad)
 
 
 def _to_block(d: Dict) -> RowBlock:
     return RowBlock(d["offsets"], d["labels"], d["indices"], d["values"],
-                    d["weights"])
+                    d["weights"], d.get("fields"), d.get("max_field", 0))
 
 
 class LibSVMParser:
-    """The line-aligned byte-range split of a local libsvm file (or of
-    ``data`` bytes) that a :class:`TextParser` parses: chunks of whole
-    lines of part ``part_index`` of ``num_parts`` (the JAX
-    ``InputSplit``'s role).  The byte range is cut as the JAX
+    """The line-aligned byte-range split of a local text file of any of
+    the three formats (or of ``data`` bytes) that a :class:`TextParser`
+    parses: chunks of whole lines of part ``part_index`` of
+    ``num_parts`` (the JAX ``InputSplit``'s role).  The byte range is cut as the JAX
     ``InputSplitBase`` cuts it: ``ceil(size / num_parts)`` bytes per
     part, each end moved forward to the next line start."""
 
@@ -166,17 +246,21 @@ class TextParser:
     ``TextParser``): ``source`` has ``next_chunk()``, ``before_first()``
     and ``close()`` (a :class:`LibSVMParser`), and ``parse_fn(chunk)``
     is the native or the python parse kernel.  Chunks whose lines are all
-    bad give no block."""
-
-    text_format = "libsvm"
+    bad give no block.  ``text_format`` and, for csv, ``csv_label_col``
+    and ``csv_delim`` say what ``parse_fn`` reads, for a loader that
+    parses and packs the text in one native pass."""
 
     def __init__(self, source: LibSVMParser,
                  parse_fn: Callable[[bytes], Dict], nthreads: int = 0,
-                 engine: str = "python") -> None:
+                 engine: str = "python", text_format: str = "libsvm",
+                 csv_label_col: int = -1, csv_delim: str = ",") -> None:
         self.source = source
         self.parse_fn = parse_fn
         self.nthreads = nthreads
         self.engine = engine
+        self.text_format = text_format
+        self.csv_label_col = csv_label_col
+        self.csv_delim = csv_delim
         self.bytes_read = 0
 
     @property
@@ -225,7 +309,8 @@ class ThreadedParser(TextParser):
 
     def __init__(self, base: TextParser, max_capacity: int = 8) -> None:
         super().__init__(base.source, base.parse_fn, base.nthreads,
-                         base.engine)
+                         base.engine, base.text_format, base.csv_label_col,
+                         base.csv_delim)
         self.base = base
         self._capacity = max_capacity
         self._iter: Optional[ThreadedIter] = None
@@ -286,30 +371,58 @@ def resolve_engine(engine: str) -> str:
     return "python"
 
 
-def _make_kernel(engine: str, nthreads: int) -> Callable[[bytes], Dict]:
+def _make_kernel(fmt: str, engine: str, nthreads: int,
+                 csv: CSVParserParam) -> Callable[[bytes], Dict]:
+    if fmt == "csv":
+        lc, dl = csv.label_column, csv.delimiter
+        if engine == "native":
+            return lambda b: native.parse_csv(b, lc, dl, nthreads)
+        return lambda b: parse_csv(b, lc, dl)
     if engine == "native":
-        return lambda b: native.parse_libsvm(b, nthreads)
-    return parse_libsvm
+        fn = native.parse_libfm if fmt == "libfm" else native.parse_libsvm
+        return lambda b: fn(b, nthreads)
+    return parse_libfm if fmt == "libfm" else parse_libsvm
+
+
+def _split_uri(path: str) -> Tuple[str, Dict[str, str]]:
+    """A local path or ``file://`` URI → its path and its ``?k=v&...``
+    arguments (the JAX ``URISpec``'s query rule)."""
+    if path.startswith("file://"):
+        path = path[len("file://"):]
+    path, _, query = path.partition("?")
+    args = {}
+    for kv in query.split("&"):
+        if kv:
+            k, _, v = kv.partition("=")
+            args[k] = v
+    return path, args
 
 
 def create_parser(path: str, part_index: int = 0, num_parts: int = 1,
                   parser_type: str = "libsvm", nthreads: int = 0,
                   threaded: bool = True, engine: str = "auto"):
-    """The JAX package's ``create_parser`` for a local libsvm file (a
-    plain path or a ``file://`` URI): a :class:`TextParser` over part
-    ``part_index`` of ``num_parts``, wrapped in a :class:`ThreadedParser`
-    unless ``threaded`` is False.  ``engine`` picks the parse kernel
-    (``"auto"``, ``"native"`` or ``"python"``); ``nthreads`` is the
-    native parser's OpenMP team (0: :func:`_default_nthreads`)."""
-    if parser_type not in ("libsvm", "auto"):
-        raise DMLCError(f"parser format {parser_type!r} is not ported yet; "
-                        f"only 'libsvm' is")
-    if path.startswith("file://"):
-        path = path[len("file://"):]
-    if "://" in path:
+    """The JAX package's ``create_parser`` for a local file (a plain path
+    or a ``file://`` URI, with optional ``?key=value&...`` arguments): a
+    :class:`TextParser` over part ``part_index`` of ``num_parts``,
+    wrapped in a :class:`ThreadedParser` unless ``threaded`` is False.
+    ``parser_type`` is ``"libsvm"``, ``"libfm"``, ``"csv"`` or
+    ``"auto"`` (the ``format=`` argument, else libsvm); csv takes its
+    options from the arguments (:class:`CSVParserParam`), read once.
+    ``engine`` picks the parse kernel (``"auto"``, ``"native"`` or
+    ``"python"``); ``nthreads`` is the native parser's OpenMP team (0:
+    :func:`_default_nthreads`)."""
+    if "://" in path and not path.startswith("file://"):
         raise DMLCError(f"only local files are supported, got {path!r}")
+    path, args = _split_uri(path)
+    fmt = args.get("format", "libsvm") if parser_type == "auto" \
+        else parser_type
+    if fmt not in FORMATS:
+        raise DMLCError(f"unknown parser format {fmt!r}; one of {FORMATS}")
     if not os.path.isfile(path):
         raise DMLCError(f"no such file: {path}")
+    csv = CSVParserParam()              # read once: parse and streampack
+    if fmt == "csv":
+        csv.init_allow_unknown(args)
     chosen = resolve_engine(engine)
     if nthreads <= 0:
         nthreads = _default_nthreads()
@@ -317,5 +430,6 @@ def create_parser(path: str, part_index: int = 0, num_parts: int = 1,
         log_info("parser: engine %s%s", chosen,
                  f" ({nthreads} threads)" if chosen == "native" else "")
     parser = TextParser(LibSVMParser(path, part_index, num_parts),
-                        _make_kernel(chosen, nthreads), nthreads, chosen)
+                        _make_kernel(fmt, chosen, nthreads, csv), nthreads,
+                        chosen, fmt, csv.label_column, csv.delimiter)
     return ThreadedParser(parser) if threaded else parser

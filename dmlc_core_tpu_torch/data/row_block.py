@@ -10,6 +10,8 @@ immutable CSR view, its ``size`` and O(1) ``slice``), plus
 * ``weights``  float32[n] or None (implicit 1.0)
 * ``indices``  uint64[m] — feature ids
 * ``values``   float32[m] or None (implicit 1.0)
+* ``fields``   uint32[m] or None (libfm field ids); ``max_field`` the
+  largest (0 without fields)
 """
 
 from __future__ import annotations
@@ -28,12 +30,16 @@ class RowBlock:
 
     def __init__(self, offsets: np.ndarray, labels: np.ndarray,
                  indices: np.ndarray, values: Optional[np.ndarray] = None,
-                 weights: Optional[np.ndarray] = None) -> None:
+                 weights: Optional[np.ndarray] = None,
+                 fields: Optional[np.ndarray] = None,
+                 max_field: int = 0) -> None:
         self.offsets = offsets
         self.labels = labels
         self.indices = indices
         self.values = values
         self.weights = weights
+        self.fields = fields
+        self.max_field = max_field
         check(len(labels) == len(offsets) - 1,
               f"labels length {len(labels)} != num rows {len(offsets) - 1}")
 
@@ -53,13 +59,16 @@ class RowBlock:
             indices=self.indices[vb:ve],
             values=self.values[vb:ve] if self.values is not None else None,
             weights=(self.weights[begin:end]
-                     if self.weights is not None else None))
+                     if self.weights is not None else None),
+            fields=self.fields[vb:ve] if self.fields is not None else None,
+            max_field=self.max_field)
 
 
 def concat_blocks(blocks: List[RowBlock]) -> RowBlock:
     """Rows of ``blocks`` in order, as one block.  A missing ``values`` or
-    ``weights`` array becomes explicit ones where another block has one,
-    as ``RowBlockContainer.push_block`` does."""
+    ``weights`` array becomes explicit ones, and missing ``fields`` zeros,
+    where another block has one, as ``RowBlockContainer.push_block`` and
+    ``get_block`` do."""
     if len(blocks) == 1:
         return blocks[0]
     counts = np.concatenate([np.diff(b.offsets) for b in blocks])
@@ -77,6 +86,13 @@ def concat_blocks(blocks: List[RowBlock]) -> RowBlock:
         weights = np.concatenate([
             b.weights if b.weights is not None
             else np.ones(b.size, np.float32) for b in blocks])
+    fields = None
+    if any(b.fields is not None for b in blocks):
+        fields = np.concatenate([
+            b.fields[s] if b.fields is not None
+            else np.zeros(s.stop - s.start, np.uint32)
+            for b, s in zip(blocks, span)])
     return RowBlock(offsets.astype(np.int64),
                     np.concatenate([b.labels for b in blocks]),
-                    indices, values, weights)
+                    indices, values, weights, fields,
+                    max(b.max_field for b in blocks))

@@ -5,6 +5,7 @@ from .convert import (adam_state_from_optax,  # noqa: F401
                       ftrl_state_to_optax, params_from_jax, params_to_numpy)
 from .dcn import DCNv2  # noqa: F401
 from .deep import DeepFM  # noqa: F401
+from .ffm import FieldAwareFM  # noqa: F401
 from .ftrl import FTRL  # noqa: F401
 from .optim import Adam  # noqa: F401
 from .sparse import (FactorizationMachine, SparseLogReg,  # noqa: F401
@@ -14,7 +15,8 @@ from .train import (FusedTrainer, adam, auc_from_histograms,  # noqa: F401
                     make_train_step, make_train_step_fused,
                     make_train_step_kbatch, stack_batches, streaming_auc)
 
-__all__ = ["SparseLogReg", "FactorizationMachine", "DCNv2", "DeepFM",
+__all__ = ["SparseLogReg", "FactorizationMachine", "FieldAwareFM", "DCNv2",
+           "DeepFM",
            "weighted_bce", "weighted_mse", "task_loss", "params_from_jax",
            "params_to_numpy", "adam_state_to_optax", "adam_state_from_optax",
            "ftrl_state_to_optax", "ftrl_state_from_optax", "Adam", "FTRL",

@@ -11,11 +11,16 @@ One key more: ``device`` (``cuda``, or ``cpu`` for the plain PyTorch
 path), the counterpart of ``JAX_PLATFORMS``; it is never read from the
 environment, and without a card ``device=cuda`` exits 2.
 
-It trains on the flat layout, through ``DeviceLoader(create_parser(...),
-batch_rows, nnz_cap, id_mod=features)`` (the threaded native parser and
-the native packer wherever g++ exists, as the JAX CLI's loader), with
+It trains on the flat layout, through ``DeviceLoader(create_parser(data,
+format), batch_rows, nnz_cap, id_mod=features, fields=model == "ffm")``
+(the threaded native parser and the native packer wherever g++ exists,
+as the JAX CLI's loader; libsvm, libfm or csv, resolved as the JAX CLI
+resolves them: ``format=``, ``model=ffm`` implies libfm, then a
+``?format=`` argument of ``data``, then the file suffix, then libsvm;
+csv's ``?label_column=&delimiter=`` ride on the URI), with
 ``optax.adam``'s update (``models.train.adam``, the port's fused Adam).
-With ``kstep > 1`` the loader emits the fused wire's host buffers and
+With ``kstep > 1`` (ignored for ``model=ffm``, whose fields the fused
+wire does not carry) the loader emits the fused wire's host buffers and
 :class:`.train.FusedTrainer` runs ``kstep`` steps a dispatch (one CUDA
 graph replay on the card); logging and checkpoints then fire at group
 granularity, as in the JAX CLI, and the end-of-run AUC reads a fresh
@@ -31,9 +36,8 @@ the optimizer's set-up (or a resume), the wait for the first batch, the
 steps, validation, the train AUC and the checkpoint (or, to predict, the
 scoring).
 
-Not ported yet; each exits 2 naming what is missing: ``model=ffm`` (libfm
-fields), ``format=libfm|csv``, ``workers=`` (remote ingest) and URIs
-other than local files.
+Not ported yet; each exits 2 naming what is missing: ``workers=``
+(remote ingest) and URIs other than local files.
 """
 
 from __future__ import annotations
@@ -51,10 +55,6 @@ from ..utils.registry import Registry
 
 MODEL_REGISTRY = Registry.get("model")
 
-# models the JAX CLI has that the port cannot train yet: name -> reason
-_NOT_PORTED = {"ffm": "model=ffm needs libfm fields, which are not ported "
-                      "yet (the libfm parser and FieldAwareFM)"}
-
 
 @MODEL_REGISTRY.register("logreg", "sparse logistic regression")
 def _logreg(p: "TrainParams", device: torch.device,
@@ -69,6 +69,15 @@ def _fm(p: "TrainParams", device: torch.device, generator: torch.Generator):
     return FactorizationMachine(num_features=p.features, dim=p.dim, l2=p.l2,
                                 task=p.task, device=device,
                                 generator=generator)
+
+
+@MODEL_REGISTRY.register("ffm", "field-aware FM (libfm fields)")
+def _ffm(p: "TrainParams", device: torch.device,
+         generator: torch.Generator):
+    from .ffm import FieldAwareFM
+    return FieldAwareFM(num_features=p.features, num_fields=p.fields,
+                        dim=p.dim, l2=p.l2, task=p.task, device=device,
+                        generator=generator)
 
 
 @MODEL_REGISTRY.register("deepfm", "FM + deep tower")
@@ -104,12 +113,11 @@ class TrainParams(Parameter):
     format = field(str, default="auto",
                    enum=["auto", "libsvm", "libfm", "csv"],
                    help="input format ('auto': ?format= URI arg, then file "
-                        "suffix .libsvm/.libfm/.csv, then libsvm); only "
-                        "libsvm is ported")
+                        "suffix .libsvm/.libfm/.csv, then libsvm; ffm "
+                        "implies libfm)")
     # lazy enum: registering a model is the only step to join the CLI
     model = field(str, default="fm",
-                  enum=lambda: sorted(MODEL_REGISTRY.list_names()
-                                      + list(_NOT_PORTED)),
+                  enum=lambda: sorted(MODEL_REGISTRY.list_names()),
                   help="registered model name")
     features = field(int, default=1 << 20, lower_bound=1,
                      help="feature-space size (ids hashed into it)")
@@ -136,7 +144,9 @@ class TrainParams(Parameter):
                      help="streaming AUC over the train stream at the end")
     kstep = field(int, default=1, lower_bound=1,
                   help="train steps fused per device dispatch (>1: the "
-                       "k-step trainer, one CUDA graph replay a group)")
+                       "k-step trainer, one CUDA graph replay a group); "
+                       "ignored for ffm (fields ride outside the fused "
+                       "wire)")
     log_every = field(int, default=100)
     device = field(str, default="cuda", enum=["cuda", "cpu"],
                    help="where to train: 'cuda' (the kernels) or 'cpu' "
@@ -168,10 +178,13 @@ def _local(uri: str) -> str:
 
 
 def _resolve_format(p: TrainParams) -> str:
-    """The JAX CLI's rule: ``format=``, else a ``?format=`` URI argument,
-    else the file suffix, else libsvm."""
+    """The JAX CLI's rule: ``format=``, else libfm for ``model=ffm``,
+    else a ``?format=`` URI argument, else the file suffix, else
+    libsvm."""
     if p.format != "auto":
         return p.format
+    if p.model == "ffm":
+        return "libfm"
     for arg in p.data.partition("?")[2].split("&"):
         if arg.startswith("format="):
             return arg[len("format="):]
@@ -184,12 +197,6 @@ def _resolve_format(p: TrainParams) -> str:
 
 def _refusal(p: TrainParams) -> Optional[str]:
     """Why the port cannot run ``p`` yet, or None."""
-    if p.model in _NOT_PORTED:
-        return _NOT_PORTED[p.model]
-    fmt = _resolve_format(p)
-    if fmt != "libsvm":
-        return (f"format={fmt} is not ported yet (its parser); the port "
-                f"reads libsvm")
     if p.workers:
         return ("workers= (remote ingest workers and the fused wire) is "
                 "not ported yet; train on local files")
@@ -223,13 +230,14 @@ class _Stages:
 def _make_loader(p: TrainParams, uri: str, device: torch.device,
                  emit: str = "device"):
     """The one place a run's loader is configured: train, validation,
-    end-of-run AUC and predict all see the same batch shape and
-    hashing."""
+    end-of-run AUC and predict all see the same format, batch shape,
+    fields and hashing."""
     from ..data import create_parser
     from ..pipeline import DeviceLoader
-    return DeviceLoader(create_parser(_local(uri), 0, 1, "libsvm"),
+    return DeviceLoader(create_parser(uri, 0, 1, _resolve_format(p)),
                         batch_rows=p.batch_rows, nnz_cap=p.nnz_cap,
-                        id_mod=p.features, device=device, emit=emit)
+                        id_mod=p.features, device=device, emit=emit,
+                        fields=p.model == "ffm")
 
 
 def _load_params(model, params, device: torch.device) -> None:
@@ -332,7 +340,10 @@ def _train(p: TrainParams, model, device: torch.device,
     opt = adam(model, p.lr)
     # loaded in place, before any graph captures the tensors' addresses
     start_n = _resume(p, model, opt, device) if p.resume else 0
-    fused = p.kstep > 1
+    fused = p.kstep > 1 and p.model != "ffm"
+    if p.kstep > 1 and not fused:
+        log_info("dmlc-train: kstep=%d ignored for model=ffm (the fused "
+                 "wire carries no fields); one step a batch", p.kstep)
     step = None if fused else make_train_step(model, opt)
     mgr = CheckpointManager(_local(p.ckpt_dir)) if p.ckpt_dir else None
     stages.mark("optimizer set-up")

@@ -1,16 +1,18 @@
 """ctypes binding to the port's native parse and pack library.
 
-Counterpart of ``dmlc_core_tpu/native/__init__.py``, for the libsvm feed:
-:func:`parse_libsvm` (libsvm text → numpy CSR arrays, OpenMP over line-
-aligned slices of the chunk), :class:`Packer` (RowBlocks → fused v2 wire
-buffers, ``PackerC``) and :class:`SpPacker` (libsvm text → fused v2 wire
-buffers in one pass, ``SpPackC``).  The library is the port's own copy
+Counterpart of ``dmlc_core_tpu/native/__init__.py``:
+:func:`parse_libsvm`, :func:`parse_libfm` and :func:`parse_csv` (text →
+numpy CSR arrays, OpenMP over line-aligned slices of the chunk, the
+libfm fields zero-copy like every other array), :class:`Packer`
+(RowBlocks → fused v2 wire buffers, ``PackerC``) and :class:`SpPacker`
+(libsvm, libfm or csv text → fused v2 wire buffers in one pass,
+``SpPackC``; it carries no fields).  The library is the port's own copy
 of ``dmlc_native.cpp``, built with g++ at first use by :mod:`.build`.
 
 A build that fails where g++ exists raises :class:`DMLCError`; only a
 host with no compiler (and no built library) has no native library, and
-then :func:`available` is False.  The libfm and csv entry points and the
-v3 compact wire stay unbound for now.
+then :func:`available` is False.  The v3 compact wire stays unbound for
+now.
 
 ctypes releases the interpreter lock for the length of each native call,
 so parsing and packing overlap the Python of other threads.
@@ -28,7 +30,8 @@ from ..utils.logging import DMLCError, IdOverflowError, log_info
 from . import build as _build
 
 __all__ = ["available", "has_packer", "has_sppack", "parse_libsvm",
-           "num_threads", "fused_words", "Packer", "SpPacker"]
+           "parse_libfm", "parse_csv", "num_threads", "fused_words",
+           "Packer", "SpPacker"]
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -53,10 +56,15 @@ class _CSRBlockC(ctypes.Structure):
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    lib.dmlc_parse_libsvm.argtypes = [ctypes.c_char_p, ctypes.c_int64,
-                                      ctypes.c_int,
-                                      ctypes.POINTER(_CSRBlockC)]
-    lib.dmlc_parse_libsvm.restype = ctypes.c_int
+    for name in ("dmlc_parse_libsvm", "dmlc_parse_libfm"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int,
+                       ctypes.POINTER(_CSRBlockC)]
+        fn.restype = ctypes.c_int
+    lib.dmlc_parse_csv.argtypes = [ctypes.c_char_p, ctypes.c_int64,
+                                   ctypes.c_int, ctypes.c_char, ctypes.c_int,
+                                   ctypes.POINTER(_CSRBlockC)]
+    lib.dmlc_parse_csv.restype = ctypes.c_int
     lib.dmlc_free_block.argtypes = [ctypes.POINTER(_CSRBlockC)]
     lib.dmlc_free_block.restype = None
     lib.dmlc_num_threads.argtypes = []
@@ -79,10 +87,15 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dmlc_packer2_feed.restype = ctypes.c_int64
     lib.dmlc_packer2_stats.argtypes = [ctypes.c_void_p] + [_I64P] * 4
     lib.dmlc_packer2_stats.restype = None
-    lib.dmlc_sppack_feed_libsvm.argtypes = [
-        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, _I64P,
-        ctypes.c_void_p, _I64P]
-    lib.dmlc_sppack_feed_libsvm.restype = ctypes.c_int32
+    for name in ("dmlc_sppack_feed_libsvm", "dmlc_sppack_feed_libfm"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64,
+                       _I64P, ctypes.c_void_p, _I64P]
+        fn.restype = ctypes.c_int32
+    lib.dmlc_sppack_feed_csv.argtypes = [
+        ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+        ctypes.c_char, _I64P, ctypes.c_void_p, _I64P]
+    lib.dmlc_sppack_feed_csv.restype = ctypes.c_int32
     lib.dmlc_sppack_stats.argtypes = [ctypes.c_void_p] + [_I64P] * 5
     lib.dmlc_sppack_stats.restype = None
 
@@ -168,22 +181,21 @@ def _buf_view(data) -> np.ndarray:
     return np.frombuffer(data, dtype=np.uint8)
 
 
-def parse_libsvm(data, nthreads: int = 0) -> Dict:
-    """libsvm text → the CSR arrays of the port's python parser
-    (``offsets``, ``labels``, ``weights``, ``indices``, ``values``,
-    ``max_index``, ``bad_lines``), as zero-copy views of the library's
-    block.  ``nthreads`` 0 takes the library's OpenMP default."""
+def _run_parse(fn_name: str, data, want_fields: bool, *args) -> Dict:
+    """One native parse → the CSR arrays of the port's python parsers, as
+    zero-copy views of the library's block (``fields`` and ``max_field``
+    too with ``want_fields``)."""
     lib = _lib_or_raise()
     view = _buf_view(data)
     blk = _CSRBlockC()
-    rc = lib.dmlc_parse_libsvm(ctypes.c_char_p(view.ctypes.data), len(view),
-                               int(nthreads), ctypes.byref(blk))
+    rc = getattr(lib, fn_name)(ctypes.c_char_p(view.ctypes.data), len(view),
+                               *args, ctypes.byref(blk))
     if rc != 0:
         lib.dmlc_free_block(ctypes.byref(blk))
-        raise MemoryError(f"dmlc_parse_libsvm failed with code {rc}")
+        raise MemoryError(f"{fn_name} failed with code {rc}")
     n, m = blk.n_rows, blk.n_values
     owner = _NativeBlockOwner(lib, blk)
-    return {
+    out = {
         "offsets": _wrap(blk.offsets, n + 1, np.int64, owner),
         "labels": _wrap(blk.labels, n, np.float32, owner),
         "weights": _wrap(blk.weights, n, np.float32, owner),
@@ -192,6 +204,32 @@ def parse_libsvm(data, nthreads: int = 0) -> Dict:
         "max_index": int(blk.max_index),
         "bad_lines": int(blk.bad_lines),
     }
+    if want_fields:
+        out["fields"] = _wrap(blk.fields, m, np.uint32, owner)
+        out["max_field"] = int(blk.max_field)
+    return out
+
+
+def parse_libsvm(data, nthreads: int = 0) -> Dict:
+    """libsvm text → the CSR arrays of the port's python parser
+    (``offsets``, ``labels``, ``weights``, ``indices``, ``values``,
+    ``max_index``, ``bad_lines``).  ``nthreads`` 0 takes the library's
+    OpenMP default."""
+    return _run_parse("dmlc_parse_libsvm", data, False, int(nthreads))
+
+
+def parse_libfm(data, nthreads: int = 0) -> Dict:
+    """libfm text → :func:`parse_libsvm`'s arrays plus ``fields``
+    (uint32) and ``max_field``."""
+    return _run_parse("dmlc_parse_libfm", data, True, int(nthreads))
+
+
+def parse_csv(data, label_col: int = -1, delim: str = ",",
+              nthreads: int = 0) -> Dict:
+    """Dense csv → :func:`parse_libsvm`'s arrays; ``label_col`` -1 reads
+    no label, ``delim``'s first byte splits the columns."""
+    return _run_parse("dmlc_parse_csv", data, False, int(label_col),
+                      delim.encode()[:1] or b",", int(nthreads))
 
 
 def fused_words(batch_rows: int, nnz_bucket: int) -> int:
@@ -318,21 +356,31 @@ class Packer:
 
 
 class SpPacker:
-    """libsvm text chunks → fused v2 wire buffers in one native pass
-    (``SpPackC`` in the library), without the CSR block that
-    :func:`parse_libsvm` then :class:`Packer` build in between.  Same
-    layout, meta and carry as :class:`Packer`."""
+    """libsvm, libfm or csv text chunks → fused v2 wire buffers in one
+    native pass (``SpPackC`` in the library), without the CSR block that
+    a parse then :class:`Packer` build in between.  Same layout, meta and
+    carry as :class:`Packer`; libfm fields are parsed and dropped (the
+    wire has no field region).  ``label_col`` and ``delim`` are csv's
+    options, as :func:`parse_csv` takes them."""
 
-    FORMATS = ("libsvm",)
+    FORMATS = ("libsvm", "libfm", "csv")
 
     def __init__(self, batch_rows: int, nnz_cap: int, id_mod: int = 0,
                  quantum: int = 0, compact: bool = False,
-                 fmt: str = "libsvm") -> None:
+                 fmt: str = "libsvm", label_col: int = -1,
+                 delim: str = ",") -> None:
         _check_compact(compact)
         if fmt not in self.FORMATS:
-            raise DMLCError(f"streampack format {fmt!r} is not ported yet; "
-                            f"only 'libsvm' is")
+            raise DMLCError(f"streampack format {fmt!r} not in "
+                            f"{self.FORMATS}")
         self._lib = _lib_or_raise()
+        if fmt == "csv":
+            d = delim.encode()[:1] or b","
+            feed = self._lib.dmlc_sppack_feed_csv
+            self._feed = lambda p, text, n, pos, buf, meta: feed(
+                p, text, n, label_col, d, pos, buf, meta)
+        else:
+            self._feed = getattr(self._lib, f"dmlc_sppack_feed_{fmt}")
         if quantum <= 0:
             quantum = max(1, nnz_cap // 8)
         self._p = self._lib.dmlc_sppack_create(batch_rows, nnz_cap, quantum,
@@ -366,7 +414,7 @@ class SpPacker:
             while True:
                 if buf is None:
                     buf = get_buf(self.words_max)
-                rc = self._lib.dmlc_sppack_feed_libsvm(
+                rc = self._feed(
                     self._p, addr, len(view), ctypes.byref(pos),
                     buf.ctypes.data, ctypes.byref(meta))
                 if rc == -2:

@@ -17,13 +17,16 @@ chooses them:
   into fused v2 wire buffers ``ids[B]|vals[B]|row_ptr|labels|weights``,
   B the batch's nnz rounded up to ``nnz_cap // 8`` (at most 8 shapes per
   ``(batch_rows, nnz_cap)``); a batch closes early rather than truncate;
-* the streampack path: the same buffers straight from text in one native
-  pass, for an unthreaded :class:`~..data.TextParser` with one parse
-  thread (``streampack=False`` turns it off);
+* the streampack path: the same buffers straight from libsvm, libfm or
+  csv text in one native pass, for an unthreaded
+  :class:`~..data.TextParser` with one parse thread (``streampack=False``
+  turns it off);
 * the python path: :func:`.packing.pack_flat` (into the fused wire, B =
   ``nnz_cap``) or :func:`.packing.pack_rowmajor`, with partial slices
   carried across blocks in row order; ``ragged=True`` cuts flat batches
-  by cumulative nnz with :func:`.packing.pack_ragged`.
+  by cumulative nnz with :func:`.packing.pack_ragged`.  ``fields=True``
+  (libfm field ids for ``FieldAwareFM``) always takes this path, as in
+  the JAX loader: the fused wire has no field region.
 
 A fused buffer crosses in one copy and :func:`make_decoder` turns it into
 the batch's views plus one ``searchsorted`` for ``segments`` (padding →
@@ -353,6 +356,11 @@ class DeviceLoader:
                     have no native packer, in either package.
     streampack:     parse and pack in one native pass when the source is
                     an unthreaded single-thread :class:`~..data.TextParser`.
+    fields:         also ship the libfm field ids (``fields``, int32,
+                    padding 0, shaped as ``ids``); the source must carry
+                    them.  The native packer and streampack are then off,
+                    the python packs run and ``fields`` crosses in the
+                    batch's one copy with the other arrays.
     """
 
     def __init__(self, source, batch_rows: int, nnz_cap: int,
@@ -361,7 +369,7 @@ class DeviceLoader:
                  prefetch: int = 2, drop_remainder: bool = False,
                  put_threads: int = 1, emit: str = "device",
                  ragged: bool = False, engine: str = "auto",
-                 streampack: bool = True) -> None:
+                 streampack: bool = True, fields: bool = False) -> None:
         check(layout in ("flat", "rowmajor"), f"bad layout {layout!r}")
         check(emit in ("device", "host"), f"bad emit {emit!r}")
         check(engine in ENGINES, f"bad engine {engine!r}")
@@ -373,7 +381,9 @@ class DeviceLoader:
             check(emit == "device", "ragged=True is incompatible with "
                   "emit='host' (the fused wire carries no nnz_used word)")
         if emit == "host":
-            check(layout == "flat", "emit='host' requires the flat layout")
+            check(layout == "flat" and not fields,
+                  "emit='host' requires the fused path (flat layout, no "
+                  "fields)")
         self.device = resolve_device(device)
         if self.device.type == "cuda" and self.device.index is None:
             # the transfer threads set this device before their first call
@@ -385,6 +395,7 @@ class DeviceLoader:
         self.id_mod = int(id_mod)
         self.drop_remainder = bool(drop_remainder)
         self.ragged = bool(ragged)
+        self.fields = bool(fields)
         self.emit = emit
         self.streampack = bool(streampack)
         self.engine = resolve_engine(engine)
@@ -421,7 +432,7 @@ class DeviceLoader:
 
     def _use_native_pack(self) -> bool:
         return (self.layout == "flat" and not self.ragged
-                and self.engine == "native")
+                and not self.fields and self.engine == "native")
 
     def _use_streampack(self) -> bool:
         return (self.streampack and self._use_native_pack()
@@ -459,7 +470,14 @@ class DeviceLoader:
     def _pack_host(self, block: RowBlock) -> tuple:
         if self.layout == "rowmajor":
             host = pack_rowmajor(block, self.batch_rows, self.nnz_cap,
-                                 self.stats, id_mod=self.id_mod)
+                                 self.stats, id_mod=self.id_mod,
+                                 want_fields=self.fields)
+            return ("arrays", host)
+        if self.fields:
+            host = pack_flat(block, self.batch_rows, self.nnz_cap,
+                             self.stats, id_mod=self.id_mod,
+                             want_fields=True)
+            host.pop("row_ptr")      # the JAX loader ships no row_ptr here
             return ("arrays", host)
         host = pack_flat(block, self.batch_rows, self.nnz_cap, self.stats,
                          id_mod=self.id_mod, want_segments=False)
@@ -495,7 +513,7 @@ class DeviceLoader:
 
     def _pack_host_ragged(self, block: RowBlock) -> tuple:
         host = pack_ragged(block, self.batch_rows, self.nnz_cap, self.stats,
-                           id_mod=self.id_mod)
+                           id_mod=self.id_mod, want_fields=self.fields)
         host.pop("row_ptr")          # the JAX loader ships no row_ptr here
         return ("arrays", host)
 
@@ -521,9 +539,12 @@ class DeviceLoader:
             packer.close()
 
     def _host_items_streampack(self) -> Iterator[tuple]:
-        split = self.source.source          # the TextParser's byte split
+        src = self.source
+        split = src.source                  # the TextParser's byte split
         sp = native.SpPacker(self.batch_rows, self.nnz_cap,
-                             id_mod=self.id_mod)
+                             id_mod=self.id_mod, fmt=src.text_format,
+                             label_col=src.csv_label_col,
+                             delim=src.csv_delim)
         try:
             while True:
                 chunk = split.next_chunk()

@@ -18,7 +18,9 @@ the JAX package's packing on the same blocks:
   contract), batches cut by cumulative nnz (:func:`ragged_slices`), and
   never a value truncated.
 
-Padding rows carry weight 0, so losses ignore them without masking.  Any
+``want_fields=True`` adds ``fields`` (int32, beside ``ids``, padding
+field 0) from a block that has them (libfm).  Padding rows carry weight
+0, so losses ignore them without masking.  Any
 truncation is counted in :class:`PackStats` and logged (at most once a
 minute); the JAX package also bumps its metrics registry, which the port
 does not have yet.
@@ -121,6 +123,13 @@ def batch_slices(block: RowBlock, batch_rows: int) -> Iterator[RowBlock]:
         yield block.slice(start, min(start + batch_rows, block.size))
 
 
+def _check_fields(block: RowBlock, want_fields: bool) -> None:
+    if want_fields and block.fields is None:
+        raise ValueError(
+            "want_fields=True but the source RowBlock has no fields — "
+            "parse with format='libfm'")
+
+
 def _row_tail(block: RowBlock, batch_rows: int):
     n = block.size
     labels = np.zeros(batch_rows, np.float32)
@@ -133,13 +142,15 @@ def _row_tail(block: RowBlock, batch_rows: int):
 
 def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
               stats: Optional[PackStats] = None, id_mod: int = 0,
-              want_segments: bool = True) -> Dict[str, np.ndarray]:
+              want_segments: bool = True,
+              want_fields: bool = False) -> Dict[str, np.ndarray]:
     """Flat-CSR fixed-shape batch; ``block.size`` must be ≤ batch_rows.
     ``want_segments=False`` leaves out ``segments`` (the fused wire
     rebuilds them from ``row_ptr``)."""
     n = block.size
     if n > batch_rows:
         raise ValueError(f"block rows {n} > batch_rows {batch_rows}")
+    _check_fields(block, want_fields)
     offsets = block.offsets.astype(np.int64)
     rel = offsets - offsets[0]
     counts = np.diff(rel)
@@ -149,6 +160,7 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
     vals = np.zeros(nnz_cap, np.float32)
     segments = (np.full(nnz_cap, batch_rows, np.int32)  # padding → scratch
                 if want_segments else None)
+    fields = np.zeros(nnz_cap, np.int32) if want_fields else None
     row_ptr = np.empty(batch_rows + 1, np.int32)
 
     truncated = trunc_rows = 0
@@ -159,6 +171,8 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
         if want_segments:
             segments[:total] = np.repeat(np.arange(n, dtype=np.int32),
                                          counts)
+        if want_fields:
+            fields[:total] = block.fields[src]
         row_ptr[:n + 1] = rel
         row_ptr[n + 1:] = total
     else:
@@ -174,6 +188,8 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
                                  if block.values is not None else 1.0)
             if want_segments:
                 segments[pos:pos + k] = r
+            if want_fields:
+                fields[pos:pos + k] = block.fields[b:b + k]
             pos += k
         truncated = total - pos
         _note_truncation(truncated, trunc_rows, "pack_flat")
@@ -193,19 +209,25 @@ def pack_flat(block: RowBlock, batch_rows: int, nnz_cap: int,
            "weights": weights}
     if want_segments:
         out["segments"] = segments
+    if want_fields:
+        out["fields"] = fields
     return out
 
 
 def pack_rowmajor(block: RowBlock, batch_rows: int, k_cap: int,
                   stats: Optional[PackStats] = None,
-                  id_mod: int = 0) -> Dict[str, np.ndarray]:
+                  id_mod: int = 0,
+                  want_fields: bool = False) -> Dict[str, np.ndarray]:
     """Row-padded ``[batch_rows, k_cap]`` batch for the embed-bag kernel;
     a row longer than ``k_cap`` keeps its first ``k_cap`` values."""
     n = block.size
     if n > batch_rows:
         raise ValueError(f"block rows {n} > batch_rows {batch_rows}")
+    _check_fields(block, want_fields)
     ids = np.zeros((batch_rows, k_cap), np.int32)
     vals = np.zeros((batch_rows, k_cap), np.float32)
+    fields = (np.zeros((batch_rows, k_cap), np.int32) if want_fields
+              else None)
     offsets = block.offsets.astype(np.int64)
     truncated = trunc_rows = 0
     for r in range(n):
@@ -215,6 +237,8 @@ def pack_rowmajor(block: RowBlock, batch_rows: int, k_cap: int,
         trunc_rows += (e - b) > k
         ids[r, :k] = _ids32(block.indices[b:b + k], id_mod)
         vals[r, :k] = block.values[b:b + k] if block.values is not None else 1.0
+        if want_fields:
+            fields[r, :k] = block.fields[b:b + k]
     labels, weights = _row_tail(block, batch_rows)
     _note_truncation(truncated, trunc_rows, "pack_rowmajor")
     if stats is not None:
@@ -224,7 +248,10 @@ def pack_rowmajor(block: RowBlock, batch_rows: int, k_cap: int,
         stats.truncated_rows += trunc_rows
         stats.true_nnz += int(offsets[n] - offsets[0]) - truncated
         stats.padded_nnz += batch_rows * k_cap
-    return {"ids": ids, "vals": vals, "labels": labels, "weights": weights}
+    out = {"ids": ids, "vals": vals, "labels": labels, "weights": weights}
+    if want_fields:
+        out["fields"] = fields
+    return out
 
 
 def ragged_slices(block: RowBlock, batch_rows: int,
@@ -251,7 +278,8 @@ def ragged_slices(block: RowBlock, batch_rows: int,
 
 def pack_ragged(block: RowBlock, batch_rows: int, nnz_cap: int,
                 stats: Optional[PackStats] = None,
-                id_mod: int = 0) -> Dict[str, np.ndarray]:
+                id_mod: int = 0,
+                want_fields: bool = False) -> Dict[str, np.ndarray]:
     """Flat capacity batch: :func:`pack_flat`'s keys and shapes plus the
     int32 words ``nnz_used`` and ``rows_used``.  The nnz-sized arrays are
     ``np.empty`` and written only below ``nnz_used`` (their tails are
@@ -261,6 +289,7 @@ def pack_ragged(block: RowBlock, batch_rows: int, nnz_cap: int,
     n = block.size
     if n > batch_rows:
         raise ValueError(f"block rows {n} > batch_rows {batch_rows}")
+    _check_fields(block, want_fields)
     offsets = block.offsets.astype(np.int64)
     rel = offsets - offsets[0]
     total = int(rel[-1])
@@ -284,6 +313,10 @@ def pack_ragged(block: RowBlock, batch_rows: int, nnz_cap: int,
         stats.padded_rows += batch_rows - n
         stats.true_nnz += total
         stats.padded_nnz += total          # ragged math reduces true nnz
-    return {"ids": ids, "vals": vals, "segments": segments,
-            "row_ptr": row_ptr, "labels": labels, "weights": weights,
-            "nnz_used": np.int32(total), "rows_used": np.int32(n)}
+    out = {"ids": ids, "vals": vals, "segments": segments,
+           "row_ptr": row_ptr, "labels": labels, "weights": weights,
+           "nnz_used": np.int32(total), "rows_used": np.int32(n)}
+    if want_fields:
+        out["fields"] = np.empty(nnz_cap, np.int32)     # garbage tail too
+        out["fields"][:total] = block.fields[src]
+    return out

@@ -429,6 +429,13 @@ class PredictionServer:
             self._drop_conn(cid, conn)
 
 
+# neither package can serve FieldAwareFM: its forward needs each entry's
+# field, and a request frame (REQ_HEADER, then ids, vals, row_ptr) has none
+_FFM_UNSERVABLE = ("model=ffm cannot be served: the serving wire "
+                   "(REQ_HEADER, then ids, vals and row_ptr) carries no "
+                   "libfm fields, and FieldAwareFM needs each entry's field")
+
+
 def serve_main(argv=None) -> int:
     """CLI: ``python -m dmlc_core_tpu_torch.serving.server ckpt_dir=DIR
     features=N [model=fm] [dim=16] [port=N] [watch_s=SEC] [device=cuda]
@@ -447,7 +454,7 @@ def serve_main(argv=None) -> int:
         return 2
     import torch
 
-    from ..models.cli import _NOT_PORTED, MODEL_REGISTRY, TrainParams
+    from ..models.cli import MODEL_REGISTRY, TrainParams
     from ..utils.device import resolve_device
     p = TrainParams()
     try:
@@ -455,8 +462,8 @@ def serve_main(argv=None) -> int:
                 "features": args["features"], "dim": args.get("dim", "16"),
                 "task": args.get("task", "binary"),
                 "device": args.get("device", "cuda")})
-        if p.model in _NOT_PORTED:
-            raise DMLCError(_NOT_PORTED[p.model])
+        if p.model == "ffm":
+            raise DMLCError(_FFM_UNSERVABLE)
         _refuse_unported(None)
         _refuse_autotune()
         device = resolve_device(p.device)

@@ -181,6 +181,12 @@ class Parameter(metaclass=_ParamMeta):
             raise ParamError(f"required parameters {missing} of "
                              f"{type(self).__name__} not set")
 
+    def init_allow_unknown(self, kwargs: Dict[str, Any]) -> None:
+        """:meth:`init` with the keys this struct knows; the rest (other
+        options of the same source) are ignored."""
+        self.init({k: v for k, v in kwargs.items()
+                   if k in self.__param_fields__})
+
     @classmethod
     def doc_string(cls) -> str:
         lines = [f"Parameters of {cls.__name__}", "-" * 30]

@@ -115,11 +115,11 @@ def test_config_file_and_overrides(tmp_path, data, capsys):
     (["dim=2.5"], "not integral"),
     (["dim=0"], "below lower bound"),
     (["model=fm"], "required parameters ['data']"),
-    (["model=ffm"], "libfm fields"),
-    (["format=libfm"], "format=libfm is not ported"),
-    (["format=csv"], "format=csv is not ported"),
-    (["data=train.csv"], "format=csv is not ported"),
-    (["data=x.libsvm?format=libfm"], "format=libfm is not ported"),
+    (["model=ffm", "workers=h1:9000"], "workers= "),
+    (["format=libfm", "data=s3://bucket/train.libfm"], "only local files"),
+    (["format=csv", "data=missing.csv"], "no such file"),
+    (["data=train.csv?format=tsv"], "unknown parser format 'tsv'"),
+    (["model=ffm", "ckpt_dir=hdfs://nn/ckpt"], "only local files"),
     (["workers=h1:9000"], "workers= "),
     (["kstep=4", "workers=h1:9000"], "workers= "),
     (["data=s3://bucket/train.libsvm"], "only local files"),

@@ -968,3 +968,128 @@ def test_serving_reload_mid_stream_switches_once(dev, tmp_path, via):
         steps, float(np.abs(direct - s1).max()),
         float(np.abs(direct - s2).max()))
     assert steps[-1] == 2 and before <= steps.index(2) <= at + 1
+
+
+# -- the field-aware FM: the ragged gather at D = nf * d ---------------------
+
+def _ffm_step(dev, layout, nf, d, engine):
+    """One FieldAwareFM loss and backward on a seeded batch with fields
+    past nf - 1, out-of-range ids and padding: the loss and the
+    gradients."""
+    from dmlc_core_tpu_torch.models import FieldAwareFM
+    rng = np.random.default_rng(31)
+    B, K = 48, 10
+    ids = rng.integers(0, F, (B, K)).astype(np.int32)
+    ids[0, :4] = BAD_IDS_GRAD
+    vals = rng.random((B, K)).astype(np.float32)
+    fields = rng.integers(0, nf + 2, (B, K)).astype(np.int32)
+    ids[:, K - 3:], vals[:, K - 3:], fields[:, K - 3:] = 0, 0.0, 0
+    labels = (rng.random(B) < 0.5).astype(np.float32)
+    batch = {"labels": labels, "weights": np.ones(B, np.float32)}
+    if layout == "rowmajor":
+        batch.update(ids=ids, vals=vals, fields=fields)
+    else:
+        live = vals != 0
+        pad = 7
+        batch.update(
+            ids=np.concatenate([ids[live], np.zeros(pad, np.int32)]),
+            vals=np.concatenate([vals[live], np.zeros(pad, np.float32)]),
+            fields=np.concatenate([fields[live], np.zeros(pad, np.int32)]),
+            segments=np.concatenate([np.nonzero(live)[0].astype(np.int32),
+                                     np.full(pad, B, np.int32)]))
+    batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+             for k, v in batch.items()}
+    model = FieldAwareFM(F, nf, d, l2=1e-4, init_scale=0.3, engine=engine,
+                         device=dev,
+                         generator=torch.Generator(dev).manual_seed(7))
+    loss = model.loss(batch)
+    loss.backward()
+    return loss.detach(), {k: p.grad.clone()
+                           for k, p in model.named_parameters()}
+
+
+@pytest.mark.parametrize("nf,d", [(5, 4), (40, 4), (3, 3)])
+@pytest.mark.parametrize("layout", ["flat", "rowmajor"])
+def test_ffm_step_kernel_matches_plain(dev, layout, nf, d):
+    """G and its gradient go through the ragged-gather kernels at
+    D = nf * d (float4 rows at d = 4, scalar at 3 x 3 = 9)."""
+    before = {k: _count(k) for k in ("ragged_gather_embed",
+                                     "ragged_gather_grad_embed")}
+    lk, gk = _ffm_step(dev, layout, nf, d, "kernel")
+    # flat: the linear term and G, forward and backward; row-major: G
+    per = 2 if layout == "flat" else 1
+    for k, n in before.items():
+        assert _count(k) == n + per, k
+    lp, gp = _ffm_step(dev, layout, nf, d, "torch")
+    torch.testing.assert_close(lk, lp, **TOL)
+    for k in gp:
+        scale = float(gp[k].abs().max())
+        assert scale > 0, k
+        assert float((gk[k] - gp[k]).abs().max()) <= 1e-4 * scale, k
+
+
+def test_ragged_gather_at_the_ffm_shape_matches_plain(dev):
+    """The bench config's bucket sum: D = 40 * 4, segments row * 40 +
+    field, unsorted within a row, padding on the scratch row and past
+    it; forward and table gradient against their plain versions."""
+    rng = np.random.default_rng(33)
+    nf, d, rows, Fs = 40, 4, 256, 1 << 14
+    counts = rng.integers(5, 40, rows)
+    n = int(counts.sum())
+    cap = n + 300
+    ids = np.zeros(cap, np.int32)
+    ids[:n] = rng.integers(0, Fs, n)
+    ids[:4] = [-1, -Fs - 3, Fs, Fs + 7]
+    vals = np.zeros(cap, np.float32)
+    vals[:n] = rng.random(n)
+    f = np.zeros(cap, np.int32)
+    f[:n] = rng.integers(0, nf, n)
+    seg = np.full(cap, rows, np.int32)
+    seg[:n] = np.repeat(np.arange(rows, dtype=np.int32), counts)
+    segs = seg * nf + f                      # padding: the scratch row
+    segs[n + 100:] = rows * nf + 5           # ... and past it
+    a = [torch.from_numpy(x).to(dev) for x in (ids, vals, segs)]
+    table = torch.from_numpy(rng.normal(size=(Fs, nf * d)).astype(
+        np.float32)).to(dev)
+    got, _ = ragged_gather(*a, None, table, rows * nf, fm=False)
+    want, _ = ragged_gather_reference(*a, None, table, rows * nf, fm=False)
+    torch.testing.assert_close(got, want, **TOL)
+    g1 = torch.from_numpy(rng.normal(size=(rows * nf + 1, nf * d)).astype(
+        np.float32)).to(dev)
+    got = ragged_gather_table_grad(*a, None, g1, rows * nf, Fs)
+    _, want = ragged_gather_grad_reference(*a, None, table, g1, None,
+                                           rows * nf, need_dvals=False)
+    torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(layout="rowmajor"),
+                                dict(ragged=True)],
+                         ids=["flat", "rowmajor", "ragged"])
+def test_loader_fields_on_the_card_match_the_cpu(dev, tmp_path, kw):
+    from dmlc_core_tpu_torch.data import create_parser
+    from dmlc_core_tpu_torch.pipeline import DeviceLoader
+    rng = np.random.default_rng(35)
+    path = tmp_path / "d.libfm"
+    with open(path, "wb") as f:
+        for i in range(300):
+            n = int(rng.integers(5, 40))
+            idx = np.sort(rng.choice(1_000_000, size=n, replace=False))
+            f.write(b"%d " % (i & 1) + b" ".join(
+                b"%d:%d:%.4f" % (j % 40, j, v) for j, v in
+                zip(idx.tolist(), rng.random(n).tolist())) + b"\n")
+    cap = 64 if kw.get("layout") == "rowmajor" else 4096
+    out = {}
+    for device in ("cuda", "cpu"):
+        with DeviceLoader(create_parser(str(path), parser_type="libfm"), 128,
+                          cap, device=device, fields=True, **kw) as ld:
+            out[device] = [{k: v.cpu() for k, v in b.items()} for b in ld]
+    assert len(out["cuda"]) == len(out["cpu"]) >= 3
+    for c, w in zip(out["cuda"], out["cpu"]):
+        assert set(c) == set(w) and "fields" in w
+        for k in w:
+            got, want = c[k], w[k]
+            if "nnz_used" in w and k in ("ids", "vals", "segments",
+                                         "fields"):
+                m = int(w["nnz_used"])
+                got, want = got[:m], want[:m]
+            assert torch.equal(got, want), k

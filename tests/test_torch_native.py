@@ -190,8 +190,8 @@ def test_compact_wire_and_other_formats_are_refused(lib):
         lib.Packer(8, 64, compact=True)
     with pytest.raises(DMLCError, match="not ported"):
         lib.SpPacker(8, 64, compact=True)
-    with pytest.raises(DMLCError, match="not ported"):
-        lib.SpPacker(8, 64, fmt="csv")
+    with pytest.raises(DMLCError, match="streampack format 'tsv' not in"):
+        lib.SpPacker(8, 64, fmt="tsv")
     assert lib.fused_words(4, 16) == jnative.fused_words(4, 16) == 45
 
 

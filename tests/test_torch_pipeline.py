@@ -90,8 +90,8 @@ def test_parser_parts_cover_the_file_like_jax(tmp_path, num_parts):
 
 
 def test_parser_rejects_what_is_not_ported(tmp_path):
-    with pytest.raises(DMLCError, match="not ported"):
-        create_parser(str(tmp_path / "x"), parser_type="libfm")
+    with pytest.raises(DMLCError, match="unknown parser format 'tsv'"):
+        create_parser(str(tmp_path / "x"), parser_type="tsv")
     with pytest.raises(DMLCError, match="local files"):
         create_parser("s3://bucket/x")
     with pytest.raises(DMLCError, match="no such file"):

@@ -605,7 +605,8 @@ def test_serve_main_refusals(monkeypatch, capsys):
     assert "usage" in capsys.readouterr().err
     assert tserver.serve_main(["ckpt_dir=x", "features=10", "model=ffm",
                                "device=cpu"]) == 2
-    assert "model=ffm needs libfm fields" in capsys.readouterr().err
+    assert "the serving wire (REQ_HEADER, then ids, vals and row_ptr) " \
+        "carries no libfm fields" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tserver.serve_main(["ckpt_dir=x", "features=10"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
@@ -613,6 +614,20 @@ def test_serve_main_refusals(monkeypatch, capsys):
     assert tserver.serve_main(["ckpt_dir=x", "features=10",
                                "device=cpu"]) == 2
     assert "A.9" in capsys.readouterr().err
+
+
+def test_ffm_cannot_be_served_by_either_engine():
+    """Why ``serve_main model=ffm`` refuses: a request is ids, vals and
+    row_ptr, and the JAX engine's forward of FieldAwareFM on one raises
+    the model's KeyError for the missing fields."""
+    from dmlc_core_tpu.models.ffm import FieldAwareFM as JFFM
+    model = JFFM(64, 4, 2)
+    eng = jengine.InferenceEngine(model, model.init(jax.random.PRNGKey(0)),
+                                  buckets=jengine.BucketLadder([(4, 16)]))
+    with pytest.raises(KeyError, match="needs a 'fields' batch array"):
+        eng.predict(np.array([1, 2, 3], np.int32),
+                    np.ones(3, np.float32), np.array([0, 2, 3], np.int64))
+    assert tserver._FFM_UNSERVABLE.startswith("model=ffm cannot be served")
 
 
 def test_serve_main_serves_a_checkpoint_in_a_subprocess(tmp_path):
