@@ -18,15 +18,18 @@ Phases, in order; any failure exits non-zero and prints no result:
    out-of-range ids and padding; the ragged-gather forward also with
    the batch's entries shuffled and with all of them in one row), held
    against its plain PyTorch version (rtol = atol = 1e-5; zero fill must
-   give exact zeros, the D = 1 backward also in a freed NaN-filled
-   block; two fm-terms or embed-bag calls must be bit-equal, at B 4096
-   and B 128), with CUDA-event times of kernel, plain version, the same
-   call with next to no work (embed bag B 1 K 1, D = 1 backward with
-   nnz_used = 0) and, where one PyTorch call computes the same function,
-   that call; the ragged-gather forward and backward at the field-aware
-   FM's shape (D = 40 x 4 over 4096 x 40 segments, F 2^18, segments
-   unsorted within a row), with a sparse CSR product as the library
-   call; then the fused Adam and FTRL kernels (kernels/optim.cu)
+   give exact zeros, every ragged backward with nnz_used = 0 also in a
+   freed NaN-filled block; two fm-terms or embed-bag calls must be
+   bit-equal, at B 4096 and B 128; the ragged backward's sums have no
+   fixed order and are not), with CUDA-event times of kernel, plain
+   version, the same call with next to no work (embed bag B 1 K 1, each
+   ragged backward with nnz_used = 0) and, where one PyTorch call
+   computes the same function, that call; the ragged-gather forward and
+   backward at the field-aware FM's shape (D = 40 x 4 over 4096 x 40
+   segments, F 2^18, segments unsorted within a row), with a sparse CSR
+   product as the library call, and the backward at the CLI's FFM
+   defaults (D = 640, F 2^20, a 2.7 GB gradient) on the same batch;
+   then the fused Adam and FTRL kernels (kernels/optim.cu)
    over every parameter of FM, DCNv2 (and logreg, FTRL) at 2^20
    features, 8 steps against their plain versions (rtol 1e-6, atol
    1e-7), timed beside a launch over no tensors, the plain version and,
@@ -174,7 +177,6 @@ ATOL_F64 = 1e-4                  # f32 scores vs a float64 FM (sums of up
 # whose fields are j % 40; its bucket sum is the ragged gather at
 # D = 40 * 4 over 4096 * 40 segments
 F_FFM, NF_FFM, DIM_FFM = 1 << 18, 40, 4
-BAD_IDS_FFM = [-1, -F_FFM - 3, F_FFM, F_FFM + 7]
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_FLOPS = 67e12                # H100 SXM, f32 outside the tensor cores
 SEED = 0
@@ -411,6 +413,7 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
                                    max_abs_err=err)
     results.update(_training_kernels(torch, timer, power, rng))
     results.update(_ffm_kernels(torch, timer, power, rng))
+    results.update(_cli_ffm_grad(torch, timer, power, rng))
     results.update(_optimizer_kernels(torch, timer, power))
     return results
 
@@ -620,33 +623,30 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
     return results
 
 
-def _zero_work_grad(torch, timer: Timer, power: str, fids, fvals, fsegs,
-                    tab, g1) -> float:
-    """The D = 1 ragged backward (the linear term's) at the training shape
-    with ``nnz_used = 0``: after a freed NaN-filled ``[F, 1]`` block, so
-    the caching allocator may hand it back, the gradient must be exact
-    zeros (the kernel zeroes it, whatever the memory held).  Returns the
-    call's time, the floor under the kernel's time at this shape."""
-    from dmlc_core_tpu_torch.kernels import ragged_gather_grad
+def _zero_work_grad(torch, timer: Timer, power: str, call, shape,
+                    label: str) -> float:
+    """``call(nnz_used) -> dtable``, one ragged backward at a path's
+    shape, with ``nnz_used = 0``: after a freed NaN-filled block of the
+    gradient's ``shape``, so the caching allocator may hand it back, the
+    gradient must be exact zeros (the launcher writes every element,
+    whatever the memory held).  Returns the call's time, the floor under
+    the kernel's time at this shape (at D > 1: every row stored as
+    zeros by its owner, and the passes over no entries)."""
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
-    run = lambda: ragged_gather_grad(  # noqa: E731
-        fids, fvals, fsegs, zero, tab, g1, None, ROWS_TR, need_dvals=False,
-        engine="kernel")[1]
-    poison = torch.full(tab.shape, float("nan"), device="cuda")
+    poison = torch.full(shape, float("nan"), device="cuda")
     torch.cuda.synchronize()
     ptr = poison.data_ptr()
     del poison
-    got = run()
+    got = call(zero)
     torch.cuda.synchronize()
     if not bool((got == 0).all()):
-        raise RuntimeError("ragged_gather_grad D=1 nnz_used=0: not all zeros "
-                           "after a NaN-filled allocation")
-    floor_ms = timer.ms(run)
-    log(f"[kernels] ragged_gather_grad_embed cap={fids.shape[0]} D=1 "
-        f"nnz_used=0: "
-        f"{floor_ms:.4f} ms, exact zeros in "
-        f"{'the freed NaN block' if got.data_ptr() == ptr else 'a new block'}"
-        f" [{power}]")
+        raise RuntimeError(f"ragged_gather_grad ({label}) nnz_used=0: not "
+                           "all zeros after a NaN-filled allocation")
+    where = "the freed NaN block" if got.data_ptr() == ptr else "a new block"
+    del got
+    floor_ms = timer.ms(lambda: call(zero))
+    log(f"[kernels] ragged_gather_grad ({label}) nnz_used=0: "
+        f"{floor_ms:.4f} ms, exact zeros in {where} [{power}]")
     return floor_ms
 
 
@@ -774,9 +774,12 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
             g2 = (torch.from_numpy(rng.standard_normal(
                 (ROWS_TR + 1, Dg), dtype=np.float32)).cuda() if fm else None)
             name = "ragged_gather_grad_fm" if fm else "ragged_gather_grad_embed"
-            floor_ms = (_zero_work_grad(torch, timer, power, fids, fvals,
-                                        fsegs, tab, g1)
-                        if Dg == 1 and not fm else None)
+            floor_ms = _zero_work_grad(
+                torch, timer, power,
+                lambda nnz, tab=tab, g1=g1, g2=g2: ragged_gather_grad(
+                    fids, fvals, fsegs, nnz, tab, g1, g2, ROWS_TR,
+                    need_dvals=False, engine="kernel")[1],
+                tab.shape, f"{'fm' if fm else 'embed'} D={Dg}")
             for need_dvals in (False, True):
                 run = lambda: ragged_gather_grad(  # noqa: E731
                     fids, fvals, fsegs, None, tab, g1, g2, ROWS_TR,
@@ -802,15 +805,17 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                         torch, fids[:nnz], fvals[:nnz], foffsets, tab,
                         g1[:ROWS_TR]))
                 # the training path runs no dvals: fm at D=32, embed at
-                # D=1 (the linear term; DCNv2 also runs it at D=32)
-                if not need_dvals and (fm or Dg == 1):
-                    results[name] = dict(
-                        ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
-                    if floor_ms is not None:
-                        results[name]["floor_ms"] = floor_ms
-                above = ("" if floor_ms is None else
-                         f" (nnz_used=0: {floor_ms:.4f} ms, above it "
+                # D=1 (the linear term) and at D=32 (DCNv2's x0, the
+                # embed row's "d32")
+                if not need_dvals:
+                    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                               bound_by=b_by, library_ms=lib_ms,
+                               max_abs_err=err, floor_ms=floor_ms)
+                    if fm or Dg == 1:
+                        results[name] = row
+                    else:
+                        results[name]["d32"] = row
+                above = (f" (nnz_used=0: {floor_ms:.4f} ms, above it "
                          f"{ms - floor_ms:.4f} ms)")
                 log(f"[kernels] {name} cap={fids.shape[0]} nnz={nnz} rows="
                     f"{ROWS_TR} D={Dg} dvals={need_dvals}: kernel {ms:.4f} "
@@ -821,13 +826,13 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
     return results
 
 
-def _ffm_batch(torch, rng):
+def _ffm_batch(torch, rng, F=F_FFM):
     """FFM's bucket sum as the flat training path calls it: ROWS_TR rows
-    of 5-39 entries (ids below 1,000,000 hashed into F_FFM, sorted in a
-    row, so their fields j % 40 are not), in the native packer's nnz
-    bucket; segment row * 40 + field, padding (value 0) on the scratch
-    row ROWS_TR * 40; out-of-range ids first.  Returns the device
-    tensors and the live count."""
+    of 5-39 entries (ids below 1,000,000 hashed into ``F`` features,
+    sorted in a row, so their fields j % 40 are not), in the native
+    packer's nnz bucket; segment row * 40 + field, padding (id 0, value
+    0) on the scratch row ROWS_TR * 40; out-of-range ids first.  Returns
+    the device tensors and the live count."""
     counts = rng.integers(5, 40, ROWS_TR)
     nnz = int(counts.sum())
     cap = _bucket(nnz)
@@ -835,8 +840,8 @@ def _ffm_batch(torch, rng):
                                              replace=False))
                           for c in counts])
     ids = np.zeros(cap, np.int32)
-    ids[:nnz] = raw % F_FFM
-    ids[:4] = BAD_IDS_FFM
+    ids[:nnz] = raw % F
+    ids[:4] = [-1, -F - 3, F, F + 7]
     vals = np.zeros(cap, np.float32)
     vals[:nnz] = rng.random(nnz, dtype=np.float32)
     segs = np.full(cap, ROWS_TR * NF_FFM, np.int32)
@@ -921,14 +926,68 @@ def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
         lib = lambda: bwd_m @ g1  # noqa: E731
         _close("sparse CSR @ g1 (ffm)", lib(), want)
         lib_ms = timer.ms(lib)
+        del got, want, bwd_m
+        floor_ms = _zero_work_grad(
+            torch, timer, power, lambda z: ragged_gather_grad(
+                fids, fvals, fsegs, z, table, g1, None, S, need_dvals=False,
+                engine="kernel")[1], table.shape, f"ffm D={D}")
         results["ragged_gather_grad_embed_ffm"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, max_abs_err=err)
+            library_ms=lib_ms, max_abs_err=err, floor_ms=floor_ms)
         log(f"[kernels] ragged_gather_grad_embed (ffm) cap={cap} nnz={nnz} "
-            f"segments={S} D={D} dtable [{F_FFM}, {D}]: kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, sparse CSR product {lib_ms:.4f} ms, "
-            f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+            f"segments={S} D={D} dtable [{F_FFM}, {D}]: kernel {ms:.4f} ms "
+            f"(nnz_used=0: {floor_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"sparse CSR product {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}), max|err| {err:.3g} [{power}]")
     return results
+
+
+def _cli_ffm_grad(torch, timer: Timer, power: str, rng) -> dict:
+    """The ragged backward at the CLI's FFM defaults (2^20 features, 40
+    fields, dim 16: D = 640, a [2^20, 640] gradient of 2.7 GB) on FFM's
+    batch, through the table-less entry point the embed sum's backward
+    shares: kernel, plain version, the sparse CSR product, the same call
+    with nnz_used = 0, and the bound.  Returns ``<name>_cli`` numbers."""
+    from dmlc_core_tpu_torch.kernels import ragged_gather_table_grad
+    from dmlc_core_tpu_torch.kernels.common import grad_rows
+    F, D, S = F_FEATURES, NF_FFM * 16, ROWS_TR * NF_FFM
+    fids, fvals, fsegs, nnz = _ffm_batch(torch, rng, F)
+    cap = fids.shape[0]
+    segs_hit = int(torch.unique(fsegs[:nnz]).numel())
+    g1 = torch.from_numpy(rng.standard_normal(
+        (S + 1, D), dtype=np.float32)).cuda()
+    with torch.no_grad():
+        call = lambda nnz_used, engine="kernel": (  # noqa: E731
+            ragged_gather_table_grad(fids, fvals, fsegs, nnz_used, g1, S, F,
+                                     engine=engine))
+        got, want = call(None), call(None, "torch")
+        torch.cuda.synchronize()
+        err = _close(f"ragged_gather_grad_embed (cli) D={D}", got, want)
+        del got
+        ms = timer.ms(lambda: call(None), reps=10)
+        plain_ms = timer.ms(lambda: call(None, "torch"), reps=10)
+        b_ms, b_by = bound(12 * cap + segs_hit * D * 4 + F * D * 4,
+                           2 * nnz * D)
+        live_ids = fids[:nnz]
+        keep = grad_rows(live_ids, F) < F
+        bwd_m = _sparse_rows(torch, grad_rows(live_ids, F)[keep],
+                             fsegs[:nnz].long()[keep], fvals[:nnz][keep],
+                             (F, S + 1))
+        lib = lambda: bwd_m @ g1  # noqa: E731
+        _close("sparse CSR @ g1 (cli)", lib(), want)
+        del want
+        lib_ms = timer.ms(lib, reps=10)
+        del bwd_m
+        floor_ms = _zero_work_grad(torch, timer, power, call, (F, D),
+                                   f"cli D={D}")
+    log(f"[kernels] ragged_gather_grad_embed (cli) cap={cap} nnz={nnz} "
+        f"segments={S} D={D} dtable [{F}, {D}]: kernel {ms:.4f} ms "
+        f"(nnz_used=0: {floor_ms:.4f} ms), plain {plain_ms:.4f} ms, sparse "
+        f"CSR product {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"max|err| {err:.3g} [{power}]")
+    return {"ragged_gather_grad_embed_cli": dict(
+        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, max_abs_err=err, floor_ms=floor_ms)}
 
 
 # the optimizer kernels against their plain versions after 8 steps: the
@@ -2919,9 +2978,10 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src + cu,
                "replaces": replaces, "launches": path.get(name, 0),
                **{key: k[key] for key in keys}}
-        for extra in ("floor_ms", "library_foreach_ms", "dcn", "fm"):
+        for extra in ("floor_ms", "library_foreach_ms", "dcn", "fm", "d32"):
             # the same kernel with next to no work; torch.optim.Adam's
-            # default (foreach); the optimizers at the other models' shapes
+            # default (foreach); the optimizers at the other models'
+            # shapes; the ragged embed backward at D = 32 (DCNv2's x0)
             if extra in k:
                 row[extra] = k[extra]
         if name in ("ragged_gather_fm", "ragged_gather_embed"):
@@ -2938,6 +2998,12 @@ def main() -> int:
             # with the [ffm] paths' launches
             row["ffm"] = {"launches": ffm.get(name, 0),
                           **{key: kern[name + "_ffm"][key] for key in keys}}
+            if "floor_ms" in kern[name + "_ffm"]:
+                row["ffm"]["floor_ms"] = kern[name + "_ffm"]["floor_ms"]
+        if name + "_cli" in kern:
+            # the same kernel at the CLI's FFM defaults (D = 640, F 2^20),
+            # which [cli] runs in a process of its own
+            row["cli"] = dict(kern[name + "_cli"])
         for case in ("unsorted", "one_row"):
             # the same training batch, entries shuffled or in one row
             if f"{name}_train_{case}" in kern:

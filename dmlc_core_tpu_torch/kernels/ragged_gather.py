@@ -149,18 +149,25 @@ def _ragged_gather_kernel(ids, vals, segments, nnz_used, table, num_rows,
 
 # -- backward ---------------------------------------------------------------
 
-_grad_fn = None
+_grad_fns = None
 
 
 def _grad_launcher():
-    global _grad_fn
-    if _grad_fn is None:
-        fn = build.load("ragged_gather_grad").ragged_gather_grad_launch
-        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+    """``(launch, workspace)``: ``ragged_gather_grad_launch`` and
+    ``ragged_gather_grad_workspace`` (the bytes of workspace a launch
+    needs)."""
+    global _grad_fns
+    if _grad_fns is None:
+        lib = build.load("ragged_gather_grad")
+        fn = lib.ragged_gather_grad_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        _grad_fn = fn
-    return _grad_fn
+        ws = lib.ragged_gather_grad_workspace
+        ws.argtypes = [ctypes.c_int] * 5
+        ws.restype = ctypes.c_longlong
+        _grad_fns = fn, ws
+    return _grad_fns
 
 
 def _grad_reference(ids, vals, segments, nnz_used, table, F, g1, g2,
@@ -189,17 +196,23 @@ def _grad_reference(ids, vals, segments, nnz_used, table, F, g1, g2,
 def _grad_kernel(ids, vals, segments, nnz_used, table, F, g1, g2, num_rows,
                  need_dvals, need_dtable):
     """Launch ``ragged_gather_grad.cu``; ``table`` as in
-    :func:`_grad_reference`.  The embed variant at D = 1 (the linear
-    term) is one cooperative launch that zeroes ``dtable`` and scatters
-    into it; a launch that does not fit raises, as any failed launch."""
+    :func:`_grad_reference`.  The launcher writes every element of
+    ``dtable`` itself, so it is allocated uninitialised.  The embed
+    variant at D = 1 (the linear term) is one cooperative launch that
+    zeroes ``dtable`` and scatters into it; a launch that does not fit
+    raises, as any failed launch.  Every other instance writes each row
+    of ``dtable`` once, from the row's owner, and needs a workspace (16
+    bytes an entry: its record; 9 a gradient row: a count, a list head
+    and a touched flag), taken here from the caching allocator, so a CUDA
+    graph's capture draws it from the graph's pool.  The order of a row's sum varies from call to
+    call (its list is built by atomics), so results agree with the plain
+    version to rounding, not bit for bit."""
     dev = g1.device
     D = g1.shape[1]
     nnz_used = _nnz_tensor(nnz_used, dev)
     cap = ids.shape[0]
     dvals = (torch.empty(cap, dtype=torch.float32, device=dev)
              if need_dvals else None)
-    # the launcher zeroes dtable itself (inside the one launch at D = 1,
-    # by a memset before the kernel otherwise)
     dtable = (torch.empty(F, D, dtype=torch.float32, device=dev)
               if need_dtable else None)
     if not (need_dvals or need_dtable):
@@ -207,14 +220,19 @@ def _grad_kernel(ids, vals, segments, nnz_used, table, F, g1, g2, num_rows,
     if cap == 0:
         return dvals, (dtable.zero_() if dtable is not None else None)
     ptrs = [t for t in (table, g1, g2, dtable) if t is not None]
+    launch, workspace = _grad_launcher()
+    nwork = workspace(cap, F, D, int(g2 is not None), int(need_dtable))
+    work = (torch.empty(nwork, dtype=torch.uint8, device=dev) if nwork
+            else None)
     with torch.cuda.device(dev):
-        err = _grad_launcher()(
+        err = launch(
             ids.data_ptr(), segments.data_ptr(), vals.data_ptr(),
             None if nnz_used is None else nnz_used.data_ptr(),
             None if table is None else table.data_ptr(), g1.data_ptr(),
             None if g2 is None else g2.data_ptr(),
             None if dvals is None else dvals.data_ptr(),
             None if dtable is None else dtable.data_ptr(),
+            None if work is None else work.data_ptr(),
             cap, num_rows, F, D, int(vec4_ok(D, *ptrs)), stream_handle(dev))
     if err != 0:
         raise DMLCError(f"ragged_gather_grad launch failed: cudaError {err}")

@@ -4,9 +4,12 @@ the card.  CUDA kernels have no CPU mode, so every test here is marked
 that it runs on a card machine that has none.
 
 Tolerance ``rtol = atol = 1e-5``: the ragged gather and the backward
-kernels add with atomics in no fixed order, fm_terms and the embed-bag
-forward sum in a fixed order (so both are also held bit-equal from call
-to call) but not the plain version's.  The autograd
+kernels add with atomics in no fixed order (the ragged backward at D > 1
+builds each gradient row's list of entries with int atomics, so the
+order of a row's sum, and of a long row's float4 atomics, varies from
+call to call, and two calls are not held bit-equal), fm_terms and the
+embed-bag forward sum in a fixed order (so both are also held bit-equal
+from call to call) but not the plain version's.  The autograd
 ``Function``s are checked with ``torch.autograd.gradcheck`` in float64 on
 their plain path (the kernels take float32 only).
 """
@@ -295,6 +298,180 @@ def test_ragged_grad_d1_matches_plain(dev, case, need_dvals):
     del poison
     only = ragged_gather_table_grad(*a, nnz, g, rows, Fc)
     torch.testing.assert_close(only, want[1], **TOL)
+
+
+OWN_CASES = ["unsorted", "long_row", "each_own", "all_dropped",
+             "minus_one", "nnz_used_0", "nnz_used_cap", "cap_0", "odd_F",
+             "nan_padding"]
+
+
+def _owner_case(rng, case, D, fm, dev):
+    """Inputs of the owner-writes backward: ``(a, nnz, table, g1, g2,
+    rows, F)`` with ``a`` the (ids, vals, segments) tensors.  Segments
+    unsorted (one out of range), out-of-range ids, ~10 % values 0 and a
+    NaN tail past a partial nnz_used, unless the case says otherwise:
+    ``long_row`` is 600 entries (30 % of them hot id 7) and 10,000 of
+    padding (id 0, value 0, the scratch segment) with nnz_used None, so
+    rows 0 and 7 are long; ``each_own`` gives each entry its own segment
+    and its own gradient row; ``all_dropped`` only ids that send no
+    gradient; ``minus_one`` 20 % ids -1 (read from row 0 by the fm
+    variant, added into row F - 1); ``nan_padding`` is ``long_row`` with
+    a NaN in the padding's g1 row, which must reach row 0 (and the
+    padding's dvals)."""
+    Fc = 4099 if case == "odd_F" else F
+    rows = 16
+    cap = {"cap_0": 0, "long_row": 10_600}.get(case, 700)
+    n = {"nnz_used_0": 0, "nnz_used_cap": cap}.get(case, cap - cap // 7)
+    ids = rng.integers(0, Fc, cap).astype(np.int32)
+    ids[:min(cap, 4)] = [-1, -Fc - 3, Fc, Fc + 7][:cap]
+    vals = rng.normal(size=cap).astype(np.float32)
+    vals[rng.random(cap) < 0.1] = 0.0
+    segs = rng.integers(0, rows + 1, cap).astype(np.int32)
+    if cap:
+        segs[min(5, cap - 1)] = rows + 3                  # dropped
+    if case in ("long_row", "nan_padding"):
+        ids[:600][rng.random(600) < 0.3] = 7
+        ids[600:], vals[600:], segs[600:] = 0, 0.0, rows
+        n = None
+    elif case == "each_own":
+        rows = cap
+        segs = np.arange(cap, dtype=np.int32)
+        ids = rng.permutation(Fc)[:cap].astype(np.int32)
+    elif case == "all_dropped":
+        ids = rng.choice(np.array([Fc, Fc + 7, -Fc - 3], np.int32), cap)
+    elif case == "minus_one":
+        ids[rng.random(cap) < 0.2] = -1
+    if n is not None:
+        vals[n:] = np.nan                                 # garbage tail
+    table = rng.normal(size=(Fc, D)).astype(np.float32)
+    g1, g2 = (rng.normal(size=(rows + 1, D)).astype(np.float32)
+              for _ in range(2))
+    if case == "nan_padding":
+        g1[rows, D // 2] = np.nan
+    a = [torch.from_numpy(x).to(dev) for x in (ids, vals, segs)]
+    nnz = (None if n is None
+           else torch.tensor([n], dtype=torch.int32, device=dev))
+    t = [torch.from_numpy(x).to(dev) for x in (table, g1, g2)]
+    return a, nnz, t[0], t[1], (t[2] if fm else None), rows, Fc
+
+
+def _term_sizes(a, nnz, table, g1, g2, rows, need_dvals=True):
+    """The plain backward on the inputs' magnitudes: for every element of
+    dvals and dtable, the sum of its terms' sizes (an upper bound)."""
+    ids, vals, segs = a
+    return ragged_gather_grad_reference(
+        ids, vals.abs(), segs, nnz, table.abs(), g1.abs(),
+        None if g2 is None else g2.abs(), rows, need_dvals)
+
+
+def _sums_close(got, want, sizes):
+    """``|got - want| <= atol + rtol * sizes`` (TOL's rtol and atol): a
+    float32 sum taken in another order differs by rounding relative to
+    the size of its terms, not of the sum, which at D = 640 and along
+    rows of hundreds of entries may cancel to far less.  NaN where the
+    plain version has NaN, and only there."""
+    for x, y, z in zip(got, want, sizes):
+        if x is None:
+            continue
+        nan = y.isnan()
+        assert torch.equal(x.isnan(), nan)
+        x, y, z = x[~nan], y[~nan], z[~nan]
+        assert torch.isfinite(x).all()
+        err = (x - y).abs()
+        bad = err > TOL["atol"] + TOL["rtol"] * z
+        assert not bool(bad.any()), (
+            f"{int(bad.sum())} elements beyond rtol=atol=1e-5 of their "
+            f"terms' sizes; max |err| {float(err.max()):.3g}")
+
+
+@pytest.mark.parametrize("need_dvals", [False, True])
+@pytest.mark.parametrize("fm", [False, True])
+@pytest.mark.parametrize("case", OWN_CASES)
+@pytest.mark.parametrize("D", [2, 8, 32, 33, 160, 640])
+def test_ragged_grad_owner_writes_match_plain(dev, D, case, fm, need_dvals):
+    """The backward at D > 1 and the fm variant: each gradient row
+    written once by its owner (zeros included), rows of more than 32
+    entries zeroed and then added into by 16-byte atomics (scalar ones
+    at D 2 and 33).  Every call follows a freed NaN-filled block of the gradient's
+    size, so a row left unwritten would show NaN; rows that no entry
+    reaches must be exact zeros.  Held within rtol = atol = 1e-5 of each
+    element's terms' sizes (``_sums_close``)."""
+    rng = np.random.default_rng(
+        500 + 37 * OWN_CASES.index(case) + D + 7 * fm)
+    a, nnz, table, g1, g2, rows, Fc = _owner_case(rng, case, D, fm, dev)
+    cap = a[0].shape[0]
+    poison = torch.full((Fc, D), float("nan"), device=dev)
+    del poison
+    name = "ragged_gather_grad_fm" if fm else "ragged_gather_grad_embed"
+    before = _count(name)
+    got = ragged_gather_grad(*a, nnz, table, g1, g2, rows, need_dvals)
+    assert _count(name) == before + (cap > 0)
+    want = ragged_gather_grad_reference(*a, nnz, table, g1, g2, rows,
+                                        need_dvals)
+    _sums_close(got, want, _term_sizes(a, nnz, table, g1, g2, rows,
+                                       need_dvals))
+    ids, _, segs = (x.cpu().numpy() for x in a)
+    n = cap if nnz is None else int(nnz.item())
+    rr = np.where(ids[:n] < 0, ids[:n] + Fc, ids[:n])
+    live = (segs[:n] >= 0) & (segs[:n] <= rows) & (rr >= 0) & (rr < Fc)
+    untouched = np.ones(Fc, bool)
+    untouched[rr[live]] = False
+    assert not bool(got[1][torch.from_numpy(untouched).to(dev)].any())
+    if case in ("nnz_used_0", "cap_0"):
+        assert not bool(got[1].any())
+        if need_dvals:
+            assert not bool(got[0].any())
+    if need_dvals and nnz is not None:
+        assert not bool(got[0][n:].any())
+    if case in ("long_row", "nan_padding"):
+        assert int(np.bincount(rr[live], minlength=Fc).max()) > 32
+    if case == "nan_padding":
+        assert bool(got[1][0].isnan().any())
+
+
+@pytest.mark.parametrize("fm", [False, True])
+def test_ragged_grad_owner_writes_replay_in_a_cuda_graph(dev, fm):
+    """The owner-writes backward captured in a CUDA graph (its workspace
+    from the graph's pool, nnz_used read on the device): new ids, values,
+    segments and nnz_used copied into the static inputs, then a replay,
+    match the plain version on the new inputs, long rows included (within
+    ``_sums_close``: a hot id's row sums a thousand entries)."""
+    D, rows, cap = 32, 64, 12_000
+    rng = np.random.default_rng(61 + fm)
+
+    def batch(n, hot):
+        ids = rng.integers(0, F, cap).astype(np.int32)
+        ids[:4] = BAD_IDS_GRAD
+        ids[:n][rng.random(n) < 0.2] = hot
+        vals = rng.normal(size=cap).astype(np.float32)
+        segs = rng.integers(0, rows + 1, cap).astype(np.int32)
+        ids[n:], vals[n:], segs[n:] = 0, 0.0, rows          # padding
+        return [torch.from_numpy(x).to(dev) for x in (ids, vals, segs)]
+
+    static = batch(3000, 11)
+    nnz = torch.tensor([cap], dtype=torch.int32, device=dev)
+    table, g1, g2 = (torch.from_numpy(rng.normal(size=shape).astype(
+        np.float32)).to(dev) for shape in ((F, D), (rows + 1, D),
+                                           (rows + 1, D)))
+    g2 = g2 if fm else None
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        ragged_gather_grad(*static, nnz, table, g1, g2, rows)   # warm-up
+    torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ragged_gather_grad(*static, nnz, table, g1, g2, rows)
+    for n, hot, used in ((5000, 3, cap), (777, 9, 2000), (cap, 0, cap - 5)):
+        new = batch(n, hot)
+        for dst, src in zip(static, new):
+            dst.copy_(src)
+        nnz.fill_(used)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = ragged_gather_grad_reference(*new, nnz, table, g1, g2, rows)
+        _sums_close(out, want, _term_sizes(new, nnz, table, g1, g2, rows))
 
 
 def test_ragged_embed_grad_kernel_matches_plain(dev):

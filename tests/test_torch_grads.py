@@ -283,14 +283,46 @@ def _flat(rng, rows, cap, D):
     return ids, vals, segs, table
 
 
-@pytest.mark.parametrize("op,D", [("csr_dense_matvec", 1),
-                                  ("csr_embed_sum", 1), ("csr_embed_sum", 8),
-                                  ("csr_embed_sum", 32), ("fm_pairwise", 8),
-                                  ("fm_pairwise", 32)])
-def test_flat_op_grads_match_jax(op, D):
+def _flat_padded(rng, rows, D, pad=400, hot=5):
+    """A batch as the native packer leaves it, with a hot id: every row
+    holds id ``hot`` and 1-8 others, then ``pad`` padding entries (id 0,
+    value 0, the scratch segment), so gradient row 0 gets hundreds of
+    entries and row ``hot`` one from every row."""
+    counts = rng.integers(1, 9, rows)
+    nnz = int(counts.sum()) + rows
+    cap = nnz + pad
+    ids = np.zeros(cap, np.int32)
+    vals = np.zeros(cap, np.float32)
+    segs = np.full(cap, rows, np.int32)
+    ids[:nnz] = rng.integers(1, F, nnz)
+    segs[:nnz] = np.repeat(np.arange(rows), counts + 1)
+    first = np.r_[0, np.cumsum(counts + 1)[:-1]]
+    ids[first] = hot
+    ids[np.setdiff1d(np.arange(nnz), first)[:4]] = BAD
+    vals[:nnz] = rng.normal(size=nnz).astype(np.float32)
+    table = (rng.normal(size=(F, D)) * 0.3).astype(np.float32)
+    return ids, vals, segs, table
+
+
+def _flat_case(op, D, padded=False):
+    return pytest.param(op, D, padded,
+                        id=f"{op}-{D}" + ("-padded" if padded else ""))
+
+
+@pytest.mark.parametrize("op,D,padded", [
+    _flat_case("csr_dense_matvec", 1), _flat_case("csr_embed_sum", 1),
+    _flat_case("csr_embed_sum", 8), _flat_case("csr_embed_sum", 32),
+    _flat_case("fm_pairwise", 8), _flat_case("fm_pairwise", 32),
+    # the card's owner-writes backward: D not a multiple of 4, FFM's
+    # D = 160, heavy padding on row 0 and a hot id (long rows)
+    _flat_case("csr_embed_sum", 3, True),
+    _flat_case("csr_embed_sum", 160, True),
+    _flat_case("fm_pairwise", 3, True)])
+def test_flat_op_grads_match_jax(op, D, padded):
     rng = np.random.default_rng(20 + D)
     rows, cap = 12, 128
-    ids, vals, segs, table = _flat(rng, rows, cap, D)
+    ids, vals, segs, table = (_flat_padded(rng, rows, D) if padded
+                              else _flat(rng, rows, cap, D))
     if op == "csr_dense_matvec":
         table = table[:, 0].copy()
     out_shape = (rows,) if op != "csr_embed_sum" else (rows, D)

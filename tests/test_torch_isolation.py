@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing it and every one of its
 modules (the native library's binding, the threaded parser and the
 loader's pack and transfer threads among them) pulls in neither JAX nor
-the JAX package, and no source file of the port (nor ``chip_smoke.py``)
-names them in an import.  Importing compiles nothing and starts no
+the JAX package, and no source file of the port (nor ``chip_smoke.py``
+and ``tools/``) names them in an import.  Importing compiles nothing and starts no
 thread."""
 
 import ast
@@ -47,6 +47,9 @@ def test_import_pulls_in_no_jax_and_no_jax_package():
 
 def _sources():
     files = [os.path.join(REPO, "chip_smoke.py")]
+    tools = os.path.join(REPO, "tools")
+    files += [os.path.join(tools, f) for f in sorted(os.listdir(tools))
+              if f.endswith(".py")]
     for d, _, fs in os.walk(PKG):
         files += [os.path.join(d, f) for f in fs if f.endswith(".py")]
     return sorted(files)
@@ -73,7 +76,7 @@ def test_every_module_names_its_counterpart_or_role():
     """Each module's docstring says which JAX module it ports, or why it
     has none."""
     for path in _sources():
-        if path.endswith("chip_smoke.py"):
+        if not path.startswith(PKG + os.sep):     # chip_smoke.py, tools/
             continue
         doc = ast.get_docstring(ast.parse(open(path).read())) or ""
         assert "dmlc_core_tpu/" in doc or "counterpart" in doc.lower(), \
