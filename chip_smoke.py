@@ -64,6 +64,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    4096-row batch), the H2D copy and device decode of each fused batch
    (CUDA events; the card's decode array_equal to the CPU's), and each
    loader on its own;
+   io      — the I/O layer: the training file cut into 4 files and an
+   empty one in a directory; the card's batches from the directory, a
+   ; list and a glob array_equal to the single file's, on the native and
+   streampack paths; DeviceLoader(cache="auto") over dir#cache for 4
+   epochs (epoch 1 parses, packs and writes the page file through;
+   epochs 2-4 replay it and must be array_equal on the card to epoch 1;
+   ms a batch, the wait in next_batch and the page-file bytes read); a
+   touched source file and a truncated page file must each rebuild,
+   never serve; the flat FM and DeepFM steady state (4 epochs) with and
+   without the page file; FactorizationMachine(2^20, dim 32) flat, 8 Adam
+   steps with save_async at step 4 while steps 5-8 run, per step and
+   through FusedTrainer(k=4) (the save between the two replays): each
+   checkpoint restores to parameters and moments array_equal (and is
+   byte-equal) to a synchronous save of a clone taken at the same step;
+   the host time of the save_async call against save, there and at the
+   CLI's FFM size (8 GB), with the card's peak memory.  Launch counts are
+   read around its training;
 5. training — six paths: DCNv2(2^20, dim=32, layers=3) and
    DeepFM(2^20, dim=32, layers=2) on row-major and flat batches,
    FactorizationMachine(2^20, dim=32) on flat and row-major batches:
@@ -112,9 +129,13 @@ Phases, in order; any failure exits non-zero and prints no result:
    ...); the port's server (python -m dmlc_core_tpu_torch.serving.server
    model=deepfm) on the trained checkpoint scores the eval file's first
    512 rows over TCP, within 2e-6 of mode=predict's scores, and stops on
-   SIGINT; dmlc-train model=ffm at its defaults (2^20 features, 40
-   fields, dim 16: D = 640 in the kernels, 8 GB of parameters and Adam
-   moments) for 8 steps on the libfm file, then mode=predict, and
+   SIGINT; DeepFM again on data=<dir>#cache (the [io] directory) with
+   epochs=2 ckpt_every=4 (the second epoch from the page file, every
+   checkpoint a save_async), then mode=predict from its last checkpoint,
+   within 2e-6 of it on the plain path; dmlc-train model=ffm at its
+   defaults (2^20 features, 40 fields, dim 16: D = 640 in the kernels,
+   8 GB of parameters and Adam moments) for 8 steps on the libfm file
+   with ckpt_every=4 (save_async at steps 4 and 8), then mode=predict, and
    dmlc-train model=fm format=csv on seeded 32-column csv (label column
    0 from the URI), each prediction within 2e-6 of its restored
    checkpoint on the plain path; a fresh interpreter times building a
@@ -1777,6 +1798,359 @@ def phase_feed(torch, power: str, train_file: str) -> None:
             for k, make in alone.items()) + f" [{power}]")
 
 
+# -- phase 4b: the I/O layer --------------------------------------------------
+
+IO_PARTS = 4               # files the training file is cut into
+IO_EPOCHS = 4              # passes of the page-cache run
+KSTEP_IO = 4               # FusedTrainer(k) of the save_async check
+SAVE_AT = 4                # the step save_async is called at
+
+
+def _io_dir(data: str, train_file: str) -> str:
+    """The training file cut into IO_PARTS files in its order, plus an
+    empty one, under ``data/io``: ``expand_uris`` order is the file's."""
+    d = os.path.join(data, "io")
+    os.makedirs(d, exist_ok=True)
+    with open(train_file, "rb") as f:
+        lines = f.read().splitlines(keepends=True)
+    cut = [len(lines) * i // IO_PARTS for i in range(IO_PARTS + 1)]
+    for i in range(IO_PARTS):
+        with open(os.path.join(d, f"part-{i}.libsvm"), "wb") as f:
+            f.write(b"".join(lines[cut[i]:cut[i + 1]]))
+    open(os.path.join(d, "part-9.libsvm"), "wb").close()       # empty
+    return d
+
+
+def _same_batches(torch, name: str, got: list, want: list) -> None:
+    if len(got) != len(want) or not want:
+        raise RuntimeError(f"[io] {name}: {len(got)} batches, expected "
+                           f"{len(want)}")
+    for i, (x, y) in enumerate(zip(got, want)):
+        for k in y:
+            if not torch.equal(x[k], y[k]):
+                raise RuntimeError(f"[io] {name}: batch {i} {k} differs")
+
+
+def _timed_epoch(torch, loader) -> tuple:
+    """One epoch of device batches, its host-clock seconds (to the last
+    batch on the card) and the consumer's waits in ``next_batch`` (ms)."""
+    batches, waits = [], []
+    t0 = time.perf_counter()
+    while True:
+        a = time.perf_counter()
+        b = loader.next_batch()
+        waits.append((time.perf_counter() - a) * 1e3)
+        if b is None:
+            break
+        batches.append(b)
+    torch.cuda.synchronize()
+    return batches, time.perf_counter() - t0, waits[:-1]
+
+
+def _io_forms(torch, power: str, d: str, train_file: str) -> None:
+    """The card's batches from a directory, a ; list and a glob against
+    the single file's, on the native and streampack paths."""
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    parts = sorted(os.path.join(d, f) for f in os.listdir(d))
+    forms = {"directory": d, "; list": ";".join(parts),
+             "glob": os.path.join(d, "part-*.libsvm")}
+    for path, kw in (("native", {}),
+                     ("streampack", {"threaded": False, "nthreads": 1})):
+        def epoch(uri):
+            with DeviceLoader(create_parser(uri, engine="native", **kw),
+                              ROWS_TR, CAP_TR, device="cuda",
+                              engine="native", cache=None) as ld:
+                return list(ld)
+        want = epoch(train_file)
+        for form, uri in forms.items():
+            _same_batches(torch, f"{path} {form}", epoch(uri), want)
+    log(f"[io] the training file cut into {IO_PARTS} files and an empty "
+        f"one: the card's batches from the directory, the ; list and the "
+        f"glob array_equal to the single file's, on the native and "
+        f"streampack paths ({len(want)} batches each) [{power}]")
+
+
+def _io_page_cache(torch, power: str, d: str, data: str) -> str:
+    """DeviceLoader(cache="auto") over ``dir#cache`` for IO_EPOCHS
+    epochs: epoch 1 parses, packs and writes through, the others replay
+    the page file; each must be array_equal on the card to epoch 1.
+    Then a touched source file and a truncated page file must each
+    rebuild, never serve.  Returns the URI."""
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    uri = f"{d}#{os.path.join(data, 'io_cache')}"
+    pages = os.path.join(data, "io_cache.pages")
+
+    def loader():
+        return DeviceLoader(create_parser(uri, engine="native"), ROWS_TR,
+                            CAP_TR, device="cuda", engine="native",
+                            cache_queue_pages=64)
+
+    ld = loader()
+    epochs, rows, read = [], [], 0
+    try:
+        for e in range(IO_EPOCHS):
+            if e:
+                ld.before_first()
+            batches, secs, waits = _timed_epoch(torch, ld)
+            epochs.append(batches)
+            # the epoch's pages are all read once its end is handed over,
+            # and the next epoch starts only at before_first
+            read, delta = (ld.cache_stats["bytes_read"],
+                           ld.cache_stats["bytes_read"] - read)
+            rows.append(f"epoch {e + 1} "
+                        f"{'replay' if e else 'parse+pack+write'} "
+                        f"{secs * 1e3 / len(batches):.4f} ms a batch, wait "
+                        f"in next_batch median {np.median(waits):.4f} / max "
+                        f"{np.max(waits):.4f} ms, page-file bytes read "
+                        f"{delta}")
+        stats = dict(ld.cache_stats)
+    finally:
+        ld.close()
+    for e in range(1, IO_EPOCHS):
+        _same_batches(torch, f"page-cache epoch {e + 1}", epochs[e],
+                      epochs[0])
+    if (stats["hits"] != IO_EPOCHS - 1 or stats["misses"] != 1
+            or stats["bytes_read"]
+            != (IO_EPOCHS - 1) * stats["bytes_written"]):
+        raise RuntimeError(f"[io] page cache: {stats}; expected "
+                           f"{IO_EPOCHS - 1} hits, 1 miss and every page "
+                           f"read once an epoch")
+    log(f"[io] page cache over {len(epochs[0])} batches of {ROWS_TR} rows "
+        f"(page file {os.path.getsize(pages)} bytes; page payload written "
+        f"{stats['bytes_written']}, read {stats['bytes_read']} in epochs "
+        f"2-{IO_EPOCHS}): " + "; ".join(rows)
+        + f"; epochs 2-{IO_EPOCHS} array_equal on the card to epoch 1 "
+          f"[{power}]")
+
+    # a touched source file, then a truncated page file: both rebuild
+    stamp = os.stat(pages).st_mtime_ns
+    src = os.path.join(d, "part-1.libsvm")
+    st = os.stat(src)
+    os.utime(src, ns=(st.st_atime_ns, st.st_mtime_ns + 1_000_000_000))
+    with loader() as ld:
+        _same_batches(torch, "after a touch", list(ld), epochs[0])
+        touched = dict(ld.cache_stats)
+    with open(pages, "r+b") as f:
+        f.truncate(os.path.getsize(pages) // 2)
+    with loader() as ld:
+        served_truncated = ld.cached_page_file()
+        _same_batches(torch, "after a truncation", list(ld), epochs[0])
+        truncated = dict(ld.cache_stats)
+    if (touched["hits"] or touched["misses"] != 1
+            or os.stat(pages).st_mtime_ns == stamp
+            or served_truncated is not None or truncated["hits"]
+            or truncated["misses"] != 1):
+        raise RuntimeError(f"[io] a stale page file was served: touched "
+                           f"{touched}, truncated {truncated}")
+    log(f"[io] a touched source file rebuilt the page file (hits "
+        f"{touched['hits']}, misses {touched['misses']}); a truncated one "
+        f"failed validation and was rebuilt, never served (hits "
+        f"{truncated['hits']}, misses {truncated['misses']}); both epochs "
+        f"array_equal to epoch 1 [{power}]")
+    return uri
+
+
+def _io_steady(torch, power: str, d: str, uri: str) -> None:
+    """Flat FM and DeepFM steady state over STEADY_EPOCHS, fed from the
+    directory uncached and from the page file, in turns (uncached,
+    cached, cached, uncached) on one model after a warm-up epoch."""
+    from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
+                                     make_train_step)
+
+    def loader(cached):
+        return DeviceLoader(create_parser(uri if cached else d,
+                                          engine="native"), ROWS_TR, CAP_TR,
+                            device="cuda", engine="native",
+                            cache="auto" if cached else None)
+
+    for kind in ("fm", "deepfm"):
+        model = _model(torch, kind, "kernel")
+        step = make_train_step(model, adam(model, LR))
+        with loader(False) as ld:                       # warm-up epoch
+            for batch in ld:
+                step(batch)
+        torch.cuda.synchronize()
+        out = {False: [], True: []}
+        for cached in (False, True, True, False):
+            with loader(cached) as ld:
+                r = _steady_state(torch, step, ld, STEADY_EPOCHS)
+                stats = dict(ld.cache_stats)
+            # (the epoch the loader starts at construction is rewound by
+            # _steady_state: one hit more than epochs)
+            if cached and (stats["misses"] or stats["hits"] < STEADY_EPOCHS):
+                raise RuntimeError(f"[io] {kind}: epochs not all from the "
+                                   f"page file: {stats}")
+            out[cached].append(r)
+        log(f"[io] {kind} flat steady state, {STEADY_EPOCHS} epochs of the "
+            f"directory, in turns: " + "; ".join(
+                f"{'page file' if c else 'parse+pack'} " + ", ".join(
+                    f"{r['steps'] / r['wall_s']:.2f}" for r in out[c])
+                + " steps/s, wait in next_batch mean " + ", ".join(
+                    f"{r['wait_mean_ms']:.4f}" for r in out[c])
+                + " ms, enqueue median " + ", ".join(
+                    f"{r['enqueue_median_ms']:.4f}" for r in out[c])
+                + " ms" for c in (False, True)) + f" [{power}]")
+        del model, step
+        torch.cuda.empty_cache()
+
+
+def _ckpt_state(model, opt) -> dict:
+    from dmlc_core_tpu_torch.models import adam_state_to_optax
+    from dmlc_core_tpu_torch.models.convert import params_tree
+    return {"params": params_tree(model),
+            "opt_state": adam_state_to_optax(model, opt, host=False)}
+
+
+def _same_checkpoints(name: str, a: str, b: str, step: int) -> None:
+    """The two directories' checkpoints of ``step``: the same bytes, and
+    every restored parameter and moment array_equal."""
+    from dmlc_core_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                      flatten_tree)
+    fa, fb = (os.path.join(x, f"ckpt-{step}.bin") for x in (a, b))
+    x = flatten_tree(CheckpointManager(a).restore(step)[1])
+    y = flatten_tree(CheckpointManager(b).restore(step)[1])
+    if x.keys() != y.keys() or not all(np.array_equal(x[k], y[k])
+                                       for k in x):
+        raise RuntimeError(f"[io] {name}: the save_async checkpoint "
+                           f"departs from the synchronous one")
+    with open(fa, "rb") as f, open(fb, "rb") as g:
+        if f.read() != g.read():
+            raise RuntimeError(f"[io] {name}: the checkpoints' bytes differ")
+
+
+def _io_save_async(torch, power: str, data: str, train_file: str) -> None:
+    """FM(2^20, dim 32) flat: 8 Adam steps with save_async at step
+    SAVE_AT while the later steps update the state in place, then the
+    same through FusedTrainer(k=KSTEP_IO) with save_async between the
+    two replays; each checkpoint against a synchronous save of a clone
+    taken at the same step.  Host time of the save_async call against
+    the synchronous save; the peak of the card's memory."""
+    from dmlc_core_tpu_torch import (DeviceLoader, FusedTrainer, adam,
+                                     create_parser, make_train_step)
+    from dmlc_core_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                      snapshot)
+    root = os.path.join(data, "io_ckpt")
+    for kstep in (1, KSTEP_IO):
+        name = "per step" if kstep == 1 else f"FusedTrainer(k={kstep})"
+        model = _model(torch, "fm", "kernel")
+        opt = adam(model, LR)
+        dirs = [os.path.join(root, f"k{kstep}-{x}") for x in ("a", "s")]
+        mgr, ref = (CheckpointManager(x) for x in dirs)
+        clone, at = None, None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t_call = 0.0
+
+        def save(n):
+            nonlocal clone, at, t_call
+            t = time.perf_counter()
+            mgr.save_async(n, _ckpt_state(model, opt))
+            t_call = time.perf_counter() - t
+            clone, at = snapshot(_ckpt_state(model, opt)), n
+
+        with DeviceLoader(create_parser(train_file, engine="native"),
+                          ROWS_TR, CAP_TR, device="cuda", engine="native",
+                          emit="host" if kstep > 1 else "device") as ld:
+            if kstep == 1:
+                step = make_train_step(model, opt)
+                for i, batch in enumerate(ld):
+                    last = step(batch)
+                    if i + 1 == SAVE_AT:
+                        save(SAVE_AT)
+                float(last)
+            else:
+                tr = FusedTrainer(model, opt, ld, k=kstep)
+                for item in ld:
+                    tr.feed(item)
+                    if clone is None and tr.steps >= SAVE_AT:
+                        save(tr.steps)
+                tr.flush()
+                float(tr.losses[-1])
+        t = time.perf_counter()
+        mgr.wait()
+        t_wait = time.perf_counter() - t
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ref.save(at, clone)
+        t_sync = time.perf_counter() - t
+        if at is None or int(opt.count) != TRAIN_STEPS:
+            raise RuntimeError(f"[io] {name}: save at {at}, Adam count "
+                               f"{int(opt.count)}")
+        _same_checkpoints(name, dirs[0], dirs[1], at)
+        size = os.path.getsize(os.path.join(dirs[0], f"ckpt-{at}.bin"))
+        log(f"[io] save_async {name} at step {at} while steps "
+            f"{at + 1}-{TRAIN_STEPS} ran: restored parameters and moments "
+            f"array_equal (and byte-equal files) to a synchronous save of a "
+            f"clone taken at step {at}; {size / 1e6:.1f} MB; host time of "
+            f"the save_async call {t_call * 1e3:.3f} ms, then wait() "
+            f"{t_wait * 1e3:.1f} ms after the last step, against save "
+            f"{t_sync * 1e3:.1f} ms; card memory {base / 1e9:.3f} GB before, "
+            f"peak {peak / 1e9:.3f} GB (max_memory_allocated) [{power}]")
+        del model, opt, clone
+        torch.cuda.empty_cache()
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def _io_ffm_checkpoint(torch, power: str, data: str) -> None:
+    """The host time of save_async against save at the CLI's FFM defaults
+    (2^20 features, 40 fields, dim 16: 8 GB of parameters and Adam
+    moments on the card), and the card's peak memory with the snapshot."""
+    from dmlc_core_tpu_torch import FieldAwareFM, adam
+    from dmlc_core_tpu_torch.utils.checkpoint import CheckpointManager
+    d = os.path.join(data, "io_ffm_ckpt")
+    model = FieldAwareFM(1 << 20, 40, 16, device="cuda",
+                         generator=torch.Generator(device="cuda")
+                         .manual_seed(SEED))
+    opt = adam(model, LR)
+    state = _ckpt_state(model, opt)
+    mgr = CheckpointManager(d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    mgr.save_async(1, state)
+    t_call = time.perf_counter() - t
+    mgr.wait()
+    t_async = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    t = time.perf_counter()
+    mgr.save(2, state)
+    t_sync = time.perf_counter() - t
+    size = os.path.getsize(os.path.join(d, "ckpt-2.bin"))
+    log(f"[io] FieldAwareFM(2^20, 40, 16) + Adam, {size / 1e9:.3f} GB: host "
+        f"time of the save_async call {t_call * 1e3:.3f} ms, its background "
+        f"write to wait() {t_async:.3f} s, save {t_sync:.3f} s; card memory "
+        f"{base / 1e9:.3f} GB before, peak {peak / 1e9:.3f} GB with the "
+        f"snapshot (max_memory_allocated) [{power}]")
+    del state, model, opt
+    shutil.rmtree(d, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+def phase_io(torch, power: str, data: str, train_file: str) -> dict:
+    """[io]: the training file cut into a directory of IO_PARTS files and
+    an empty one; the card's batches of each URI form against the single
+    file's; the page cache over 4 epochs, stale and truncated page files;
+    the flat FM and DeepFM steady state with and without it; save_async
+    under training (per step and k-step) against synchronous saves of
+    clones; save_async against save at FFM's size.  Returns the launch
+    counts of the phase's training."""
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.monotonic()
+    d = _io_dir(data, train_file)
+    _io_forms(torch, power, d, train_file)
+    uri = _io_page_cache(torch, power, d, data)
+    reset_launch_counts()                       # the path's training
+    _io_steady(torch, power, d, uri)
+    _io_save_async(torch, power, data, train_file)
+    launches = launch_counts()                  # ends here
+    _io_ffm_checkpoint(torch, power, data)
+    log(f"[io] phase {time.monotonic() - t0:.1f} s")
+    return launches
+
+
 # -- phase 5 ----------------------------------------------------------------
 
 TRAIN_PATHS = (            # (name, model, layout, nnz_cap or k_cap)
@@ -2471,6 +2845,9 @@ def _run_cli(args: list, env: dict, power: str):
     if r.returncode != 0:
         raise RuntimeError(f"dmlc-train {' '.join(args)} exited "
                            f"{r.returncode}: {r.stderr[-2000:]}")
+    for ln in r.stderr.splitlines():
+        if "save_async of step" in ln or "peak card memory" in ln:
+            log(f"[cli] {ln.split('INFO ', 1)[-1]} [{power}]")
     # the CLI's own split of its main(); what precedes main() is the
     # interpreter's start and the imports
     stages = [ln.split("INFO ", 1)[-1] for ln in r.stderr.splitlines()
@@ -2512,11 +2889,54 @@ def _check_predictions(name: str, out: str, want: np.ndarray, rows: int,
                            f"checkpoint's scores: max|err| {err:.3g}")
 
 
+def _cli_io(torch, power: str, data: str, eval_file: str, env: dict,
+            deepfm: list) -> None:
+    """``dmlc-train`` DeepFM on ``data=<dir>#cache epochs=2
+    ckpt_every=4`` (the training file cut into [io]'s directory; the
+    second epoch from the page file; checkpoints by save_async at steps
+    4, 8, 12 and 16, the last one the run's), then ``mode=predict`` on
+    the eval file from that checkpoint, held against it on the plain
+    path."""
+    from dmlc_core_tpu_torch import (CheckpointManager, DeepFM,
+                                     DeviceLoader, create_parser,
+                                     params_from_jax)
+    d = os.path.join(data, "io")
+    cache = os.path.join(data, "cli_io_cache")
+    ckpt = os.path.join(data, "cli_io_ckpt")
+    out = os.path.join(data, "io_predictions.txt")
+    train_out, _ = _run_cli(deepfm + [f"data={d}#{cache}", "epochs=2",
+                                      "ckpt_every=4", f"ckpt_dir={ckpt}"],
+                            env, power)
+    if f"trained deepfm: {2 * TRAIN_STEPS} steps" not in train_out:
+        raise RuntimeError("the dir#cache CLI's log lacks its steps")
+    if not os.path.isfile(cache + ".pages"):
+        raise RuntimeError("the dir#cache CLI wrote no page file")
+    _run_cli(deepfm + ["mode=predict", f"data={eval_file}",
+                       f"ckpt_dir={ckpt}", f"output={out}"], env, power)
+    mgr = CheckpointManager(ckpt)
+    step, state = mgr.restore()
+    count = int(np.asarray(state["opt_state"][0][0]))
+    if (step, count, mgr.steps) != (2 * TRAIN_STEPS, 2 * TRAIN_STEPS,
+                                    [8, 12, 16]):
+        raise RuntimeError(f"dir#cache checkpoints {mgr.steps}, step "
+                           f"{step}, Adam count {count}")
+    model = DeepFM(F_FEATURES, DIM, DEEPFM_LAYERS, engine="torch",
+                   device="cuda")
+    model.load_state_dict(params_from_jax(state["params"], "cuda"))
+    want = _plain_scores(torch, model, DeviceLoader(
+        create_parser(eval_file, engine="native"), ROWS_TR, CAP_TR,
+        id_mod=F_FEATURES, device="cuda", engine="native"))
+    _check_predictions("data=<dir>#cache predict", out, want, EVAL_ROWS,
+                       power)
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def _cli_ffm(torch, power: str, data: str, env: dict) -> None:
     """``dmlc-train model=ffm`` at its defaults (features 2^20, fields 40,
     dim 16: v is 2.7 GB, 8 GB with Adam's moments; D = 640 in the
     ragged-gather kernels), libfm implied by the model: one epoch (8
-    steps) with a checkpoint, then ``mode=predict`` on the eval file,
+    steps) with ``ckpt_every=4`` (save_async at steps 4 and 8; the second
+    is the run's checkpoint), then ``mode=predict`` on the eval file,
     held against the restored checkpoint on the plain path."""
     from dmlc_core_tpu_torch import (CheckpointManager, DeviceLoader,
                                      FieldAwareFM, create_parser,
@@ -2527,7 +2947,7 @@ def _cli_ffm(torch, power: str, data: str, env: dict) -> None:
     free = shutil.disk_usage(data).free / 2 ** 30
     log(f"[cli] model=ffm: {free:.1f} GiB free for its checkpoint")
     train_out, _ = _run_cli(["model=ffm", f"data={train_file}",
-                             f"ckpt_dir={ckpt}"], env, power)
+                             f"ckpt_dir={ckpt}", "ckpt_every=4"], env, power)
     if f"trained ffm: {TRAIN_STEPS} steps" not in train_out:
         raise RuntimeError("the ffm CLI's log lacks its steps")
     _run_cli(["model=ffm", "mode=predict", f"data={eval_file}",
@@ -2657,6 +3077,7 @@ def phase_cli(torch, power: str, data: str, train_file: str,
                            f"scores: max|err| {err:.3g}")
 
     _serve_main_check(power, env, ckpt, eval_file, got)
+    _cli_io(torch, power, data, eval_file, env, deepfm)
 
     # kstep=8: the epoch's 8 steps as one replayed graph; its checkpoint
     # against the kstep=1 run's, each parameter against how far it moved
@@ -2918,6 +3339,7 @@ def main() -> int:
     server = phase_server(torch, timer, power)["launches"]
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
+        io = phase_io(torch, power, data, train_file)
         training = phase_training(torch, power, train_file, eval_file)
         ffm = phase_ffm(torch, timer, power, data)
         kstep = phase_kstep(torch, power, train_file, eval_file)
@@ -2968,6 +3390,10 @@ def main() -> int:
     missing += [f"{k} (kstep)" for k in (
         "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
         "ragged_gather_grad_embed", "adam", "ftrl") if kstep.get(k, 0) < 1]
+    # the I/O layer's training (page-cache steady state, save_async)
+    missing += [f"{k} (io)" for k in (
+        "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
+        "ragged_gather_grad_embed", "adam") if io.get(k, 0) < 1]
     if missing:
         raise RuntimeError(f"main path never launched: {missing}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -2987,6 +3413,10 @@ def main() -> int:
         if name in ("ragged_gather_fm", "ragged_gather_embed"):
             # this slice's path: the TCP server, one graph replay a call
             row["server"] = {"launches": server.get(name, 0)}
+        if io.get(name, 0):
+            # the I/O layer's training: fed from the page file, and
+            # save_async under training
+            row["io"] = {"launches": io[name]}
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
             # training batch's shapes, with the training launches

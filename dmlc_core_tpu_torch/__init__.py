@@ -3,7 +3,7 @@
 Runs on an NVIDIA H100 (Hopper, ``sm_90a``) with kernels written by hand
 in CUDA C++ where the JAX package had Pallas kernels.  Its layout mirrors
 the JAX package (``data/``, ``pipeline/``, ``ops/``, ``models/``,
-``serving/``, ``transport/``, ``utils/``, plus ``kernels/``), and each module names its
+``serving/``, ``transport/``, ``utils/``, ``io/``, plus ``kernels/``), and each module names its
 JAX counterpart.  It imports
 ``torch`` and ``numpy`` and nothing of JAX or of ``dmlc_core_tpu``.
 
@@ -58,7 +58,7 @@ or from the command line::
     python -m dmlc_core_tpu_torch.serving.client 127.0.0.1:9200 requests=2000 concurrency=8
 """
 
-from . import (data, kernels, models, ops, pipeline,  # noqa: F401
+from . import (data, io, kernels, models, ops, pipeline,  # noqa: F401
                serving, transport, utils)
 from .data import create_parser  # noqa: F401
 from .models import (FTRL, Adam, DCNv2, DeepFM,  # noqa: F401

@@ -1,18 +1,21 @@
-"""libsvm, libfm and csv text → :class:`RowBlock` batches, from a local
-file or bytes.
+"""libsvm, libfm and csv text → :class:`RowBlock` batches.
 
 Counterpart of ``dmlc_core_tpu/data/py_parsers.py`` (the per-line
 semantics of :func:`parse_libsvm`, :func:`parse_libfm` and
-:func:`parse_csv`) and of the local-file part of
-``dmlc_core_tpu/data/parser.py``: ``create_parser(path, part, nparts,
-fmt)`` over a line-aligned byte-range split (as ``io/input_split.py``'s
-``InputSplitBase.reset_partition`` and ``LineSplitter`` cut it), a
+:func:`parse_csv`) and of ``dmlc_core_tpu/data/parser.py``:
+``create_parser(uri, part, nparts, fmt)`` over
+``create_input_split(uri, part, nparts, "text")`` (:mod:`..io`: a file,
+a directory, a ``;`` list or a glob, mapped and cut into line-aligned
+parts, with a ``#cachefile`` fragment for the raw-chunk cache), a
 :class:`TextParser` that parses each chunk with the native library
 (:mod:`..native`) or the python parsers, and a :class:`ThreadedParser`
 that parses ahead on a thread.  The format comes from ``parser_type``,
-or for ``"auto"`` from the path's ``?format=`` argument (then libsvm);
-csv reads ``?label_column=`` and ``?delimiter=`` (:class:`CSVParserParam`).
-Remote schemes stay with the JAX package for now.
+or for ``"auto"`` (the default, as in the JAX package) from the URI's
+``?format=`` argument (then libsvm); csv reads ``?label_column=`` and
+``?delimiter=`` (:class:`CSVParserParam`).  The parser carries
+``text_format``, the csv knobs and ``cache_file`` (the fragment, with
+its part suffix) for the loader's fused parse-and-pack and its page
+cache.  Remote schemes raise, naming ROADMAP A.6.b.
 
 The python parsers keep the JAX fallback parsers' rules exactly: a bad
 label skips its line, a bad feature token ends its row, a value-less
@@ -26,11 +29,12 @@ rules.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Iterator, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Union
 
 import numpy as np
 
 from .. import native
+from ..io import URISpec, create_input_split
 from ..utils.logging import DMLCError, check, log_info
 from ..utils.parameter import Parameter, field
 from ..utils.threaded_iter import ThreadedIter
@@ -170,27 +174,22 @@ def parse_csv(data: Union[bytes, memoryview], label_col: int = -1,
 
 def _to_block(d: Dict) -> RowBlock:
     return RowBlock(d["offsets"], d["labels"], d["indices"], d["values"],
-                    d["weights"], d.get("fields"), d.get("max_field", 0))
+                    d["weights"], d.get("fields"), d.get("max_field", 0),
+                    max_index=d["max_index"])
 
 
 class LibSVMParser:
-    """The line-aligned byte-range split of a local text file of any of
-    the three formats (or of ``data`` bytes) that a :class:`TextParser`
-    parses: chunks of whole lines of part ``part_index`` of
-    ``num_parts`` (the JAX ``InputSplit``'s role).  The byte range is cut as the JAX
-    ``InputSplitBase`` cuts it: ``ceil(size / num_parts)`` bytes per
-    part, each end moved forward to the next line start."""
+    """A line-aligned split of text held in memory (``data`` bytes), cut
+    into part ``part_index`` of ``num_parts`` as the JAX
+    ``InputSplitBase`` cuts a file: ``ceil(size / num_parts)`` bytes per
+    part, each end moved forward to the next line start; chunks of whole
+    lines.  Files go through :func:`..io.create_input_split`."""
 
-    def __init__(self, path: Optional[str] = None, part_index: int = 0,
-                 num_parts: int = 1, data: Optional[bytes] = None) -> None:
-        check((path is None) != (data is None),
-              "pass exactly one of path and data")
+    def __init__(self, data: bytes, part_index: int = 0,
+                 num_parts: int = 1) -> None:
         check(0 <= part_index < num_parts,
               f"bad partition {part_index}/{num_parts}")
-        self.chunk_bytes = CHUNK_BYTES
-        if path is not None:
-            with open(path, "rb") as f:
-                data = f.read()
+        self.chunk_size = CHUNK_BYTES
         self._data = bytes(data)
         total = len(self._data)
         step = (total + num_parts - 1) // num_parts
@@ -213,16 +212,19 @@ class LibSVMParser:
     def before_first(self) -> None:
         self._cur = self.begin
 
+    def hint_chunk_size(self, chunk_size: int) -> None:
+        self.chunk_size = max(chunk_size, 1 << 10)
+
     def next_chunk(self) -> Optional[bytes]:
         """The next chunk of whole lines of this part, or None at its
         end."""
         while self._cur < self.end:
-            stop = min(self._cur + self.chunk_bytes, self.end)
+            stop = min(self._cur + self.chunk_size, self.end)
             if stop < self.end:
                 cut = max(self._data.rfind(b"\n", self._cur, stop),
                           self._data.rfind(b"\r", self._cur, stop))
                 if cut < 0:                      # a line longer than a chunk
-                    self.chunk_bytes *= 2
+                    self.chunk_size *= 2
                     continue
                 stop = cut + 1
             chunk = self._data[self._cur:stop]
@@ -243,14 +245,15 @@ class LibSVMParser:
 
 class TextParser:
     """Chunk → :class:`RowBlock` parser over a line-aligned split (the JAX
-    ``TextParser``): ``source`` has ``next_chunk()``, ``before_first()``
-    and ``close()`` (a :class:`LibSVMParser`), and ``parse_fn(chunk)``
+    ``TextParser``): ``source`` has ``next_chunk()``, ``before_first()``,
+    ``hint_chunk_size()`` and ``close()`` (an InputSplit of :mod:`..io`
+    or a :class:`LibSVMParser`), and ``parse_fn(chunk)``
     is the native or the python parse kernel.  Chunks whose lines are all
     bad give no block.  ``text_format`` and, for csv, ``csv_label_col``
     and ``csv_delim`` say what ``parse_fn`` reads, for a loader that
     parses and packs the text in one native pass."""
 
-    def __init__(self, source: LibSVMParser,
+    def __init__(self, source,
                  parse_fn: Callable[[bytes], Dict], nthreads: int = 0,
                  engine: str = "python", text_format: str = "libsvm",
                  csv_label_col: int = -1, csv_delim: str = ",") -> None:
@@ -265,11 +268,16 @@ class TextParser:
 
     @property
     def chunk_bytes(self) -> int:
-        return self.source.chunk_bytes
+        """The split's chunk size in bytes (the innermost split's
+        ``chunk_size``); setting it is ``hint_chunk_size``."""
+        split = self.source
+        while not hasattr(split, "chunk_size"):
+            split = split.base
+        return split.chunk_size
 
     @chunk_bytes.setter
     def chunk_bytes(self, n: int) -> None:
-        self.source.chunk_bytes = n
+        self.source.hint_chunk_size(n)
 
     def parse_next(self) -> Optional[RowBlock]:
         while True:
@@ -384,52 +392,46 @@ def _make_kernel(fmt: str, engine: str, nthreads: int,
     return parse_libfm if fmt == "libfm" else parse_libsvm
 
 
-def _split_uri(path: str) -> Tuple[str, Dict[str, str]]:
-    """A local path or ``file://`` URI → its path and its ``?k=v&...``
-    arguments (the JAX ``URISpec``'s query rule)."""
-    if path.startswith("file://"):
-        path = path[len("file://"):]
-    path, _, query = path.partition("?")
-    args = {}
-    for kv in query.split("&"):
-        if kv:
-            k, _, v = kv.partition("=")
-            args[k] = v
-    return path, args
-
-
-def create_parser(path: str, part_index: int = 0, num_parts: int = 1,
-                  parser_type: str = "libsvm", nthreads: int = 0,
+def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
+                  parser_type: str = "auto", nthreads: int = 0,
                   threaded: bool = True, engine: str = "auto"):
-    """The JAX package's ``create_parser`` for a local file (a plain path
-    or a ``file://`` URI, with optional ``?key=value&...`` arguments): a
-    :class:`TextParser` over part ``part_index`` of ``num_parts``,
-    wrapped in a :class:`ThreadedParser` unless ``threaded`` is False.
+    """The JAX package's ``create_parser`` for local files: a
+    :class:`TextParser` over ``create_input_split(uri, part_index,
+    num_parts, "text", threaded=False)`` (a path or ``file://`` URI of a
+    file, a directory, a ``;`` list or a glob, with optional
+    ``?key=value&...`` arguments and a ``#cachefile`` fragment), wrapped
+    in a :class:`ThreadedParser` unless ``threaded`` is False.  Unlike
+    the JAX factory, the split gets no prefetch thread of its own.
     ``parser_type`` is ``"libsvm"``, ``"libfm"``, ``"csv"`` or
     ``"auto"`` (the ``format=`` argument, else libsvm); csv takes its
     options from the arguments (:class:`CSVParserParam`), read once.
     ``engine`` picks the parse kernel (``"auto"``, ``"native"`` or
     ``"python"``); ``nthreads`` is the native parser's OpenMP team (0:
-    :func:`_default_nthreads`)."""
-    if "://" in path and not path.startswith("file://"):
-        raise DMLCError(f"only local files are supported, got {path!r}")
-    path, args = _split_uri(path)
-    fmt = args.get("format", "libsvm") if parser_type == "auto" \
+    :func:`_default_nthreads`).  The parser's ``cache_file`` is the
+    fragment with its part suffix (None without one)."""
+    spec = URISpec(uri, part_index, num_parts)
+    fmt = spec.args.get("format", "libsvm") if parser_type == "auto" \
         else parser_type
     if fmt not in FORMATS:
         raise DMLCError(f"unknown parser format {fmt!r}; one of {FORMATS}")
-    if not os.path.isfile(path):
-        raise DMLCError(f"no such file: {path}")
+    chosen = resolve_engine(engine)
     csv = CSVParserParam()              # read once: parse and streampack
     if fmt == "csv":
-        csv.init_allow_unknown(args)
-    chosen = resolve_engine(engine)
+        csv.init_allow_unknown(spec.args)
+    # no prefetch thread under the parser's: its own thread reads the
+    # mapped chunks, and a second thread only contends for the
+    # interpreter lock (measured with tools/feed_ab.py)
+    split = create_input_split(uri, part_index, num_parts, "text",
+                               threaded=False)
     if nthreads <= 0:
         nthreads = _default_nthreads()
     if engine == "auto":
         log_info("parser: engine %s%s", chosen,
                  f" ({nthreads} threads)" if chosen == "native" else "")
-    parser = TextParser(LibSVMParser(path, part_index, num_parts),
-                        _make_kernel(fmt, chosen, nthreads, csv), nthreads,
-                        chosen, fmt, csv.label_column, csv.delimiter)
-    return ThreadedParser(parser) if threaded else parser
+    parser = TextParser(split, _make_kernel(fmt, chosen, nthreads, csv),
+                        nthreads, chosen, fmt, csv.label_column,
+                        csv.delimiter)
+    if threaded:
+        parser = ThreadedParser(parser)
+    parser.cache_file = spec.cache_file
+    return parser

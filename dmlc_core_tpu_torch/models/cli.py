@@ -17,7 +17,15 @@ format), batch_rows, nnz_cap, id_mod=features, fields=model == "ffm")``
 as the JAX CLI's loader; libsvm, libfm or csv, resolved as the JAX CLI
 resolves them: ``format=``, ``model=ffm`` implies libfm, then a
 ``?format=`` argument of ``data``, then the file suffix, then libsvm;
-csv's ``?label_column=&delimiter=`` ride on the URI), with
+csv's ``?label_column=&delimiter=`` ride on the URI).  ``data=``,
+``valid=`` and predict's ``data=`` take what the JAX CLI takes from
+local disk: a file, a directory (read recursively), a ``;`` list or a
+``*``/``?`` glob, and a ``#cachefile`` fragment: the raw-chunk cache of
+the split and, on the fused path (every model but ``ffm``), the loader's
+packed-page cache at ``<cachefile>.pages``, from which the epochs after
+the first are served without parsing or packing.  Predict reads its
+input uncached: a cached epoch counts no rows, and the scores are
+trimmed to the rows read.  Training uses
 ``optax.adam``'s update (``models.train.adam``, the port's fused Adam).
 With ``kstep > 1`` (ignored for ``model=ffm``, whose fields the fused
 wire does not carry) the loader emits the fused wire's host buffers and
@@ -28,8 +36,11 @@ device-emitting loader over the same file.  A checkpoint holds
 ``params`` (the JAX param tree) and ``opt_state`` in ``optax.adam``'s
 layout (:func:`.convert.adam_state_to_optax`), so either package's
 ``resume`` and ``mode=predict`` read the other's checkpoints.
-``ckpt_every`` saves synchronously at the steps where the JAX CLI's
-``save_async`` saves.
+``ckpt_every`` saves with ``CheckpointManager.save_async`` (a snapshot
+of the parameters and moments on the card, written on a thread while
+training goes on), and the run waits for it before the final,
+synchronous save, as the JAX CLI does; a failed background save is
+printed and the run exits 2.
 At the end of a run one line on stderr gives the host-clock seconds of
 its stages from ``main`` on: set-up, the kernel and native build checks,
 the optimizer's set-up (or a resume), the wait for the first batch, the
@@ -136,7 +147,7 @@ class TrainParams(Parameter):
     ckpt_dir = field(str, default="", help="checkpoint dir URI ('' = off)")
     ckpt_every = field(int, default=0, lower_bound=0,
                        help="checkpoint every N steps (0 = only at the "
-                            "end); saved synchronously")
+                            "end); saved asynchronously")
     resume = field(bool, default=False,
                    help="continue from the latest checkpoint in ckpt_dir "
                         "(params and optimizer state; either package's)")
@@ -204,7 +215,7 @@ def _refusal(p: TrainParams) -> Optional[str]:
         uri = getattr(p, key)
         if "://" in uri and not uri.startswith("file://"):
             return (f"{key}={uri}: only local files are supported (remote "
-                    f"filesystems are not ported yet)")
+                    f"filesystems are not ported yet: ROADMAP A.6.b)")
     return None
 
 
@@ -228,7 +239,7 @@ class _Stages:
 
 
 def _make_loader(p: TrainParams, uri: str, device: torch.device,
-                 emit: str = "device"):
+                 emit: str = "device", cache="auto"):
     """The one place a run's loader is configured: train, validation,
     end-of-run AUC and predict all see the same format, batch shape,
     fields and hashing."""
@@ -237,7 +248,7 @@ def _make_loader(p: TrainParams, uri: str, device: torch.device,
     return DeviceLoader(create_parser(uri, 0, 1, _resolve_format(p)),
                         batch_rows=p.batch_rows, nnz_cap=p.nnz_cap,
                         id_mod=p.features, device=device, emit=emit,
-                        fields=p.model == "ffm")
+                        fields=p.model == "ffm", cache=cache)
 
 
 def _load_params(model, params, device: torch.device) -> None:
@@ -272,7 +283,8 @@ def _predict(p: TrainParams, model, device: torch.device,
         return 2
     _load_params(model, state["params"], device)
     n = 0
-    loader = _make_loader(p, p.data, device)
+    # a cached epoch packs nothing, so it counts no rows: read uncached
+    loader = _make_loader(p, p.data, device, cache=None)
     try:
         with open(_local(p.output), "wb") as out, torch.no_grad():
             # one score per input row: padding rows exist only at the
@@ -326,7 +338,7 @@ def _resume(p: TrainParams, model, opt, device: torch.device) -> int:
 def _train(p: TrainParams, model, device: torch.device,
            stages: _Stages) -> int:
     from ..utils.checkpoint import CheckpointManager
-    from .convert import adam_state_to_optax, params_to_numpy
+    from .convert import adam_state_to_optax, params_tree
     from .train import (FusedTrainer, adam, auc_from_histograms,
                         evaluate_stream, make_train_step, streaming_auc)
 
@@ -348,10 +360,11 @@ def _train(p: TrainParams, model, device: torch.device,
     mgr = CheckpointManager(_local(p.ckpt_dir)) if p.ckpt_dir else None
     stages.mark("optimizer set-up")
 
-    def save(n: int) -> None:
-        mgr.save(n, {"params": params_to_numpy(model, nested=True),
-                     "opt_state": adam_state_to_optax(model, opt)},
-                 meta={"model": p.model, "steps": int(n)})
+    def state():
+        # the tensors themselves: save streams them from the card and
+        # save_async snapshots them there
+        return {"params": params_tree(model),
+                "opt_state": adam_state_to_optax(model, opt, host=False)}
 
     def eval_valid(epoch: int) -> None:
         if not p.valid:
@@ -380,7 +393,11 @@ def _train(p: TrainParams, model, device: torch.device,
                   flush=True)
         if (mgr is not None and p.ckpt_every
                 and old // p.ckpt_every != n // p.ckpt_every):
-            save(n)
+            t = time.perf_counter()
+            mgr.save_async(n, state(), meta={"model": p.model,
+                                             "steps": int(n)})
+            log_info("checkpoint: save_async of step %d returned in %.3f s "
+                     "(host clock)", n, time.perf_counter() - t)
             saved = n
 
     loader = _make_loader(p, p.data, device,
@@ -438,12 +455,23 @@ def _train(p: TrainParams, model, device: torch.device,
             stages.mark("train auc")
     finally:
         loader.close()
+        failed = None
+        if mgr is not None:
+            # the save in flight is waited for even when the loop raised:
+            # the last published checkpoint is what a resume needs
+            try:
+                mgr.wait()
+            except DMLCError as e:
+                failed = e
+                print(f"dmlc-train: background checkpoint failed: {e}",
+                      file=sys.stderr)
     if mgr is not None:
+        stages.mark("checkpoint wait")
         if saved != n:
-            save(n)
+            mgr.save(n, state(), meta={"model": p.model, "steps": int(n)})
         print(f"checkpoint step {n} -> {p.ckpt_dir}", flush=True)
         stages.mark("checkpoint")
-    return 0
+    return 2 if failed is not None else 0
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -482,6 +510,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         else:
             rc = _train(p, model, device, stages)
         stages.report()
+        if device.type == "cuda":
+            log_info("dmlc-train peak card memory %.3f GB "
+                     "(max_memory_allocated)",
+                     torch.cuda.max_memory_allocated(device) / 1e9)
         return rc
     except DMLCError as e:
         print(f"dmlc-train: {e}", file=sys.stderr)

@@ -36,7 +36,8 @@ from ..utils.logging import DMLCError
 from .ftrl import FTRL
 from .optim import Adam
 
-__all__ = ["params_from_jax", "params_to_numpy", "adam_state_to_optax",
+__all__ = ["params_from_jax", "params_to_numpy", "params_tree",
+           "adam_state_to_optax",
            "adam_state_from_optax", "ftrl_state_to_optax",
            "ftrl_state_from_optax"]
 
@@ -68,17 +69,19 @@ def params_from_jax(params: Mapping[str, Any],
     return out
 
 
-def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]],
-                    nested: bool = False) -> Dict[str, Any]:
-    """A module's parameters (or a ``{dotted.name: tensor}`` dict) →
-    ``{name: np.ndarray}``.  With ``nested``, dotted names become
-    sub-trees again, the JAX package's param-tree layout
-    (``{"cross": {"w": ...}}``); without, names stay dotted."""
+def params_tree(params: Union[nn.Module, Mapping[str, torch.Tensor]]
+                ) -> Dict[str, Any]:
+    """A module's parameters (or a ``{dotted.name: tensor}`` dict) as
+    the JAX package's nested param tree (``{"cross": {"w": ...}}``) of
+    the tensors themselves, detached, where they are: a checkpoint
+    (``CheckpointManager.save`` / ``save_async``) writes or snapshots
+    them from there."""
     if isinstance(params, nn.Module):
         params = params.state_dict()
-    flat = {k: v.detach().cpu().numpy() for k, v in params.items()}
-    if not nested:
-        return flat
+    return _nest({k: v.detach() for k, v in params.items()})
+
+
+def _nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for key, value in flat.items():
         *path, leaf = key.split(".")
@@ -93,6 +96,18 @@ def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]],
     return tree
 
 
+def params_to_numpy(params: Union[nn.Module, Mapping[str, torch.Tensor]],
+                    nested: bool = False) -> Dict[str, Any]:
+    """A module's parameters (or a ``{dotted.name: tensor}`` dict) →
+    ``{name: np.ndarray}``.  With ``nested``, dotted names become
+    sub-trees again, the JAX package's param-tree layout
+    (``{"cross": {"w": ...}}``); without, names stay dotted."""
+    if isinstance(params, nn.Module):
+        params = params.state_dict()
+    flat = {k: v.detach().cpu().numpy() for k, v in params.items()}
+    return _nest(flat) if nested else flat
+
+
 def _slots(model: nn.Module, optimizer) -> Dict[str, int]:
     """Each of ``model``'s parameter names → its index in
     ``optimizer.params``."""
@@ -105,13 +120,15 @@ def _slots(model: nn.Module, optimizer) -> Dict[str, int]:
     return out
 
 
-def _trees(model: nn.Module, optimizer, *states) -> Tuple[Dict[str, Any],
-                                                         ...]:
-    """Per-parameter state lists → nested numpy trees of the param
-    names."""
+def _trees(model: nn.Module, optimizer, *states,
+           host: bool = True) -> Tuple[Dict[str, Any], ...]:
+    """Per-parameter state lists → nested trees of the param names, of
+    numpy arrays (``host``) or of the state tensors themselves."""
     slots = _slots(model, optimizer)
-    return tuple(params_to_numpy({name: st[i] for name, i in slots.items()},
-                                 nested=True) for st in states)
+    conv = params_to_numpy if host else params_tree
+    kw = {"nested": True} if host else {}
+    return tuple(conv({name: st[i] for name, i in slots.items()}, **kw)
+                 for st in states)
 
 
 def _load_trees(model: nn.Module, optimizer, what: Tuple[str, ...],
@@ -132,14 +149,17 @@ def _load_trees(model: nn.Module, optimizer, what: Tuple[str, ...],
                 st[i].copy_(tree[name])
 
 
-def adam_state_to_optax(model: nn.Module, optimizer: Adam
-                        ) -> Tuple[Tuple[np.ndarray, Dict[str, Any],
-                                         Dict[str, Any]], Tuple[()]]:
+def adam_state_to_optax(model: nn.Module, optimizer: Adam,
+                        host: bool = True) -> Tuple[Tuple[Any, Dict[str, Any],
+                                                          Dict[str, Any]],
+                                                    Tuple[()]]:
     """``((count, mu, nu), ())`` of ``optimizer`` over ``model``'s
-    parameters, as numpy: the layout ``optax.adam``'s state takes in a
-    checkpoint."""
-    mu, nu = _trees(model, optimizer, optimizer.mu, optimizer.nu)
-    count = np.asarray(int(optimizer.count), np.int32)
+    parameters: the layout ``optax.adam``'s state takes in a checkpoint.
+    As numpy (``host``; ``count`` a 0-d int32), or as the optimizer's
+    own tensors, where a checkpoint writes or snapshots them from."""
+    mu, nu = _trees(model, optimizer, optimizer.mu, optimizer.nu, host=host)
+    count = (np.asarray(int(optimizer.count), np.int32) if host
+             else optimizer.count)
     return ((count, mu, nu), ())
 
 

@@ -42,9 +42,25 @@ numpy and copies each region out of the pooled buffer.
 ``emit="host"`` stops after the pack stage and yields its fused items
 ``("fused", buf, meta, rows)`` (``rows`` the real row count, or None
 where the packer counts them itself); hand each ``buf`` back with
-:meth:`DeviceLoader.recycle`.  The v3 compact wire, the page cache,
-``put_threads="auto"`` and the loader's metrics and spans stay with the
-JAX package for now.
+:meth:`DeviceLoader.recycle`.
+
+The packed-page epoch cache (:mod:`.page_cache`, ``cache="auto"``: on
+when the source's URI has a ``#cachefile`` fragment and the loader is
+on the fused path) writes each fused buffer of the first epoch through
+to ``<fragment>.pages`` on a thread, and serves the later epochs from
+that file: mapped pages, each copied into a buffer of the pool (pinned
+on the card) and from there to the card in one copy, with no read,
+parse or pack.  A page file whose fingerprint (source files, sizes and
+mtimes, part, pack configuration) does not match, or whose framing
+fails to validate, is rebuilt and never served.  A page view never
+enters the pool: it is read-only, and the pool refuses a buffer that
+is not writable.  A cached epoch packs nothing, so ``stats`` counts no
+rows in it; ``cache_stats`` counts hits, misses, dropped builds and the
+bytes read from and written to page files.
+
+The v3 compact wire, ``put_threads="auto"``, the page cache's
+``fault_point`` and the loader's metrics and spans stay with the JAX
+package for now (ROADMAP A.9 and A.12).
 """
 
 from __future__ import annotations
@@ -63,6 +79,8 @@ from ..native import fused_words
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, check
 from ..utils.threaded_iter import JOIN_TIMEOUT_S, ThreadedIter
+from . import fingerprint as fingerprint_mod
+from . import page_cache
 from .packing import (PackStats, batch_slices, pack_flat, pack_ragged,
                       pack_rowmajor, ragged_slices)
 
@@ -175,6 +193,10 @@ class _BufPool:
         return np.empty(words, np.int32)
 
     def put(self, buf: np.ndarray) -> None:
+        if not buf.flags.writeable:
+            # a mapped page-cache view: recycled, it would be handed to a
+            # packer as scratch and written; it is dropped instead
+            return
         with self._lock:
             if len(self._bufs) < self.cap:
                 self._bufs.append(buf)
@@ -361,6 +383,15 @@ class DeviceLoader:
                     them.  The native packer and streampack are then off,
                     the python packs run and ``fields`` crosses in the
                     batch's one copy with the other arrays.
+    cache:          the packed-page epoch cache: ``"auto"`` (on when the
+                    source has a ``cache_file``, the ``#cachefile``
+                    fragment, and the loader is on the fused path: flat,
+                    no fields, not ragged), a page-file path (the fused
+                    path required), or None / False (off).
+    cache_queue_pages / cache_readahead:
+                    the page writer's queue and the reader's
+                    ``MADV_WILLNEED`` window, in pages (0 / None: 8 and
+                    2).
     """
 
     def __init__(self, source, batch_rows: int, nnz_cap: int,
@@ -369,7 +400,9 @@ class DeviceLoader:
                  prefetch: int = 2, drop_remainder: bool = False,
                  put_threads: int = 1, emit: str = "device",
                  ragged: bool = False, engine: str = "auto",
-                 streampack: bool = True, fields: bool = False) -> None:
+                 streampack: bool = True, fields: bool = False,
+                 cache="auto", cache_queue_pages: int = 0,
+                 cache_readahead: Optional[int] = None) -> None:
         check(layout in ("flat", "rowmajor"), f"bad layout {layout!r}")
         check(emit in ("device", "host"), f"bad emit {emit!r}")
         check(engine in ENGINES, f"bad engine {engine!r}")
@@ -401,6 +434,13 @@ class DeviceLoader:
         self.engine = resolve_engine(engine)
         self.stats = PackStats()
         self._cuda = self.device.type == "cuda"
+        self._cache_path = self._resolve_cache(cache)
+        self._cache_queue_pages = max(0, int(cache_queue_pages))
+        self._cache_readahead = cache_readahead
+        self._cache_writer: Optional[page_cache.PageCacheWriter] = None
+        self._cache_reader: Optional[page_cache.PageCacheReader] = None
+        self.cache_stats = {"hits": 0, "misses": 0, "drops": 0,
+                            "bytes_read": 0, "bytes_written": 0}
         put_threads = max(1, int(put_threads))
         depth = max(2, int(prefetch), put_threads)
         self._pool = _BufPool(cap=2 * depth + 2,
@@ -409,6 +449,7 @@ class DeviceLoader:
         self._inflight_depth = depth
         self._local = threading.local()     # per thread: device, stream
         self._gen: Optional[Iterator] = None
+        self._source_read = False           # rewind it before its next epoch
         self._pack_iter: ThreadedIter = ThreadedIter(max_capacity=depth)
         self._pack_iter.init(self._pack_next, self._reset_source,
                              name="dmlc-pack")
@@ -439,10 +480,135 @@ class DeviceLoader:
                 and type(self.source) is TextParser
                 and self.source.nthreads == 1)
 
+    # -- the packed-page epoch cache ---------------------------------------
+    def _fused_path(self) -> bool:
+        return self.layout == "flat" and not self.fields and not self.ragged
+
+    def _resolve_cache(self, cache) -> Optional[str]:
+        if cache in (None, False, ""):
+            return None
+        if cache == "auto":
+            if not self._fused_path():
+                return None
+            cf = fingerprint_mod.source_attr(self.source, "cache_file")
+            return page_cache.page_path(cf) if cf else None
+        check(self._fused_path(), "cache= requires the fused path (flat "
+              "layout, no fields, not ragged)")
+        return str(cache)
+
+    def _cache_fingerprint(self) -> Optional[dict]:
+        """The source's identity (files, sizes, mtimes, part) and the
+        whole pack configuration, in the JAX loader's keys; None when no
+        file-backed split is under the source.  Taken at every epoch's
+        start, so a touched file or a changed configuration rebuilds."""
+        split = fingerprint_mod.find_file_split(self.source)
+        if split is None:
+            return None
+        pack_path = ("streampack" if self._use_streampack() else
+                     "native" if self._use_native_pack() else "python")
+        attr = fingerprint_mod.source_attr
+        return fingerprint_mod.pack_fingerprint(
+            split, page_format=page_cache.FORMAT_VERSION,
+            batch_rows=self.batch_rows, nnz_cap=self.nnz_cap,
+            layout=self.layout, id_mod=self.id_mod, wire_compact=False,
+            drop_remainder=self.drop_remainder, ragged=self.ragged,
+            pack_path=pack_path,
+            text_format=attr(self.source, "text_format"),
+            csv=[attr(self.source, "csv_label_col", -1),
+                 attr(self.source, "csv_delim", ",")])
+
+    def _open_cache(self, fingerprint: dict,
+                    readahead: Optional[int]
+                    ) -> Optional[page_cache.PageCacheReader]:
+        return page_cache.open_reader(
+            self._cache_path, fingerprint,
+            expected_words=self._page_words,
+            readahead=readahead)
+
+    def _page_words(self, meta: int) -> int:
+        """A page's words as this loader would pack it; -1 (never a
+        match: the file is rebuilt) for a v3 compact page."""
+        if (int(meta) >> 32) & 0xFF:
+            return -1
+        return fused_words(self.batch_rows, int(meta) & 0xFFFFFFFF)
+
+    def cached_page_file(self) -> Optional[str]:
+        """The page file the next epoch would be served from, or None
+        (no cache configured, or none valid for this configuration)."""
+        if self._cache_path is None:
+            return None
+        fingerprint = self._cache_fingerprint()
+        reader = (self._open_cache(fingerprint, 0)
+                  if fingerprint is not None else None)
+        if reader is None:
+            return None
+        reader.close()
+        return self._cache_path
+
+    def _serve_cached(self, reader: page_cache.PageCacheReader
+                      ) -> Iterator[tuple]:
+        """An epoch from the page file: each mapped page copied into a
+        pool buffer (pinned on the card, so the copy to it is
+        asynchronous; the view itself is read-only and never pooled)."""
+        self._cache_reader = reader
+        try:
+            for meta, rows, view in reader.pages():
+                buf = self._pool.get(len(view))
+                buf[:len(view)] = view
+                self.cache_stats["bytes_read"] += view.nbytes
+                yield ("fused", buf, meta, rows)
+        finally:
+            self._cache_reader = None
+            reader.close()
+
+    def _write_through(self, fingerprint: dict) -> Iterator[tuple]:
+        """The first epoch against a missing or stale page file: the
+        normal stream, each fused buffer also offered to the page writer;
+        a clean end of epoch seals the file, anything else drops it."""
+        writer = page_cache.PageCacheWriter(
+            self._cache_path, fingerprint,
+            queue_pages=self._cache_queue_pages)
+        self._cache_writer = writer
+        ok = False
+        try:
+            for item in self._host_items_uncached():
+                if item[0] == "fused" and writer.active:
+                    _, buf, meta, rows = item
+                    words = fused_words(self.batch_rows, _decode_meta(meta))
+                    if writer.offer(buf, int(meta), rows, words):
+                        self.cache_stats["bytes_written"] += words * 4
+                    else:
+                        self.cache_stats["drops"] += 1
+                yield item
+            ok = True
+        finally:
+            self._cache_writer = None
+            if not (ok and writer.finalize()):
+                writer.abort()
+
     def _host_items(self) -> Iterator[tuple]:
         """Host items: ``("fused", buf, meta, rows or None)`` for the
         fused wire, ``("arrays", dict)`` for row-major and ragged
-        batches."""
+        batches; from the page file when a valid one exists, else
+        packed (and written through when a cache is configured)."""
+        if self._cache_path is None:
+            yield from self._host_items_uncached()
+            return
+        fingerprint = self._cache_fingerprint()
+        if fingerprint is None:
+            # the source's identity is unknowable: never risk a stale page
+            yield from self._host_items_uncached()
+            return
+        reader = self._open_cache(fingerprint, self._cache_readahead)
+        if reader is not None:
+            self.cache_stats["hits"] += 1
+            yield from self._serve_cached(reader)
+            return
+        self.cache_stats["misses"] += 1
+        yield from self._write_through(fingerprint)
+
+    def _host_items_uncached(self) -> Iterator[tuple]:
+        self._rewind_source()
         if self.ragged:
             yield from self._host_items_ragged()
         elif self._use_streampack():
@@ -574,8 +740,15 @@ class DeviceLoader:
         if self._gen is not None:
             self._gen.close()                # runs the packers' finally
             self._gen = None
-        if hasattr(self.source, "before_first"):
+        # the source is rewound where an epoch next reads it: rewound
+        # here, a threaded parser would parse the whole source again in
+        # the background of an epoch served from the page file
+        self._source_read = True
+
+    def _rewind_source(self) -> None:
+        if self._source_read and hasattr(self.source, "before_first"):
             self.source.before_first()
+        self._source_read = False
 
     # -- stage 2: transfer -----------------------------------------------
     def _bind_device(self) -> None:
@@ -718,6 +891,13 @@ class DeviceLoader:
             self._iter.destroy()
         self._drain_inflight()
         self._pool.clear()
+        # a close mid-epoch leaves the pack generator suspended in the
+        # cache stream: drop its build and unmap its file now
+        writer, reader = self._cache_writer, self._cache_reader
+        if writer is not None:
+            writer.abort()
+        if reader is not None:
+            reader.close()
         if hasattr(self.source, "close"):
             self.source.close()
 

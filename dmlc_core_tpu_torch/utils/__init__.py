@@ -1,9 +1,12 @@
 """Host utilities of the port (counterpart of ``dmlc_core_tpu/utils``):
-logging, device choice, checkpoints, and the parameter, config and
+logging, device choice, checkpoints (synchronous and asynchronous), the
+binary serializer and in-memory streams, and the parameter, config and
 registry system of the CLI."""
 
-from .checkpoint import (CheckpointManager, load_for_inference,  # noqa: F401
-                         load_pytree, save_pytree)
+from .checkpoint import (CheckpointManager, Serializable,  # noqa: F401
+                         fast_forward, flatten_tree, load_for_inference,
+                         load_pytree, load_pytree_leaves, save_pytree,
+                         unflatten_like)
 from .config import Config  # noqa: F401
 from .device import resolve_device  # noqa: F401
 from .logging import (DMLCError, IdOverflowError, check,  # noqa: F401
@@ -14,5 +17,6 @@ from .registry import Registry  # noqa: F401
 __all__ = ["DMLCError", "IdOverflowError", "check", "log_info",
            "log_warning", "resolve_device",
            "save_pytree", "load_pytree", "CheckpointManager",
-           "load_for_inference", "Config", "Parameter", "field",
+           "load_for_inference", "Serializable", "fast_forward",
+           "flatten_tree", "unflatten_like", "load_pytree_leaves", "Config", "Parameter", "field",
            "ParamError", "Registry"]

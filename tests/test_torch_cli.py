@@ -300,3 +300,101 @@ def test_resume_loads_params_in_place():
     for (k, a), (_, b) in zip(model.named_parameters(),
                               other.named_parameters()):
         assert torch.equal(a, b), k
+
+
+# -- the I/O layer: directories, caches and asynchronous checkpoints ---------
+
+def _split_into_dir(src, directory):
+    """``src`` cut into three files (and an empty one) under
+    ``directory``, whose ``expand_uris`` order is the file's order."""
+    lines = open(src, "rb").read().splitlines(keepends=True)
+    os.makedirs(directory / "sub")
+    parts = ((directory / "a.libsvm", lines[:13]),
+             (directory / "b.libsvm", lines[13:30]),
+             (directory / "sub" / "c.libsvm", lines[30:]))
+    for path, chunk in parts:
+        path.write_bytes(b"".join(chunk))
+    (directory / "empty.libsvm").write_bytes(b"")
+
+
+@pytest.mark.parametrize("kstep", [1, 4])
+def test_directory_with_cache_trains_like_the_file(tmp_path, data, capsys,
+                                                   kstep):
+    """``data=<dir>#cache epochs=2``: the second epoch comes from the
+    page file, and the run lands on the parameters of the same run over
+    the concatenated file, exactly."""
+    d = tmp_path / "d"
+    _split_into_dir(data[0], d)
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert _port(f"data={d}#{tmp_path}/cache", f"ckpt_dir={a}", "epochs=2",
+                 f"kstep={kstep}", "ckpt_every=2") == 0
+    assert os.path.isfile(tmp_path / "cache.pages")
+    assert _port(f"data={data[0]}", f"ckpt_dir={b}", "epochs=2",
+                 f"kstep={kstep}") == 0
+    out = capsys.readouterr().out
+    assert out.count("trained deepfm: 6 steps") == 2
+    step_a, got, state_a = _params(a)
+    step_b, want, state_b = _params(b)
+    assert step_a == step_b == 6 and set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.testing.assert_array_equal(state_a["opt_state"][0][2]["v"],
+                                  state_b["opt_state"][0][2]["v"])
+    # the glob and ; list forms read the same rows
+    out_g, out_l = tmp_path / "g.txt", tmp_path / "l.txt"
+    assert _port("mode=predict", f"data={d}/*.libsvm;{d}/sub",
+                 f"ckpt_dir={a}", f"output={out_g}") == 0
+    assert _port("mode=predict",
+                 f"data={d}/a.libsvm;{d}/b.libsvm;{d}/sub/c.libsvm",
+                 f"ckpt_dir={a}", f"output={out_l}") == 0
+    assert _port("mode=predict", f"data={d}#{tmp_path}/cache",
+                 f"ckpt_dir={a}", f"output={tmp_path / 'c.txt'}") == 0
+    assert capsys.readouterr().out.count("wrote 40 predictions") == 3
+    assert (out_g.read_bytes() == out_l.read_bytes()
+            == (tmp_path / "c.txt").read_bytes())
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_resume_from_an_async_checkpoint_across_packages(tmp_path, data,
+                                                         capsys, first):
+    """``ckpt_every=3`` over a 3-step epoch: the only checkpoint is the
+    asynchronous one; the other package resumes from it for one more
+    epoch and lands where two epochs of the first package land."""
+    run_first, run_second = (_jax, _port) if first == "jax" else (_port,
+                                                                   _jax)
+    a, b = tmp_path / "a", tmp_path / "b"
+    assert run_first(f"data={data[0]}", f"ckpt_dir={a}", "ckpt_every=3") == 0
+    assert CheckpointManager(str(a)).steps == [3]
+    assert run_second(f"data={data[0]}", f"ckpt_dir={a}", "resume=true",
+                      "ckpt_every=3") == 0
+    out = capsys.readouterr().out
+    assert f"resumed from step 3 in {a}" in out
+    assert run_first(f"data={data[0]}", f"ckpt_dir={b}", "epochs=2") == 0
+    _, got, state_a = _params(a)
+    _, want, _ = _params(b)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], **PARAMS, err_msg=k)
+    (count, _, _), _ = state_a["opt_state"]
+    assert int(count) == 6
+
+
+def test_failed_background_checkpoint_exits_non_zero(tmp_path, data, capsys,
+                                                     monkeypatch):
+    real = CheckpointManager._publish
+
+    def flaky(self, name, write_fn):
+        if name == "ckpt-2.bin":
+            raise OSError("no space left on device")
+        return real(self, name, write_fn)
+
+    monkeypatch.setattr(CheckpointManager, "_publish", flaky)
+    ck = tmp_path / "ck"
+    assert _port(f"data={data[0]}", f"ckpt_dir={ck}", "ckpt_every=2") == 2
+    err = capsys.readouterr().err
+    assert "background checkpoint failed" in err and "no space" in err
+    assert CheckpointManager(str(ck)).steps == [3]    # the final one
+
+
+def test_cli_refuses_remote_uris_naming_the_roadmap(data, capsys):
+    assert _port("data=s3://bucket/train.libsvm") == 2
+    assert "A.6.b" in capsys.readouterr().err

@@ -1270,3 +1270,143 @@ def test_loader_fields_on_the_card_match_the_cpu(dev, tmp_path, kw):
                 m = int(w["nnz_used"])
                 got, want = got[:m], want[:m]
             assert torch.equal(got, want), k
+
+
+# -- the I/O layer on the card: page replay and asynchronous checkpoints ----
+
+def _within(seconds, fn, *args):
+    """Run ``fn(*args)`` on a thread of its own and fail unless it ends
+    within ``seconds`` (a hung copy or writer must not hang the run)."""
+    box = []
+
+    def run():
+        try:
+            box.append((fn(*args), None))
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            box.append((None, e))
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout=seconds)
+    assert not t.is_alive(), f"{fn.__name__} took over {seconds} s"
+    result, err = box[0]
+    if err is not None:
+        raise err
+    return result
+
+
+def test_page_replay_on_the_card(dev, tmp_path):
+    """Epochs 2 and 3 of a ``dir#cache`` loader come from the page file,
+    through pinned pool buffers, equal on the card to epoch 1; the pool
+    holds no page view."""
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    d = tmp_path / "d"
+    d.mkdir()
+    for i in range(3):
+        _kstep_file(d / f"p{i}.libsvm", 16 * 5 + 3 * i)
+    (d / "empty.libsvm").write_bytes(b"")
+
+    def body():
+        with DeviceLoader(create_parser(f"{d}#{tmp_path}/c",
+                                        engine="native"), 16, 1024,
+                          device=dev) as ld:
+            epochs = []
+            for e in range(3):
+                if e:
+                    ld.before_first()
+                epochs.append([{k: v.clone() for k, v in b.items()}
+                               for b in ld])
+            assert ld.cache_stats["hits"] == 2
+            assert ld.cache_stats["misses"] == 1
+            assert all(b.flags.writeable for b in ld._pool._bufs)
+            assert all(torch.from_numpy(b).is_pinned()
+                       for b in ld._pool._bufs) or dev.type == "cpu"
+        for ep in epochs[1:]:
+            assert len(ep) == len(epochs[0]) > 0
+            for x, y in zip(ep, epochs[0]):
+                for k in y:
+                    assert torch.equal(x[k], y[k]), k
+
+    _within(120, body)
+
+
+def _fm_state(model, opt):
+    from dmlc_core_tpu_torch.models import adam_state_to_optax
+    from dmlc_core_tpu_torch.models.convert import params_tree
+    return {"params": params_tree(model),
+            "opt_state": adam_state_to_optax(model, opt, host=False)}
+
+
+def test_save_async_snapshot_before_an_in_place_adam_step(dev, tmp_path):
+    """``save_async`` right before the fused Adam step updates the
+    parameters and moments in place: the checkpoint holds the state at
+    the call, byte for byte that of a synchronous save of a clone taken
+    there."""
+    from dmlc_core_tpu_torch import (DeviceLoader, FactorizationMachine,
+                                     adam, create_parser, make_train_step)
+    from dmlc_core_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                      snapshot)
+    path = _kstep_file(tmp_path / "k.libsvm", 16 * 6)
+
+    def body():
+        model = FactorizationMachine(F, 32, device=dev,
+                                     generator=torch.Generator(dev)
+                                     .manual_seed(1))
+        opt = adam(model, 1e-2)
+        step = make_train_step(model, opt)
+        with DeviceLoader(create_parser(path, engine="native"), 16, 1024,
+                          device=dev) as ld:
+            batches = list(ld)
+        for b in batches[:3]:
+            step(b)
+        ref = CheckpointManager(str(tmp_path / "ref"))
+        clone = snapshot(_fm_state(model, opt))
+        mgr = CheckpointManager(str(tmp_path / "async"))
+        mgr.save_async(3, _fm_state(model, opt))
+        for b in batches[3:]:                    # in place, while it writes
+            step(b)
+        mgr.wait()
+        ref.save(3, clone)
+        assert int(opt.count) == 6
+        return ((tmp_path / "async" / "ckpt-3.bin").read_bytes(),
+                (tmp_path / "ref" / "ckpt-3.bin").read_bytes())
+
+    got, want = _within(120, body)
+    assert got == want
+
+
+def test_save_async_between_two_graph_replays(dev, tmp_path):
+    """``FusedTrainer(k=3)``: a ``save_async`` after the first replay,
+    while the next replays update the state in place, holds the state of
+    step 3 byte for byte."""
+    from dmlc_core_tpu_torch import (DeviceLoader, FactorizationMachine,
+                                     FusedTrainer, adam, create_parser)
+    from dmlc_core_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                      snapshot)
+    path = _kstep_file(tmp_path / "k.libsvm", 16 * 7)
+
+    def body():
+        model = FactorizationMachine(F, 32, device=dev,
+                                     generator=torch.Generator(dev)
+                                     .manual_seed(2))
+        opt = adam(model, 1e-2)
+        mgr = CheckpointManager(str(tmp_path / "async"))
+        ref = CheckpointManager(str(tmp_path / "ref"))
+        clone = None
+        with DeviceLoader(create_parser(path, engine="native"), 16, 1024,
+                          device=dev, emit="host") as ld:
+            tr = FusedTrainer(model, opt, ld, k=3)
+            for item in ld:
+                tr.feed(item)
+                if tr.steps == 3 and clone is None:
+                    clone = snapshot(_fm_state(model, opt))
+                    mgr.save_async(3, _fm_state(model, opt))
+            tr.flush()
+        mgr.wait()
+        ref.save(3, clone)
+        assert tr.steps == 7
+        return ((tmp_path / "async" / "ckpt-3.bin").read_bytes(),
+                (tmp_path / "ref" / "ckpt-3.bin").read_bytes())
+
+    got, want = _within(180, body)
+    assert got == want

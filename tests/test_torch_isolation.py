@@ -23,7 +23,18 @@ for n in names:
     importlib.import_module(n)
 new = ("dmlc_core_tpu_torch.native", "dmlc_core_tpu_torch.native.build",
        "dmlc_core_tpu_torch.utils.threaded_iter",
-       "dmlc_core_tpu_torch.pipeline.loader", "dmlc_core_tpu_torch.data.parser")
+       "dmlc_core_tpu_torch.pipeline.loader", "dmlc_core_tpu_torch.data.parser",
+       "dmlc_core_tpu_torch.io", "dmlc_core_tpu_torch.io.input_split",
+       "dmlc_core_tpu_torch.io.wrappers", "dmlc_core_tpu_torch.io.recordio",
+       "dmlc_core_tpu_torch.io.filesys", "dmlc_core_tpu_torch.io.uri",
+       "dmlc_core_tpu_torch.io.indexed_recordio_split",
+       "dmlc_core_tpu_torch.io.single_file_split",
+       "dmlc_core_tpu_torch.data.iterators",
+       "dmlc_core_tpu_torch.pipeline.page_cache",
+       "dmlc_core_tpu_torch.pipeline.fingerprint",
+       "dmlc_core_tpu_torch.utils.checkpoint",
+       "dmlc_core_tpu_torch.utils.serializer",
+       "dmlc_core_tpu_torch.utils.memory_io")
 assert all(n in sys.modules for n in new), new
 import threading
 assert threading.active_count() == 1, threading.enumerate()
