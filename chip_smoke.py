@@ -139,7 +139,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    dmlc-train model=fm format=csv on seeded 32-column csv (label column
    0 from the URI), each prediction within 2e-6 of its restored
    checkpoint on the plain path; a fresh interpreter times building a
-   torch.optim.Adam.
+   torch.optim.Adam;
+   remote — the port's main path against an object store that this
+   script runs on loopback (path-style S3 with SigV4 checked, ranged
+   GET, multipart uploads, and a WebHDFS namenode and datanode; every
+   object a file under the data directory): [io]'s training files
+   uploaded to s3://bucket/train/, the card's batches from there
+   array_equal to the local directory's on the native and streampack
+   paths, again under DMLC_FAULT_SPEC='s3.request:error=0.2:seed=7'
+   (faults fired, the retries absorbed them); FM(2^20, 32) flat trained
+   from s3:// with phase 5's checks (learning included), and its steady
+   state from s3:// and from the local directory in turns (steps/s, the
+   wait in next_batch, the feed's MB/s: this Python server's, not S3's);
+   save_async of FM + Adam (415 MB) at step 4 to S3 (multipart parts,
+   byte-equal to a local save of a clone) and to WebHDFS (temp name
+   renamed), each restored array_equal in a fresh CheckpointManager;
+   dmlc-train model=fm data=s3:// ckpt_dir=s3:// and mode=predict
+   output=s3:// in subprocesses, the scores read back from the store
+   within 2e-6 of the restored checkpoint on the plain path; a
+   PredictionServer restored from s3:// answering 256 requests, each
+   against in-process predict (1e-5) and mode=predict (2e-6), then
+   again under DMLC_FAULT_SPEC='serving.server.admit:error=1:times=5':
+   exactly 5 OVERLOADED, every request answered by the client's
+   retries.  Launch counts are read around its training and serving.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -164,11 +186,13 @@ import contextlib
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
 import threading
 import time
+import urllib.parse
 
 import numpy as np
 
@@ -1821,14 +1845,15 @@ def _io_dir(data: str, train_file: str) -> str:
     return d
 
 
-def _same_batches(torch, name: str, got: list, want: list) -> None:
+def _same_batches(torch, name: str, got: list, want: list,
+                  phase: str = "[io]") -> None:
     if len(got) != len(want) or not want:
-        raise RuntimeError(f"[io] {name}: {len(got)} batches, expected "
+        raise RuntimeError(f"{phase} {name}: {len(got)} batches, expected "
                            f"{len(want)}")
     for i, (x, y) in enumerate(zip(got, want)):
         for k in y:
             if not torch.equal(x[k], y[k]):
-                raise RuntimeError(f"[io] {name}: batch {i} {k} differs")
+                raise RuntimeError(f"{phase} {name}: batch {i} {k} differs")
 
 
 def _timed_epoch(torch, loader) -> tuple:
@@ -2148,6 +2173,702 @@ def phase_io(torch, power: str, data: str, train_file: str) -> dict:
     launches = launch_counts()                  # ends here
     _io_ffm_checkpoint(torch, power, data)
     log(f"[io] phase {time.monotonic() - t0:.1f} s")
+    return launches
+
+
+# -- [remote] ---------------------------------------------------------------
+# An object store inside this script: path-style S3 (ranged GET, PUT, HEAD,
+# ListObjectsV2, multipart initiate / part / complete / abort, DELETE) and a
+# WebHDFS namenode + datanode, stdlib http.server on loopback, every object
+# a file under the run's data directory.  What it measures is this Python
+# server over loopback, not S3 or HDFS.
+
+REMOTE_BUCKET = "bucket"
+REMOTE_FAULTS = "s3.request:error=0.2:seed=7"
+ADMIT_FAULTS = "serving.server.admit:error=1:times=5"
+ADMIT_SHED = 5
+REMOTE_REQUESTS = 256      # eval rows scored one request each over TCP
+
+
+class _FakeStore:
+    """Both fakes on one ``ThreadingHTTPServer`` each, files under
+    ``root``; ``parts`` maps each multipart object to its part count and
+    ``unsigned`` counts S3 requests without a SigV4 signature (refused
+    with 403)."""
+
+    def __init__(self, root: str):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+        self.root = root
+        self.parts = {}
+        self.unsigned = 0
+        self.bytes_in = self.bytes_out = 0
+        self._lock = threading.Lock()
+        self._next_upload = 0
+        store = self
+        q = urllib.parse
+
+        class Base(BaseHTTPRequestHandler):
+            def log_message(self, *a):
+                pass
+
+            def _query(self):
+                return dict(q.parse_qsl(q.urlsplit(self.path).query,
+                                        keep_blank_values=True))
+
+            def _body_to(self, path, mode="wb"):
+                n = int(self.headers.get("Content-Length", 0))
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                with open(path, mode) as f:
+                    left = n
+                    while left:
+                        chunk = self.rfile.read(min(left, 1 << 20))
+                        if not chunk:
+                            raise OSError("request body cut short")
+                        f.write(chunk)
+                        left -= len(chunk)
+                with store._lock:
+                    store.bytes_in += n
+
+            def _reply(self, status, body=b"", headers=()):
+                self.send_response(status)
+                for k, v in headers:
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                if body and self.command != "HEAD":
+                    self.wfile.write(body)
+
+            def _send_file(self, path, lo, hi, status, headers=()):
+                self.send_response(status)
+                for k, v in headers:
+                    self.send_header(k, v)
+                self.send_header("Content-Length", str(hi - lo))
+                self.end_headers()
+                with open(path, "rb") as f:
+                    f.seek(lo)
+                    left = hi - lo
+                    while left:
+                        chunk = f.read(min(left, 1 << 20))
+                        self.wfile.write(chunk)
+                        left -= len(chunk)
+                with store._lock:
+                    store.bytes_out += hi - lo
+
+        class S3(Base):
+            def _where(self):
+                path = q.unquote(q.urlsplit(self.path).path).lstrip("/")
+                bucket, _, key = path.partition("/")
+                return bucket, key, os.path.join(store.root, "s3", bucket,
+                                                 key)
+
+            def _signed(self):
+                if self.headers.get("Authorization", "").startswith(
+                        "AWS4-HMAC-SHA256 Credential="):
+                    return True
+                with store._lock:
+                    store.unsigned += 1
+                self._reply(403)
+                return False
+
+            def do_HEAD(self):
+                if not self._signed():
+                    return
+                _, key, path = self._where()
+                if not key or not os.path.isfile(path):
+                    self._reply(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Length",
+                                 str(os.path.getsize(path)))
+                self.end_headers()
+
+            def do_GET(self):
+                if not self._signed():
+                    return
+                bucket, key, path = self._where()
+                qs = self._query()
+                if qs.get("list-type") == "2":
+                    self._list(bucket, qs.get("prefix", ""),
+                               qs.get("delimiter", ""))
+                    return
+                if not os.path.isfile(path):
+                    self._reply(404)
+                    return
+                size = os.path.getsize(path)
+                rng = self.headers.get("Range", "")
+                if not rng.startswith("bytes="):
+                    self._send_file(path, 0, size, 200)
+                    return
+                lo, hi = rng[6:].split("-")
+                lo = int(lo)
+                hi = min(int(hi), size - 1) if hi else size - 1
+                if lo >= size:
+                    self._reply(416)
+                    return
+                self._send_file(path, lo, hi + 1, 206, [
+                    ("Content-Range", f"bytes {lo}-{hi}/{size}")])
+
+            def _list(self, bucket, prefix, delim):
+                base = os.path.join(store.root, "s3", bucket)
+                keys, prefixes = [], set()
+                for d, _, files in os.walk(base):
+                    for f in files:
+                        k = os.path.relpath(os.path.join(d, f), base)
+                        k = k.replace(os.sep, "/")
+                        if not k.startswith(prefix):
+                            continue
+                        rest = k[len(prefix):]
+                        if delim and delim in rest:
+                            prefixes.add(prefix + rest.split(delim)[0]
+                                         + delim)
+                        else:
+                            keys.append((k, os.path.getsize(
+                                os.path.join(d, f))))
+                from xml.sax.saxutils import escape
+                xml = ["<ListBucketResult>"]
+                xml += [f"<Contents><Key>{escape(k)}</Key><Size>{n}</Size>"
+                        f"</Contents>" for k, n in sorted(keys)]
+                xml += [f"<CommonPrefixes><Prefix>{escape(p)}</Prefix>"
+                        f"</CommonPrefixes>" for p in sorted(prefixes)]
+                xml.append("</ListBucketResult>")
+                self._reply(200, "".join(xml).encode())
+
+            def do_PUT(self):
+                if not self._signed():
+                    return
+                _, key, path = self._where()
+                qs = self._query()
+                if "partNumber" in qs:
+                    part = os.path.join(store.root, "uploads",
+                                        qs["uploadId"], qs["partNumber"])
+                    if not os.path.isdir(os.path.dirname(part)):
+                        self._reply(404)
+                        return
+                    self._body_to(part)
+                    self._reply(200, headers=[
+                        ("ETag", f'"{qs["partNumber"]}"')])
+                    return
+                tmp = f"{path}.put-{threading.get_ident()}"
+                self._body_to(tmp)
+                os.replace(tmp, path)
+                self._reply(200)
+
+            def do_POST(self):
+                if not self._signed():
+                    return
+                _, key, path = self._where()
+                qs = self._query()
+                body = self.rfile.read(int(self.headers.get(
+                    "Content-Length", 0)))
+                if "uploads" in qs:
+                    with store._lock:
+                        store._next_upload += 1
+                        uid = f"upload-{store._next_upload}"
+                    os.makedirs(os.path.join(store.root, "uploads", uid))
+                    self._reply(200, (
+                        f"<InitiateMultipartUploadResult><UploadId>{uid}"
+                        f"</UploadId></InitiateMultipartUploadResult>"
+                    ).encode())
+                    return
+                d = os.path.join(store.root, "uploads", qs["uploadId"])
+                nums = [int(n) for n in re.findall(
+                    rb"<PartNumber>(\d+)</PartNumber>", body)]
+                if not os.path.isdir(d) or not nums:
+                    self._reply(404)
+                    return
+                os.makedirs(os.path.dirname(path), exist_ok=True)
+                tmp = f"{path}.complete"
+                with open(tmp, "wb") as out:
+                    for n in nums:
+                        with open(os.path.join(d, str(n)), "rb") as f:
+                            shutil.copyfileobj(f, out, 1 << 20)
+                os.replace(tmp, path)
+                shutil.rmtree(d)
+                with store._lock:
+                    store.parts[key] = len(nums)
+                self._reply(200, b"<CompleteMultipartUploadResult/>")
+
+            def do_DELETE(self):
+                if not self._signed():
+                    return
+                _, _, path = self._where()
+                qs = self._query()
+                if "uploadId" in qs:
+                    shutil.rmtree(os.path.join(store.root, "uploads",
+                                               qs["uploadId"]),
+                                  ignore_errors=True)
+                elif os.path.isfile(path):
+                    os.unlink(path)
+                self._reply(204)
+
+        class HDFS(Base):
+            def _where(self):
+                u = q.urlsplit(self.path)
+                path = q.unquote(u.path)
+                data = path.startswith("/data/")
+                path = path[len("/data"):] if data else \
+                    path[len("/webhdfs/v1"):]
+                return data, path, os.path.join(store.root, "hdfs",
+                                                path.lstrip("/"))
+
+            def _location(self, path, extra=""):
+                port = self.server.server_address[1]
+                return json.dumps({"Location": (
+                    f"http://127.0.0.1:{port}/data{q.quote(path)}{extra}")
+                }).encode()
+
+            def _status(self, name, full):
+                isdir = os.path.isdir(full)
+                return {"pathSuffix": name, "type":
+                        "DIRECTORY" if isdir else "FILE",
+                        "length": 0 if isdir else os.path.getsize(full)}
+
+            def do_GET(self):
+                data, path, full = self._where()
+                qs = self._query()
+                if data:
+                    off = int(qs.get("offset", 0))
+                    size = os.path.getsize(full)
+                    end = min(size, off + int(qs.get("length", size)))
+                    self._send_file(full, off, max(off, end), 200)
+                    return
+                if not os.path.exists(full):
+                    self._reply(404)
+                    return
+                op = qs.get("op")
+                if op == "GETFILESTATUS":
+                    body = {"FileStatus": self._status("", full)}
+                elif op == "LISTSTATUS":
+                    body = {"FileStatuses": {"FileStatus": [
+                        self._status(n, os.path.join(full, n))
+                        for n in sorted(os.listdir(full))]}}
+                elif op == "OPEN":
+                    self._reply(200, self._location(
+                        path, f"?offset={qs.get('offset', 0)}&length="
+                              f"{qs.get('length', 0)}"),
+                        [("Content-Type", "application/json")])
+                    return
+                else:
+                    self._reply(400)
+                    return
+                self._reply(200, json.dumps(body).encode(),
+                            [("Content-Type", "application/json")])
+
+            def do_PUT(self):
+                data, path, full = self._where()
+                qs = self._query()
+                if data:
+                    self._body_to(full)
+                    self._reply(201)
+                    return
+                self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                if qs.get("op") == "RENAME":
+                    dest = os.path.join(store.root, "hdfs",
+                                        qs["destination"].lstrip("/"))
+                    ok = os.path.isfile(full)
+                    if ok:
+                        os.replace(full, dest)
+                    self._reply(200 if ok else 404,
+                                json.dumps({"boolean": ok}).encode())
+                    return
+                self._reply(200, self._location(path),
+                            [("Content-Type", "application/json")])
+
+            def do_POST(self):
+                data, path, full = self._where()
+                if data:
+                    self._body_to(full, "ab")
+                    self._reply(200)
+                    return
+                self.rfile.read(int(self.headers.get("Content-Length", 0)))
+                self._reply(200, self._location(path),
+                            [("Content-Type", "application/json")])
+
+            def do_DELETE(self):
+                _, _, full = self._where()
+                ok = os.path.isfile(full)
+                if ok:
+                    os.unlink(full)
+                self._reply(200, json.dumps({"boolean": ok}).encode())
+
+        os.makedirs(os.path.join(root, "s3", REMOTE_BUCKET))
+        os.makedirs(os.path.join(root, "hdfs"))
+        self._servers = [ThreadingHTTPServer(("127.0.0.1", 0), h)
+                         for h in (S3, HDFS)]
+        for s in self._servers:
+            s.daemon_threads = True
+        self._threads = [threading.Thread(target=s.serve_forever,
+                                          daemon=True)
+                         for s in self._servers]
+        for t in self._threads:
+            t.start()
+        self.s3 = f"http://127.0.0.1:{self._servers[0].server_address[1]}"
+        self.hdfs = f"127.0.0.1:{self._servers[1].server_address[1]}"
+
+    def path(self, key: str) -> str:
+        """The file holding ``s3://bucket/<key>``."""
+        return os.path.join(self.root, "s3", REMOTE_BUCKET, key)
+
+    def env(self) -> dict:
+        """What a client of the store reads from the environment."""
+        return {"DMLC_S3_ENDPOINT": self.s3,
+                "AWS_ACCESS_KEY_ID": "AKIDSMOKE",
+                "AWS_SECRET_ACCESS_KEY": "smoke-secret",
+                "AWS_REGION": "us-east-1"}
+
+    def close(self) -> None:
+        for s in self._servers:
+            s.shutdown()
+            s.server_close()
+        for t in self._threads:
+            t.join(timeout=30)
+
+
+@contextlib.contextmanager
+def _env(**kw):
+    """``os.environ`` with ``kw`` set (None: unset), restored after."""
+    old = {k: os.environ.get(k) for k in kw}
+    try:
+        for k, v in kw.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _remote_put(store, d: str, eval_file: str) -> int:
+    """[io]'s training files (and its empty one) under train/ and the
+    eval file, uploaded through the port's S3 write streams."""
+    from dmlc_core_tpu_torch.io import open_stream
+    total = 0
+    names = sorted(os.listdir(d))
+    for name, src in [(f"train/{n}", os.path.join(d, n)) for n in names] \
+            + [("eval.libsvm", eval_file)]:
+        with open(src, "rb") as f, \
+                open_stream(f"s3://{REMOTE_BUCKET}/{name}", "w") as w:
+            blob = f.read()
+            w.write(blob)
+        with open(store.path(name), "rb") as f:
+            if f.read() != blob:
+                raise RuntimeError(f"[remote] {name} reads back changed")
+        total += len(blob)
+    return total
+
+
+def _remote_batches(torch, power: str, d: str) -> None:
+    """The card's batches from ``s3://bucket/train/`` against the local
+    directory's, native and streampack, without and with injected
+    ``s3.request`` errors."""
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    from dmlc_core_tpu_torch.utils.faults import clear_faults
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    uri = f"s3://{REMOTE_BUCKET}/train/"
+    errors = metrics.counter("faults.s3.request.errors")
+    retries = metrics.counter("retry.io.http.retries")
+    rows = []
+    for path, kw in (("native", {}),
+                     ("streampack", {"threaded": False, "nthreads": 1})):
+        def epoch(u):
+            with DeviceLoader(create_parser(u, engine="native", **kw),
+                              ROWS_TR, CAP_TR, device="cuda",
+                              engine="native", cache=None) as ld:
+                batches, secs, _ = _timed_epoch(torch, ld)
+            return batches, secs
+        want, local_s = epoch(d)
+        got, remote_s = epoch(uri)
+        _same_batches(torch, f"{path} s3://", got, want, "[remote]")
+        e0, r0 = errors.value, retries.value
+        with _env(DMLC_FAULT_SPEC=REMOTE_FAULTS):
+            faulted, _ = epoch(uri)
+        clear_faults()
+        _same_batches(torch, f"{path} s3:// with {REMOTE_FAULTS}", faulted,
+                      want, "[remote]")
+        fired, retried = errors.value - e0, retries.value - r0
+        if fired <= 0:
+            raise RuntimeError(f"[remote] {path}: no s3.request fault fired")
+        rows.append(f"{path}: {len(want)} batches, local {local_s:.4f} s, "
+                    f"s3:// {remote_s:.4f} s an epoch; with "
+                    f"DMLC_FAULT_SPEC='{REMOTE_FAULTS}' "
+                    f"faults.s3.request.errors +{fired}, "
+                    f"retry.io.http.retries +{retried}")
+    log("[remote] the card's batches from s3://bucket/train/ array_equal to "
+        "the local directory's, with and without injected faults (the "
+        "retries absorbed them): " + "; ".join(rows) + f" [{power}]")
+
+
+def _remote_training(torch, power: str, d: str, text_bytes: int) -> dict:
+    """FM flat trained from ``s3://`` with phase 5's checks (learning
+    included), then steady state from s3:// and from the local directory
+    in turns (s3, local, local, s3).  Returns the launch counts."""
+    from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
+                                     make_train_step)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    uri = f"s3://{REMOTE_BUCKET}/train/"
+    launches = _train_path(torch, "fm_flat from s3://", "fm", "flat", CAP_TR,
+                           uri, f"s3://{REMOTE_BUCKET}/eval.libsvm", power)
+    reset_launch_counts()
+    model = _model(torch, "fm", "kernel")
+    step = make_train_step(model, adam(model, LR))
+
+    def loader(u):
+        return DeviceLoader(create_parser(u, engine="native"), ROWS_TR,
+                            CAP_TR, device="cuda", engine="native",
+                            cache=None)
+
+    with loader(d) as ld:                                # warm-up epoch
+        for batch in ld:
+            step(batch)
+    torch.cuda.synchronize()
+    out = {"s3://": [], "local": []}
+    for where in ("s3://", "local", "local", "s3://"):
+        with loader(uri if where == "s3://" else d) as ld:
+            out[where].append(_steady_state(torch, step, ld, STEADY_EPOCHS))
+    torch.cuda.synchronize()
+    more = launch_counts()
+    log("[remote] fm flat steady state, " + str(STEADY_EPOCHS) + " epochs "
+        "in turns: " + "; ".join(
+            f"{w} " + ", ".join(f"{r['steps'] / r['wall_s']:.2f}"
+                                for r in rs)
+            + " steps/s, wait in next_batch mean " + ", ".join(
+                f"{r['wait_mean_ms']:.4f}" for r in rs)
+            + " ms, feed " + ", ".join(
+                f"{text_bytes * STEADY_EPOCHS / r['wall_s'] / 1e6:.1f}"
+                for r in rs) + " MB/s of text"
+            for w, rs in out.items())
+        + " (s3:// is this script's Python server over loopback, not S3) "
+        + f"[{power}]")
+    del model, step
+    torch.cuda.empty_cache()
+    return {k: launches.get(k, 0) + more.get(k, 0)
+            for k in set(launches) | set(more)}
+
+
+def _remote_save_async(torch, power: str, store, train_file: str) -> None:
+    """FM(2^20, 32) + Adam (415 MB): save_async at step SAVE_AT to the S3
+    store while steps SAVE_AT+1..8 run, then to the WebHDFS store; each
+    restored in a fresh CheckpointManager array_equal to a clone taken at
+    the call, the S3 object byte-equal to a local save of the clone."""
+    from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
+                                     make_train_step)
+    from dmlc_core_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                      flatten_tree, snapshot)
+    local = os.path.join(store.root, "local_ckpt")
+    for name, directory in (
+            ("s3", f"s3://{REMOTE_BUCKET}/ckpt"),
+            ("webhdfs", f"hdfs://{store.hdfs}/ckpt")):
+        model = _model(torch, "fm", "kernel")
+        opt = adam(model, LR)
+        mgr = CheckpointManager(directory)
+        step = make_train_step(model, opt)
+        clone = None
+        with DeviceLoader(create_parser(train_file, engine="native"),
+                          ROWS_TR, CAP_TR, device="cuda",
+                          engine="native") as ld:
+            for i, batch in enumerate(ld):
+                last = step(batch)
+                if i + 1 == SAVE_AT:
+                    t_save = time.perf_counter()
+                    mgr.save_async(SAVE_AT, _ckpt_state(model, opt))
+                    t_call = time.perf_counter() - t_save
+                    clone = snapshot(_ckpt_state(model, opt))
+            float(last)
+        t = time.perf_counter()
+        mgr.wait()
+        t_wait = time.perf_counter() - t
+        t_write = time.perf_counter() - t_save
+        t = time.perf_counter()
+        _, got = CheckpointManager(directory).restore()
+        t_restore = time.perf_counter() - t
+        x, y = flatten_tree(got), flatten_tree(clone)
+        if x.keys() != y.keys() or not all(np.array_equal(x[k], y[k])
+                                           for k in y):
+            raise RuntimeError(f"[remote] the {name} save_async checkpoint "
+                               f"departs from a clone taken at the call")
+        size = sum(v.nbytes for v in y.values())
+        extra = ""
+        if name == "s3":
+            CheckpointManager(local).save(SAVE_AT, clone)
+            with open(os.path.join(local, f"ckpt-{SAVE_AT}.bin"), "rb") as f, \
+                    open(store.path(f"ckpt/ckpt-{SAVE_AT}.bin"), "rb") as g:
+                if f.read() != g.read():
+                    raise RuntimeError("[remote] the S3 checkpoint's bytes "
+                                       "differ from a local save's")
+            parts = store.parts.get(f"ckpt/ckpt-{SAVE_AT}.bin", 0)
+            obj = os.path.getsize(store.path(f"ckpt/ckpt-{SAVE_AT}.bin"))
+            part = 5 << 20                 # the S3 write stream's parts
+            if parts != (-(-obj // part) if obj >= part else 0):
+                raise RuntimeError(f"[remote] {parts} multipart parts for "
+                                   f"{obj} bytes")
+            extra = (f"; {parts} multipart parts, byte-equal to a local "
+                     f"save of the clone")
+            shutil.rmtree(local, ignore_errors=True)
+        log(f"[remote] save_async to {directory} at step {SAVE_AT} while "
+            f"steps {SAVE_AT + 1}-{TRAIN_STEPS} ran ({size / 1e6:.1f} MB of "
+            f"leaves): host time of the call {t_call * 1e3:.3f} ms, the write "
+            f"published {t_write:.3f} s after the call (wait() {t_wait:.3f} "
+            f"s after the last step); restored in a fresh "
+            f"CheckpointManager in {t_restore:.3f} s, array_equal to the "
+            f"clone{extra} (this script's Python server over loopback) "
+            f"[{power}]")
+        del model, opt, clone, got, x, y
+        torch.cuda.empty_cache()
+
+
+def _remote_cli(torch, power: str, store, env: dict) -> np.ndarray:
+    """``dmlc-train model=fm`` at full width from s3:// into s3://, then
+    ``mode=predict`` with its output on the store; the scores read back
+    from the store against the restored checkpoint on the plain path.
+    Returns those scores."""
+    from dmlc_core_tpu_torch import (CheckpointManager, DeviceLoader,
+                                     FactorizationMachine, create_parser,
+                                     params_from_jax)
+    from dmlc_core_tpu_torch.io import open_seek_stream_for_read
+    fm = ["model=fm", f"features={F_FEATURES}", f"dim={DIM}"]
+    ckpt = f"s3://{REMOTE_BUCKET}/cli_ckpt"
+    out, _ = _run_cli(fm + [f"data=s3://{REMOTE_BUCKET}/train/",
+                            f"ckpt_dir={ckpt}"], env, power)
+    if f"trained fm: {TRAIN_STEPS} steps" not in out:
+        raise RuntimeError("[remote] the s3:// CLI's log lacks its steps")
+    _run_cli(fm + ["mode=predict", f"data=s3://{REMOTE_BUCKET}/eval.libsvm",
+                   f"ckpt_dir={ckpt}",
+                   f"output=s3://{REMOTE_BUCKET}/pred.txt"], env, power)
+    step, state = CheckpointManager(ckpt).restore()
+    model = FactorizationMachine(F_FEATURES, DIM, engine="torch",
+                                 device="cuda")
+    model.load_state_dict(params_from_jax(state["params"], "cuda"))
+    want = _plain_scores(torch, model, DeviceLoader(
+        create_parser(f"s3://{REMOTE_BUCKET}/eval.libsvm", engine="native"),
+        ROWS_TR, CAP_TR, id_mod=F_FEATURES, device="cuda", engine="native"))
+    with open_seek_stream_for_read(f"s3://{REMOTE_BUCKET}/pred.txt") as f:
+        got = np.array([float(x) for x in f.read().split()])
+    if step != TRAIN_STEPS or got.shape != (EVAL_ROWS,):
+        raise RuntimeError(f"[remote] CLI checkpoint step {step}, "
+                           f"{got.shape[0]} predictions")
+    err = float(np.abs(got - want[:EVAL_ROWS]).max())
+    log(f"[remote] dmlc-train model=fm data=s3:// ckpt_dir=s3://, then "
+        f"mode=predict output=s3://bucket/pred.txt: {got.shape[0]} scores "
+        f"read back from the store, max|err| against the restored "
+        f"checkpoint on the plain path {err:.3g} (limit {CLI_TOL:g}) "
+        f"[{power}]")
+    if not np.isfinite(got).all() or err > CLI_TOL:
+        raise RuntimeError(f"[remote] CLI predictions depart from the "
+                           f"checkpoint's scores: max|err| {err:.3g}")
+    return got
+
+
+def _remote_server(torch, power: str, eval_file: str,
+                   predicted: np.ndarray) -> None:
+    """A PredictionServer restored from ``s3://bucket/cli_ckpt`` answers
+    REMOTE_REQUESTS requests (one eval row each, 8 connections), each
+    against the engine's in-process predict and mode=predict's score;
+    then again under ``serving.server.admit:error=1:times=5``: exactly 5
+    answers OVERLOADED, every request still answered by the client's
+    retries."""
+    from dmlc_core_tpu_torch import (FactorizationMachine, InferenceEngine,
+                                     PredictClient, PredictionServer)
+    from dmlc_core_tpu_torch.utils.faults import clear_faults
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    ids, vals, ptr = _libsvm_rows(eval_file, REMOTE_REQUESTS)
+    reqs = [(ids[ptr[i]:ptr[i + 1]], vals[ptr[i]:ptr[i + 1]],
+             np.array([0, ptr[i + 1] - ptr[i]], np.int64))
+            for i in range(REMOTE_REQUESTS)]
+    eng = InferenceEngine(FactorizationMachine(F_FEATURES, DIM,
+                                               device="cuda"),
+                          postprocess="sigmoid", device="cuda")
+    t = time.perf_counter()
+    srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0)
+    step = srv.reload_from_checkpoint(f"s3://{REMOTE_BUCKET}/cli_ckpt")
+    t_up = time.perf_counter() - t
+    if step != TRAIN_STEPS:
+        raise RuntimeError(f"[remote] the server restored step {step}")
+    want = np.concatenate([eng.predict(*r) for r in reqs])
+    shed = metrics.counter("serving.server.shed")
+    retried = metrics.counter("retry.serving.client.retries")
+    rows = []
+    srv.start()
+    try:
+        for spec in (None, ADMIT_FAULTS):
+            s0, r0 = shed.value, retried.value
+            with _env(DMLC_FAULT_SPEC=spec, DMLC_SERVING_RETRIES="8"):
+                clients = [PredictClient(srv.host, srv.port)
+                           for _ in range(8)]
+                try:
+                    answers, lat, wall = _serve(
+                        lambda k, r: clients[k].predict(*r, timeout=120),
+                        reqs)
+                finally:
+                    for c in clients:
+                        c.close()
+            clear_faults()
+            got = np.concatenate(answers).astype(np.float64)
+            err = float(np.abs(got - want).max())
+            err_cli = float(np.abs(got - predicted[:REMOTE_REQUESTS]).max())
+            n_shed, n_retry = shed.value - s0, retried.value - r0
+            rows.append(f"{spec or 'no faults'}: {len(answers)} answers in "
+                        f"{wall * 1e3:.1f} ms (p50 "
+                        f"{np.percentile(lat, 50):.3f} ms), max|err| "
+                        f"{err:.3g} against in-process predict and "
+                        f"{err_cli:.3g} against mode=predict, OVERLOADED "
+                        f"{n_shed}, client retries {n_retry}")
+            if (not np.isfinite(got).all() or err > ATOL or err_cli > CLI_TOL
+                    or n_shed != (ADMIT_SHED if spec else 0)
+                    or n_retry != n_shed):
+                raise RuntimeError("[remote] server: " + rows[-1])
+    finally:
+        srv.stop()
+    log(f"[remote] PredictionServer restored step {step} from "
+        f"s3://bucket/cli_ckpt (up, graphs captured, in {t_up:.3f} s): "
+        + "; ".join(rows) + f" [{power}]")
+
+
+def phase_remote(torch, power: str, data: str, train_file: str,
+                 eval_file: str) -> dict:
+    """[remote]: the port's main path against an object store on
+    loopback: [io]'s training files read from s3:// (array_equal to the
+    local directory's, with and without injected request errors), FM
+    flat trained from s3:// with phase 5's checks and its steady state
+    beside the local one, save_async of FM + Adam to S3 and to WebHDFS,
+    dmlc-train and mode=predict with data=, ckpt_dir= and output= on
+    s3://, and a PredictionServer restored from s3:// under an injected
+    burst of sheds.  Returns the launch counts of its training and
+    serving."""
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    t0 = time.monotonic()
+    store = _FakeStore(os.path.join(data, "remote"))
+    try:
+        with _env(**store.env()):
+            d = os.path.join(data, "io")
+            text = _remote_put(store, d, eval_file)
+            log(f"[remote] store up: S3 at {store.s3}, WebHDFS at "
+                f"{store.hdfs}, files under {store.root}; {text} bytes of "
+                f"libsvm uploaded [{power}]")
+            _remote_batches(torch, power, d)
+            launches = _remote_training(torch, power, d, text - os.path
+                                        .getsize(eval_file))
+            _remote_save_async(torch, power, store, train_file)
+            env = _cli_env()
+            env.update(store.env())
+            predicted = _remote_cli(torch, power, store, env)
+            reset_launch_counts()
+            _remote_server(torch, power, eval_file, predicted)
+            for k, v in launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+        if store.unsigned:
+            raise RuntimeError(f"[remote] {store.unsigned} unsigned S3 "
+                               f"requests")
+        log(f"[remote] the store moved {store.bytes_in / 1e6:.1f} MB in and "
+            f"{store.bytes_out / 1e6:.1f} MB out; phase "
+            f"{time.monotonic() - t0:.1f} s [{power}]")
+    finally:
+        store.close()
+        shutil.rmtree(store.root, ignore_errors=True)
     return launches
 
 
@@ -3344,6 +4065,7 @@ def main() -> int:
         ffm = phase_ffm(torch, timer, power, data)
         kstep = phase_kstep(torch, power, train_file, eval_file)
         phase_cli(torch, power, data, train_file, eval_file)
+        remote = phase_remote(torch, power, data, train_file, eval_file)
     src = "dmlc_core_tpu_torch/kernels/"
     # name: (source, TPU kernel, the path whose launches it reports)
     meta = {
@@ -3394,6 +4116,10 @@ def main() -> int:
     missing += [f"{k} (io)" for k in (
         "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
         "ragged_gather_grad_embed", "adam") if io.get(k, 0) < 1]
+    # the remote path: FM trained from s3://, the server restored from it
+    missing += [f"{k} (remote)" for k in (
+        "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
+        "ragged_gather_grad_embed", "adam") if remote.get(k, 0) < 1]
     if missing:
         raise RuntimeError(f"main path never launched: {missing}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3417,6 +4143,9 @@ def main() -> int:
             # the I/O layer's training: fed from the page file, and
             # save_async under training
             row["io"] = {"launches": io[name]}
+        if remote.get(name, 0):
+            # FM trained from s3:// and the server restored from it
+            row["remote"] = {"launches": remote[name]}
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
             # training batch's shapes, with the training launches

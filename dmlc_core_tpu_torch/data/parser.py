@@ -15,7 +15,9 @@ or for ``"auto"`` (the default, as in the JAX package) from the URI's
 ``?delimiter=`` (:class:`CSVParserParam`).  The parser carries
 ``text_format``, the csv knobs and ``cache_file`` (the fragment, with
 its part suffix) for the loader's fused parse-and-pack and its page
-cache.  Remote schemes raise, naming ROADMAP A.6.b.
+cache.  A remote URI (``s3://``, ``hdfs://``, ``http://``, ...) is read
+through its filesystem's streams, and its chunks are ``bytes``, not
+views of a map; a ``#cachefile`` fragment still names a local file.
 
 The python parsers keep the JAX fallback parsers' rules exactly: a bad
 label skips its line, a bad feature token ends its row, a value-less
@@ -395,10 +397,10 @@ def _make_kernel(fmt: str, engine: str, nthreads: int,
 def create_parser(uri: str, part_index: int = 0, num_parts: int = 1,
                   parser_type: str = "auto", nthreads: int = 0,
                   threaded: bool = True, engine: str = "auto"):
-    """The JAX package's ``create_parser`` for local files: a
-    :class:`TextParser` over ``create_input_split(uri, part_index,
-    num_parts, "text", threaded=False)`` (a path or ``file://`` URI of a
-    file, a directory, a ``;`` list or a glob, with optional
+    """The JAX package's ``create_parser``: a :class:`TextParser` over
+    ``create_input_split(uri, part_index, num_parts, "text",
+    threaded=False)`` (a path, or a URI of any registered scheme, of a
+    file, a directory, a ``;`` list or a local glob, with optional
     ``?key=value&...`` arguments and a ``#cachefile`` fragment), wrapped
     in a :class:`ThreadedParser` unless ``threaded`` is False.  Unlike
     the JAX factory, the split gets no prefetch thread of its own.

@@ -1,15 +1,18 @@
-"""The port's I/O layer: URI-addressed local streams, the recordio codec
-and the partition-correct InputSplit engine.
+"""The port's I/O layer: URI-addressed streams over local files and the
+remote stores (``http(s)://``, ``s3://``, ``gs://``, ``hdfs://``,
+``azure://``, :mod:`.remote_filesys`), the recordio codec, the
+partition-correct InputSplit engine and the ``fscli`` tool
+(``python -m dmlc_core_tpu_torch.io.fscli ls|cat|cp|stat|pack|unpack``).
 
-Counterpart of ``dmlc_core_tpu/io`` (the reference's ``src/io/``), less
-the remote filesystems and ``fscli.py`` (ROADMAP A.6.b).  The factory
-:func:`create_input_split` follows the JAX package's rules:
+Counterpart of ``dmlc_core_tpu/io`` (the reference's ``src/io/``).  The
+factory :func:`create_input_split` follows the JAX package's rules:
 
 * ``split_type``: ``"text"``/``"line"`` (line records), ``"recordio"``,
   ``"indexed_recordio"`` (an index from ``index_uri`` or ``?index=``),
   ``"stdin"`` (also chosen by the URIs ``stdin://`` and ``-``);
-* the URI may be a file, a directory (walked recursively), a ``;`` list
-  or a ``*``/``?`` glob, with ``?k=v`` arguments and a ``#cachefile``
+* the URI may be a file, a directory (walked recursively; on an object
+  store, a key prefix), a ``;`` list or a ``*``/``?`` glob (local files
+  only: no remote filesystem globs, in either package), with ``?k=v`` arguments and a ``#cachefile``
   fragment, which selects the raw-chunk cache (with a
   ``.split{N}.part{K}`` suffix when there is more than one part);
 * ``shuffle=True`` over-partitions into ``num_shuffle_parts`` sub-parts
@@ -35,6 +38,9 @@ from .input_split import (InputSplit, InputSplitBase,  # noqa: F401
 from .recordio import (KMAGIC, RecordIOChunkReader,  # noqa: F401
                        RecordIOReader, RecordIOWriter, decode_lrec,
                        encode_lrec)
+from .remote_filesys import (AzureFileSystem, GCSFileSystem,  # noqa: F401
+                             HttpFileSystem, RangedReadStream, S3FileSystem,
+                             WebHDFSFileSystem, sign_v4)
 from .single_file_split import SingleFileSplit  # noqa: F401
 from .uri import URI, URISpec  # noqa: F401
 from .wrappers import (CachedInputSplit, ShuffleInputSplit,  # noqa: F401
@@ -50,6 +56,8 @@ __all__ = [
     "ThreadedInputSplit", "CachedInputSplit", "ShuffleInputSplit",
     "IndexedRecordIOSplit", "SingleFileSplit", "write_recordio_index",
     "create_input_split", "expand_uris",
+    "RangedReadStream", "HttpFileSystem", "S3FileSystem", "GCSFileSystem",
+    "WebHDFSFileSystem", "AzureFileSystem", "sign_v4",
 ]
 
 

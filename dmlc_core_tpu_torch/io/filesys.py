@@ -1,4 +1,4 @@
-"""Filesystem abstraction with URI-scheme routing, local files only.
+"""Filesystem abstraction with URI-scheme routing.
 
 Counterpart of ``dmlc_core_tpu/io/filesys.py`` (the reference's
 ``src/io/filesys.h``, ``src/io.cc`` and ``src/io/local_filesys.cc``):
@@ -9,9 +9,10 @@ directory's entries sorted) and the :func:`open_stream` /
 :func:`open_seek_stream_for_read` factories.  Streams are plain binary
 file objects.
 
-Only the local scheme (a bare path or ``file://``) is ported.  Any
-other scheme raises :class:`DMLCError` naming ROADMAP A.6.b, where the
-JAX package's remote filesystems (``remote_filesys.py``) wait.
+This module registers the local scheme (a bare path or ``file://``);
+:mod:`.remote_filesys` registers ``http``, ``https``, ``s3``, ``gs``,
+``hdfs`` and ``azure``.  A scheme nobody registered raises
+:class:`DMLCError`.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from .uri import URI
 __all__ = [
     "FileInfo", "FileSystem", "LocalFileSystem", "get_filesystem",
     "open_stream", "open_seek_stream_for_read", "list_directory_recursive",
-    "FS_REGISTRY",
+    "read_full", "FS_REGISTRY",
 ]
 
 FS_REGISTRY = Registry.get("FileSystem")
@@ -151,9 +152,8 @@ def get_filesystem(uri: URI) -> FileSystem:
     entry = FS_REGISTRY.find(uri.scheme)
     if entry is None:
         raise DMLCError(
-            f"{uri.raw!r}: only local files are supported; the scheme "
-            f"{uri.scheme!r} waits for the remote filesystems (ROADMAP "
-            f"A.6.b)")
+            f"unknown filesystem scheme {uri.scheme!r} in {uri.raw!r}; "
+            f"registered: {FS_REGISTRY.list_names()}")
     return entry()
 
 
@@ -161,6 +161,21 @@ def open_stream(uri_str: str, mode: str) -> BinaryIO:
     """A stream over ``uri_str`` (the reference's ``Stream::Create``)."""
     uri = URI(uri_str)
     return get_filesystem(uri).open(uri, mode)
+
+
+def read_full(stream, n: int) -> bytes:
+    """``n`` bytes of ``stream``, fewer only at its end.  A raw stream's
+    ``read`` may return less than asked (a remote stream's stops where
+    its buffer does), so this reads on until ``n`` or the end; the JAX
+    package reads once, and so fails on a remote file larger than one
+    2 MiB fill (ROADMAP queue C)."""
+    data = stream.read(n)
+    while len(data) < n:
+        more = stream.read(n - len(data))
+        if not more:
+            break
+        data += more
+    return data
 
 
 def open_seek_stream_for_read(uri_str: str) -> BinaryIO:

@@ -1,4 +1,4 @@
-"""Partition-correct record splitting over one or many local files.
+"""Partition-correct record splitting over one or many files.
 
 Counterpart of ``dmlc_core_tpu/io/input_split.py`` (the reference's
 ``src/io/input_split_base.{h,cc}``, ``line_split.{h,cc}`` and
@@ -17,8 +17,11 @@ Local files are mapped: ``next_chunk`` returns zero-copy
 ``memoryview`` s of the map holding whole records (the cursor moves to
 the last record start inside the window; a window with none doubles the
 chunk size).  A live view keeps its map open, so ``close`` tolerates the
-``BufferError`` that a view still held by a parser raises.  Other
-streams take the reference's overflow-carry path.
+``BufferError`` that a view still held by a parser raises.  Files of a
+remote filesystem (:mod:`.remote_filesys`: listed through its
+``list_directory``, a directory being a key prefix) are read through
+its seekable streams, one open at a time, and take the reference's
+overflow-carry path: ``next_chunk`` returns ``bytes``.
 
 Boundary rules: a line record begins after the next ``\\n``/``\\r``
 run (:class:`LineSplitter`); a recordio record at the next 4-aligned
@@ -33,7 +36,7 @@ import numpy as np
 
 from ..utils.logging import DMLCError, check
 from .filesys import (FileInfo, FileSystem, get_filesystem,
-                      list_directory_recursive)
+                      list_directory_recursive, read_full)
 from .recordio import KMAGIC, _MAGIC_BYTES, decode_lrec
 from .uri import URI
 
@@ -257,7 +260,7 @@ class InputSplitBase(InputSplit):
             else:
                 stream = self._stream_for(fidx)
                 stream.seek(in_file)
-                data = stream.read(n)
+                data = read_full(stream, n)
             if len(data) != n:
                 raise DMLCError(
                     f"short read from {self.files[fidx].path}: wanted {n}, got {len(data)}")

@@ -23,6 +23,7 @@ from typing import BinaryIO, List, Optional, Tuple
 import numpy as np
 
 from ..utils.logging import DMLCError, check
+from .filesys import read_full
 
 __all__ = [
     "KMAGIC", "encode_lrec", "decode_lrec",
@@ -106,7 +107,7 @@ class RecordIOReader:
         self.stream = stream
 
     def _read_exact(self, n: int, allow_eof: bool = False) -> Optional[bytes]:
-        b = self.stream.read(n)
+        b = read_full(self.stream, n)
         if not b and allow_eof:
             return None
         if len(b) != n:

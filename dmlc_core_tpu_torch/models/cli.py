@@ -18,9 +18,12 @@ as the JAX CLI's loader; libsvm, libfm or csv, resolved as the JAX CLI
 resolves them: ``format=``, ``model=ffm`` implies libfm, then a
 ``?format=`` argument of ``data``, then the file suffix, then libsvm;
 csv's ``?label_column=&delimiter=`` ride on the URI).  ``data=``,
-``valid=`` and predict's ``data=`` take what the JAX CLI takes from
-local disk: a file, a directory (read recursively), a ``;`` list or a
-``*``/``?`` glob, and a ``#cachefile`` fragment: the raw-chunk cache of
+``valid=`` and predict's ``data=`` take what the JAX CLI takes: a local
+path or a URI of any registered scheme (``s3://``, ``hdfs://``,
+``http://``, ...; the environment variables of
+:mod:`..io.remote_filesys`), of a file, a directory (read recursively;
+on an object store, a key prefix), a ``;`` list or a local ``*``/``?``
+glob, and a ``#cachefile`` fragment (a local file): the raw-chunk cache of
 the split and, on the fused path (every model but ``ffm``), the loader's
 packed-page cache at ``<cachefile>.pages``, from which the epochs after
 the first are served without parsing or packing.  Predict reads its
@@ -36,6 +39,9 @@ device-emitting loader over the same file.  A checkpoint holds
 ``params`` (the JAX param tree) and ``opt_state`` in ``optax.adam``'s
 layout (:func:`.convert.adam_state_to_optax`), so either package's
 ``resume`` and ``mode=predict`` read the other's checkpoints.
+``ckpt_dir=`` may be local or remote, and predict writes ``output=``
+through the I/O layer's ``open_stream``, so any writable scheme works
+as the sink.
 ``ckpt_every`` saves with ``CheckpointManager.save_async`` (a snapshot
 of the parameters and moments on the card, written on a thread while
 training goes on), and the run waits for it before the final,
@@ -47,8 +53,7 @@ the optimizer's set-up (or a resume), the wait for the first batch, the
 steps, validation, the train AUC and the checkpoint (or, to predict, the
 scoring).
 
-Not ported yet; each exits 2 naming what is missing: ``workers=``
-(remote ingest) and URIs other than local files.
+Not ported yet: ``workers=`` (remote ingest), which exits 2.
 """
 
 from __future__ import annotations
@@ -114,7 +119,7 @@ class TrainParams(Parameter):
                  help="predict: restore ckpt_dir's latest and write "
                       "scores for `data` to `output` (xgboost task=pred)")
     output = field(str, default="",
-                   help="predictions file (predict mode; local files)")
+                   help="predictions file URI (predict mode)")
     workers = field(str, default="",
                     help="comma-separated host:port ingest workers (not "
                          "ported: must stay empty)")
@@ -181,13 +186,6 @@ def _parse_argv(argv: List[str]) -> Dict[str, str]:
     return conf
 
 
-def _local(uri: str) -> str:
-    """The local path of ``uri`` (a plain path or ``file://``, URI
-    arguments after ``?`` dropped)."""
-    path = uri.split("?", 1)[0]
-    return path[len("file://"):] if path.startswith("file://") else path
-
-
 def _resolve_format(p: TrainParams) -> str:
     """The JAX CLI's rule: ``format=``, else libfm for ``model=ffm``,
     else a ``?format=`` URI argument, else the file suffix, else
@@ -199,7 +197,7 @@ def _resolve_format(p: TrainParams) -> str:
     for arg in p.data.partition("?")[2].split("&"):
         if arg.startswith("format="):
             return arg[len("format="):]
-    base = _local(p.data).rstrip("/")
+    base = p.data.split("?", 1)[0].rstrip("/")
     for suf in ("libsvm", "libfm", "csv"):
         if base.endswith("." + suf):
             return suf
@@ -210,12 +208,7 @@ def _refusal(p: TrainParams) -> Optional[str]:
     """Why the port cannot run ``p`` yet, or None."""
     if p.workers:
         return ("workers= (remote ingest workers and the fused wire) is "
-                "not ported yet; train on local files")
-    for key in ("data", "valid", "output", "ckpt_dir"):
-        uri = getattr(p, key)
-        if "://" in uri and not uri.startswith("file://"):
-            return (f"{key}={uri}: only local files are supported (remote "
-                    f"filesystems are not ported yet: ROADMAP A.6.b)")
+                "not ported yet; read data= directly")
     return None
 
 
@@ -263,14 +256,16 @@ def _load_params(model, params, device: torch.device) -> None:
 def _predict(p: TrainParams, model, device: torch.device,
              stages: _Stages) -> int:
     """Restore the latest checkpoint and write one score per input row to
-    ``p.output`` (text, '%.6f\\n'; sigmoid for binary task)."""
+    ``p.output`` (text, '%.6f\\n'; sigmoid for binary task) through the
+    I/O layer, so any registered scheme is a sink."""
+    from ..io import open_stream
     from ..utils.checkpoint import CheckpointManager
 
     if not p.ckpt_dir or not p.output:
         print("dmlc-train: predict mode needs ckpt_dir and output",
               file=sys.stderr)
         return 2
-    mgr = CheckpointManager(_local(p.ckpt_dir))
+    mgr = CheckpointManager(p.ckpt_dir)
     try:
         step_no, state = mgr.restore()
     except DMLCError as e:
@@ -286,7 +281,7 @@ def _predict(p: TrainParams, model, device: torch.device,
     # a cached epoch packs nothing, so it counts no rows: read uncached
     loader = _make_loader(p, p.data, device, cache=None)
     try:
-        with open(_local(p.output), "wb") as out, torch.no_grad():
+        with open_stream(p.output, "w") as out, torch.no_grad():
             # one score per input row: padding rows exist only at the
             # tail of the last batch, and stats.rows is the real row
             # total once iteration ends, so write with a one-batch lag
@@ -320,7 +315,7 @@ def _resume(p: TrainParams, model, opt, device: torch.device) -> int:
     from ..utils.checkpoint import CheckpointManager
     from .convert import adam_state_from_optax
     try:
-        start_n, state = CheckpointManager(_local(p.ckpt_dir)).restore()
+        start_n, state = CheckpointManager(p.ckpt_dir).restore()
     except DMLCError:
         print(f"no checkpoint in {p.ckpt_dir} — starting fresh", flush=True)
         return 0
@@ -357,7 +352,7 @@ def _train(p: TrainParams, model, device: torch.device,
         log_info("dmlc-train: kstep=%d ignored for model=ffm (the fused "
                  "wire carries no fields); one step a batch", p.kstep)
     step = None if fused else make_train_step(model, opt)
-    mgr = CheckpointManager(_local(p.ckpt_dir)) if p.ckpt_dir else None
+    mgr = CheckpointManager(p.ckpt_dir) if p.ckpt_dir else None
     stages.mark("optimizer set-up")
 
     def state():

@@ -8,6 +8,11 @@ v3 compact wire is not ported), so a page file names the same
 configuration in either package and each serves the other's pages.
 ``host_shape`` and ``autotune_key`` wait for the autotuner (ROADMAP
 A.9).
+
+A file of a remote filesystem (``s3://`` and the others) has no
+``os.stat``, so its mtime is None, as in the JAX package: the page cache
+then keys it by path and size alone, and an object rewritten at the
+same size is served stale from the page file (ROADMAP queue C).
 """
 
 from __future__ import annotations

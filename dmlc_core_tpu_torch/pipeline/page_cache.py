@@ -23,16 +23,16 @@ is rebuilt and never served.
 Writer: the first epoch is served from the normal pipeline while a
 thread writes each fused buffer through a bounded queue
 (``queue_pages``, 8 by default); a full queue or a write error drops the
-build, never the epoch.  Reader: the file is mapped (``MADV_SEQUENTIAL``,
+build, never the epoch.  Each page crosses the ``page_cache.write``
+fault point (:mod:`..utils.faults`) before it is written.  Reader: the file is mapped (``MADV_SEQUENTIAL``,
 with a ``MADV_WILLNEED`` window of ``readahead`` pages, 2 by default)
 and each page is a read-only int32 view of the map; the loader copies
 views into its own buffers and never recycles one.
 
 Left out: the JAX package's ``DMLC_PAGE_CACHE_QUEUE`` /
 ``DMLC_PAGE_CACHE_READAHEAD`` environment knobs (the loader's
-``cache_queue_pages`` / ``cache_readahead`` arguments remain),
-``fault_point`` on the page write (ROADMAP A.12) and the reader's
-descriptor-passing constructor (ROADMAP A.11).
+``cache_queue_pages`` / ``cache_readahead`` arguments remain) and the
+reader's descriptor-passing constructor (ROADMAP A.11).
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from typing import Callable, Iterator, Optional, Tuple
 
 import numpy as np
 
+from ..utils.faults import fault_point
 from ..utils.logging import log_info, log_warning
 
 __all__ = ["FORMAT_VERSION", "PageCacheError", "PageCacheWriter",
@@ -157,6 +158,7 @@ class PageCacheWriter:
                             raise _Cancelled
                         break
                     meta, rows, payload = item
+                    fault_point("page_cache.write")
                     offsets.append(f.tell())
                     f.write(_PAGE.pack(meta, len(payload) // 4, rows))
                     f.write(payload)

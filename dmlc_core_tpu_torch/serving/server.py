@@ -27,16 +27,21 @@ telemetry (ROADMAP queue A.12).
 
 Hot reload: :meth:`PredictionServer.reload_from_checkpoint` swaps the
 weights mid-stream, and :meth:`PredictionServer.watch_checkpoints` polls a
-checkpoint directory and reloads whenever a trainer publishes a new step.
+checkpoint directory (local, or on a remote store: ``s3://``,
+``hdfs://``, ...) and reloads whenever a trainer publishes a new step.
+
+Chaos: each request crosses the ``serving.server.admit`` fault point
+(:mod:`..utils.faults`, ``DMLC_FAULT_SPEC``) before it is admitted; an
+injected error sheds it exactly as admission control would, answered
+``OVERLOADED`` and counted in ``serving.server.shed``.
 
 Not ported, each refused when asked for (a deployment that sets one must
 not be served silently without it): the telemetry exporter
 (``metrics_port=`` / ``DMLC_METRICS_PORT``), the SLO monitor
-(``DMLC_SLO_SPEC``), the flight recorder (``DMLC_FLIGHT_DIR``), trace
-sampling (``DMLC_TRACE_SAMPLE``) and the fault points
-(``DMLC_FAULT_SPEC``), all ROADMAP queue A.12; the fleet agent
-(``DMLC_ROUTER_REGISTRY``, A.11); the autotuned :meth:`serve_forever`
-(``DMLC_AUTOTUNE``, A.9).
+(``DMLC_SLO_SPEC``), the flight recorder (``DMLC_FLIGHT_DIR``) and
+trace sampling (``DMLC_TRACE_SAMPLE``), all ROADMAP queue A.12; the
+fleet agent (``DMLC_ROUTER_REGISTRY``, A.11); the autotuned
+:meth:`serve_forever` (``DMLC_AUTOTUNE``, A.9).
 
     python -m dmlc_core_tpu_torch.serving.server ckpt_dir=DIR features=N \\
         [model=fm] [dim=16] [port=0] [device=cuda|cpu] ...
@@ -55,6 +60,7 @@ import numpy as np
 
 from ..transport.frames import send_all
 from ..transport.listener import Listener, serve_connection
+from ..utils.faults import FaultInjected, fault_point
 from ..utils.logging import DMLCError, log_info, log_warning
 from ..utils.metrics import metrics
 from ..utils.parameter import get_env
@@ -105,8 +111,6 @@ _REFUSED_ENV = {
                        "queue A.12, telemetry)",
     "DMLC_TRACE_SAMPLE": "trace sampling is not ported yet (ROADMAP queue "
                          "A.12, telemetry)",
-    "DMLC_FAULT_SPEC": "the fault points are not ported yet (ROADMAP queue "
-                       "A.12, telemetry)",
     "DMLC_ROUTER_REGISTRY": "the serving fleet's replica agent is not "
                             "ported yet (ROADMAP queue A.11, serving "
                             "fleet)",
@@ -408,6 +412,14 @@ class PredictionServer:
                                     4 * (rows + 1))
                 vals = np.frombuffer(payload, np.float32, nnz,
                                      4 * (rows + 1) + 4 * nnz)
+                try:
+                    # an injected error sheds the request as admission
+                    # control would: a deterministic OVERLOADED burst
+                    fault_point("serving.server.admit")
+                except FaultInjected as e:
+                    metrics.counter("serving.server.shed").add(1)
+                    respond(req_id, STATUS_OVERLOADED, str(e).encode())
+                    continue
                 with self._inflight_lock:
                     self._inflight += 1
                     self._m_inflight.set(self._inflight)

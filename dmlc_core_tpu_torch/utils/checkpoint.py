@@ -1,4 +1,5 @@
-"""Checkpoints in the JAX package's ``DMLCKPT1`` format, local directories.
+"""Checkpoints in the JAX package's ``DMLCKPT1`` format, in a local
+directory or on a remote store.
 
 Counterpart of ``dmlc_core_tpu/utils/checkpoint.py`` (``save_pytree``,
 ``load_pytree``, ``load_pytree_leaves``, ``flatten_tree``,
@@ -28,7 +29,15 @@ first waits on an event recorded after the clones; the clones live until
 the thread has synchronised that stream.  The snapshot costs a second
 copy of the state on the card.  One save is in flight at a time;
 ``wait`` joins it (for at most ``WRITE_TIMEOUT_S``) and raises its
-error.  Object stores (``_RemoteStore``) wait for ROADMAP A.6.b.
+error.
+
+A directory with a scheme other than ``file://`` (``s3://bucket/run``,
+``hdfs://namenode:port/ckpt``, ...) is kept on that store through the
+I/O layer's filesystems (``_RemoteStore``): each object is published
+whole or not at all (S3's single PUT or multipart complete, an abort on
+a failed write; on a store with ``rename``, WebHDFS, a temporary name
+renamed into place), so the save's stream of pinned staging chunks
+feeds the store's write stream (S3's multipart parts) directly.
 """
 
 from __future__ import annotations
@@ -374,9 +383,148 @@ def _cuda_devices(tree: Any, out: set) -> set:
     return out
 
 
+class _LocalStore:
+    """A local directory: temp file + fsync + rename publishes atomically."""
+
+    def __init__(self, directory: str) -> None:
+        self.base = directory
+        os.makedirs(directory, exist_ok=True)
+
+    def url(self, name: str) -> str:
+        return os.path.join(self.base, name)
+
+    def names(self) -> List[str]:
+        return os.listdir(self.base)
+
+    def read_bytes(self, name: str) -> Optional[bytes]:
+        try:
+            with open(self.url(name), "rb") as f:
+                return f.read()
+        except FileNotFoundError:
+            return None
+
+    def open_read(self, name: str):
+        try:
+            return open(self.url(name), "rb")
+        except FileNotFoundError as e:
+            raise DMLCError(f"checkpoint object missing: {self.url(name)}"
+                            ) from e
+
+    def write_stream(self, name: str, write_fn) -> None:
+        fd, tmp = tempfile.mkstemp(dir=self.base, prefix=f".{name}-")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                write_fn(f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.url(name))
+        except BaseException:
+            try:
+                os.unlink(tmp)
+            except OSError:
+                pass
+            raise
+
+    def delete(self, name: str) -> None:
+        try:
+            os.unlink(self.url(name))
+        except OSError:
+            pass
+
+
+class _RemoteStore:
+    """A directory on a remote store, through the I/O layer's filesystems
+    (the JAX package's ``_RemoteStore``)."""
+
+    def __init__(self, base_uri: str) -> None:
+        from ..io.filesys import get_filesystem
+        from ..io.uri import URI
+        self.base = base_uri.rstrip("/")
+        self._uri = URI
+        self._fs = get_filesystem(URI(self.base))
+
+    def url(self, name: str) -> str:
+        return f"{self.base}/{name}"
+
+    @staticmethod
+    def _is_missing(e: DMLCError) -> bool:
+        """A definite not-found, as against a transient failure: a 500 or
+        a timeout must propagate, or one blip during a save would rebuild
+        the manifest as empty and orphan every earlier checkpoint."""
+        msg = str(e)
+        return "404" in msg or "no such" in msg.lower()
+
+    def names(self) -> List[str]:
+        try:
+            infos = self._fs.list_directory(self._uri(self.base))
+        except DMLCError as e:
+            if self._is_missing(e):
+                return []           # the prefix holds nothing yet
+            raise
+        return [i.path.rstrip("/").rsplit("/", 1)[-1] for i in infos]
+
+    def read_bytes(self, name: str) -> Optional[bytes]:
+        uri = self._uri(self.url(name))
+        try:
+            self._fs.get_path_info(uri)
+        except DMLCError as e:
+            if self._is_missing(e):
+                return None
+            raise
+        with self._fs.open(uri, "r") as f:
+            return f.read()
+
+    def open_read(self, name: str):
+        return self._fs.open(self._uri(self.url(name)), "r")
+
+    def write_stream(self, name: str, write_fn) -> None:
+        """Publish the whole object or nothing: a store whose write lands
+        at close (S3's PUT or multipart complete) is written under the
+        final name and aborted on an error; a store with ``rename``
+        (WebHDFS, whose appends show at once) is written under a
+        temporary name and renamed into place."""
+        from uuid import uuid4
+        rename = getattr(self._fs, "rename", None)
+        target = self.url(name)
+        wire = f"{target}.tmp-{uuid4().hex[:8]}" if rename else target
+        f = self._fs.open(self._uri(wire), "w")
+        try:
+            write_fn(f)
+        except BaseException:
+            abort = getattr(f, "abort", None)
+            if abort is not None:
+                abort()             # no close: nothing published
+            if rename:
+                try:
+                    f.close()
+                    self._fs.delete(self._uri(wire))
+                except DMLCError:
+                    pass
+            raise
+        f.close()
+        if rename:
+            rename(self._uri(wire), self._uri(target))
+
+    def delete(self, name: str) -> None:
+        try:
+            self._fs.delete(self._uri(self.url(name)))
+        except DMLCError as e:
+            # the manifest no longer names it, so a restore never reads it
+            log_info("checkpoint: could not prune %s (%s)", name, e)
+
+
+def _store_for(directory: str):
+    if directory.startswith("file://"):
+        return _LocalStore(directory[len("file://"):])
+    if "://" in directory:
+        return _RemoteStore(directory)
+    return _LocalStore(directory)
+
+
 class CheckpointManager:
-    """Versioned checkpoints in a local directory, atomic publish (temp
-    file + fsync + rename) and bounded retention.
+    """Versioned checkpoints with atomic publish and bounded retention,
+    in a local directory (a path or ``file://``) or on a remote store
+    (any other ``scheme://`` the I/O layer registers).
 
     Layout::
 
@@ -385,36 +533,20 @@ class CheckpointManager:
     """
 
     def __init__(self, directory: str, max_to_keep: int = 3) -> None:
-        check("://" not in directory,
-              f"only local directories are supported, got {directory!r}")
         self.dir = directory
         self.max_to_keep = max_to_keep
-        os.makedirs(directory, exist_ok=True)
+        self._store = _store_for(directory)
         self._pending: Optional[Tuple[threading.Thread, List[Any]]] = None
 
     def _path(self, step: int) -> str:
-        return os.path.join(self.dir, f"ckpt-{step}.bin")
+        return self._store.url(f"ckpt-{step}.bin")
 
     def _publish(self, name: str, write_fn) -> None:
-        fd, tmp = tempfile.mkstemp(dir=self.dir, prefix=f".{name}-")
-        try:
-            with os.fdopen(fd, "wb") as f:
-                write_fn(f)
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, os.path.join(self.dir, name))
-        except BaseException:
-            try:
-                os.unlink(tmp)
-            except OSError:
-                pass
-            raise
+        self._store.write_stream(name, write_fn)
 
     def _read_manifest(self) -> Dict[str, Any]:
-        try:
-            with open(os.path.join(self.dir, "MANIFEST.json"), "rb") as f:
-                raw = f.read()
-        except FileNotFoundError:
+        raw = self._store.read_bytes("MANIFEST.json")
+        if raw is None:
             return {"latest": None, "steps": [], "meta": {}}
         try:
             return json.loads(raw.decode())
@@ -422,7 +554,7 @@ class CheckpointManager:
             # torn manifest: the published ckpt files are the truth
             steps = sorted(
                 int(f[len("ckpt-"):-len(".bin")])
-                for f in os.listdir(self.dir)
+                for f in self._store.names()
                 if f.startswith("ckpt-") and f.endswith(".bin")
                 and f[len("ckpt-"):-len(".bin")].isdigit())
             log_info("checkpoint: manifest corrupt, rebuilt from %d files",
@@ -456,10 +588,7 @@ class CheckpointManager:
         blob = json.dumps(m, indent=2).encode()
         self._publish("MANIFEST.json", lambda f: f.write(blob))
         for drop in dropped:         # after the manifest no longer names it
-            try:
-                os.unlink(self._path(drop))
-            except OSError:
-                pass
+            self._store.delete(f"ckpt-{drop}.bin")
         log_info("checkpoint: saved step %d -> %s", step, self._path(step))
         return self._path(step)
 
@@ -530,8 +659,8 @@ class CheckpointManager:
         check(step in m["steps"],
               f"no checkpoint for step {step}; have {m['steps']}")
         try:
-            return step, open(self._path(step), "rb")
-        except FileNotFoundError as e:
+            return step, self._store.open_read(f"ckpt-{step}.bin")
+        except DMLCError as e:
             raise DMLCError(f"checkpoint file for step {step} is missing "
                             f"({self._path(step)})") from e
 

@@ -7,7 +7,9 @@ enum domains (a list, or a callable read at each check), ``init``
 from a ``{key: value}`` dict that rejects unknown keys, and
 ``doc_string``.  Bad values raise :class:`ParamError`.  Beside them,
 :func:`get_env`, the typed environment read of the serving layer's
-deployment settings.  The port keeps its own copy so that it never
+deployment settings, and :func:`env_int` / :func:`parse_lenient_bool`,
+the lenient reads of knobs parsed on worker threads (a malformed value
+logs one warning and reads as unset).  The port keeps its own copy so that it never
 imports the JAX package::
 
     class TrainParams(Parameter):
@@ -24,9 +26,10 @@ import math
 import os
 from typing import Any, Callable, Dict, Iterable, List, Optional, Type, Union
 
-from .logging import DMLCError
+from .logging import DMLCError, log_warning
 
-__all__ = ["Parameter", "field", "ParamError", "get_env"]
+__all__ = ["Parameter", "field", "ParamError", "get_env", "env_int",
+           "parse_lenient_bool"]
 
 _NOTHING = object()
 
@@ -207,3 +210,43 @@ def get_env(key: str, default: Any) -> Any:
     if default is None:
         return raw
     return t(raw)
+
+
+# keys already warned about: a malformed value logs one warning a process,
+# not one a worker thread's read
+_env_warned: set = set()
+
+
+def _warn_once(key: str, msg: str, *args: Any) -> None:
+    if key not in _env_warned:
+        _env_warned.add(key)
+        log_warning(msg, *args)
+
+
+def env_int(key: str, default: int, *, minimum: Optional[int] = None) -> int:
+    """Lenient integer read of ``key``: ``default`` when unset or
+    malformed (one warning a key and process), clamped at ``minimum``."""
+    raw = os.environ.get(key)
+    if raw is None or not raw.strip():
+        return default
+    try:
+        v = int(raw)
+    except ValueError:
+        _warn_once(key, "ignoring malformed %s=%r (want an integer); "
+                   "using default %r", key, raw, default)
+        return default
+    return v if minimum is None else max(minimum, v)
+
+
+def parse_lenient_bool(key: str) -> Optional[bool]:
+    """Lenient boolean read of ``key``: None when unset, or malformed
+    (one warning a key and process)."""
+    raw = os.environ.get(key)
+    if raw is None or not raw.strip():
+        return None
+    try:
+        return _parse_bool(raw)
+    except ValueError:
+        _warn_once(key, "ignoring malformed %s=%r (want true/false/1/0)",
+                   key, raw)
+        return None

@@ -9,6 +9,10 @@
   template; a JAX ``save_async`` checkpoint restores in the port.
 * One save in flight at a time; a failed background save is raised by
   ``wait()`` and by the next ``save_async``.
+* On the fake S3 (the JAX package's, on loopback): ``save_async`` writes
+  the bytes of a local ``save`` through multipart parts and the JAX
+  manager restores them; a part that fails past its retries mid-write
+  publishes nothing, and the manifest keeps the last checkpoint.
 * ``flatten_tree``, ``unflatten_like``, ``load_pytree_leaves``,
   ``restore_leaves`` and ``fast_forward`` against the JAX functions, and
   the JAX package's own checkpoint tests on the port's module.
@@ -34,6 +38,7 @@ from dmlc_core_tpu_torch.models import (FactorizationMachine,  # noqa: E402
 from dmlc_core_tpu_torch.models.convert import params_tree  # noqa: E402
 from dmlc_core_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
+from test_torch_remote_filesys import S3, s3_server  # noqa: E402,F401
 
 F, D = 512, 4
 
@@ -137,6 +142,56 @@ def test_save_async_is_a_snapshot_of_the_call(tmp_path, monkeypatch):
     mgr.wait()
     assert ((tmp_path / "ck" / "ckpt-3.bin").read_bytes()
             == (tmp_path / "ref" / "ckpt-3.bin").read_bytes())
+
+
+@pytest.fixture
+def small_parts(monkeypatch):
+    """4 KiB multipart parts (S3's own floor is 5 MiB) and millisecond
+    backoff, so a small state spans several parts and retries are
+    quick."""
+    from dmlc_core_tpu_torch.io import remote_filesys as rfs
+    monkeypatch.setattr(rfs._s3_fs, "_part_size", 4096)
+    monkeypatch.setenv("DMLC_IO_BACKOFF_BASE", "0.001")
+    monkeypatch.setenv("DMLC_IO_BACKOFF_MAX", "0.01")
+
+
+def test_save_async_to_s3_writes_the_bytes_of_save(tmp_path, s3_server,
+                                                   small_parts):
+    model, opt = _trained_fm()
+    ckpt.CheckpointManager(str(tmp_path / "sync")).save(
+        3, _state(model, opt), meta={"model": "fm"})
+    mgr = ckpt.CheckpointManager("s3://bkt/run")
+    mgr.save_async(3, _state(model, opt), meta={"model": "fm"})
+    assert mgr.wait() == "s3://bkt/run/ckpt-3.bin"
+    want = (tmp_path / "sync" / "ckpt-3.bin").read_bytes()
+    assert S3.objects["bkt/run/ckpt-3.bin"] == want
+    assert len(want) > 4 * 4096 and max(S3.part_attempts) == \
+        -(-len(want) // 4096) and S3.uploads == {}
+    jmgr = jckpt.CheckpointManager("s3://bkt/run")
+    step, state = jmgr.restore()
+    assert step == 3 and jmgr.meta(3) == {"model": "fm"}
+    a = ckpt.flatten_tree(state)
+    b = ckpt.flatten_tree(_state(model, opt))
+    assert a.keys() == b.keys()
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_a_part_fault_mid_write_publishes_nothing(s3_server, small_parts):
+    model, opt = _trained_fm()
+    mgr = ckpt.CheckpointManager("s3://bkt/run")
+    mgr.save(1, _state(model, opt))
+    manifest = S3.objects["bkt/run/MANIFEST.json"]
+    S3.part_attempts.clear()
+    S3.fail_next = ["part"] * 5            # the first part, past retries
+    mgr.save_async(2, _state(model, opt))
+    with pytest.raises(DMLCError, match="async checkpoint save failed"):
+        mgr.wait()
+    assert S3.part_attempts == [1, 1, 1]   # three tries of part 1
+    assert "bkt/run/ckpt-2.bin" not in S3.objects
+    assert S3.uploads == {}                # the upload was aborted
+    assert S3.objects["bkt/run/MANIFEST.json"] == manifest
+    assert mgr.steps == [1] and mgr.restore()[0] == 1
 
 
 def test_save_async_restores_in_jax_and_back(tmp_path):

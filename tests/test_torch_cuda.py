@@ -1307,9 +1307,11 @@ def test_page_replay_on_the_card(dev, tmp_path):
     (d / "empty.libsvm").write_bytes(b"")
 
     def body():
+        # a writer queue of the epoch's 16 batches (249 rows at 16): the
+        # build can never be dropped by a writer that falls behind
         with DeviceLoader(create_parser(f"{d}#{tmp_path}/c",
                                         engine="native"), 16, 1024,
-                          device=dev) as ld:
+                          device=dev, cache_queue_pages=16) as ld:
             epochs = []
             for e in range(3):
                 if e:

@@ -13,6 +13,16 @@
 * A page view never enters the buffer pool: the pool refuses buffers
   that are not writable, and every buffer the loader hands out is its
   own.
+* A build the writer cannot keep up with is dropped, never the epoch:
+  with a queue of one page and ``page_cache.write:latency=50ms`` the
+  epoch is unchanged, no page file and no ``.tmp`` is left, and the next
+  epoch is a miss that rebuilds.
+
+Every loader here that should write a page file gets a writer queue of
+``EPOCH_BATCHES`` pages, the batches of the test epoch: the writer's
+queue never blocks the epoch, so with the default of 8 a loaded host can
+fall behind and drop the build (by design), and a test that counts hits
+would read one fewer.
 """
 
 import os
@@ -38,6 +48,7 @@ from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
 
 ROWS = 64
 CAP = 1024
+EPOCH_BATCHES = 12          # 300 + 250 + 170 rows of data_dir, at 64 a batch
 
 
 @pytest.fixture(scope="module")
@@ -84,13 +95,15 @@ def _assert_epochs_equal(a, b):
 def _port_loader(uri, **kw):
     parser = kw.pop("parser", {})
     kw.setdefault("engine", "native")
+    kw.setdefault("cache_queue_pages", EPOCH_BATCHES)
     return DeviceLoader(create_parser(uri, engine=kw["engine"], **parser),
                         ROWS, CAP, id_mod=2048, device="cpu", **kw)
 
 
 def _jax_loader(uri):
     return JDeviceLoader(jcreate_parser(uri), ROWS, CAP, id_mod=2048,
-                         put_threads=1, wire_compact=False, prefetch=1)
+                         put_threads=1, wire_compact=False, prefetch=1,
+                         cache_queue_pages=EPOCH_BATCHES)
 
 
 @pytest.mark.parametrize("writer", ["port", "jax"])
@@ -303,6 +316,42 @@ def test_cache_resolution_rules(lib, data_dir, tmp_path):
         assert ld._cache_path is None
     with pytest.raises(DMLCError, match="fused path"):
         _port_loader(uri, layout="rowmajor", cache=str(tmp_path / "y"))
+
+
+def test_a_dropped_build_leaves_nothing_and_the_next_epoch_rebuilds(
+        lib, data_dir, tmp_path, monkeypatch):
+    """A writer queue of one page (two slots, the floor) and 50 ms of
+    injected latency before each page write: the writer falls behind and
+    the build is dropped on purpose.  The epoch it was offered from is
+    the uncached epoch, no page file and no ``.tmp`` is left, and the
+    next epoch is a miss that rebuilds (and the one after it a hit)."""
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    uri = f"{data_dir}#{tmp_path}/c"
+    delays = metrics.counter("faults.page_cache.write.delays")
+    before = delays.value
+    monkeypatch.setenv("DMLC_FAULT_SPEC", "page_cache.write:latency=50ms")
+    with _port_loader(uri, cache_queue_pages=1) as ld:
+        dropped = _epoch(ld)
+        stats = dict(ld.cache_stats)
+    assert delays.value > before                  # the latency fired
+    assert stats["misses"] == 1 and stats["drops"] == 1
+    assert stats["hits"] == 0 and len(dropped) == EPOCH_BATCHES
+    # the raw-chunk log of the fragment ("c", "c.done") and the data
+    assert sorted(os.listdir(tmp_path)) == ["c", "c.done", "d"]
+    with _port_loader(str(data_dir), cache=None) as ref:
+        _assert_epochs_equal(_epoch(ref), dropped)
+    monkeypatch.delenv("DMLC_FAULT_SPEC")
+    with _port_loader(uri) as ld:
+        rebuilt = _epoch(ld)
+        assert ld.cache_stats == dict(ld.cache_stats, hits=0, misses=1,
+                                      drops=0)
+        ld.before_first()
+        served = _epoch(ld)
+        assert ld.cache_stats["hits"] == 1
+    assert page_cache.page_file_info(
+        f"{tmp_path}/c.pages")["pages"] == EPOCH_BATCHES
+    _assert_epochs_equal(dropped, rebuilt)
+    _assert_epochs_equal(dropped, served)
 
 
 def test_writer_drops_a_build_it_cannot_keep_up_with(tmp_path):

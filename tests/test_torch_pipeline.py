@@ -92,8 +92,8 @@ def test_parser_parts_cover_the_file_like_jax(tmp_path, num_parts):
 def test_parser_rejects_what_is_not_ported(tmp_path):
     with pytest.raises(DMLCError, match="unknown parser format 'tsv'"):
         create_parser(str(tmp_path / "x"), parser_type="tsv")
-    with pytest.raises(DMLCError, match="local files"):
-        create_parser("s3://bucket/x")
+    with pytest.raises(DMLCError, match="unknown filesystem scheme 'ftp'"):
+        create_parser("ftp://host/x")
     with pytest.raises(DMLCError, match="no such file"):
         create_parser(str(tmp_path / "missing"))
 

@@ -10,7 +10,10 @@ package on the CPU.
   1e-5`` of the JAX engine (float32 sums in different orders).
 * The JAX server tests (``tests/test_serving.py``), replayed on the port.
 * What the port's server does not have is refused, naming its ROADMAP
-  item.
+  item.  ``DMLC_FAULT_SPEC`` is honoured: the ``serving.server.admit``
+  fault point sheds an injected burst as ``OVERLOADED``, byte for byte
+  as the JAX server does, and the client's retries answer every
+  request.
 * The copied ``Histogram``, ``RetryPolicy`` and ``CircuitBreaker`` give
   the JAX classes' outputs on the same seeds and clocks (exact: the
   arithmetic is the same Python).
@@ -54,6 +57,8 @@ from dmlc_core_tpu_torch.utils import retry as tretry  # noqa: E402
 from dmlc_core_tpu_torch.utils.checkpoint import (  # noqa: E402
     CheckpointManager)
 from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
+from test_torch_remote_filesys import (S3, hdfs_server,  # noqa: E402,F401
+                                       s3_server)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 F, D = 3000, 8                 # the FM's features and factor width
@@ -571,12 +576,80 @@ def test_engine_serves_a_module_with_subtrees_and_a_jax_tree(kind):
     ("DMLC_SLO_SPEC", "serving.latency_s:p99<0.01", "A.12"),
     ("DMLC_FLIGHT_DIR", "/nonexistent", "A.12"),
     ("DMLC_TRACE_SAMPLE", "0.5", "A.12"),
-    ("DMLC_FAULT_SPEC", "serving.server.admit:error=1.0", "A.12"),
 ])
 def test_unported_server_parts_are_refused(monkeypatch, env, value, item):
     monkeypatch.setenv(env, value)
     with pytest.raises(DMLCError, match=f"ROADMAP queue {item}"):
         PredictionServer(_Stub(), warmup=False)
+
+
+def test_admit_fault_sheds_as_the_jax_server_does():
+    """``serving.server.admit:error=1:times=2``: the first two requests
+    are answered OVERLOADED (the injected fault's message), the third is
+    served; both servers answer the same bytes."""
+    from dmlc_core_tpu.utils import faults as jfaults
+    from dmlc_core_tpu_torch.utils import faults as tfaults
+    got = {}
+    for name, cls, mod in (("jax", jserver.PredictionServer, jfaults),
+                           ("port", PredictionServer, tfaults)):
+        shed = (jmetrics if name == "jax" else tmetrics).metrics.counter(
+            "serving.server.shed")
+        before = shed.value
+        srv = cls(_Stub(), warmup=False).start()
+        try:
+            with mod.inject_faults("serving.server.admit:error=1:times=2"):
+                got[name] = _answers(
+                    (srv.host, srv.port),
+                    [(_frame(i, *_ONE), 0.05) for i in range(3)], 3)
+        finally:
+            srv.stop()
+        assert shed.value == before + 2
+    assert got["port"] == got["jax"]
+    for i, status in enumerate((1, 1, 0)):
+        assert tserver.RSP_HEADER.unpack(
+            got["port"][i][:tserver.RSP_HEADER.size])[1] == status
+    assert b"injected fault at 'serving.server.admit'" in got["port"][0]
+
+
+def test_client_retries_answer_every_request_through_a_shed_burst(
+        monkeypatch):
+    """``DMLC_FAULT_SPEC='serving.server.admit:error=1:times=5'`` sheds
+    exactly five admissions; the port's client retries them (its budget
+    raised to 8 tries, as a burst of 5 can land on one request) and
+    every answer is right."""
+    monkeypatch.setenv("DMLC_FAULT_SPEC",
+                       "serving.server.admit:error=1:times=5")
+    monkeypatch.setenv("DMLC_SERVING_RETRIES", "8")
+    monkeypatch.setenv("DMLC_SERVING_BACKOFF_BASE", "0.001")
+    shed = tmetrics.metrics.counter("serving.server.shed")
+    retries = tmetrics.metrics.counter("retry.serving.client.retries")
+    shed0, retries0 = shed.value, retries.value
+    w = np.arange(F_LR, dtype=np.float32) / F_LR
+    rng = np.random.default_rng(16)
+    reqs = [_req(rng, int(rng.integers(1, 6)), 8, F_LR) for _ in range(40)]
+    out = [None] * len(reqs)
+    try:
+        with PredictionServer(_logreg_engine(w)).start() as srv:
+            with PredictClient(srv.host, srv.port) as c:
+                def run(k):
+                    for i in range(k, len(reqs), 4):
+                        out[i] = c.predict(*reqs[i], timeout=30)
+                ts = [threading.Thread(target=run, args=(k,))
+                      for k in range(4)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join(timeout=60)
+                assert not any(t.is_alive() for t in ts)
+    finally:
+        from dmlc_core_tpu_torch.utils import faults as tfaults
+        monkeypatch.delenv("DMLC_FAULT_SPEC")
+        tfaults.clear_faults()
+    for r, got in zip(reqs, out):
+        np.testing.assert_allclose(got, _logreg_ref(w, 0.25, *r),
+                                   rtol=1e-4, atol=1e-5)
+    assert shed.value == shed0 + 5
+    assert retries.value == retries0 + 5
 
 
 def test_metrics_port_is_refused():
@@ -631,16 +704,54 @@ def test_ffm_cannot_be_served_by_either_engine():
 
 
 def test_serve_main_serves_a_checkpoint_in_a_subprocess(tmp_path):
+    _serve_main_serves(tmp_path, str(tmp_path / "ck"))
+
+
+def test_serve_main_serves_a_checkpoint_on_s3(tmp_path, s3_server):
+    """``serve_main ckpt_dir=s3://...``: the subprocess reads the
+    endpoint and keys from the environment the fake S3 set."""
+    _serve_main_serves(tmp_path, "s3://bkt/ck")
+    assert "bkt/ck/ckpt-3.bin" in S3.objects
+
+
+@pytest.mark.parametrize("kind", ["s3", "hdfs"])
+def test_watch_checkpoints_on_a_remote_store(s3_server, hdfs_server, kind):
+    d = ("s3://bkt/run" if kind == "s3" else
+         f"hdfs://127.0.0.1:{hdfs_server[0].server_address[1]}/run")
+    mgr = CheckpointManager(d)
+    mgr.save(1, {"params": {"w": np.full(F_LR, 1.0, np.float32),
+                            "b": np.float32(0.0)}}, meta={"model": "logreg"})
+    eng = _logreg_engine(np.zeros(F_LR), b=0.0, ladder=[(16, 512)])
+    srv = PredictionServer(eng)
+    srv.watch_checkpoints(d, interval_s=0.05)
+    assert eng.params_version == 1         # the first poll loaded step 1
+    srv.start()
+    try:
+        mgr.save(4, {"params": {"w": np.full(F_LR, 2.0, np.float32),
+                                "b": np.float32(0.0)}})
+        deadline = time.monotonic() + 20
+        while eng.params_version == 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        with PredictClient(srv.host, srv.port) as c:
+            assert c.predict(np.array([1], np.int32),
+                             np.ones(1, np.float32))[0] == 2.0
+    finally:
+        srv.stop()
+    assert srv.reload_from_checkpoint(d, step=1) == 1
+
+
+def _serve_main_serves(tmp_path, ckpt_dir):
+    """``serve_main`` in a subprocess on ``ckpt_dir``: both packages'
+    clients get the JAX engine's scores."""
     p = _fm_params(6)
-    CheckpointManager(str(tmp_path / "ck")).save(3, {"params": p},
-                                                 meta={"model": "fm"})
+    CheckpointManager(ckpt_dir).save(3, {"params": p}, meta={"model": "fm"})
     env = dict(os.environ, PYTHONPATH=REPO)
     for key in ("DMLC_AUTOTUNE", "DMLC_METRICS_PORT", "DMLC_FAULT_SPEC"):
         env.pop(key, None)
     log = open(tmp_path / "server.log", "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "dmlc_core_tpu_torch.serving.server",
-         f"ckpt_dir={tmp_path / 'ck'}", f"features={F}", "model=fm",
+         f"ckpt_dir={ckpt_dir}", f"features={F}", "model=fm",
          f"dim={D}", "host=127.0.0.1", "port=0", "device=cpu"],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=log, text=True)
     try:
