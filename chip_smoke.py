@@ -161,7 +161,26 @@ Phases, in order; any failure exits non-zero and prints no result:
    against in-process predict (1e-5) and mode=predict (2e-6), then
    again under DMLC_FAULT_SPEC='serving.server.admit:error=1:times=5':
    exactly 5 OVERLOADED, every request answered by the client's
-   retries.  Launch counts are read around its training and serving.
+   retries.  Launch counts are read around its training and serving;
+   ingest — disaggregated ingest at full width (FM flat, 2^20 x 32,
+   4096-row batches, nnz_cap 131072, Adam 1e-3) on the training text:
+   every batch of it and of a raw-value file (no dictionary) through the
+   native packer and streampack, v2 and v3; on the card the v3 decode
+   kernel's batch array_equal to the v2 batch and to the plain v3 decode
+   (wire bytes, pack ms, decode and H2D us per batch); ingest workers as
+   processes of their own (python -m dmlc_core_tpu_torch.pipeline.
+   ingest_service): two epochs from two workers hold the local loader's
+   multiset of rows; FM trained from one worker against the local loader
+   with phase 5's checks, from two workers per step and through
+   FusedTrainer(k=8) (learning, steps/s, the wait in next_batch, the
+   distinct v3 metas and captured graphs); dmlc-train workers= with
+   kstep=8 and per step (learning; mode=predict within 2e-6 of the
+   checkpoint) and model=ffm workers= exiting 2; a reader fault
+   (ingest.reader.restarts, every row still read); serve_ingest with
+   DMLC_AUTOTUNE=1 until its tuner converges and persists; the loader's
+   steady state with v2 and v3 and with put_threads 1 and 2, in turns.
+   Launch counts are read around the training from workers.  Every
+   earlier phase's loaders run at the defaults: the v3 wire on the card.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -1710,10 +1729,10 @@ def phase_feed(torch, power: str, train_file: str) -> None:
     from dmlc_core_tpu_torch import native
     from dmlc_core_tpu_torch.data import RowBlock, create_parser, parse_libsvm
     from dmlc_core_tpu_torch.data.parser import _default_nthreads
-    from dmlc_core_tpu_torch.pipeline import (DeviceLoader, fused_words,
-                                              make_decoder, pack_flat,
-                                              pack_rowmajor)
+    from dmlc_core_tpu_torch.pipeline import (DeviceLoader, make_decoder,
+                                              pack_flat, pack_rowmajor)
     from dmlc_core_tpu_torch.pipeline.loader import (_decode_on_host,
+                                                     _fused_words_meta,
                                                      _host_fused)
     t0 = time.monotonic()
     if not native.available():
@@ -1778,7 +1797,7 @@ def phase_feed(torch, power: str, train_file: str) -> None:
         ld.close()
     h2d, dec, nbytes = [], [], []
     for buf, meta in items:
-        words = fused_words(ROWS_TR, meta)
+        words = _fused_words_meta(ROWS_TR, meta)
         host = torch.empty(words, dtype=torch.int32, pin_memory=True)
         host.numpy()[:] = buf[:words]
         dev = torch.empty(words, dtype=torch.int32, device="cuda")
@@ -2870,6 +2889,643 @@ def phase_remote(torch, power: str, data: str, train_file: str,
         store.close()
         shutil.rmtree(store.root, ignore_errors=True)
     return launches
+
+
+# -- [ingest] ---------------------------------------------------------------
+
+INGEST_PARTS = 2           # worker processes of the two-worker runs
+INGEST_EPOCHS = 2          # epochs of the union and steady-state runs
+INGEST_FAULTS = "ingest.recv:error=1:times=1:after=3"
+TUNE_MAX_CONNECTIONS = 48  # connections served while the tuner converges
+RAW_ROWS = 2 * ROWS_TR     # rows of the high-cardinality (raw value) file
+
+
+def _write_raw_values(path: str, rows: int, seed: int) -> None:
+    """libsvm text of the training file's shape whose values are full
+    float32 draws (nine significant digits): too many distinct values for
+    the v3 dictionary, so the packer ships them raw (dict bits 0)."""
+    rng = np.random.default_rng(seed)
+    with open(path, "wb") as f:
+        for i in range(rows):
+            n = int(rng.integers(5, 40))
+            idx = np.sort(rng.choice(1_000_000, size=n, replace=False))
+            f.write(b"%d " % (i & 1) + b" ".join(
+                b"%d:%.9g" % (j, v) for j, v in
+                zip(idx.tolist(), rng.random(n).tolist())) + b"\n")
+
+
+class _Workers:
+    """``python -m dmlc_core_tpu_torch.pipeline.ingest_service`` for parts
+    0..nparts-1 of ``uri``, each a process of its own on loopback serving
+    until stopped; its port is read from its log line."""
+
+    def __init__(self, uri: str, nparts: int, env: dict) -> None:
+        self.procs, self.ports, self._lines, self._ready = [], [], [], []
+        try:
+            for part in range(nparts):
+                self._start(uri, part, nparts, env)
+        except BaseException:
+            self.stop()
+            raise
+
+    def _start(self, uri, part, nparts, env) -> None:
+        p = subprocess.Popen(
+            [sys.executable, "-m",
+             "dmlc_core_tpu_torch.pipeline.ingest_service", uri, str(part),
+             str(nparts), "libsvm", "0", f"batch_rows={ROWS_TR}",
+             f"nnz_cap={CAP_TR}", f"id_mod={F_FEATURES}", "device=cuda"],
+            cwd=ROOT, env=env, stderr=subprocess.PIPE,
+            stdout=subprocess.DEVNULL, text=True)
+        self.procs.append(p)
+        ready, box = threading.Event(), {}
+
+        def drain():
+            # read every line, so the worker never blocks on a full pipe
+            for ln in p.stderr:
+                self._lines.append(ln.rstrip())
+                if "ingest worker: part" in ln and not ready.is_set():
+                    box["port"] = int(ln.rsplit(":", 1)[1].split()[0])
+                    box["wire"] = ln.rsplit("(", 1)[-1].rstrip(")\n")
+                    ready.set()
+            ready.set()
+        threading.Thread(target=drain, daemon=True).start()
+        self._ready.append((part, nparts, ready, box))
+
+    def wait(self) -> "_Workers":
+        """Wait until every worker listens (they start in parallel)."""
+        for part, nparts, ready, box in self._ready:
+            if not ready.wait(timeout=120) or "port" not in box:
+                raise RuntimeError(f"ingest worker {part}/{nparts} never "
+                                   f"listened: {self._lines[-5:]}")
+            if box["wire"] != "wire v3":
+                raise RuntimeError(f"worker {part} ships {box['wire']}, not "
+                                   f"the card's v3")
+            self.ports.append(box["port"])
+        return self
+
+    @property
+    def addresses(self) -> list:
+        return [("127.0.0.1", p) for p in self.ports]
+
+    @property
+    def arg(self) -> str:
+        return ",".join(f"127.0.0.1:{p}" for p in self.ports)
+
+    def stop(self) -> None:
+        for p in self.procs:
+            if p.poll() is None:
+                p.terminate()
+        for p in self.procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            if p.stderr is not None:
+                p.stderr.close()
+
+
+def _row_keys(batch) -> list:
+    """Each real row of a batch as ``(label, ids bytes, vals bytes)``."""
+    ids, vals = batch["ids"].cpu().numpy(), batch["vals"].cpu().numpy()
+    rp = batch["row_ptr"].cpu().numpy()
+    labels = batch["labels"].cpu().numpy()
+    weights = batch["weights"].cpu().numpy()
+    return [(float(labels[r]), ids[rp[r]:rp[r + 1]].tobytes(),
+             vals[rp[r]:rp[r + 1]].tobytes())
+            for r in range(len(labels)) if weights[r] > 0]
+
+
+def _rows_of(loader) -> "collections.Counter":
+    import collections
+    rows = collections.Counter()
+    for b in loader:
+        rows.update(_row_keys(b))
+    return rows
+
+
+def _ingest_wire(torch, timer: Timer, power: str, train_file: str,
+                 raw_file: str) -> dict:
+    """Step 1: every batch of the dictionary-coded training text and of
+    the raw-value file, through the native packer and streampack, v2 and
+    v3.  On the card the kernel's v3 decode must be array_equal to the
+    v2 decode of the same batch (vals as bits) and to the plain v3 decode.
+    Logs per batch the wire bytes, pack ms, decode µs of kernel and plain
+    version, and H2D µs; returns the wire_decode kernel's row (the first
+    dictionary batch; the raw file's first batch as ``raw``)."""
+    from dmlc_core_tpu_torch import native
+    from dmlc_core_tpu_torch.data import RowBlock
+    from dmlc_core_tpu_torch.kernels import wire_decode, wire_decode_reference
+    from dmlc_core_tpu_torch.pipeline.loader import (_decode_meta,
+                                                     _fused_words_meta,
+                                                     make_decoder)
+    out = {}
+    for label, path in (("dict", train_file), ("raw", raw_file)):
+        with open(path, "rb") as f:
+            lines = f.read().splitlines(keepends=True)
+        texts = [b"".join(lines[i:i + ROWS_TR])
+                 for i in range(0, len(lines), ROWS_TR)]
+        blocks = []
+        for t in texts:
+            d = native.parse_libsvm(t, 0)
+            blocks.append(RowBlock(d["offsets"], d["labels"], d["indices"],
+                                   d["values"], d["weights"]))
+
+        def pack(kind, compact):
+            items = []
+            t0 = time.perf_counter()
+            if kind == "native":
+                p = native.Packer(ROWS_TR, CAP_TR, id_mod=F_FEATURES,
+                                  compact=compact)
+                for blk in blocks:
+                    items += [(b.copy(), m) for b, m in p.feed(blk)]
+            else:
+                p = native.SpPacker(ROWS_TR, CAP_TR, id_mod=F_FEATURES,
+                                    compact=compact)
+                for t in texts:
+                    items += [(b.copy(), m) for b, m in p.feed_text(t)]
+            tail = p.flush()
+            if tail is not None:
+                items.append((tail[0].copy(), tail[1]))
+            secs = time.perf_counter() - t0
+            p.close()
+            return [(b[:_fused_words_meta(ROWS_TR, m)], m)
+                    for b, m in items], secs * 1e3 / max(1, len(items))
+
+        for kind in ("native", "streampack"):
+            (v2, ms2), (v3, ms3) = pack(kind, False), pack(kind, True)
+            if len(v2) != len(v3) or not v2:
+                raise RuntimeError(f"[ingest] {label} {kind}: {len(v2)} v2 "
+                                   f"batches, {len(v3)} v3")
+            for i, ((b2, m2), (b3, m3)) in enumerate(zip(v2, v3)):
+                nnz, w, dbits = _decode_meta(m3)
+                if nnz != m2 or not w or (dbits == 0) != (label == "raw"):
+                    raise RuntimeError(f"[ingest] {label} batch {i}: meta "
+                                       f"{(nnz, w, dbits)} against v2 {m2}")
+                pinned = []
+                for b in (b2, b3):
+                    h = torch.empty(len(b), dtype=torch.int32,
+                                    pin_memory=True)
+                    h.numpy()[:] = b
+                    pinned.append(h)
+                dev2, dev3 = (h.cuda() for h in pinned)
+                got = make_decoder(ROWS_TR, m3)(dev3)
+                want = make_decoder(ROWS_TR, m2)(dev2)
+                plain = wire_decode_reference(dev3, ROWS_TR, nnz, w, dbits)
+                for k in want:
+                    a, b = got[k], want[k]
+                    if a.dtype == torch.float32:
+                        a, b = a.view(torch.int32), b.view(torch.int32)
+                    if not torch.equal(a, b):
+                        raise RuntimeError(f"[ingest] {label} {kind} batch "
+                                           f"{i}: v3 {k} differs from v2")
+                err = 0.0
+                for k, p in zip(("ids", "vals", "segments"), plain):
+                    a = got[k]
+                    err = max(err, float((a.double() - p.double()).abs()
+                                         .max()))
+                    if a.dtype == torch.float32:
+                        a, p = a.view(torch.int32), p.view(torch.int32)
+                    if not torch.equal(a, p):
+                        raise RuntimeError(f"[ingest] {label} {kind} batch "
+                                           f"{i}: the kernel's {k} differs "
+                                           f"from the plain decode's")
+                if kind != "native":
+                    continue
+                h2d = [timer.ms(lambda d=d, h=h: d.copy_(h, non_blocking=True),
+                                reps=10) for d, h in zip((dev2, dev3),
+                                                         pinned)]
+                k_ms = timer.ms(lambda: wire_decode(dev3, ROWS_TR, nnz, w,
+                                                    dbits), reps=10)
+                p_ms = timer.ms(lambda: wire_decode_reference(
+                    dev3, ROWS_TR, nnz, w, dbits), reps=10)
+                log(f"[ingest] wire {label} batch {i}: {len(b2) * 4} bytes "
+                    f"v2, {len(b3) * 4} v3 ({len(b3) / len(b2):.4f}; id "
+                    f"width {w}, dict bits {dbits}); pack ms a batch v2 "
+                    f"{ms2:.4f}, v3 {ms3:.4f}; decode kernel "
+                    f"{k_ms * 1e3:.2f} us, plain {p_ms * 1e3:.2f} us; H2D v2 "
+                    f"{h2d[0] * 1e3:.2f} us, v3 {h2d[1] * 1e3:.2f} us "
+                    f"[{power}]")
+                if i == 0:
+                    b_ms, b_by = bound(len(b3) * 4 + 3 * nnz * 4, 0)
+                    out[label] = {"ms": k_ms, "plain_ms": p_ms,
+                                  "bound_ms": b_ms, "bound_by": b_by,
+                                  "library_ms": None, "max_abs_err": err,
+                                  "h2d_v2_ms": h2d[0], "h2d_v3_ms": h2d[1],
+                                  "wire_bytes": [len(b2) * 4, len(b3) * 4],
+                                  "meta": [nnz, w, dbits]}
+            log(f"[ingest] wire {label} {kind}: {len(v3)} batches, v3 "
+                f"array_equal to v2 and the kernel to the plain decode on "
+                f"the card; pack ms a batch v2 {ms2:.4f}, v3 {ms3:.4f} "
+                f"(host clock) [{power}]")
+    # the floor: the same launch with next to no work
+    tiny = torch.zeros(64, dtype=torch.int32, device="cuda")
+    row = dict(out["dict"])
+    row["floor_ms"] = timer.ms(lambda: wire_decode(tiny, 1, 8, 8, 0),
+                               reps=10)
+    row["raw"] = out["raw"]
+    return row
+
+
+def _ingest_train_pair(torch, power: str, workers, train_file: str,
+                       eval_file: str) -> dict:
+    """Step 3a: FM flat, 8 steps from one worker (one part: the local
+    order) and from the local loader, with phase 5's checks between the
+    two runs (the local run in place of the plain one).  Returns the
+    worker run's launch counts."""
+    from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
+                                     evaluate_stream, make_train_step)
+    from dmlc_core_tpu_torch.pipeline import RemoteIngestLoader
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    def eval_loader():
+        return DeviceLoader(create_parser(eval_file), ROWS_TR, CAP_TR,
+                            id_mod=F_FEATURES, device="cuda")
+
+    def run(loader, counted):
+        model = _model(torch, "fm", "kernel")
+        p_init = {k: p.detach().clone() for k, p in model.named_parameters()}
+        step = make_train_step(model, adam(model, LR))
+        ev_ld = eval_loader()
+        try:
+            if counted:
+                reset_launch_counts()
+            s_init, y_eval = _eval_scores(torch, model, ev_ld)
+            g = _grads(model, loader.next_batch())
+            model.zero_grad(set_to_none=True)
+            loader.before_first()
+            t0 = time.perf_counter()
+            losses = [step(b) for b in loader]
+            lk = torch.stack(losses).cpu().numpy()
+            wall = time.perf_counter() - t0
+            ev_ld.before_first()
+            ev = evaluate_stream(model, ev_ld)
+            ev_ld.before_first()
+            s_trained, _ = _eval_scores(torch, model, ev_ld)
+            torch.cuda.synchronize()
+            counts = launch_counts() if counted else {}
+        finally:
+            ev_ld.close()
+            loader.close()
+        return dict(model=model, p_init=p_init, g=g, lk=lk, ev=ev,
+                    learn=_auc(s_trained - s_init, y_eval), wall=wall,
+                    launches=counts)
+
+    remote = run(RemoteIngestLoader(workers.addresses, ROWS_TR,
+                                    device="cuda"), True)
+    local = run(DeviceLoader(create_parser(train_file), ROWS_TR, CAP_TR,
+                             id_mod=F_FEATURES, device="cuda"), False)
+    if len(remote["lk"]) != TRAIN_STEPS or len(local["lk"]) != TRAIN_STEPS:
+        raise RuntimeError(f"[ingest] {len(remote['lk'])} steps from the "
+                           f"worker, {len(local['lk'])} local")
+    checks = _train_checks(torch, remote["g"], local["g"], remote["lk"],
+                           local["lk"], remote["ev"], local["ev"],
+                           remote["model"], local["model"], local["p_init"],
+                           remote["learn"])
+    log("[ingest] one worker against the local loader, FM flat checks: "
+        + "; ".join(f"{c} {r:.3g} (limit {lim:g}{'' if ok else ', FAILED'})"
+                    for c, r, lim, ok in checks))
+    failed = [c for c, _, _, ok in checks if not ok]
+    if failed:
+        raise PathDeparts(f"[ingest] training from one worker departs from "
+                          f"the local run: {failed}")
+    log(f"[ingest] FM flat, {TRAIN_STEPS} steps: from one worker "
+        f"{TRAIN_STEPS / remote['wall']:.3f} steps/s, local "
+        f"{TRAIN_STEPS / local['wall']:.3f} steps/s (host clock) [{power}]")
+    return remote["launches"]
+
+
+def _ingest_train_two(torch, power: str, workers, eval_file: str) -> dict:
+    """Step 3b and 3c: FM flat from both workers, per step (the learning
+    check, steps/s, the wait in next_batch, frames/s over INGEST_EPOCHS)
+    and through FusedTrainer(k=8) on emit="host" frames (the distinct v3
+    metas and the graphs captured in an epoch).  Returns the launch
+    counts of both."""
+    from dmlc_core_tpu_torch import (DeviceLoader, FusedTrainer, adam,
+                                     create_parser, make_train_step)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.pipeline import RemoteIngestLoader
+    from dmlc_core_tpu_torch.pipeline.loader import _decode_meta
+    ev_ld = DeviceLoader(create_parser(eval_file), ROWS_TR, CAP_TR,
+                         id_mod=F_FEATURES, device="cuda")
+    counts: dict = {}
+    try:
+        model = _model(torch, "fm", "kernel")
+        step = make_train_step(model, adam(model, LR))
+        reset_launch_counts()
+        s_init, y_eval = _eval_scores(torch, model, ev_ld)
+        with RemoteIngestLoader(workers.addresses, ROWS_TR,
+                                device="cuda") as ld:
+            steady = _steady_state(torch, step, ld, INGEST_EPOCHS)
+        ev_ld.before_first()
+        s_trained, _ = _eval_scores(torch, model, ev_ld)
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        learn = _auc(s_trained - s_init, y_eval)
+        rate = steady["steps"] / steady["wall_s"]
+        log(f"[ingest] FM flat from {len(workers.ports)} workers, per step, "
+            f"{INGEST_EPOCHS} epochs ({steady['steps']} steps): "
+            f"{rate:.3f} steps/s = frames/s, {rate * ROWS_TR:.1f} rows/s; "
+            f"wait in next_batch median {steady['wait_median_ms']:.4f} ms, "
+            f"mean {steady['wait_mean_ms']:.4f} ms, max "
+            f"{steady['wait_max_ms']:.4f} ms; host enqueue median "
+            f"{steady['enqueue_median_ms']:.4f} ms; learning: eval auc of "
+            f"the change in score {learn:.6f} (limit {LEARN_AUC_MIN}) "
+            f"[{power}]")
+        if learn < LEARN_AUC_MIN:
+            raise PathDeparts(f"[ingest] two workers: learning auc {learn}")
+
+        model = _model(torch, "fm", "kernel")
+        reset_launch_counts()
+        ev_ld.before_first()
+        s_init, _ = _eval_scores(torch, model, ev_ld)
+        with RemoteIngestLoader(workers.addresses, ROWS_TR, emit="host",
+                                device="cuda") as ld:
+            trainer = FusedTrainer(model, adam(model, LR), ld, k=KSTEP)
+            metas = set()
+            walls = []
+            for epoch in range(INGEST_EPOCHS):
+                if epoch:
+                    ld.before_first()
+                t0 = time.perf_counter()
+                steps0 = trainer.steps
+                for item in ld:
+                    metas.add(item[2])
+                    trainer.feed(item)
+                trainer.flush()
+                float(trainer.losses[-1])
+                walls.append((trainer.steps - steps0,
+                              time.perf_counter() - t0))
+            keys = trainer.graph_keys
+        ev_ld.before_first()
+        s_trained, _ = _eval_scores(torch, model, ev_ld)
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] = counts.get(k, 0) + v
+        learn = _auc(s_trained - s_init, y_eval)
+        log(f"[ingest] FusedTrainer(k={KSTEP}) from {len(workers.ports)} "
+            f"workers: epochs (steps, s) {walls}, the last "
+            f"{walls[-1][0] / walls[-1][1]:.3f} steps/s (capture in the "
+            f"first); {len(metas)} distinct v3 metas "
+            f"{sorted(_decode_meta(m) for m in metas)}, {len(keys)} graphs "
+            f"captured {sorted((_decode_meta(m), kk) for m, kk in keys)}; "
+            f"learning auc {learn:.6f} (limit {LEARN_AUC_MIN}) [{power}]")
+        if learn < LEARN_AUC_MIN:
+            raise PathDeparts(f"[ingest] kstep from workers: learning auc "
+                              f"{learn}")
+    finally:
+        ev_ld.close()
+    return counts
+
+
+def _ingest_cli(torch, power: str, workers, data: str, train_file: str,
+                eval_file: str) -> None:
+    """Step 4: dmlc-train model=fm workers=... in a process of its own,
+    kstep=8 and per step, each reaching LEARN_AUC_MIN; mode=predict from
+    the kstep run's checkpoint within CLI_TOL of it; model=ffm workers=
+    exits 2."""
+    from dmlc_core_tpu_torch import (CheckpointManager, DeviceLoader,
+                                     FactorizationMachine, create_parser,
+                                     params_from_jax)
+    from dmlc_core_tpu_torch.models import cli
+    env = _cli_env()
+    fm = ["model=fm", f"features={F_FEATURES}", f"dim={DIM}",
+          f"batch_rows={ROWS_TR}", f"nnz_cap={CAP_TR}", f"lr={LR}",
+          "log_every=4"]
+
+    def eval_scores(model):
+        ld = DeviceLoader(create_parser(eval_file), ROWS_TR, CAP_TR,
+                          id_mod=F_FEATURES, device="cuda")
+        try:
+            return _eval_scores(torch, model, ld)
+        finally:
+            ld.close()
+
+    # the CLI's initial model: its generator seeded with seed=0
+    p = cli.TrainParams()
+    p.init({"data": train_file, "model": "fm", "features": str(F_FEATURES),
+            "dim": str(DIM)})
+    init = cli.MODEL_REGISTRY["fm"](
+        p, torch.device("cuda"),
+        torch.Generator(device="cuda").manual_seed(p.seed))
+    s_init, y_eval = eval_scores(init)
+    del init
+    for kstep in (KSTEP, 1):
+        ckpt = os.path.join(data, f"ingest_ckpt_k{kstep}")
+        out, _ = _run_cli(fm + [f"data={train_file}",
+                                f"workers={workers.arg}", f"kstep={kstep}",
+                                f"ckpt_dir={ckpt}"], env, power)
+        if "train AUC" not in out or "trained fm:" not in out:
+            raise RuntimeError(f"[ingest] the workers CLI (kstep {kstep}) "
+                               f"logged no training")
+        step, state = CheckpointManager(ckpt).restore()
+        model = FactorizationMachine(F_FEATURES, DIM, engine="torch",
+                                     device="cuda")
+        model.load_state_dict(params_from_jax(state["params"], "cuda"))
+        s_trained, _ = eval_scores(model)
+        learn = _auc(s_trained - s_init, y_eval)
+        log(f"[ingest] dmlc-train workers= kstep={kstep}: checkpoint step "
+            f"{step}, learning auc {learn:.6f} (limit {LEARN_AUC_MIN}) "
+            f"[{power}]")
+        if learn < LEARN_AUC_MIN:
+            raise PathDeparts(f"[ingest] the workers CLI kstep={kstep} did "
+                              f"not learn: {learn}")
+        if kstep > 1:
+            pred = os.path.join(data, "ingest_predictions.txt")
+            _run_cli(fm + ["mode=predict", f"data={eval_file}",
+                           f"ckpt_dir={ckpt}", f"output={pred}"], env, power)
+            want = _plain_scores(torch, model, DeviceLoader(
+                create_parser(eval_file), ROWS_TR, CAP_TR,
+                id_mod=F_FEATURES, device="cuda"))
+            _check_predictions("workers= kstep predict", pred, want,
+                               EVAL_ROWS, power)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    rc = cli.main(["model=ffm", f"data={train_file}",
+                   f"workers={workers.arg}"])
+    if rc != 2:
+        raise RuntimeError(f"[ingest] model=ffm workers= exited {rc}")
+    log("[ingest] model=ffm workers= exits 2 (the fused wire carries no "
+        "fields)")
+
+
+def _ingest_fault(torch, power: str, workers, local_rows) -> None:
+    """Step 5: a reader fault mid-epoch: the reader restarts and the
+    epoch still covers every row (a restarted worker may repeat)."""
+    from dmlc_core_tpu_torch.pipeline import RemoteIngestLoader
+    from dmlc_core_tpu_torch.utils import faults
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    r0 = metrics.counter("ingest.reader.restarts").value
+    try:
+        with _env(DMLC_FAULT_SPEC=INGEST_FAULTS,
+                  DMLC_INGEST_READER_BACKOFF="0.01"):
+            with RemoteIngestLoader(workers.addresses, ROWS_TR,
+                                    device="cuda") as ld:
+                rows = _rows_of(ld)
+    finally:
+        faults.clear_faults()
+    restarts = metrics.counter("ingest.reader.restarts").value - r0
+    log(f"[ingest] under DMLC_FAULT_SPEC='{INGEST_FAULTS}': "
+        f"ingest.reader.restarts {restarts}, {sum(rows.values())} rows read "
+        f"({len(rows)} distinct; the file's {len(local_rows)}) [{power}]")
+    if restarts < 1 or set(rows) != set(local_rows):
+        raise RuntimeError("[ingest] the reader fault was not survived "
+                           "with every row")
+
+
+def _ingest_tuning(torch, power: str, data: str, train_file: str) -> None:
+    """Step 6: serve_ingest with DMLC_AUTOTUNE=1 and a temporary tuned
+    file, connections until the tuner converges (at least 4); then the
+    loader's steady state in turns: FM flat per step with the v2 and the
+    v3 wire, put_threads 1 and 2, and FusedTrainer(k=8) with each
+    wire."""
+    import socket as _socket
+
+    from dmlc_core_tpu_torch import (DeviceLoader, FusedTrainer, adam,
+                                     create_parser, make_train_step)
+    from dmlc_core_tpu_torch.pipeline import RemoteIngestLoader, serve_ingest
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    tuned_file = os.path.join(data, "tuned.json")
+    with _env(DMLC_AUTOTUNE="1", DMLC_TUNED_CONFIG=tuned_file):
+        s = _socket.socket()
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+        s.close()
+        ready = threading.Event()
+        e0 = metrics.counter("autotune.epochs").value
+        threading.Thread(target=serve_ingest, args=(
+            train_file, 0, 1, "libsvm"), kwargs=dict(
+                batch_rows=ROWS_TR, nnz_cap=CAP_TR, port=port,
+                host="127.0.0.1", id_mod=F_FEATURES,
+                max_epochs=TUNE_MAX_CONNECTIONS, ready_event=ready),
+            daemon=True).start()
+        if not ready.wait(timeout=60):
+            raise RuntimeError("[ingest] the tuning worker never listened")
+        served = 0
+        t0 = time.monotonic()
+        while served < TUNE_MAX_CONNECTIONS:
+            with RemoteIngestLoader([("127.0.0.1", port)], ROWS_TR,
+                                    emit="host", device="cuda") as ld:
+                for _, buf, _, _ in ld:
+                    ld.recycle(buf)
+            served += 1
+            deadline = time.monotonic() + 10
+            while (metrics.counter("autotune.epochs").value - e0 < served
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+            if served >= 4 and metrics.gauge("autotune.converged").value:
+                break
+        epochs = metrics.counter("autotune.epochs").value - e0
+        with open(tuned_file) as f:
+            entries = json.load(f).get("autotune", {})
+    knobs = {k: metrics.gauge(f"autotune.knob.{k}").value
+             for k in ("parser_threads", "prefetch")}
+    log(f"[ingest] serve_ingest autotune: {served} connections in "
+        f"{time.monotonic() - t0:.2f} s, autotune.epochs +{epochs}, "
+        f"converged {metrics.gauge('autotune.converged').value}, knobs "
+        f"{knobs}, persisted {entries} [{power}]")
+    if epochs < 4 or not entries:
+        raise RuntimeError("[ingest] the ingest autotuner did not advance "
+                           "and persist")
+
+    model = _model(torch, "fm", "kernel")
+    step = make_train_step(model, adam(model, LR))
+    rows = []
+    for label, kw in (("v2", dict(wire_compact=False)),
+                      ("v3", dict(wire_compact=True)),
+                      ("v3", dict(wire_compact=True)),
+                      ("v2", dict(wire_compact=False)),
+                      ("put_threads 1", dict(put_threads=1)),
+                      ("put_threads 2", dict(put_threads=2)),
+                      ("put_threads 2", dict(put_threads=2)),
+                      ("put_threads 1", dict(put_threads=1))):
+        with DeviceLoader(create_parser(train_file), ROWS_TR, CAP_TR,
+                          id_mod=F_FEATURES, device="cuda", **kw) as ld:
+            st = _steady_state(torch, step, ld, INGEST_EPOCHS)
+        rows.append(f"{label}: {st['steps'] / st['wall_s']:.3f} steps/s, "
+                    f"wait median {st['wait_median_ms']:.4f} ms, enqueue "
+                    f"median {st['enqueue_median_ms']:.4f} ms")
+    log(f"[ingest] loader steady state, FM flat per step, {INGEST_EPOCHS} "
+        f"epochs each, in turns: " + "; ".join(rows) + f" [{power}]")
+    # the k-step trainer, whose feed is the pack thread alone: one warm
+    # epoch (the captures), then INGEST_EPOCHS timed
+    rows = []
+    for compact in (False, True, True, False):
+        model = _model(torch, "fm", "kernel")
+        with DeviceLoader(create_parser(train_file), ROWS_TR, CAP_TR,
+                          id_mod=F_FEATURES, device="cuda", emit="host",
+                          wire_compact=compact) as ld:
+            trainer = FusedTrainer(model, adam(model, LR), ld, k=KSTEP)
+            _fused_epoch(torch, trainer, ld)
+            steps0 = trainer.steps
+            t0 = time.perf_counter()
+            for _ in range(INGEST_EPOCHS):
+                ld.before_first()
+                _fused_epoch(torch, trainer, ld)
+            float(trainer.losses[-1])
+            wall = time.perf_counter() - t0
+        rows.append(f"{'v3' if compact else 'v2'}: "
+                    f"{(trainer.steps - steps0) / wall:.3f} steps/s")
+    log(f"[ingest] FusedTrainer(k={KSTEP}) steady state, FM flat, "
+        f"{INGEST_EPOCHS} epochs each after a warm one, in turns: "
+        + "; ".join(rows) + f" [{power}]")
+
+
+def phase_ingest(torch, timer: Timer, power: str, data: str,
+                 train_file: str, eval_file: str) -> dict:
+    """[ingest]: disaggregated ingest at full width (FM flat, 2^20 x 32,
+    4096-row batches, nnz_cap 131072, Adam 1e-3) on the training text:
+    the v3 wire and its decode kernel (step 1), two worker processes'
+    union over two epochs (2), training from one worker against the local
+    loader, from two, and through FusedTrainer (3), dmlc-train workers=
+    (4), a reader fault (5), the autotuner and the loader's steady state
+    (6).  Returns ``{"launches", "kernel"}``: the launch counts of the
+    training from workers, and the wire_decode row."""
+    t0 = time.monotonic()
+    raw_file = os.path.join(data, "raw.libsvm")
+    _write_raw_values(raw_file, RAW_ROWS, SEED + 12)
+    kernel = _ingest_wire(torch, timer, power, train_file, raw_file)
+    env = _cli_env()
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    with DeviceLoader(create_parser(train_file), ROWS_TR, CAP_TR,
+                      id_mod=F_FEATURES, device="cuda") as ld:
+        local_rows = _rows_of(ld)
+    one = _Workers(train_file, 1, env)
+    two = None
+    try:
+        two = _Workers(train_file, INGEST_PARTS, env)
+        one.wait()
+        two.wait()
+        from dmlc_core_tpu_torch.pipeline import RemoteIngestLoader
+        with RemoteIngestLoader(two.addresses, ROWS_TR,
+                                device="cuda") as ld:
+            for epoch in range(INGEST_EPOCHS):
+                if epoch:
+                    ld.before_first()
+                rows = _rows_of(ld)
+                if rows != local_rows:
+                    raise RuntimeError(f"[ingest] epoch {epoch} from "
+                                       f"{INGEST_PARTS} workers: "
+                                       f"{sum(rows.values())} rows, not the "
+                                       f"local loader's multiset")
+        log(f"[ingest] {INGEST_PARTS} worker processes, {INGEST_EPOCHS} "
+            f"epochs: each epoch's multiset of {sum(local_rows.values())} "
+            f"rows equals the local loader's [{power}]")
+        launches = _ingest_train_pair(torch, power, one, train_file,
+                                      eval_file)
+        for k, v in _ingest_train_two(torch, power, two, eval_file).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"[ingest] kernel launches of the training from workers: "
+            f"{launches}")
+        _ingest_cli(torch, power, two, data, train_file, eval_file)
+        _ingest_fault(torch, power, two, local_rows)
+    finally:
+        one.stop()
+        if two is not None:
+            two.stop()
+    _ingest_tuning(torch, power, data, train_file)
+    log(f"[ingest] phase {time.monotonic() - t0:.1f} s [{power}]")
+    return {"launches": launches, "kernel": kernel}
 
 
 # -- phase 5 ----------------------------------------------------------------
@@ -4066,6 +4722,10 @@ def main() -> int:
         kstep = phase_kstep(torch, power, train_file, eval_file)
         phase_cli(torch, power, data, train_file, eval_file)
         remote = phase_remote(torch, power, data, train_file, eval_file)
+        ingest = phase_ingest(torch, timer, power, data, train_file,
+                              eval_file)
+    kern["wire_decode"] = ingest["kernel"]
+    ingest = ingest["launches"]
     src = "dmlc_core_tpu_torch/kernels/"
     # name: (source, TPU kernel, the path whose launches it reports)
     meta = {
@@ -4093,6 +4753,10 @@ def main() -> int:
                  {"adam": training.get("adam", 0) + kstep.get("adam", 0)
                   + ffm.get("adam", 0)}),
         "ftrl": ("optim.cu", "dmlc_core_tpu/models/ftrl.py:57", kstep),
+        # no Pallas counterpart: the JAX package's v3 decode, XLA
+        "wire_decode": ("wire_decode.cu",
+                        "dmlc_core_tpu/pipeline/device_loader.py:94",
+                        ingest),
     }
     missing = [k for k, (_, _, path) in meta.items() if path.get(k, 0) < 1]
     # the forward kernels run on the training paths too
@@ -4120,6 +4784,15 @@ def main() -> int:
     missing += [f"{k} (remote)" for k in (
         "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
         "ragged_gather_grad_embed", "adam") if remote.get(k, 0) < 1]
+    # training from ingest workers: both wires' paths end in these
+    missing += [f"{k} (ingest)" for k in (
+        "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
+        "ragged_gather_grad_embed", "adam") if ingest.get(k, 0) < 1]
+    # the card's loaders ship the v3 wire by default: every flat path
+    # decodes through the kernel
+    missing += [f"wire_decode ({name})" for name, path in (
+        ("training", training), ("kstep", kstep), ("io", io),
+        ("remote", remote)) if path.get("wire_decode", 0) < 1]
     if missing:
         raise RuntimeError(f"main path never launched: {missing}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -4130,10 +4803,12 @@ def main() -> int:
         row = {"name": name, "route": "cuda", "source": src + cu,
                "replaces": replaces, "launches": path.get(name, 0),
                **{key: k[key] for key in keys}}
-        for extra in ("floor_ms", "library_foreach_ms", "dcn", "fm", "d32"):
+        for extra in ("floor_ms", "library_foreach_ms", "dcn", "fm", "d32",
+                      "raw"):
             # the same kernel with next to no work; torch.optim.Adam's
             # default (foreach); the optimizers at the other models'
-            # shapes; the ragged embed backward at D = 32 (DCNv2's x0)
+            # shapes; the ragged embed backward at D = 32 (DCNv2's x0);
+            # the v3 decode of a batch of raw values (no dictionary)
             if extra in k:
                 row[extra] = k[extra]
         if name in ("ragged_gather_fm", "ragged_gather_embed"):
@@ -4146,6 +4821,14 @@ def main() -> int:
         if remote.get(name, 0):
             # FM trained from s3:// and the server restored from it
             row["remote"] = {"launches": remote[name]}
+        if name != "wire_decode" and ingest.get(name, 0):
+            # FM trained from ingest worker processes
+            row["ingest"] = {"launches": ingest[name]}
+        if name == "wire_decode":
+            # the flat paths of the other phases, v3 on the card
+            row["paths"] = {n: p.get(name, 0) for n, p in (
+                ("training", training), ("kstep", kstep), ("io", io),
+                ("remote", remote))}
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
             # training batch's shapes, with the training launches

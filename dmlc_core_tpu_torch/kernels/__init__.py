@@ -13,7 +13,9 @@ at first use (:mod:`.build`) and bound with ctypes:
   ``dmlc_core_tpu/ops/pallas_embed.py::_kernel``, forward and backward
   (``embed_bag.cu``);
 * :mod:`.optim` — the fused Adam and FTRL steps (``optim.cu``), which
-  have no Pallas counterpart (the JAX package leaves them to XLA).
+  have no Pallas counterpart (the JAX package leaves them to XLA);
+* :mod:`.wire_decode` — the decode of the v3 compact wire
+  (``wire_decode.cu``), also XLA in the JAX package.
 
 Nothing is compiled or loaded at import time.
 """
@@ -29,6 +31,7 @@ from .ragged_gather import (ragged_gather,  # noqa: F401
                             ragged_gather_grad, ragged_gather_grad_reference,
                             ragged_gather_reference,
                             ragged_gather_table_grad)
+from .wire_decode import wire_decode, wire_decode_reference  # noqa: F401
 
 __all__ = ["ragged_gather", "ragged_gather_reference", "ragged_gather_grad",
            "ragged_gather_grad_reference", "ragged_gather_table_grad",
@@ -36,5 +39,6 @@ __all__ = ["ragged_gather", "ragged_gather_reference", "ragged_gather_grad",
            "fm_terms_grad_reference",
            "embed_bag_forward", "embed_bag_reference", "embed_bag_grad",
            "embed_bag_grad_reference", "adam_step", "adam_step_reference",
-           "ftrl_step", "ftrl_step_reference", "launch_counts",
+           "ftrl_step", "ftrl_step_reference", "wire_decode",
+           "wire_decode_reference", "launch_counts",
            "reset_launch_counts"]

@@ -53,7 +53,14 @@ the optimizer's set-up (or a resume), the wait for the first batch, the
 steps, validation, the train AUC and the checkpoint (or, to predict, the
 scoring).
 
-Not ported yet: ``workers=`` (remote ingest), which exits 2.
+``workers=host:port,...`` trains from ingest workers
+(``python -m dmlc_core_tpu_torch.pipeline.ingest_service``, one
+partition each) through :class:`..pipeline.RemoteIngestLoader` in place
+of ``data=``, emitting host frames for ``kstep > 1``.  Validation and
+predict read ``valid=`` and ``data=`` locally; the end-of-run AUC reads
+the workers once more (a ``kstep`` run through a device-emitting
+loader), as in the JAX CLI.  ``model=ffm`` with ``workers=`` exits 2:
+the fused wire carries no fields.
 """
 
 from __future__ import annotations
@@ -121,8 +128,9 @@ class TrainParams(Parameter):
     output = field(str, default="",
                    help="predictions file URI (predict mode)")
     workers = field(str, default="",
-                    help="comma-separated host:port ingest workers (not "
-                         "ported: must stay empty)")
+                    help="comma-separated host:port ingest workers "
+                         "(disaggregated ingest; train mode, fused "
+                         "formats only)")
     valid = field(str, default="",
                   help="validation data URI: accuracy/AUC printed per "
                        "epoch (the reference ecosystem's watchlist)")
@@ -205,11 +213,28 @@ def _resolve_format(p: TrainParams) -> str:
 
 
 def _refusal(p: TrainParams) -> Optional[str]:
-    """Why the port cannot run ``p`` yet, or None."""
-    if p.workers:
-        return ("workers= (remote ingest workers and the fused wire) is "
-                "not ported yet; read data= directly")
+    """Why ``p`` cannot run, before any data is read, or None."""
+    if not p.workers:
+        return None
+    if p.model == "ffm":
+        return ("workers= (fused wire) does not carry libfm fields — use "
+                "local ingest for ffm")
+    try:
+        _worker_addresses(p)
+    except ValueError:
+        return (f"workers= expects host:port[,host:port...], got "
+                f"{p.workers!r}")
     return None
+
+
+def _worker_addresses(p: TrainParams) -> List[Tuple[str, int]]:
+    addrs = []
+    for tok in p.workers.split(","):
+        host, _, port = tok.strip().rpartition(":")
+        if not host:
+            raise ValueError(tok)
+        addrs.append((host, int(port)))
+    return addrs
 
 
 class _Stages:
@@ -233,9 +258,9 @@ class _Stages:
 
 def _make_loader(p: TrainParams, uri: str, device: torch.device,
                  emit: str = "device", cache="auto"):
-    """The one place a run's loader is configured: train, validation,
-    end-of-run AUC and predict all see the same format, batch shape,
-    fields and hashing."""
+    """The one place a run's local loader is configured: train,
+    validation, end-of-run AUC and predict all see the same format, batch
+    shape, fields and hashing."""
     from ..data import create_parser
     from ..pipeline import DeviceLoader
     return DeviceLoader(create_parser(uri, 0, 1, _resolve_format(p)),
@@ -395,8 +420,14 @@ def _train(p: TrainParams, model, device: torch.device,
                      "(host clock)", n, time.perf_counter() - t)
             saved = n
 
-    loader = _make_loader(p, p.data, device,
-                          emit="host" if fused else "device")
+    emit = "host" if fused else "device"
+    if p.workers:
+        from ..pipeline import RemoteIngestLoader
+        loader = RemoteIngestLoader(_worker_addresses(p),
+                                    batch_rows=p.batch_rows, emit=emit,
+                                    device=device)
+    else:
+        loader = _make_loader(p, p.data, device, emit=emit)
     trainer = FusedTrainer(model, opt, loader, k=p.kstep) if fused else None
 
     def sync(epoch: int) -> None:
@@ -432,8 +463,17 @@ def _train(p: TrainParams, model, device: torch.device,
         stages.mark("steps")
         if p.eval_auc and p.task == "binary":
             # the train loader of kstep emits host buffers: score through
-            # a fresh device-emitting loader over the same file
-            auc_loader = _make_loader(p, p.data, device) if fused else loader
+            # a fresh device-emitting loader over the same source (the
+            # workers, whose data= may be readable on their hosts only)
+            if not fused:
+                auc_loader = loader
+            elif p.workers:
+                from ..pipeline import RemoteIngestLoader
+                auc_loader = RemoteIngestLoader(_worker_addresses(p),
+                                                batch_rows=p.batch_rows,
+                                                device=device)
+            else:
+                auc_loader = _make_loader(p, p.data, device)
             hist: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
             try:
                 with torch.no_grad():

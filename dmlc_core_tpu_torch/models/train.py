@@ -38,8 +38,7 @@ import numpy as np
 import torch
 
 from ..kernels.common import add_launches, record_launches
-from ..native import fused_words
-from ..pipeline.loader import _decode_meta, make_decoder
+from ..pipeline.loader import _fused_words_meta, make_decoder
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, log_info
 from .optim import Adam
@@ -252,16 +251,17 @@ class KSteps:
 def make_train_step_fused(model: torch.nn.Module, optimizer, *, rows: int,
                           meta: int, k: int, pool=None) -> KSteps:
     """k train steps in one dispatch over a stack of k fused wire buffers
-    (``[k, words]`` int32, the loader's v2 layout for ``rows`` and
-    ``meta``), each decoded inside the steps with :func:`make_decoder`
-    (one ``searchsorted``).  Returns ``kstep(bufs) -> losses[k]`` (a
+    (``[k, words]`` int32, the loader's layout for ``rows`` and ``meta``:
+    v2, or v3 compact), each decoded inside the steps with
+    :func:`make_decoder` (one ``searchsorted`` for v2, one launch of the
+    decode kernel for v3 on the card).  Returns ``kstep(bufs) -> losses[k]`` (a
     :class:`KSteps`): on the card one CUDA graph whose input is the static
     ``kstep.static`` buffer, on the CPU the same steps run eagerly.  The
     model's parameters and the optimizer's state update in place.  Graphs
     that share ``pool`` (``torch.cuda.graph_pool_handle()``) must replay
     one at a time."""
     decode = make_decoder(rows, meta)
-    words = fused_words(rows, _decode_meta(meta))
+    words = _fused_words_meta(rows, meta)
     dev = _model_device(model)
     static = (torch.empty(k, words, dtype=torch.int32, device=dev)
               if dev.type == "cuda" else None)
@@ -284,7 +284,9 @@ class FusedTrainer:
     copy has completed), the loader's buffers are recycled right after,
     and one non-blocking copy moves the group into the graph's static
     input.  One graph is captured per ``(meta, group length)``, all in
-    one memory pool.  ``params`` and ``opt_state`` are the model's and the
+    one memory pool; v3 metas vary more than v2 ones (the id width in
+    nibble steps, the dictionary's bits on an even ladder of at most 8),
+    so :attr:`graph_keys` says what an epoch captured.  ``params`` and ``opt_state`` are the model's and the
     optimizer's own tensors, updated in place; ``losses`` is a copy of the
     last dispatch's ``[kk]`` losses."""
 
@@ -318,6 +320,12 @@ class FusedTrainer:
     def opt_state(self):
         return self.optimizer.state
 
+    @property
+    def graph_keys(self) -> List[Tuple[int, int]]:
+        """The ``(meta, group length)`` of every k-step graph built so
+        far: one capture each on the card."""
+        return list(self._kstep_cache)
+
     def _kstep(self, meta: int, kk: int) -> KSteps:
         key = (meta, kk)
         fn = self._kstep_cache.get(key)
@@ -345,7 +353,7 @@ class FusedTrainer:
         if not self._group:
             return
         meta, kk = self._group_meta, len(self._group)
-        words = fused_words(self.rows, _decode_meta(meta))
+        words = _fused_words_meta(self.rows, meta)
         fn = self._kstep(meta, kk)
         if self._cuda:
             buf, turn = self._stage(kk * words)

@@ -4,15 +4,17 @@ Counterpart of ``dmlc_core_tpu/native/__init__.py``:
 :func:`parse_libsvm`, :func:`parse_libfm` and :func:`parse_csv` (text →
 numpy CSR arrays, OpenMP over line-aligned slices of the chunk, the
 libfm fields zero-copy like every other array), :class:`Packer`
-(RowBlocks → fused v2 wire buffers, ``PackerC``) and :class:`SpPacker`
-(libsvm, libfm or csv text → fused v2 wire buffers in one pass,
-``SpPackC``; it carries no fields).  The library is the port's own copy
-of ``dmlc_native.cpp``, built with g++ at first use by :mod:`.build`.
+(RowBlocks → fused wire buffers, ``PackerC``) and :class:`SpPacker`
+(libsvm, libfm or csv text → fused wire buffers in one pass,
+``SpPackC``; it carries no fields).  Both write the v2 layout, or with
+``compact=True`` the v3 compact wire (ids bit-packed at the batch's
+width, values dictionary-coded or raw; lossless).  The library is the
+port's own copy of ``dmlc_native.cpp``, built with g++ at first use by
+:mod:`.build`.
 
 A build that fails where g++ exists raises :class:`DMLCError`; only a
 host with no compiler (and no built library) has no native library, and
-then :func:`available` is False.  The v3 compact wire stays unbound for
-now.
+then :func:`available` is False.
 
 ctypes releases the interpreter lock for the length of each native call,
 so parsing and packing overlap the Python of other threads.
@@ -29,7 +31,8 @@ import numpy as np
 from ..utils.logging import DMLCError, IdOverflowError, log_info
 from . import build as _build
 
-__all__ = ["available", "has_packer", "has_sppack", "parse_libsvm",
+__all__ = ["available", "has_packer", "has_sppack", "has_compact",
+           "parse_libsvm",
            "parse_libfm", "parse_csv", "num_threads", "fused_words",
            "Packer", "SpPacker"]
 
@@ -98,6 +101,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dmlc_sppack_feed_csv.restype = ctypes.c_int32
     lib.dmlc_sppack_stats.argtypes = [ctypes.c_void_p] + [_I64P] * 5
     lib.dmlc_sppack_stats.restype = None
+    for name in ("dmlc_packer2_set_compact", "dmlc_sppack_set_compact"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int32]
+        fn.restype = None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -136,6 +143,11 @@ def has_packer() -> bool:
 
 def has_sppack() -> bool:
     """True when the loaded library carries the one-pass parse and pack."""
+    return available()
+
+
+def has_compact() -> bool:
+    """True when the loaded library packs the v3 compact wire layout."""
     return available()
 
 
@@ -251,12 +263,6 @@ def _id_overflow(where: str) -> IdOverflowError:
         f"keep ids below int32 range")
 
 
-def _check_compact(compact: bool) -> None:
-    if compact:
-        raise DMLCError("the v3 compact wire (compact=True) is not ported "
-                        "yet")
-
-
 class Packer:
     """RowBlocks → fused v2 wire buffers (``PackerC`` in the library):
     ``ids[B]|vals[B]|row_ptr|labels|weights`` with B the batch's nnz
@@ -264,11 +270,14 @@ class Packer:
     shapes per ``(batch_rows, nnz_cap)``).  A batch closes when it holds
     ``batch_rows`` rows or the next row would overflow ``nnz_cap``; a
     partial batch carries across blocks until :meth:`flush`.  Emitted
-    items are ``(buffer, meta)`` with meta = B."""
+    items are ``(buffer, meta)`` with meta = ``B | id_width << 32 |
+    dict_bits << 40``: id width 0 is the v2 layout; ``compact=True``
+    emits the v3 layout (ids bit-packed at ``id_width``, values
+    dictionary-coded at ``dict_bits`` or raw where ``dict_bits`` is 0;
+    lossless, never longer than v2)."""
 
     def __init__(self, batch_rows: int, nnz_cap: int, id_mod: int = 0,
                  quantum: int = 0, compact: bool = False) -> None:
-        _check_compact(compact)
         self._lib = _lib_or_raise()
         if quantum <= 0:
             quantum = max(1, nnz_cap // 8)
@@ -276,6 +285,8 @@ class Packer:
                                                 quantum, id_mod)
         if not self._p:
             raise MemoryError("dmlc_packer2_create failed")
+        if compact:
+            self._lib.dmlc_packer2_set_compact(self._p, 1)
         self.batch_rows = batch_rows
         self.nnz_cap = nnz_cap
         self.quantum = min(quantum, nnz_cap)
@@ -356,11 +367,11 @@ class Packer:
 
 
 class SpPacker:
-    """libsvm, libfm or csv text chunks → fused v2 wire buffers in one
+    """libsvm, libfm or csv text chunks → fused wire buffers in one
     native pass (``SpPackC`` in the library), without the CSR block that
-    a parse then :class:`Packer` build in between.  Same layout, meta and
-    carry as :class:`Packer`; libfm fields are parsed and dropped (the
-    wire has no field region).  ``label_col`` and ``delim`` are csv's
+    a parse then :class:`Packer` build in between.  Same layouts (v2, or
+    v3 with ``compact=True``), meta and carry as :class:`Packer`; libfm
+    fields are parsed and dropped (the wire has no field region).  ``label_col`` and ``delim`` are csv's
     options, as :func:`parse_csv` takes them."""
 
     FORMATS = ("libsvm", "libfm", "csv")
@@ -369,7 +380,6 @@ class SpPacker:
                  quantum: int = 0, compact: bool = False,
                  fmt: str = "libsvm", label_col: int = -1,
                  delim: str = ",") -> None:
-        _check_compact(compact)
         if fmt not in self.FORMATS:
             raise DMLCError(f"streampack format {fmt!r} not in "
                             f"{self.FORMATS}")
@@ -387,6 +397,8 @@ class SpPacker:
                                                id_mod)
         if not self._p:
             raise MemoryError("dmlc_sppack_create failed")
+        if compact:
+            self._lib.dmlc_sppack_set_compact(self._p, 1)
         self.batch_rows = batch_rows
         self.nnz_cap = nnz_cap
         self.words_max = fused_words(batch_rows, nnz_cap)

@@ -1,13 +1,12 @@
 """Source and pack-config fingerprints for the packed-page cache.
 
-Counterpart of ``dmlc_core_tpu/pipeline/fingerprint.py``, the part the
-page cache uses: :func:`find_file_split`, :func:`source_attr`,
-:func:`split_files` and :func:`pack_fingerprint`.  The dict carries the
-JAX package's keys (``wire_compact`` among them, always False here: the
-v3 compact wire is not ported), so a page file names the same
-configuration in either package and each serves the other's pages.
-``host_shape`` and ``autotune_key`` wait for the autotuner (ROADMAP
-A.9).
+Counterpart of ``dmlc_core_tpu/pipeline/fingerprint.py``:
+:func:`find_file_split`, :func:`source_attr`, :func:`split_files` and
+:func:`pack_fingerprint` for the page cache, and :func:`host_shape` and
+:func:`autotune_key` for the autotuner's persisted configs.  The dict
+carries the JAX package's keys (``wire_compact`` the loader's resolved
+wire), so a page file names the same configuration in either package
+and each serves the other's pages.
 
 A file of a remote filesystem (``s3://`` and the others) has no
 ``os.stat``, so its mtime is None, as in the JAX package: the page cache
@@ -17,11 +16,13 @@ same size is served stale from the page file (ROADMAP queue C).
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 from typing import Any, Dict, Optional
 
 __all__ = ["find_file_split", "source_attr", "split_files",
-           "pack_fingerprint"]
+           "pack_fingerprint", "host_shape", "autotune_key"]
 
 
 def find_file_split(source) -> Optional[Any]:
@@ -96,3 +97,38 @@ def pack_fingerprint(split, *, page_format: int, batch_rows: int,
         "text_format": text_format,
         "csv": csv,
     }
+
+
+def host_shape() -> str:
+    """Coarse host-shape tag for tuning keys: core count (the quantity
+    every parallelism knob scales against).  Deliberately excludes the
+    hostname — identical machines should share a converged config."""
+    try:
+        cores = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        cores = os.cpu_count() or 1
+    return f"c{cores}"
+
+
+def autotune_key(fingerprint: Optional[Dict[str, Any]], platform: str,
+                 shape: Optional[str] = None) -> str:
+    """Stable tuning-config key for (dataset fingerprint, host shape,
+    platform).
+
+    Projects the cache fingerprint down to what changes the *optimum*
+    rather than the *bytes*: file paths and sizes stay (different data,
+    different knobs), mtimes and the page-format version are dropped (a
+    touched or re-fetched identical file and a cache-format bump keep
+    their tuning).  ``fingerprint=None`` (un-stat-able source) keys by
+    host shape + platform alone, so purely synthetic sources still get a
+    per-host entry."""
+    shape = shape or host_shape()
+    relaxed: Dict[str, Any] = {}
+    if fingerprint:
+        relaxed = {k: v for k, v in fingerprint.items()
+                   if k not in ("page_format",)}
+        relaxed["files"] = [[p, s] for p, s, _mt in
+                            fingerprint.get("files", [])]
+    blob = json.dumps(relaxed, sort_keys=True).encode("utf-8")
+    digest = hashlib.sha256(blob).hexdigest()[:16]
+    return f"{digest}|{shape}|{platform}"

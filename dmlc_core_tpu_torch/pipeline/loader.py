@@ -2,8 +2,8 @@
 card.
 
 Counterpart of ``dmlc_core_tpu/pipeline/device_loader.py``
-(``DeviceLoader``, ``_BufPool``, ``_TransferPool``, the fused v2 wire
-and ``make_decoder``).  Two stages, each on its own thread:
+(``DeviceLoader``, ``_BufPool``, ``_TransferPool``, the fused wire and
+``make_decoder``).  Two stages, each on its own thread:
 
   parser → [pack thread]      fixed-shape host items into a bounded queue
          → [transfer thread]  one copy per batch on its own CUDA stream,
@@ -14,8 +14,10 @@ packed.  The pack stage takes one of three host paths, as the JAX loader
 chooses them:
 
 * the native path (flat layout): the library's packer streams RowBlocks
-  into fused v2 wire buffers ``ids[B]|vals[B]|row_ptr|labels|weights``,
-  B the batch's nnz rounded up to ``nnz_cap // 8`` (at most 8 shapes per
+  into fused wire buffers, v2 ``ids[B]|vals[B]|row_ptr|labels|weights``
+  or, with ``wire_compact``, the v3 compact layout (ids bit-packed at the
+  batch's width, values dictionary-coded or raw; lossless), B the
+  batch's nnz rounded up to ``nnz_cap // 8`` (at most 8 shapes per
   ``(batch_rows, nnz_cap)``); a batch closes early rather than truncate;
 * the streampack path: the same buffers straight from libsvm, libfm or
   csv text in one native pass, for an unthreaded
@@ -29,8 +31,14 @@ chooses them:
   the JAX loader: the fused wire has no field region.
 
 A fused buffer crosses in one copy and :func:`make_decoder` turns it into
-the batch's views plus one ``searchsorted`` for ``segments`` (padding →
-the ``batch_rows`` scratch row).  Row-major and ragged batches cross as
+the batch: a v2 buffer into views plus one ``searchsorted`` for
+``segments`` (padding → the ``batch_rows`` scratch row), a v3 buffer on
+the card by one launch of the decode kernel
+(:mod:`..kernels.wire_decode`).  ``wire_compact`` and ``put_threads``
+default to ``"auto"``, resolved for the loader's device type by
+:func:`.tuned.resolve` as the JAX loader resolves them for its backend:
+v3 on the card, v2 on the CPU, unless the environment or the tuned file
+says otherwise.  Row-major and ragged batches cross as
 one int32 buffer of their arrays laid end to end.  On the card the
 copies run from pinned buffers of a recycling pool, on the transfer
 thread's own stream; the consumer's stream waits on an event recorded
@@ -58,9 +66,9 @@ is not writable.  A cached epoch packs nothing, so ``stats`` counts no
 rows in it; ``cache_stats`` counts hits, misses, dropped builds and the
 bytes read from and written to page files.
 
-The v3 compact wire, ``put_threads="auto"``, the page cache's
-``fault_point`` and the loader's metrics and spans stay with the JAX
-package for now (ROADMAP A.9 and A.12).
+The page cache's ``fault_point`` and the loader's metrics, spans and
+stall detectors stay with the JAX package for now (ROADMAP A.12,
+telemetry).
 """
 
 from __future__ import annotations
@@ -75,12 +83,15 @@ import torch
 from .. import native
 from ..data.parser import ENGINES, TextParser, resolve_engine
 from ..data.row_block import RowBlock, concat_blocks
+from ..kernels.common import ENGINES as KERNEL_ENGINES
+from ..kernels.wire_decode import (v3_layout, wire_decode,
+                                   wire_decode_reference)
 from ..native import fused_words
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, check
 from ..utils.threaded_iter import JOIN_TIMEOUT_S, ThreadedIter
 from . import fingerprint as fingerprint_mod
-from . import page_cache
+from . import page_cache, tuned
 from .packing import (PackStats, batch_slices, pack_flat, pack_ragged,
                       pack_rowmajor, ragged_slices)
 
@@ -89,15 +100,21 @@ __all__ = ["DeviceLoader", "make_decoder", "fused_words"]
 Batch = Dict[str, torch.Tensor]
 
 
-# -- the fused v2 wire -------------------------------------------------------
+# -- the fused wire (v2 and the v3 compact layout) ----------------------------
 
-def _decode_meta(meta: int) -> int:
-    """B, the nnz bucket, of a packer's emit meta.  Only the v2 layout
-    (id width 0) is ported."""
-    if (int(meta) >> 32) & 0xFF:
-        raise DMLCError("a v3 compact wire buffer (id width "
-                        f"{(int(meta) >> 32) & 0xFF}): not ported yet")
-    return int(meta) & 0xFFFFFFFF
+def _decode_meta(meta: int) -> Tuple[int, int, int]:
+    """``(B, id_width, dict_bits)`` of a packer's emit meta: id width 0 is
+    the v2 layout, dict bits 0 raw f32 values."""
+    meta = int(meta)
+    return meta & 0xFFFFFFFF, (meta >> 32) & 0xFF, (meta >> 40) & 0xFF
+
+
+def _fused_words_meta(rows: int, meta: int) -> int:
+    """int32 words of a fused batch in either layout (v2 or v3)."""
+    nnz, w, dbits = _decode_meta(meta)
+    if w == 0:
+        return fused_words(rows, nnz)
+    return v3_layout(rows, nnz, w, dbits)[3] + 3 * rows + 1
 
 
 def _host_fused(host: Dict[str, np.ndarray], rows: int, nnz: int,
@@ -119,7 +136,8 @@ def _host_fused(host: Dict[str, np.ndarray], rows: int, nnz: int,
 def _host_segments(view: np.ndarray, rows: int, nnz: int,
                    words: int) -> np.ndarray:
     """Each value's row, from the buffer's ``row_ptr`` on the host
-    (padding → the ``rows`` scratch row): the CPU's decode."""
+    (padding → the ``rows`` scratch row): the CPU's decode.  ``row_ptr``
+    ends the buffer's last ``3 * rows + 1`` words in both layouts."""
     voff = words - 3 * rows - 1
     rp = view[voff:voff + rows + 1]
     seg = np.full(nnz, rows, np.int32)
@@ -128,30 +146,47 @@ def _host_segments(view: np.ndarray, rows: int, nnz: int,
     return seg
 
 
-def make_decoder(rows: int, meta: int):
+def make_decoder(rows: int, meta: int, engine: str = "auto"):
     """``decode(buf, segments=None) -> batch``: one int32 wire buffer (a
     tensor on any device) → ``ids``, ``vals``, ``segments``, ``row_ptr``,
-    ``labels`` and ``weights``, every one but ``segments`` a view of
-    ``buf``; ``segments`` come from one ``searchsorted`` over ``row_ptr``
-    unless given."""
-    nnz = _decode_meta(meta)
+    ``labels`` and ``weights``.
+
+    v2 (id width 0): every array but ``segments`` is a view of ``buf``,
+    and ``segments`` come from one ``searchsorted`` over ``row_ptr``
+    unless given.  v3: ``row_ptr``, ``labels`` and ``weights`` are views;
+    ``ids``, ``vals`` and ``segments`` come from one launch of the decode
+    kernel on a CUDA buffer under ``engine`` ``"auto"`` or ``"kernel"``
+    (:func:`..kernels.wire_decode.wire_decode`), else from its plain
+    version (``"torch"``, or a buffer on the CPU), with given
+    ``segments`` used as they are."""
+    nnz, w, dbits = _decode_meta(meta)
+    check(engine in KERNEL_ENGINES, f"bad engine {engine!r}")
+    voff = 2 * nnz if w == 0 else v3_layout(rows, nnz, w, dbits)[3]
 
     def decode(b: torch.Tensor, segments: Optional[torch.Tensor] = None
                ) -> Batch:
-        rp = b[2 * nnz:2 * nnz + rows + 1]
-        if segments is None:
-            segments = torch.searchsorted(
-                rp[1:], torch.arange(nnz, dtype=torch.int32,
-                                     device=b.device),
-                right=True, out_int32=True)
+        rp = b[voff:voff + rows + 1]
+        if w == 0:
+            ids, vals = b[:nnz], b[nnz:2 * nnz].view(torch.float32)
+            if segments is None:
+                segments = torch.searchsorted(
+                    rp[1:], torch.arange(nnz, dtype=torch.int32,
+                                         device=b.device),
+                    right=True, out_int32=True)
+        elif segments is None:
+            ids, vals, segments = wire_decode(b, rows, nnz, w, dbits,
+                                              engine=engine)
+        else:
+            ids, vals, _ = wire_decode_reference(b, rows, nnz, w, dbits,
+                                                 segments=segments)
         return {
-            "ids": b[:nnz],
-            "vals": b[nnz:2 * nnz].view(torch.float32),
+            "ids": ids,
+            "vals": vals,
             "segments": segments,
             "row_ptr": rp,
-            "labels": b[2 * nnz + rows + 1:2 * nnz + 2 * rows + 1]
+            "labels": b[voff + rows + 1:voff + 2 * rows + 1]
             .view(torch.float32),
-            "weights": b[2 * nnz + 2 * rows + 1:2 * nnz + 3 * rows + 1]
+            "weights": b[voff + 2 * rows + 1:voff + 3 * rows + 1]
             .view(torch.float32),
         }
 
@@ -160,12 +195,12 @@ def make_decoder(rows: int, meta: int):
 
 def _decode_on_host(view: np.ndarray, rows: int, meta: int) -> Batch:
     """The CPU's decode: segments from numpy, every region copied out of
-    the (pooled) buffer."""
-    nnz = _decode_meta(meta)
-    words = fused_words(rows, nnz)
+    the (pooled) buffer; the v3 ids and values by the plain decode."""
+    nnz = _decode_meta(meta)[0]
+    words = _fused_words_meta(rows, meta)
     segs = torch.from_numpy(_host_segments(view, rows, nnz, words))
     own = torch.from_numpy(view[:words].copy())
-    return make_decoder(rows, meta)(own, segs)
+    return make_decoder(rows, meta, engine="torch")(own, segs)
 
 
 # -- buffers -----------------------------------------------------------------
@@ -343,9 +378,133 @@ def _nnz(blk: RowBlock) -> int:
     return int(blk.offsets[-1] - blk.offsets[0])
 
 
+class _TransferStage:
+    """The transfer stage of a fused (or row-major) host item, shared by
+    :class:`DeviceLoader` and the ingest service's
+    :class:`~.ingest_service.RemoteIngestLoader`: on the card one copy
+    from a pinned pool buffer on the calling thread's own stream, the
+    decode on that stream, an event the consumer's stream waits on, and
+    the pool buffer recycled only once its copy has completed; on the
+    CPU the host decode.  The subclass sets ``batch_rows`` and calls
+    :meth:`_init_transfer`."""
+
+    def _init_transfer(self, device: torch.device, pinned: bool,
+                       pool_cap: int, depth: int) -> None:
+        self.device = device
+        self._cuda = device.type == "cuda"
+        self._pool = _BufPool(cap=pool_cap, pinned=pinned)
+        self._inflight: deque = deque()     # (copy event, host buffer)
+        self._inflight_depth = depth
+        self._local = threading.local()     # per thread: device, stream
+
+    def _bind_device(self) -> None:
+        """Set the loader's card as this thread's device, once, before
+        the thread's first CUDA call."""
+        if self._cuda and not getattr(self._local, "bound", False):
+            torch.cuda.set_device(self.device)
+            self._local.bound = True
+
+    def _stream(self) -> "torch.cuda.Stream":
+        """This thread's copy stream."""
+        stream = getattr(self._local, "stream", None)
+        if stream is None:
+            self._bind_device()
+            stream = self._local.stream = torch.cuda.Stream(self.device)
+        return stream
+
+    def _arrays_buffer(self, host: Dict[str, np.ndarray]
+                       ) -> Tuple[np.ndarray, list]:
+        """The arrays laid end to end in one pooled int32 buffer, and
+        their (key, dtype, shape, offset, words)."""
+        regions, pos = [], 0
+        for k, v in host.items():
+            v = np.asarray(v)
+            regions.append((k, v, pos, v.size))
+            pos += v.size
+        buf = self._pool.get(pos)
+        for _, v, off, n in regions:
+            buf[off:off + n] = v.reshape(-1).view(np.int32)
+        return buf, [(k, v.dtype, v.shape, off, n)
+                     for k, v, off, n in regions]
+
+    def _transfer_item(self, item: tuple, sync: bool) -> tuple:
+        """One host item → ``(batch, ready event or None, device
+        buffers)``.  ``sync=False`` (one transfer thread): the host
+        buffer joins the in-flight ring; ``sync=True`` (the pool of
+        workers): wait for this copy, then recycle it."""
+        if not self._cuda:
+            return self._transfer_cpu(item), None, ()
+        stream = self._stream()
+        if item[0] == "fused":
+            _, buf, meta, _rows = item
+            words = _fused_words_meta(self.batch_rows, meta)
+        else:
+            buf, regions = self._arrays_buffer(item[1])
+            words = sum(r[4] for r in regions)
+        with torch.cuda.stream(stream):
+            dev = torch.empty(words, dtype=torch.int32, device=self.device)
+            dev.copy_(torch.from_numpy(buf[:words]), non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+            if item[0] == "fused":
+                batch = make_decoder(self.batch_rows, item[2])(dev)
+            else:
+                batch = {k: dev[off:off + n].view(_TORCH[dt]).view(shape)
+                         for k, dt, shape, off, n in regions}
+            ready = torch.cuda.Event()
+            ready.record(stream)
+        # the decode's own outputs (segments; v3 ids and vals) as well as
+        # the copy: a view adds nothing, record_stream marks the storage
+        owned = [dev] + ([batch["ids"], batch["vals"], batch["segments"]]
+                         if item[0] == "fused" else [])
+        if sync:
+            copied.synchronize()
+            self._pool.put(buf)
+        else:
+            self._ring_push(copied, buf)
+        return batch, ready, owned
+
+    def _transfer_cpu(self, item: tuple) -> Batch:
+        if item[0] == "fused":
+            _, buf, meta, _rows = item
+            batch = _decode_on_host(buf, self.batch_rows, meta)
+            self._pool.put(buf)
+            return batch
+        return {k: torch.from_numpy(np.array(v)) for k, v in item[1].items()}
+
+    def _ring_push(self, copied: "torch.cuda.Event", buf: np.ndarray
+                   ) -> None:
+        """Track an in-flight copy; recycle the host buffers of the copies
+        that have completed, waiting for the oldest once more than the
+        pipeline's depth are in flight."""
+        self._inflight.append((copied, buf))
+        while self._inflight and (len(self._inflight) > self._inflight_depth
+                                  or self._inflight[0][0].query()):
+            ev, old = self._inflight.popleft()
+            ev.synchronize()
+            self._pool.put(old)
+
+    def _drain_inflight(self) -> None:
+        while self._inflight:
+            ev, buf = self._inflight.popleft()
+            ev.synchronize()
+            self._pool.put(buf)
+
+    def _handoff(self, out):
+        """A transferred batch to the consumer: its stream waits for the
+        transfer and uses the batch's device buffers."""
+        batch, ready, owned = out
+        if ready is not None:
+            consumer = torch.cuda.current_stream(self.device)
+            consumer.wait_event(ready)
+            for t in owned:
+                t.record_stream(consumer)
+        return batch
+
+
 # -- the loader --------------------------------------------------------------
 
-class DeviceLoader:
+class DeviceLoader(_TransferStage):
     """Stream fixed-shape device batches from a parser.
 
     Parameters
@@ -365,7 +524,12 @@ class DeviceLoader:
                     (padding rows weigh 0).
     put_threads:    1: one transfer thread with a ring of copies in
                     flight; more: that many ordered transfer workers,
-                    each waiting for its own copy.
+                    each waiting for its own copy; ``"auto"`` resolves
+                    through :func:`.tuned.resolve`.
+    wire_compact:   the native packers write the v3 compact wire (the
+                    python packs always write v2); ``"auto"`` resolves
+                    through :func:`.tuned.resolve` (v3 on the card, v2 on
+                    the CPU).
     emit:           ``"device"`` or ``"host"`` (the pack stage's fused
                     items, flat layout only; see :meth:`recycle`).
     ragged:         flat batches cut by cumulative nnz, with ``nnz_used``
@@ -398,7 +562,8 @@ class DeviceLoader:
                  layout: str = "flat", id_mod: int = 0,
                  device: Optional[Union[str, torch.device]] = None,
                  prefetch: int = 2, drop_remainder: bool = False,
-                 put_threads: int = 1, emit: str = "device",
+                 put_threads="auto", wire_compact="auto",
+                 emit: str = "device",
                  ragged: bool = False, engine: str = "auto",
                  streampack: bool = True, fields: bool = False,
                  cache="auto", cache_queue_pages: int = 0,
@@ -417,10 +582,13 @@ class DeviceLoader:
             check(layout == "flat" and not fields,
                   "emit='host' requires the fused path (flat layout, no "
                   "fields)")
-        self.device = resolve_device(device)
-        if self.device.type == "cuda" and self.device.index is None:
+        device = resolve_device(device)
+        put_threads, wire_compact = tuned.resolve(
+            device.type, put_threads, wire_compact)
+        self.wire_compact = bool(wire_compact)
+        if device.type == "cuda" and device.index is None:
             # the transfer threads set this device before their first call
-            self.device = torch.device("cuda", torch.cuda.current_device())
+            device = torch.device("cuda", torch.cuda.current_device())
         self.source = source
         self.batch_rows = int(batch_rows)
         self.nnz_cap = int(nnz_cap)
@@ -433,7 +601,6 @@ class DeviceLoader:
         self.streampack = bool(streampack)
         self.engine = resolve_engine(engine)
         self.stats = PackStats()
-        self._cuda = self.device.type == "cuda"
         self._cache_path = self._resolve_cache(cache)
         self._cache_queue_pages = max(0, int(cache_queue_pages))
         self._cache_readahead = cache_readahead
@@ -443,11 +610,9 @@ class DeviceLoader:
                             "bytes_read": 0, "bytes_written": 0}
         put_threads = max(1, int(put_threads))
         depth = max(2, int(prefetch), put_threads)
-        self._pool = _BufPool(cap=2 * depth + 2,
-                              pinned=self._cuda and emit == "device")
-        self._inflight: deque = deque()     # (copy event, host buffer)
-        self._inflight_depth = depth
-        self._local = threading.local()     # per thread: device, stream
+        self._init_transfer(device, pinned=(device.type == "cuda"
+                                            and emit == "device"),
+                            pool_cap=2 * depth + 2, depth=depth)
         self._gen: Optional[Iterator] = None
         self._source_read = False           # rewind it before its next epoch
         self._pack_iter: ThreadedIter = ThreadedIter(max_capacity=depth)
@@ -510,7 +675,8 @@ class DeviceLoader:
         return fingerprint_mod.pack_fingerprint(
             split, page_format=page_cache.FORMAT_VERSION,
             batch_rows=self.batch_rows, nnz_cap=self.nnz_cap,
-            layout=self.layout, id_mod=self.id_mod, wire_compact=False,
+            layout=self.layout, id_mod=self.id_mod,
+            wire_compact=self.wire_compact,
             drop_remainder=self.drop_remainder, ragged=self.ragged,
             pack_path=pack_path,
             text_format=attr(self.source, "text_format"),
@@ -526,11 +692,8 @@ class DeviceLoader:
             readahead=readahead)
 
     def _page_words(self, meta: int) -> int:
-        """A page's words as this loader would pack it; -1 (never a
-        match: the file is rebuilt) for a v3 compact page."""
-        if (int(meta) >> 32) & 0xFF:
-            return -1
-        return fused_words(self.batch_rows, int(meta) & 0xFFFFFFFF)
+        """A page's words as its meta says this loader packed it."""
+        return _fused_words_meta(self.batch_rows, meta)
 
     def cached_page_file(self) -> Optional[str]:
         """The page file the next epoch would be served from, or None
@@ -574,7 +737,7 @@ class DeviceLoader:
             for item in self._host_items_uncached():
                 if item[0] == "fused" and writer.active:
                     _, buf, meta, rows = item
-                    words = fused_words(self.batch_rows, _decode_meta(meta))
+                    words = _fused_words_meta(self.batch_rows, meta)
                     if writer.offer(buf, int(meta), rows, words):
                         self.cache_stats["bytes_written"] += words * 4
                     else:
@@ -690,7 +853,8 @@ class DeviceLoader:
 
     def _host_items_native(self) -> Iterator[tuple]:
         packer = native.Packer(self.batch_rows, self.nnz_cap,
-                               id_mod=self.id_mod)
+                               id_mod=self.id_mod,
+                               compact=self.wire_compact)
         try:
             for blk in self._blocks():
                 for buf, meta in packer.feed(blk, get_buf=self._pool.get,
@@ -708,7 +872,8 @@ class DeviceLoader:
         src = self.source
         split = src.source                  # the TextParser's byte split
         sp = native.SpPacker(self.batch_rows, self.nnz_cap,
-                             id_mod=self.id_mod, fmt=src.text_format,
+                             id_mod=self.id_mod,
+                             compact=self.wire_compact, fmt=src.text_format,
                              label_col=src.csv_label_col,
                              delim=src.csv_delim)
         try:
@@ -750,97 +915,7 @@ class DeviceLoader:
             self.source.before_first()
         self._source_read = False
 
-    # -- stage 2: transfer -----------------------------------------------
-    def _bind_device(self) -> None:
-        """Set the loader's card as this thread's device, once, before
-        the thread's first CUDA call."""
-        if self._cuda and not getattr(self._local, "bound", False):
-            torch.cuda.set_device(self.device)
-            self._local.bound = True
-
-    def _stream(self) -> "torch.cuda.Stream":
-        """This thread's copy stream."""
-        stream = getattr(self._local, "stream", None)
-        if stream is None:
-            self._bind_device()
-            stream = self._local.stream = torch.cuda.Stream(self.device)
-        return stream
-
-    def _arrays_buffer(self, host: Dict[str, np.ndarray]
-                       ) -> Tuple[np.ndarray, list]:
-        """The arrays laid end to end in one pooled int32 buffer, and
-        their (key, dtype, shape, offset, words)."""
-        regions, pos = [], 0
-        for k, v in host.items():
-            v = np.asarray(v)
-            regions.append((k, v, pos, v.size))
-            pos += v.size
-        buf = self._pool.get(pos)
-        for _, v, off, n in regions:
-            buf[off:off + n] = v.reshape(-1).view(np.int32)
-        return buf, [(k, v.dtype, v.shape, off, n)
-                     for k, v, off, n in regions]
-
-    def _transfer_item(self, item: tuple, sync: bool) -> tuple:
-        """One host item → ``(batch, ready event or None, device
-        buffers)``.  ``sync=False`` (one transfer thread): the host
-        buffer joins the in-flight ring; ``sync=True`` (the pool of
-        workers): wait for this copy, then recycle it."""
-        if not self._cuda:
-            return self._transfer_cpu(item), None, ()
-        stream = self._stream()
-        if item[0] == "fused":
-            _, buf, meta, _rows = item
-            words = fused_words(self.batch_rows, _decode_meta(meta))
-        else:
-            buf, regions = self._arrays_buffer(item[1])
-            words = sum(r[4] for r in regions)
-        with torch.cuda.stream(stream):
-            dev = torch.empty(words, dtype=torch.int32, device=self.device)
-            dev.copy_(torch.from_numpy(buf[:words]), non_blocking=True)
-            copied = torch.cuda.Event()
-            copied.record(stream)
-            if item[0] == "fused":
-                batch = make_decoder(self.batch_rows, item[2])(dev)
-            else:
-                batch = {k: dev[off:off + n].view(_TORCH[dt]).view(shape)
-                         for k, dt, shape, off, n in regions}
-            ready = torch.cuda.Event()
-            ready.record(stream)
-        owned = [dev] + ([batch["segments"]] if item[0] == "fused" else [])
-        if sync:
-            copied.synchronize()
-            self._pool.put(buf)
-        else:
-            self._ring_push(copied, buf)
-        return batch, ready, owned
-
-    def _transfer_cpu(self, item: tuple) -> Batch:
-        if item[0] == "fused":
-            _, buf, meta, _rows = item
-            batch = _decode_on_host(buf, self.batch_rows, meta)
-            self._pool.put(buf)
-            return batch
-        return {k: torch.from_numpy(np.array(v)) for k, v in item[1].items()}
-
-    def _ring_push(self, copied: "torch.cuda.Event", buf: np.ndarray
-                   ) -> None:
-        """Track an in-flight copy; recycle the host buffers of the copies
-        that have completed, waiting for the oldest once more than the
-        pipeline's depth are in flight."""
-        self._inflight.append((copied, buf))
-        while self._inflight and (len(self._inflight) > self._inflight_depth
-                                  or self._inflight[0][0].query()):
-            ev, old = self._inflight.popleft()
-            ev.synchronize()
-            self._pool.put(old)
-
-    def _drain_inflight(self) -> None:
-        while self._inflight:
-            ev, buf = self._inflight.popleft()
-            ev.synchronize()
-            self._pool.put(buf)
-
+    # -- stage 2: transfer (the methods of _TransferStage) ---------------
     def _transfer_next(self, _cell) -> Optional[tuple]:
         item = self._pack_iter.next()
         if item is None:
@@ -860,13 +935,7 @@ class DeviceLoader:
         out = self._iter.next()
         if out is None or self.emit == "host":
             return out
-        batch, ready, owned = out
-        if ready is not None:
-            consumer = torch.cuda.current_stream(self.device)
-            consumer.wait_event(ready)
-            for t in owned:
-                t.record_stream(consumer)
-        return batch
+        return self._handoff(out)
 
     def __iter__(self):
         while True:

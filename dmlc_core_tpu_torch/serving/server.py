@@ -40,8 +40,12 @@ not be served silently without it): the telemetry exporter
 (``metrics_port=`` / ``DMLC_METRICS_PORT``), the SLO monitor
 (``DMLC_SLO_SPEC``), the flight recorder (``DMLC_FLIGHT_DIR``) and
 trace sampling (``DMLC_TRACE_SAMPLE``), all ROADMAP queue A.12; the
-fleet agent (``DMLC_ROUTER_REGISTRY``, A.11); the autotuned
-:meth:`serve_forever` (``DMLC_AUTOTUNE``, A.9).
+fleet agent (``DMLC_ROUTER_REGISTRY``, A.11).
+
+Autotuning: with ``DMLC_AUTOTUNE`` opted in, :meth:`PredictionServer.
+serve_forever` (and so ``serve_main``) tunes the micro-batcher's cut
+triggers one window at a time (:mod:`..pipeline.autotune`);
+``DMLC_AUTOTUNE=0`` is the kill switch.
 
     python -m dmlc_core_tpu_torch.serving.server ckpt_dir=DIR features=N \\
         [model=fm] [dim=16] [port=0] [device=cuda|cpu] ...
@@ -127,14 +131,6 @@ def _refuse_unported(metrics_port: Optional[int]) -> None:
     for key, why in _REFUSED_ENV.items():
         if get_env(key, ""):
             raise DMLCError(f"{key} is set, but {why}")
-
-
-def _refuse_autotune() -> None:
-    tune = get_env("DMLC_AUTOTUNE", "").strip()
-    if tune and tune != "0":
-        raise DMLCError("DMLC_AUTOTUNE is set, but the serving autotuner "
-                        "is not ported yet (ROADMAP queue A.9, "
-                        "disaggregated ingest and autotuning)")
 
 
 def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
@@ -246,17 +242,43 @@ class PredictionServer:
     def serve_forever(self, window_s: float = 5.0,
                       max_windows: Optional[int] = None) -> int:
         """Block until :meth:`stop` (or ``max_windows`` windows of
-        ``window_s``); returns the windows run.  The JAX server drives
-        its serving autotuner here when ``DMLC_AUTOTUNE`` opts in; that
-        is refused (not ported, ROADMAP queue A.9)."""
-        _refuse_autotune()
+        ``window_s``); returns the windows run.
+
+        With ``DMLC_AUTOTUNE`` opted in, each window is one epoch of the
+        serving autotuner over the batcher's live knobs
+        (:func:`..pipeline.autotune.serving_knob_space`, applied through
+        ``MicroBatcher.apply_knobs``), judged by the window's QPS / (1 +
+        p99 latency in seconds): a cut trigger that buys throughput by
+        letting requests wait pays for the latency.  A window with no
+        traffic, or cut short by a stop, is aborted and judges nothing.
+        Without it (unset or ``0``) the loop only sleeps."""
+        from ..pipeline.autotune import maybe_autotuner, serving_knob_space
+        from ..pipeline.fingerprint import autotune_key
+        tuner = maybe_autotuner(lambda: serving_knob_space(self.batcher),
+                                key=autotune_key(None, platform="serving"),
+                                gate="auto")
+        m_reqs = metrics.throughput("serving.batcher.requests")
+        m_lat = metrics.histogram("serving.latency_s")
         windows = 0
         while (not self._stopping
                and (max_windows is None or windows < max_windows)):
+            if tuner is not None:
+                tuner.begin_epoch()     # pushes this window's knob values
+                base = m_reqs.total
             t0 = time.monotonic()
             while not self._stopping and time.monotonic() - t0 < window_s:
                 time.sleep(min(0.05, window_s))
+            if tuner is not None:
+                dt = max(1e-9, time.monotonic() - t0)
+                delta = m_reqs.total - base
+                if delta <= 0 or self._stopping:
+                    tuner.abort_epoch()
+                else:
+                    p99 = float(m_lat.snapshot()["p99"])
+                    tuner.end_epoch((delta / dt) / (1.0 + p99))
             windows += 1
+        if tuner is not None:
+            tuner.abort_epoch()         # drop a half-judged mutation
         return windows
 
     # -- health ----------------------------------------------------------
@@ -477,7 +499,6 @@ def serve_main(argv=None) -> int:
         if p.model == "ffm":
             raise DMLCError(_FFM_UNSERVABLE)
         _refuse_unported(None)
-        _refuse_autotune()
         device = resolve_device(p.device)
     except DMLCError as e:
         print(f"serving.server: {e}", file=sys.stderr)

@@ -4,8 +4,9 @@ Counterpart of ``dmlc_core_tpu/utils/faults.py``, copied so that the port
 never imports the JAX package.  Hot paths declare **named probe sites**
 (``fault_point("s3.request")`` around each HTTP round trip of the remote
 filesystems, ``page_cache.write`` before each page the page-cache writer
-stores, ``serving.server.admit`` where the server admits a request) and
-a *plan* decides, per site, whether to inject an error or added latency.
+stores, ``serving.server.admit`` where the server admits a request,
+``ingest.send`` and ``ingest.recv`` at each frame an ingest worker sends
+and a trainer's reader receives) and a *plan* decides, per site, whether to inject an error or added latency.
 
 When no plan is active (``DMLC_FAULT_SPEC`` unset and nothing installed)
 a probe is an exact no-op: one environment read and one module-global

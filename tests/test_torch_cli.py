@@ -123,8 +123,8 @@ def test_config_file_and_overrides(tmp_path, data, capsys):
     (["data=train.csv?format=tsv"], "unknown parser format 'tsv'"),
     (["model=ffm", "ckpt_dir=nfs://nn/ckpt"],
      "unknown filesystem scheme 'nfs'"),
-    (["workers=h1:9000"], "workers= "),
-    (["kstep=4", "workers=h1:9000"], "workers= "),
+    (["workers=h1"], "workers= "),
+    (["kstep=4", "workers=h1:port"], "workers= "),
     (["data=gopher://host/train.libsvm"],
      "unknown filesystem scheme 'gopher'"),
     (["ckpt_dir=ftp://nn/ckpt"], "unknown filesystem scheme 'ftp'"),
@@ -455,8 +455,33 @@ def test_format_from_a_remote_uri_suffix(data_uri, model, want):
     assert cli._resolve_format(p) == want
 
 
-def test_cli_still_refuses_workers(data, capsys):
-    assert _port(f"data={data[0]}", "workers=127.0.0.1:1") == 2
-    err = capsys.readouterr().err
-    assert "workers= (remote ingest workers and the fused wire) is not " \
-        "ported yet" in err
+def test_cli_still_refuses_workers(data, tmp_path, capsys):
+    """``workers=`` trains from ingest workers (port workers in threads,
+    one part, so the batches are the local run's): the checkpoint and the
+    predictions equal the local run's (2e-6), per step and with kstep;
+    ``model=ffm workers=`` still exits 2 with the JAX CLI's message."""
+    from test_torch_ingest import start_port_worker
+
+    def scores(name, *args):
+        ck = tmp_path / name
+        assert _port(*args, f"ckpt_dir={ck}") == 0
+        out = tmp_path / f"{name}.txt"
+        assert _port("mode=predict", f"data={data[1]}", f"ckpt_dir={ck}",
+                     f"output={out}") == 0
+        return np.loadtxt(out), _params(ck)[1]
+
+    for kstep in ("kstep=1", "kstep=4"):
+        local, p_local = scores(f"local{kstep}", f"data={data[0]}", kstep)
+        # the worker hashes ids as the local loader does (id_mod=features)
+        port = start_port_worker(data[0], 0, 1, batch_rows=16, nnz_cap=128,
+                                 id_mod=F, max_epochs=3)
+        remote, p_remote = scores(f"remote{kstep}", f"data={data[0]}",
+                                  kstep, f"workers=127.0.0.1:{port}")
+        assert "trained deepfm: 3 steps" in capsys.readouterr().out
+        np.testing.assert_allclose(remote, local, rtol=0, atol=PREDICT_TOL)
+        for k in p_local:
+            np.testing.assert_array_equal(p_remote[k], p_local[k], err_msg=k)
+    assert _port(f"data={data[0]}", "model=ffm",
+                 "workers=127.0.0.1:1") == 2
+    assert "workers= (fused wire) does not carry libfm fields" in \
+        capsys.readouterr().err

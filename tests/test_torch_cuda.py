@@ -1412,3 +1412,129 @@ def test_save_async_between_two_graph_replays(dev, tmp_path):
 
     got, want = _within(180, body)
     assert got == want
+
+
+# ---------------------------------------------------------------------------
+# the v3 compact wire's decode kernel (kernels/wire_decode.cu)
+# ---------------------------------------------------------------------------
+
+def _pack_bits(values, width, nwords):
+    bits = ((values.astype(np.uint64)[:, None]
+             >> np.arange(width, dtype=np.uint64)) & 1).astype(np.uint8)
+    flat = np.zeros(nwords * 32, np.uint8)
+    flat[:bits.size] = bits.reshape(-1)
+    return np.packbits(flat, bitorder="little").view("<u4").view(np.int32)
+
+
+def _v3_buffer(rng, rows, nnz, w, dbits):
+    """A v3 buffer built in numpy (ids of w bits; a 2^dbits dictionary,
+    or raw values where dbits is 0), and its meta."""
+    from dmlc_core_tpu_torch.kernels.wire_decode import v3_layout
+    n_real = int(rng.integers(nnz // 2, nnz + 1))
+    rp = np.sort(rng.integers(0, n_real + 1, rows + 1)).astype(np.int32)
+    rp[0], rp[-1] = 0, n_real
+    ids = rng.integers(0, 1 << w, nnz, dtype=np.int64)
+    ids[n_real:] = 0
+    code_off, dict_off, _, _ = v3_layout(rows, nnz, w, dbits)
+    parts = [_pack_bits(ids, w, (nnz * w + 31) // 32)]
+    if dbits:
+        table = rng.standard_normal(1 << dbits).astype(np.float32)
+        table[0] = 0.0
+        codes = rng.integers(0, 1 << dbits, nnz)
+        codes[n_real:] = 0
+        parts += [_pack_bits(codes, dbits, dict_off - code_off),
+                  table.view(np.int32)]
+    else:
+        vals = rng.standard_normal(nnz).astype(np.float32)
+        vals[n_real:] = 0.0
+        parts.append(vals.view(np.int32))
+    parts += [rp, rng.random(2 * rows).astype(np.float32).view(np.int32)]
+    return (np.concatenate(parts).astype(np.int32),
+            nnz | (w << 32) | (dbits << 40))
+
+
+WIRE_CASES = [(8, 0), (12, 2), (20, 4), (20, 0), (24, 16), (28, 8),
+              (32, 0), (32, 6)]
+
+
+@pytest.mark.parametrize("rows,nnz", [(4096, 131072), (64, 1000),
+                                      (13000, 40000)])
+@pytest.mark.parametrize("w,dbits", WIRE_CASES)
+def test_wire_decode_kernel_is_bit_exact(dev, w, dbits, rows, nnz):
+    """The kernel's ids, vals and segments equal the plain v3 decode's on
+    the card, array for array (bit patterns of vals too), with row_ptr in
+    shared memory (rows < 12,288) and read from global memory."""
+    from dmlc_core_tpu_torch.kernels import (wire_decode,
+                                             wire_decode_reference)
+    rng = np.random.default_rng(w * 100 + dbits + rows)
+    host, meta = _v3_buffer(rng, rows, nnz, w, dbits)
+    buf = torch.from_numpy(host).to(dev)
+    got = wire_decode(buf, rows, nnz, w, dbits)
+    want = wire_decode_reference(buf, rows, nnz, w, dbits)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("ids", "vals", "segments"), got, want):
+        assert g.dtype == r.dtype and g.shape == r.shape, name
+        if name == "vals":
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r), name
+
+
+def test_wire_decode_counts_launches_and_refuses_the_cpu(dev):
+    from dmlc_core_tpu_torch.kernels import wire_decode
+    from dmlc_core_tpu_torch.utils.logging import DMLCError
+    rng = np.random.default_rng(1)
+    host, _ = _v3_buffer(rng, 64, 1000, 20, 4)
+    n0 = launch_counts().get("wire_decode", 0)
+    wire_decode(torch.from_numpy(host).to(dev), 64, 1000, 20, 4)
+    assert launch_counts().get("wire_decode", 0) == n0 + 1
+    with pytest.raises(DMLCError, match="needs CUDA tensors"):
+        wire_decode(torch.from_numpy(host), 64, 1000, 20, 4,
+                    engine="kernel")
+
+
+@pytest.mark.parametrize("w,dbits", [(20, 4), (24, 0)])
+def test_wire_decode_records_into_a_cuda_graph(dev, w, dbits):
+    """Captured and replayed over new buffers, the decode gives what the
+    plain version gives on each."""
+    from dmlc_core_tpu_torch.pipeline.loader import make_decoder
+    rng = np.random.default_rng(7)
+    rows, nnz = 4096, 131072
+    bufs = [_v3_buffer(rng, rows, nnz, w, dbits) for _ in range(3)]
+    meta = bufs[0][1]
+    decode = make_decoder(rows, meta)
+    static = torch.from_numpy(bufs[0][0]).to(dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode(static)                       # build and load first
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode(static)
+    plain = make_decoder(rows, meta, engine="torch")
+    for host, m in bufs:
+        assert m == meta
+        static.copy_(torch.from_numpy(host).to(dev))
+        graph.replay()
+        want = plain(static.clone())
+        torch.cuda.synchronize()
+        for k in ("ids", "segments", "row_ptr", "labels", "weights"):
+            assert torch.equal(out[k], want[k]), k
+        assert torch.equal(out["vals"].view(torch.int32),
+                           want["vals"].view(torch.int32))
+
+
+def test_compact_loader_on_the_card_equals_v2(dev, tmp_path):
+    """The loader's default on the card is the v3 wire, decoded by the
+    kernel: every batch equals the v2 wire's, and the kernel ran once a
+    batch."""
+    path = _feed_file(tmp_path / "d.libsvm", seed=9)
+    n0 = launch_counts().get("wire_decode", 0)
+    v3, _ = _feed(path, "cuda", {})
+    launched = launch_counts().get("wire_decode", 0) - n0
+    v2, _ = _feed(path, "cuda", dict(wire_compact=False))
+    torch.cuda.synchronize()
+    assert len(v3) == len(v2) == 18 and launched == 18
+    for a, b in zip(v3, v2):
+        for k in b:
+            assert torch.equal(a[k], b[k]), k

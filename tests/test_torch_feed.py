@@ -211,8 +211,31 @@ def test_decoder_matches_host_segments_and_jax(lib, path):
             assert a.dtype == b.dtype and a.shape == b.shape, k
             np.testing.assert_array_equal(a, b, err_msg=k)
             np.testing.assert_array_equal(_np(on_host[k]), b, err_msg=k)
-    with pytest.raises(DMLCError, match="not ported"):
-        make_decoder(ROWS, 100 | (17 << 32))
+    # the v3 compact wire of the same batches: the same arrays as the v2
+    # decode and as the JAX decoder of the v3 buffer
+    ld = DeviceLoader(create_parser(path), ROWS, 4096, device="cpu",
+                      emit="host", wire_compact=True)
+    try:
+        compact = [(np.asarray(b).copy(), m) for _, b, m, _ in ld]
+    finally:
+        ld.close()
+    assert len(compact) == len(items)
+    for (buf, meta), (buf3, meta3) in zip(items, compact):
+        assert (meta3 >> 32) & 0xFF and meta3 & 0xFFFFFFFF == meta
+        words3 = loader_mod._fused_words_meta(ROWS, meta3)
+        assert words3 < fused_words(ROWS, meta)
+        got = make_decoder(ROWS, meta3)(torch.from_numpy(buf3[:words3]))
+        v2 = make_decoder(ROWS, meta)(torch.from_numpy(buf[:fused_words(
+            ROWS, meta)]))
+        want = jdl.make_decoder(ROWS, meta3)(
+            jax.numpy.asarray(buf3[:words3]))
+        for k in want:
+            np.testing.assert_array_equal(_np(got[k]), np.asarray(want[k]),
+                                          err_msg=k)
+            np.testing.assert_array_equal(_np(got[k]), _np(v2[k]),
+                                          err_msg=k)
+    with pytest.raises(DMLCError, match="bad engine"):
+        make_decoder(ROWS, meta3, engine="pallas")
 
 
 class _Boom:

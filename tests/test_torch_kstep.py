@@ -174,15 +174,15 @@ def test_make_train_step_fused_matches_jax(tmp_path):
     metas = {meta for _, _, meta, _ in items}
     assert len(items) == 4 and len(metas) == 1
     meta = metas.pop()
-    from dmlc_core_tpu_torch.pipeline.loader import fused_words, \
+    from dmlc_core_tpu_torch.pipeline.loader import _fused_words_meta, \
         _decode_meta
-    words = fused_words(128, _decode_meta(meta))
+    words = _fused_words_meta(128, meta)
     bufs = np.stack([b[:words] for _, b, _, _ in items])
     jm = JFM(num_features=F, dim=DIM)
     jp = jm.init(jax.random.PRNGKey(7))
     opt = optax.adam(LR)
     from dmlc_core_tpu.pipeline.device_loader import _host_segments
-    segs = np.stack([_host_segments(b, 128, _decode_meta(meta), words)
+    segs = np.stack([_host_segments(b, 128, _decode_meta(meta)[0], words)
                      for b in bufs])
     jkstep = jtrain.make_train_step_fused(jm, opt, rows=128, meta=meta, k=4,
                                           with_segments=True, donate=False)

@@ -186,10 +186,18 @@ def test_wide_ids_raise_without_id_mod(lib):
 
 
 def test_compact_wire_and_other_formats_are_refused(lib):
-    with pytest.raises(DMLCError, match="not ported"):
-        lib.Packer(8, 64, compact=True)
-    with pytest.raises(DMLCError, match="not ported"):
-        lib.SpPacker(8, 64, compact=True)
+    """Other text formats are refused; the v3 compact wire is packed (its
+    bytes against the JAX packers' are in test_torch_wire.py)."""
+    data = messy_text(200, seed=3)
+    ours, _ = _blocks(data, pieces=1)
+    assert lib.has_compact()
+    p = lib.Packer(64, 4096, id_mod=1 << 20, compact=True)
+    metas = [m for _, m in p.feed(ours[0])]
+    p.close()
+    sp = lib.SpPacker(64, 4096, id_mod=1 << 20, compact=True)
+    metas += [m for _, m in sp.feed_text(data)]
+    sp.close()
+    assert metas and all((m >> 32) & 0xFF for m in metas)
     with pytest.raises(DMLCError, match="streampack format 'tsv' not in"):
         lib.SpPacker(8, 64, fmt="tsv")
     assert lib.fused_words(4, 16) == jnative.fused_words(4, 16) == 45

@@ -329,6 +329,20 @@ def test_a_dropped_build_leaves_nothing_and_the_next_epoch_rebuilds(
     uri = f"{data_dir}#{tmp_path}/c"
     delays = metrics.counter("faults.page_cache.write.delays")
     before = delays.value
+    offer = page_cache.PageCacheWriter.offer
+
+    def first_page_taken(self, *args):
+        # the writer takes the first page before the next offers: on a
+        # loaded host its thread could otherwise start after the queue
+        # filled, and drop the build before any write (and any delay)
+        ok = offer(self, *args)
+        deadline = time.monotonic() + 30
+        while (self.pages == 1 and not self._q.empty()
+               and time.monotonic() < deadline):
+            time.sleep(0.001)
+        return ok
+    monkeypatch.setattr(page_cache.PageCacheWriter, "offer",
+                        first_page_taken)
     monkeypatch.setenv("DMLC_FAULT_SPEC", "page_cache.write:latency=50ms")
     with _port_loader(uri, cache_queue_pages=1) as ld:
         dropped = _epoch(ld)
@@ -341,6 +355,7 @@ def test_a_dropped_build_leaves_nothing_and_the_next_epoch_rebuilds(
     with _port_loader(str(data_dir), cache=None) as ref:
         _assert_epochs_equal(_epoch(ref), dropped)
     monkeypatch.delenv("DMLC_FAULT_SPEC")
+    monkeypatch.setattr(page_cache.PageCacheWriter, "offer", offer)
     with _port_loader(uri) as ld:
         rebuilt = _epoch(ld)
         assert ld.cache_stats == dict(ld.cache_stats, hits=0, misses=1,

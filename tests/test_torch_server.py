@@ -657,15 +657,45 @@ def test_metrics_port_is_refused():
         PredictionServer(_Stub(), warmup=False, metrics_port=0)
 
 
-def test_autotuned_serve_forever_is_refused(monkeypatch):
-    srv = PredictionServer(_Stub(), warmup=False).start()
+def test_autotuned_serve_forever_is_refused(monkeypatch, tmp_path):
+    """No longer refused: with ``DMLC_AUTOTUNE=1`` each window under
+    traffic is one autotune epoch over the batcher's knobs, which stay
+    within the engine's ladder; ``0`` touches nothing."""
+    monkeypatch.setenv("DMLC_TUNED_CONFIG", str(tmp_path / "tuned.json"))
+    m = tmetrics.metrics
+    m.gauge("slo.active_breaches").set(0)
+    srv = PredictionServer(_Stub(), warmup=False, max_delay_s=0.001).start()
+    stop = threading.Event()
+
+    def traffic():
+        with PredictClient(srv.host, srv.port) as c:
+            while not stop.is_set():
+                c.predict(np.array([1, 2], np.int32),
+                          np.ones(2, np.float32),
+                          np.array([0, 1, 2], np.int32))
+    th = threading.Thread(target=traffic, daemon=True)
     try:
+        th.start()
         monkeypatch.setenv("DMLC_AUTOTUNE", "1")
-        with pytest.raises(DMLCError, match="ROADMAP queue A.9"):
-            srv.serve_forever(window_s=0.01, max_windows=1)
+        e0 = m.counter("autotune.epochs").value
+        mut0 = m.counter("autotune.mutations").value
+        assert srv.serve_forever(window_s=0.15, max_windows=4) == 4
+        assert m.counter("autotune.epochs").value - e0 >= 3
+        assert m.counter("autotune.mutations").value > mut0
+        b = srv.batcher
+        ladder = srv.engine.ladder
+        assert 0 < b.max_batch_rows <= ladder.max_rows
+        assert 0 < b.max_batch_nnz <= ladder.max_nnz
+        assert 0.0005 <= b.max_delay_s <= 0.008
         monkeypatch.setenv("DMLC_AUTOTUNE", "0")      # the kill switch
-        assert srv.serve_forever(window_s=0.01, max_windows=2) == 2
+        e1 = m.counter("autotune.epochs").value
+        knobs = (b.max_delay_s, b.max_batch_rows, b.max_batch_nnz)
+        assert srv.serve_forever(window_s=0.05, max_windows=2) == 2
+        assert m.counter("autotune.epochs").value == e1
+        assert (b.max_delay_s, b.max_batch_rows, b.max_batch_nnz) == knobs
     finally:
+        stop.set()
+        th.join(timeout=30)
         srv.stop()
 
 
@@ -673,7 +703,7 @@ def test_autotuned_serve_forever_is_refused(monkeypatch):
 # serve_main
 # ---------------------------------------------------------------------------
 
-def test_serve_main_refusals(monkeypatch, capsys):
+def test_serve_main_refusals(monkeypatch, capsys, tmp_path):
     assert tserver.serve_main([]) == 2
     assert "usage" in capsys.readouterr().err
     assert tserver.serve_main(["ckpt_dir=x", "features=10", "model=ffm",
@@ -683,10 +713,24 @@ def test_serve_main_refusals(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert tserver.serve_main(["ckpt_dir=x", "features=10"]) == 2
     assert "no CUDA device" in capsys.readouterr().err
+    # DMLC_AUTOTUNE is no longer refused: serve_main serves, and its
+    # serve_forever runs the tuner's windows (no traffic: each aborted)
+    monkeypatch.undo()
     monkeypatch.setenv("DMLC_AUTOTUNE", "1")
-    assert tserver.serve_main(["ckpt_dir=x", "features=10",
-                               "device=cpu"]) == 2
-    assert "A.9" in capsys.readouterr().err
+    monkeypatch.setenv("DMLC_TUNED_CONFIG", str(tmp_path / "tuned.json"))
+    ran = {}
+    real = tserver.PredictionServer.serve_forever
+
+    def two_windows(self, window_s=5.0, max_windows=None):
+        ran["windows"] = real(self, window_s=0.02, max_windows=2)
+        raise KeyboardInterrupt
+    monkeypatch.setattr(tserver.PredictionServer, "serve_forever",
+                        two_windows)
+    aborted = tmetrics.metrics.counter("autotune.aborted").value
+    assert tserver.serve_main([f"ckpt_dir={tmp_path}", "features=10",
+                               "device=cpu", "host=127.0.0.1"]) == 0
+    assert ran["windows"] == 2
+    assert tmetrics.metrics.counter("autotune.aborted").value > aborted
 
 
 def test_ffm_cannot_be_served_by_either_engine():
