@@ -22,8 +22,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    freed NaN-filled block; two fm-terms or embed-bag calls must be
    bit-equal, at B 4096 and B 128; the ragged backward's sums have no
    fixed order and are not), with CUDA-event times of kernel, plain
-   version, the same call with next to no work (embed bag B 1 K 1, each
-   ragged backward with nnz_used = 0) and, where one PyTorch call
+   version, the same call with next to no work (the embed-bag and
+   fm-terms kernels, forward and backward, at B 1 K 1; each ragged
+   forward and backward with nnz_used = 0) and, where one PyTorch call
    computes the same function, that call; the ragged-gather forward and
    backward at the field-aware FM's shape (D = 40 x 4 over 4096 x 40
    segments, F 2^18, segments unsorted within a row), with a sparse CSR
@@ -383,6 +384,7 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
     log(f"[kernels] timer floor: one torch.zeros(1) launch {floor_ms:.4f} "
         f"ms [{power}]")
     with torch.inference_mode():
+        zero_fill = {}          # (name, D) -> the fill-0 call: the floor
         for D, variants in ((DIM, (True, False)), (1, (False,))):
             table = torch.from_numpy(rng.standard_normal(
                 (F_FEATURES, D), dtype=np.float32) * 0.05).cuda()
@@ -427,13 +429,15 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
                         f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, "
                         f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} "
                         f"[{power}]")
+                    if fill == 0:
+                        zero_fill[name, D] = ms
                     # the serving path runs the fm variant at D=32 and the
                     # embed variant (linear term) at D=1, at full fill
                     if fill == CAP and (fm or D == 1):
                         results[name] = dict(
                             ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                             bound_by=b_by, library_ms=lib_ms,
-                            max_abs_err=err)
+                            max_abs_err=err, floor_ms=zero_fill[name, D])
             del table
 
         # row-major FM terms at the ladder's nnz_per_row
@@ -458,6 +462,8 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
         run = lambda: fm_terms(ids, vals, table, engine="kernel")  # noqa
         plain = lambda: fm_terms_reference(ids, vals, table)  # noqa: E731
         ms, plain_ms = timer.ms(run), timer.ms(plain)
+        floor_ms = _fm_terms_floor(torch, timer, power, ids, vals, table,
+                                   "serving")
         offsets = torch.arange(0, B_RM * K_RM, K_RM, dtype=torch.int32,
                                device="cuda")
         lib_s1 = lambda: Fn.embedding_bag(  # noqa: E731
@@ -474,12 +480,32 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
             f"{err:.3g} [{power}]")
         results["fm_terms"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                    bound_by=b_by, library_ms=None,
-                                   max_abs_err=err)
+                                   max_abs_err=err, floor_ms=floor_ms)
     results.update(_training_kernels(torch, timer, power, rng))
     results.update(_ffm_kernels(torch, timer, power, rng))
     results.update(_cli_ffm_grad(torch, timer, power, rng))
     results.update(_optimizer_kernels(torch, timer, power))
     return results
+
+
+def _one_entry(ids, vals):
+    """The first entry of a row-major batch as a [1, 1] batch: a call
+    with next to no work."""
+    return ids[:1, :1].contiguous(), vals[:1, :1].contiguous()
+
+
+def _fm_terms_floor(torch, timer: Timer, power: str, ids, vals, table,
+                    label: str) -> float:
+    """The fm-terms forward at B 1, K 1 (held against its plain
+    version): its time is the floor under the kernel's at this table."""
+    from dmlc_core_tpu_torch.kernels import fm_terms, fm_terms_reference
+    one = _one_entry(ids, vals)
+    for a, b in zip(fm_terms(*one, table, engine="kernel"),
+                    fm_terms_reference(*one, table)):
+        _close(f"fm_terms ({label}) B=1 K=1", a, b)
+    floor_ms = timer.ms(lambda: fm_terms(*one, table, engine="kernel"))
+    log(f"[kernels] fm_terms ({label}) B=1 K=1: {floor_ms:.4f} ms [{power}]")
+    return floor_ms
 
 
 def _rowmajor_train_batch(torch, rng):
@@ -541,7 +567,8 @@ def _gather_case(torch, timer: Timer, power: str, label: str, fids, fvals,
     """One ragged-gather forward at the flat training batch's shapes
     (every entry live, padding on the scratch row) against its plain
     version, timed; with ``foffsets`` (sorted segments) also the one
-    PyTorch call that computes the embed sum."""
+    PyTorch call that computes the embed sum, and the floor: the same
+    call with ``nnz_used = 0`` (exact zeros)."""
     from torch.nn import functional as Fn
 
     from dmlc_core_tpu_torch.kernels import (ragged_gather,
@@ -562,19 +589,35 @@ def _gather_case(torch, timer: Timer, power: str, label: str, fids, fvals,
     b_ms, b_by = bound(rows_read * Dg * 4 + 12 * fids.shape[0]
                        + nout * (ROWS_TR + 1) * Dg * 4,
                        (4 if fm else 2) * nnz * Dg)
-    lib_ms = None
+    lib_ms = floor_ms = None
+    if foffsets is not None:
+        zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+        none = lambda: ragged_gather(  # noqa: E731
+            fids, fvals, fsegs, zero, tab, ROWS_TR, fm=fm, engine="kernel")
+        for g, w in zip(none(), ragged_gather_reference(
+                fids, fvals, fsegs, zero, tab, ROWS_TR, fm=fm)):
+            if g is not None:
+                _close(f"{name} ({label}) nnz_used=0", g, w,
+                       exact_zero=True)
+        floor_ms = timer.ms(none)
     if not fm and foffsets is not None:
         lib = lambda: Fn.embedding_bag(  # noqa: E731
             clamp_ids(fids[:nnz], tab.shape[0]).int(), tab, foffsets,
             mode="sum", per_sample_weights=fvals[:nnz])
         _close(f"embedding_bag (flat) D={Dg}", lib(), want[0][:ROWS_TR])
         lib_ms = timer.ms(lib)
+    above = ("" if floor_ms is None else f" (nnz_used=0: {floor_ms:.4f} ms, "
+             f"above it {ms - floor_ms:.4f} ms)")
     log(f"[kernels] {name} ({label}) cap={fids.shape[0]} nnz={nnz} rows="
-        f"{ROWS_TR} D={Dg}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
-        f" embedding_bag {'-' if lib_ms is None else f'{lib_ms:.4f} ms'}"
-        f", bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, max_abs_err=err)
+        f"{ROWS_TR} D={Dg}: kernel {ms:.4f} ms{above}, plain {plain_ms:.4f}"
+        f" ms, embedding_bag "
+        f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+        f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+    row = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms, max_abs_err=err)
+    if floor_ms is not None:
+        row["floor_ms"] = floor_ms
+    return row
 
 
 def _training_forward(torch, timer: Timer, power: str, table, fids, fvals,
@@ -640,6 +683,8 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
     err = max(_close("fm_terms (training)", a, b) for a, b in zip(got, want))
     _bit_equal("fm_terms (training)", got, run())
     ms, plain_ms = timer.ms(run), timer.ms(plain)
+    floor_ms = _fm_terms_floor(torch, timer, power, ids, vals, table,
+                               "training")
     offsets = torch.arange(0, BK, K_TR, dtype=torch.int32, device="cuda")
     lib_s1 = lambda: Fn.embedding_bag(  # noqa: E731
         clamp_ids(ids, F).int().reshape(-1), table, offsets, mode="sum",
@@ -650,7 +695,7 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
                        4 * BK * D)
     results["fm_terms_train"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                      bound_by=b_by, library_ms=None,
-                                     max_abs_err=err)
+                                     max_abs_err=err, floor_ms=floor_ms)
     log(f"[kernels] fm_terms (training) B={ROWS_TR} K={K_TR} D={D}: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag (s1 only) "
         f"{s1_lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), max|err| "
@@ -662,6 +707,18 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
                             offsets, table, g)
     s1_lib_bwd_ms = timer.ms(lib_bwd)
     del lib_bwd
+    # the floor: the backward of a B 1, K 1 batch (the dense gradient is
+    # still written whole)
+    one = _one_entry(ids, vals)
+    none = lambda: fm_terms_grad(  # noqa: E731
+        *one, table, g[:1], g2[:1], False, engine="kernel")
+    for a, b in zip(none(), fm_terms_grad_reference(*one, table, g[:1],
+                                                    g2[:1], False)):
+        if a is not None:
+            _close("fm_terms_grad B=1 K=1", a, b)
+    grad_floor_ms = timer.ms(none)
+    log(f"[kernels] fm_terms_grad B=1 K=1 D={D}: {grad_floor_ms:.4f} ms "
+        f"[{power}]")
     for need_dvals in (False, True):
         run = lambda: fm_terms_grad(  # noqa: E731
             ids, vals, table, g, g2, need_dvals, engine="kernel")
@@ -678,7 +735,7 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
         if not need_dvals:              # the training paths ask no dvals
             results["fm_terms_grad"] = dict(
                 ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=None, max_abs_err=err)
+                library_ms=None, max_abs_err=err, floor_ms=grad_floor_ms)
         log(f"[kernels] fm_terms_grad dvals={need_dvals} B={ROWS_TR} "
             f"K={K_TR} D={D}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"no library call computes both terms (embedding_bag backward, "
@@ -742,7 +799,7 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
     with torch.no_grad():
         # the same call with next to no work (B 1, K 1): what a launch of
         # this kernel costs on the Timer
-        one = (ids[:1, :1].contiguous(), vals[:1, :1].contiguous())
+        one = _one_entry(ids, vals)
         _close("embed_bag B=1 K=1", embed_bag_forward(*one, table,
                                                       engine="kernel"),
                embed_bag_reference(*one, table))
@@ -789,6 +846,17 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
 
         lib_bwd = _library_grad(torch, ids.reshape(-1), vals.reshape(-1),
                                 offsets, table, g)
+        # the floor: the backward of the B 1, K 1 call (the dense
+        # gradient is still written whole)
+        none = lambda: embed_bag_grad(  # noqa: E731
+            *one, table, g[:1], False, False, engine="kernel")
+        for a, b in zip(none(), embed_bag_grad_reference(
+                *one, table, g[:1], False, False)):
+            if a is not None:
+                _close("embed_bag_grad B=1 K=1", a, b)
+        bag_grad_floor_ms = timer.ms(none)
+        log(f"[kernels] embed_bag_grad B=1 K=1 D={D}: "
+            f"{bag_grad_floor_ms:.4f} ms [{power}]")
         for square in (False, True):
             for need_dvals in (False, True):
                 run = lambda: embed_bag_grad(  # noqa: E731
@@ -813,7 +881,8 @@ def _training_kernels(torch, timer: Timer, power: str, rng) -> dict:
                     # the training path: square=False, no dvals
                     results["embed_bag_grad"] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                        bound_by=b_by, library_ms=lib_ms, max_abs_err=err)
+                        bound_by=b_by, library_ms=lib_ms, max_abs_err=err,
+                        floor_ms=bag_grad_floor_ms)
                 log(f"[kernels] embed_bag_grad square={square} dvals="
                     f"{need_dvals} B={ROWS_TR} K={K_TR} D={D}: kernel "
                     f"{ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag "
@@ -960,13 +1029,21 @@ def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
         lib = lambda: fwd_m @ table  # noqa: E731
         _close("sparse CSR @ table (ffm)", lib(), want)
         lib_ms = timer.ms(lib)
+        # the floor: the same call with nnz_used = 0 (exact zeros)
+        zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+        none = lambda: ragged_gather(  # noqa: E731
+            fids, fvals, fsegs, zero, table, S, fm=False, engine="kernel")[0]
+        _close("ragged_gather_embed (ffm) nnz_used=0", none(), want,
+               exact_zero=True)
+        floor_ms = timer.ms(none)
         results["ragged_gather_embed_ffm"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib_ms, max_abs_err=err)
+            library_ms=lib_ms, max_abs_err=err, floor_ms=floor_ms)
         log(f"[kernels] ragged_gather_embed (ffm) cap={cap} nnz={nnz} "
-            f"segments={S} D={D} F={F_FFM}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sparse CSR product {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}), max|err| {err:.3g} [{power}]")
+            f"segments={S} D={D} F={F_FFM}: kernel {ms:.4f} ms (nnz_used=0:"
+            f" {floor_ms:.4f} ms), plain {plain_ms:.4f} ms, sparse CSR "
+            f"product {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+            f"max|err| {err:.3g} [{power}]")
         del got, want, fwd_m
 
         g1 = torch.from_numpy(rng.standard_normal(
@@ -2859,7 +2936,10 @@ def phase_remote(torch, power: str, data: str, train_file: str,
     burst of sheds.  Returns the launch counts of its training and
     serving."""
     from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.utils.metrics import metrics
     t0 = time.monotonic()
+    connects = metrics.counter("retry.io.connect.retries")
+    c0 = connects.value
     store = _FakeStore(os.path.join(data, "remote"))
     try:
         with _env(**store.env()):
@@ -2883,8 +2963,10 @@ def phase_remote(torch, power: str, data: str, train_file: str,
             raise RuntimeError(f"[remote] {store.unsigned} unsigned S3 "
                                f"requests")
         log(f"[remote] the store moved {store.bytes_in / 1e6:.1f} MB in and "
-            f"{store.bytes_out / 1e6:.1f} MB out; phase "
-            f"{time.monotonic() - t0:.1f} s [{power}]")
+            f"{store.bytes_out / 1e6:.1f} MB out; connects retried in this "
+            f"process (retry.io.connect.retries) "
+            f"{connects.value - c0}; phase {time.monotonic() - t0:.1f} s "
+            f"[{power}]")
     finally:
         store.close()
         shutil.rmtree(store.root, ignore_errors=True)
@@ -4831,10 +4913,16 @@ def main() -> int:
                 ("remote", remote))}
         if name + "_train" in kern:
             # the serving row's numbers, then the same kernel at the
-            # training batch's shapes, with the training launches
+            # training batch's shapes, with the training launches, its
+            # floor and (the embed forward) DCNv2's x0 at D = 32
+            train = kern[name + "_train"]
             row["training"] = {"launches": training.get(name, 0),
-                               **{key: kern[name + "_train"][key]
-                                  for key in keys}}
+                               **{key: train[key] for key in keys},
+                               "floor_ms": train["floor_ms"]}
+            if name + "_train_d32" in kern:
+                d32 = kern[name + "_train_d32"]
+                row["training"]["d32"] = {
+                    key: d32[key] for key in keys + ("floor_ms",)}
         if name + "_ffm" in kern:
             # the same kernel at FFM's shape (D = 160, 163,840 segments),
             # with the [ffm] paths' launches

@@ -38,6 +38,7 @@ import numpy as np
 from .. import native
 from ..io import URISpec, create_input_split
 from ..utils.logging import DMLCError, check, log_info
+from ..utils.metrics import metrics
 from ..utils.parameter import Parameter, field
 from ..utils.threaded_iter import ThreadedIter
 from .row_block import RowBlock
@@ -267,6 +268,16 @@ class TextParser:
         self.csv_label_col = csv_label_col
         self.csv_delim = csv_delim
         self.bytes_read = 0
+        self._bind_metrics()
+
+    def _bind_metrics(self) -> None:
+        """The JAX parser's metric handles (``parser.chunk`` and
+        ``parser.parse`` stage timers, ``parser.bytes`` throughput),
+        re-fetched when the registry's generation moves."""
+        self._m_gen = metrics.generation
+        self._m_chunk = metrics.stage("parser.chunk")
+        self._m_parse = metrics.stage("parser.parse")
+        self._m_bytes = metrics.throughput("parser.bytes")
 
     @property
     def chunk_bytes(self) -> int:
@@ -282,12 +293,17 @@ class TextParser:
         self.source.hint_chunk_size(n)
 
     def parse_next(self) -> Optional[RowBlock]:
+        if self._m_gen != metrics.generation:
+            self._bind_metrics()
         while True:
-            chunk = self.source.next_chunk()
+            with self._m_chunk.time():
+                chunk = self.source.next_chunk()
             if chunk is None:
                 return None
             self.bytes_read += len(chunk)
-            blk = _to_block(self.parse_fn(chunk))
+            self._m_bytes.add(len(chunk))
+            with self._m_parse.time():
+                blk = _to_block(self.parse_fn(chunk))
             if blk.size:
                 return blk
 

@@ -36,7 +36,9 @@ backoff with full jitter; ``DMLC_IO_RETRIES``, ``DMLC_IO_BACKOFF_BASE``,
 ``DMLC_IO_BACKOFF_MAX``, ``DMLC_IO_DEADLINE``), which retries transport
 errors, 5xx and 429 (``Retry-After`` in either RFC form raises the
 backoff floor, capped by the deadline) and crosses the ``s3.request``
-fault point (:mod:`..utils.faults`) on each attempt.
+fault point (:mod:`..utils.faults`) on each attempt.  The connection is
+opened apart, under ``DMLC_IO_CONNECT_TIMEOUT`` (10 s), and a connect
+that fails is retried for every method: no byte of the request has left.
 """
 
 from __future__ import annotations
@@ -129,6 +131,12 @@ def _http_request(scheme: str, netloc: str, method: str, path_qs: str,
 
     Each attempt crosses the ``s3.request`` fault-injection probe, so drops/
     latency/5xx schedules from ``DMLC_FAULT_SPEC`` exercise this exact path.
+
+    The connection is made first, within ``DMLC_IO_CONNECT_TIMEOUT``
+    seconds, and a connect that fails or hangs is retried whatever the
+    method (``retry.io.connect.*``): the server has seen nothing of the
+    request yet, so even a POST cannot apply twice.  ``timeout`` then
+    bounds each send and receive.
     """
     if retries is None:
         retries = (get_env("DMLC_IO_RETRIES", _MAX_RETRY)
@@ -144,13 +152,29 @@ def _http_request(scheme: str, netloc: str, method: str, path_qs: str,
             e, (OSError, http.client.HTTPException)),
         name="io.http")
 
+    cls = (http.client.HTTPSConnection if scheme == "https"
+           else http.client.HTTPConnection)
+    connect_s = get_env("DMLC_IO_CONNECT_TIMEOUT", 10.0)
+    connecting = RetryPolicy(
+        max_attempts=get_env("DMLC_IO_RETRIES", _MAX_RETRY),
+        base_delay_s=policy.base_delay_s, max_delay_s=policy.max_delay_s,
+        retryable=lambda e: isinstance(e, OSError), name="io.connect")
+
+    def _connect() -> http.client.HTTPConnection:
+        conn = cls(netloc, timeout=deadline.clamp(min(timeout, connect_s)))
+        try:
+            conn.connect()
+        except BaseException:
+            conn.close()
+            raise
+        conn.sock.settimeout(deadline.clamp(timeout))
+        return conn
+
     def _once() -> Tuple[int, Dict[str, str], bytes]:
         fault_point("s3.request")
         conn = None
         try:
-            cls = (http.client.HTTPSConnection if scheme == "https"
-                   else http.client.HTTPConnection)
-            conn = cls(netloc, timeout=deadline.clamp(timeout))
+            conn = connecting.call(_connect, deadline=deadline)
             conn.request(method, path_qs, body=body or None, headers=headers)
             resp = conn.getresponse()
             data = resp.read()

@@ -29,8 +29,13 @@ only resolves ``wire_compact="auto"`` (:func:`.tuned.resolve`: v3 for
 ``cuda``, v2 for ``cpu``) and never touches a card.  With
 ``DMLC_AUTOTUNE`` opted in, :func:`serve_ingest` tunes its parser
 threads, prefetch and page-cache knobs one connection at a time
-(:mod:`.autotune`).  The JAX package's ``ingest.serve_epoch`` and
-``remote_ingest.h2d`` spans wait for the port's tracing (ROADMAP A.12).
+(:mod:`.autotune`).  :class:`RemoteIngestLoader` publishes the JAX
+loader's metrics: the ``remote_ingest.h2d`` stage timer, the
+``remote_ingest.batches`` counter, the ``remote_ingest.rows`` throughput,
+and ``transport.buffer_reuse``, the frames whose header was received into
+the connection's one header buffer.  The JAX package's
+``ingest.serve_epoch`` and ``remote_ingest.h2d`` spans wait for the
+port's tracing (ROADMAP A.12).
 
     python -m dmlc_core_tpu_torch.pipeline.ingest_service URI PART NPARTS \\
         FMT PORT [batch_rows=N] [nnz_cap=N] [id_mod=N] [max_epochs=N] \\
@@ -296,8 +301,13 @@ class RemoteIngestLoader(_TransferStage):
                     sock.close()
                     return
                 state["socks"].append(sock)
+            # one header buffer a connection, received into for every
+            # frame (transport.buffer_reuse counts the frames after the
+            # first)
             hdr = bytearray(FRAME.size)
             hdr_view = memoryview(hdr)
+            m_reuse = metrics.counter("transport.buffer_reuse")
+            first = True
             with sock:
                 while True:
                     fault_point("ingest.recv")
@@ -306,6 +316,10 @@ class RemoteIngestLoader(_TransferStage):
                     except ConnectionError:
                         raise DMLCError(
                             f"ingest worker {addr} closed mid-stream")
+                    if first:
+                        first = False
+                    else:
+                        m_reuse.add(1)
                     meta, words, rows = FRAME.unpack(hdr)
                     if words == 0:
                         return
@@ -432,10 +446,20 @@ class RemoteIngestLoader(_TransferStage):
                 f"words but batch_rows={self.batch_rows} implies "
                 f"{expected}: trainer and worker batch_rows differ")
 
+    def _maybe_bind(self) -> None:
+        """The JAX loader's metric handles, re-fetched when the
+        registry's generation moves."""
+        if getattr(self, "_m_gen", None) != metrics.generation:
+            self._m_gen = metrics.generation
+            self._m_h2d = metrics.stage("remote_ingest.h2d")
+            self._m_batches = metrics.counter("remote_ingest.batches")
+            self._m_rows = metrics.throughput("remote_ingest.rows")
+
     def _count(self, rows: Optional[int]) -> None:
-        metrics.counter("remote_ingest.batches").add(1)
+        self._maybe_bind()
+        self._m_batches.add(1)
         if rows is not None:
-            metrics.throughput("remote_ingest.rows").add(rows)
+            self._m_rows.add(rows)
 
     # -- transfer side: DeviceLoader's ---------------------------------------
     def _transfer_next(self, _cell):
@@ -445,9 +469,12 @@ class RemoteIngestLoader(_TransferStage):
             return None
         view, meta, rows, buf = item
         self._check_frame(view, meta)
+        self._maybe_bind()
+        with self._m_h2d.time():
+            out = self._transfer_item(("fused", buf, int(meta), rows),
+                                      sync=False)
         self._count(rows)
-        return self._transfer_item(("fused", buf, int(meta), rows),
-                                   sync=False)
+        return out
 
     def _reset_transfer(self) -> None:
         self._drain_inflight()

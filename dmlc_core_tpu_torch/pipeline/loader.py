@@ -66,14 +66,27 @@ is not writable.  A cached epoch packs nothing, so ``stats`` counts no
 rows in it; ``cache_stats`` counts hits, misses, dropped builds and the
 bytes read from and written to page files.
 
-The page cache's ``fault_point`` and the loader's metrics, spans and
-stall detectors stay with the JAX package for now (ROADMAP A.12,
-telemetry).
+The loader publishes the JAX loader's metrics under its names,
+re-fetched when :data:`~..utils.metrics.metrics` is reset: the stage
+timers ``device_loader.pack``, ``.h2d`` (one transfer thread), ``.h2d_pool``
+(the pool of workers), ``.cache_read`` and ``.cache_write``, the counter
+``device_loader.batches``, the throughput ``device_loader.rows`` (real rows,
+counted once: at the pack on the native paths, at the transfer on the
+others), the counters ``page_cache.hits``, ``.misses``, ``.drops``,
+``.bytes_read`` and ``.bytes_written``, and two
+:class:`~..telemetry.anomaly.StallDetector` s, ``device_loader.pack`` (the
+python packs' time a batch, as the JAX loader observes it) and
+``device_loader.h2d`` (a batch's transfer), whose
+``anomaly.stalls.*`` counters freeze the autotuner
+(:mod:`.autotune`).  The page writer's ``fault_point`` is
+:mod:`.page_cache`'s.  The JAX loader's spans wait for the port's
+tracing (ROADMAP A.12).
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from collections import deque
 from typing import Dict, Iterator, List, Optional, Tuple, Union
 
@@ -87,8 +100,10 @@ from ..kernels.common import ENGINES as KERNEL_ENGINES
 from ..kernels.wire_decode import (v3_layout, wire_decode,
                                    wire_decode_reference)
 from ..native import fused_words
+from ..telemetry.anomaly import StallDetector
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, check
+from ..utils.metrics import metrics
 from ..utils.threaded_iter import JOIN_TIMEOUT_S, ThreadedIter
 from . import fingerprint as fingerprint_mod
 from . import page_cache, tuned
@@ -608,6 +623,7 @@ class DeviceLoader(_TransferStage):
         self._cache_reader: Optional[page_cache.PageCacheReader] = None
         self.cache_stats = {"hits": 0, "misses": 0, "drops": 0,
                             "bytes_read": 0, "bytes_written": 0}
+        self._m_gen: Optional[int] = None
         put_threads = max(1, int(put_threads))
         depth = max(2, int(prefetch), put_threads)
         self._init_transfer(device, pinned=(device.type == "cuda"
@@ -623,7 +639,7 @@ class DeviceLoader(_TransferStage):
         elif put_threads > 1:
             self._iter = _TransferPool(
                 self._pack_iter,
-                lambda item: self._transfer_item(item, sync=True),
+                lambda item: self._timed_transfer(item, sync=True),
                 n_threads=put_threads,
                 window=max(int(prefetch), put_threads))
         else:
@@ -715,10 +731,17 @@ class DeviceLoader(_TransferStage):
         asynchronous; the view itself is read-only and never pooled)."""
         self._cache_reader = reader
         try:
-            for meta, rows, view in reader.pages():
-                buf = self._pool.get(len(view))
-                buf[:len(view)] = view
-                self.cache_stats["bytes_read"] += view.nbytes
+            pages = reader.pages()
+            while True:
+                with self._m_cache_read.time():
+                    page = next(pages, None)
+                    if page is not None:
+                        meta, rows, view = page
+                        buf = self._pool.get(len(view))
+                        buf[:len(view)] = view
+                if page is None:
+                    return
+                self._cache_count("bytes_read", view.nbytes)
                 yield ("fused", buf, meta, rows)
         finally:
             self._cache_reader = None
@@ -738,10 +761,12 @@ class DeviceLoader(_TransferStage):
                 if item[0] == "fused" and writer.active:
                     _, buf, meta, rows = item
                     words = _fused_words_meta(self.batch_rows, meta)
-                    if writer.offer(buf, int(meta), rows, words):
-                        self.cache_stats["bytes_written"] += words * 4
+                    with self._m_cache_write.time():
+                        offered = writer.offer(buf, int(meta), rows, words)
+                    if offered:
+                        self._cache_count("bytes_written", words * 4)
                     else:
-                        self.cache_stats["drops"] += 1
+                        self._cache_count("drops", 1)
                 yield item
             ok = True
         finally:
@@ -751,9 +776,10 @@ class DeviceLoader(_TransferStage):
 
     def _host_items(self) -> Iterator[tuple]:
         """Host items: ``("fused", buf, meta, rows or None)`` for the
-        fused wire, ``("arrays", dict)`` for row-major and ragged
+        fused wire, ``("arrays", dict, rows)`` for row-major and ragged
         batches; from the page file when a valid one exists, else
         packed (and written through when a cache is configured)."""
+        self._maybe_bind()
         if self._cache_path is None:
             yield from self._host_items_uncached()
             return
@@ -764,11 +790,17 @@ class DeviceLoader(_TransferStage):
             return
         reader = self._open_cache(fingerprint, self._cache_readahead)
         if reader is not None:
-            self.cache_stats["hits"] += 1
+            self._cache_count("hits", 1)
             yield from self._serve_cached(reader)
             return
-        self.cache_stats["misses"] += 1
+        self._cache_count("misses", 1)
         yield from self._write_through(fingerprint)
+
+    def _cache_count(self, key: str, n: int) -> None:
+        """One of the page cache's counts: the loader's own
+        ``cache_stats`` and the process's ``page_cache.*`` counter."""
+        self.cache_stats[key] += n
+        self._m_cache[key].add(n)
 
     def _host_items_uncached(self) -> Iterator[tuple]:
         self._rewind_source()
@@ -797,17 +829,24 @@ class DeviceLoader(_TransferStage):
             yield self._pack_host(carry.flush())
 
     def _pack_host(self, block: RowBlock) -> tuple:
+        t0 = time.monotonic()
+        with self._m_pack.time():
+            item = self._pack_block(block)
+        self._stall_pack.observe(time.monotonic() - t0)
+        return item
+
+    def _pack_block(self, block: RowBlock) -> tuple:
         if self.layout == "rowmajor":
             host = pack_rowmajor(block, self.batch_rows, self.nnz_cap,
                                  self.stats, id_mod=self.id_mod,
                                  want_fields=self.fields)
-            return ("arrays", host)
+            return ("arrays", host, block.size)
         if self.fields:
             host = pack_flat(block, self.batch_rows, self.nnz_cap,
                              self.stats, id_mod=self.id_mod,
                              want_fields=True)
             host.pop("row_ptr")      # the JAX loader ships no row_ptr here
-            return ("arrays", host)
+            return ("arrays", host, block.size)
         host = pack_flat(block, self.batch_rows, self.nnz_cap, self.stats,
                          id_mod=self.id_mod, want_segments=False)
         buf = _host_fused(host, self.batch_rows, self.nnz_cap,
@@ -841,10 +880,14 @@ class DeviceLoader(_TransferStage):
                 yield self._pack_host_ragged(piece)
 
     def _pack_host_ragged(self, block: RowBlock) -> tuple:
-        host = pack_ragged(block, self.batch_rows, self.nnz_cap, self.stats,
-                           id_mod=self.id_mod, want_fields=self.fields)
+        t0 = time.monotonic()
+        with self._m_pack.time():
+            host = pack_ragged(block, self.batch_rows, self.nnz_cap,
+                               self.stats, id_mod=self.id_mod,
+                               want_fields=self.fields)
+        self._stall_pack.observe(time.monotonic() - t0)
         host.pop("row_ptr")          # the JAX loader ships no row_ptr here
-        return ("arrays", host)
+        return ("arrays", host, block.size)
 
     def _native_stats(self, st: Dict[str, int]) -> None:
         self.stats.rows += st["rows"]
@@ -857,9 +900,16 @@ class DeviceLoader(_TransferStage):
                                compact=self.wire_compact)
         try:
             for blk in self._blocks():
-                for buf, meta in packer.feed(blk, get_buf=self._pool.get,
-                                             put_buf=self._pool.put):
-                    yield ("fused", buf, meta, None)
+                batches = packer.feed(blk, get_buf=self._pool.get,
+                                      put_buf=self._pool.put)
+                while True:
+                    with self._m_pack.time():
+                        out = next(batches, None)
+                    if out is None:
+                        break
+                    yield ("fused", out[0], out[1], None)
+                # real rows, once a block: the transfer counts none here
+                self._m_rows.add(blk.size)
             if not self.drop_remainder:
                 tail = packer.flush(get_buf=self._pool.get)
                 if tail is not None:
@@ -876,14 +926,27 @@ class DeviceLoader(_TransferStage):
                              compact=self.wire_compact, fmt=src.text_format,
                              label_col=src.csv_label_col,
                              delim=src.csv_delim)
+        m_chunk = metrics.stage("parser.chunk")
+        m_bytes = metrics.throughput("parser.bytes")
+        rows_seen = 0
         try:
             while True:
-                chunk = split.next_chunk()
+                with m_chunk.time():
+                    chunk = split.next_chunk()
                 if chunk is None:
                     break
-                for buf, meta in sp.feed_text(chunk, get_buf=self._pool.get,
-                                              put_buf=self._pool.put):
-                    yield ("fused", buf, meta, None)
+                m_bytes.add(len(chunk))
+                batches = sp.feed_text(chunk, get_buf=self._pool.get,
+                                       put_buf=self._pool.put)
+                while True:
+                    with self._m_pack.time():
+                        out = next(batches, None)
+                    if out is None:
+                        break
+                    yield ("fused", out[0], out[1], None)
+                rows = sp.stats()["rows"]
+                self._m_rows.add(rows - rows_seen)
+                rows_seen = rows
             if not self.drop_remainder:
                 tail = sp.flush(get_buf=self._pool.get)
                 if tail is not None:
@@ -921,11 +984,50 @@ class DeviceLoader(_TransferStage):
         if item is None:
             self._drain_inflight()
             return None
-        return self._transfer_item(item, sync=False)
+        return self._timed_transfer(item, sync=False)
+
+    def _timed_transfer(self, item: tuple, sync: bool) -> tuple:
+        """:meth:`_transfer_item` under the ``device_loader.h2d`` (or, for
+        the pool's workers, ``.h2d_pool``) timer and stall detector; counts
+        the batch, and its rows where the pack did not."""
+        self._maybe_bind()
+        t0 = time.monotonic()
+        with (self._m_h2d_pool if sync else self._m_h2d).time():
+            out = self._transfer_item(item, sync)
+        self._stall_h2d.observe(time.monotonic() - t0)
+        self._m_batches.add(1)
+        rows = item[3] if item[0] == "fused" else item[2]
+        if rows is not None:
+            self._m_rows.add(rows)
+        return out
 
     def _reset_transfer(self) -> None:
         self._drain_inflight()
         self._pack_iter.before_first()
+
+    # -- metrics -----------------------------------------------------------
+    def _maybe_bind(self) -> None:
+        if self._m_gen != metrics.generation:
+            self._bind_metrics()
+
+    def _bind_metrics(self) -> None:
+        """The JAX loader's metric handles, fetched once a registry
+        generation (the lookups are locked; the per-batch path reads the
+        cached handles).  The stall detectors keep their history across
+        generations and re-bind their own metrics."""
+        if not hasattr(self, "_stall_pack"):
+            self._stall_pack = StallDetector("device_loader.pack")
+            self._stall_h2d = StallDetector("device_loader.h2d")
+        self._m_gen = metrics.generation
+        self._m_pack = metrics.stage("device_loader.pack")
+        self._m_h2d = metrics.stage("device_loader.h2d")
+        self._m_h2d_pool = metrics.stage("device_loader.h2d_pool")
+        self._m_batches = metrics.counter("device_loader.batches")
+        self._m_rows = metrics.throughput("device_loader.rows")
+        self._m_cache_read = metrics.stage("device_loader.cache_read")
+        self._m_cache_write = metrics.stage("device_loader.cache_write")
+        self._m_cache = {k: metrics.counter(f"page_cache.{k}")
+                         for k in self.cache_stats}
 
     # -- consumer side ---------------------------------------------------
     def next_batch(self):

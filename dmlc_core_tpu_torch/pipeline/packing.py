@@ -21,9 +21,9 @@ the JAX package's packing on the same blocks:
 ``want_fields=True`` adds ``fields`` (int32, beside ``ids``, padding
 field 0) from a block that has them (libfm).  Padding rows carry weight
 0, so losses ignore them without masking.  Any
-truncation is counted in :class:`PackStats` and logged (at most once a
-minute); the JAX package also bumps its metrics registry, which the port
-does not have yet.
+truncation is counted in :class:`PackStats` and in the process's
+``pipeline.pack.truncated_values`` / ``pipeline.pack.truncated_rows``
+counters, as in the JAX package, and logged (at most once a minute).
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import numpy as np
 
 from ..data.row_block import RowBlock
 from ..utils.logging import IdOverflowError, log_warning
+from ..utils.metrics import metrics
 
 __all__ = ["pack_flat", "pack_rowmajor", "pack_ragged", "batch_slices",
            "ragged_slices", "PackStats"]
@@ -64,6 +65,8 @@ _TRUNC_WARN_EVERY_S = 60.0
 def _note_truncation(values: int, rows: int, where: str) -> None:
     if values <= 0:
         return
+    metrics.counter("pipeline.pack.truncated_values").add(values)
+    metrics.counter("pipeline.pack.truncated_rows").add(rows)
     now = time.monotonic()
     with _trunc_warn_lock:
         fire = now - _trunc_warn_last[0] >= _TRUNC_WARN_EVERY_S

@@ -1426,13 +1426,46 @@ def _pack_bits(values, width, nwords):
     return np.packbits(flat, bitorder="little").view("<u4").view(np.int32)
 
 
-def _v3_buffer(rng, rows, nnz, w, dbits):
+def _row_ptr(rng, layout, rows, n_real):
+    """row_ptr of ``rows`` rows over ``n_real`` entries: ``random``
+    sorted cuts, ``skewed`` (one row holds 90 % of the entries),
+    ``empty_rows`` (half of the rows empty), ``zipf`` row lengths,
+    ``one_row`` (every entry in the middle row), ``rp0`` (row_ptr[0] > 0:
+    the entries before row_ptr[1] are row 0's all the same), or
+    ``all_padding`` (no real entry)."""
+    if layout == "random":
+        rp = np.sort(rng.integers(0, n_real + 1, rows + 1))
+        rp[0], rp[-1] = 0, n_real
+    elif layout == "skewed":
+        c = np.full(rows, (n_real // 10) // rows)
+        c[rows // 2] += n_real - c.sum()
+        rp = np.concatenate([[0], np.cumsum(c)])
+    elif layout == "empty_rows":
+        c = rng.integers(1, max(2, 4 * n_real // max(rows, 1)), rows)
+        c[rng.permutation(rows)[:rows // 2]] = 0
+        rp = np.minimum(np.concatenate([[0], np.cumsum(c)]), n_real)
+    elif layout == "zipf":
+        rp = np.minimum(np.concatenate([[0], np.cumsum(rng.zipf(1.3, rows))]),
+                        n_real)
+    elif layout == "one_row":
+        rp = np.where(np.arange(rows + 1) > rows // 2, n_real, 0)
+    elif layout == "rp0":
+        rp = np.sort(rng.integers(0, n_real + 1, rows + 1))
+        rp[-1] = n_real
+        rp[0] = max(1, rp[1] // 2)
+    else:                                     # all_padding
+        rp = np.zeros(rows + 1, np.int64)
+    return rp.astype(np.int32)
+
+
+def _v3_buffer(rng, rows, nnz, w, dbits, layout="random"):
     """A v3 buffer built in numpy (ids of w bits; a 2^dbits dictionary,
-    or raw values where dbits is 0), and its meta."""
+    or raw values where dbits is 0; row_ptr as ``layout`` says), and its
+    meta."""
     from dmlc_core_tpu_torch.kernels.wire_decode import v3_layout
     n_real = int(rng.integers(nnz // 2, nnz + 1))
-    rp = np.sort(rng.integers(0, n_real + 1, rows + 1)).astype(np.int32)
-    rp[0], rp[-1] = 0, n_real
+    rp = _row_ptr(rng, layout, rows, n_real)
+    n_real = int(rp[-1])
     ids = rng.integers(0, 1 << w, nnz, dtype=np.int64)
     ids[n_real:] = 0
     code_off, dict_off, _, _ = v3_layout(rows, nnz, w, dbits)
@@ -1455,19 +1488,28 @@ def _v3_buffer(rng, rows, nnz, w, dbits):
 
 WIRE_CASES = [(8, 0), (12, 2), (20, 4), (20, 0), (24, 16), (28, 8),
               (32, 0), (32, 6)]
+WIRE_LAYOUTS = ["random", "skewed", "empty_rows", "zipf", "one_row", "rp0",
+                "all_padding"]
 
 
+@pytest.mark.parametrize("layout", WIRE_LAYOUTS)
 @pytest.mark.parametrize("rows,nnz", [(4096, 131072), (64, 1000),
-                                      (13000, 40000)])
+                                      (13000, 40000), (1, 777)])
 @pytest.mark.parametrize("w,dbits", WIRE_CASES)
-def test_wire_decode_kernel_is_bit_exact(dev, w, dbits, rows, nnz):
+def test_wire_decode_kernel_is_bit_exact(dev, w, dbits, rows, nnz, layout):
     """The kernel's ids, vals and segments equal the plain v3 decode's on
-    the card, array for array (bit patterns of vals too), with row_ptr in
-    shared memory (rows < 12,288) and read from global memory."""
+    the card, array for array (bit patterns of vals too), for every row
+    layout: a batch whose rows are found by one search round (4096 rows),
+    by none (64 rows, a single row) and by two (13,000 rows); a row that
+    holds most of the batch, half the rows empty, Zipf row lengths, every
+    entry in one row, row_ptr[0] > 0, and a batch that is all padding;
+    B not a multiple of the 4 entries a thread stores at once (1000,
+    777)."""
     from dmlc_core_tpu_torch.kernels import (wire_decode,
                                              wire_decode_reference)
-    rng = np.random.default_rng(w * 100 + dbits + rows)
-    host, meta = _v3_buffer(rng, rows, nnz, w, dbits)
+    rng = np.random.default_rng(w * 100 + dbits + rows
+                                + WIRE_LAYOUTS.index(layout))
+    host, meta = _v3_buffer(rng, rows, nnz, w, dbits, layout)
     buf = torch.from_numpy(host).to(dev)
     got = wire_decode(buf, rows, nnz, w, dbits)
     want = wire_decode_reference(buf, rows, nnz, w, dbits)

@@ -17,7 +17,8 @@ fake is added here.
   dropped connection, a complete that fails surfaces, an abort leaves
   no object, a special-character key, the bucket root as a directory.
 * WebHDFS: read, seek, list, streaming append, delegation token,
-  rename.  Azure: listing; reading is refused, in both packages.
+  rename; a connect that hangs is retried even for an APPEND's POST,
+  which is never sent twice once connected.  Azure: listing; reading is refused, in both packages.
 * Across packages: an object written by one reads byte-equal in the
   other; ``create_input_split`` over each URI form gives the same
   records; the loader's batches from ``s3://`` are ``array_equal`` to
@@ -34,9 +35,11 @@ no test sleeps for seconds.
 import datetime
 import email.utils
 import hashlib
+import http.client
 import importlib.util
 import os
 import shutil
+import socket
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -63,6 +66,7 @@ from dmlc_core_tpu_torch.pipeline import DeviceLoader  # noqa: E402
 from dmlc_core_tpu_torch.utils import checkpoint as ckpt  # noqa: E402
 from dmlc_core_tpu_torch.utils.faults import inject_faults  # noqa: E402
 from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
+from dmlc_core_tpu_torch.utils.metrics import metrics  # noqa: E402
 from dmlc_core_tpu_torch.utils.retry import Deadline  # noqa: E402
 
 
@@ -430,6 +434,84 @@ def test_webhdfs_streaming_append_and_rename(hdfs_server, monkeypatch):
     assert h.files["/out/moved.bin"] == payload
     fs.delete(pio.URI(f"hdfs://{hp}/out/moved.bin"))
     assert h.files == {}
+
+
+@pytest.fixture
+def hanging_connects(monkeypatch):
+    """``http.client`` connects counted from 1; those whose numbers are
+    put in ``["fail"]`` time out before a byte is sent.  Records each
+    connect's timeout and its socket's timeout once connected."""
+    real = http.client.HTTPConnection.connect
+    real_request = http.client.HTTPConnection.request
+    seen = {"n": 0, "fail": set(), "connect": [], "after": []}
+
+    def connect(self):
+        seen["n"] += 1
+        seen["connect"].append(self.timeout)
+        if seen["n"] in seen["fail"]:
+            raise socket.timeout("timed out")
+        real(self)
+
+    def request(self, *a, **k):
+        seen["after"].append(self.sock.gettimeout())
+        return real_request(self, *a, **k)
+
+    monkeypatch.setattr(http.client.HTTPConnection, "connect", connect)
+    monkeypatch.setattr(http.client.HTTPConnection, "request", request)
+    return seen
+
+
+def test_a_hanging_connect_is_retried_for_a_webhdfs_append(
+        hdfs_server, monkeypatch, hanging_connects):
+    """CREATE, then two APPENDs, each a namenode request and a datanode
+    one: the connects of both datanode POSTs time out once.  Each is
+    retried on a new connection, every part lands once, and the
+    connect is bounded by ``DMLC_IO_CONNECT_TIMEOUT``, the request by
+    its own timeout."""
+    srv, h = hdfs_server
+    hp = _hostport(srv)
+    monkeypatch.setenv("DMLC_WEBHDFS_PART_SIZE", "1024")
+    monkeypatch.setenv("DMLC_IO_CONNECT_TIMEOUT", "0.5")
+    hanging_connects["fail"] = {4, 7}     # each APPEND's datanode POST
+    retried = metrics.counter("retry.io.connect.retries")
+    before = retried.value
+    payload = bytes(range(256)) * 10               # 2.5 parts
+    with pio.open_stream(f"hdfs://{hp}/out/hang.bin", "w") as w:
+        w.write(payload)
+    assert h.files["/out/hang.bin"] == payload
+    reqs = [r for r in h.data_requests if r[1] == "/out/hang.bin"]
+    assert [r[0] for r in reqs] == ["PUT", "POST", "POST"]
+    assert retried.value - before == 2
+    assert hanging_connects["n"] == 8
+    assert set(hanging_connects["connect"]) == {0.5}
+    assert set(hanging_connects["after"]) == {60.0}
+
+
+def test_a_webhdfs_append_is_not_resent_once_connected(
+        hdfs_server, monkeypatch):
+    """A POST whose reply is lost after its connect fails the write:
+    the datanode has seen it once, and a resend could apply it twice."""
+    srv, h = hdfs_server
+    hp = _hostport(srv)
+    monkeypatch.setenv("DMLC_WEBHDFS_PART_SIZE", "1024")
+    real = http.client.HTTPConnection.getresponse
+    calls = {"n": 0}
+
+    def getresponse(self):
+        calls["n"] += 1
+        resp = real(self)
+        if calls["n"] == 4:                        # the first APPEND's data
+            raise ConnectionResetError("reply lost")
+        return resp
+
+    monkeypatch.setattr(http.client.HTTPConnection, "getresponse",
+                        getresponse)
+    w = pio.open_stream(f"hdfs://{hp}/out/lost.bin", "w")
+    with pytest.raises(DMLCError, match="reply lost"):
+        w.write(bytes(range(256)) * 10)
+    reqs = [r for r in h.data_requests if r[1] == "/out/lost.bin"]
+    assert [r[0] for r in reqs] == ["PUT", "POST"]
+    assert h.files["/out/lost.bin"] == (bytes(range(256)) * 10)[:2048]
 
 
 def test_webhdfs_delegation_token_and_user(hdfs_server, monkeypatch):

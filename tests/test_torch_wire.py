@@ -102,6 +102,69 @@ def test_compact_packers_emit_jax_bytes(lib, vmode, kind):
     assert (0 in dict_bits) == (vmode == "continuous")
 
 
+def _decimal_text(rows, seed, per_row, pool=None):
+    """Seeded libsvm text of ``per_row`` (a ``[lo, hi)`` range) values a
+    row, printed with 4
+    decimals (10,001 float32 patterns, whose low bits cluster), or drawn
+    from ``pool`` distinct values printed with 6."""
+    rng = np.random.default_rng(seed)
+    vals = None if pool is None else np.sort(rng.random(pool))
+    lines = []
+    for r in range(rows):
+        n = int(rng.integers(*per_row))
+        idx = sorted(set(rng.integers(0, 1 << 20, n).tolist()))
+        toks = (f"{j}:{rng.random():.4f}" if vals is None
+                else f"{j}:{vals[rng.integers(0, pool)]:.6f}" for j in idx)
+        lines.append(f"{r % 2} " + " ".join(toks))
+    return ("\n".join(lines) + "\n").encode()
+
+
+@pytest.mark.parametrize("case", ["decimal4", "rebuilds"])
+@pytest.mark.parametrize("kind", ["packer", "sppack"])
+def test_dictionary_hash_keeps_the_jax_bytes(lib, case, kind):
+    """The port's v3 dictionary hashes a value to its slot otherwise than
+    the JAX packer (the high bits of a 64-bit product); the bytes stay
+    the JAX packer's.  ``decimal4``: two batches of the training text's
+    shape (5-39 ``%.4f`` values a row: the patterns whose home slots the
+    low-bits hash clustered), the dictionary carried across them;
+    ``rebuilds``: one batch holding more than 8,192 distinct values, so
+    the table grows twice (4,096 → 16,384 → 65,536 slots) while codes
+    are handed out."""
+    if case == "decimal4":
+        rows, cap, nrows = 4096, 131072, 8192
+        data = _decimal_text(nrows, 11, (5, 40))
+    else:
+        rows, cap, nrows = 2048, 65536, 2048
+        data = _decimal_text(nrows, 12, (20, 21), pool=9500)
+
+    def drain(mod, block):
+        if kind == "packer":
+            p = mod.Packer(rows, cap, compact=True)
+            items = [(_used(b, rows, m).copy(), m) for b, m in p.feed(block)]
+        else:
+            p = mod.SpPacker(rows, cap, compact=True)
+            items = [(_used(b, rows, m).copy(), m)
+                     for b, m in p.feed_text(data)]
+        tail = p.flush()
+        if tail is not None:
+            items.append((_used(tail[0], rows, tail[1]).copy(), tail[1]))
+        p.close()
+        return items
+
+    ours, theirs = _blocks(data, pieces=1)
+    got, want = drain(lib, ours[0]), drain(jnative, theirs[0])
+    assert len(got) == len(want) >= (2 if case == "decimal4" else 1)
+    for (gb, gm), (wb, wm) in zip(got, want):
+        assert gm == wm
+        np.testing.assert_array_equal(gb, wb)
+    # the first batch is dictionary-coded, and its dictionary outgrew two
+    # tables (more than 8,192 entries besides the reserved 0.0)
+    nnz, w, dbits = loader_mod._decode_meta(got[0][1])
+    assert dbits == 14
+    _, dict_off, _, rp_off = wd.v3_layout(rows, nnz, w, dbits)
+    assert np.count_nonzero(got[0][0][dict_off:rp_off]) > 8192
+
+
 @pytest.mark.parametrize("meta", [
     4096, 100, 1024 | (20 << 32), 1024 | (20 << 32) | (4 << 40),
     3 | (8 << 32) | (2 << 40), 131072 | (32 << 32) | (16 << 40),
