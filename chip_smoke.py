@@ -182,6 +182,24 @@ Phases, in order; any failure exits non-zero and prints no result:
    steady state with v2 and v3 and with put_threads 1 and 2, in turns.
    Launch counts are read around the training from workers.  Every
    earlier phase's loaders run at the defaults: the v3 wire on the card.
+   trace   — last, since a torch.profiler capture leaves every later
+   launch of the process slower: spans and traces.  (a) 64 predicts from
+   one PredictClient to an in-process PredictionServer (FM 2^20 x 32,
+   padded ladder, every bucket a captured graph): each client span's
+   trace holds exactly one serving.server.request child, ended OK, and
+   one serving.engine.forward grandchild; each name's span count and
+   p50 / p99 duration; (b)
+   profile_trace (torch.profiler, the host's threads and the card) over
+   4 flat FM steps (Adam, the native packer's v3 wire) from DeviceLoader:
+   the Chrome trace must name the kernels of ragged_gather.cu,
+   ragged_gather_grad.cu, wire_decode.cu and Adam's of optim.cu by their
+   __global__ symbols, and the loader's device_loader.pack and .h2d
+   ranges; the steps' five largest device ops, the device's busy share
+   of their window and its five longest idle gaps, each with the host
+   range open during it; (c) the recorded spans written by
+   write_chrome_trace and read back; (d) the host cost of an empty span
+   (100,000 calls) and of a trace_span range.  Launch counts are read
+   around (a) and (b).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is one JSON object with each kernel's numbers.  Runs with no card, or
@@ -198,6 +216,11 @@ every path.
 
 runs phases 1, 2, 4 and the server only, and prints the server's
 numbers as its last line.
+
+``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
+directory (by default they go with the data directory).
+``tools/trace_ab.py`` measures what the spans cost against another
+checkout.
 """
 
 from __future__ import annotations
@@ -1757,6 +1780,291 @@ def phase_server(torch, timer: Timer, power: str) -> dict:
         return {"launches": launches, "stats": stats}
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+# -- phase 4c: spans and traces ----------------------------------------------
+
+TRACE_REQUESTS = 64        # served requests of [trace] (a)
+TRACE_STEPS = 4            # profiled training steps of [trace] (b)
+SPAN_CALLS = 100_000       # empty spans timed in [trace] (d)
+SERVING_SPANS = ("serving.client.predict", "serving.server.request",
+                 "serving.engine.forward")
+# the sources whose kernels the profiled FM step must name, by the
+# __global__ symbols each defines (optim.cu: Adam's)
+TRACED_SOURCES = {"ragged_gather": "ragged_gather.cu",
+                  "ragged_gather_grad": "ragged_gather_grad.cu",
+                  "wire_decode": "wire_decode.cu", "adam": "optim.cu"}
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+HOST_CATS = ("user_annotation", "cpu_op", "cuda_runtime", "cuda_driver")
+
+
+def _global_symbols(source: str) -> list:
+    """The ``__global__`` functions a .cu file of the checkout defines."""
+    with open(os.path.join(ROOT, "dmlc_core_tpu_torch", "kernels",
+                           source)) as f:
+        text = f.read()
+    return re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                      r"\s*)?(\w+)\s*\(", text)
+
+
+def _serving_chains(recs: list, n: int) -> dict:
+    """Each client span's trace holds exactly one server child and one
+    engine grandchild, and the server span ended OK; returns each name's
+    count and p50 / p99 duration (µs)."""
+    by = {name: [r for r in recs if r.get("name") == name]
+          for name in SERVING_SPANS}
+    client, server, engine = (by[k] for k in SERVING_SPANS)
+    if not len(client) == len(server) == len(engine) == n:
+        raise RuntimeError("[trace] spans: " + ", ".join(
+            f"{k} {len(v)}" for k, v in by.items()) + f", expected {n} each")
+    for c in client:
+        kids = [s for s in server if s["parent_id"] == c["span_id"]]
+        if len(kids) != 1 or kids[0]["trace_id"] != c["trace_id"]:
+            raise RuntimeError(f"[trace] client span {c['span_id']}: "
+                               f"{len(kids)} server children in its trace")
+        if kids[0]["attrs"].get("status") != "OK":
+            raise RuntimeError(f"[trace] server span ended "
+                               f"{kids[0]['attrs'].get('status')}")
+        grand = [e for e in engine if e["parent_id"] == kids[0]["span_id"]]
+        if len(grand) != 1 or grand[0]["trace_id"] != c["trace_id"]:
+            raise RuntimeError(f"[trace] server span {kids[0]['span_id']}: "
+                               f"{len(grand)} engine children in its trace")
+    return {k: {"count": len(v),
+                "p50_us": float(np.percentile([r["dur_us"] for r in v], 50)),
+                "p99_us": float(np.percentile([r["dur_us"] for r in v], 99))}
+            for k, v in by.items()}
+
+
+def _merged(intervals: list) -> list:
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _profile_split(events: list, step_name: str) -> dict:
+    """The profiled steps' device time: the window from the first step's
+    host range to the end of the last step's device work, the device's
+    busy share of it, its five largest ops (µs summed by name) and its
+    five longest idle gaps, each with the innermost host range open at
+    its middle on the steps' thread and the named ranges open on the
+    loader's threads."""
+    xs = [e for e in events if e.get("ph") == "X" and "dur" in e]
+    # the host's ranges (the card's copies of them are gpu_user_annotation)
+    steps = [e for e in xs if e.get("name") == step_name
+             and e.get("cat") == "user_annotation"]
+    step_tid = steps[0].get("tid")
+    dev = [e for e in xs if e.get("cat") in DEVICE_CATS]
+    host = [e for e in xs if e.get("cat") in HOST_CATS]
+    t0 = min(e["ts"] for e in steps)
+    host_end = max(e["ts"] + e["dur"] for e in steps)
+    t1 = max([host_end] + [e["ts"] + e["dur"] for e in dev
+                           if t0 <= e["ts"] <= host_end])
+    inside = [e for e in dev if e["ts"] + e["dur"] > t0 and e["ts"] < t1]
+    busy = _merged([[max(e["ts"], t0), min(e["ts"] + e["dur"], t1)]
+                    for e in inside])
+    busy_us = sum(b - a for a, b in busy)
+    ops: dict = {}
+    for e in inside:
+        o = ops.setdefault(e["name"], [0.0, 0])
+        o[0] += e["dur"]
+        o[1] += 1
+    top = sorted(ops.items(), key=lambda kv: -kv[1][0])[:5]
+    edges = [t0] + [x for ab in busy for x in ab] + [t1]
+    gaps = sorted(((edges[i + 1] - edges[i], edges[i])
+                   for i in range(0, len(edges), 2)
+                   if edges[i + 1] > edges[i]), reverse=True)[:5]
+    out_gaps = []
+    for dur, start in gaps:
+        mid = start + dur / 2
+        open_ = [e for e in host if e["ts"] <= mid <= e["ts"] + e["dur"]]
+        mine = [e for e in open_ if e.get("tid") == step_tid]
+        inner = max(mine, key=lambda e: e["ts"], default=None)
+        out_gaps.append({
+            "us": dur, "at_us": start - t0,
+            "host": inner["name"] if inner else None,
+            "others": sorted({e["name"] for e in open_
+                              if e.get("tid") != step_tid
+                              and e.get("cat") == "user_annotation"})})
+    return {"window_us": t1 - t0, "busy_us": busy_us,
+            "busy_share": busy_us / max(t1 - t0, 1e-9),
+            "top_ops": [{"name": k, "us": v[0], "count": v[1]}
+                        for k, v in top],
+            "idle_gaps": out_gaps}
+
+
+def _trace_serving(torch, power: str) -> dict:
+    """[trace] (a): TRACE_REQUESTS predicts from one PredictClient to an
+    in-process PredictionServer on FM's padded ladder, each a trace of
+    client, server and engine spans."""
+    from dmlc_core_tpu_torch import (BucketLadder, FactorizationMachine,
+                                     InferenceEngine, PredictClient,
+                                     PredictionServer)
+    from dmlc_core_tpu_torch.telemetry import trace as teltrace
+    p = _np_params(SEED + 1)
+    eng = InferenceEngine(FactorizationMachine(F_FEATURES, DIM,
+                                               device="cuda"),
+                          p, buckets=BucketLadder.default(),
+                          postprocess="sigmoid", device="cuda")
+    rng = np.random.default_rng(SEED + 30)
+    reqs = _requests(rng, TRACE_REQUESTS)
+    srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0)
+    first = len(teltrace.recorder)
+    srv.start()
+    try:
+        with PredictClient(srv.host, srv.port) as client:
+            answers = [client.predict(*r, timeout=120) for r in reqs]
+    finally:
+        srv.stop()
+    for j in (0, len(reqs) // 2, len(reqs) - 1):
+        want = _fm_f64(p, *reqs[j])
+        if (answers[j].shape != want.shape
+                or not np.allclose(answers[j], want, atol=ATOL_F64, rtol=0)):
+            raise RuntimeError(f"[trace] request {j}: max |err| against a "
+                               f"float64 FM "
+                               f"{np.abs(answers[j] - want).max():.3g}")
+    recs = teltrace.recorder.snapshot()[first:]
+    stats = _serving_chains(recs, len(reqs))
+    log(f"[trace] (a) {len(reqs)} predicts, each one trace of "
+        "client -> server -> engine, server status OK: " + "; ".join(
+            f"{k} {v['count']} spans, p50 {v['p50_us']:.1f} us, p99 "
+            f"{v['p99_us']:.1f} us" for k, v in stats.items())
+        + f" [{power}]")
+    return stats
+
+
+def _trace_step(torch, power: str, train_file: str, out_dir: str) -> dict:
+    """[trace] (b): profile_trace over TRACE_STEPS flat FM steps (Adam,
+    the native packer's v3 wire) from DeviceLoader, after one step
+    outside it; the Chrome trace must name the path's kernels by their
+    __global__ symbols and the loader's pack and h2d ranges."""
+    from dmlc_core_tpu_torch import (DeviceLoader, adam, create_parser,
+                                     make_train_step)
+    from dmlc_core_tpu_torch.utils.metrics import profile_trace, trace_span
+    model = _model(torch, "fm", "kernel")
+    step = make_train_step(model, adam(model, LR))
+    loader = DeviceLoader(create_parser(train_file, engine="native"),
+                          ROWS_TR, CAP_TR, layout="flat", device="cuda",
+                          engine="native")
+    try:
+        if not loader.wire_compact:
+            raise RuntimeError("[trace] the card's loader is not on v3")
+        float(step(loader.next_batch()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile_trace(out_dir) as prof:
+            for _ in range(TRACE_STEPS):
+                with trace_span("chip_smoke.step"):
+                    with trace_span("chip_smoke.next_batch"):
+                        batch = loader.next_batch()
+                    loss = step(batch)
+            with trace_span("chip_smoke.sync"):
+                float(loss)
+        took = time.perf_counter() - t0
+    finally:
+        loader.close()
+    with open(prof.trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e.get("name", "") for e in events
+               if e.get("cat") == "kernel"}
+    named = {}
+    for key, src in TRACED_SOURCES.items():
+        syms = _global_symbols(src)
+        if key == "adam":
+            syms = [s for s in syms if s.startswith("adam")]
+        named[key] = sorted(s for s in syms
+                            if any(re.search(rf"\b{s}\b", k)
+                                   for k in kernels))
+        if not named[key]:
+            raise RuntimeError(f"[trace] the profiled step names no kernel "
+                               f"of {src} ({syms}); its kernels: "
+                               f"{sorted(kernels)[:20]}")
+    ranges = {e.get("name") for e in events
+              if e.get("cat") == "user_annotation"}
+    for want in ("device_loader.pack", "device_loader.h2d"):
+        if want not in ranges:
+            raise RuntimeError(f"[trace] the profiled step has no {want} "
+                               f"range: {sorted(ranges)}")
+    split = _profile_split(events, "chip_smoke.step")
+    log(f"[trace] (b) profile_trace of {TRACE_STEPS} flat FM steps (v3, "
+        f"Adam) in {took:.2f} s: {len(events)} events, "
+        f"{os.path.getsize(prof.trace_path)} bytes; kernels named "
+        + ", ".join(f"{k}: {v}" for k, v in named.items())
+        + f"; window {split['window_us'] / 1e3:.3f} ms, device busy "
+        f"{split['busy_us'] / 1e3:.3f} ms ({100 * split['busy_share']:.1f} "
+        f"%, idle {100 * (1 - split['busy_share']):.1f} %) [{power}]")
+    for op in split["top_ops"]:
+        log(f"[trace] (b) top device op: {op['us']:.1f} us over "
+            f"{op['count']} calls, {op['name'][:100]}")
+    for g in split["idle_gaps"]:
+        log(f"[trace] (b) idle gap {g['us']:.1f} us at +{g['at_us']:.1f} us:"
+            f" the steps' thread in {g['host']}; the loader's threads in "
+            f"{g['others'] or 'nothing named'}")
+    return split
+
+
+def phase_trace(torch, power: str, train_file: str) -> dict:
+    """Spans and traces on the card: (a) served requests traced from
+    client through server and batcher to the captured graph; (b) a
+    torch.profiler capture of the training step; (c) the recorded spans
+    written as a Chrome trace and read back; (d) the host cost of an
+    empty span and of a trace_span range.  Returns the kernel launches
+    counted over (a) and (b)."""
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.telemetry import trace as teltrace
+    from dmlc_core_tpu_torch.telemetry import write_chrome_trace
+    from dmlc_core_tpu_torch.utils.metrics import trace_span
+    t_phase = time.monotonic()
+    out_dir = os.environ.get("CHIP_SMOKE_TRACE_DIR") or os.path.join(
+        os.path.dirname(train_file), "trace")
+    os.makedirs(out_dir, exist_ok=True)
+    teltrace.recorder.clear()
+    reset_launch_counts()                     # the main path starts here
+    serving = _trace_serving(torch, power)
+    split = _trace_step(torch, power, train_file, out_dir)
+    torch.cuda.synchronize()
+    launches = launch_counts()                # the main path ends here
+    # (c) the recorded spans, written and read back
+    path = write_chrome_trace(os.path.join(out_dir, "spans.json"))
+    with open(path) as f:
+        doc = json.load(f)
+    names = {e["name"] for e in doc["traceEvents"]}
+    for want in SERVING_SPANS + ("device_loader.h2d",):
+        if want not in names:
+            raise RuntimeError(f"[trace] the spans' Chrome trace has no "
+                               f"{want}: {sorted(names)}")
+    log(f"[trace] (c) {len(teltrace.recorder)} recorded spans written as a "
+        f"Chrome trace ({len(doc['traceEvents'])} events, "
+        f"{os.path.getsize(path)} bytes), read back with "
+        f"{sorted(n for n in names if '.' in n)}")
+    # (d) the host cost of an empty span and of a profiler range
+    t0 = time.perf_counter()
+    for _ in range(SPAN_CALLS):
+        with teltrace.span("chip_smoke.empty"):
+            pass
+    span_us = (time.perf_counter() - t0) / SPAN_CALLS * 1e6
+    t0 = time.perf_counter()
+    for _ in range(SPAN_CALLS // 10):
+        with trace_span("chip_smoke.empty"):
+            pass
+    range_us = (time.perf_counter() - t0) / (SPAN_CALLS // 10) * 1e6
+    teltrace.recorder.clear()
+    log(f"[trace] (d) host cost: an empty span {span_us:.2f} us "
+        f"({SPAN_CALLS} calls), a trace_span range {range_us:.2f} us "
+        f"({SPAN_CALLS // 10} calls) [{power}]")
+    missing = [k for k in ("ragged_gather_fm", "ragged_gather_embed",
+                           "ragged_gather_grad_fm",
+                           "ragged_gather_grad_embed", "wire_decode", "adam")
+               if launches.get(k, 0) < 1]
+    if missing:
+        raise RuntimeError(f"[trace] never launched: {missing}")
+    log(f"[trace] kernel launches over (a) and (b): {launches}; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "serving": serving, "step": split,
+            "span_us": span_us, "trace_span_us": range_us}
 
 
 # -- phase 4b: the host feed -------------------------------------------------
@@ -4806,6 +5114,9 @@ def main() -> int:
         remote = phase_remote(torch, power, data, train_file, eval_file)
         ingest = phase_ingest(torch, timer, power, data, train_file,
                               eval_file)
+        # last: once torch.profiler has run, every later launch of this
+        # process pays for it (PERF.md)
+        trace = phase_trace(torch, power, train_file)["launches"]
     kern["wire_decode"] = ingest["kernel"]
     ingest = ingest["launches"]
     src = "dmlc_core_tpu_torch/kernels/"
@@ -4870,6 +5181,11 @@ def main() -> int:
     missing += [f"{k} (ingest)" for k in (
         "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
         "ragged_gather_grad_embed", "adam") if ingest.get(k, 0) < 1]
+    # the traced paths: served requests and the profiled FM step
+    missing += [f"{k} (trace)" for k in (
+        "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
+        "ragged_gather_grad_embed", "adam", "wire_decode")
+        if trace.get(k, 0) < 1]
     # the card's loaders ship the v3 wire by default: every flat path
     # decodes through the kernel
     missing += [f"wire_decode ({name})" for name, path in (
@@ -4906,6 +5222,9 @@ def main() -> int:
         if name != "wire_decode" and ingest.get(name, 0):
             # FM trained from ingest worker processes
             row["ingest"] = {"launches": ingest[name]}
+        if trace.get(name, 0):
+            # [trace]: the traced requests and the profiled FM step
+            row["trace"] = {"launches": trace[name]}
         if name == "wire_decode":
             # the flat paths of the other phases, v3 on the card
             row["paths"] = {n: p.get(name, 0) for n, p in (
@@ -4960,7 +5279,8 @@ if __name__ == "__main__":
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None
-              else main_serving() if args.serving else main())
+              else main_serving() if args.serving
+              else main())
     except Exception as e:  # noqa: BLE001 — any failed phase fails
         import traceback
         traceback.print_exc()

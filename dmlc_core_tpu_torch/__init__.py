@@ -3,8 +3,8 @@
 Runs on an NVIDIA H100 (Hopper, ``sm_90a``) with kernels written by hand
 in CUDA C++ where the JAX package had Pallas kernels.  Its layout mirrors
 the JAX package (``data/``, ``pipeline/``, ``ops/``, ``models/``,
-``serving/``, ``transport/``, ``utils/``, ``io/``, plus ``kernels/``), and each module names its
-JAX counterpart.  It imports
+``serving/``, ``transport/``, ``telemetry/``, ``utils/``, ``io/``, plus
+``kernels/``), and each module names its JAX counterpart.  It imports
 ``torch`` and ``numpy`` and nothing of JAX or of ``dmlc_core_tpu``.
 
 Entry points run on ``cuda`` unless given ``device="cpu"``; on the CPU
@@ -59,7 +59,7 @@ or from the command line::
 """
 
 from . import (data, io, kernels, models, ops, pipeline,  # noqa: F401
-               serving, transport, utils)
+               serving, telemetry, transport, utils)
 from .data import create_parser  # noqa: F401
 from .models import (FTRL, Adam, DCNv2, DeepFM,  # noqa: F401
                      FactorizationMachine, FieldAwareFM, FusedTrainer,

@@ -23,9 +23,10 @@ the port never imports the JAX package.
   at the same key warm-starts converged at it.
 
 Every decision moves the ``autotune.*`` counters and gauges, under the
-JAX package's names.  Its ``autotune.decide`` span and its
-``autotune.*`` trace events wait for the port's tracing (ROADMAP A.12)
-and are left out.
+JAX package's names, and is traced as the JAX tuner traces it: one
+``autotune.decide`` span each :meth:`Autotuner.end_epoch` (``epoch``,
+``objective`` and the decision's keys), and the events
+``autotune.warm_start``, ``.abort``, ``.mutate`` and ``.converged``.
 
 ``DMLC_AUTOTUNE`` gates the ambient wiring (``serve_ingest`` and the
 server's ``serve_forever``): unset or ``0`` means no controller is ever
@@ -38,6 +39,7 @@ import os
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+from ..telemetry import trace as teltrace
 from ..utils.logging import check, log_info
 from ..utils.metrics import metrics
 from ..utils.parameter import get_env
@@ -194,6 +196,7 @@ class Autotuner:
         self._converged = True
         log_info("autotune: warm start from persisted config %s (%s)",
                  self.key, self.config())
+        teltrace.add_event("autotune.warm_start", key=self.key)
 
     def _persist(self) -> None:
         if not (self.persist and self.key):
@@ -257,6 +260,7 @@ class Autotuner:
             name, old, _new = self._pending
             self.knobs[name].index = old
             self._pending = None
+        teltrace.add_event("autotune.abort", epoch=self._epoch)
 
     def end_epoch(self, objective: float) -> Dict[str, object]:
         """Judge the epoch just run (``objective``: higher is better,
@@ -268,7 +272,10 @@ class Autotuner:
         self._m_epochs.add(1)
         obj = float(objective)
         self._m_obj.set(obj)
-        out = self._decide(obj)
+        with teltrace.span("autotune.decide", epoch=self._epoch) as sp:
+            out = self._decide(obj)
+            sp.attrs.update(out)
+            sp.attrs["objective"] = obj
         self._export_state()
         return out
 
@@ -326,6 +333,8 @@ class Autotuner:
                 self._pending = (name, k.index, j)
                 k.index = j
                 self._m_mut.add(1)
+                teltrace.add_event("autotune.mutate", knob=name,
+                                   value=str(k.value))
                 return {"action": action, "next_knob": name,
                         "next_value": k.value, **extra}
         return self._converge()
@@ -334,6 +343,7 @@ class Autotuner:
         self._converged = True
         self._rollback()
         self._persist()
+        teltrace.add_event("autotune.converged", epochs=self._epoch)
         return {"action": "converge", "epochs": self._epoch,
                 "best": self.best_config()}
 

@@ -33,9 +33,11 @@ threads, prefetch and page-cache knobs one connection at a time
 loader's metrics: the ``remote_ingest.h2d`` stage timer, the
 ``remote_ingest.batches`` counter, the ``remote_ingest.rows`` throughput,
 and ``transport.buffer_reuse``, the frames whose header was received into
-the connection's one header buffer.  The JAX package's
-``ingest.serve_epoch`` and ``remote_ingest.h2d`` spans wait for the
-port's tracing (ROADMAP A.12).
+the connection's one header buffer.  Traced as in the JAX package: the
+worker records one ``ingest.serve_epoch`` span a connection (``part``,
+``nparts``, ``peer``, ``frames``), which parents its loader's spans, and
+the loader one ``remote_ingest.h2d`` span a transferred frame
+(``rows``) under the trace context live at its construction.
 
     python -m dmlc_core_tpu_torch.pipeline.ingest_service URI PART NPARTS \\
         FMT PORT [batch_rows=N] [nnz_cap=N] [id_mod=N] [max_epochs=N] \\
@@ -52,6 +54,7 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
+from ..telemetry import trace as teltrace
 from ..telemetry.anomaly import StallDetector
 from ..transport.frames import FRAME, NO_ROWS, FrameWriter
 from ..transport.lane import recv_exact_into
@@ -191,17 +194,23 @@ def serve_ingest(uri: str, part: int, nparts: int, fmt: str,
                     nthreads, threaded = ((1, False)
                                           if cores == 1 and not pinned
                                           else (0, True))
-                loader = DeviceLoader(
-                    create_parser(uri, part, nparts, fmt, nthreads=nthreads,
-                                  threaded=threaded),
-                    batch_rows=batch_rows, nnz_cap=nnz_cap, id_mod=id_mod,
-                    device="cpu", wire_compact=wire_compact, emit="host",
-                    cache=cache, prefetch=int(cfg.get("prefetch", 2)),
-                    cache_queue_pages=int(cfg.get("cache_queue", 0)),
-                    cache_readahead=cfg.get("cache_readahead"))
-                frames, sent_bytes = stream_epoch_frames(
-                    conn, loader, batch_rows, stall=stall)
-                epoch_ok = frames > 0
+                # one span an epoch served (frames are too hot for one
+                # each: the loader's own spans cover them)
+                with teltrace.span("ingest.serve_epoch", part=part,
+                                   nparts=nparts, peer=str(addr)) as sp:
+                    loader = DeviceLoader(
+                        create_parser(uri, part, nparts, fmt,
+                                      nthreads=nthreads, threaded=threaded),
+                        batch_rows=batch_rows, nnz_cap=nnz_cap,
+                        id_mod=id_mod, device="cpu",
+                        wire_compact=wire_compact, emit="host", cache=cache,
+                        prefetch=int(cfg.get("prefetch", 2)),
+                        cache_queue_pages=int(cfg.get("cache_queue", 0)),
+                        cache_readahead=cfg.get("cache_readahead"))
+                    frames, sent_bytes = stream_epoch_frames(
+                        conn, loader, batch_rows, stall=stall)
+                    sp.attrs["frames"] = frames
+                    epoch_ok = frames > 0
             except Exception as e:  # noqa: BLE001 — a server: the listener
                 # lives on for the next connection
                 log_info("ingest worker: connection from %s ended early: "
@@ -256,6 +265,9 @@ class RemoteIngestLoader(_TransferStage):
         depth = max(2, int(prefetch))
         self._depth = depth
         self._closed = False
+        # the constructing thread's trace context: the transfer thread
+        # activates it, so its spans join the consumer's trace
+        self._trace = teltrace.current()
         self._words_hint = 0                # the largest frame seen
         self._init_transfer(dev, pinned=dev.type == "cuda"
                             and emit == "device",
@@ -470,7 +482,10 @@ class RemoteIngestLoader(_TransferStage):
         view, meta, rows, buf = item
         self._check_frame(view, meta)
         self._maybe_bind()
-        with self._m_h2d.time():
+        with teltrace.activate(self._trace), \
+                teltrace.span("remote_ingest.h2d",
+                              rows=(None if rows is None else int(rows))), \
+                self._m_h2d.time():
             out = self._transfer_item(("fused", buf, int(meta), rows),
                                       sync=False)
         self._count(rows)

@@ -79,8 +79,17 @@ python packs' time a batch, as the JAX loader observes it) and
 ``device_loader.h2d`` (a batch's transfer), whose
 ``anomaly.stalls.*`` counters freeze the autotuner
 (:mod:`.autotune`).  The page writer's ``fault_point`` is
-:mod:`.page_cache`'s.  The JAX loader's spans wait for the port's
-tracing (ROADMAP A.12).
+:mod:`.page_cache`'s.
+
+It records the JAX loader's spans, under the trace context that was
+live where it was constructed: ``device_loader.pack`` (``rows``, and
+``ragged`` on the ragged path) around each python pack,
+``device_loader.h2d`` (``sync``: True in the pool of workers) around
+each transfer, and ``page_cache.serve_epoch`` (``pages``) over an
+epoch served from the page file.  While a ``torch.profiler`` capture
+runs, each pack (the native ones too) and each transfer is also a
+:func:`~..utils.metrics.trace_span` range of that name on its timeline
+(otherwise that range is a no-op).
 """
 
 from __future__ import annotations
@@ -100,10 +109,11 @@ from ..kernels.common import ENGINES as KERNEL_ENGINES
 from ..kernels.wire_decode import (v3_layout, wire_decode,
                                    wire_decode_reference)
 from ..native import fused_words
+from ..telemetry import trace as teltrace
 from ..telemetry.anomaly import StallDetector
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, check
-from ..utils.metrics import metrics
+from ..utils.metrics import metrics, trace_span
 from ..utils.threaded_iter import JOIN_TIMEOUT_S, ThreadedIter
 from . import fingerprint as fingerprint_mod
 from . import page_cache, tuned
@@ -616,6 +626,10 @@ class DeviceLoader(_TransferStage):
         self.streampack = bool(streampack)
         self.engine = resolve_engine(engine)
         self.stats = PackStats()
+        # the constructing thread's trace context: the pack and transfer
+        # threads activate it, so their spans join the consumer's trace
+        # instead of each rooting one of its own
+        self._trace = teltrace.current()
         self._cache_path = self._resolve_cache(cache)
         self._cache_queue_pages = max(0, int(cache_queue_pages))
         self._cache_readahead = cache_readahead
@@ -730,6 +744,10 @@ class DeviceLoader(_TransferStage):
         pool buffer (pinned on the card, so the copy to it is
         asynchronous; the view itself is read-only and never pooled)."""
         self._cache_reader = reader
+        # started, not entered: the span outlives each yield, and a
+        # generator may be finished from another thread's context
+        sp = teltrace.start_span("page_cache.serve_epoch", parent=self._trace,
+                                 pages=reader.npages)
         try:
             pages = reader.pages()
             while True:
@@ -743,7 +761,11 @@ class DeviceLoader(_TransferStage):
                     return
                 self._cache_count("bytes_read", view.nbytes)
                 yield ("fused", buf, meta, rows)
+        except BaseException as e:
+            sp.end(error=f"{type(e).__name__}: {e}")
+            raise
         finally:
+            sp.end()
             self._cache_reader = None
             reader.close()
 
@@ -830,7 +852,9 @@ class DeviceLoader(_TransferStage):
 
     def _pack_host(self, block: RowBlock) -> tuple:
         t0 = time.monotonic()
-        with self._m_pack.time():
+        with teltrace.activate(self._trace), \
+                teltrace.span("device_loader.pack", rows=block.size), \
+                trace_span("device_loader.pack"), self._m_pack.time():
             item = self._pack_block(block)
         self._stall_pack.observe(time.monotonic() - t0)
         return item
@@ -881,7 +905,10 @@ class DeviceLoader(_TransferStage):
 
     def _pack_host_ragged(self, block: RowBlock) -> tuple:
         t0 = time.monotonic()
-        with self._m_pack.time():
+        with teltrace.activate(self._trace), \
+                teltrace.span("device_loader.pack", rows=block.size,
+                              ragged=True), \
+                trace_span("device_loader.pack"), self._m_pack.time():
             host = pack_ragged(block, self.batch_rows, self.nnz_cap,
                                self.stats, id_mod=self.id_mod,
                                want_fields=self.fields)
@@ -903,7 +930,8 @@ class DeviceLoader(_TransferStage):
                 batches = packer.feed(blk, get_buf=self._pool.get,
                                       put_buf=self._pool.put)
                 while True:
-                    with self._m_pack.time():
+                    with trace_span("device_loader.pack"), \
+                            self._m_pack.time():
                         out = next(batches, None)
                     if out is None:
                         break
@@ -939,7 +967,8 @@ class DeviceLoader(_TransferStage):
                 batches = sp.feed_text(chunk, get_buf=self._pool.get,
                                        put_buf=self._pool.put)
                 while True:
-                    with self._m_pack.time():
+                    with trace_span("device_loader.pack"), \
+                            self._m_pack.time():
                         out = next(batches, None)
                     if out is None:
                         break
@@ -992,7 +1021,10 @@ class DeviceLoader(_TransferStage):
         the batch, and its rows where the pack did not."""
         self._maybe_bind()
         t0 = time.monotonic()
-        with (self._m_h2d_pool if sync else self._m_h2d).time():
+        with teltrace.activate(self._trace), \
+                teltrace.span("device_loader.h2d", sync=sync), \
+                trace_span("device_loader.h2d"), \
+                (self._m_h2d_pool if sync else self._m_h2d).time():
             out = self._transfer_item(item, sync)
         self._stall_h2d.observe(time.monotonic() - t0)
         self._m_batches.add(1)

@@ -16,11 +16,13 @@ apply_knobs` changes the triggers live.
 Metrics, as the JAX batcher's: ``serving.batcher.queue_depth``,
 ``.occupancy``, ``.overloads``, ``.deadline_drops``, ``.batches``,
 ``.requests``, ``.batch_nnz``, ``.batch_fill`` and ``serving.latency_s``
-(enqueue to answer).  A request carries the trace ids it arrived with
-(``trace_ctx``, on ``_Pending.ctx``) across to the worker thread; the
-spans that would read them come with the port's telemetry (ROADMAP queue
-A.12), and so do the per-request wide events and the flight recorder's
-note of an engine failure.
+(enqueue to answer).  A request carries its trace context (``trace_ctx``,
+the submitter's own by default) across to the worker thread, which runs
+each engine call under the context of the batch's first traced request,
+so the engine's ``serving.engine.forward`` span joins that request's
+trace.  The JAX batcher's per-request wide events and its flight
+recorder's note of an engine failure are not ported (ROADMAP queue
+A.12).
 """
 
 from __future__ import annotations
@@ -28,10 +30,11 @@ from __future__ import annotations
 import threading
 import time
 from concurrent.futures import Future
-from typing import Any, List, Optional
+from typing import List, Optional
 
 import numpy as np
 
+from ..telemetry import trace as teltrace
 from ..utils.logging import DMLCError, check
 from ..utils.metrics import metrics
 from .engine import InferenceEngine, RequestTooLarge
@@ -64,7 +67,7 @@ class _Pending:
         self.deadline = deadline
         self.t_enq = t_enq
         self.future: Future = Future()
-        self.ctx = ctx                 # the request's trace ids, or None
+        self.ctx = ctx                 # the request's trace context, or None
 
 
 class MicroBatcher:
@@ -118,11 +121,12 @@ class MicroBatcher:
     def submit(self, ids: np.ndarray, vals: np.ndarray,
                row_ptr: Optional[np.ndarray] = None,
                deadline_s: Optional[float] = None,
-               trace_ctx: Any = None) -> Future:
+               trace_ctx: Optional[teltrace.TraceContext] = None) -> Future:
         """Enqueue one CSR request; the Future resolves to its float32
         scores or raises Overloaded/DeadlineExceeded/Shutdown.  Oversized
         and malformed requests fail here, before they can join a
-        batch.  ``trace_ctx`` (the request's trace ids) rides along."""
+        batch.  ``trace_ctx`` (the ambient context by default) crosses to
+        the worker with the request."""
         ids = np.asarray(ids, np.int32)
         vals = np.asarray(vals, np.float32)
         if row_ptr is None:
@@ -142,6 +146,8 @@ class MicroBatcher:
                 f"{self.max_batch_nnz} nnz)"))
             return f
         now = time.monotonic()
+        if trace_ctx is None:
+            trace_ctx = teltrace.current()
         p = _Pending(ids, vals, row_ptr,
                      now + (self.default_deadline_s if deadline_s is None
                             else deadline_s), now, trace_ctx)
@@ -228,8 +234,13 @@ class MicroBatcher:
                 ptrs.append(p.row_ptr[1:] + off)
                 off += p.nnz
             row_ptr = np.concatenate(ptrs)
+            # one engine call serves the batch: it runs under the first
+            # traced request's context, so its forward span joins that
+            # trace
+            ctx = next((p.ctx for p in live if p.ctx is not None), None)
             try:
-                scores = self.engine.predict(ids, vals, row_ptr)
+                with teltrace.activate(ctx):
+                    scores = self.engine.predict(ids, vals, row_ptr)
             except Exception as e:  # noqa: BLE001 — fan out, keep serving
                 for p in live:
                     if not p.future.done():

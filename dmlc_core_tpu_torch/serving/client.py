@@ -7,9 +7,11 @@ its request's future, so the client serves both the blocking
 :meth:`~PredictClient.predict` and pipelined
 :meth:`~PredictClient.submit`.  Server conditions surface as typed
 errors (:class:`ServerOverloaded`: back off and retry;
-:class:`ServerRejected`: a request the server refuses).  Requests are
-sent untraced (trace ids 0): the port has no spans yet (ROADMAP queue
-A.12).
+:class:`ServerRejected`: a request the server refuses).  A request
+carries the ambient trace context in its header (:func:`..telemetry.
+trace.wire_ids`, 0 when untraced), and :meth:`~PredictClient.predict`
+opens the ``serving.client.predict`` span around its retries, so the
+server's request span and the engine's forward join the caller's trace.
 
 :func:`run_load` is the load generator: N connections, each keeping a
 number of requests in flight, report QPS and latency quantiles.
@@ -30,6 +32,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..telemetry import trace as teltrace
 from ..transport.frames import send_all
 from ..utils.logging import DMLCError
 from ..utils.metrics import Histogram, metrics
@@ -77,9 +80,15 @@ class PredictClient:
       address counts on ``serving.client.failovers``.
     * ``model_id`` sends the hello on every new connection, so a server
       of another model refuses at dial time.
+    * Each connect is bounded by ``DMLC_IO_CONNECT_TIMEOUT`` seconds (10,
+      as for the I/O layer's HTTP requests).  The first dial is made
+      again, on the reconnect schedule and within ``connect_timeout``,
+      while its connects time out; a refused one fails at once.  A
+      reconnect retries any failed dial (the reconnect schedule).
 
-    Counters: ``retry.serving.client.*``, ``serving.client.reconnects``,
-    ``serving.client.failovers``, ``circuit.serving.reconnect.*``.
+    Counters: ``retry.serving.client.*``, ``retry.serving.connect.*``,
+    ``serving.client.reconnects``, ``serving.client.failovers``,
+    ``circuit.serving.reconnect.*``.
     """
 
     def __init__(self, host: str, port: int,
@@ -111,6 +120,7 @@ class PredictClient:
             name="serving.reconnect")
         self._breaker = CircuitBreaker.from_env("DMLC_SERVING",
                                                 name="serving.reconnect")
+        self._attempt_s = get_env("DMLC_IO_CONNECT_TIMEOUT", 10.0)
         self._wlock = threading.Lock()
         self._plock = threading.Lock()
         # req_id → (future, wire frame): a reconnect resends the frames
@@ -119,17 +129,36 @@ class PredictClient:
         self._closed = False
         self._dead: Optional[DMLCError] = None   # the reader's last error
         self._gen = 0              # bumps on every (re)connection
-        self._sock = self._dial()
+        self._sock = self._first_dial()
         self._start_reader(self._gen)
 
-    def _dial(self) -> socket.socket:
-        """One sweep over the endpoints; raises the last dial error only
-        when every endpoint refused."""
+    def _first_dial(self) -> socket.socket:
+        """The first connection: a sweep whose connect timed out (about
+        one loopback connect in a thousand never completes on some
+        hosts) is made again on the reconnect schedule, within
+        ``connect_timeout``; any other dial error is raised at once."""
+        dl = Deadline(self._connect_timeout)
+        first = RetryPolicy(
+            max_attempts=self._conn_retry.max_attempts,
+            base_delay_s=self._conn_retry.base_delay_s,
+            max_delay_s=self._conn_retry.max_delay_s,
+            retryable=lambda e: isinstance(e, TimeoutError),
+            name="serving.connect")
+        try:
+            return first.call(self._dial, dl, deadline=dl)
+        except (RetriesExhausted, DeadlineExpired) as e:
+            raise e.__cause__ from None
+
+    def _dial(self, deadline: Optional[Deadline] = None) -> socket.socket:
+        """One sweep over the endpoints, each connect bounded by
+        ``DMLC_IO_CONNECT_TIMEOUT`` (and what is left of ``deadline``);
+        raises the last dial error only when every endpoint failed."""
+        dl = deadline or Deadline(self._connect_timeout)
         last_exc: Optional[OSError] = None
         for addr in self._endpoints:
             try:
                 sock = socket.create_connection(
-                    addr, timeout=self._connect_timeout)
+                    addr, timeout=dl.clamp(self._attempt_s))
             except OSError as e:
                 last_exc = e
                 continue
@@ -289,8 +318,12 @@ class PredictClient:
                 return fut
             req_id = self._next_id
             self._next_id += 1
-            # untraced: trace_id and parent_span 0
-            frame = REQ_HEADER.pack(req_id, 0, 0, rows, nnz) + frame_tail
+            # the ambient trace context rides the header (0, 0 untraced);
+            # a resent frame keeps its ids: a reconnect is the same
+            # logical request
+            trace_id, parent = teltrace.wire_ids()
+            frame = REQ_HEADER.pack(req_id, trace_id, parent, rows,
+                                    nnz) + frame_tail
             fut._dmlc_req_id = req_id          # predict()'s abandon handle
             self._pending[req_id] = (fut, frame)
             sock = self._sock
@@ -331,13 +364,19 @@ class PredictClient:
             except FutureTimeout:
                 self._abandon(fut)
                 raise
-        try:
-            return self._overload_retry.call(once, deadline=dl)
-        except (RetriesExhausted, DeadlineExpired) as e:
-            cause = e.__cause__
-            if isinstance(cause, ServerOverloaded):
-                raise cause            # overload stays typed
-            raise
+        # the call's span, a new root or a child of the caller's: submit
+        # packs it into the header, so the server's and the engine's
+        # spans join this trace; overload retries are its events
+        with teltrace.span(
+                "serving.client.predict",
+                rows=(len(row_ptr) - 1 if row_ptr is not None else 1)):
+            try:
+                return self._overload_retry.call(once, deadline=dl)
+            except (RetriesExhausted, DeadlineExpired) as e:
+                cause = e.__cause__
+                if isinstance(cause, ServerOverloaded):
+                    raise cause        # overload stays typed
+                raise
 
     def close(self) -> None:
         with self._plock:

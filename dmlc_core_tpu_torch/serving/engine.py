@@ -35,6 +35,14 @@ same lock a replay holds, so every call sees either the old weights or
 the new ones.  The engine clones its weights at construction, so a
 reload never writes into the caller's module.  The model is called with
 ``torch.func.functional_call`` on the engine's parameter dict.
+
+Each call records a ``serving.engine.forward`` span (``rows``,
+``bucket_rows``, ``bucket_nnz``, ``ragged``) from before the copy-in to
+after the copy-out's event wait, so its duration covers the device's
+work, as the JAX engine's does; it is host-side only, never part of a
+graph, and recorded after the lock with
+:func:`~..telemetry.trace.record_span` (two clock reads and a ring
+append on the batcher's serial thread).
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from torch import nn
 from ..kernels.common import add_launches, record_launches
 from ..models.convert import params_from_jax
 from ..ops.ragged_csr import mask_batch
+from ..telemetry import trace as teltrace
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, check, log_info
 
@@ -439,12 +448,30 @@ class InferenceEngine:
         batch = self._pad(bucket, ids, vals, row_ptr)
         with self._lock:
             g = self._ready(bucket)
-            if g is None:
-                return self._forward(self._params, batch).numpy()[:rows]
-            with torch.cuda.device(self.device):
-                self._stage(g, batch)
-                self._replay(g)
-                return self._copy_out(g, rows)
+            # the span's clock starts after the capture and stops once the
+            # scores are on the host, so it covers the device's work; it
+            # is recorded after the lock, a host-side record only.  A
+            # child of the request context the batcher activated, or a
+            # new root
+            t0_wall, t0 = time.time(), time.monotonic()
+            try:
+                if g is None:
+                    out = self._forward(self._params, batch).numpy()[:rows]
+                else:
+                    with torch.cuda.device(self.device):
+                        self._stage(g, batch)
+                        self._replay(g)
+                        out = self._copy_out(g, rows)
+            except BaseException as e:
+                teltrace.record_span(
+                    "serving.engine.forward", t0_wall, t0, rows=rows,
+                    bucket_rows=bucket.rows, bucket_nnz=bucket.nnz,
+                    ragged=self.ragged, error=f"{type(e).__name__}: {e}")
+                raise
+        teltrace.record_span("serving.engine.forward", t0_wall, t0,
+                             rows=rows, bucket_rows=bucket.rows,
+                             bucket_nnz=bucket.nnz, ragged=self.ragged)
+        return out
 
     # -- hot reload -----------------------------------------------------
     def reload(self, params: Mapping[str, Any]) -> None:

@@ -21,9 +21,13 @@ requests and receive the answers in completion order::
 
 Overload is an answer, not a dropped connection, so that a client can
 tell "back off and retry" from "server died".  ``trace_id`` /
-``parent_span`` are read and travel with the request to the batcher
-(0 = untraced); the spans that would use them come with the port's
-telemetry (ROADMAP queue A.12).
+``parent_span`` carry the client's trace context (0 = untraced): a
+traced request opens ``serving.server.request``, parented on the wire's
+context, which parents the engine's ``serving.engine.forward``, so
+client, server and engine share one trace.  The server span ends with
+the request's status (``OK``, ``OVERLOADED``, ``DEADLINE_EXCEEDED``,
+``TOO_LARGE``, ``SHUTDOWN``, ``BAD_REQUEST``, or ``DISCONNECT`` for a
+client gone mid-frame).
 
 Hot reload: :meth:`PredictionServer.reload_from_checkpoint` swaps the
 weights mid-stream, and :meth:`PredictionServer.watch_checkpoints` polls a
@@ -62,6 +66,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..telemetry import trace as teltrace
 from ..transport.frames import send_all
 from ..transport.listener import Listener, serve_connection
 from ..utils.faults import FaultInjected, fault_point
@@ -383,7 +388,8 @@ class PredictionServer:
             except OSError:
                 pass                   # client gone; the reader notices
 
-        def on_done(req_id: int, fut) -> None:
+        def on_done(req_id: int, fut,
+                    span: Optional[teltrace.Span]) -> None:
             with self._inflight_lock:
                 self._inflight -= 1
                 self._m_inflight.set(self._inflight)
@@ -391,11 +397,15 @@ class PredictionServer:
             if exc is None:
                 scores = np.ascontiguousarray(fut.result(),
                                               dtype=np.float32)
+                if span is not None:
+                    span.end(status="OK")
                 respond(req_id, STATUS_OK, scores.tobytes())
                 return
             status = _status_of(exc)
             if status == STATUS_OVERLOADED:
                 metrics.counter("serving.server.shed").add(1)
+            if span is not None:
+                span.end(status=STATUS_NAMES.get(status, str(status)))
             respond(req_id, status, str(exc).encode("utf-8", "replace"))
 
         try:
@@ -422,12 +432,31 @@ class PredictionServer:
                                 f"(this is {self.model_id!r})".encode())
                         return         # wrong fleet: drop the connection
                     continue
+                # a traced request (non-zero trace id) gets a span parented
+                # on the wire's context; it travels with the request and
+                # ends with its answer (requests finish out of order)
+                span = None
+                if trace_id:
+                    span = teltrace.start_span(
+                        "serving.server.request",
+                        parent=teltrace.TraceContext(trace_id, parent_span),
+                        req_id=req_id, rows=rows, nnz=nnz, conn=cid)
                 if rows == 0 or rows > _MAX_ROWS or nnz > _MAX_NNZ:
+                    if span is not None:
+                        span.end(status="BAD_REQUEST")
                     respond(req_id, STATUS_BAD_REQUEST,
                             f"bad header rows={rows} nnz={nnz}".encode())
                     return             # framing is broken: drop the conn
-                payload = _recv_exact(conn, 4 * (rows + 1) + 8 * nnz)
+                try:
+                    payload = _recv_exact(conn, 4 * (rows + 1) + 8 * nnz)
+                except BaseException as e:
+                    if span is not None:
+                        span.end(status="DISCONNECT",
+                                 error=f"{type(e).__name__}: {e}")
+                    raise
                 if payload is None:
+                    if span is not None:
+                        span.end(status="DISCONNECT")
                     return
                 row_ptr = np.frombuffer(payload, np.int32, rows + 1, 0)
                 ids = np.frombuffer(payload, np.int32, nnz,
@@ -440,6 +469,8 @@ class PredictionServer:
                     fault_point("serving.server.admit")
                 except FaultInjected as e:
                     metrics.counter("serving.server.shed").add(1)
+                    if span is not None:
+                        span.end(status="OVERLOADED", injected=True)
                     respond(req_id, STATUS_OVERLOADED, str(e).encode())
                     continue
                 with self._inflight_lock:
@@ -448,15 +479,16 @@ class PredictionServer:
                 try:
                     fut = self.batcher.submit(
                         ids, vals, row_ptr.astype(np.int64),
-                        trace_ctx=((trace_id, parent_span) if trace_id
-                                   else None))
-                except BaseException:
+                        trace_ctx=span.context if span else None)
+                except BaseException as e:
                     with self._inflight_lock:
                         self._inflight -= 1
                         self._m_inflight.set(self._inflight)
+                    if span is not None:
+                        span.end(error=f"{type(e).__name__}: {e}")
                     raise
                 fut.add_done_callback(
-                    lambda f, rid=req_id: on_done(rid, f))
+                    lambda f, rid=req_id, sp=span: on_done(rid, f, sp))
         except OSError as e:
             log_info("serving: connection %d ended: %r", cid, e)
         finally:

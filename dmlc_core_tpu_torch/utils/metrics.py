@@ -6,8 +6,10 @@ port never imports the JAX package:
 * :class:`Counter` / :class:`Gauge` — monotonic / point-in-time values.
 * :class:`Histogram` — value distribution with quantile estimation
   (exact up to a sample cap, reservoir-sampled beyond it, with a seeded
-  reservoir RNG so a replayed stream reports identical quantiles), and
-  :meth:`Histogram.merge` of serialized states.
+  reservoir RNG so a replayed stream reports identical quantiles),
+  :meth:`Histogram.merge` of serialized states, and exemplars: the
+  trace id of an observation made inside a live trace, one slot per
+  value region.
 * :class:`ThroughputMeter` — units with total, overall and windowed
   rates.
 * :class:`StageTimer` — accumulated wall time of a stage.
@@ -15,25 +17,32 @@ port never imports the JAX package:
   ``state()``, ``report()`` and ``reset()`` (which bumps
   ``generation``, so hot paths that cache handles re-fetch them), and
   the process-global :data:`metrics`.
-
-Not ported (ROADMAP queue A.12, telemetry): the histogram's exemplars
-(the ambient trace id of an observation) and ``trace_span`` /
-``profile_trace``, which annotate the ``jax.profiler`` timeline.
+* :func:`trace_span` — a named host range on the ``torch.profiler``
+  timeline (``record_function``), and on the card an NVTX range too,
+  opened only while a capture runs: the JAX package's
+  ``jax.profiler.TraceAnnotation``.
+* :func:`profile_trace` — a ``torch.profiler`` capture of a block (the
+  host, and the card's kernels and copies when CUDA is up) written as a
+  Chrome trace into a directory: the JAX package's ``jax.profiler``
+  trace.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import os
 import random
+import sys
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Sequence
+from typing import (Any, Callable, ContextManager, Dict, Iterator, List,
+                    Optional, Sequence)
 
 from .logging import log_info
 
 __all__ = ["Counter", "Gauge", "Histogram", "ThroughputMeter", "StageTimer",
-           "MetricsRegistry", "metrics"]
+           "MetricsRegistry", "metrics", "trace_span", "profile_trace"]
 
 
 class Counter:
@@ -91,12 +100,37 @@ class Gauge:
         return {"type": "gauge", "value": max(vals) if vals else 0.0}
 
 
+#: exemplar slots per histogram, one per value region (at most half the
+#: mean, at most the mean, at most twice the mean, the tail beyond)
+_EXEMPLAR_SLOTS = 4
+
+
+def _active_trace_hex() -> Optional[str]:
+    """Hex trace id of the ambient trace context, or None.  Found through
+    ``sys.modules``, so this module never imports the telemetry package
+    (which imports it back): a process that never loaded tracing pays
+    one dict lookup."""
+    tr = sys.modules.get("dmlc_core_tpu_torch.telemetry.trace")
+    if tr is None:
+        return None
+    try:
+        return tr.current_trace_id()
+    except Exception:
+        return None
+
+
 class Histogram:
     """Value distribution with quantile estimation (thread-safe).
 
     Exact while the stream fits in ``max_samples``; past that, reservoir
     sampling keeps a uniform sample of everything seen, while count, sum,
-    min and max stay exact."""
+    min and max stay exact.
+
+    An observation made inside a live trace context keeps ``(value,
+    trace_id, ts)`` as an *exemplar*, in one of :data:`_EXEMPLAR_SLOTS`
+    slots by its value against the running mean, so the tail slot always
+    names a concrete slow request.  :meth:`snapshot` carries them under
+    ``exemplars`` (absent when there are none)."""
 
     def __init__(self, max_samples: int = 8192, seed: int = 0) -> None:
         if max_samples <= 0:
@@ -108,10 +142,12 @@ class Histogram:
         self._min = math.inf
         self._max = -math.inf
         self._rng = random.Random(seed)
+        self._exemplars: List[Any] = [None] * _EXEMPLAR_SLOTS
         self._lock = threading.Lock()
 
     def observe(self, v: float) -> None:
         v = float(v)
+        tid = _active_trace_hex()
         with self._lock:
             self._count += 1
             self._sum += v
@@ -125,6 +161,12 @@ class Histogram:
                 j = self._rng.randrange(self._count)
                 if j < self._cap:
                     self._samples[j] = v
+            if tid is not None:
+                mean = self._sum / self._count
+                slot = (0 if v <= 0.5 * mean else
+                        1 if v <= mean else
+                        2 if v <= 2.0 * mean else 3)
+                self._exemplars[slot] = (v, tid, time.time())
 
     @contextlib.contextmanager
     def time(self, clock: Callable[[], float] = time.monotonic
@@ -191,10 +233,18 @@ class Histogram:
             mn = self._min if count else 0.0
             mx = self._max if count else 0.0
             s = sorted(self._samples)
+            ex = [{"value": val, "trace_id": t, "ts": ts}
+                  for (val, t, ts) in
+                  (e for e in self._exemplars if e is not None)]
         p50, p95, p99 = self._interp(s, [0.5, 0.95, 0.99])
-        return {"type": "histogram", "count": count,
+        snap = {"type": "histogram", "count": count,
                 "mean": sum_ / count if count else 0.0, "min": mn, "max": mx,
                 "p50": p50, "p95": p95, "p99": p99}
+        if ex:
+            # absent when no traced observation happened, so consumers
+            # that never see traces get the same keys as before
+            snap["exemplars"] = ex
+        return snap
 
     def state(self) -> Dict[str, Any]:
         """Serialized reservoir state (exact moments and the sample set),
@@ -464,3 +514,74 @@ class MetricsRegistry:
 
 #: process-global registry (modules grab sub-metrics by name)
 metrics = MetricsRegistry()
+
+
+def trace_span(name: str) -> ContextManager[None]:
+    """A named host range on the ``torch.profiler`` timeline
+    (``record_function``), with an NVTX range around it once CUDA is up
+    in this process.  The range is opened only while a ``torch.profiler``
+    capture runs (:func:`profile_trace`); otherwise this is a no-op that
+    costs one attribute read, as the JAX package's annotation costs
+    nothing without ``jax.profiler``."""
+    import torch
+    if not getattr(torch.autograd.profiler, "_is_profiler_enabled", True):
+        return _NO_RANGE
+    return _profiler_range(name)
+
+
+_NO_RANGE = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def _profiler_range(name: str) -> Iterator[None]:
+    import torch
+    nvtx = torch.cuda.is_initialized()
+    if nvtx:
+        torch.cuda.nvtx.range_push(name)
+    try:
+        with torch.profiler.record_function(name):
+            yield
+    finally:
+        if nvtx:
+            torch.cuda.nvtx.range_pop()
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: str) -> Iterator[Any]:
+    """Capture the block with ``torch.profiler`` and write it as a Chrome
+    trace, ``<log_dir>/trace_<pid>_<random>.json`` (Perfetto and
+    ``chrome://tracing`` open it).  The host's ops and :func:`trace_span`
+    ranges of every thread are captured, and the card's kernels, copies
+    and memsets when CUDA is available.  Yields the profiler; its
+    ``trace_path`` names the file once it is written.
+
+    Once the block has run, every later kernel launch of the process
+    costs more host time (CUPTI stays attached): profile at the end of a
+    run, or in a process of its own."""
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    kw: Dict[str, Any] = {}
+    try:
+        # the loader's pack and transfer threads are not the caller's
+        from torch._C._profiler import _ExperimentalConfig
+        kw["experimental_config"] = _ExperimentalConfig(
+            profile_all_threads=True)
+    except (ImportError, TypeError):
+        pass
+    os.makedirs(log_dir, exist_ok=True)
+    fd, path = tempfile.mkstemp(prefix=f"trace_{os.getpid()}_",
+                                suffix=".json", dir=log_dir)
+    os.close(fd)
+    prof = torch.profiler.profile(activities=acts, **kw)
+    prof.trace_path = None
+    try:
+        with prof:
+            yield prof
+    finally:
+        prof.export_chrome_trace(path)
+        prof.trace_path = path

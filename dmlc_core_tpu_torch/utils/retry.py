@@ -18,15 +18,18 @@ Env knobs (read by :meth:`RetryPolicy.from_env` /
 ``<PREFIX>_BACKOFF_MAX`` (seconds), ``<PREFIX>_DEADLINE`` (seconds, 0 =
 unbounded), ``<PREFIX>_BREAKER_THRESHOLD`` and
 ``<PREFIX>_BREAKER_COOLDOWN``.  Counters: ``retry.<name>.retries`` /
-``.exhausted``, ``circuit.<name>.opens`` / ``.fast_fails``.  The JAX
-module also mirrors each signal onto the active telemetry span; the port
-has no spans yet (ROADMAP queue A.12).
+``.exhausted``, ``circuit.<name>.opens`` / ``.fast_fails``.  Each signal
+is also an event on the active telemetry span (``retry``,
+``retries_exhausted``, ``circuit_open``, ``circuit_probe``,
+``circuit_fast_fail``, ``circuit_close``), or a standalone event record
+where no span is active.
 """
 
 from __future__ import annotations
 
 import math
 import random
+import sys
 import threading
 import time
 from typing import Any, Callable, Optional
@@ -37,6 +40,20 @@ from .parameter import get_env
 
 __all__ = ["Deadline", "DeadlineExpired", "RetryPolicy", "RetriesExhausted",
            "CircuitBreaker", "CircuitOpen"]
+
+
+def _trace_event(name: str, **attrs: Any) -> None:
+    """Mirror a resilience signal onto the active telemetry span, so a
+    trace of a slow request shows why it was slow.  Found through
+    ``sys.modules`` (never imported here: this module sits below the
+    telemetry package); a process without tracing pays one dict miss."""
+    mod = sys.modules.get("dmlc_core_tpu_torch.telemetry.trace")
+    if mod is None:
+        return
+    try:
+        mod.add_event(name, **attrs)
+    except Exception:   # telemetry must never break the retried call
+        pass
 
 
 class DeadlineExpired(DMLCError):
@@ -145,15 +162,22 @@ class RetryPolicy:
                     raise
                 if attempt >= self.max_attempts:
                     metrics.counter(f"retry.{self.name}.exhausted").add(1)
+                    _trace_event("retries_exhausted", policy=self.name,
+                                 attempts=attempt, error=str(e))
                     raise RetriesExhausted(
                         f"{self.name}: gave up after {attempt} attempts: "
                         f"{e}") from e
                 if dl.expired():
                     metrics.counter(f"retry.{self.name}.exhausted").add(1)
+                    _trace_event("retries_exhausted", policy=self.name,
+                                 attempts=attempt, error=str(e),
+                                 reason="deadline")
                     raise DeadlineExpired(
                         f"{self.name}: deadline exhausted after {attempt} "
                         f"attempts: {e}") from e
                 m_retry.add(1)
+                _trace_event("retry", policy=self.name, attempt=attempt,
+                             error=str(e))
                 if on_retry is not None:
                     on_retry(attempt, e)
                 delay = self.backoff_s(attempt)
@@ -218,17 +242,23 @@ class CircuitBreaker:
             if (self._clock() - self._opened_at >= self.cooldown_s
                     and not self._probing):
                 self._probing = True        # this caller is the probe
+                _trace_event("circuit_probe", circuit=self.name)
                 return
             metrics.counter(f"circuit.{self.name}.fast_fails").add(1)
+            _trace_event("circuit_fast_fail", circuit=self.name)
             raise CircuitOpen(
                 f"circuit {self.name!r} open "
                 f"({self._failures} consecutive failures)")
 
     def record_success(self) -> None:
         with self._lock:
+            recovered = self._opened_at is not None
             self._failures = 0
             self._opened_at = None
             self._probing = False
+        if recovered:
+            # the probe came back: a trace shows the open → closed bracket
+            _trace_event("circuit_close", circuit=self.name)
 
     def record_failure(self) -> None:
         with self._lock:
@@ -239,6 +269,8 @@ class CircuitBreaker:
             elif self._failures >= self.failure_threshold:
                 self._opened_at = self._clock()
                 metrics.counter(f"circuit.{self.name}.opens").add(1)
+                _trace_event("circuit_open", circuit=self.name,
+                             failures=self._failures)
                 log_warning("circuit %s opened after %d consecutive "
                             "failures", self.name, self._failures)
 

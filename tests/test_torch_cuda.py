@@ -1580,3 +1580,31 @@ def test_compact_loader_on_the_card_equals_v2(dev, tmp_path):
     for a, b in zip(v3, v2):
         for k in b:
             assert torch.equal(a[k], b[k]), k
+
+
+def test_profile_trace_names_the_ragged_gather_kernel(dev, tmp_path):
+    """``profile_trace`` around one ragged forward on the card: the
+    written Chrome trace holds the kernel (``ragged_gather_kernel``, the
+    ``__global__`` symbol of ragged_gather.cu) as a device event, inside
+    the window of the ``trace_span`` range around the call."""
+    import json
+
+    from dmlc_core_tpu_torch.utils.metrics import profile_trace, trace_span
+    rng = np.random.default_rng(17)
+    rows, cap = 64, 2048
+    ids = torch.from_numpy(rng.integers(0, F, cap).astype(np.int32)).to(dev)
+    vals = torch.from_numpy(rng.random(cap, np.float32)).to(dev)
+    segs = torch.from_numpy(np.sort(rng.integers(0, rows, cap)).astype(
+        np.int32)).to(dev)
+    tab = torch.from_numpy(rng.random((F, 32), np.float32)).to(dev)
+    ragged_gather(ids, vals, segs, cap, tab, rows, fm=True)   # builds it
+    torch.cuda.synchronize()
+    with profile_trace(str(tmp_path)) as prof:
+        with trace_span("test.forward"):
+            ragged_gather(ids, vals, segs, cap, tab, rows, fm=True)
+        torch.cuda.synchronize()
+    events = json.loads(open(prof.trace_path).read())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "ragged_gather_kernel" in e.get("name", "")]
+    assert len(kernels) == 1, sorted({e.get("name") for e in events})
+    assert any(e.get("name") == "test.forward" for e in events)

@@ -14,6 +14,15 @@
   ``.batches``, ``.rows`` and ``transport.buffer_reuse`` with the JAX
   loader's counts for the same worker.
 
+No JAX timeline sampler writes into the JAX registry while a test runs:
+every JAX ``TelemetryServer`` starts the process-wide one, nothing stops
+it, and each of its ticks counts on ``telemetry.timeline.samples``, a
+key no loader makes.  A sampler left running by another test file in
+the same process would otherwise add that key to one side of the
+comparison at random.  For the same reason both packages' span rings
+start empty: the loaders record spans, and a ring that other tests
+filled counts each eviction on ``telemetry.spans_dropped``.
+
 Everything runs on the CPU (``device="cpu"``).
 """
 
@@ -33,6 +42,8 @@ from dmlc_core_tpu.pipeline import \
     RemoteIngestLoader as JRemoteIngestLoader  # noqa: E402
 from dmlc_core_tpu.pipeline import autotune as jat  # noqa: E402
 from dmlc_core_tpu.pipeline import device_loader as jdl  # noqa: E402
+from dmlc_core_tpu.telemetry import timeseries as jtimeseries  # noqa: E402
+from dmlc_core_tpu.telemetry import trace as jtrace  # noqa: E402
 from dmlc_core_tpu.utils.metrics import metrics as jmetrics  # noqa: E402
 from dmlc_core_tpu_torch import native  # noqa: E402
 from dmlc_core_tpu_torch.data import create_parser  # noqa: E402
@@ -40,6 +51,7 @@ from dmlc_core_tpu_torch.pipeline import DeviceLoader  # noqa: E402
 from dmlc_core_tpu_torch.pipeline import RemoteIngestLoader  # noqa: E402
 from dmlc_core_tpu_torch.pipeline import autotune as at  # noqa: E402
 from dmlc_core_tpu_torch.pipeline import loader as loader_mod  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import trace as teltrace  # noqa: E402
 from dmlc_core_tpu_torch.utils.metrics import metrics  # noqa: E402
 from test_torch_ingest import start_port_worker  # noqa: E402
 from test_torch_page_cache import \
@@ -59,13 +71,18 @@ def lib():
 
 @pytest.fixture()
 def clean(monkeypatch, tmp_path):
-    """Both registries empty, no fault spec, no SLO breach, a scratch
-    tuned file."""
+    """Both registries and span rings empty, no fault spec, no SLO
+    breach, a scratch tuned file, and every JAX timeline sampler's tick a
+    no-op (see the module's docstring)."""
+    monkeypatch.setattr(jtimeseries.HistoryStore, "sample_once",
+                        lambda self, now=None: 0)
     monkeypatch.delenv("DMLC_FAULT_SPEC", raising=False)
     monkeypatch.delenv("DMLC_AUTOTUNE", raising=False)
     monkeypatch.setenv("DMLC_TUNED_CONFIG", str(tmp_path / "tuned.json"))
     metrics.reset()
     jmetrics.reset()
+    teltrace.recorder.clear()
+    jtrace.recorder.clear()
     yield
     metrics.reset()
     jmetrics.reset()
@@ -104,6 +121,23 @@ CONFIGS = {
 @pytest.mark.parametrize("config", sorted(CONFIGS))
 def test_metric_keys_equal_the_jax_loaders(lib, clean, tmp_path,
                                            monkeypatch, config):
+    _keys_and_counts_equal(tmp_path, monkeypatch, config)
+
+
+def test_a_running_jax_timeline_sampler_adds_no_key(lib, clean, tmp_path,
+                                                    monkeypatch):
+    """The python loaders' comparison with a JAX timeline sampler
+    ticking every millisecond into the JAX registry all along, as one
+    left running by another test ticks."""
+    store = jtimeseries.HistoryStore(snapshot_fn=jmetrics.snapshot)
+    store.start(interval_s=0.001)
+    try:
+        _keys_and_counts_equal(tmp_path, monkeypatch, "python")
+    finally:
+        store.stop()
+
+
+def _keys_and_counts_equal(tmp_path, monkeypatch, config):
     path = _write_libsvm(tmp_path / "d.libsvm", 700, 1)
     pkw, ppk, jkw, jpk, jax_native = CONFIGS[config]
     if not jax_native:
