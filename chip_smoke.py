@@ -60,6 +60,25 @@ Phases, in order; any failure exits non-zero and prints no result:
    slice's main path: the launch counts are read around it and must be
    one a call of each ragged-gather forward plus one a capture's
    warm-up;
+   exporter — the same model, checkpoint and padded requests behind
+   PredictionServer(metrics_port=0) with DMLC_SLO_SPEC: with a plain and
+   a burn-rate rule that must fire (DMLC_SLO_INTERVAL 0.5 s, the
+   sampler's DMLC_TIMELINE_INTERVAL 0.25 s), run_load's load 1 while a
+   scraper reads /metrics, /spans and /timeline each second: /healthz
+   must turn degraded within two SLO intervals of the first breach, both
+   rules fire, /metrics parses as text format 0.0.4 and counts the
+   requests and batches run_load and the batcher counted, /timeline
+   holds a point of serving.latency_s.p99 a sampler tick; with two rules
+   that cannot fire, 32 traced predicts (three against a float64 FM)
+   whose server and engine spans /spans holds under the client's trace
+   ids, and /healthz ok over three SLO intervals; then load 1 in eight
+   blocks of one process, off, on, on, off, ... (off: no exporter,
+   sampler or monitor; on: exporter, sampler at its default 1 s, the
+   monitor, a scraper of /metrics at 1 Hz), with the process's CPU time
+   a request, and the host's time to render one /metrics page and of
+   one sampler tick.  Launch counts are read around
+   it and must be one a call of each ragged-gather forward plus one a
+   capture's warm-up;
    feed    — the host feed's stages apart over the training file: python
    and native parse, streampack, python and native pack (ms per
    4096-row batch), the H2D copy and device decode of each fused batch
@@ -214,7 +233,7 @@ every path.
 
     python3 chip_smoke.py --serving
 
-runs phases 1, 2, 4 and the server only, and prints the server's
+runs phases 1, 2, 4, the server and the exporter only, and prints their
 numbers as its last line.
 
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
@@ -1780,6 +1799,493 @@ def phase_server(torch, timer: Timer, power: str) -> dict:
         return {"launches": launches, "stats": stats}
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
+
+
+# -- phase 4b: the telemetry exporter and SLOs -------------------------------
+
+SLO_INTERVAL = 0.5         # DMLC_SLO_INTERVAL of [exporter]'s checks, s
+TIMELINE_INTERVAL = 0.25   # DMLC_TIMELINE_INTERVAL of its checks, s
+# a plain and a burn-rate rule that must fire (no request is answered in
+# 0 s), and a pair that cannot (none waits an hour)
+SLO_FIRES = ("serving.latency_s:max=0,serving.latency_s:field=p99:max=0:"
+             "budget=0.5:fast=2s/1:slow=4s/1")
+SLO_HOLDS = ("serving.latency_s:max=3600s,serving.latency_s:field=p99:"
+             "max=3600s:budget=0.5:fast=2s/1:slow=4s/1")
+EXPORTER_TRACED = 32       # traced predicts whose spans /spans must hold
+EXPORTER_BLOCKS = 4        # load-1 blocks with the exporter off, and on
+SCRAPE_S = 1.0             # the on blocks' scraper of /metrics
+RENDER_REPS = 50           # renders of one /metrics page, timed
+_SAMPLE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)$")
+_SCRAPES = {"connect_retries": 0}
+# the exporter's long-lived threads: the sampler, the SLO monitor and the
+# HTTP server's accept loop (each scrape's handler thread is short-lived)
+EXPORTER_THREADS = ("dmlc-timeline", "dmlc-slo", "dmlc-telemetry")
+
+
+def _thread_cpu_s(names: tuple) -> dict:
+    """CPU seconds each live thread of ``names`` has used so far."""
+    out = {}
+    for t in threading.enumerate():
+        if t.name in names and t.ident is not None:
+            clock = time.pthread_getcpuclockid(t.ident)
+            out[t.name] = out.get(t.name, 0.0) + time.clock_gettime(clock)
+    return out
+
+
+def _scrape(port: int, path: str, timeout: float = 30.0,
+            connect_s: float = 2.0, tries: int = 8) -> tuple:
+    """``GET http://127.0.0.1:port/path`` → (status, content type, body,
+    seconds).  The connect is bounded apart and made again when it times
+    out: about one loopback connect in 1,300 hangs on the card's
+    machine (tools/loopback_connect_probe.py)."""
+    import http.client
+    import socket
+    for _ in range(tries):
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port,
+                                          timeout=connect_s)
+        try:
+            conn.connect()
+        except (socket.timeout, TimeoutError):
+            conn.close()
+            _SCRAPES["connect_retries"] += 1
+            continue
+        try:
+            conn.sock.settimeout(timeout)
+            conn.request("GET", path)
+            r = conn.getresponse()
+            body = r.read().decode("utf-8")
+            return (r.status, r.getheader("Content-Type"), body,
+                    time.perf_counter() - t0)
+        finally:
+            conn.close()
+    raise RuntimeError(f"[exporter] {tries} connects to :{port} timed out")
+
+
+def _parse_exposition(page: str) -> dict:
+    """Prometheus text format 0.0.4, strictly: one ``# TYPE`` a family,
+    before its samples; each sample ``name{labels} value`` of the current
+    family (a summary's ``_sum`` and ``_count`` too) with a float value;
+    the page ends in a newline.  Returns {name{labels}: value}."""
+    if not page.endswith("\n"):
+        raise RuntimeError("[exporter] /metrics does not end in a newline")
+    families, current, samples = set(), None, {}
+    for ln in page.splitlines():
+        if ln.startswith("# TYPE "):
+            _, _, fam, typ = ln.split(" ")
+            if fam in families or typ not in ("counter", "gauge",
+                                              "summary"):
+                raise RuntimeError(f"[exporter] bad TYPE line {ln!r}")
+            families.add(fam)
+            current = fam
+            continue
+        if ln.startswith("#"):
+            continue
+        m = _SAMPLE.match(ln)
+        if (m is None or current is None or m.group(1) not in (
+                current, current + "_sum", current + "_count")):
+            raise RuntimeError(f"[exporter] bad sample line {ln!r}")
+        samples[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return samples
+
+
+class _Scraper:
+    """A thread that GETs ``paths`` of an exporter every ``every_s``
+    seconds until stopped; keeps each scrape's seconds."""
+
+    def __init__(self, port: int, paths: tuple, every_s: float):
+        self.port, self.paths, self.every_s = port, paths, every_s
+        self.seconds = []
+        self._stop = threading.Event()
+        self.failed = None
+        self._t = threading.Thread(target=self._run, daemon=True)
+        self._t.start()
+
+    def _run(self) -> None:
+        try:
+            while not self._stop.wait(self.every_s):
+                for path in self.paths:
+                    code, _, _, s = _scrape(self.port, path)
+                    if code != 200:
+                        raise RuntimeError(f"{path}: HTTP {code}")
+                    self.seconds.append(s)
+        except Exception as e:  # noqa: BLE001 — raised by stop()
+            self.failed = e
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._t.join(timeout=60)
+        if self.failed is not None:
+            raise RuntimeError(f"[exporter] a scrape failed: "
+                               f"{self.failed!r}")
+
+
+def _exporter_fires(eng, shape: dict, power: str) -> dict:
+    """Rules that must fire: run_load's load 1 through a server with the
+    exporter and SLO_FIRES, scraped all along; /healthz must turn
+    degraded within two SLO intervals of the first breach, both rules
+    must fire, /metrics must parse and count what run_load counted, and
+    /timeline must hold a point of serving.latency_s a sampler tick."""
+    from dmlc_core_tpu_torch import PredictionServer, run_load
+    from dmlc_core_tpu_torch.telemetry import timeseries
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    seen = {}
+    stop = threading.Event()
+
+    def watch():
+        # the first breach on the registry, then /healthz until degraded
+        while not stop.is_set() and "degraded" not in seen:
+            if "breach" not in seen:
+                if metrics.counter("slo.breaches").value > 0:
+                    seen["breach"] = time.monotonic()
+            else:
+                code, _, body, _ = _scrape(port, "/healthz")
+                if code == 200 and \
+                        json.loads(body)["status"] == "degraded":
+                    seen["degraded"] = time.monotonic()
+            time.sleep(0.005)
+
+    # the monitor reads its interval when it is made, the sampler when it
+    # starts (with the exporter)
+    with _env(DMLC_SLO_SPEC=SLO_FIRES, DMLC_SLO_INTERVAL=str(SLO_INTERVAL),
+              DMLC_TIMELINE_INTERVAL=str(TIMELINE_INTERVAL),
+              DMLC_METRICS_PORT=None):
+        srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0,
+                               metrics_port=0).start()
+    port = srv.telemetry.port
+    watcher = threading.Thread(target=watch, daemon=True)
+    try:
+        watcher.start()
+        scraper = _Scraper(port, ("/metrics", "/spans", "/timeline"), 1.0)
+        t_load = time.monotonic()
+        try:
+            rep = run_load(srv.host, srv.port, requests=LOAD_REQUESTS,
+                           features=F_FEATURES, seed=SEED, timeout=120.0,
+                           **shape)
+        finally:
+            scraper.stop()
+        watcher.join(timeout=20 * SLO_INTERVAL)
+        stop.set()
+        # the burn-rate rule needs its window's points: both fire within
+        # a few intervals of load
+        deadline = time.monotonic() + 10 * SLO_INTERVAL
+        while (len({b["rule"] for b in srv.slo_monitor.breaches}) < 2
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        if "degraded" not in seen:
+            raise RuntimeError(f"[exporter] /healthz never turned degraded "
+                               f"({seen}, slo.breaches "
+                               f"{metrics.counter('slo.breaches').value})")
+        lag = seen["degraded"] - seen["breach"]
+        if lag > 2 * SLO_INTERVAL:
+            raise RuntimeError(f"[exporter] /healthz degraded {lag:.3f} s "
+                               f"after the first breach (limit "
+                               f"{2 * SLO_INTERVAL} s)")
+        if (rep["rejected"] or rep["errors"] or rep["overload"]
+                or rep["ok"] != LOAD_REQUESTS):
+            raise RuntimeError(f"[exporter] load 1: {rep}")
+        samples = _parse_exposition(_scrape(port, "/metrics")[2])
+        want = {"dmlc_serving_batcher_requests_total": rep["ok"],
+                "dmlc_serving_latency_s_count": rep["ok"],
+                "dmlc_serving_batcher_batches_total": srv.batcher.batches}
+        got = {k: samples.get(k) for k in want}
+        if got != want:
+            raise RuntimeError(f"[exporter] /metrics counts {got}, run_load "
+                               f"and the batcher counted {want}")
+        if samples.get("dmlc_slo_breaches_total", 0) < 1:
+            raise RuntimeError("[exporter] /metrics shows no breach")
+        ticks = metrics.counter("telemetry.timeline.samples").value
+        code, _, body, _ = _scrape(
+            port, "/timeline?metric=serving.latency_s")
+        doc = json.loads(body)
+        points = doc["series"]["serving.latency_s.p99"]["tiers"][0]["points"]
+        # the histogram exists from the batcher's construction, before the
+        # sampler's first tick: one point a tick, the scrape racing one
+        if code != 200 or len(points) < max(4, ticks - 1):
+            raise RuntimeError(f"[exporter] /timeline: {len(points)} points "
+                               f"of serving.latency_s.p99 after {ticks} "
+                               f"sampler ticks")
+        fired = {b["rule"] for b in srv.slo_monitor.breaches}
+        if len(fired) != 2:
+            raise RuntimeError(f"[exporter] the rules that must fire: "
+                               f"{fired}")
+        if json.loads(_scrape(port, "/healthz")[2])["status"] != \
+                "degraded" or srv.health != "degraded":
+            raise RuntimeError("[exporter] health recovered under a breach")
+    finally:
+        stop.set()
+        srv.stop()
+        timeseries.history.stop()     # the exporter's stop leaves it on
+    out = {"qps": rep["qps"], "latency_ms": rep["latency_ms"],
+           "breach_to_degraded_s": lag,
+           "load_to_first_breach_s": seen["breach"] - t_load,
+           "timeline_points": len(points),
+           "sampler_ticks": ticks, "batches": srv.batcher.batches,
+           "slo_breaches": samples["dmlc_slo_breaches_total"],
+           "scrape_ms_p50": 1e3 * float(np.median(scraper.seconds)),
+           "scrapes": len(scraper.seconds)}
+    metrics.gauge("slo.active_breaches").set(0)   # the monitor stopped
+    log(f"[exporter] rules that must fire ({SLO_FIRES}): load 1 "
+        f"{rep['qps']:.1f} qps, p99 {rep['latency_ms']['p99']:.3f} ms; "
+        f"both fired, {out['slo_breaches']:.0f} breaches, the first "
+        f"{out['load_to_first_breach_s'] * 1e3:.1f} ms into the load; "
+        f"/healthz degraded {lag * 1e3:.1f} ms after it (limit "
+        f"{2e3 * SLO_INTERVAL:.0f} ms); /metrics parses as 0.0.4 and counts "
+        f"{rep['ok']} requests and {srv.batcher.batches} batches as run_load "
+        f"and the batcher did; /timeline {len(points)} points of "
+        f"serving.latency_s.p99 over {ticks} sampler ticks; "
+        f"{len(scraper.seconds)} scrapes of /metrics /spans /timeline, "
+        f"p50 {out['scrape_ms_p50']:.2f} ms [{power}]")
+    return out
+
+
+def _exporter_holds(eng, reqs: list, p1: dict, power: str) -> dict:
+    """Rules that cannot fire: EXPORTER_TRACED traced predicts through a
+    PredictClient; /spans must hold each one's server and engine spans
+    under the client's trace id, and /healthz must stay ok over three
+    SLO intervals."""
+    from dmlc_core_tpu_torch import PredictClient, PredictionServer
+    from dmlc_core_tpu_torch.telemetry import timeseries
+    from dmlc_core_tpu_torch.telemetry import trace as teltrace
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    with _env(DMLC_SLO_SPEC=SLO_HOLDS, DMLC_SLO_INTERVAL=str(SLO_INTERVAL),
+              DMLC_TIMELINE_INTERVAL=str(TIMELINE_INTERVAL),
+              DMLC_METRICS_PORT=None):
+        srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0,
+                               metrics_port=0).start()
+    port = srv.telemetry.port
+    try:
+        teltrace.recorder.clear()
+        with PredictClient(srv.host, srv.port) as client:
+            answers = [client.predict(*r, timeout=120)
+                       for r in reqs[:EXPORTER_TRACED]]
+        for j in (0, EXPORTER_TRACED // 2, EXPORTER_TRACED - 1):
+            want = _fm_f64(p1, *reqs[j])
+            if (answers[j].shape != want.shape or not np.allclose(
+                    answers[j], want, atol=ATOL_F64, rtol=0)):
+                raise RuntimeError(f"[exporter] request {j}: max |err| "
+                                   f"against a float64 FM "
+                                   f"{np.abs(answers[j] - want).max():.3g}")
+        tids = {r["trace_id"] for r in teltrace.recorder.snapshot()
+                if r["name"] == "serving.client.predict"}
+        code, _, body, _ = _scrape(port, "/spans")
+        doc = json.loads(body)
+        if code != 200 or doc["dropped"] != teltrace.recorder.dropped:
+            raise RuntimeError(f"[exporter] /spans: HTTP {code}, dropped "
+                               f"{doc.get('dropped')}")
+        chains = _serving_chains([r for r in doc["spans"]
+                                  if r["trace_id"] in tids], len(tids))
+        if len(tids) != EXPORTER_TRACED:
+            raise RuntimeError(f"[exporter] {len(tids)} client traces")
+        t_end = time.monotonic() + 3 * SLO_INTERVAL
+        polls = 0
+        while time.monotonic() < t_end:
+            code, _, body, _ = _scrape(port, "/healthz")
+            if code != 200 or json.loads(body)["status"] != "ok":
+                raise RuntimeError(f"[exporter] rules that cannot fire: "
+                                   f"/healthz {code} {body}")
+            polls += 1
+            time.sleep(0.05)
+        if metrics.counter("slo.breaches").value or srv.slo_monitor.breaches:
+            raise RuntimeError("[exporter] a rule that cannot fire fired")
+    finally:
+        srv.stop()
+        timeseries.history.stop()
+    log(f"[exporter] rules that cannot fire ({SLO_HOLDS}): {EXPORTER_TRACED}"
+        f" traced predicts (three against a float64 FM within {ATOL_F64}); "
+        f"/spans holds each one's server and engine span under the client's "
+        f"trace id ({len(doc['spans'])} records, dropped {doc['dropped']}); "
+        f"/healthz ok in {polls} polls over {3 * SLO_INTERVAL} s, no breach "
+        f"[{power}]")
+    return {"batches": srv.batcher.batches, "chains": chains}
+
+
+def _load1_block(eng, shape: dict, on: bool) -> tuple:
+    """One block of load 1: ``on`` with the exporter, the sampler at its
+    default 1 s, the SLO monitor (rules that cannot fire, its default
+    interval) and a scraper of /metrics at 1 Hz; off with none of them.
+    Returns (run_load's report, the batcher's batches, scrape seconds,
+    the process's CPU seconds over the load, the CPU seconds of the
+    exporter's long-lived threads, the sampler's ticks)."""
+    from dmlc_core_tpu_torch import PredictionServer, run_load
+    from dmlc_core_tpu_torch.telemetry import timeseries
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    if timeseries.history.running:
+        raise RuntimeError("[exporter] the history sampler runs in a block")
+    with _env(DMLC_SLO_SPEC=SLO_HOLDS if on else None, DMLC_SLO_INTERVAL=None,
+              DMLC_TIMELINE_INTERVAL=None, DMLC_METRICS_PORT=None):
+        srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0,
+                               metrics_port=0 if on else None).start()
+    scraper = None
+    try:
+        if on:
+            scraper = _Scraper(srv.telemetry.port, ("/metrics",), SCRAPE_S)
+        cpu0 = time.process_time()
+        rep = run_load(srv.host, srv.port, requests=LOAD_REQUESTS,
+                       features=F_FEATURES, seed=SEED, timeout=120.0,
+                       **shape)
+        cpu_s = time.process_time() - cpu0
+        threads_s = _thread_cpu_s(EXPORTER_THREADS)
+        ticks = metrics.counter("telemetry.timeline.samples").value
+    finally:
+        if scraper is not None:
+            scraper.stop()
+        srv.stop()
+        timeseries.history.stop()     # the exporter's stop leaves it on
+    if (rep["rejected"] or rep["errors"] or rep["overload"]
+            or rep["ok"] != LOAD_REQUESTS):
+        raise RuntimeError(f"[exporter] load 1 ({'on' if on else 'off'}): "
+                           f"{rep}")
+    return (rep, srv.batcher.batches, scraper.seconds if scraper else [],
+            cpu_s, threads_s, ticks)
+
+
+def phase_exporter(torch, power: str) -> dict:
+    """[exporter]: the telemetry exporter and the SLO monitor around the
+    served FM (2^20 x 32, padded ladder, every bucket a captured graph,
+    [server]'s checkpoint and requests): rules that must fire degrade
+    /healthz, rules that cannot keep it ok, /metrics /spans /timeline
+    are read while run_load drives the server; then load 1 in blocks with
+    the exporter, sampler, monitor and a 1 Hz scraper off and on, in
+    turns, and the host's time to render one /metrics page.  Returns the
+    kernel launches counted over it and its numbers."""
+    from dmlc_core_tpu_torch import (BucketLadder, CheckpointManager,
+                                     FactorizationMachine, InferenceEngine)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.telemetry import exposition, timeseries
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    t_phase = time.monotonic()
+    shape = dict(LOADS)["load1"]
+    ckpt = os.path.join(ROOT, ".chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    try:
+        p1 = _np_params(SEED + 1)
+        CheckpointManager(ckpt).save(1, {"params": p1}, meta={"model": "fm"})
+        reqs = _requests(np.random.default_rng(SEED + 3), 72)
+        eng = InferenceEngine(FactorizationMachine(F_FEATURES, DIM,
+                                                   device="cuda"),
+                              buckets=BucketLadder.default(),
+                              postprocess="sigmoid", device="cuda")
+        if eng.reload_from_checkpoint(ckpt, step=1) != 1:
+            raise RuntimeError("[exporter] restored the wrong step")
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    reset_launch_counts()                     # the main path starts here
+    fires = _exporter_fires(eng, shape, power)
+    holds = _exporter_holds(eng, reqs, p1, power)
+    batches = fires["batches"] + holds["batches"]
+    blocks = []
+    # off, on, on, off, ...: a drift over the phase weighs on both alike
+    for i in range(2 * EXPORTER_BLOCKS):
+        on = i % 4 in (1, 2)
+        rep, b, scrapes, cpu_s, threads_s, ticks = _load1_block(eng, shape,
+                                                                on)
+        batches += b
+        if on and set(threads_s) != set(EXPORTER_THREADS):
+            raise RuntimeError(f"[exporter] an on block's threads: "
+                               f"{sorted(threads_s)}")
+        if not on and threads_s:
+            raise RuntimeError(f"[exporter] an off block runs "
+                               f"{sorted(threads_s)}")
+        blocks.append({"state": "on" if on else "off", "qps": rep["qps"],
+                       "p50_ms": rep["latency_ms"]["p50"],
+                       "p99_ms": rep["latency_ms"]["p99"],
+                       "cpu_ms_per_request": 1e3 * cpu_s / rep["ok"],
+                       "cpu_s": cpu_s, "wall_s": rep["wall_s"],
+                       "sampler_ticks": ticks,
+                       "thread_cpu_ms": {k: 1e3 * v
+                                         for k, v in threads_s.items()},
+                       "scrapes": len(scrapes),
+                       "scrape_ms": 1e3 * float(np.median(scrapes))
+                       if scrapes else None})
+        log(f"[exporter] load 1 block {i + 1} ({blocks[-1]['state']}): "
+            f"{rep['qps']:.1f} qps, p50 {rep['latency_ms']['p50']:.3f} p99 "
+            f"{rep['latency_ms']['p99']:.3f} ms, the process's CPU "
+            f"{blocks[-1]['cpu_ms_per_request']:.3f} ms a request"
+            + (f", {len(scrapes)} scrapes of /metrics, p50 "
+               f"{blocks[-1]['scrape_ms']:.2f} ms; the exporter's threads' "
+               f"CPU " + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(
+                   blocks[-1]["thread_cpu_ms"].items())) if on else "")
+            + f" [{power}]")
+    torch.cuda.synchronize()
+    launches = launch_counts()                # the main path ends here
+    for name in ("ragged_gather_fm", "ragged_gather_embed"):
+        if launches.get(name, 0) != batches + eng.compile_count:
+            raise RuntimeError(f"[exporter] {name}: {launches.get(name, 0)} "
+                               f"launches, expected one a call and one a "
+                               f"warm-up ({batches} + {eng.compile_count})")
+    # the host's cost of one /metrics page (the last block's registry), of
+    # one tick of the sampler and of the snapshot an SLO evaluation takes
+    snap_s, render_s, tick_s = [], [], []
+    for _ in range(RENDER_REPS):
+        t0 = time.perf_counter()
+        snap = metrics.snapshot()
+        t1 = time.perf_counter()
+        page = exposition.render_prometheus(snap)
+        t2 = time.perf_counter()
+        timeseries.history.sample_once()
+        t3 = time.perf_counter()
+        snap_s.append(t1 - t0)
+        render_s.append(t2 - t0)
+        tick_s.append(t3 - t2)
+    qps = {s: [b["qps"] for b in blocks if b["state"] == s]
+           for s in ("off", "on")}
+    p99 = {s: [b["p99_ms"] for b in blocks if b["state"] == s]
+           for s in ("off", "on")}
+    cpu = {s: [b["cpu_ms_per_request"] for b in blocks if b["state"] == s]
+           for s in ("off", "on")}
+    out = {"fires": fires, "holds": holds["chains"], "blocks": blocks,
+           "qps_on_off": float(np.median(qps["on"]) / np.median(qps["off"])),
+           "p99_on_off": float(np.median(p99["on"]) / np.median(p99["off"])),
+           "cpu_on_off": float(np.median(cpu["on"]) / np.median(cpu["off"])),
+           # each on block over the off block beside it
+           "pair_qps_on_off": [blocks[i + 1]["qps"] / blocks[i]["qps"]
+                               if i % 4 == 0 else
+                               blocks[i]["qps"] / blocks[i + 1]["qps"]
+                               for i in range(0, len(blocks), 2)],
+           "render_ms": 1e3 * float(np.median(render_s)),
+           "snapshot_ms": 1e3 * float(np.median(snap_s)),
+           "sampler_tick_ms": 1e3 * float(np.median(tick_s)),
+           "page_bytes": len(page.encode("utf-8")),
+           # the exporter's host work in the on blocks over the process's
+           # CPU: its threads' CPU clocks (which may tick coarsely) plus a
+           # page rendered a scrape; and built from parts instead, a tick
+           # a sampler tick, a render a scrape, a snapshot each default
+           # SLO interval (5 s)
+           "exporter_cpu_share": sum(
+               sum(b["thread_cpu_ms"].values())
+               + b["scrapes"] * 1e3 * float(np.median(render_s))
+               for b in blocks if b["state"] == "on")
+           / sum(1e3 * b["cpu_s"] for b in blocks if b["state"] == "on"),
+           "exporter_parts_share": sum(
+               b["sampler_ticks"] * 1e3 * float(np.median(tick_s))
+               + b["scrapes"] * 1e3 * float(np.median(render_s))
+               + b["wall_s"] / 5.0 * 1e3 * float(np.median(snap_s))
+               for b in blocks if b["state"] == "on")
+           / sum(1e3 * b["cpu_s"] for b in blocks if b["state"] == "on"),
+           "page_families": page.count("# TYPE "),
+           "connect_retries": _SCRAPES["connect_retries"]}
+    log(f"[exporter] load 1 on / off: qps medians {np.median(qps['on']):.1f} "
+        f"/ {np.median(qps['off']):.1f} = {out['qps_on_off']:.4f} (pairs "
+        + ", ".join(f"{r:.4f}" for r in out["pair_qps_on_off"])
+        + f"), p99 {out['p99_on_off']:.4f}, the process's CPU a request "
+        f"{out['cpu_on_off']:.4f}; one /metrics page "
+        f"{out['page_bytes']} bytes, {out['page_families']} families, "
+        f"rendered in {out['render_ms']:.3f} ms on the host (the snapshot "
+        f"{out['snapshot_ms']:.3f} ms of it), a sampler tick "
+        f"{out['sampler_tick_ms']:.3f} ms; in the on blocks the exporter's "
+        f"threads and renders {100 * out['exporter_cpu_share']:.3f} % of "
+        f"the process's CPU by their clocks, "
+        f"{100 * out['exporter_parts_share']:.3f} % from the parts' times; "
+        f"{out['connect_retries']} scrape "
+        f"connects retried [{power}]")
+    log(f"[exporter] kernel launches: {launches} over {batches} engine "
+        f"calls and {eng.compile_count} warm-ups; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "stats": out}
 
 
 # -- phase 4c: spans and traces ----------------------------------------------
@@ -5070,8 +5576,9 @@ def main_planted(kind: str) -> int:
 
 
 def main_serving() -> int:
-    """``--serving``: phases 1, 2, 4 and 4a only (the serving numbers,
-    for a comparison on one card); the last line is phase 4a's numbers."""
+    """``--serving``: phases 1, 2, 4, 4a and [exporter] only (the serving
+    numbers, for a comparison on one card); the last line is phase 4a's
+    numbers with [exporter]'s under ``exporter``."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5082,8 +5589,9 @@ def main_serving() -> int:
     timer = Timer(torch)
     phase_serving(torch, timer, power)
     out = phase_server(torch, timer, power)
+    exporter = phase_exporter(torch, power)
     print(power)
-    print(json.dumps(out["stats"]))
+    print(json.dumps({**out["stats"], "exporter": exporter["stats"]}))
     return 0
 
 
@@ -5104,6 +5612,7 @@ def main() -> int:
     kern = phase_kernels(torch, timer, power)
     serving = phase_serving(torch, timer, power)
     server = phase_server(torch, timer, power)["launches"]
+    exporter = phase_exporter(torch, power)["launches"]
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
         io = phase_io(torch, power, data, train_file)
@@ -5161,6 +5670,10 @@ def main() -> int:
     missing += [f"{k} (server)" for k in ("ragged_gather_fm",
                                           "ragged_gather_embed")
                 if server.get(k, 0) < 1]
+    # the same server with the exporter and the SLO monitor mounted
+    missing += [f"{k} (exporter)" for k in ("ragged_gather_fm",
+                                            "ragged_gather_embed")
+                if exporter.get(k, 0) < 1]
     # FFM's bucket sum G and its gradient, on both of its paths
     missing += [f"{k} (ffm)" for k in ("ragged_gather_embed",
                                        "ragged_gather_grad_embed")
@@ -5210,8 +5723,10 @@ def main() -> int:
             if extra in k:
                 row[extra] = k[extra]
         if name in ("ragged_gather_fm", "ragged_gather_embed"):
-            # this slice's path: the TCP server, one graph replay a call
+            # the TCP server, one graph replay a call; and the same server
+            # with the telemetry exporter and the SLO monitor
             row["server"] = {"launches": server.get(name, 0)}
+            row["exporter"] = {"launches": exporter.get(name, 0)}
         if io.get(name, 0):
             # the I/O layer's training: fed from the page file, and
             # save_async under training
@@ -5275,7 +5790,8 @@ if __name__ == "__main__":
                     help="plant a fault on the kernel path and show that "
                          "phase 5's checks catch it")
     ap.add_argument("--serving", action="store_true",
-                    help="run the serving phases only (4 and 4a)")
+                    help="run the serving phases only (4, 4a and "
+                         "[exporter])")
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None

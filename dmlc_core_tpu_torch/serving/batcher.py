@@ -22,7 +22,7 @@ each engine call under the context of the batch's first traced request,
 so the engine's ``serving.engine.forward`` span joins that request's
 trace.  The JAX batcher's per-request wide events and its flight
 recorder's note of an engine failure are not ported (ROADMAP queue
-A.12).
+A.12.d).
 """
 
 from __future__ import annotations

@@ -39,12 +39,23 @@ Chaos: each request crosses the ``serving.server.admit`` fault point
 injected error sheds it exactly as admission control would, answered
 ``OVERLOADED`` and counted in ``serving.server.shed``.
 
+Telemetry: ``metrics_port=`` (else ``DMLC_METRICS_PORT``; 0 binds an
+ephemeral port, unset is off) mounts a
+:class:`~..telemetry.exposition.TelemetryServer` on the server's own
+host, started and stopped with the server: ``/metrics`` (the port's
+registry), ``/healthz`` (:meth:`PredictionServer.health_doc`, 503 when
+overloaded), ``/spans`` and ``/timeline`` (starting the metric-history
+sampler).  ``DMLC_SLO_SPEC`` (plain and burn-rate rules,
+:mod:`..telemetry.anomaly` and :mod:`..telemetry.slo`) compiles at
+construction, raising on a malformed spec, and its monitor runs from
+:meth:`PredictionServer.start` to :meth:`PredictionServer.stop`; a
+breached rule degrades :attr:`PredictionServer.health` and freezes the
+serving autotuner.
+
 Not ported, each refused when asked for (a deployment that sets one must
-not be served silently without it): the telemetry exporter
-(``metrics_port=`` / ``DMLC_METRICS_PORT``), the SLO monitor
-(``DMLC_SLO_SPEC``), the flight recorder (``DMLC_FLIGHT_DIR``) and
-trace sampling (``DMLC_TRACE_SAMPLE``), all ROADMAP queue A.12; the
-fleet agent (``DMLC_ROUTER_REGISTRY``, A.11).
+not be served silently without it): the flight recorder
+(``DMLC_FLIGHT_DIR``) and trace sampling (``DMLC_TRACE_SAMPLE``), ROADMAP
+queue A.12.d; the fleet agent (``DMLC_ROUTER_REGISTRY``, A.11).
 
 Autotuning: with ``DMLC_AUTOTUNE`` opted in, :meth:`PredictionServer.
 serve_forever` (and so ``serve_main``) tunes the micro-batcher's cut
@@ -66,7 +77,9 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from ..telemetry import anomaly as telanomaly
 from ..telemetry import trace as teltrace
+from ..telemetry.exposition import UNPORTED_ENV, TelemetryServer
 from ..transport.frames import send_all
 from ..transport.listener import Listener, serve_connection
 from ..utils.faults import FaultInjected, fault_point
@@ -114,25 +127,16 @@ _MAX_NNZ = 1 << 26
 
 # what is not ported, by the environment variable that asks for it
 _REFUSED_ENV = {
-    "DMLC_SLO_SPEC": "the SLO monitor is not ported yet (ROADMAP queue "
-                     "A.12, telemetry)",
-    "DMLC_FLIGHT_DIR": "the flight recorder is not ported yet (ROADMAP "
-                       "queue A.12, telemetry)",
-    "DMLC_TRACE_SAMPLE": "trace sampling is not ported yet (ROADMAP queue "
-                         "A.12, telemetry)",
+    **UNPORTED_ENV,
     "DMLC_ROUTER_REGISTRY": "the serving fleet's replica agent is not "
                             "ported yet (ROADMAP queue A.11, serving "
                             "fleet)",
 }
 
 
-def _refuse_unported(metrics_port: Optional[int]) -> None:
+def _refuse_unported() -> None:
     """Raise for any part of the JAX server that this one lacks and the
-    caller or the environment asks for."""
-    if metrics_port is not None or get_env("DMLC_METRICS_PORT", -1) >= 0:
-        raise DMLCError("metrics_port= / DMLC_METRICS_PORT: the telemetry "
-                        "exporter (TelemetryServer) is not ported yet "
-                        "(ROADMAP queue A.12, telemetry)")
+    environment asks for."""
     for key, why in _REFUSED_ENV.items():
         if get_env(key, ""):
             raise DMLCError(f"{key} is set, but {why}")
@@ -166,8 +170,8 @@ class PredictionServer:
     """Accept loop and one reader thread a connection; answers are
     written from the batcher's completion callbacks under a
     per-connection write lock (pipelined requests finish out of order).
-    ``metrics_port`` is refused (the telemetry exporter is not
-    ported)."""
+    ``metrics_port`` mounts the telemetry exporter (see the module's
+    docstring)."""
 
     def __init__(self, engine: InferenceEngine, *,
                  host: str = "127.0.0.1", port: int = 0,
@@ -176,7 +180,11 @@ class PredictionServer:
                  warmup: bool = True, backlog: int = 64,
                  metrics_port: Optional[int] = None,
                  model_id: Optional[str] = None) -> None:
-        _refuse_unported(metrics_port)
+        _refuse_unported()
+        # DMLC_SLO_SPEC compiles first (a bad spec raises before any
+        # socket or thread exists); its monitor runs from start() to stop()
+        self.slo_monitor: Optional[telanomaly.SloMonitor] = \
+            telanomaly.maybe_monitor_from_env(autostart=False)
         self.engine = engine
         # which checkpoint lineage this replica serves; "default" keeps
         # single-replica deployments hello-free
@@ -203,9 +211,24 @@ class PredictionServer:
         # admission control starts shedding
         self._degraded_ratio = float(
             get_env("DMLC_SERVING_DEGRADED_RATIO", 0.75))
+        # the exporter: metrics_port, else DMLC_METRICS_PORT (0 =
+        # ephemeral, unset = off), on the server's own host; /healthz
+        # serves the whole health doc, which a balancer weights on
+        if metrics_port is None:
+            p = get_env("DMLC_METRICS_PORT", -1)
+            metrics_port = p if p >= 0 else None
+        self.telemetry: Optional[TelemetryServer] = None
+        if metrics_port is not None:
+            self.telemetry = TelemetryServer(
+                port=int(metrics_port), host=self.host,
+                health_fn=self.health_doc)
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> "PredictionServer":
+        if self.telemetry is not None:
+            self.telemetry.start()     # a failed bind raises before accept
+        if self.slo_monitor is not None:
+            self.slo_monitor.start()
         self._accept_thread = self._listener.spawn(
             self._on_conn, name="serving-accept",
             stopping=lambda: self._stopping)
@@ -219,6 +242,10 @@ class PredictionServer:
         in flight get their answers), then drop the connections."""
         self._stopping = True
         self._watch_stop.set()
+        if self.slo_monitor is not None:
+            self.slo_monitor.stop()
+        if self.telemetry is not None:
+            self.telemetry.stop()
         self._listener.close()
         self.batcher.close(drain=drain, timeout=timeout)
         with self._conn_lock:
@@ -290,11 +317,13 @@ class PredictionServer:
     @property
     def health(self) -> str:
         """``ok`` | ``degraded`` | ``overloaded`` from the batcher's queue
-        depth: ``degraded`` from ``DMLC_SERVING_DEGRADED_RATIO`` (0.75)
-        of ``max_queue``, ``overloaded`` once admission sheds.  Also the
-        gauge ``serving.server.health`` (0 / 1 / 2).  (The JAX server
-        also degrades on a breached SLO; the SLO monitor is not
-        ported.)"""
+        depth and the live SLO breaches: ``degraded`` from
+        ``DMLC_SERVING_DEGRADED_RATIO`` (0.75) of ``max_queue``,
+        ``overloaded`` once admission sheds; a breached
+        ``DMLC_SLO_SPEC`` rule (``slo.active_breaches`` > 0) degrades an
+        otherwise-ok server, so a balancer drains a replica that misses
+        its objectives.  Also the gauge ``serving.server.health`` (0 / 1
+        / 2)."""
         depth = self.batcher.queue_depth
         cap = max(1, self.batcher.max_queue)
         if depth >= cap:
@@ -303,6 +332,8 @@ class PredictionServer:
             state, level = "degraded", 1
         else:
             state, level = "ok", 0
+        if level == 0 and metrics.gauge("slo.active_breaches").value > 0:
+            state, level = "degraded", 1
         metrics.gauge("serving.server.health").set(level)
         return state
 
@@ -506,8 +537,11 @@ def serve_main(argv=None) -> int:
     """CLI: ``python -m dmlc_core_tpu_torch.serving.server ckpt_dir=DIR
     features=N [model=fm] [dim=16] [port=N] [watch_s=SEC] [device=cuda]
     ...``: build the model, load the latest checkpoint, serve until
-    interrupted.  The model's weights before the first load come from a
-    ``torch.Generator`` seeded with 0 (the JAX CLI's ``PRNGKey(0)``)."""
+    interrupted.  ``DMLC_METRICS_PORT`` mounts the exporter (its port is
+    printed after the serving one) and ``DMLC_SLO_SPEC`` the SLO
+    monitor, as in the JAX CLI.  The model's weights before the first
+    load come from a ``torch.Generator`` seeded with 0 (the JAX CLI's
+    ``PRNGKey(0)``)."""
     args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None
                                           else argv))
     if not args.get("ckpt_dir") or not args.get("features"):
@@ -530,7 +564,7 @@ def serve_main(argv=None) -> int:
                 "device": args.get("device", "cuda")})
         if p.model == "ffm":
             raise DMLCError(_FFM_UNSERVABLE)
-        _refuse_unported(None)
+        _refuse_unported()
         device = resolve_device(p.device)
     except DMLCError as e:
         print(f"serving.server: {e}", file=sys.stderr)
@@ -553,6 +587,8 @@ def serve_main(argv=None) -> int:
                           interval_s=float(args.get("watch_s", "10")))
     srv.start()
     print(f"serving on {srv.host}:{srv.port}", flush=True)
+    if srv.telemetry is not None:
+        print(f"telemetry on {srv.host}:{srv.telemetry.port}", flush=True)
     try:
         srv.serve_forever()
     except KeyboardInterrupt:

@@ -9,15 +9,27 @@ Ported:
 * :mod:`.chrome_trace` — recorded spans as Chrome trace-event JSON (open
   in Perfetto), and :func:`dump_artifacts`, the registry snapshot and
   that trace side by side;
+* :mod:`.exposition` — Prometheus text (0.0.4) and OpenMetrics rendering
+  and :class:`TelemetryServer`, the HTTP exporter of ``/metrics``,
+  ``/healthz``, ``/spans`` and ``/timeline``; the prediction server
+  mounts one on ``metrics_port=`` / ``DMLC_METRICS_PORT``;
+* :mod:`.aggregate` — rank-tagged registry states merged into one fleet
+  view, with the counter-reset guard;
+* :mod:`.timeseries` — the tiered metric history behind ``/timeline``,
+  sampled by a thread the first exporter starts;
 * :mod:`.anomaly` — :class:`~.anomaly.StreamingStat` and
-  :class:`~.anomaly.StallDetector`, for the ingest worker and the
-  autotuner's freeze signal.
+  :class:`~.anomaly.StallDetector` (the ingest worker's and the
+  autotuner's freeze signal), :class:`~.anomaly.StragglerBoard`, and the
+  ``DMLC_SLO_SPEC`` rules and monitor; :mod:`.slo` adds the burn-rate
+  rules over the history.  A breach holds ``slo.active_breaches`` above
+  0, which degrades the serving health and freezes the autotuner.
 
 The device side of a trace is ``utils.metrics.profile_trace`` (a
 ``torch.profiler`` capture of the card) and ``trace_span`` (a named range
-on it).  Not ported yet (ROADMAP queue A.12): the ``/metrics`` ``/spans``
-``/events`` exporter, the SLO monitor, tail sampling, wide events, the
-flight recorder, the straggler board and diagnosis.
+on it).  Not ported yet: tail sampling, wide events and the flight
+recorder (ROADMAP A.12.d; the exporter's ``/events`` and ``/flight``
+answer 501), and the profiler, critical-path analysis and diagnosis
+(A.12.e; ``/profile``, ``/analyze`` and ``/diagnose`` answer 501).
 """
 
 from __future__ import annotations
@@ -25,8 +37,14 @@ from __future__ import annotations
 import json
 import os
 
-from .anomaly import StallDetector, StreamingStat
+from .aggregate import merge_states, render_fleet, state_to_snapshot
+from .anomaly import (SloMonitor, SloRule, SloSpecError, StallDetector,
+                      StragglerBoard, StreamingStat, maybe_monitor_from_env,
+                      parse_slo_spec)
 from .chrome_trace import to_chrome_trace, write_chrome_trace
+from .exposition import (TelemetryServer, maybe_start_from_env,
+                         render_openmetrics, render_prometheus,
+                         render_series)
 from .trace import (Span, SpanRecorder, TraceContext, activate, add_event,
                     current, current_trace_id, format_id, from_wire,
                     get_sampler, new_trace_id, record_span, recorder,
@@ -37,7 +55,12 @@ __all__ = [
     "start_span", "record_span", "activate", "add_event", "current", "current_trace_id",
     "new_trace_id", "format_id", "wire_ids", "from_wire", "set_sampler",
     "get_sampler", "to_chrome_trace", "write_chrome_trace",
-    "dump_artifacts", "StreamingStat", "StallDetector",
+    "render_prometheus", "render_series", "render_openmetrics",
+    "TelemetryServer", "maybe_start_from_env",
+    "merge_states", "state_to_snapshot", "render_fleet",
+    "dump_artifacts", "StreamingStat", "StallDetector", "StragglerBoard",
+    "SloRule", "SloMonitor", "SloSpecError", "parse_slo_spec",
+    "maybe_monitor_from_env",
 ]
 
 

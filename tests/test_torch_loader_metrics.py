@@ -14,12 +14,12 @@
   ``.batches``, ``.rows`` and ``transport.buffer_reuse`` with the JAX
   loader's counts for the same worker.
 
-No JAX timeline sampler writes into the JAX registry while a test runs:
-every JAX ``TelemetryServer`` starts the process-wide one, nothing stops
-it, and each of its ticks counts on ``telemetry.timeline.samples``, a
-key no loader makes.  A sampler left running by another test file in
-the same process would otherwise add that key to one side of the
-comparison at random.  For the same reason both packages' span rings
+No timeline sampler writes into either registry while a test runs:
+every ``TelemetryServer`` of either package starts its package's
+process-wide one, nothing stops it, and each of its ticks counts on
+``telemetry.timeline.samples``, a key no loader makes.  A sampler left
+running by another test file in the same process would otherwise add
+that key to one side of the comparison at random.  For the same reason both packages' span rings
 start empty: the loaders record spans, and a ring that other tests
 filled counts each eviction on ``telemetry.spans_dropped``.
 
@@ -51,6 +51,7 @@ from dmlc_core_tpu_torch.pipeline import DeviceLoader  # noqa: E402
 from dmlc_core_tpu_torch.pipeline import RemoteIngestLoader  # noqa: E402
 from dmlc_core_tpu_torch.pipeline import autotune as at  # noqa: E402
 from dmlc_core_tpu_torch.pipeline import loader as loader_mod  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import timeseries  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import trace as teltrace  # noqa: E402
 from dmlc_core_tpu_torch.utils.metrics import metrics  # noqa: E402
 from test_torch_ingest import start_port_worker  # noqa: E402
@@ -72,9 +73,11 @@ def lib():
 @pytest.fixture()
 def clean(monkeypatch, tmp_path):
     """Both registries and span rings empty, no fault spec, no SLO
-    breach, a scratch tuned file, and every JAX timeline sampler's tick a
-    no-op (see the module's docstring)."""
+    breach, a scratch tuned file, and every timeline sampler's tick, JAX
+    and port, a no-op (see the module's docstring)."""
     monkeypatch.setattr(jtimeseries.HistoryStore, "sample_once",
+                        lambda self, now=None: 0)
+    monkeypatch.setattr(timeseries.HistoryStore, "sample_once",
                         lambda self, now=None: 0)
     monkeypatch.delenv("DMLC_FAULT_SPEC", raising=False)
     monkeypatch.delenv("DMLC_AUTOTUNE", raising=False)
@@ -130,6 +133,18 @@ def test_a_running_jax_timeline_sampler_adds_no_key(lib, clean, tmp_path,
     ticking every millisecond into the JAX registry all along, as one
     left running by another test ticks."""
     store = jtimeseries.HistoryStore(snapshot_fn=jmetrics.snapshot)
+    store.start(interval_s=0.001)
+    try:
+        _keys_and_counts_equal(tmp_path, monkeypatch, "python")
+    finally:
+        store.stop()
+
+
+def test_a_running_port_timeline_sampler_adds_no_key(lib, clean, tmp_path,
+                                                     monkeypatch):
+    """The same with the port's sampler ticking into the port's
+    registry, as a port exporter started by another test leaves it."""
+    store = timeseries.HistoryStore(snapshot_fn=metrics.snapshot)
     store.start(interval_s=0.001)
     try:
         _keys_and_counts_equal(tmp_path, monkeypatch, "python")

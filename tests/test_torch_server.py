@@ -20,6 +20,7 @@ package on the CPU.
 """
 
 import importlib
+import json
 import os
 import select
 import signal
@@ -567,13 +568,11 @@ def test_engine_serves_a_module_with_subtrees_and_a_jax_tree(kind):
 
 
 # ---------------------------------------------------------------------------
-# what is not ported is refused
+# what is not ported is refused; the exporter and the SLO monitor are not
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("env,value,item", [
-    ("DMLC_METRICS_PORT", "0", "A.12"),
     ("DMLC_ROUTER_REGISTRY", "127.0.0.1:1", "A.11"),
-    ("DMLC_SLO_SPEC", "serving.latency_s:p99<0.01", "A.12"),
     ("DMLC_FLIGHT_DIR", "/nonexistent", "A.12"),
     ("DMLC_TRACE_SAMPLE", "0.5", "A.12"),
 ])
@@ -581,6 +580,78 @@ def test_unported_server_parts_are_refused(monkeypatch, env, value, item):
     monkeypatch.setenv(env, value)
     with pytest.raises(DMLCError, match=f"ROADMAP queue {item}"):
         PredictionServer(_Stub(), warmup=False)
+
+
+def _healthz(port):
+    from test_torch_exposition import scrape
+    code, _, body = scrape(port, "/healthz")
+    return code, json.loads(body)
+
+
+@pytest.mark.parametrize("how", ["metrics_port", "DMLC_METRICS_PORT",
+                                 "DMLC_SLO_SPEC", "DMLC_SLO_SPEC burn-rate"])
+def test_exporter_and_slo_spec_are_accepted(monkeypatch, how):
+    """``metrics_port=0`` or ``DMLC_METRICS_PORT=0`` mounts the exporter
+    on an ephemeral port of the server's host, started and stopped with
+    the server; ``DMLC_SLO_SPEC`` in either grammar builds the monitor,
+    which runs while the server does."""
+    from test_torch_exposition import stop_samplers
+    from dmlc_core_tpu_torch.telemetry import slo as tslo
+    for key in ("DMLC_METRICS_PORT", "DMLC_SLO_SPEC"):
+        monkeypatch.delenv(key, raising=False)
+    kw = {}
+    if how == "metrics_port":
+        kw["metrics_port"] = 0
+    elif how == "DMLC_METRICS_PORT":
+        monkeypatch.setenv("DMLC_METRICS_PORT", "0")
+    else:
+        monkeypatch.setenv("DMLC_SLO_SPEC", "serving.latency_s:max=10s"
+                           + (":budget=0.5" if "burn" in how else ""))
+    srv = PredictionServer(_Stub(), warmup=False, **kw)
+    try:
+        if how.startswith("DMLC_SLO_SPEC"):
+            assert srv.telemetry is None
+            assert isinstance(srv.slo_monitor, tslo.BurnRateMonitor) == \
+                ("burn" in how)
+            assert srv.slo_monitor._thread is None
+            srv.start()
+            assert srv.slo_monitor._thread is not None
+        else:
+            assert srv.slo_monitor is None
+            srv.start()
+            assert srv.telemetry.port not in (0, srv.port)
+            assert _healthz(srv.telemetry.port) == (200, srv.health_doc())
+    finally:
+        srv.stop()
+        stop_samplers()
+    if srv.telemetry is not None:
+        with pytest.raises(OSError):
+            socket.create_connection(("127.0.0.1", srv.telemetry.port),
+                                     timeout=2).close()
+    if srv.slo_monitor is not None:
+        assert srv.slo_monitor._thread is None
+
+
+def test_a_bad_slo_spec_or_a_taken_port_raises(monkeypatch):
+    from test_torch_exposition import stop_samplers
+    from dmlc_core_tpu_torch.telemetry.anomaly import SloSpecError
+    monkeypatch.setenv("DMLC_SLO_SPEC", "serving.latency_s:p99<0.01")
+    with pytest.raises(SloSpecError, match="bad key=value"):
+        PredictionServer(_Stub(), warmup=False)
+    monkeypatch.delenv("DMLC_SLO_SPEC")
+    taken = socket.socket()
+    taken.bind(("127.0.0.1", 0))
+    taken.listen(1)
+    srv = PredictionServer(_Stub(), warmup=False,
+                           metrics_port=taken.getsockname()[1])
+    try:
+        with pytest.raises(OSError):
+            srv.start()
+        assert srv._accept_thread is None       # nothing else started
+    finally:
+        srv.stop()
+        taken.close()
+        stop_samplers()     # the exporter's start() started it before binding
 
 
 def test_admit_fault_sheds_as_the_jax_server_does():
@@ -650,11 +721,6 @@ def test_client_retries_answer_every_request_through_a_shed_burst(
                                    rtol=1e-4, atol=1e-5)
     assert shed.value == shed0 + 5
     assert retries.value == retries0 + 5
-
-
-def test_metrics_port_is_refused():
-    with pytest.raises(DMLCError, match="TelemetryServer.*A.12"):
-        PredictionServer(_Stub(), warmup=False, metrics_port=0)
 
 
 def test_autotuned_serve_forever_is_refused(monkeypatch, tmp_path):
@@ -782,6 +848,55 @@ def test_watch_checkpoints_on_a_remote_store(s3_server, hdfs_server, kind):
     finally:
         srv.stop()
     assert srv.reload_from_checkpoint(d, step=1) == 1
+
+
+def test_serve_main_serves_healthz_under_dmlc_metrics_port(tmp_path):
+    """``DMLC_METRICS_PORT=0`` and ``DMLC_SLO_SPEC`` through the
+    environment, as the JAX CLI takes them: the subprocess prints the
+    exporter's port after the serving one, and ``/healthz`` answers."""
+    from test_torch_exposition import scrape
+    p = _fm_params(7)
+    ckpt = str(tmp_path / "ck")
+    CheckpointManager(ckpt).save(1, {"params": p}, meta={"model": "fm"})
+    env = dict(os.environ, PYTHONPATH=REPO, DMLC_METRICS_PORT="0",
+               DMLC_SLO_SPEC="serving.latency_s:max=10s")
+    for key in ("DMLC_AUTOTUNE", "DMLC_FAULT_SPEC"):
+        env.pop(key, None)
+    log = open(tmp_path / "server.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.serving.server",
+         f"ckpt_dir={ckpt}", f"features={F}", "model=fm", f"dim={D}",
+         "host=127.0.0.1", "port=0", "device=cpu"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=log, text=True)
+    try:
+        line = ""
+        deadline = time.monotonic() + 120
+        while "serving on" not in line:
+            left = deadline - time.monotonic()
+            assert left > 0 and proc.poll() is None, \
+                (tmp_path / "server.log").read_text()
+            if select.select([proc.stdout], [], [], left)[0]:
+                line = proc.stdout.readline()
+        assert line.startswith("serving on 127.0.0.1:")
+        # printed right after, and often read into the same buffer
+        line = proc.stdout.readline()
+        assert line.startswith("telemetry on 127.0.0.1:"), line
+        host, port = line.split()[-1].rsplit(":", 1)
+        code, ctype, body = scrape(int(port), "/healthz", host=host)
+        assert (code, ctype) == (200, "application/json")
+        assert json.loads(body) == {"status": "ok", "model_id": "default",
+                                    "queue_depth": 0, "queue_fraction": 0.0,
+                                    "inflight": 0}
+        code, _, body = scrape(int(port), "/metrics", host=host)
+        assert code == 200 and "dmlc_serving_server_connections 0" in body
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.close()
 
 
 def _serve_main_serves(tmp_path, ckpt_dir):
