@@ -79,6 +79,33 @@ Phases, in order; any failure exits non-zero and prints no result:
    one sampler tick.  Launch counts are read around
    it and must be one a call of each ragged-gather forward plus one a
    capture's warm-up;
+   incident — the same model and checkpoint behind PredictionServer with
+   DMLC_FLIGHT_DIR, DMLC_TRACE_SAMPLE=0.01 and metrics_port=0 (the
+   flight recorder's window set to 2 s): (a) with DMLC_SLO_SPEC
+   serving.latency_s:max=0 and DMLC_FAULT_SPEC shedding the first 5
+   admissions, run_load's load 1: /events holds one serving.request
+   event a request sent (the 5 sheds too), every field in FIELDS; the
+   sampler decides one trace an engine call; one bundle a window (an
+   injected_fault one, then slo_breach ones, each with incident.json,
+   trace.json, log_tail.txt and timeline.json where the history had
+   series); /flight returns a bundle inline; /metrics has the 11
+   dmlc_serving_engine_* families, batches equal to the engine calls;
+   (b) 400 traced predicts from one PredictClient with sheds and 30 ms
+   admission stalls injected and DMLC_TRACE_KEEP_SLOW_MS=20: each
+   trace's verdict, worked out from its records, is kept exactly when
+   it errored, ran slow or falls under the hash floor; the recorder
+   holds exactly the kept traces, kept + dropped = 400, the errored
+   traces are those /events shows shed; (c) python -m
+   dmlc_core_tpu_torch.serving.server (the same FM on the card) sent
+   SIGTERM leaves a fatal_signal bundle and dies by the signal; (d) load
+   1 in eight blocks, the sampler off, on, on, off, ... (wide events in
+   both), with the process's CPU time a request; (e) the host's time of
+   a wide event, of an engine span with and without the sampler, of the
+   record the sampler no longer builds on the batcher's thread, and of
+   a bundle and a dump.  Launch counts are read around (a), (b) and (d)
+   and must be one a call of each ragged-gather forward plus one a
+   capture's warm-up; the process's hooks, signal handlers, sampler and
+   recorder are put back after it;
    feed    — the host feed's stages apart over the training file: python
    and native parse, streampack, python and native pack (ms per
    4096-row batch), the H2D copy and device decode of each fused batch
@@ -233,8 +260,8 @@ every path.
 
     python3 chip_smoke.py --serving
 
-runs phases 1, 2, 4, the server and the exporter only, and prints their
-numbers as its last line.
+runs phases 1, 2, 4, the server, the exporter and the incidents only, and
+prints their numbers as its last line.
 
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
 directory (by default they go with the data directory).
@@ -244,6 +271,7 @@ checkout.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import copy
 import json
@@ -2288,7 +2316,620 @@ def phase_exporter(torch, power: str) -> dict:
     return {"launches": launches, "stats": out}
 
 
-# -- phase 4c: spans and traces ----------------------------------------------
+# -- phase 4c: incidents (wide events, tail sampling, the flight recorder) ---
+
+INCIDENT_WINDOW = 2.0      # the flight recorder's rate-limit window, s
+INCIDENT_SLO = "serving.latency_s:max=0"   # a rule that must fire
+# a handful of admissions shed at the load's start (run_load does not retry)
+INCIDENT_FAULTS = "serving.server.admit:error=1:times=5"
+INCIDENT_SHED = 5
+INCIDENT_FLOOR = 0.01      # DMLC_TRACE_SAMPLE
+INCIDENT_TRACED = 400      # traced predicts, one PredictClient, in turn
+# the traced predicts' faults: a shed (the client retries it) or a 30 ms
+# stall at admission, each on about one call in twenty
+TRACED_FAULTS = "serving.server.admit:error=0.05:latency=30ms:lp=0.05:seed=7"
+KEEP_SLOW_MS = 20.0        # DMLC_TRACE_KEEP_SLOW_MS of the traced predicts
+INCIDENT_BLOCKS = 4        # load-1 blocks with the sampler off, and on
+COST_CALLS = 20_000        # wide events, and engine spans, timed
+DUMP_REPS = 5              # incident bundles dumped, timed
+ENGINE_FAMILIES = tuple(f"dmlc_serving_engine_{n}" for n in (
+    "batches_total", "compiles_total", "forward_count",
+    "forward_mean_seconds", "forward_seconds_total", "occupancy",
+    "padding_ratio", "params_version", "rows_rate", "rows_total",
+    "rows_windowed_rate"))
+_OK = ("OK", "ok", None)
+
+
+def _incident_bundles(d: str) -> list:
+    """Every bundle under ``d``, in dump order: (dir name, incident.json,
+    the files the directory holds)."""
+    out = []
+    for name in sorted(os.listdir(d)) if os.path.isdir(d) else []:
+        if not name.startswith("incident-"):
+            continue
+        path = os.path.join(d, name)
+        with open(os.path.join(path, "incident.json")) as f:
+            doc = json.load(f)
+        with open(os.path.join(path, "trace.json")) as f:
+            if not isinstance(json.load(f).get("traceEvents"), list):
+                raise RuntimeError(f"[incident] {name}: trace.json")
+        out.append((name, doc, sorted(os.listdir(path))))
+    return out
+
+
+def _check_bundle(name: str, doc: dict, files: list) -> None:
+    """incident.json, trace.json and log_tail.txt, and timeline.json
+    exactly where the history had series; the schema; files as listed."""
+    want = {"incident.json", "trace.json", "log_tail.txt"}
+    if doc.get("timeline"):
+        want.add("timeline.json")
+    if set(files) != want or set(doc["files"].values()) != want:
+        raise RuntimeError(f"[incident] {name}: files {files}, listed "
+                           f"{doc['files']}")
+    if doc["schema"] != "dmlc.flight.incident/1":
+        raise RuntimeError(f"[incident] {name}: schema {doc['schema']}")
+
+
+def _record_view(r) -> dict:
+    return r if isinstance(r, dict) else r.record()
+
+
+def _expected_keep(tid: int, recs: list, timed_out: bool) -> tuple:
+    """The verdict the sampler owes a trace, worked out here from its
+    records: (keep, errored, slow, floor).  Errored: a record with an
+    ``error`` or a status other than OK; slow: its local root (the
+    longest span whose parent is not in the trace here) over
+    KEEP_SLOW_MS; floor: the hash floor."""
+    from dmlc_core_tpu_torch.telemetry import sampling
+    recs = [_record_view(r) for r in recs]
+    errored = any((r.get("attrs") or {}).get("error") is not None
+                  or (r.get("attrs") or {}).get("status") not in _OK
+                  for r in recs)
+    spans = [r for r in recs if r.get("kind") == "span"]
+    ids = {r["span_id"] for r in spans}
+    roots = [r for r in spans
+             if not r.get("parent_id") or r["parent_id"] not in ids] or spans
+    slow = (bool(spans) and not timed_out
+            and max(r["dur_us"] for r in roots) / 1e3 > KEEP_SLOW_MS)
+    floor = sampling.hash_keep(tid, INCIDENT_FLOOR)
+    debug = bool(tid & sampling.DEBUG_BIT)
+    return debug or errored or slow or floor, errored, slow, floor
+
+
+def _events(port: int, since: int, n: int, timeout: float = 30.0) -> dict:
+    """/events?since= once it holds ``n`` events (the server emits a
+    request's event just after its answer)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        code, _, body, _ = _scrape(port, f"/events?since={since}")
+        doc = json.loads(body)
+        if code != 200:
+            raise RuntimeError(f"[incident] /events: HTTP {code}")
+        if len(doc["events"]) >= n or time.monotonic() > deadline:
+            return doc
+        time.sleep(0.05)
+
+
+def _incident_load(eng, shape: dict, fdir: str, power: str) -> dict:
+    """(a) load 1 through a server with DMLC_FLIGHT_DIR, DMLC_TRACE_SAMPLE,
+    a rule that must fire and INCIDENT_FAULTS, all through the server's
+    own construction: one serving.request event a request run_load sent
+    (the sheds too), every field in FIELDS; the sampler decides every
+    engine call (each a root: run_load sends untraced); one bundle a
+    rate-limit window (one injected_fault, then slo_breach ones), each
+    with its files; /flight inline; /metrics with the engine's families
+    and its batches equal to the engine calls."""
+    from dmlc_core_tpu_torch import PredictionServer, run_load
+    from dmlc_core_tpu_torch.telemetry import (flight, sampling, timeseries,
+                                               wide_events)
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    first = wide_events.wide_log.doc()["last_seq"]
+    with _env(DMLC_FLIGHT_DIR=fdir, DMLC_TRACE_SAMPLE=str(INCIDENT_FLOOR),
+              DMLC_TRACE_KEEP_SLOW_MS=None, DMLC_SLO_SPEC=INCIDENT_SLO,
+              DMLC_SLO_INTERVAL=str(SLO_INTERVAL),
+              DMLC_TIMELINE_INTERVAL=str(TIMELINE_INTERVAL),
+              DMLC_FAULT_SPEC=INCIDENT_FAULTS, DMLC_METRICS_PORT=None):
+        srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0,
+                               metrics_port=0).start()
+        port = srv.telemetry.port
+        try:
+            if not flight.flight_recorder.armed or \
+                    sampling.get_sampler() is None:
+                raise RuntimeError("[incident] the server armed no recorder "
+                                   "or installed no sampler")
+            # the history's first ticks before the load: the first bundle
+            # then carries a timeline too
+            time.sleep(2 * TIMELINE_INTERVAL)
+            t_load = time.time()
+            rep = run_load(srv.host, srv.port, requests=LOAD_REQUESTS,
+                           features=F_FEATURES, seed=SEED, timeout=120.0,
+                           **shape)
+            t_end = time.time()
+            doc = _events(port, first, LOAD_REQUESTS)
+            # the rule stays breached while the monitor runs: hold the
+            # server until two slo_breach bundles are begun (by name: a
+            # bundle's files land one by one; they are read after stop)
+            deadline = time.monotonic() + 4 * INCIDENT_WINDOW + 5.0
+            while (sum(n.endswith("-slo_breach") for n in os.listdir(fdir))
+                   < 2 and time.monotonic() < deadline):
+                time.sleep(0.05)
+            batches = srv.batcher.batches
+            page = _scrape(port, "/metrics")[2]
+            samples = _parse_exposition(page)
+            s = sampling.get_sampler()
+            decided = {k: metrics.counter(f"telemetry.sampling.{k}").value
+                       for k in ("kept", "dropped", "keep_slo",
+                                 "keep_floor", "keep_slow", "keep_error")}
+            t_flight = time.perf_counter()
+            code, _, body, _ = _scrape(port, "/flight")
+            flight_ms = 1e3 * (time.perf_counter() - t_flight)
+            inline = json.loads(body)
+        finally:
+            srv.stop()
+            timeseries.history.stop()
+    if (rep["overload"] != INCIDENT_SHED or rep["rejected"] or rep["errors"]
+            or rep["ok"] != LOAD_REQUESTS - INCIDENT_SHED):
+        raise RuntimeError(f"[incident] load 1: {rep}")
+    evs = [e for e in doc["events"] if e["kind"] == "serving.request"]
+    outcomes = collections.Counter(e["outcome"] for e in evs)
+    fields = set().union(*(set(e) for e in doc["events"]))
+    if (len(evs) != LOAD_REQUESTS or doc["missed"]
+            or outcomes != {"OK": rep["ok"], "OVERLOADED": INCIDENT_SHED}
+            or not fields <= wide_events.FIELDS):
+        raise RuntimeError(f"[incident] /events: {len(evs)} serving.request "
+                           f"events ({dict(outcomes)}, missed "
+                           f"{doc['missed']}) for {LOAD_REQUESTS} requests; "
+                           f"fields outside FIELDS: "
+                           f"{sorted(fields - wide_events.FIELDS)}")
+    if decided["kept"] + decided["dropped"] != batches:
+        raise RuntimeError(f"[incident] the sampler decided "
+                           f"{decided['kept'] + decided['dropped']} traces "
+                           f"over {batches} engine calls")
+    bundles = _incident_bundles(fdir)
+    for name, bdoc, files in bundles:
+        _check_bundle(name, bdoc, files)
+    if code != 200 or inline["schema"] != "dmlc.flight.incident/1" or \
+            not inline.get("dumped_to", "").startswith(fdir):
+        raise RuntimeError(f"[incident] /flight: HTTP {code}, "
+                           f"{inline.get('schema')}")
+    timed = [b for b in bundles if b[1]["reason"] != "endpoint"]
+    reasons = [b[1]["reason"] for b in timed]
+    if (reasons[:1] != ["injected_fault"] or reasons.count("injected_fault")
+            != 1 or reasons.count("slo_breach") < 2
+            or len(reasons) != 1 + reasons.count("slo_breach")):
+        raise RuntimeError(f"[incident] bundles {reasons}: one "
+                           f"injected_fault, then slo_breach ones")
+    gaps = [b[1]["ts"] - a[1]["ts"] for a, b in zip(timed, timed[1:])]
+    # one bundle a window: never two in one (a gap under a window), and
+    # none missed while the rule held (a gap of two windows or more)
+    if not all(INCIDENT_WINDOW - 0.05 <= g < 2 * INCIDENT_WINDOW
+               for g in gaps):
+        raise RuntimeError(f"[incident] bundle gaps {gaps} s, window "
+                           f"{INCIDENT_WINDOW} s")
+    if metrics.counter("flight.fault_triggers").value != INCIDENT_SHED:
+        raise RuntimeError("[incident] flight.fault_triggers "
+                           f"{metrics.counter('flight.fault_triggers').value}")
+    missing = [f for f in ENGINE_FAMILIES if f"# TYPE {f} " not in page]
+    want = {"dmlc_serving_engine_batches_total": batches,
+            "dmlc_serving_engine_forward_count": batches,
+            "dmlc_serving_engine_compiles_total": eng.compile_count,
+            "dmlc_telemetry_wide_events_emitted_total": LOAD_REQUESTS}
+    got = {k: samples.get(k) for k in want}
+    if missing or got != want:
+        raise RuntimeError(f"[incident] /metrics: missing {missing}, counts "
+                           f"{got}, expected {want}")
+    log(f"[incident] (a) load 1 with DMLC_FLIGHT_DIR, DMLC_TRACE_SAMPLE="
+        f"{INCIDENT_FLOOR}, DMLC_SLO_SPEC={INCIDENT_SLO} and DMLC_FAULT_SPEC="
+        f"{INCIDENT_FAULTS}: {rep['qps']:.1f} qps, p99 "
+        f"{rep['latency_ms']['p99']:.3f} ms, {rep['overload']} shed; /events "
+        f"{len(evs)} serving.request events ({dict(outcomes)}), every field "
+        f"in FIELDS; the sampler decided {batches} engine calls "
+        f"({decided}); bundles {reasons} at gaps "
+        + ", ".join(f"{g:.3f}" for g in gaps)
+        + f" s (window {INCIDENT_WINDOW} s), each with "
+        f"{', '.join(timed[-1][2])}; /flight inline in {flight_ms:.1f} ms; "
+        f"/metrics has the {len(ENGINE_FAMILIES)} dmlc_serving_engine_* "
+        f"families, batches {batches} = the engine calls [{power}]")
+    return {"qps": rep["qps"], "latency_ms": rep["latency_ms"],
+            "events": len(evs), "batches": batches, "decided": decided,
+            "bundles": reasons, "bundle_gaps_s": gaps,
+            "flight_endpoint_ms": flight_ms, "load_s": t_end - t_load}
+
+
+def _incident_traced(eng, fdir: str, power: str) -> dict:
+    """(b) INCIDENT_TRACED predicts, each its own trace (client, server,
+    engine), through a server with DMLC_TRACE_KEEP_SLOW_MS and
+    TRACED_FAULTS, no SLO rule: every trace the sampler decides is
+    captured with its records, and its verdict must be the one worked out
+    here (errored, or slow, or under the hash floor); the recorder holds
+    exactly the kept traces; kept + dropped = the traced predicts; the
+    errored traces are those /events shows shed."""
+    from dmlc_core_tpu_torch import PredictClient, PredictionServer
+    from dmlc_core_tpu_torch.telemetry import sampling, timeseries
+    from dmlc_core_tpu_torch.telemetry import trace as teltrace
+    from dmlc_core_tpu_torch.telemetry import wide_events
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    metrics.gauge("slo.active_breaches").set(0)
+    sampling.uninstall()
+    teltrace.recorder.clear()
+    first = wide_events.wide_log.doc()["last_seq"]
+    groups = []
+    reqs = _requests(np.random.default_rng(SEED + 5), 64)
+    with _env(DMLC_FLIGHT_DIR=fdir, DMLC_TRACE_SAMPLE=str(INCIDENT_FLOOR),
+              DMLC_TRACE_KEEP_SLOW_MS=str(KEEP_SLOW_MS), DMLC_SLO_SPEC=None,
+              DMLC_FAULT_SPEC=TRACED_FAULTS, DMLC_METRICS_PORT=None):
+        srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0,
+                               metrics_port=0).start()
+        s = sampling.get_sampler()
+        decide = s.buffer._decide
+
+        def capture(group, timed_out):
+            groups.append((group.trace_id, list(group.records), timed_out,
+                           threading.current_thread().name))
+            decide(group, timed_out=timed_out)
+
+        s.buffer._decide = capture
+        try:
+            t0 = time.perf_counter()
+            with PredictClient(srv.host, srv.port) as client:
+                for i in range(INCIDENT_TRACED):
+                    out = client.predict(*reqs[i % len(reqs)], timeout=120)
+                    if not np.isfinite(out).all():
+                        raise RuntimeError("[incident] a traced predict's "
+                                           "scores are not finite")
+            wall = time.perf_counter() - t0
+            s.flush()
+            doc = _events(srv.telemetry.port, first, INCIDENT_TRACED)
+        finally:
+            s.buffer._decide = decide
+            srv.stop()
+            timeseries.history.stop()
+    kept = {r["trace_id"] for r in teltrace.recorder.snapshot()}
+    shed = {e["trace_id"] for e in doc["events"]
+            if e.get("outcome") == "OVERLOADED"}
+    tally = collections.Counter()
+    wrong = []
+    for tid, recs, timed_out, _ in groups:
+        keep, errored, slow, floor = _expected_keep(tid, recs, timed_out)
+        hexid = teltrace.format_id(tid)
+        tally.update({"errored": errored, "slow": slow and not errored,
+                      "floor": floor and not (errored or slow),
+                      "kept": keep})
+        if (s.verdict(tid) is not keep or (hexid in kept) != keep
+                or (hexid in shed) != errored):
+            wrong.append((hexid, keep, s.verdict(tid), errored,
+                          hexid in shed))
+    decided = (metrics.counter("telemetry.sampling.kept").value
+               + metrics.counter("telemetry.sampling.dropped").value)
+    threads = collections.Counter(g[3] for g in groups)
+    if (wrong or len(groups) != INCIDENT_TRACED or decided != INCIDENT_TRACED
+            or metrics.counter("telemetry.sampling.keep_slo").value):
+        raise RuntimeError(f"[incident] (b) {len(groups)} traces decided "
+                           f"({decided} counted) for {INCIDENT_TRACED} "
+                           f"traced predicts; verdicts that depart from "
+                           f"errored | slow | hash floor: {wrong[:5]}")
+    if not tally["errored"] or not tally["slow"]:
+        raise RuntimeError(f"[incident] (b) no errored or no slow trace "
+                           f"({dict(tally)}): the faults did not fire")
+    log(f"[incident] (b) {INCIDENT_TRACED} traced predicts in {wall:.2f} s "
+        f"(DMLC_TRACE_KEEP_SLOW_MS={KEEP_SLOW_MS:g}, DMLC_FAULT_SPEC="
+        f"{TRACED_FAULTS}): kept {tally['kept']} = {tally['errored']} "
+        f"errored + {tally['slow']} slow + {tally['floor']} under the hash "
+        f"floor only, exactly the sampler's verdicts and the recorder's "
+        f"traces; kept + dropped = {decided}; the errored traces are the "
+        f"{len(shed)} /events shows shed; decided on {dict(threads)} "
+        f"[{power}]")
+    return {"decided": decided, "kept": tally["kept"],
+            "errored": tally["errored"], "slow": tally["slow"],
+            "floor_only": tally["floor"], "wall_s": wall,
+            "batches": srv.batcher.batches,
+            "decide_threads": dict(threads)}
+
+
+def _incident_sigterm(ckpt: str, fdir: str, power: str) -> dict:
+    """(c) the port's server as a user starts it (python -m
+    dmlc_core_tpu_torch.serving.server, the same FM and checkpoint on the
+    card) with DMLC_FLIGHT_DIR: SIGTERM after ``serving on`` must leave a
+    fatal_signal bundle and end the process by the signal."""
+    import select
+    import signal
+    env = _cli_env()
+    env.update(DMLC_FLIGHT_DIR=fdir, DMLC_TRACE_SAMPLE=str(INCIDENT_FLOOR))
+    for key in ("DMLC_SLO_SPEC", "DMLC_FAULT_SPEC", "DMLC_METRICS_PORT"):
+        env.pop(key, None)
+    log_path = os.path.join(fdir + ".log")
+    t0 = time.monotonic()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dmlc_core_tpu_torch.serving.server",
+             f"ckpt_dir={ckpt}", "model=fm", f"features={F_FEATURES}",
+             f"dim={DIM}", "host=127.0.0.1", "port=0", "watch_s=3600"],
+            cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=log_file,
+            text=True)
+        try:
+            line = ""
+            while "serving on" not in line:
+                left = t0 + 300 - time.monotonic()
+                if left <= 0 or proc.poll() is not None:
+                    with open(log_path) as f:
+                        raise RuntimeError(f"[incident] serve_main did not "
+                                           f"come up: {f.read()[-2000:]}")
+                if select.select([proc.stdout], [], [], left)[0]:
+                    line = proc.stdout.readline()
+            up_s = time.monotonic() - t0
+            t1 = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            down_s = time.monotonic() - t1
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+    bundles = _incident_bundles(fdir)
+    if rc != -signal.SIGTERM or [b[1]["reason"] for b in bundles] != \
+            ["fatal_signal"]:
+        raise RuntimeError(f"[incident] (c) SIGTERM: exit {rc}, bundles "
+                           f"{[b[0] for b in bundles]}")
+    name, doc, files = bundles[0]
+    _check_bundle(name, doc, files)
+    if doc["detail"] != {"signal": "SIGTERM"} or doc["pid"] == os.getpid():
+        raise RuntimeError(f"[incident] (c) {name}: {doc['detail']}")
+    log(f"[incident] (c) serve_main (model=fm, 2^20 x 32, on the card) up "
+        f"in {up_s:.2f} s; SIGTERM: exit {rc} in {down_s * 1e3:.1f} ms, "
+        f"bundle {name} ({', '.join(files)}) [{power}]")
+    return {"up_s": up_s, "sigterm_exit_ms": 1e3 * down_s, "rc": rc}
+
+
+def _incident_block(eng, shape: dict, on: bool) -> tuple:
+    """One block of load 1: ``on`` with the tail sampler (DMLC_TRACE_SAMPLE
+    at INCIDENT_FLOOR), off without; wide events in both.  Returns
+    (run_load's report, the batcher's batches, the process's CPU seconds
+    over the load, the traces decided)."""
+    from dmlc_core_tpu_torch import PredictionServer, run_load
+    from dmlc_core_tpu_torch.telemetry import sampling
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    sampling.uninstall()
+    with _env(DMLC_TRACE_SAMPLE=str(INCIDENT_FLOOR) if on else None,
+              DMLC_TRACE_KEEP_SLOW_MS=None, DMLC_FLIGHT_DIR=None,
+              DMLC_SLO_SPEC=None, DMLC_FAULT_SPEC=None,
+              DMLC_METRICS_PORT=None):
+        srv = PredictionServer(eng, warmup=True,
+                               default_deadline_s=60.0).start()
+    try:
+        if (sampling.get_sampler() is not None) != on:
+            raise RuntimeError(f"[incident] a block {'on' if on else 'off'} "
+                               f"with sampler {sampling.get_sampler()}")
+        cpu0 = time.process_time()
+        rep = run_load(srv.host, srv.port, requests=LOAD_REQUESTS,
+                       features=F_FEATURES, seed=SEED, timeout=120.0,
+                       **shape)
+        cpu_s = time.process_time() - cpu0
+    finally:
+        srv.stop()
+        sampling.uninstall()
+    decided = (metrics.counter("telemetry.sampling.kept").value
+               + metrics.counter("telemetry.sampling.dropped").value)
+    if (rep["rejected"] or rep["errors"] or rep["overload"]
+            or rep["ok"] != LOAD_REQUESTS
+            or decided != (srv.batcher.batches if on else 0)):
+        raise RuntimeError(f"[incident] load 1 ({'on' if on else 'off'}): "
+                           f"{rep}, {decided} traces decided")
+    return rep, srv.batcher.batches, cpu_s, decided
+
+
+def _incident_costs(fdir: str) -> dict:
+    """(e) The host's cost of the parts, on this process as the load left
+    it: one wide event as the server emits it, one engine span with the
+    sampler installed against without (the sampler's share of each
+    engine call, its decide included), the render the sampler no longer
+    makes on that thread, and one incident bundle (bundle alone, and a
+    whole forced dump to disk)."""
+    from dmlc_core_tpu_torch.telemetry import flight, sampling
+    from dmlc_core_tpu_torch.telemetry import trace as teltrace
+    from dmlc_core_tpu_torch.telemetry import wide_events
+    out = {}
+    wide_events.wide_log.reset(capacity=2048)
+    t0 = time.perf_counter()
+    for i in range(COST_CALLS):
+        wide_events.wide_event(
+            "serving.request", model="default", conn=3, req_id=i, rows=128,
+            nnz=4096, dur_ms=2.5, outcome="OK", trace_id=None, debug=None,
+            queue_ms=2.1, batch_rows=1024, batch_nnz=32768)
+    out["wide_event_us"] = 1e6 * (time.perf_counter() - t0) / COST_CALLS
+
+    def spans(n: int) -> float:
+        t0w, t0m = time.time(), time.monotonic()
+        t = time.perf_counter()
+        for _ in range(n):
+            teltrace.record_span("serving.engine.forward", t0w, t0m,
+                                 rows=128, bucket_rows=128, bucket_nnz=8192,
+                                 ragged=False)
+        return 1e6 * (time.perf_counter() - t) / n
+
+    sampling.uninstall()
+    out["engine_span_us"] = spans(COST_CALLS)
+    with _env(DMLC_TRACE_SAMPLE=str(INCIDENT_FLOOR),
+              DMLC_TRACE_KEEP_SLOW_MS=None):
+        if sampling.maybe_install_from_env() is None:
+            raise RuntimeError("[incident] no sampler installed")
+    try:
+        out["engine_span_sampled_us"] = spans(COST_CALLS)
+    finally:
+        sampling.uninstall()
+    out["decide_us"] = out["engine_span_sampled_us"] - out["engine_span_us"]
+    # the record a span's end would have built on the batcher's thread
+    ended = []
+
+    class Keep:
+        def on_start(self, trace_id):
+            pass
+
+        def on_end(self, trace_id, span):
+            ended.append(span)
+
+    teltrace.set_sampler(Keep())
+    try:
+        for _ in range(COST_CALLS // 10):
+            teltrace.start_span("serving.engine.forward", rows=128).end()
+    finally:
+        teltrace.set_sampler(None)
+    t = time.perf_counter()
+    for sp in ended:
+        sp.record()
+    out["render_us"] = 1e6 * (time.perf_counter() - t) / len(ended)
+    rec = flight.flight_recorder
+    bundle_s, dump_s = [], []
+    for _ in range(DUMP_REPS):
+        t = time.perf_counter()
+        doc = rec.bundle("cost")
+        bundle_s.append(time.perf_counter() - t)
+        t = time.perf_counter()
+        path = rec.dump("cost", directory=fdir, force=True)
+        dump_s.append(time.perf_counter() - t)
+        if path is None:
+            raise RuntimeError("[incident] a forced dump wrote nothing")
+    out["bundle_ms"] = 1e3 * float(np.median(bundle_s))
+    out["dump_ms"] = 1e3 * float(np.median(dump_s))
+    out["bundle_spans"] = doc["span_count"]
+    out["bundle_bytes"] = sum(
+        os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    return out
+
+
+def phase_incident(torch, power: str) -> dict:
+    """[incident]: the incident tooling around the served FM (2^20 x 32,
+    padded ladder, every bucket a captured graph, [server]'s checkpoint):
+    (a) load 1 through a server that arms the flight recorder and the tail
+    sampler from its environment, with a rule that must fire and injected
+    sheds: the wide events, the sampler's decisions, one bundle a window,
+    /flight, the engine's metrics; (b) traced predicts with injected sheds
+    and stalls: the kept traces are exactly the errored, slow and
+    hash-floor ones; (c) SIGTERM to serve_main on the card leaves a
+    fatal_signal bundle; (d) load 1 in blocks with the sampler off and on
+    in turns; (e) the host's cost of a wide event, of the sampler on an
+    engine call, and of a bundle.  The process's hooks, handlers, sampler
+    and recorder are put back after it.  Returns the kernel launches
+    counted over (a), (b) and (d), and its numbers."""
+    import signal
+    import tempfile
+
+    from dmlc_core_tpu_torch import (BucketLadder, CheckpointManager,
+                                     FactorizationMachine, InferenceEngine)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.telemetry import flight, sampling, wide_events
+    from dmlc_core_tpu_torch.utils import faults
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    t_phase = time.monotonic()
+    shape = dict(LOADS)["load1"]
+    rec = flight.flight_recorder
+    saved = (sys.excepthook, threading.excepthook,
+             {n: signal.getsignal(n) for n in (signal.SIGTERM,
+                                               signal.SIGABRT)},
+             {k: getattr(rec, k) for k in ("_dir", "_installed",
+                                           "_prev_excepthook",
+                                           "_prev_thread_hook",
+                                           "_min_interval", "_last_dump")})
+    work = tempfile.mkdtemp(prefix=".chip_smoke_incident-", dir=ROOT)
+    ckpt = os.path.join(work, "ckpt")
+    try:
+        p1 = _np_params(SEED + 1)
+        CheckpointManager(ckpt).save(1, {"params": p1}, meta={"model": "fm"})
+        eng = InferenceEngine(FactorizationMachine(F_FEATURES, DIM,
+                                                   device="cuda"),
+                              buckets=BucketLadder.default(),
+                              postprocess="sigmoid", device="cuda")
+        if eng.reload_from_checkpoint(ckpt, step=1) != 1:
+            raise RuntimeError("[incident] restored the wrong step")
+        # the window the knob (DMLC_FLIGHT_MIN_INTERVAL) sets when the
+        # recorder is made, which was at import
+        rec._min_interval = INCIDENT_WINDOW
+        rec._last_dump = -float("inf")
+        wide_events.wide_log.reset(capacity=4 * LOAD_REQUESTS)
+        reset_launch_counts()                 # the main path starts here
+        fdir_a = os.path.join(work, "flight_load")
+        load = _incident_load(eng, shape, fdir_a, power)
+        batches = load["batches"]
+        rec._last_dump = -float("inf")
+        traced = _incident_traced(eng, os.path.join(work, "flight_traced"),
+                                  power)
+        batches += traced["batches"]
+        blocks = []
+        # off, on, on, off, ...: a drift over the phase weighs on both alike
+        for i in range(2 * INCIDENT_BLOCKS):
+            on = i % 4 in (1, 2)
+            rep, b, cpu_s, decided = _incident_block(eng, shape, on)
+            batches += b
+            blocks.append({"state": "on" if on else "off",
+                           "qps": rep["qps"],
+                           "p50_ms": rep["latency_ms"]["p50"],
+                           "p99_ms": rep["latency_ms"]["p99"],
+                           "cpu_ms_per_request": 1e3 * cpu_s / rep["ok"],
+                           "decided": decided})
+            log(f"[incident] (d) load 1 block {i + 1} (sampler "
+                f"{blocks[-1]['state']}): {rep['qps']:.1f} qps, p50 "
+                f"{rep['latency_ms']['p50']:.3f} p99 "
+                f"{rep['latency_ms']['p99']:.3f} ms, the process's CPU "
+                f"{blocks[-1]['cpu_ms_per_request']:.3f} ms a request, "
+                f"{decided} traces decided [{power}]")
+        torch.cuda.synchronize()
+        launches = launch_counts()            # the main path ends here
+        for name in ("ragged_gather_fm", "ragged_gather_embed"):
+            if launches.get(name, 0) != batches + eng.compile_count:
+                raise RuntimeError(
+                    f"[incident] {name}: {launches.get(name, 0)} launches, "
+                    f"expected one a call and one a warm-up ({batches} + "
+                    f"{eng.compile_count})")
+        sigterm = _incident_sigterm(ckpt, os.path.join(work, "flight_child"),
+                                    power)
+        costs = _incident_costs(os.path.join(work, "flight_cost"))
+    finally:
+        sampling.uninstall()
+        faults.clear_faults()
+        metrics.gauge("slo.active_breaches").set(0)
+        sys.excepthook, threading.excepthook = saved[0], saved[1]
+        for n, h in saved[2].items():
+            signal.signal(n, h)
+        for k, v in saved[3].items():
+            setattr(rec, k, v)
+        wide_events.wide_log.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    series = {k: {s: [b[k] for b in blocks if b["state"] == s]
+                  for s in ("off", "on")}
+              for k in ("qps", "p99_ms", "cpu_ms_per_request")}
+    out = {"load": load, "traced": traced, "sigterm": sigterm,
+           "costs": costs, "blocks": blocks,
+           **{f"{k}_on_off": float(np.median(v["on"]) / np.median(v["off"]))
+              for k, v in series.items()},
+           "pair_qps_on_off": [blocks[i + 1]["qps"] / blocks[i]["qps"]
+                               if i % 4 == 0 else
+                               blocks[i]["qps"] / blocks[i + 1]["qps"]
+                               for i in range(0, len(blocks), 2)]}
+    log(f"[incident] (d) load 1, sampler on / off: qps medians "
+        f"{np.median(series['qps']['on']):.1f} / "
+        f"{np.median(series['qps']['off']):.1f} = {out['qps_on_off']:.4f} "
+        f"(pairs " + ", ".join(f"{r:.4f}" for r in out["pair_qps_on_off"])
+        + f"), p99 {out['p99_ms_on_off']:.4f}, the process's CPU a request "
+        f"{out['cpu_ms_per_request_on_off']:.4f} [{power}]")
+    log(f"[incident] (e) on the host: a wide event "
+        f"{costs['wide_event_us']:.2f} us; an engine span "
+        f"{costs['engine_span_us']:.2f} us, with the sampler "
+        f"{costs['engine_span_sampled_us']:.2f} us (its share, the decide "
+        f"included: {costs['decide_us']:.2f} us); a span's record, which "
+        f"the sampler no longer builds on that thread, "
+        f"{costs['render_us']:.2f} us; a bundle {costs['bundle_ms']:.2f} ms "
+        f"({costs['bundle_spans']} spans in the ring), a dump "
+        f"{costs['dump_ms']:.2f} ms ({costs['bundle_bytes']} bytes) "
+        f"[{power}]")
+    log(f"[incident] kernel launches: {launches} over {batches} engine "
+        f"calls and {eng.compile_count} warm-ups; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "stats": out}
+
+
+# -- phase 4d: spans and traces ----------------------------------------------
 
 TRACE_REQUESTS = 64        # served requests of [trace] (a)
 TRACE_STEPS = 4            # profiled training steps of [trace] (b)
@@ -5576,9 +6217,10 @@ def main_planted(kind: str) -> int:
 
 
 def main_serving() -> int:
-    """``--serving``: phases 1, 2, 4, 4a and [exporter] only (the serving
-    numbers, for a comparison on one card); the last line is phase 4a's
-    numbers with [exporter]'s under ``exporter``."""
+    """``--serving``: phases 1, 2, 4, 4a, [exporter] and [incident] only
+    (the serving numbers, for a comparison on one card); the last line is
+    phase 4a's numbers with [exporter]'s and [incident]'s under
+    ``exporter`` and ``incident``."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -5590,8 +6232,10 @@ def main_serving() -> int:
     phase_serving(torch, timer, power)
     out = phase_server(torch, timer, power)
     exporter = phase_exporter(torch, power)
+    incident = phase_incident(torch, power)
     print(power)
-    print(json.dumps({**out["stats"], "exporter": exporter["stats"]}))
+    print(json.dumps({**out["stats"], "exporter": exporter["stats"],
+                      "incident": incident["stats"]}))
     return 0
 
 
@@ -5613,6 +6257,7 @@ def main() -> int:
     serving = phase_serving(torch, timer, power)
     server = phase_server(torch, timer, power)["launches"]
     exporter = phase_exporter(torch, power)["launches"]
+    incident = phase_incident(torch, power)["launches"]
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
         io = phase_io(torch, power, data, train_file)
@@ -5674,6 +6319,11 @@ def main() -> int:
     missing += [f"{k} (exporter)" for k in ("ragged_gather_fm",
                                             "ragged_gather_embed")
                 if exporter.get(k, 0) < 1]
+    # the same server with the flight recorder, the tail sampler and its
+    # wide events
+    missing += [f"{k} (incident)" for k in ("ragged_gather_fm",
+                                            "ragged_gather_embed")
+                if incident.get(k, 0) < 1]
     # FFM's bucket sum G and its gradient, on both of its paths
     missing += [f"{k} (ffm)" for k in ("ragged_gather_embed",
                                        "ragged_gather_grad_embed")
@@ -5723,10 +6373,12 @@ def main() -> int:
             if extra in k:
                 row[extra] = k[extra]
         if name in ("ragged_gather_fm", "ragged_gather_embed"):
-            # the TCP server, one graph replay a call; and the same server
-            # with the telemetry exporter and the SLO monitor
+            # the TCP server, one graph replay a call; the same server with
+            # the telemetry exporter and the SLO monitor; and with the
+            # flight recorder and the tail sampler
             row["server"] = {"launches": server.get(name, 0)}
             row["exporter"] = {"launches": exporter.get(name, 0)}
+            row["incident"] = {"launches": incident.get(name, 0)}
         if io.get(name, 0):
             # the I/O layer's training: fed from the page file, and
             # save_async under training
@@ -5790,8 +6442,8 @@ if __name__ == "__main__":
                     help="plant a fault on the kernel path and show that "
                          "phase 5's checks catch it")
     ap.add_argument("--serving", action="store_true",
-                    help="run the serving phases only (4, 4a and "
-                         "[exporter])")
+                    help="run the serving phases only (4, 4a, [exporter] "
+                         "and [incident])")
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None

@@ -20,13 +20,21 @@ Metrics, as the JAX batcher's: ``serving.batcher.queue_depth``,
 the submitter's own by default) across to the worker thread, which runs
 each engine call under the context of the batch's first traced request,
 so the engine's ``serving.engine.forward`` span joins that request's
-trace.  The JAX batcher's per-request wide events and its flight
-recorder's note of an engine failure are not ported (ROADMAP queue
-A.12.d).
+trace.
+
+A request's Future carries ``wide``, the facts only the batcher knows,
+for the server's wide event: ``queue_ms`` (enqueue to answer, or to its
+failure), and for an answered request ``batch_rows`` and ``batch_nnz``
+of the engine call that served it.  An engine call that raises (other
+than :class:`~.engine.RequestTooLarge`) is noted in the port's flight
+recorder and dumps an ``engine_failure`` bundle when it is armed; the
+worker catches ``Exception`` (the JAX one ``BaseException``), so an
+interpreter exit is not swallowed.
 """
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from concurrent.futures import Future
@@ -217,6 +225,8 @@ class MicroBatcher:
             for p in batch:
                 if p.deadline < now:
                     self._m_expired.add(1)
+                    p.future.wide = {
+                        "queue_ms": round((now - p.t_enq) * 1e3, 3)}
                     p.future.set_exception(DeadlineExceeded(
                         f"request expired after {now - p.t_enq:.3f}s in "
                         f"queue"))
@@ -242,19 +252,40 @@ class MicroBatcher:
                 with teltrace.activate(ctx):
                     scores = self.engine.predict(ids, vals, row_ptr)
             except Exception as e:  # noqa: BLE001 — fan out, keep serving
+                # an engine failure is incident evidence: note it (and
+                # dump, when armed) so the batch that died is in the black
+                # box.  The port's recorder, by the port's module name
+                fl = sys.modules.get("dmlc_core_tpu_torch.telemetry.flight")
+                if fl is not None and not isinstance(e, RequestTooLarge):
+                    fl.flight_recorder.note(
+                        "engine_failure", error=f"{type(e).__name__}: {e}",
+                        requests=len(live),
+                        rows=int(sum(p.rows for p in live)))
+                    fl.dump_incident("engine_failure",
+                                     error=f"{type(e).__name__}: {e}")
+                fail_t = time.monotonic()
                 for p in live:
                     if not p.future.done():
+                        p.future.wide = {
+                            "queue_ms": round((fail_t - p.t_enq) * 1e3, 3)}
                         p.future.set_exception(e)
                 continue
             self.batches += 1
             self._m_batches.add(1)
-            self._m_occ.set(sum(p.rows for p in live)
-                            / max(1, self.max_batch_rows))
+            batch_rows = sum(p.rows for p in live)
+            self._m_occ.set(batch_rows / max(1, self.max_batch_rows))
             self._m_nnz.observe(len(ids))
             self._m_fill.set(len(ids) / max(1, self.max_batch_nnz))
             done_t = time.monotonic()
             r0 = 0
             for p in live:
+                # the request's wide event reads these in the server's
+                # completion callback
+                p.future.wide = {
+                    "queue_ms": round((done_t - p.t_enq) * 1e3, 3),
+                    "batch_rows": batch_rows,
+                    "batch_nnz": len(ids),
+                }
                 p.future.set_result(scores[r0:r0 + p.rows])
                 r0 += p.rows
                 self._m_latency.observe(done_t - p.t_enq)

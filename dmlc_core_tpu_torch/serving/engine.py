@@ -43,6 +43,15 @@ work, as the JAX engine's does; it is host-side only, never part of a
 graph, and recorded after the lock with
 :func:`~..telemetry.trace.record_span` (two clock reads and a ring
 append on the batcher's serial thread).
+
+Metrics, as the JAX engine's: ``serving.engine.compiles`` (a captured
+graph, or a prepared CPU bucket: what ``compile_count`` counts),
+``.batches`` and ``.rows`` (throughput) a successful call, the
+``.forward`` stage over the same stretch as the span (copy-in, replay
+and the copy-out's event wait: no synchronization of its own),
+``.occupancy`` (rows over the bucket's), ``.params_version`` (set at a
+reload) and ``.padding_ratio`` (the bucket's nnz over the request's;
+1.0 when ragged).
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from ..ops.ragged_csr import mask_batch
 from ..telemetry import trace as teltrace
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, check, log_info
+from ..utils.metrics import metrics
 
 __all__ = ["ShapeBucket", "BucketLadder", "InferenceEngine",
            "RequestTooLarge"]
@@ -330,8 +340,24 @@ class InferenceEngine:
         self._pool = None                    # the graphs' memory pool
         self.compile_count = 0
         self.params_version = 0
+        self._bind_metrics()
         if warmup:
             self.warmup_all()
+
+    def _bind_metrics(self) -> None:
+        m = metrics
+        self._m_gen = m.generation
+        self._m_compiles = m.counter("serving.engine.compiles")
+        self._m_batches = m.counter("serving.engine.batches")
+        self._m_rows = m.throughput("serving.engine.rows")
+        self._m_fwd = m.stage("serving.engine.forward")
+        self._m_occupancy = m.gauge("serving.engine.occupancy")
+        self._m_version = m.gauge("serving.engine.params_version")
+        self._m_padding = m.histogram("serving.engine.padding_ratio")
+
+    def _maybe_rebind(self) -> None:
+        if self._m_gen != metrics.generation:
+            self._bind_metrics()
 
     # -- forward --------------------------------------------------------
     def _forward(self, params: Dict[str, torch.Tensor],
@@ -397,6 +423,8 @@ class InferenceEngine:
             self._forward(self._params, self._dummy(bucket))
             self._prepared.add(bucket)
         self.compile_count += 1
+        self._maybe_rebind()
+        self._m_compiles.add(1)
         log_info("serving: %s bucket rows=%d nnz=%d in %.2fs (%d/%d buckets "
                  "hot)", "captured" if g is not None else "prepared",
                  bucket.rows, bucket.nnz, time.monotonic() - t0,
@@ -446,22 +474,25 @@ class InferenceEngine:
               "row_ptr does not cover ids")
         bucket = self.ladder.best_fit(rows, max(len(ids), 1))
         batch = self._pad(bucket, ids, vals, row_ptr)
+        self._maybe_rebind()
         with self._lock:
             g = self._ready(bucket)
-            # the span's clock starts after the capture and stops once the
-            # scores are on the host, so it covers the device's work; it
-            # is recorded after the lock, a host-side record only.  A
-            # child of the request context the batcher activated, or a
-            # new root
+            # the span's clock (and the forward stage's) starts after the
+            # capture and stops once the scores are on the host, so it
+            # covers the device's work; the span is recorded after the
+            # lock, a host-side record only.  A child of the request
+            # context the batcher activated, or a new root
             t0_wall, t0 = time.time(), time.monotonic()
             try:
-                if g is None:
-                    out = self._forward(self._params, batch).numpy()[:rows]
-                else:
-                    with torch.cuda.device(self.device):
-                        self._stage(g, batch)
-                        self._replay(g)
-                        out = self._copy_out(g, rows)
+                with self._m_fwd.time():
+                    if g is None:
+                        out = self._forward(self._params,
+                                            batch).numpy()[:rows]
+                    else:
+                        with torch.cuda.device(self.device):
+                            self._stage(g, batch)
+                            self._replay(g)
+                            out = self._copy_out(g, rows)
             except BaseException as e:
                 teltrace.record_span(
                     "serving.engine.forward", t0_wall, t0, rows=rows,
@@ -471,6 +502,13 @@ class InferenceEngine:
         teltrace.record_span("serving.engine.forward", t0_wall, t0,
                              rows=rows, bucket_rows=bucket.rows,
                              bucket_nnz=bucket.nnz, ragged=self.ragged)
+        self._m_batches.add(1)
+        self._m_rows.add(rows)
+        self._m_occupancy.set(rows / bucket.rows)
+        # padded nnz over true nnz: the padded forward reduces the whole
+        # bucket, the ragged one only nnz_used
+        self._m_padding.observe(1.0 if self.ragged
+                                else bucket.nnz / max(len(ids), 1))
         return out
 
     # -- hot reload -----------------------------------------------------
@@ -493,6 +531,8 @@ class InferenceEngine:
                 # complete before any replay, whichever stream it is on
                 torch.cuda.current_stream(self.device).synchronize()
             self.params_version += 1
+            self._maybe_rebind()
+            self._m_version.set(self.params_version)
 
     def reload_from_checkpoint(self, directory: str,
                                step: Optional[int] = None) -> int:

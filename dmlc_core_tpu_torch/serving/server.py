@@ -52,10 +52,21 @@ construction, raising on a malformed spec, and its monitor runs from
 breached rule degrades :attr:`PredictionServer.health` and freezes the
 serving autotuner.
 
-Not ported, each refused when asked for (a deployment that sets one must
-not be served silently without it): the flight recorder
-(``DMLC_FLIGHT_DIR``) and trace sampling (``DMLC_TRACE_SAMPLE``), ROADMAP
-queue A.12.d; the fleet agent (``DMLC_ROUTER_REGISTRY``, A.11).
+Incidents: ``DMLC_FLIGHT_DIR`` arms the flight recorder at construction
+(:mod:`..telemetry.flight`; with ``DMLC_FLIGHT_HOOKS`` unset or 1 it
+also chains onto ``sys.excepthook``, ``threading.excepthook``, SIGTERM
+and SIGABRT), so an injected fault, an SLO breach, an engine failure, a
+fatal signal or an unhandled exception leaves an incident bundle there;
+``DMLC_TRACE_SAMPLE`` installs the tail sampler
+(:mod:`..telemetry.sampling`).  Every request the server reads emits one
+``serving.request`` wide event (:mod:`..telemetry.wide_events`: model,
+conn, req_id, rows, nnz, dur_ms, outcome, the batcher's queue_ms,
+batch_rows and batch_nnz, the trace id), an admission shed included;
+the exporter serves them at ``/events`` and a bundle at ``/flight``.
+
+Not ported, refused when asked for (a deployment that sets it must not
+be served silently without it): the fleet agent
+(``DMLC_ROUTER_REGISTRY``, ROADMAP queue A.11).
 
 Autotuning: with ``DMLC_AUTOTUNE`` opted in, :meth:`PredictionServer.
 serve_forever` (and so ``serve_main``) tunes the micro-batcher's cut
@@ -78,8 +89,11 @@ from typing import Dict, Optional
 import numpy as np
 
 from ..telemetry import anomaly as telanomaly
+from ..telemetry import flight as telflight
+from ..telemetry import sampling as telsampling
 from ..telemetry import trace as teltrace
-from ..telemetry.exposition import UNPORTED_ENV, TelemetryServer
+from ..telemetry.exposition import TelemetryServer
+from ..telemetry.wide_events import wide_event
 from ..transport.frames import send_all
 from ..transport.listener import Listener, serve_connection
 from ..utils.faults import FaultInjected, fault_point
@@ -127,7 +141,6 @@ _MAX_NNZ = 1 << 26
 
 # what is not ported, by the environment variable that asks for it
 _REFUSED_ENV = {
-    **UNPORTED_ENV,
     "DMLC_ROUTER_REGISTRY": "the serving fleet's replica agent is not "
                             "ported yet (ROADMAP queue A.11, serving "
                             "fleet)",
@@ -185,6 +198,11 @@ class PredictionServer:
         # socket or thread exists); its monitor runs from start() to stop()
         self.slo_monitor: Optional[telanomaly.SloMonitor] = \
             telanomaly.maybe_monitor_from_env(autostart=False)
+        # the incident companions, each an exact no-op when its variable
+        # is unset: DMLC_FLIGHT_DIR arms the flight recorder (and its
+        # fatal-path hooks), DMLC_TRACE_SAMPLE installs the tail sampler
+        telflight.maybe_arm_from_env()
+        telsampling.maybe_install_from_env()
         self.engine = engine
         # which checkpoint lineage this replica serves; "default" keeps
         # single-replica deployments hello-free
@@ -419,8 +437,8 @@ class PredictionServer:
             except OSError:
                 pass                   # client gone; the reader notices
 
-        def on_done(req_id: int, fut,
-                    span: Optional[teltrace.Span]) -> None:
+        def on_done(req_id: int, fut, span: Optional[teltrace.Span],
+                    rows: int, nnz: int, t0: float) -> None:
             with self._inflight_lock:
                 self._inflight -= 1
                 self._m_inflight.set(self._inflight)
@@ -428,16 +446,31 @@ class PredictionServer:
             if exc is None:
                 scores = np.ascontiguousarray(fut.result(),
                                               dtype=np.float32)
+                outcome = "OK"
                 if span is not None:
                     span.end(status="OK")
                 respond(req_id, STATUS_OK, scores.tobytes())
-                return
-            status = _status_of(exc)
-            if status == STATUS_OVERLOADED:
-                metrics.counter("serving.server.shed").add(1)
-            if span is not None:
-                span.end(status=STATUS_NAMES.get(status, str(status)))
-            respond(req_id, status, str(exc).encode("utf-8", "replace"))
+            else:
+                status = _status_of(exc)
+                if status == STATUS_OVERLOADED:
+                    metrics.counter("serving.server.shed").add(1)
+                outcome = STATUS_NAMES.get(status, str(status))
+                if span is not None:
+                    span.end(status=outcome)
+                respond(req_id, status, str(exc).encode("utf-8", "replace"))
+            # the canonical log line: one wide event a request, emitted
+            # after span.end (a trace this server roots has its verdict by
+            # then) and after the answer is sent.  The batcher's facts
+            # ride in on the future
+            wide_event("serving.request", model=self.model_id, conn=cid,
+                       req_id=req_id, rows=rows, nnz=nnz,
+                       dur_ms=round((time.monotonic() - t0) * 1e3, 3),
+                       outcome=outcome,
+                       trace_id=(teltrace.format_id(span.trace_id)
+                                 if span is not None else None),
+                       debug=(bool(span.trace_id & telsampling.DEBUG_BIT)
+                              if span is not None else None),
+                       **getattr(fut, "wide", {}))
 
         try:
             while True:
@@ -502,11 +535,17 @@ class PredictionServer:
                     metrics.counter("serving.server.shed").add(1)
                     if span is not None:
                         span.end(status="OVERLOADED", injected=True)
+                    wide_event("serving.request", model=self.model_id,
+                               conn=cid, req_id=req_id, rows=rows,
+                               nnz=nnz, outcome="OVERLOADED",
+                               trace_id=(teltrace.format_id(span.trace_id)
+                                         if span is not None else None))
                     respond(req_id, STATUS_OVERLOADED, str(e).encode())
                     continue
                 with self._inflight_lock:
                     self._inflight += 1
                     self._m_inflight.set(self._inflight)
+                t_req = time.monotonic()
                 try:
                     fut = self.batcher.submit(
                         ids, vals, row_ptr.astype(np.int64),
@@ -519,7 +558,8 @@ class PredictionServer:
                         span.end(error=f"{type(e).__name__}: {e}")
                     raise
                 fut.add_done_callback(
-                    lambda f, rid=req_id, sp=span: on_done(rid, f, sp))
+                    lambda f, rid=req_id, sp=span, r=rows, z=nnz,
+                    t0=t_req: on_done(rid, f, sp, r, z, t0))
         except OSError as e:
             log_info("serving: connection %d ended: %r", cid, e)
         finally:

@@ -6,13 +6,23 @@ Ported:
   process-global span ring buffer, records field for field the JAX
   package's (the serving wire carries the ids from client to server),
   and ``record_span``, a leaf span its caller timed (the engine's);
+* :mod:`.sampling` — tail-based trace sampling: whole traces buffered,
+  errors, slow roots, SLO-breach windows and debug traces kept plus a
+  consistent-hash floor (``DMLC_TRACE_SAMPLE``), the JAX verdicts bit for
+  bit;
+* :mod:`.wide_events` — one canonical wide event per served request, in
+  a ring served at ``/events``;
+* :mod:`.flight` — the always-on flight recorder: incident bundles on an
+  injected fault, an SLO breach, an engine failure, a fatal signal, an
+  unhandled exception or ``/flight`` (``DMLC_FLIGHT_DIR`` arms it);
 * :mod:`.chrome_trace` — recorded spans as Chrome trace-event JSON (open
   in Perfetto), and :func:`dump_artifacts`, the registry snapshot and
   that trace side by side;
 * :mod:`.exposition` — Prometheus text (0.0.4) and OpenMetrics rendering
   and :class:`TelemetryServer`, the HTTP exporter of ``/metrics``,
-  ``/healthz``, ``/spans`` and ``/timeline``; the prediction server
-  mounts one on ``metrics_port=`` / ``DMLC_METRICS_PORT``;
+  ``/healthz``, ``/spans``, ``/timeline``, ``/events`` and ``/flight``;
+  the prediction server mounts one on ``metrics_port=`` /
+  ``DMLC_METRICS_PORT``;
 * :mod:`.aggregate` — rank-tagged registry states merged into one fleet
   view, with the counter-reset guard;
 * :mod:`.timeseries` — the tiered metric history behind ``/timeline``,
@@ -26,10 +36,9 @@ Ported:
 
 The device side of a trace is ``utils.metrics.profile_trace`` (a
 ``torch.profiler`` capture of the card) and ``trace_span`` (a named range
-on it).  Not ported yet: tail sampling, wide events and the flight
-recorder (ROADMAP A.12.d; the exporter's ``/events`` and ``/flight``
-answer 501), and the profiler, critical-path analysis and diagnosis
-(A.12.e; ``/profile``, ``/analyze`` and ``/diagnose`` answer 501).
+on it).  Not ported yet: the profiler, critical-path analysis and
+diagnosis (A.12.e; ``/profile``, ``/analyze`` and ``/diagnose`` answer
+501, and flight bundles lack their sections).
 """
 
 from __future__ import annotations
@@ -45,10 +54,20 @@ from .chrome_trace import to_chrome_trace, write_chrome_trace
 from .exposition import (TelemetryServer, maybe_start_from_env,
                          render_openmetrics, render_prometheus,
                          render_series)
+from .flight import (FlightRecorder, dump_incident, flight_recorder,
+                     maybe_arm_from_env, register_contributor,
+                     unregister_contributor)
+from .sampling import (TailSampler, TraceBuffer, debug_trace_id, hash_keep,
+                       is_debug, mark_debug, maybe_install_from_env,
+                       was_kept)
+from .sampling import install as install_sampler
+from .sampling import uninstall as uninstall_sampler
 from .trace import (Span, SpanRecorder, TraceContext, activate, add_event,
                     current, current_trace_id, format_id, from_wire,
                     get_sampler, new_trace_id, record_span, recorder,
                     set_sampler, span, start_span, wire_ids)
+from .wide_events import FIELDS as WIDE_EVENT_FIELDS
+from .wide_events import WideEventLog, events_doc, wide_event, wide_log
 
 __all__ = [
     "TraceContext", "Span", "SpanRecorder", "recorder", "span",
@@ -57,6 +76,13 @@ __all__ = [
     "get_sampler", "to_chrome_trace", "write_chrome_trace",
     "render_prometheus", "render_series", "render_openmetrics",
     "TelemetryServer", "maybe_start_from_env",
+    "TailSampler", "TraceBuffer", "hash_keep", "is_debug", "mark_debug",
+    "debug_trace_id", "was_kept", "maybe_install_from_env",
+    "install_sampler", "uninstall_sampler",
+    "WideEventLog", "wide_log", "wide_event", "events_doc",
+    "WIDE_EVENT_FIELDS",
+    "FlightRecorder", "flight_recorder", "dump_incident",
+    "maybe_arm_from_env", "register_contributor", "unregister_contributor",
     "merge_states", "state_to_snapshot", "render_fleet",
     "dump_artifacts", "StreamingStat", "StallDetector", "StragglerBoard",
     "SloRule", "SloMonitor", "SloSpecError", "parse_slo_spec",

@@ -46,11 +46,10 @@ the port never imports the JAX package:
   are burn-rate rules over the metric history (:mod:`.slo`).
 
 A stall or a breach is also noted in the flight recorder, and a breach
-dumps an incident bundle, where a recorder is loaded: the lookup is by
-the port's module name in ``sys.modules``, never the JAX package's, and
-the port has no recorder until ROADMAP A.12.d, so it finds nothing, as
-in :mod:`..utils.faults`.  The JAX monitor also runs its automated
-diagnosis on a breach; that is A.12.e.
+dumps an incident bundle, where a recorder is loaded (:mod:`.flight`):
+the lookup is by the port's module name in ``sys.modules``, never the
+JAX package's, as in :mod:`..utils.faults`.  The JAX monitor also runs
+its automated diagnosis on a breach; that is A.12.e.
 """
 
 from __future__ import annotations

@@ -5,8 +5,7 @@ the port never imports the JAX package: the renderers are the JAX ones
 byte for byte, and :class:`TelemetryServer` keeps the JAX constructor,
 routes, content types and status codes.  The endpoints whose modules
 the port lacks answer 501 with a body naming the ROADMAP item that
-brings them: ``/events`` and ``/flight`` (A.12.d), ``/profile``,
-``/analyze`` and ``/diagnose`` (A.12.e).
+brings them: ``/profile``, ``/analyze`` and ``/diagnose`` (A.12.e).
 
 :func:`render_prometheus` turns any ``MetricsRegistry.snapshot()`` into
 Prometheus text format 0.0.4 — no client library, just the format:
@@ -33,10 +32,11 @@ exemplars whose traces were *kept* are rendered, so every exemplar on
 the page is followable into ``/spans``.
 
 :class:`TelemetryServer` is a daemon-thread ``ThreadingHTTPServer``
-mounting ``/metrics``, ``/healthz``, ``/spans`` and ``/timeline``.  The
-serving server mounts one when ``metrics_port`` / ``DMLC_METRICS_PORT``
-is set, and :func:`maybe_start_from_env` lets any process self-serve its
-registry.
+mounting ``/metrics``, ``/healthz``, ``/spans``, ``/timeline``,
+``/events`` (the wide-event log) and ``/flight`` (an incident bundle).
+The serving server mounts one when ``metrics_port`` /
+``DMLC_METRICS_PORT`` is set, and :func:`maybe_start_from_env` lets any
+process self-serve its registry.
 """
 
 from __future__ import annotations
@@ -54,8 +54,7 @@ from ..utils.parameter import get_env
 from . import trace as _trace
 
 __all__ = ["render_prometheus", "render_series", "render_openmetrics",
-           "render_fleet_board", "TelemetryServer", "maybe_start_from_env",
-           "UNPORTED_ENV"]
+           "render_fleet_board", "TelemetryServer", "maybe_start_from_env"]
 
 _NAME_BAD = re.compile(r"[^a-zA-Z0-9_:]")
 
@@ -82,21 +81,9 @@ def _endpoint(path: str):
 #: the JAX exporter's endpoints whose modules are not ported: path →
 #: (ROADMAP item, what serves it in the JAX package)
 _UNPORTED = {
-    "/events": ("A.12.d", "the wide-event log (wide_events.py)"),
-    "/flight": ("A.12.d", "the flight recorder (flight.py)"),
     "/profile": ("A.12.e", "the sampling profiler (profiling.py)"),
     "/analyze": ("A.12.e", "the critical-path analysis (critical_path.py)"),
     "/diagnose": ("A.12.e", "the incident diagnosis (diagnose.py)"),
-}
-
-#: what the environment may ask of the JAX telemetry and the port lacks;
-#: asking for it raises (a deployment that sets one must not run
-#: silently without it)
-UNPORTED_ENV = {
-    "DMLC_FLIGHT_DIR": "the flight recorder is not ported yet (ROADMAP "
-                       "queue A.12.d, telemetry)",
-    "DMLC_TRACE_SAMPLE": "trace sampling is not ported yet (ROADMAP queue "
-                         "A.12.d, telemetry)",
 }
 
 
@@ -265,12 +252,12 @@ def render_prometheus(snapshot: Dict[str, Dict[str, Any]],
 
 def _exemplar_kept(trace_hex: Optional[str]) -> bool:
     """Should this exemplar's trace be shown?  With no tail sampler
-    installed (the port has none until ROADMAP A.12.d) everything is
-    recorded, so every trace is followable; with one, only a kept
-    verdict (not drop, not unknown) qualifies."""
+    installed everything is recorded, so every trace is followable;
+    with one, only a kept verdict (not drop, not unknown) qualifies."""
     if not trace_hex:
         return False
-    s = _trace.get_sampler()
+    from . import sampling as _sampling
+    s = _sampling.get_sampler()
     if s is None:
         return True
     was = getattr(s, "was_kept", None)
@@ -463,7 +450,10 @@ class TelemetryServer:
     """Daemon-thread HTTP exporter: ``/metrics`` (Prometheus text;
     ``?format=openmetrics`` adds exemplar-bearing OpenMetrics),
     ``/healthz`` (JSON status, 503 when overloaded), ``/spans`` (recent
-    span records as JSON, with the ring's eviction count),
+    span records as JSON, with the ring's eviction count), ``/events``
+    (the wide-event log, ``?since=<seq>`` cursor), ``/flight`` (an
+    incident bundle from the flight recorder, written to disk too when
+    it is armed),
     ``/stragglers`` (tracker only — cross-rank straggler board JSON),
     ``/timeline?metric=&since=&format=json|text`` (the
     time-machine history store — process-local by default, or a store
@@ -472,10 +462,10 @@ class TelemetryServer:
     (dispatcher lease-lifecycle ledger), ``/fleet`` (dispatcher worker
     or serving replica console; ``?format=text|html`` renders the
     status board instead of JSON) and ``/rollouts`` (serving-fleet
-    canary rollout ledger).  ``/events``, ``/flight``, ``/profile``,
-    ``/analyze`` and ``/diagnose`` answer 501 naming the ROADMAP item
-    that ports them, and their callbacks (``flight_fn``, ``profile_fn``,
-    ``analyze_fn``, ``diagnose_fn``) are refused with a
+    canary rollout ledger).  ``/profile``, ``/analyze`` and
+    ``/diagnose`` answer 501 naming the ROADMAP item that ports them
+    (A.12.e), and their callbacks (``profile_fn``, ``analyze_fn``,
+    ``diagnose_fn``) are refused with a
     :class:`~..utils.logging.DMLCError` until then.
 
     All content callbacks are injectable so the same class serves a
@@ -511,14 +501,16 @@ class TelemetryServer:
             health_fn = self._default_health
         if spans_fn is None:
             spans_fn = _trace.recorder.snapshot
-        for path, fn in (("/flight", flight_fn), ("/profile", profile_fn),
-                         ("/analyze", analyze_fn),
+        if flight_fn is None:
+            flight_fn = self._default_flight
+        for path, fn in (("/profile", profile_fn), ("/analyze", analyze_fn),
                          ("/diagnose", diagnose_fn)):
             if fn is not None:
                 raise DMLCError(_not_ported(path)[2].strip())
         self._metrics_fn = metrics_fn
         self._health_fn = health_fn
         self._spans_fn = spans_fn
+        self._flight_fn = flight_fn
         self._stragglers_fn = stragglers_fn
         self._leases_fn = leases_fn
         self._fleet_fn = fleet_fn
@@ -544,6 +536,17 @@ class TelemetryServer:
                 _registry.gauge("slo.active_breaches").value > 0:
             return "degraded"
         return status
+
+    @staticmethod
+    def _default_flight() -> Dict[str, Any]:
+        """``GET /flight``: build (and, when armed, dump to disk) an
+        incident bundle from the process-global flight recorder."""
+        from . import flight as _flight
+        path = _flight.flight_recorder.dump("endpoint", force=True)
+        doc = _flight.flight_recorder.bundle("endpoint")
+        if path is not None:
+            doc["dumped_to"] = path
+        return doc
 
     @property
     def port(self) -> int:
@@ -591,11 +594,16 @@ class TelemetryServer:
 
     @_endpoint("/events")
     def _ep_events(self, query: Dict[str, str]) -> Tuple[int, str, str]:
-        return _not_ported("/events")
+        try:
+            since = int(query.get("since", "0") or 0)
+        except ValueError:
+            since = 0
+        from . import wide_events as _wide
+        return self._json(_wide.events_doc(since))
 
     @_endpoint("/flight")
     def _ep_flight(self, query: Dict[str, str]) -> Tuple[int, str, str]:
-        return _not_ported("/flight")
+        return self._json(self._flight_fn())
 
     @_endpoint("/stragglers")
     def _ep_stragglers(self, query: Dict[str, str]) -> Tuple[int, str, str]:
@@ -683,7 +691,11 @@ class TelemetryServer:
             from . import timeseries as _timeseries
             _timeseries.maybe_start_sampler()
             self._timeline_fn = _timeseries.history.timeline
-        # (the JAX exporter also arms tail sampling here: ROADMAP A.12.d)
+        # same gesture arms tail sampling (exact no-op unless
+        # DMLC_TRACE_SAMPLE is set) so every tier that mounts an
+        # exporter shares one coordination-free sampling config
+        from . import sampling as _sampling
+        _sampling.maybe_install_from_env()
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -743,17 +755,18 @@ def maybe_start_from_env() -> Optional[TelemetryServer]:
     failures (port in use) are logged, not raised — telemetry must not
     take the workload down.
 
-    Also arms the SLO monitor (``DMLC_SLO_SPEC``), an exact no-op when
-    unset, so one call is the whole "observability on" switch for any
-    process.  ``DMLC_FLIGHT_DIR`` and ``DMLC_TRACE_SAMPLE`` (the flight
-    recorder and tail sampling, which the JAX call also arms) raise:
-    they are ROADMAP A.12.d.
+    Also activates the env-driven observability companions — the flight
+    recorder (``DMLC_FLIGHT_DIR``), the SLO monitor (``DMLC_SLO_SPEC``)
+    and tail sampling (``DMLC_TRACE_SAMPLE``) — each an exact no-op when
+    its env is unset, so one call is the whole "observability on" switch
+    for any process.
     """
     from . import anomaly as _anomaly
-    for key, why in UNPORTED_ENV.items():
-        if get_env(key, ""):
-            raise DMLCError(f"{key} is set, but {why}")
+    from . import flight as _flight
+    from . import sampling as _sampling
+    _flight.maybe_arm_from_env()
     _anomaly.maybe_monitor_from_env()
+    _sampling.maybe_install_from_env()
     port = get_env("DMLC_METRICS_PORT", -1)
     if port < 0:
         return None

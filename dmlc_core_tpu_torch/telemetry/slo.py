@@ -36,8 +36,8 @@ Example::
 
 A firing burn rule feeds the same machinery as a plain breach — bumps
 ``slo.breaches``, holds ``slo.active_breaches`` (``/healthz`` degrades
-on > 0), notes + dumps to the flight recorder where one is loaded (the
-port's is ROADMAP A.12.d, so today none is) — and the bundle carries
+on > 0), notes + dumps to the flight recorder where one is loaded
+(:mod:`.flight`) — and the bundle carries
 the surrounding timeline slice (``timeline.json``) so the breach
 window rides with the evidence.
 

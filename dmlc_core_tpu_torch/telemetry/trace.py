@@ -156,16 +156,17 @@ class SpanRecorder:
 #: process-global recorder (the Chrome export reads it)
 recorder = SpanRecorder(capacity=get_env("DMLC_SPAN_BUFFER", 4096))
 
-# Optional tail sampler interposed between span completion and the
-# recorder.  None (the default, and the only value until the port has a
-# sampler) keeps the record-everything behaviour.
+# Optional tail sampler (telemetry.sampling.TailSampler) interposed
+# between span completion and the recorder.  None (the default) keeps the
+# record-everything behaviour.
 _sampler: Optional[Any] = None
 
 
 def set_sampler(sampler: Optional[Any]) -> None:
     """Install (or with None, remove) the tail-sampling hook.  The
     sampler must expose ``on_start(trace_id)``, ``on_end(trace_id,
-    rec)`` and ``on_event(trace_id_or_none, rec)``."""
+    span)`` (a finished :class:`Span`, or a record dict) and
+    ``on_event(trace_id_or_none, rec)``."""
     global _sampler
     _sampler = sampler
 
@@ -250,6 +251,12 @@ class Span:
         """What children (local or remote) name as their parent."""
         return TraceContext(self.trace_id, self.span_id)
 
+    @property
+    def dur_us(self) -> int:
+        """The finished span's duration (what its record's ``dur_us``
+        says)."""
+        return self._dur_us
+
     def event(self, name: str, **attrs: Any) -> None:
         """Attach a point-in-time annotation (retry, breaker trip, ...)."""
         self.events.append({
@@ -259,8 +266,9 @@ class Span:
         })
 
     def end(self, **attrs: Any) -> None:
-        """Finish the span and push it into the ring buffer (its record
-        is rendered when the ring is read, off the caller's path)."""
+        """Finish the span and push it into the ring buffer, or hand it
+        to the tail sampler (its record is rendered when the ring is
+        read, off the caller's path, either way)."""
         if self._ended:
             return
         self._ended = True
@@ -270,7 +278,7 @@ class Span:
             self.attrs.update(attrs)
         s = _sampler
         if s is not None:
-            s.on_end(self.trace_id, self.record())
+            s.on_end(self.trace_id, self)
         else:
             recorder.record(self)
 

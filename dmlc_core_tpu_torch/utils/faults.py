@@ -130,8 +130,8 @@ class _Rule:
         if raise_error:
             metrics.counter(f"faults.{site}.errors").add(1)
             # tell the flight recorder, where one is loaded (looked up in
-            # sys.modules: faults never imports telemetry, and the port has
-            # no recorder yet, so the lookup finds nothing)
+            # sys.modules by the port's name: faults never imports
+            # telemetry, and never reaches the JAX package's recorder)
             fl = sys.modules.get("dmlc_core_tpu_torch.telemetry.flight")
             if fl is not None:
                 try:

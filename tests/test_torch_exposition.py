@@ -13,22 +13,30 @@
   ``/healthz`` (each health word at the JAX status code, 503 when
   overloaded), ``/spans`` with ``dropped``, ``/timeline`` as json and
   text, the four host-injected endpoints' 404s with the JAX bodies, and
-  501 naming A.12.d or A.12.e for ``/events``, ``/flight``,
-  ``/profile``, ``/analyze`` and ``/diagnose``.
+  501 naming A.12.e for ``/profile``, ``/analyze`` and ``/diagnose``
+  (``/events`` and ``/flight`` are held against the JAX exporter in
+  ``tests/test_torch_wide_events.py`` and ``tests/test_torch_flight.py``).
 * ``maybe_start_from_env`` starts an exporter on ``DMLC_METRICS_PORT``,
-  logs and returns None on a failed bind, and raises for
-  ``DMLC_FLIGHT_DIR`` and ``DMLC_TRACE_SAMPLE``.
+  logs and returns None on a failed bind, and arms the flight recorder
+  on ``DMLC_FLIGHT_DIR`` and the tail sampler on ``DMLC_TRACE_SAMPLE``.
 
 Every exporter a test starts starts the process-wide history sampler;
-the ``history`` fixture stops both packages' samplers around each test.
+the ``history`` fixture stops both packages' samplers around each test,
+and puts back the process-wide incident state (:func:`incident_state`:
+both packages' installed tail samplers and flight recorders, the
+exception hooks and the SIGTERM and SIGABRT handlers).
 :func:`scrape` bounds each connect and retries one that timed out (a
 loopback connect can hang).  Inputs come from seeded numpy generators.
 """
 
+import contextlib
 import http.client
 import importlib
 import json
+import signal
 import socket
+import sys
+import threading
 
 import numpy as np
 import pytest
@@ -39,11 +47,14 @@ pytest.importorskip("torch")
 from dmlc_core_tpu.telemetry import aggregate as jaggregate  # noqa: E402
 from dmlc_core_tpu.telemetry import anomaly as janomaly  # noqa: E402
 from dmlc_core_tpu.telemetry import exposition as jexposition  # noqa: E402
+from dmlc_core_tpu.telemetry import flight as jflight  # noqa: E402
 from dmlc_core_tpu.telemetry import timeseries as jtimeseries  # noqa: E402
 from dmlc_core_tpu.telemetry import trace as jtrace  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import aggregate  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import anomaly  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import exposition  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import flight  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import sampling  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import timeseries  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import trace as teltrace  # noqa: E402
 from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
@@ -51,8 +62,7 @@ from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
 jmetrics = importlib.import_module("dmlc_core_tpu.utils.metrics")
 tmetrics = importlib.import_module("dmlc_core_tpu_torch.utils.metrics")
 
-UNPORTED = {"/events": "A.12.d", "/flight": "A.12.d", "/profile": "A.12.e",
-            "/analyze": "A.12.e", "/diagnose": "A.12.e"}
+UNPORTED = {"/profile": "A.12.e", "/analyze": "A.12.e", "/diagnose": "A.12.e"}
 INJECTED = ("/stragglers", "/leases", "/fleet", "/rollouts")
 
 
@@ -91,10 +101,46 @@ def stop_samplers():
             mod._env_monitor.stop()
 
 
+#: what a flight recorder's arming and install() change on the instance
+_RECORDER_STATE = ("_dir", "_installed", "_prev_excepthook",
+                   "_prev_thread_hook", "_min_interval", "_last_dump")
+
+
+@contextlib.contextmanager
+def incident_state():
+    """Put back, after the block, the process-wide state that arming a
+    flight recorder or installing a tail sampler changes, in both
+    packages: each trace module's sampler, each global recorder's arming,
+    hooks, rate limit and rings, ``sys.excepthook``,
+    ``threading.excepthook`` and the SIGTERM and SIGABRT handlers (the
+    signal handlers only from the main thread, where pytest runs)."""
+    signums = [getattr(signal, n) for n in ("SIGTERM", "SIGABRT")
+               if hasattr(signal, n)]
+    hooks = (sys.excepthook, threading.excepthook)
+    handlers = {n: signal.getsignal(n) for n in signums}
+    samplers = {mod: mod._sampler for mod in (teltrace, jtrace)}
+    recorders = {rec: {k: getattr(rec, k) for k in _RECORDER_STATE}
+                 for rec in (flight.flight_recorder, jflight.flight_recorder)}
+    try:
+        yield
+    finally:
+        sys.excepthook, threading.excepthook = hooks
+        for n, h in handlers.items():
+            signal.signal(n, h)
+        for mod, s in samplers.items():
+            mod._sampler = s
+        for rec, state in recorders.items():
+            for k, v in state.items():
+                setattr(rec, k, v)
+            rec._notes.clear()
+            rec._snaps.clear()
+
+
 @pytest.fixture(autouse=True)
 def history():
     stop_samplers()
-    yield timeseries.history
+    with incident_state():
+        yield timeseries.history
     stop_samplers()
 
 
@@ -240,8 +286,7 @@ def test_openmetrics_exemplars_are_byte_equal(no_samplers):
 
 def test_an_exemplar_without_a_kept_trace_is_not_rendered(monkeypatch):
     """With a tail sampler installed only a kept trace's exemplar shows
-    (the port has no sampler until A.12.d; the hook is the trace
-    module's)."""
+    (any object in the trace module's hook with a ``was_kept``)."""
     class Verdicts:
         def was_kept(self, hexid):
             return hexid == "00000000000000aa"
@@ -512,6 +557,23 @@ def test_injected_fleet_endpoints_serve_as_the_jax_ones():
                                      ("analyze_fn", "A.12.e"),
                                      ("diagnose_fn", "A.12.e")])
 def test_unported_callbacks_are_refused(kw, item):
+    """The A.12.e callbacks are refused; ``flight_fn`` (A.12.d, ported)
+    is taken and serves ``/flight``, as the JAX exporter's does."""
+    if item == "A.12.d":
+        kwargs = {kw: lambda: {"schema": "injected"}}
+        srv = exposition.TelemetryServer(port=0, host="127.0.0.1",
+                                         **kwargs).start()
+        jsrv = jexposition.TelemetryServer(port=0, host="127.0.0.1",
+                                           **kwargs).start()
+        try:
+            got = scrape(srv.port, "/flight")
+            assert got == (200, "application/json",
+                           '{"schema": "injected"}')
+            assert got == scrape(jsrv.port, "/flight")
+        finally:
+            srv.stop()
+            jsrv.stop()
+        return
     with pytest.raises(DMLCError, match=f"ROADMAP queue {item}"):
         exposition.TelemetryServer(port=0, **{kw: lambda *a: {}})
 
@@ -543,8 +605,36 @@ def test_maybe_start_from_env_arms_the_slo_monitor(monkeypatch):
 
 
 @pytest.mark.parametrize("env", ["DMLC_FLIGHT_DIR", "DMLC_TRACE_SAMPLE"])
-def test_maybe_start_from_env_refuses_what_is_not_ported(monkeypatch, env):
+def test_maybe_start_from_env_refuses_what_is_not_ported(monkeypatch, env,
+                                                         tmp_path):
+    """Ported now (A.12.d): ``DMLC_FLIGHT_DIR`` arms the flight recorder
+    and installs its hooks, ``DMLC_TRACE_SAMPLE`` installs the tail
+    sampler at that floor; the exporter starts either way, and the JAX
+    call does the same to the JAX package's."""
+    for key in ("DMLC_FLIGHT_DIR", "DMLC_TRACE_SAMPLE", "DMLC_SLO_SPEC"):
+        monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv("DMLC_METRICS_PORT", "0")
-    monkeypatch.setenv(env, "0.5")
-    with pytest.raises(DMLCError, match=f"{env} is set.*ROADMAP queue A.12.d"):
-        exposition.maybe_start_from_env()
+    monkeypatch.setenv(env, str(tmp_path) if env == "DMLC_FLIGHT_DIR"
+                       else "0.5")
+    flight.flight_recorder.disarm()
+    jflight.flight_recorder.disarm()
+    sampling.uninstall()
+    jtrace.set_sampler(None)
+    srv = exposition.maybe_start_from_env()
+    jsrv = jexposition.maybe_start_from_env()
+    try:
+        assert srv is not None and jsrv is not None
+        assert scrape(srv.port, "/metrics")[0] == 200
+        if env == "DMLC_FLIGHT_DIR":
+            for rec in (flight.flight_recorder, jflight.flight_recorder):
+                assert rec.armed and rec._dir == str(tmp_path)
+                assert rec._installed
+            assert sampling.get_sampler() is None
+        else:
+            s, js = sampling.get_sampler(), jtrace.get_sampler()
+            assert isinstance(s, sampling.TailSampler)
+            assert s.floor == js.floor == 0.5
+            assert not flight.flight_recorder.armed
+    finally:
+        srv.stop()
+        jsrv.stop()

@@ -95,3 +95,25 @@ def test_every_module_names_its_counterpart_or_role():
         doc = ast.get_docstring(ast.parse(open(path).read())) or ""
         assert "dmlc_core_tpu/" in doc or "counterpart" in doc.lower(), \
             os.path.relpath(path, REPO)
+
+
+@pytest.mark.parametrize("path", _sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_module_lookup_names_the_jax_package(path):
+    """A ``sys.modules`` lookup by name (the recorder, the sampler, the
+    faults, the trace found without an import) names the port's module:
+    in a process that also loaded the JAX package, a JAX name would reach
+    the JAX package's state."""
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        f = node.func
+        if not (isinstance(f, ast.Attribute) and f.attr in ("get", "pop")
+                and isinstance(f.value, ast.Attribute)
+                and f.value.attr == "modules"):
+            continue
+        for arg in node.args[:1]:
+            if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
+                assert arg.value.split(".")[0] != "dmlc_core_tpu", \
+                    f"{os.path.relpath(path, REPO)} looks up {arg.value}"

@@ -10,7 +10,9 @@ package on the CPU.
   1e-5`` of the JAX engine (float32 sums in different orders).
 * The JAX server tests (``tests/test_serving.py``), replayed on the port.
 * What the port's server does not have is refused, naming its ROADMAP
-  item.  ``DMLC_FAULT_SPEC`` is honoured: the ``serving.server.admit``
+  item; ``DMLC_FLIGHT_DIR`` and ``DMLC_TRACE_SAMPLE`` (ported, A.12.d)
+  arm the flight recorder and install the tail sampler at construction,
+  as the JAX server's do.  ``DMLC_FAULT_SPEC`` is honoured: the ``serving.server.admit``
   fault point sheds an injected burst as ``OVERLOADED``, byte for byte
   as the JAX server does, and the client's retries answer every
   request.
@@ -567,6 +569,44 @@ def test_engine_serves_a_module_with_subtrees_and_a_jax_tree(kind):
         np.testing.assert_allclose(eng.predict(*r), ref.predict(*r), **TOL)
 
 
+@pytest.mark.parametrize("ragged", [False, True], ids=["padded", "ragged"])
+def test_engine_metrics_equal_the_jax_engines(ragged):
+    """``serving.engine.*`` after the same seeded requests and one reload
+    on a fresh registry of each package: the same compiles, batches, rows,
+    forward count, occupancy, params version and padding ratios (exact;
+    the forward's seconds aside)."""
+    rng = np.random.default_rng(17)
+    reqs = [_req(rng, int(rng.integers(1, 40)), 12) for _ in range(12)]
+    p1, p2 = _fm_params(1), _fm_params(2)
+    snaps = {}
+    for name, reg in (("port", tmetrics.metrics), ("jax", jmetrics.metrics)):
+        reg.reset()
+        if name == "port":
+            eng = _port_fm(p1, buckets=BucketLadder(LADDER), ragged=ragged)
+        else:
+            eng = jengine.InferenceEngine(
+                jsparse.FactorizationMachine(F, D),
+                {k: jnp.asarray(v) for k, v in p1.items()},
+                buckets=jengine.BucketLadder(LADDER), postprocess="sigmoid",
+                ragged=ragged)
+        for r in reqs[:6]:
+            eng.predict(*r)
+        eng.reload(p2 if name == "port" else
+                   {k: jnp.asarray(v) for k, v in p2.items()})
+        for r in reqs[6:]:
+            eng.predict(*r)
+        snap = reg.snapshot()
+        snaps[name] = {k: v for k, v in snap.items()
+                       if k.startswith("serving.engine.")}
+        fwd = snaps[name].pop("serving.engine.forward")
+        assert fwd["count"] == len(reqs) and fwd["total_sec"] > 0
+        for k in ("rate", "windowed_rate"):
+            snaps[name]["serving.engine.rows"].pop(k)
+    assert snaps["port"] == snaps["jax"]
+    assert snaps["port"]["serving.engine.batches"]["value"] == len(reqs)
+    assert snaps["port"]["serving.engine.params_version"]["value"] == 1
+
+
 # ---------------------------------------------------------------------------
 # what is not ported is refused; the exporter and the SLO monitor are not
 # ---------------------------------------------------------------------------
@@ -577,9 +617,47 @@ def test_engine_serves_a_module_with_subtrees_and_a_jax_tree(kind):
     ("DMLC_TRACE_SAMPLE", "0.5", "A.12"),
 ])
 def test_unported_server_parts_are_refused(monkeypatch, env, value, item):
+    """A.11 is refused.  The A.12.d variables, ported, are taken: the
+    server's construction arms the flight recorder at that directory
+    (created at the first dump only, and none happens here) with its
+    hooks, or installs the tail sampler at that floor, as the JAX
+    server's construction does to the JAX package's."""
+    from dmlc_core_tpu.telemetry import flight as jflight
+    from dmlc_core_tpu.telemetry import trace as jtrace
+    from dmlc_core_tpu_torch.telemetry import flight as tflight
+    from dmlc_core_tpu_torch.telemetry import trace as ttrace
+    from test_torch_exposition import incident_state
+    for key in ("DMLC_FLIGHT_DIR", "DMLC_TRACE_SAMPLE", "DMLC_SLO_SPEC",
+                "DMLC_METRICS_PORT", "DMLC_ROUTER_REGISTRY"):
+        monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv(env, value)
-    with pytest.raises(DMLCError, match=f"ROADMAP queue {item}"):
-        PredictionServer(_Stub(), warmup=False)
+    if item == "A.11":
+        with pytest.raises(DMLCError, match=f"ROADMAP queue {item}"):
+            PredictionServer(_Stub(), warmup=False)
+        return
+    with incident_state():
+        for mod in (ttrace, jtrace):
+            mod._sampler = None
+        tflight.flight_recorder.disarm()
+        jflight.flight_recorder.disarm()
+        srv = PredictionServer(_Stub(), warmup=False)
+        jsrv = jserver.PredictionServer(_Stub(), warmup=False)
+        try:
+            if env == "DMLC_FLIGHT_DIR":
+                for rec in (tflight.flight_recorder,
+                            jflight.flight_recorder):
+                    assert rec.armed and rec._dir == value
+                    assert rec._installed
+                assert ttrace.get_sampler() is None
+                assert not os.path.exists(value)
+            else:
+                s, js = ttrace.get_sampler(), jtrace.get_sampler()
+                assert s is not None and js is not None
+                assert s.floor == js.floor == float(value)
+                assert not tflight.flight_recorder.armed
+        finally:
+            srv.stop()
+            jsrv.stop()
 
 
 def _healthz(port):

@@ -54,19 +54,6 @@ tmetrics = importlib.import_module("dmlc_core_tpu_torch.utils.metrics")
 #: families the JAX serving process exports and the port's does not yet,
 #: by the ROADMAP item that brings them (a ladder of (16, 512), (64, 2048))
 NOT_PORTED_FAMILIES = {
-    # the engine's own metrics come with the wide events (A.12.d)
-    "dmlc_serving_engine_batches_total": "A.12.d",
-    "dmlc_serving_engine_compiles_total": "A.12.d",
-    "dmlc_serving_engine_forward_count": "A.12.d",
-    "dmlc_serving_engine_forward_mean_seconds": "A.12.d",
-    "dmlc_serving_engine_forward_seconds_total": "A.12.d",
-    "dmlc_serving_engine_occupancy": "A.12.d",
-    "dmlc_serving_engine_padding_ratio": "A.12.d",
-    "dmlc_serving_engine_params_version": "A.12.d",
-    "dmlc_serving_engine_rows_rate": "A.12.d",
-    "dmlc_serving_engine_rows_total": "A.12.d",
-    "dmlc_serving_engine_rows_windowed_rate": "A.12.d",
-    "dmlc_telemetry_wide_events_emitted_total": "A.12.d",
     # the JAX compile watchdog (xla_introspect.py, A.12.e)
     "dmlc_xla_cache_hits_total": "A.12.e",
     "dmlc_xla_compile_r16x512_total": "A.12.e",

@@ -160,7 +160,8 @@ def test_record_span_is_the_record_a_span_makes():
     """``record_span`` (the engine's leaf span, timed by its caller) gives
     the record a ``span`` over the same block gives: a child of the
     ambient context, or a new root, with its attributes, its time and
-    its error; with a sampler it is a full span the sampler sees."""
+    its error; with a sampler it is a full span the sampler sees (the
+    finished span itself, rendered only when its record is asked for)."""
     import time
     with teltrace.span("request") as req:
         t0w, t0 = time.time(), time.monotonic()
@@ -190,7 +191,8 @@ def test_record_span_is_the_record_a_span_makes():
         def on_start(self, trace_id):
             seen.append(("start", trace_id))
 
-        def on_end(self, trace_id, rec):
+        def on_end(self, trace_id, span):
+            rec = span.record()
             seen.append(("end", rec["name"], rec["dur_us"]))
 
     teltrace.set_sampler(Sampler())
