@@ -105,7 +105,33 @@ Phases, in order; any failure exits non-zero and prints no result:
    a bundle and a dump.  Launch counts are read around (a), (b) and (d)
    and must be one a call of each ragged-gather forward plus one a
    capture's warm-up; the process's hooks, signal handlers, sampler and
-   recorder are put back after it;
+   recorder are put back after it; each bundle carries profile.txt,
+   diagnosis.json and diagnosis.txt, and critical_path.txt and
+   profile_diff.txt where it has their sections, and the bundles' gaps
+   are taken at each dump's start;
+   diagnose — the same model and checkpoint behind PredictionServer with
+   metrics_port=0, DMLC_FLIGHT_DIR and DMLC_SLO_SPEC (a p99 rule on the
+   load's client latency that fires only under the planted stall):
+   (a) after warm-up the capture watchdog counts one capture a bucket
+   (xla.compiles 9) and no alert, each later call a hit, a 133-row
+   request a ladder miss that latches the alert; /metrics has the JAX
+   server's dmlc_xla_* families for the ladder; sample_memory's gauges
+   equal memory_stats and mem_get_info; (b) load 1 as traced predicts
+   from 8 PredictClients: /profile?seconds=1 (the baseline) holds the
+   batcher's thread in the engine's replay and copy-out, /analyze?top=5's
+   paths each sum to their root with serving.engine.forward among the
+   names; (c) DIAG_FAULT (a 200 ms stall at every admission) installed
+   mid-load: the breach's bundle carries profile.txt, critical_path.txt,
+   profile_diff.txt, diagnosis.json (trigger breach) and diagnosis.txt,
+   the planted cause is among its top 3 suspects, a bare /diagnose
+   answers about the breach, /profile?diff=1 shows the admission's sleep
+   grown; (d) the host's time of each bundle section, of a bundle and a
+   dump with and without them, of /analyze and /diagnose over the ring
+   and of a watchdog hit, and load 1 in eight blocks with the watchdog
+   and an /analyze + /diagnose scraper off, on, on, off, ...  16 answers
+   over TCP and in process are held against the plain path (rtol = atol
+   = 1e-5).  Launch counts are read around it and must be one a call of
+   each ragged-gather forward plus one a capture's warm-up;
    feed    — the host feed's stages apart over the training file: python
    and native parse, streampack, python and native pack (ms per
    4096-row batch), the H2D copy and device decode of each fused batch
@@ -260,8 +286,8 @@ every path.
 
     python3 chip_smoke.py --serving
 
-runs phases 1, 2, 4, the server, the exporter and the incidents only, and
-prints their numbers as its last line.
+runs phases 1, 2, 4, the server, the exporter, the incidents and the
+diagnosis only, and prints their numbers as its last line.
 
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
 directory (by default they go with the data directory).
@@ -2358,11 +2384,24 @@ def _incident_bundles(d: str) -> list:
 
 
 def _check_bundle(name: str, doc: dict, files: list) -> None:
-    """incident.json, trace.json and log_tail.txt, and timeline.json
-    exactly where the history had series; the schema; files as listed."""
-    want = {"incident.json", "trace.json", "log_tail.txt"}
-    if doc.get("timeline"):
-        want.add("timeline.json")
+    """incident.json, trace.json and log_tail.txt; profile.txt,
+    diagnosis.json and diagnosis.txt (the incident profile and the
+    diagnosis are on by default); timeline.json, critical_path.txt and
+    profile_diff.txt exactly where the history had series, the ring
+    complete spans and a baseline profile was recorded; the schema;
+    files as listed."""
+    want = {"incident.json", "trace.json", "log_tail.txt", "profile.txt",
+            "diagnosis.json", "diagnosis.txt"}
+    for key, fname in (("timeline", "timeline.json"),
+                       ("critical_path", "critical_path.txt"),
+                       ("profile_diff", "profile_diff.txt")):
+        if doc.get(key):
+            want.add(fname)
+    prof = doc.get("profile_collapsed")
+    if (not isinstance(prof, str) or not prof or prof.startswith("<")
+            or not isinstance(doc.get("diagnosis"), dict)):
+        raise RuntimeError(f"[incident] {name}: profile {str(prof)[:80]!r}, "
+                           f"diagnosis {str(doc.get('diagnosis'))[:80]!r}")
     if set(files) != want or set(doc["files"].values()) != want:
         raise RuntimeError(f"[incident] {name}: files {files}, listed "
                            f"{doc['files']}")
@@ -2425,6 +2464,19 @@ def _incident_load(eng, shape: dict, fdir: str, power: str) -> dict:
     from dmlc_core_tpu_torch.utils.metrics import metrics
     metrics.reset()
     first = wide_events.wide_log.doc()["last_seq"]
+    # each dump that writes, by reason, at its start on the rate limit's
+    # clock: a bundle's sections take varying time before its ts is set
+    rec = flight.flight_recorder
+    starts = []
+
+    def timed_dump(reason, *a, **k):
+        t = time.monotonic()
+        path = dump(reason, *a, **k)
+        if path is not None:
+            starts.append((reason, t))
+        return path
+
+    dump, rec.dump = rec.dump, timed_dump
     with _env(DMLC_FLIGHT_DIR=fdir, DMLC_TRACE_SAMPLE=str(INCIDENT_FLOOR),
               DMLC_TRACE_KEEP_SLOW_MS=None, DMLC_SLO_SPEC=INCIDENT_SLO,
               DMLC_SLO_INTERVAL=str(SLO_INTERVAL),
@@ -2468,6 +2520,7 @@ def _incident_load(eng, shape: dict, fdir: str, power: str) -> dict:
         finally:
             srv.stop()
             timeseries.history.stop()
+            del rec.dump
     if (rep["overload"] != INCIDENT_SHED or rep["rejected"] or rep["errors"]
             or rep["ok"] != LOAD_REQUESTS - INCIDENT_SHED):
         raise RuntimeError(f"[incident] load 1: {rep}")
@@ -2500,7 +2553,11 @@ def _incident_load(eng, shape: dict, fdir: str, power: str) -> dict:
             or len(reasons) != 1 + reasons.count("slo_breach")):
         raise RuntimeError(f"[incident] bundles {reasons}: one "
                            f"injected_fault, then slo_breach ones")
-    gaps = [b[1]["ts"] - a[1]["ts"] for a, b in zip(timed, timed[1:])]
+    starts.sort(key=lambda rt: rt[1])
+    begun = [t for reason, t in starts if reason != "endpoint"]
+    if [r for r, _ in starts if r != "endpoint"] != reasons:
+        raise RuntimeError(f"[incident] dumps {starts}, bundles {reasons}")
+    gaps = [b - a for a, b in zip(begun, begun[1:])]
     # one bundle a window: never two in one (a gap under a window), and
     # none missed while the rule held (a gap of two windows or more)
     if not all(INCIDENT_WINDOW - 0.05 <= g < 2 * INCIDENT_WINDOW
@@ -2925,6 +2982,632 @@ def phase_incident(torch, power: str) -> dict:
         f"[{power}]")
     log(f"[incident] kernel launches: {launches} over {batches} engine "
         f"calls and {eng.compile_count} warm-ups; phase "
+        f"{time.monotonic() - t_phase:.1f} s")
+    return {"launches": launches, "stats": out}
+
+
+# -- [diagnose]: profiles, the critical path and the ranked verdict ----------
+
+#: the SLI of [diagnose]'s rule: each answer's latency as the load's
+#: clients see it (the port's client records none of its own)
+DIAG_SLI = "smoke.client.latency_s"
+#: the rule and the stall: a stall well past the healthy p99 of a busy
+#: process (load 1's clients see 17-76 ms there, a 1 kHz profile on top)
+DIAG_SLO = f"{DIAG_SLI}:field=p99:max=150ms:for=2"  # only under the stall
+DIAG_FAULT = "serving.server.admit:latency=200ms"   # at every admission
+#: a top-3 suspect whose subject holds one of these names the planted
+#: cause: the server request span the stall sits in, or the stall's
+#: delay counter
+DIAG_PLANTED = ("span serving.server.request",
+                "faults.serving.server.admit.delays")
+DIAG_HEALTHY_S = 3.0       # (b) load 1 healthy this long before the fault
+DIAG_WINDOW = 1.5          # DMLC_DIAGNOSE_WINDOW: the incident window, s
+DIAG_BASELINE = 60.0       # DMLC_DIAGNOSE_BASELINE: the healthy window, s
+DIAG_PROFILE_HZ = "997"    # DMLC_PROFILE_HZ of the /profile scrapes:
+                           # the replay's few µs a call must show
+DIAG_CHECKED = 16          # answers held against predict and the plain path
+DIAG_BLOCKS = 4            # load-1 blocks with the slice's work off, and on
+DIAG_HIT_CALLS = 200_000   # watchdog hits timed
+DIAG_ROWS, DIAG_NNZ_PER_ROW, DIAG_CLIENTS = 128, 32, 8   # load 1
+
+
+def _diag_request(rng):
+    """One load-1 request, as ``run_load`` makes them."""
+    from dmlc_core_tpu_torch.serving.client import _gen_request
+    return _gen_request(rng, DIAG_ROWS, DIAG_NNZ_PER_ROW, F_FEATURES)
+
+
+class _DiagLoad:
+    """Load 1 as traced predicts: 8 threads, each a PredictClient sending
+    128-row requests one at a time until stopped, so each request is a
+    trace of client, server and engine spans; each answer's latency goes
+    to the DIAG_SLI histogram."""
+
+    def __init__(self, host: str, port: int):
+        from dmlc_core_tpu_torch.utils.metrics import metrics
+        self.hist = metrics.histogram(DIAG_SLI)
+        self.host, self.port = host, port
+        self.answered = 0
+        self.failed = None
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(k,),
+                                          daemon=True)
+                         for k in range(DIAG_CLIENTS)]
+        for t in self._threads:
+            t.start()
+
+    def _run(self, k: int) -> None:
+        from dmlc_core_tpu_torch import PredictClient
+        rng = np.random.default_rng(SEED + 40 + k)
+        reqs = [_diag_request(rng) for _ in range(32)]
+        try:
+            with PredictClient(self.host, self.port) as client:
+                i = 0
+                while not self._stop.is_set():
+                    t0 = time.perf_counter()
+                    out = client.predict(*reqs[i % len(reqs)], timeout=120)
+                    self.hist.observe(time.perf_counter() - t0)
+                    if out.shape != (DIAG_ROWS,) or \
+                            not np.isfinite(out).all():
+                        raise RuntimeError("[diagnose] a bad answer")
+                    i += 1
+                    with self._lock:
+                        self.answered += 1
+        except Exception as e:  # noqa: BLE001 — raised by stop()
+            self.failed = e
+
+    def stop(self) -> int:
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+        if self.failed is not None:
+            raise RuntimeError(f"[diagnose] the load failed: "
+                               f"{self.failed!r}")
+        return self.answered
+
+
+def _diag_families(ladder) -> set:
+    """The compile watchdog's families on the JAX server's page for this
+    ladder, after warm-up, calls and one ladder miss."""
+    return ({"dmlc_xla_compiles_total", "dmlc_xla_compile_seconds",
+             "dmlc_xla_cache_hits_total", "dmlc_xla_ladder_misses_total",
+             "dmlc_xla_retrace_alert"}
+            | {f"dmlc_xla_compile_r{b.rows}x{b.nnz}_total" for b in ladder})
+
+
+def _diag_watchdog(torch, eng, port: int, checked: list, power: str) -> dict:
+    """(a) after warm-up: one capture a bucket, no hit, no alert; the
+    DIAG_CHECKED in-process predicts are hits; one request past the ladder
+    is a ladder miss and latches the alert; /metrics has the JAX server's
+    dmlc_xla_* families; sample_memory's gauges are the allocator's."""
+    from dmlc_core_tpu_torch.serving import RequestTooLarge
+    from dmlc_core_tpu_torch.telemetry import graph_introspect
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    wd = graph_introspect.watchdog
+
+    def c(name: str) -> int:
+        # read without making: a counter made here would be on the page
+        return metrics.snapshot().get(name, {}).get("value", 0)
+    if (c("xla.compiles") != len(eng.ladder)
+            or eng.compile_count != len(eng.ladder)
+            or c("xla.cache_hits") or wd.alerted
+            or metrics.gauge("xla.retrace_alert").value):
+        raise RuntimeError(f"[diagnose] (a) after warm-up: compiles "
+                           f"{c('xla.compiles')} for {len(eng.ladder)} "
+                           f"buckets, hits {c('xla.cache_hits')}, alert "
+                           f"{wd.alerted}")
+    rng = np.random.default_rng(SEED + 30)
+    for _ in range(DIAG_CHECKED):
+        req = _diag_request(rng)
+        checked.append((req, eng.predict(*req)))
+    if c("xla.cache_hits") != DIAG_CHECKED or wd.alerted:
+        raise RuntimeError(f"[diagnose] (a) {c('xla.cache_hits')} hits for "
+                           f"{DIAG_CHECKED} calls")
+    big = _diag_request(rng)
+    big = (np.concatenate([big[0], big[0][:5]]),
+           np.concatenate([big[1], big[1][:5]]),
+           np.concatenate([big[2], big[2][-1:] + np.arange(1, 6)]))
+    try:
+        eng.predict(*big)
+        raise RuntimeError("[diagnose] (a) 133 rows fit a 128-row ladder")
+    except RequestTooLarge:
+        pass
+    if (c("xla.ladder_misses") != 1 or not wd.alerted
+            or metrics.gauge("xla.retrace_alert").value != 1
+            or c("xla.retrace_alerts") or c("xla.compiles") != len(eng.ladder)):
+        raise RuntimeError(f"[diagnose] (a) ladder miss: "
+                           f"{c('xla.ladder_misses')}, alert {wd.alerted}")
+    page = _scrape(port, "/metrics")[2]
+    _parse_exposition(page)
+    fams = {ln.split()[2] for ln in page.splitlines()
+            if ln.startswith("# TYPE dmlc_xla_")}
+    want = _diag_families(eng.ladder)
+    if fams != want:
+        raise RuntimeError(f"[diagnose] (a) /metrics dmlc_xla_* families "
+                           f"{sorted(fams)}, the JAX server's "
+                           f"{sorted(want)}")
+    if not graph_introspect.sample_memory():
+        raise RuntimeError("[diagnose] (a) sample_memory() returned False")
+    stats = torch.cuda.memory_stats(0)
+    total = torch.cuda.mem_get_info(0)[1]
+    got = {k: metrics.gauge(f"xla.mem.0.{k}").value
+           for k in ("bytes_in_use", "peak_bytes_in_use", "bytes_limit")}
+    want_mem = {"bytes_in_use": stats["allocated_bytes.all.current"],
+                "peak_bytes_in_use": stats["allocated_bytes.all.peak"],
+                "bytes_limit": total}
+    live = metrics.gauge("xla.live_buffers").value
+    if got != want_mem or live != stats["active.all.current"]:
+        raise RuntimeError(f"[diagnose] (a) sample_memory {got}, live "
+                           f"{live}; the allocator {want_mem}, live "
+                           f"{stats['active.all.current']}")
+    wall = wd.snapshot()["buckets"]
+    log(f"[diagnose] (a) the capture watchdog: {c('xla.compiles')} captures "
+        f"for {len(eng.ladder)} buckets ("
+        + ", ".join(f"{k} {v['wall_s'] * 1e3:.1f} ms" for k, v in
+                    wall.items())
+        + f"), {DIAG_CHECKED} hits for {DIAG_CHECKED} in-process calls, no "
+        f"alert; a 133-row request: ladder_misses 1, alert latched; "
+        f"/metrics has the JAX server's {len(want)} dmlc_xla_* families; "
+        f"sample_memory: {got['bytes_in_use']} bytes in use, peak "
+        f"{got['peak_bytes_in_use']}, limit {got['bytes_limit']}, "
+        f"{live} live blocks, equal to memory_stats / mem_get_info "
+        f"[{power}]")
+    return {"captures": c("xla.compiles"),
+            "capture_ms": {k: v["wall_s"] * 1e3 for k, v in wall.items()},
+            "memory": {**got, "live_buffers": live}}
+
+
+def _diag_healthy(port: int, power: str) -> dict:
+    """(b) while load 1 runs healthy: a plain /profile?seconds=1 (the
+    baseline) whose stacks hold the batcher's thread in the engine's
+    replay and copy-out; /analyze?top=5, whose every path's self times
+    sum to its root's duration, with serving.engine.forward among the
+    aggregated names."""
+    from dmlc_core_tpu_torch.telemetry.profiling import _parse_collapsed
+    with _env(DMLC_PROFILE_HZ=DIAG_PROFILE_HZ):
+        code, ctype, text, prof_s = _scrape(port, "/profile?seconds=1")
+    stacks = _parse_collapsed(text)
+    held = {f: sum(n for s, n in stacks.items()
+                   if "dmlc_core_tpu_torch.serving.batcher:" in s
+                   and f"dmlc_core_tpu_torch.serving.engine:{f}" in s)
+            for f in ("_replay", "_copy_out")}
+    if code != 200 or not ctype.startswith("text/plain") or \
+            not all(held.values()):
+        raise RuntimeError(f"[diagnose] (b) /profile: HTTP {code}, the "
+                           f"batcher's samples in the engine {held}")
+    code, _, body, analyze_s = _scrape(port, "/analyze?top=5")
+    doc = json.loads(body)
+    if code != 200 or len(doc["top"]) != 5:
+        raise RuntimeError(f"[diagnose] (b) /analyze: HTTP {code}, "
+                           f"{len(doc.get('top', []))} traces")
+    for tr in doc["top"]:
+        if sum(s["self_us"] for s in tr["path"]) != tr["dur_us"]:
+            raise RuntimeError(f"[diagnose] (b) trace {tr['trace_id']}: "
+                               f"self times do not sum to {tr['dur_us']}")
+    if "serving.engine.forward" not in doc["self_time_us"]:
+        raise RuntimeError(f"[diagnose] (b) /analyze names "
+                           f"{list(doc['self_time_us'])}")
+    total = sum(doc["self_time_us"].values()) or 1
+    shares = {k: v / total for k, v in doc["self_time_us"].items()}
+    log(f"[diagnose] (b) healthy load 1: /profile?seconds=1 at "
+        f"{DIAG_PROFILE_HZ} Hz in {prof_s * 1e3:.0f} ms, {len(stacks)} "
+        f"stacks, the batcher's thread in the engine's replay "
+        f"{held['_replay']} and copy-out {held['_copy_out']} samples; "
+        f"/analyze?top=5 of {doc['traces_seen']} traces in "
+        f"{analyze_s * 1e3:.1f} ms, each path summing to its root, self "
+        f"time " + ", ".join(f"{k} {v:.1%}" for k, v in shares.items())
+        + f" [{power}]")
+    return {"profile_stacks": len(stacks), "engine_samples": held,
+            "analyze_shares": shares, "traces_seen": doc["traces_seen"]}
+
+
+def _diag_planted(port: int, fdir: str, power: str) -> dict:
+    """(c) load 1 goes on with DIAG_FAULT installed: the rule breaches,
+    the monitor runs the breach's diagnosis, then dumps a bundle with the
+    five files; the planted cause is among the merged top 3; a bare
+    /diagnose answers about the breach; /profile?diff=1 shows the
+    admission's sleeping frames' share grown."""
+    from dmlc_core_tpu_torch.utils import faults
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    healthy_p99 = metrics.histogram(DIAG_SLI).snapshot().get("p99")
+    if metrics.counter("slo.breaches").value or (
+            os.path.isdir(fdir) and os.listdir(fdir)):
+        raise RuntimeError(f"[diagnose] (c) the rule breached before the "
+                           f"stall: the healthy p99 {healthy_p99} s")
+    t_fault = time.monotonic()
+    faults.install_faults(DIAG_FAULT)
+    deadline = t_fault + 60.0
+    bundle = None
+    while bundle is None:
+        for name in (os.listdir(fdir) if os.path.isdir(fdir) else []):
+            # diagnosis.txt lands last: the bundle is whole
+            if name.endswith("-slo_breach") and os.path.exists(
+                    os.path.join(fdir, name, "diagnosis.txt")):
+                bundle = name
+        if bundle is None:
+            if time.monotonic() > deadline:
+                raise RuntimeError("[diagnose] (c) no slo_breach bundle "
+                                   "within 60 s of the fault")
+            time.sleep(0.02)
+    breach_s = time.monotonic() - t_fault
+    code, _, body, diagnose_s = _scrape(port, "/diagnose")
+    bare = json.loads(body)
+    with _env(DMLC_PROFILE_HZ=DIAG_PROFILE_HZ):
+        dcode, _, diff, _ = _scrape(port, "/profile?seconds=1&diff=1")
+    faults.clear_faults()
+    path = os.path.join(fdir, bundle)
+    files = sorted(os.listdir(path))
+    with open(os.path.join(path, "incident.json")) as f:
+        inc = json.load(f)
+    with open(os.path.join(path, "diagnosis.json")) as f:
+        diag = json.load(f)
+    want = {"incident.json", "trace.json", "log_tail.txt", "timeline.json",
+            "profile.txt", "critical_path.txt", "profile_diff.txt",
+            "diagnosis.json", "diagnosis.txt"}
+    if set(files) != want or set(inc["files"].values()) != want:
+        raise RuntimeError(f"[diagnose] (c) bundle {bundle}: {files}, "
+                           f"listed {inc['files']}")
+    if diag["trigger"]["kind"] != "breach" or \
+            diag["trigger"]["breach"]["metric"] != DIAG_SLI:
+        raise RuntimeError(f"[diagnose] (c) trigger {diag['trigger']}")
+    top3 = diag["suspects"][:3]
+    named = [s for s in top3 if any(p in s["subject"] for p in DIAG_PLANTED)]
+    if not named:
+        raise RuntimeError(f"[diagnose] (c) the planted cause is not in the "
+                           f"top 3: {[(s['analyzer'], s['subject']) for s in top3]}")
+    if (code != 200 or bare["trigger"].get("kind") != "breach"
+            or bare["trigger"]["breach"]["metric"] != DIAG_SLI):
+        raise RuntimeError(f"[diagnose] (c) bare /diagnose: HTTP {code}, "
+                           f"trigger {bare.get('trigger')}")
+    grown = 0.0
+    for ln in diff.splitlines()[1:]:
+        m = re.search(r" ([+-]\d+\.\d)% \(baseline", ln)
+        if m and "dmlc_core_tpu_torch.utils.faults:fire" in ln:
+            grown += float(m.group(1))
+    if dcode != 200 or not diff.startswith("# profile diff: baseline @ ") \
+            or grown <= 0:
+        raise RuntimeError(f"[diagnose] (c) /profile?diff=1: HTTP {dcode}, "
+                           f"the admission's sleep grew {grown:+.1f} %")
+    log(f"[diagnose] (c) {DIAG_FAULT} installed mid-load (the clients' "
+        f"p99 {healthy_p99 * 1e3:.1f} ms until then): {DIAG_SLO} "
+        f"breached and bundle {bundle} whole {breach_s:.2f} s later, with "
+        f"{', '.join(files)}; diagnosis (trigger breach, "
+        f"{diag['wall_ms']:.1f} ms) top 3: "
+        + "; ".join(f"#{s['rank']} [{s['analyzer']}] {s['subject']} "
+                    f"{s['score']:.3f}" for s in top3)
+        + f"; the planted cause named by {named[0]['analyzer']} "
+        f"({named[0]['subject']}, #{named[0]['rank']}); a bare /diagnose "
+        f"in {diagnose_s * 1e3:.1f} ms answers about the breach; "
+        f"/profile?diff=1: the admission's sleep {grown:+.1f} % of the "
+        f"samples [{power}]")
+    return {"healthy_p99_ms": healthy_p99 * 1e3, "breach_s": breach_s,
+            "bundle_files": files,
+            "diagnosis_wall_ms": diag["wall_ms"],
+            "top3": [(s["analyzer"], s["subject"], s["score"])
+                     for s in top3],
+            "named_by": named[0]["analyzer"], "named": named[0]["subject"],
+            "bare_diagnose_ms": diagnose_s * 1e3,
+            "sleep_share_grown_pct": grown}
+
+
+def _diag_costs(port: int, fdir: str) -> dict:
+    """(d) on the host, the ring as the load left it: each section a bundle
+    adds on the trigger's thread (the incident profile, the critical path,
+    the profile diff, the diagnosis: the breach's cached one and a fresh
+    run), a bundle and a dump with them and with the profile and
+    diagnosis off; /analyze and /diagnose over the ring; the watchdog's
+    hit."""
+    from dmlc_core_tpu_torch.telemetry import (critical_path, diagnose,
+                                               flight, graph_introspect,
+                                               profiling)
+    from dmlc_core_tpu_torch.telemetry import trace as teltrace
+    from dmlc_core_tpu_torch.utils.metrics import MetricsRegistry, metrics
+    out = {"ring_spans": len(teltrace.recorder)}
+
+    def ms(fn, reps=3):
+        times, val = [], None
+        for _ in range(reps):
+            t = time.perf_counter()
+            val = fn()
+            times.append(1e3 * (time.perf_counter() - t))
+        return float(np.median(times)), val
+
+    out["profile_ms"], prof = ms(profiling.incident_profile)
+    out["critical_path_ms"], _ = ms(critical_path.incident_breakdown)
+    out["profile_diff_ms"], _ = ms(
+        lambda: profiling.incident_profile_diff(prof))
+    out["diagnosis_cached_ms"], _ = ms(diagnose.incident_diagnosis)
+    out["diagnosis_fresh_ms"], _ = ms(diagnose.diagnose)
+    rec = flight.flight_recorder
+    for label, env in (("on", {}), ("off", {"DMLC_FLIGHT_PROFILE_S": "0",
+                                            "DMLC_DIAGNOSE": "0"})):
+        with _env(**env):
+            out[f"bundle_{label}_ms"], doc = ms(lambda: rec.bundle("cost"))
+            out[f"dump_{label}_ms"], path = ms(
+                lambda: rec.dump("cost", directory=fdir, force=True))
+        if path is None:
+            raise RuntimeError("[diagnose] a forced dump wrote nothing")
+        out[f"dump_{label}_files"] = len(os.listdir(path))
+    out["analyze_ms"] = 1e3 * _scrape(port, "/analyze?top=5")[3]
+    out["diagnose_ms"] = 1e3 * _scrape(port, "/diagnose?since=60")[3]
+    runs = metrics.histogram("telemetry.diagnose.wall_ms").snapshot()
+    out["diagnose_runs"] = runs.get("count", 0)
+    out["diagnose_wall_ms_p50"] = runs.get("p50")
+    wd = graph_introspect.RetraceWatchdog(MetricsRegistry())
+    wd.mark_steady("r128x8192")
+    wd.note_hit("r128x8192")
+    t = time.perf_counter()
+    for _ in range(DIAG_HIT_CALLS):
+        wd.note_hit("r128x8192")
+    out["hit_us"] = 1e6 * (time.perf_counter() - t) / DIAG_HIT_CALLS
+    return out
+
+
+class _NoWatchdog:
+    """The capture watchdog stubbed out, for [diagnose]'s off blocks."""
+
+    def note_hit(self, bucket):
+        pass
+
+    def note_compile(self, bucket, wall_s):
+        return False
+
+    def note_ladder_miss(self, detail=""):
+        pass
+
+    def begin_warmup(self):
+        pass
+
+    def mark_steady(self, bucket=None):
+        pass
+
+
+def _diag_block(eng, shape: dict, on: bool) -> tuple:
+    """One block of load 1 through a server with an exporter: ``on`` with
+    the capture watchdog fed and a scraper of /analyze and /diagnose once
+    a second, off with the watchdog stubbed out and no scraper.  Returns
+    (run_load's report, the batcher's batches, the process's CPU seconds
+    over the load, the scrapes)."""
+    from dmlc_core_tpu_torch import PredictionServer, run_load
+    from dmlc_core_tpu_torch.telemetry import graph_introspect, timeseries
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    metrics.reset()
+    saved = graph_introspect.watchdog
+    graph_introspect.watchdog = (graph_introspect.RetraceWatchdog() if on
+                                 else _NoWatchdog())
+    try:
+        with _env(DMLC_TRACE_SAMPLE=None, DMLC_FLIGHT_DIR=None,
+                  DMLC_SLO_SPEC=None, DMLC_FAULT_SPEC=None,
+                  DMLC_METRICS_PORT=None):
+            srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0,
+                                   metrics_port=0).start()
+        scraper = None
+        try:
+            if on:
+                scraper = _Scraper(srv.telemetry.port,
+                                   ("/analyze?top=5", "/diagnose?since=60"),
+                                   1.0)
+            cpu0 = time.process_time()
+            rep = run_load(srv.host, srv.port, requests=LOAD_REQUESTS,
+                           features=F_FEATURES, seed=SEED, timeout=120.0,
+                           **shape)
+            cpu_s = time.process_time() - cpu0
+        finally:
+            if scraper is not None:
+                scraper.stop()
+            srv.stop()
+            timeseries.history.stop()
+    finally:
+        graph_introspect.watchdog = saved
+    if rep["rejected"] or rep["errors"] or rep["overload"] or \
+            rep["ok"] != LOAD_REQUESTS:
+        raise RuntimeError(f"[diagnose] load 1 ({'on' if on else 'off'}): "
+                           f"{rep}")
+    return (rep, srv.batcher.batches, cpu_s,
+            len(scraper.seconds) if scraper else 0)
+
+
+def phase_diagnose(torch, power: str) -> dict:
+    """[diagnose]: the diagnosis around the served FM (2^20 x 32, padded
+    ladder, every bucket a captured graph) behind a server with an
+    exporter, DMLC_FLIGHT_DIR and DMLC_SLO_SPEC: (a) the capture watchdog
+    and the memory gauges; (b) a healthy baseline (a profile, the
+    critical path); (c) a planted admission stall: the breach's bundle,
+    its ranked verdict, /diagnose and the profile diff; (d) the host's
+    costs and load 1 in blocks with the slice's work off and on.  The
+    answers of (a) are held against the server's and the plain path's.
+    Returns the kernel launches counted over it and its numbers."""
+    import signal
+    import tempfile
+
+    from dmlc_core_tpu_torch import (BucketLadder, CheckpointManager,
+                                     FactorizationMachine, InferenceEngine,
+                                     PredictClient, PredictionServer)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.telemetry import (diagnose, flight,
+                                               graph_introspect, profiling,
+                                               sampling, timeseries,
+                                               wide_events)
+    from dmlc_core_tpu_torch.telemetry import trace as teltrace
+    from dmlc_core_tpu_torch.utils import faults
+    from dmlc_core_tpu_torch.utils.metrics import MetricsRegistry, metrics
+    t_phase = time.monotonic()
+    shape = dict(LOADS)["load1"]
+    rec = flight.flight_recorder
+    saved = (sys.excepthook, threading.excepthook,
+             {n: signal.getsignal(n) for n in (signal.SIGTERM,
+                                               signal.SIGABRT)},
+             {k: getattr(rec, k) for k in ("_dir", "_installed",
+                                           "_prev_excepthook",
+                                           "_prev_thread_hook",
+                                           "_min_interval", "_last_dump")},
+             graph_introspect.watchdog)
+    work = tempfile.mkdtemp(prefix=".chip_smoke_diagnose-", dir=ROOT)
+    ckpt = os.path.join(work, "ckpt")
+    fdir = os.path.join(work, "flight")
+    checked, answers = [], []
+    try:
+        CheckpointManager(ckpt).save(1, {"params": _np_params(SEED + 1)},
+                                     meta={"model": "fm"})
+        eng = InferenceEngine(FactorizationMachine(F_FEATURES, DIM,
+                                                   device="cuda"),
+                              buckets=BucketLadder.default(),
+                              postprocess="sigmoid", device="cuda")
+        if eng.reload_from_checkpoint(ckpt, step=1) != 1:
+            raise RuntimeError("[diagnose] restored the wrong step")
+        metrics.reset()
+        sampling.uninstall()
+        teltrace.recorder.clear()
+        wide_events.wide_log.reset()
+        graph_introspect.watchdog = graph_introspect.RetraceWatchdog()
+        profiling._baseline = None
+        diagnose._last_breach = diagnose._last_doc = None
+        # one slo_breach bundle: the window outlasts the phase
+        rec._min_interval = 3600.0
+        rec._last_dump = -float("inf")
+        reset_launch_counts()                 # the main path starts here
+        with _env(DMLC_FLIGHT_DIR=fdir, DMLC_SLO_SPEC=DIAG_SLO,
+                  DMLC_SLO_INTERVAL=str(SLO_INTERVAL),
+                  DMLC_TIMELINE_INTERVAL=str(TIMELINE_INTERVAL),
+                  DMLC_DIAGNOSE_WINDOW=str(DIAG_WINDOW),
+                  DMLC_DIAGNOSE_BASELINE=str(DIAG_BASELINE),
+                  DMLC_TRACE_SAMPLE=None, DMLC_FAULT_SPEC=None,
+                  DMLC_METRICS_PORT=None, DMLC_DIAGNOSE=None,
+                  DMLC_DIAGNOSE_ON_BREACH=None, DMLC_DIAGNOSE_TOP=None,
+                  DMLC_DIAGNOSE_SLOW_MS=None, DMLC_FLIGHT_PROFILE_S=None,
+                  DMLC_PROFILE_HZ=None, DMLC_FLIGHT_CRITICAL_TOP=None):
+            srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0,
+                                   metrics_port=0).start()
+            port = srv.telemetry.port
+            load = None
+            try:
+                wd = _diag_watchdog(torch, eng, port, checked, power)
+                with PredictClient(srv.host, srv.port) as client:
+                    answers = [client.predict(*req, timeout=120)
+                               for req, _ in checked]
+                load = _DiagLoad(srv.host, srv.port)
+                t_load = time.monotonic()
+                time.sleep(1.0)
+                healthy = _diag_healthy(port, power)
+                time.sleep(max(0.0, DIAG_HEALTHY_S
+                               - (time.monotonic() - t_load)))
+                planted = _diag_planted(port, fdir, power)
+                answered = load.stop()
+                load = None
+                hits = metrics.counter("xla.cache_hits").value
+                batches = srv.batcher.batches
+                costs = _diag_costs(port, os.path.join(work, "cost"))
+            finally:
+                if load is not None:
+                    load._stop.set()
+                faults.clear_faults()
+                srv.stop()
+                timeseries.history.stop()
+        # every call after the warm-up replayed a graph that was there
+        if hits != batches + DIAG_CHECKED:
+            raise RuntimeError(f"[diagnose] xla.cache_hits {hits}, engine "
+                               f"calls {batches} + {DIAG_CHECKED}")
+        calls = batches + DIAG_CHECKED
+        blocks = []
+        # off, on, on, off, ...: a drift over the phase weighs on both alike
+        for i in range(2 * DIAG_BLOCKS):
+            on = i % 4 in (1, 2)
+            rep, b, cpu_s, scrapes = _diag_block(eng, shape, on)
+            calls += b
+            blocks.append({"state": "on" if on else "off",
+                           "qps": rep["qps"],
+                           "p50_ms": rep["latency_ms"]["p50"],
+                           "p99_ms": rep["latency_ms"]["p99"],
+                           "cpu_ms_per_request": 1e3 * cpu_s / rep["ok"],
+                           "scrapes": scrapes})
+            log(f"[diagnose] (d) load 1 block {i + 1} (watchdog and "
+                f"/analyze + /diagnose scrapes {blocks[-1]['state']}): "
+                f"{rep['qps']:.1f} qps, p50 {rep['latency_ms']['p50']:.3f} "
+                f"p99 {rep['latency_ms']['p99']:.3f} ms, the process's CPU "
+                f"{blocks[-1]['cpu_ms_per_request']:.3f} ms a request, "
+                f"{scrapes} scrapes [{power}]")
+        torch.cuda.synchronize()
+        launches = launch_counts()            # the main path ends here
+        for name in ("ragged_gather_fm", "ragged_gather_embed"):
+            if launches.get(name, 0) != calls + eng.compile_count:
+                raise RuntimeError(
+                    f"[diagnose] {name}: {launches.get(name, 0)} launches, "
+                    f"expected one a call and one a warm-up ({calls} + "
+                    f"{eng.compile_count})")
+        # the answers against the plain path on the card (its engine's
+        # captures reported to a watchdog of their own)
+        graph_introspect.watchdog = graph_introspect.RetraceWatchdog(
+            MetricsRegistry())
+        ref = InferenceEngine(FactorizationMachine(F_FEATURES, DIM,
+                                                   engine="torch",
+                                                   device="cuda"),
+                              buckets=BucketLadder.default(),
+                              postprocess="sigmoid", device="cuda")
+        ref.reload_from_checkpoint(ckpt, step=1)
+        worst = 0.0
+        for (req, inproc), got in zip(checked, answers):
+            want = ref.predict(*req)
+            for label, a in (("over TCP", got), ("in process", inproc)):
+                if a.shape != want.shape or not np.allclose(
+                        a, want, rtol=RTOL, atol=ATOL):
+                    raise RuntimeError(f"[diagnose] an answer {label} "
+                                       f"departs from the plain path")
+                worst = max(worst, float(np.abs(a - want).max()))
+            if not np.array_equal(got, inproc):
+                raise RuntimeError("[diagnose] the server's answer departs "
+                                   "from in-process predict")
+    finally:
+        sampling.uninstall()
+        faults.clear_faults()
+        metrics.gauge("slo.active_breaches").set(0)
+        sys.excepthook, threading.excepthook = saved[0], saved[1]
+        for n, h in saved[2].items():
+            signal.signal(n, h)
+        for k, v in saved[3].items():
+            setattr(rec, k, v)
+        graph_introspect.watchdog = saved[4]
+        profiling._baseline = None
+        diagnose._last_breach = diagnose._last_doc = None
+        wide_events.wide_log.reset()
+        shutil.rmtree(work, ignore_errors=True)
+    series = {k: {s: [b[k] for b in blocks if b["state"] == s]
+                  for s in ("off", "on")}
+              for k in ("qps", "p99_ms", "cpu_ms_per_request")}
+    out = {"watchdog": wd, "healthy": healthy, "planted": planted,
+           "costs": costs, "blocks": blocks, "answered": answered,
+           "max_abs_err": worst,
+           **{f"{k}_on_off": float(np.median(v["on"]) / np.median(v["off"]))
+              for k, v in series.items()},
+           "pair_qps_on_off": [blocks[i + 1]["qps"] / blocks[i]["qps"]
+                               if i % 4 == 0 else
+                               blocks[i]["qps"] / blocks[i + 1]["qps"]
+                               for i in range(0, len(blocks), 2)]}
+    log(f"[diagnose] {DIAG_CHECKED} answers over TCP and in process, max "
+        f"|err| against the plain path {worst:.3g} (limit rtol=atol={RTOL}); "
+        f"{answered} traced predicts of load 1 over (b) and (c) [{power}]")
+    log(f"[diagnose] (d) on the host: the incident profile "
+        f"{costs['profile_ms']:.1f} ms, the critical path "
+        f"{costs['critical_path_ms']:.1f} ms over {costs['ring_spans']} "
+        f"spans, the profile diff {costs['profile_diff_ms']:.2f} ms, the "
+        f"diagnosis {costs['diagnosis_cached_ms']:.3f} ms cached / "
+        f"{costs['diagnosis_fresh_ms']:.1f} ms fresh (the monitor's runs: "
+        f"{costs['diagnose_runs']}, p50 {costs['diagnose_wall_ms_p50']} ms)"
+        f"; a bundle {costs['bundle_on_ms']:.1f} ms, "
+        f"{costs['bundle_off_ms']:.1f} with the profile and diagnosis off; "
+        f"a dump {costs['dump_on_ms']:.1f} ms ({costs['dump_on_files']} "
+        f"files), {costs['dump_off_ms']:.1f} off ({costs['dump_off_files']})"
+        f"; /analyze {costs['analyze_ms']:.1f} ms, /diagnose "
+        f"{costs['diagnose_ms']:.1f} ms over the ring; a watchdog hit "
+        f"{costs['hit_us']:.3f} us [{power}]")
+    log(f"[diagnose] (d) load 1, on / off: qps medians "
+        f"{np.median(series['qps']['on']):.1f} / "
+        f"{np.median(series['qps']['off']):.1f} = {out['qps_on_off']:.4f} "
+        f"(pairs " + ", ".join(f"{r:.4f}" for r in out["pair_qps_on_off"])
+        + f"), p99 {out['p99_ms_on_off']:.4f}, the process's CPU a request "
+        f"{out['cpu_ms_per_request_on_off']:.4f} [{power}]")
+    log(f"[diagnose] kernel launches: {launches} over {calls} engine calls "
+        f"and {eng.compile_count} warm-ups; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     return {"launches": launches, "stats": out}
 
@@ -6217,10 +6900,10 @@ def main_planted(kind: str) -> int:
 
 
 def main_serving() -> int:
-    """``--serving``: phases 1, 2, 4, 4a, [exporter] and [incident] only
-    (the serving numbers, for a comparison on one card); the last line is
-    phase 4a's numbers with [exporter]'s and [incident]'s under
-    ``exporter`` and ``incident``."""
+    """``--serving``: phases 1, 2, 4, 4a, [exporter], [incident] and
+    [diagnose] only (the serving numbers, for a comparison on one card);
+    the last line is phase 4a's numbers with [exporter]'s, [incident]'s
+    and [diagnose]'s under ``exporter``, ``incident`` and ``diagnose``."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -6233,9 +6916,11 @@ def main_serving() -> int:
     out = phase_server(torch, timer, power)
     exporter = phase_exporter(torch, power)
     incident = phase_incident(torch, power)
+    diagnosis = phase_diagnose(torch, power)
     print(power)
     print(json.dumps({**out["stats"], "exporter": exporter["stats"],
-                      "incident": incident["stats"]}))
+                      "incident": incident["stats"],
+                      "diagnose": diagnosis["stats"]}, default=str))
     return 0
 
 
@@ -6258,6 +6943,7 @@ def main() -> int:
     server = phase_server(torch, timer, power)["launches"]
     exporter = phase_exporter(torch, power)["launches"]
     incident = phase_incident(torch, power)["launches"]
+    diagnosis = phase_diagnose(torch, power)["launches"]
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
         io = phase_io(torch, power, data, train_file)
@@ -6324,6 +7010,11 @@ def main() -> int:
     missing += [f"{k} (incident)" for k in ("ragged_gather_fm",
                                             "ragged_gather_embed")
                 if incident.get(k, 0) < 1]
+    # the same server under the diagnosis: the watchdog, the profiler, the
+    # critical path and the breach's ranked verdict
+    missing += [f"{k} (diagnose)" for k in ("ragged_gather_fm",
+                                            "ragged_gather_embed")
+                if diagnosis.get(k, 0) < 1]
     # FFM's bucket sum G and its gradient, on both of its paths
     missing += [f"{k} (ffm)" for k in ("ragged_gather_embed",
                                        "ragged_gather_grad_embed")
@@ -6374,11 +7065,12 @@ def main() -> int:
                 row[extra] = k[extra]
         if name in ("ragged_gather_fm", "ragged_gather_embed"):
             # the TCP server, one graph replay a call; the same server with
-            # the telemetry exporter and the SLO monitor; and with the
-            # flight recorder and the tail sampler
+            # the telemetry exporter and the SLO monitor; with the flight
+            # recorder and the tail sampler; and under the diagnosis
             row["server"] = {"launches": server.get(name, 0)}
             row["exporter"] = {"launches": exporter.get(name, 0)}
             row["incident"] = {"launches": incident.get(name, 0)}
+            row["diagnose"] = {"launches": diagnosis.get(name, 0)}
         if io.get(name, 0):
             # the I/O layer's training: fed from the page file, and
             # save_async under training
@@ -6442,8 +7134,8 @@ if __name__ == "__main__":
                     help="plant a fault on the kernel path and show that "
                          "phase 5's checks catch it")
     ap.add_argument("--serving", action="store_true",
-                    help="run the serving phases only (4, 4a, [exporter] "
-                         "and [incident])")
+                    help="run the serving phases only (4, 4a, [exporter], "
+                         "[incident] and [diagnose])")
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None

@@ -52,6 +52,14 @@ and the copy-out's event wait: no synchronization of its own),
 ``.occupancy`` (rows over the bucket's), ``.params_version`` (set at a
 reload) and ``.padding_ratio`` (the bucket's nnz over the request's;
 1.0 when ragged).
+
+The capture watchdog (:mod:`..telemetry.graph_introspect`) is fed as the
+JAX engine feeds its compile watchdog, under the same ``xla.*`` names and
+bucket keys: each capture (on the CPU, each prepared bucket) with its
+wall time, each call on a bucket that was already there as a hit (a
+counter add on the calling thread), :meth:`InferenceEngine.warmup_all`
+as a declared warm-up window after which a capture is a recapture alert,
+and a request too large for the ladder as a ladder miss.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ from torch import nn
 from ..kernels.common import add_launches, record_launches
 from ..models.convert import params_from_jax
 from ..ops.ragged_csr import mask_batch
+from ..telemetry import graph_introspect
 from ..telemetry import trace as teltrace
 from ..utils.device import resolve_device
 from ..utils.logging import DMLCError, check, log_info
@@ -319,6 +328,10 @@ class InferenceEngine:
         self.ragged = bool(ragged)
         self.ladder = buckets or (BucketLadder.ragged_default() if ragged
                                   else BucketLadder.default())
+        # the watchdog's key of each bucket, made once: a hit builds none
+        self._keys = {b: graph_introspect.bucket_key(b.rows, b.nnz,
+                                                     self.ragged)
+                      for b in self.ladder}
         self._postprocess = postprocess
         if params is None:
             params = dict(model.state_dict())
@@ -414,6 +427,7 @@ class InferenceEngine:
         bucket's first use."""
         g = self._graphs.get(bucket)
         if g is not None or bucket in self._prepared:
+            graph_introspect.watchdog.note_hit(self._keys[bucket])
             return g
         t0 = time.monotonic()
         if self.device.type == "cuda":
@@ -422,21 +436,27 @@ class InferenceEngine:
         else:
             self._forward(self._params, self._dummy(bucket))
             self._prepared.add(bucket)
+        wall_s = time.monotonic() - t0
         self.compile_count += 1
         self._maybe_rebind()
         self._m_compiles.add(1)
+        graph_introspect.watchdog.note_compile(self._keys[bucket], wall_s)
         log_info("serving: %s bucket rows=%d nnz=%d in %.2fs (%d/%d buckets "
                  "hot)", "captured" if g is not None else "prepared",
-                 bucket.rows, bucket.nnz, time.monotonic() - t0,
-                 self.compile_count, len(self.ladder))
+                 bucket.rows, bucket.nnz, wall_s, self.compile_count,
+                 len(self.ladder))
         return g
 
     def warmup_all(self) -> None:
         """Capture (on the CPU: prepare) every bucket of the ladder before
-        serving."""
+        serving.  Afterwards the capture watchdog treats every further
+        capture as an alert: the ladder is complete, so a capture means
+        traffic fell off it."""
+        graph_introspect.watchdog.begin_warmup()
         for bucket in self.ladder:
             with self._lock:
                 self._ready(bucket)
+        graph_introspect.watchdog.mark_steady()
 
     # -- a call on the card: copy in, replay, copy out --------------------
     def _stage(self, g: _BucketGraph, batch: Dict[str, np.ndarray]) -> None:
@@ -472,7 +492,11 @@ class InferenceEngine:
         check(len(ids) == len(vals), "ids/vals length mismatch")
         check(int(row_ptr[0]) == 0 and int(row_ptr[-1]) == len(ids),
               "row_ptr does not cover ids")
-        bucket = self.ladder.best_fit(rows, max(len(ids), 1))
+        try:
+            bucket = self.ladder.best_fit(rows, max(len(ids), 1))
+        except RequestTooLarge as e:
+            graph_introspect.watchdog.note_ladder_miss(str(e))
+            raise
         batch = self._pad(bucket, ids, vals, row_ptr)
         self._maybe_rebind()
         with self._lock:

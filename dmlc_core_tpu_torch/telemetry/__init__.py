@@ -20,9 +20,9 @@ Ported:
   that trace side by side;
 * :mod:`.exposition` — Prometheus text (0.0.4) and OpenMetrics rendering
   and :class:`TelemetryServer`, the HTTP exporter of ``/metrics``,
-  ``/healthz``, ``/spans``, ``/timeline``, ``/events`` and ``/flight``;
-  the prediction server mounts one on ``metrics_port=`` /
-  ``DMLC_METRICS_PORT``;
+  ``/healthz``, ``/spans``, ``/timeline``, ``/events``, ``/flight``,
+  ``/profile``, ``/analyze`` and ``/diagnose``; the prediction server
+  mounts one on ``metrics_port=`` / ``DMLC_METRICS_PORT``;
 * :mod:`.aggregate` — rank-tagged registry states merged into one fleet
   view, with the counter-reset guard;
 * :mod:`.timeseries` — the tiered metric history behind ``/timeline``,
@@ -32,13 +32,25 @@ Ported:
   autotuner's freeze signal), :class:`~.anomaly.StragglerBoard`, and the
   ``DMLC_SLO_SPEC`` rules and monitor; :mod:`.slo` adds the burn-rate
   rules over the history.  A breach holds ``slo.active_breaches`` above
-  0, which degrades the serving health and freezes the autotuner.
+  0, which degrades the serving health and freezes the autotuner;
+* :mod:`.profiling` — the stdlib sampling stack profiler behind
+  ``/profile`` and the flight recorder's incident attachment, plus
+  collapsed-stack profile diffing (``/profile?diff=1``);
+* :mod:`.critical_path` — the critical path of the slowest traces in the
+  span ring, with each span's self time (``/analyze``);
+* :mod:`.diagnose` — automated incident diagnosis: wide-event
+  differencing, timeline lead/lag correlation, critical-path regression
+  diff and fleet attribution merged into one ranked suspect report at
+  ``/diagnose``, run by the SLO monitor on a breach before its dump and
+  attached to every flight bundle;
+* :mod:`.graph_introspect` — the capture watchdog (the engine's CUDA
+  graph captures counted per bucket, and recaptures and ladder misses
+  alerted, under the JAX watchdog's ``xla.*`` names) and the device
+  memory gauges.
 
 The device side of a trace is ``utils.metrics.profile_trace`` (a
 ``torch.profiler`` capture of the card) and ``trace_span`` (a named range
-on it).  Not ported yet: the profiler, critical-path analysis and
-diagnosis (A.12.e; ``/profile``, ``/analyze`` and ``/diagnose`` answer
-501, and flight bundles lack their sections).
+on it).
 """
 
 from __future__ import annotations
@@ -51,12 +63,22 @@ from .anomaly import (SloMonitor, SloRule, SloSpecError, StallDetector,
                       StragglerBoard, StreamingStat, maybe_monitor_from_env,
                       parse_slo_spec)
 from .chrome_trace import to_chrome_trace, write_chrome_trace
+# NOTE: the submodule's convenience function is exported as
+# run_diagnosis — binding the package attribute ``diagnose`` to a
+# function would shadow the *module* for every ``from . import
+# diagnose`` site (exposition/flight/anomaly lazy imports)
+from .diagnose import DIAGNOSIS_SCHEMA, DiagnosisEngine, incident_diagnosis
+from .diagnose import diagnose as run_diagnosis
+from .diagnose import render_text as render_diagnosis
 from .exposition import (TelemetryServer, maybe_start_from_env,
                          render_openmetrics, render_prometheus,
                          render_series)
 from .flight import (FlightRecorder, dump_incident, flight_recorder,
                      maybe_arm_from_env, register_contributor,
                      unregister_contributor)
+from .graph_introspect import RetraceWatchdog, sample_memory, watchdog
+from .profiling import (SamplingProfiler, diff_collapsed, incident_profile,
+                        profile_for)
 from .sampling import (TailSampler, TraceBuffer, debug_trace_id, hash_keep,
                        is_debug, mark_debug, maybe_install_from_env,
                        was_kept)
@@ -84,9 +106,15 @@ __all__ = [
     "FlightRecorder", "flight_recorder", "dump_incident",
     "maybe_arm_from_env", "register_contributor", "unregister_contributor",
     "merge_states", "state_to_snapshot", "render_fleet",
-    "dump_artifacts", "StreamingStat", "StallDetector", "StragglerBoard",
+    "dump_artifacts",
+    "SamplingProfiler", "profile_for", "incident_profile",
+    "diff_collapsed",
+    "DiagnosisEngine", "run_diagnosis", "incident_diagnosis",
+    "render_diagnosis", "DIAGNOSIS_SCHEMA",
+    "StreamingStat", "StallDetector", "StragglerBoard",
     "SloRule", "SloMonitor", "SloSpecError", "parse_slo_spec",
     "maybe_monitor_from_env",
+    "RetraceWatchdog", "watchdog", "sample_memory",
 ]
 
 

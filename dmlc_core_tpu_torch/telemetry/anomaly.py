@@ -48,8 +48,9 @@ the port never imports the JAX package:
 A stall or a breach is also noted in the flight recorder, and a breach
 dumps an incident bundle, where a recorder is loaded (:mod:`.flight`):
 the lookup is by the port's module name in ``sys.modules``, never the
-JAX package's, as in :mod:`..utils.faults`.  The JAX monitor also runs
-its automated diagnosis on a breach; that is A.12.e.
+JAX package's, as in :mod:`..utils.faults`.  Before that dump the
+monitor runs the breach-scoped diagnosis (:func:`.diagnose.on_breach`),
+so the bundle's ``diagnosis.json`` is the verdict on that breach.
 """
 
 from __future__ import annotations
@@ -468,8 +469,16 @@ class SloMonitor:
                 if fl is not None:
                     fl.flight_recorder.note("slo_breach", **{
                         k: v for k, v in b.items() if v is not None})
-            # the JAX monitor runs its automated diagnosis here, before
-            # the dump (ROADMAP A.12.e: not ported)
+            # auto-diagnosis BEFORE the dump, so the bundle's
+            # diagnosis.json is the breach-scoped verdict, not a generic
+            # window (lazy import: diagnose imports this module's
+            # StreamingStat; the edge must stay one-way at import time)
+            try:
+                from . import diagnose as _diagnose
+                _diagnose.on_breach(fired[0])
+            except Exception as e:  # noqa: BLE001 — diagnosis must
+                # never block the incident dump it decorates
+                log_warning("breach diagnosis failed: %s", e)
             if fl is not None:
                 fl.dump_incident("slo_breach", registry=self.registry,
                                  breaches=fired)

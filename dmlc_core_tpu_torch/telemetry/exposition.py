@@ -3,9 +3,8 @@
 Counterpart of ``dmlc_core_tpu/telemetry/exposition.py``, copied so that
 the port never imports the JAX package: the renderers are the JAX ones
 byte for byte, and :class:`TelemetryServer` keeps the JAX constructor,
-routes, content types and status codes.  The endpoints whose modules
-the port lacks answer 501 with a body naming the ROADMAP item that
-brings them: ``/profile``, ``/analyze`` and ``/diagnose`` (A.12.e).
+routes, content types and status codes, ``/profile``, ``/analyze`` and
+``/diagnose`` among them.
 
 :func:`render_prometheus` turns any ``MetricsRegistry.snapshot()`` into
 Prometheus text format 0.0.4 — no client library, just the format:
@@ -33,7 +32,9 @@ the page is followable into ``/spans``.
 
 :class:`TelemetryServer` is a daemon-thread ``ThreadingHTTPServer``
 mounting ``/metrics``, ``/healthz``, ``/spans``, ``/timeline``,
-``/events`` (the wide-event log) and ``/flight`` (an incident bundle).
+``/events`` (the wide-event log), ``/flight`` (an incident bundle),
+``/profile`` (a sampling profile), ``/analyze`` (the critical path) and
+``/diagnose`` (the ranked incident diagnosis).
 The serving server mounts one when ``metrics_port`` /
 ``DMLC_METRICS_PORT`` is set, and :func:`maybe_start_from_env` lets any
 process self-serve its registry.
@@ -49,7 +50,7 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from ..utils.logging import DMLCError, log_info, log_warning
+from ..utils.logging import log_info, log_warning
 from ..utils.parameter import get_env
 from . import trace as _trace
 
@@ -76,21 +77,6 @@ def _endpoint(path: str):
         return fn
 
     return deco
-
-
-#: the JAX exporter's endpoints whose modules are not ported: path →
-#: (ROADMAP item, what serves it in the JAX package)
-_UNPORTED = {
-    "/profile": ("A.12.e", "the sampling profiler (profiling.py)"),
-    "/analyze": ("A.12.e", "the critical-path analysis (critical_path.py)"),
-    "/diagnose": ("A.12.e", "the incident diagnosis (diagnose.py)"),
-}
-
-
-def _not_ported(path: str) -> Tuple[int, str, str]:
-    item, what = _UNPORTED[path]
-    return (501, "text/plain; charset=utf-8",
-            f"{path}: {what} is not ported yet (ROADMAP queue {item})\n")
 
 
 #: metric-name → one-line help text, lazily loaded from the committed
@@ -454,19 +440,22 @@ class TelemetryServer:
     (the wide-event log, ``?since=<seq>`` cursor), ``/flight`` (an
     incident bundle from the flight recorder, written to disk too when
     it is armed),
+    ``/profile?seconds=N`` (collapsed-stack sampling profile of this
+    process; plain scrapes double as the baseline recorder and
+    ``?diff=1`` serves the differential profile against that baseline),
     ``/stragglers`` (tracker only — cross-rank straggler board JSON),
     ``/timeline?metric=&since=&format=json|text`` (the
     time-machine history store — process-local by default, or a store
-    the host injects), and — when the hosting process injects them —
-    ``/leases``
+    the host injects), ``/analyze?top=N`` (critical-path breakdown of
+    the slowest traces in the span ring),
+    ``/diagnose?since=&until=&top=&format=json|text`` (the automated
+    incident diagnosis: four analyzers merged into one ranked suspect
+    report — over merged stores on a host that injects them), and — when
+    the hosting process injects them — ``/leases``
     (dispatcher lease-lifecycle ledger), ``/fleet`` (dispatcher worker
     or serving replica console; ``?format=text|html`` renders the
     status board instead of JSON) and ``/rollouts`` (serving-fleet
-    canary rollout ledger).  ``/profile``, ``/analyze`` and
-    ``/diagnose`` answer 501 naming the ROADMAP item that ports them
-    (A.12.e), and their callbacks (``profile_fn``, ``analyze_fn``,
-    ``diagnose_fn``) are refused with a
-    :class:`~..utils.logging.DMLCError` until then.
+    canary rollout ledger).
 
     All content callbacks are injectable so the same class serves a
     process-local registry (serving server, standalone exporter) or the
@@ -503,10 +492,12 @@ class TelemetryServer:
             spans_fn = _trace.recorder.snapshot
         if flight_fn is None:
             flight_fn = self._default_flight
-        for path, fn in (("/profile", profile_fn), ("/analyze", analyze_fn),
-                         ("/diagnose", diagnose_fn)):
-            if fn is not None:
-                raise DMLCError(_not_ported(path)[2].strip())
+        if profile_fn is None:
+            profile_fn = self._default_profile
+        if analyze_fn is None:
+            analyze_fn = self._default_analyze
+        if diagnose_fn is None:
+            diagnose_fn = self._default_diagnose
         self._metrics_fn = metrics_fn
         self._health_fn = health_fn
         self._spans_fn = spans_fn
@@ -514,10 +505,13 @@ class TelemetryServer:
         self._stragglers_fn = stragglers_fn
         self._leases_fn = leases_fn
         self._fleet_fn = fleet_fn
+        self._profile_fn = profile_fn
         self._rollouts_fn = rollouts_fn
         # None → the process-global history store, resolved (and its
         # sampler started, DMLC_TIMELINE permitting) at start()
         self._timeline_fn = timeline_fn
+        self._analyze_fn = analyze_fn
+        self._diagnose_fn = diagnose_fn
         self._requested = (host, int(port))
         self._httpd: Optional[ThreadingHTTPServer] = None
         self._thread: Optional[threading.Thread] = None
@@ -547,6 +541,32 @@ class TelemetryServer:
         if path is not None:
             doc["dumped_to"] = path
         return doc
+
+    @staticmethod
+    def _default_profile(seconds: float) -> str:
+        """``GET /profile?seconds=N``: one bounded sampling window of
+        every thread in this process, collapsed-stack text."""
+        from . import profiling as _profiling
+        return _profiling.profile_for(seconds)
+
+    @staticmethod
+    def _default_analyze(top: int) -> Dict[str, Any]:
+        """``GET /analyze?top=N``: critical-path breakdown of the N
+        slowest traces in this process's span ring."""
+        from . import critical_path as _critical_path
+        return _critical_path.analyze(top=top)
+
+    @staticmethod
+    def _default_diagnose(since_s: Optional[float],
+                          until_s: Optional[float],
+                          top: Optional[int]) -> Dict[str, Any]:
+        """``GET /diagnose``: automated incident diagnosis over this
+        process's wide-event ring, history store and span ring.  Hosts
+        with merged fleet stores (tracker/dispatcher/registry) inject a
+        fleet-scoped engine instead."""
+        from . import diagnose as _diagnose
+        return _diagnose.default_engine().endpoint_doc(
+            since_s=since_s, until_s=until_s, top=top)
 
     @property
     def port(self) -> int:
@@ -647,7 +667,26 @@ class TelemetryServer:
 
     @_endpoint("/profile")
     def _ep_profile(self, query: Dict[str, str]) -> Tuple[int, str, str]:
-        return _not_ported("/profile")
+        try:
+            seconds = float(query.get("seconds", "1"))
+        except ValueError:
+            seconds = 1.0
+        text = self._profile_fn(seconds)
+        from . import profiling as _profiling
+        if query.get("diff") in ("1", "true", "yes"):
+            # fresh window diffed against the last plain scrape — the
+            # plain scrape IS the baseline recorder, so any periodic
+            # profile collection arms this for free
+            got = _profiling.baseline()
+            if got is None:
+                return (404, "text/plain; charset=utf-8",
+                        "no baseline profile recorded yet — scrape "
+                        "/profile (without diff=1) during a healthy "
+                        "window first\n")
+            return (200, "text/plain; charset=utf-8",
+                    _profiling.incident_profile_diff(text))
+        _profiling.record_baseline(text)
+        return 200, "text/plain; charset=utf-8", text
 
     @_endpoint("/timeline")
     def _ep_timeline(self, query: Dict[str, str]) -> Tuple[int, str, str]:
@@ -673,11 +712,42 @@ class TelemetryServer:
 
     @_endpoint("/analyze")
     def _ep_analyze(self, query: Dict[str, str]) -> Tuple[int, str, str]:
-        return _not_ported("/analyze")
+        try:
+            top = int(query.get("top", "5"))
+        except ValueError:
+            top = 5
+        doc = self._analyze_fn(top)
+        if query.get("format") == "text":
+            from . import critical_path as _critical_path
+            return (200, "text/plain; charset=utf-8",
+                    _critical_path.render_text(doc))
+        exs = _registry_exemplars()
+        if exs:
+            doc = dict(doc)
+            doc["exemplars"] = exs
+        return self._json(doc)
 
     @_endpoint("/diagnose")
     def _ep_diagnose(self, query: Dict[str, str]) -> Tuple[int, str, str]:
-        return _not_ported("/diagnose")
+        from .slo import parse_duration
+        since_s = until_s = None
+        raw = query.get("since")
+        if raw:
+            since_s = parse_duration(raw)     # "60", "5m", "90s" all ok
+        raw = query.get("until")
+        if raw:
+            until_s = parse_duration(raw)
+        top: Optional[int] = None
+        try:
+            top = int(query["top"]) if query.get("top") else None
+        except ValueError:
+            top = None
+        doc = self._diagnose_fn(since_s, until_s, top)
+        if query.get("format") == "text":
+            from . import diagnose as _diagnose
+            return (200, "text/plain; charset=utf-8",
+                    _diagnose.render_text(doc))
+        return self._json(doc)
 
     def start(self) -> "TelemetryServer":
         if self._httpd is not None:

@@ -2,13 +2,13 @@
 
 Counterpart of ``dmlc_core_tpu/telemetry/flight.py``, copied so that the
 port never imports the JAX package: the same rings, triggers, rate
-limit, bundle layout and schema.  The JAX bundle's four sections that
-come from the profiler, the critical-path analysis and the diagnosis
-(``profile_collapsed``, ``critical_path``, ``profile_diff``,
-``diagnosis``, and their files) are not here: those modules are ROADMAP
-queue A.12.e.  A bundle reads host state only (the registry, the rings,
-the span ring, the metric history), never the device, so a dump after a
-CUDA error (a failed graph replay leaves the context's error set, and
+limit, sections, bundle layout, files and schema, the incident-time
+profile (``profile_collapsed``, ``profile.txt``), the critical path
+(``critical_path.txt``), the differential profile (``profile_diff.txt``)
+and the diagnosis (``diagnosis.json``, ``diagnosis.txt``) among them.  A
+bundle reads host state only (the registry, the rings, the span ring,
+the metric history, Python's stacks), never the device, so a dump after
+a CUDA error (a failed graph replay leaves the context's error set, and
 any CUDA call raises it again) still writes.
 
 A production incident is usually diagnosed from evidence that no longer
@@ -204,12 +204,18 @@ class FlightRecorder:
                 sections[name] = fn()
             except Exception as e:   # a contributor must not kill the dump
                 sections[name] = f"<contributor failed: {e}>"
-        # the JAX bundle also attaches incident-time stacks
-        # (profile_collapsed), the critical path, the differential profile
-        # and the diagnosis here: ROADMAP A.12.e, not ported
+        # incident-time stacks: what every thread was doing when the
+        # trigger fired (short bounded window; DMLC_FLIGHT_PROFILE_S=0
+        # opts out)
+        try:
+            from . import profiling as _profiling
+            sections["profile_collapsed"] = _profiling.incident_profile()
+        except Exception as e:
+            sections["profile_collapsed"] = f"<profiler failed: {e}>"
         # the before/after the snapshot can't give: the surrounding
-        # timeline slice (skipped when empty — a bundle from a process
-        # with no history sampler stays lean)
+        # timeline slice and where the slow requests actually spent
+        # their time (both skipped when empty — a bundle from a process
+        # with no sampler or no spans stays lean)
         try:
             from . import timeseries as _timeseries
             tl = _timeseries.history.snapshot_doc()
@@ -217,6 +223,35 @@ class FlightRecorder:
                 sections["timeline"] = tl
         except Exception as e:
             sections["timeline"] = f"<timeline failed: {e}>"
+        try:
+            from . import critical_path as _critical_path
+            breakdown = _critical_path.incident_breakdown()
+            if breakdown:
+                sections["critical_path"] = breakdown
+        except Exception as e:
+            sections["critical_path"] = f"<critical path failed: {e}>"
+        # the differential profile (r20): incident-window stacks vs the
+        # last healthy /profile scrape — only when a baseline exists
+        try:
+            from . import profiling as _profiling_diff
+            prof_text = sections.get("profile_collapsed")
+            if isinstance(prof_text, str) and prof_text \
+                    and not prof_text.startswith("<"):
+                pdiff = _profiling_diff.incident_profile_diff(prof_text)
+                if pdiff:
+                    sections["profile_diff"] = pdiff
+        except Exception as e:
+            sections["profile_diff"] = f"<profile diff failed: {e}>"
+        # the ranked root-cause verdict (r20): breach-scoped when a burn
+        # rule just fired, default-window otherwise (DMLC_DIAGNOSE=0
+        # opts out; skipped-when-None keeps unrelated bundles lean)
+        try:
+            from . import diagnose as _diagnose
+            ddoc = _diagnose.incident_diagnosis()
+            if ddoc is not None:
+                sections["diagnosis"] = ddoc
+        except Exception as e:
+            sections["diagnosis"] = f"<diagnosis failed: {e}>"
         return {
             **sections,
             "schema": INCIDENT_SCHEMA,
@@ -267,9 +302,22 @@ class FlightRecorder:
             doc["files"] = {"incident": "incident.json",
                             "trace": "trace.json",
                             "log_tail": "log_tail.txt"}
+            prof = doc.get("profile_collapsed")
+            if isinstance(prof, str) and prof:
+                doc["files"]["profile"] = "profile.txt"
             tl = doc.get("timeline")
             if isinstance(tl, dict) and tl.get("series"):
                 doc["files"]["timeline"] = "timeline.json"
+            cpath = doc.get("critical_path")
+            if isinstance(cpath, str) and cpath:
+                doc["files"]["critical_path"] = "critical_path.txt"
+            pdiff = doc.get("profile_diff")
+            if isinstance(pdiff, str) and pdiff:
+                doc["files"]["profile_diff"] = "profile_diff.txt"
+            diag = doc.get("diagnosis")
+            if isinstance(diag, dict):
+                doc["files"]["diagnosis"] = "diagnosis.json"
+                doc["files"]["diagnosis_text"] = "diagnosis.txt"
             # tmp + rename per file: a crash mid-dump (likely — this IS
             # the crash path) must not leave a half-written bundle that
             # post-mortem tooling then chokes on
@@ -285,10 +333,25 @@ class FlightRecorder:
             _put("trace.json", lambda f: json.dump(to_chrome_trace(), f))
             _put("log_tail.txt",
                  lambda f: f.write("\n".join(tail) + ("\n" if tail else "")))
+            if isinstance(prof, str) and prof:
+                # collapsed stacks as their own file: flamegraph.pl and
+                # speedscope read the format directly, no JSON unwrapping
+                _put("profile.txt", lambda f: f.write(prof + "\n"))
             if isinstance(tl, dict) and tl.get("series"):
                 _put("timeline.json",
                      lambda f: json.dump(tl, f, indent=2, sort_keys=True,
                                          default=str))
+            if isinstance(cpath, str) and cpath:
+                _put("critical_path.txt", lambda f: f.write(cpath))
+            if isinstance(pdiff, str) and pdiff:
+                _put("profile_diff.txt", lambda f: f.write(pdiff + "\n"))
+            if isinstance(diag, dict):
+                _put("diagnosis.json",
+                     lambda f: json.dump(diag, f, indent=2,
+                                         sort_keys=True, default=str))
+                from . import diagnose as _diagnose
+                _put("diagnosis.txt",
+                     lambda f: f.write(_diagnose.render_text(diag)))
         except OSError as e:
             # the black box must never become the crash: report and move on
             log_warning("flight recorder dump to %s failed: %s", path, e)

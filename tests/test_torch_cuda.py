@@ -1000,6 +1000,50 @@ def test_serving_compile_count_counts_captured_graphs(dev, ragged):
         eng.predict(*_serve_req(rng, 129, 200))
 
 
+@pytest.mark.parametrize("ragged", [False, True])
+def test_capture_watchdog_and_memory_gauges_on_the_card(dev, ragged,
+                                                        monkeypatch):
+    """Each captured graph is one ``xla.compile.<bucket>`` (the JAX
+    keys), each replay of a graph that was there a hit, a second
+    ``warmup_all`` hits only, a request past the ladder a ladder miss;
+    ``sample_memory``'s gauges are the allocator's."""
+    from dmlc_core_tpu_torch.serving import RequestTooLarge
+    from dmlc_core_tpu_torch.telemetry import graph_introspect as gi
+    from dmlc_core_tpu_torch.utils.metrics import MetricsRegistry
+    reg = MetricsRegistry()
+    monkeypatch.setattr(gi, "watchdog", gi.RetraceWatchdog(registry=reg))
+    eng, _ = _serve_engines(dev, "fm", ragged)
+    eng.warmup_all()
+    keys = {gi.bucket_key(b.rows, b.nnz, ragged) for b in eng.ladder}
+    snap = reg.snapshot()
+    assert {k[len("xla.compile."):] for k in snap
+            if k.startswith("xla.compile.")} == keys
+    assert snap["xla.compiles"]["value"] == len(eng.ladder)
+    assert "xla.cache_hits" not in snap
+    rng = np.random.default_rng(4)
+    for _ in range(20):
+        rows = int(rng.integers(1, 129))
+        eng.predict(*_serve_req(rng, rows, int(rng.integers(rows, 8193))))
+    eng.warmup_all()
+    assert reg.counter("xla.cache_hits").value == 20 + len(eng.ladder)
+    assert reg.counter("xla.compiles").value == len(eng.ladder)
+    assert not gi.watchdog.alerted
+    with pytest.raises(RequestTooLarge):
+        eng.predict(*_serve_req(rng, 129, 200))
+    assert reg.counter("xla.ladder_misses").value == 1
+    assert gi.watchdog.alerted
+    torch.cuda.synchronize()
+    assert gi.sample_memory(reg)
+    stats = torch.cuda.memory_stats(dev)
+    assert reg.gauge(f"xla.mem.{dev.index or 0}.bytes_in_use").value == \
+        stats["allocated_bytes.all.current"]
+    assert reg.gauge(f"xla.mem.{dev.index or 0}.peak_bytes_in_use").value == \
+        stats["allocated_bytes.all.peak"]
+    assert reg.gauge(f"xla.mem.{dev.index or 0}.bytes_limit").value == \
+        torch.cuda.mem_get_info(dev)[1]
+    assert reg.gauge("xla.live_buffers").value == stats["active.all.current"]
+
+
 def test_serving_reload_copies_in_place_and_every_graph_follows(dev,
                                                                 tmp_path):
     from dmlc_core_tpu_torch import CheckpointManager, InferenceEngine

@@ -13,7 +13,11 @@
   ``/healthz`` (each health word at the JAX status code, 503 when
   overloaded), ``/spans`` with ``dropped``, ``/timeline`` as json and
   text, the four host-injected endpoints' 404s with the JAX bodies, and
-  501 naming A.12.e for ``/profile``, ``/analyze`` and ``/diagnose``
+  ``/profile`` (the 404 before a baseline, the plain and the diff
+  windows), ``/analyze`` and ``/diagnose`` (json and text) at the JAX
+  statuses, content types and document keys, and no route at 501; each
+  injected callback (``flight_fn``, ``profile_fn``, ``analyze_fn``,
+  ``diagnose_fn``) serves its endpoint as the JAX exporter's does
   (``/events`` and ``/flight`` are held against the JAX exporter in
   ``tests/test_torch_wide_events.py`` and ``tests/test_torch_flight.py``).
 * ``maybe_start_from_env`` starts an exporter on ``DMLC_METRICS_PORT``,
@@ -22,7 +26,9 @@
 
 Every exporter a test starts starts the process-wide history sampler;
 the ``history`` fixture stops both packages' samplers around each test,
-and puts back the process-wide incident state (:func:`incident_state`:
+empties both history stores before it (:func:`clear_history`), forgets
+both packages' last breach, baseline profile and watchdog buckets
+(:func:`clear_incident_memory`), and puts back the process-wide incident state (:func:`incident_state`:
 both packages' installed tail samplers and flight recorders, the
 exception hooks and the SIGTERM and SIGABRT handlers).
 :func:`scrape` bounds each connect and retries one that timed out (a
@@ -46,23 +52,37 @@ pytest.importorskip("torch")
 
 from dmlc_core_tpu.telemetry import aggregate as jaggregate  # noqa: E402
 from dmlc_core_tpu.telemetry import anomaly as janomaly  # noqa: E402
+from dmlc_core_tpu.telemetry import diagnose as jdiagnose  # noqa: E402
 from dmlc_core_tpu.telemetry import exposition as jexposition  # noqa: E402
 from dmlc_core_tpu.telemetry import flight as jflight  # noqa: E402
+from dmlc_core_tpu.telemetry import profiling as jprofiling  # noqa: E402
 from dmlc_core_tpu.telemetry import timeseries as jtimeseries  # noqa: E402
 from dmlc_core_tpu.telemetry import trace as jtrace  # noqa: E402
+from dmlc_core_tpu.telemetry import xla_introspect as jxla  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import aggregate  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import anomaly  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import diagnose  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import exposition  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import flight  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import graph_introspect  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import profiling  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import sampling  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import timeseries  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import trace as teltrace  # noqa: E402
-from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
 
 jmetrics = importlib.import_module("dmlc_core_tpu.utils.metrics")
 tmetrics = importlib.import_module("dmlc_core_tpu_torch.utils.metrics")
 
-UNPORTED = {"/profile": "A.12.e", "/analyze": "A.12.e", "/diagnose": "A.12.e"}
+#: the endpoints of ROADMAP A.12.e (the profiler, the critical path and the
+#: diagnosis), each request with the keys its JSON document carries
+A12E = {"/profile?diff=1": None, "/profile?seconds=0.05": None,
+        "/profile?seconds=0.05&diff=1": None,
+        "/analyze?top=3": {"schema", "ts", "traces_seen", "top",
+                           "self_time_us"},
+        "/analyze?top=3&format=text": None,
+        "/diagnose?since=1": {"schema", "ts", "window", "trigger",
+                              "analyzers", "suspects", "wall_ms"},
+        "/diagnose?since=5m&top=2&format=text": None}
 INJECTED = ("/stragglers", "/leases", "/fleet", "/rollouts")
 
 
@@ -87,6 +107,35 @@ def scrape(port, path, host="127.0.0.1", timeout=30.0, connect_s=2.0,
         finally:
             conn.close()
     raise TimeoutError(f"{tries} connects to {host}:{port} timed out")
+
+
+def clear_history():
+    """Empty both packages' process-wide history stores: their series and
+    the previous samples their counter rates are taken against.  A store
+    sampled by an earlier test otherwise counts the registry resets since
+    as ``telemetry.counter_resets``, and serves its ``root_ms`` p95 to a
+    tail sampler's adaptive slow threshold."""
+    for store in (timeseries.history, jtimeseries.history):
+        with store._lock:
+            store._series.clear()
+            store._prev.clear()
+            store._prev_stage.clear()
+            store._dropped.clear()
+
+
+def clear_incident_memory():
+    """Forget, in both packages, what an earlier test left for a later
+    diagnosis, profile diff or capture to read: the last breach and its
+    diagnosis, the baseline profile, and the watchdog's buckets and
+    alert."""
+    for mod in (diagnose, jdiagnose):
+        mod._last_breach = mod._last_doc = None
+    for mod in (profiling, jprofiling):
+        mod._baseline = None
+    for wd in (graph_introspect.watchdog, jxla.watchdog):
+        with wd._lock:
+            wd._buckets.clear()
+            wd._alerted = False
 
 
 def stop_samplers():
@@ -139,9 +188,12 @@ def incident_state():
 @pytest.fixture(autouse=True)
 def history():
     stop_samplers()
+    clear_history()
+    clear_incident_memory()
     with incident_state():
         yield timeseries.history
     stop_samplers()
+    clear_incident_memory()
 
 
 @pytest.fixture()
@@ -520,17 +572,43 @@ def test_default_healthz_degrades_on_a_breach():
 
 
 def test_not_found_and_not_ported_endpoints():
+    """The 404s are the JAX exporter's; A.12.e's endpoints answer at the
+    JAX statuses and types, with the JAX document keys (each package
+    reads its own span ring and stores), and no route answers 501."""
+    for m in (tmetrics.metrics, jmetrics.metrics):
+        m.reset()       # no exemplar for /analyze to attach
     srv, jsrv = _servers()
     try:
         for path in INJECTED + ("/nope",):
             got = scrape(srv.port, path)
             assert got[0] == 404
             assert got == scrape(jsrv.port, path)
-        for path, item in UNPORTED.items():
-            code, ctype, body = scrape(srv.port, path + "?since=1")
-            assert code == 501 and ctype.startswith("text/plain")
-            assert f"ROADMAP queue {item}" in body and path in body
+        with teltrace.span("a12e.root"):
+            with teltrace.span("a12e.child"):
+                pass
+        with jtrace.span("a12e.root"):
+            with jtrace.span("a12e.child"):
+                pass
+        for path, keys in A12E.items():
+            got, jgot = scrape(srv.port, path), scrape(jsrv.port, path)
+            assert got[:2] == jgot[:2], path
+            assert got[0] == (404 if path == "/profile?diff=1" else 200)
+            if keys is not None:
+                doc, jdoc = json.loads(got[2]), json.loads(jgot[2])
+                assert set(doc) == set(jdoc) == keys
+                assert doc["schema"] == jdoc["schema"]
+            elif got[0] == 404:
+                assert got == jgot
+            elif "diff=1" in path:
+                assert got[2].startswith("# profile diff: baseline @ ")
+                assert jgot[2].startswith("# profile diff: baseline @ ")
+        assert json.loads(scrape(srv.port, "/diagnose?since=1")[2])[
+            "trigger"] == {"kind": "explicit"}
+        assert scrape(srv.port, "/analyze?top=3&format=text")[2].startswith(
+            "critical path over top ")
         assert set(exposition._ROUTES) == set(jexposition._ROUTES)
+        for path in exposition._ROUTES:
+            assert scrape(srv.port, path + "?seconds=0.05")[0] != 501, path
     finally:
         srv.stop()
         jsrv.stop()
@@ -552,30 +630,45 @@ def test_injected_fleet_endpoints_serve_as_the_jax_ones():
         jsrv.stop()
 
 
+#: each injectable callback: the request that reaches it and what it
+#: returns (``profile_fn`` takes the window, ``analyze_fn`` the top,
+#: ``diagnose_fn`` since, until and top)
+CALLBACKS = {
+    "flight_fn": ("/flight", lambda: {"schema": "injected"}),
+    "profile_fn": ("/profile?seconds=2", lambda seconds: f"a;b {seconds}"),
+    "analyze_fn": ("/analyze?top=7",
+                   lambda top: {"schema": "injected", "top": top}),
+    "diagnose_fn": ("/diagnose?since=5m&until=30&top=2",
+                    lambda since_s, until_s, top: {
+                        "schema": "injected",
+                        "args": [since_s, until_s, top]}),
+}
+
+
 @pytest.mark.parametrize("kw,item", [("flight_fn", "A.12.d"),
                                      ("profile_fn", "A.12.e"),
                                      ("analyze_fn", "A.12.e"),
                                      ("diagnose_fn", "A.12.e")])
 def test_unported_callbacks_are_refused(kw, item):
-    """The A.12.e callbacks are refused; ``flight_fn`` (A.12.d, ported)
-    is taken and serves ``/flight``, as the JAX exporter's does."""
-    if item == "A.12.d":
-        kwargs = {kw: lambda: {"schema": "injected"}}
-        srv = exposition.TelemetryServer(port=0, host="127.0.0.1",
-                                         **kwargs).start()
-        jsrv = jexposition.TelemetryServer(port=0, host="127.0.0.1",
-                                           **kwargs).start()
-        try:
-            got = scrape(srv.port, "/flight")
-            assert got == (200, "application/json",
-                           '{"schema": "injected"}')
-            assert got == scrape(jsrv.port, "/flight")
-        finally:
-            srv.stop()
-            jsrv.stop()
-        return
-    with pytest.raises(DMLCError, match=f"ROADMAP queue {item}"):
-        exposition.TelemetryServer(port=0, **{kw: lambda *a: {}})
+    """Each callback (``flight_fn`` of A.12.d; ``profile_fn``,
+    ``analyze_fn`` and ``diagnose_fn`` of A.12.e) is taken and serves its
+    endpoint as the JAX exporter's does, byte for byte."""
+    path, fn = CALLBACKS[kw]
+    for m in (tmetrics.metrics, jmetrics.metrics):
+        m.reset()       # no exemplar for /analyze to attach
+    srv, jsrv = _servers(**{kw: fn})
+    try:
+        got = scrape(srv.port, path)
+        assert got[0] == 200 and got == scrape(jsrv.port, path), item
+        if kw == "profile_fn":
+            assert got[2] == "a;b 2.0" == profiling.baseline()[0]
+        elif kw == "diagnose_fn":
+            assert json.loads(got[2])["args"] == [300.0, 30.0, 2]
+        elif kw == "analyze_fn":
+            assert json.loads(got[2]) == {"schema": "injected", "top": 7}
+    finally:
+        srv.stop()
+        jsrv.stop()
 
 
 def test_maybe_start_from_env(monkeypatch):

@@ -2,12 +2,14 @@
 the log tail it bundles, held against the JAX package on the CPU.
 
 * A bundle dumped by each package's recorder from the same notes,
-  snapshots, spans and history: the port's files and ``incident.json``
-  keys (``files`` among them) are the JAX package's less the four
-  sections of A.12.e (``profile_collapsed``, ``critical_path``,
-  ``profile_diff``, ``diagnosis``) and their files; the schema is
-  ``dmlc.flight.incident/1``; ``_counter_deltas`` equals the JAX one on
-  seeded snapshots (exact).
+  snapshots, spans, history and baseline profile: the port's files and
+  ``incident.json`` keys (``files`` among them) are the JAX package's,
+  the four sections of A.12.e (``profile_collapsed``, ``critical_path``,
+  ``profile_diff``, ``diagnosis``) and their five files among them; the
+  counter deltas, the critical path (byte for byte, over seeded span
+  records) and the diagnosis (``ts``, ``wall_ms`` and the window's clock
+  aside) are equal; the schema is ``dmlc.flight.incident/1``;
+  ``_counter_deltas`` equals the JAX one on seeded snapshots (exact).
 * The JAX cases of ``tests/test_flight.py`` (the golden bundle, unarmed
   and rate-limited dumps, the bounded note ring, an injected fault's
   evidence, ``/flight``, the end-to-end incident drill less its tracker,
@@ -48,7 +50,9 @@ torch = pytest.importorskip("torch")
 from dmlc_core_tpu.serving import server as jserver  # noqa: E402
 from dmlc_core_tpu.telemetry import anomaly as janomaly  # noqa: E402
 from dmlc_core_tpu.telemetry import exposition as jexposition  # noqa: E402
+from dmlc_core_tpu.telemetry import diagnose as jdiagnose  # noqa: E402
 from dmlc_core_tpu.telemetry import flight as jflight  # noqa: E402
+from dmlc_core_tpu.telemetry import profiling as jprofiling  # noqa: E402
 from dmlc_core_tpu.telemetry import timeseries as jtimeseries  # noqa: E402
 from dmlc_core_tpu.telemetry import trace as jtrace  # noqa: E402
 from dmlc_core_tpu.telemetry import wide_events as jwide  # noqa: E402
@@ -56,8 +60,10 @@ from dmlc_core_tpu.utils import faults as jfaults  # noqa: E402
 from dmlc_core_tpu.utils import logging as jlogging  # noqa: E402
 from dmlc_core_tpu_torch.serving import server as tserver  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import anomaly  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import diagnose  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import exposition  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import flight  # noqa: E402
+from dmlc_core_tpu_torch.telemetry import profiling  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import timeseries  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import trace as teltrace  # noqa: E402
 from dmlc_core_tpu_torch.telemetry import wide_events  # noqa: E402
@@ -75,11 +81,13 @@ PACKAGES = {
                             faults=tfaults, anomaly=anomaly,
                             ts=timeseries, wide=wide_events,
                             exposition=exposition, server=tserver,
+                            profiling=profiling, diagnose=diagnose,
                             name="dmlc_core_tpu_torch"),
     "jax": SimpleNamespace(fl=jflight, tr=jtrace, m=jmetrics.metrics,
                            faults=jfaults, anomaly=janomaly,
                            ts=jtimeseries, wide=jwide,
                            exposition=jexposition, server=jserver,
+                           profiling=jprofiling, diagnose=jdiagnose,
                            name="dmlc_core_tpu"),
 }
 #: the JAX bundle's sections from the profiler, the critical path and the
@@ -94,10 +102,12 @@ A12E_FILES = {"profile": "profile.txt", "critical_path": "critical_path.txt",
 
 @pytest.fixture(autouse=True)
 def _clean(monkeypatch):
-    """Fresh spans and faults; each global recorder disarmed, free of its
-    rate limit, its rings empty (``history`` restores the rest)."""
+    """Fresh spans, wide events and faults; each global recorder
+    disarmed, free of its rate limit, its rings empty (``history``
+    restores the rest)."""
     for p in PACKAGES.values():
         p.tr.recorder.clear()
+        p.wide.wide_log.reset()
         p.faults.clear_faults()
         rec = p.fl.flight_recorder
         monkeypatch.setattr(rec, "_dir", None)
@@ -154,6 +164,41 @@ def _golden_dump(p, directory):
     return rec.arm(str(directory)).dump("unit_test", why="golden")
 
 
+def _span_records(seed, n=8):
+    """Seeded finished-span records: ``n`` traces of a root, two children
+    and a grandchild, milliseconds long, in 2001 (outside any live
+    diagnosis window)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(n):
+        tid = f"{t + 1:016x}"
+        t0 = 10 ** 15 + t * 10 ** 6
+        dur = int(rng.integers(5_000, 50_000))
+        a = int(rng.integers(0, dur // 2))
+        b = int(rng.integers(a + 1, dur))
+        spans = [("root", None, t0, dur), ("stage.a", "root", t0 + a // 4, a),
+                 ("stage.b", "root", t0 + a, b - a),
+                 ("leaf", "stage.b", t0 + a + 1, (b - a) // 3)]
+        for name, parent, ts, d in spans:
+            out.append({"kind": "span", "name": name, "trace_id": tid,
+                        "span_id": f"{tid}{name}", "ts_us": ts, "dur_us": d,
+                        "parent_id": f"{tid}{parent}" if parent else None,
+                        "attrs": {}, "events": []})
+    return out
+
+
+def _stable_diagnosis(doc):
+    """A diagnosis document less its clock: ``ts``, ``wall_ms``, the
+    window's ends and the timeline's onset when no breach names one."""
+    doc = json.loads(json.dumps(doc))
+    for k in ("ts", "wall_ms"):
+        doc.pop(k)
+    for k in ("since", "until"):
+        doc["window"].pop(k)
+    doc["analyzers"]["timeline"].pop("breach_onset")
+    return doc
+
+
 def test_bundle_keys_and_files_equal_the_jax_ones(monkeypatch, tmp_path):
     paths, docs = {}, {}
     for name, p in PACKAGES.items():
@@ -161,16 +206,33 @@ def test_bundle_keys_and_files_equal_the_jax_ones(monkeypatch, tmp_path):
         # only the wide-event section contributes, in both processes' view
         monkeypatch.setattr(p.fl, "_contributors", {})
         monkeypatch.setattr(p.wide.wide_log, "_registered", False)
+        for rec in _span_records(4):
+            p.tr.recorder.record(rec)
+        p.profiling.record_baseline("base;idle 3\nbase;work 1", ts=1.0)
         paths[name] = _golden_dump(p, tmp_path / name)
         docs[name] = json.load(open(os.path.join(paths[name],
                                                  "incident.json")))
     port, jax_ = docs["port"], docs["jax"]
-    assert set(port) == set(jax_) - A12E_KEYS
-    assert set(jax_) & A12E_KEYS            # the JAX bundle has them
-    assert port["files"] == {k: v for k, v in jax_["files"].items()
-                             if k not in A12E_FILES}
+    assert set(port) == set(jax_)
+    assert set(port) >= A12E_KEYS           # the four sections, in both
+    assert port["files"] == jax_["files"]
+    assert set(port["files"].items()) >= set(A12E_FILES.items())
     assert sorted(os.listdir(paths["port"])) == sorted(
-        set(os.listdir(paths["jax"])) - set(A12E_FILES.values()))
+        os.listdir(paths["jax"]))
+    assert port["critical_path"] == jax_["critical_path"]
+    for n, p in PACKAGES.items():
+        with open(os.path.join(paths[n], "critical_path.txt")) as f:
+            assert f.read() == docs[n]["critical_path"]
+        with open(os.path.join(paths[n], "diagnosis.txt")) as f:
+            assert f.read() == p.diagnose.render_text(docs[n]["diagnosis"])
+    assert _stable_diagnosis(port["diagnosis"]) == \
+        _stable_diagnosis(jax_["diagnosis"])
+    assert port["diagnosis"]["trigger"] == {"kind": "explicit"}
+    for doc in (port, jax_):
+        lines = doc["profile_collapsed"].splitlines()
+        assert lines and all(ln.rsplit(" ", 1)[1].isdigit() for ln in lines)
+        assert doc["profile_diff"].startswith(
+            "# profile diff: baseline @ 1 (")
     for key in ("schema", "reason", "detail", "notes", "metrics_delta",
                 "span_count"):
         if key == "notes":
@@ -188,14 +250,18 @@ def test_bundle_keys_and_files_equal_the_jax_ones(monkeypatch, tmp_path):
 def test_incident_bundle_schema_golden(tmp_path):
     path = _golden_dump(PACKAGES["port"], tmp_path)
     assert path is not None and os.path.isdir(path)
-    assert sorted(os.listdir(path)) == ["incident.json", "log_tail.txt",
-                                        "timeline.json", "trace.json"]
+    assert sorted(os.listdir(path)) == ["critical_path.txt",
+                                        "diagnosis.json", "diagnosis.txt",
+                                        "incident.json", "log_tail.txt",
+                                        "profile.txt", "timeline.json",
+                                        "trace.json"]
     doc = json.load(open(os.path.join(path, "incident.json")))
     for key in ("schema", "reason", "detail", "ts", "pid", "host", "rank",
                 "slo_spec", "fault_spec", "metrics", "metrics_delta",
                 "notes", "span_count", "files", "timeline"):
         assert key in doc, key
-    assert not set(doc) & A12E_KEYS
+    # no baseline profile recorded: no diff, the other three sections
+    assert set(doc) & A12E_KEYS == A12E_KEYS - {"profile_diff"}
     assert doc["schema"] == flight.INCIDENT_SCHEMA == "dmlc.flight.incident/1"
     assert doc["reason"] == "unit_test"
     assert doc["detail"] == {"why": "golden"}
@@ -205,7 +271,13 @@ def test_incident_bundle_schema_golden(tmp_path):
     assert doc["files"] == {"incident": "incident.json",
                             "trace": "trace.json",
                             "log_tail": "log_tail.txt",
-                            "timeline": "timeline.json"}
+                            "timeline": "timeline.json",
+                            "profile": "profile.txt",
+                            "critical_path": "critical_path.txt",
+                            "diagnosis": "diagnosis.json",
+                            "diagnosis_text": "diagnosis.txt"}
+    assert "drill.step" in doc["critical_path"]
+    assert doc["profile_collapsed"].strip()
     tl = json.load(open(os.path.join(path, "timeline.json")))
     assert "drill.work.rate" in tl["series"]
     trace_doc = json.load(open(os.path.join(path, "trace.json")))
@@ -524,12 +596,18 @@ def test_log_tail_keeps_the_last_lines(monkeypatch):
 
 def test_log_tail_copies_while_threads_log():
     """A bundle copies the tail on one thread while others log: every copy
-    completes and stays within the ring's bound."""
+    completes and stays within the ring's bound.  Once all have stopped,
+    each thread logs one last line, so the tail's last lines are one a
+    thread whichever ran last (a thread that holds the interpreter for a
+    switch interval logs a whole ring of lines)."""
     stop = threading.Event()
+    stopped = threading.Barrier(4)
 
     def chatter(k):
         while not stop.is_set():
             tlogging.log_info("chatter %d", k)
+        stopped.wait(timeout=60)
+        tlogging.log_info("chatter %d", k)
 
     threads = [threading.Thread(target=chatter, args=(k,)) for k in range(4)]
     root = tlogging._logger.level

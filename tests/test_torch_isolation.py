@@ -117,3 +117,32 @@ def test_no_module_lookup_names_the_jax_package(path):
             if isinstance(arg, ast.Constant) and isinstance(arg.value, str):
                 assert arg.value.split(".")[0] != "dmlc_core_tpu", \
                     f"{os.path.relpath(path, REPO)} looks up {arg.value}"
+
+
+#: the diagnosis modules (ROADMAP A.12.e) and the JAX module each ports
+A12E_MODULES = {"critical_path.py": "critical_path.py",
+                "profiling.py": "profiling.py",
+                "diagnose.py": "diagnose.py",
+                "graph_introspect.py": "xla_introspect.py"}
+
+
+@pytest.mark.parametrize("name", sorted(A12E_MODULES))
+def test_diagnosis_modules_stand_alone(name):
+    """Each diagnosis module is among the checked sources, imports nothing
+    of JAX or the JAX package, names its JAX counterpart, and looks a
+    module up in ``sys.modules`` only by the port's name."""
+    path = os.path.join(PKG, "telemetry", name)
+    assert path in _sources()
+    test_source_imports_nothing_of_jax(path)
+    test_no_module_lookup_names_the_jax_package(path)
+    doc = ast.get_docstring(ast.parse(open(path).read())) or ""
+    assert f"dmlc_core_tpu/telemetry/{A12E_MODULES[name]}" in doc
+    looked_up = [node.args[0].value for node in ast.walk(
+        ast.parse(open(path).read())) if isinstance(node, ast.Call)
+        and isinstance(node.func, ast.Attribute)
+        and node.func.attr == "get" and node.args
+        and isinstance(node.func.value, ast.Attribute)
+        and node.func.value.attr == "modules"
+        and isinstance(node.args[0], ast.Constant)]
+    assert all(m.startswith("dmlc_core_tpu_torch.") or m == "torch"
+               for m in looked_up), looked_up

@@ -13,8 +13,9 @@ with the exporter and ``DMLC_SLO_SPEC``, held against the JAX package.
   by the port's module name, never through the JAX one.
 * ``PredictionServer(metrics_port=0)`` of both packages on the same
   requests: equal ``/healthz`` keys and status; the port's ``/metrics``
-  families are the JAX server's less :data:`NOT_PORTED_FAMILIES`, each
-  tagged with its ROADMAP item, plus :data:`PORT_ONLY_FAMILIES`.
+  families are the JAX server's (:data:`NOT_PORTED_FAMILIES` is empty),
+  the compile watchdog's ``dmlc_xla_*`` among them, plus
+  :data:`PORT_ONLY_FAMILIES`.
 * A rule that must fire degrades ``/healthz`` and ``health`` and freezes
   the serving autotuner, in both packages.
 
@@ -52,15 +53,14 @@ jmetrics = importlib.import_module("dmlc_core_tpu.utils.metrics")
 tmetrics = importlib.import_module("dmlc_core_tpu_torch.utils.metrics")
 
 #: families the JAX serving process exports and the port's does not yet,
-#: by the ROADMAP item that brings them (a ladder of (16, 512), (64, 2048))
-NOT_PORTED_FAMILIES = {
-    # the JAX compile watchdog (xla_introspect.py, A.12.e)
-    "dmlc_xla_cache_hits_total": "A.12.e",
-    "dmlc_xla_compile_r16x512_total": "A.12.e",
-    "dmlc_xla_compile_r64x2048_total": "A.12.e",
-    "dmlc_xla_compile_seconds": "A.12.e",
-    "dmlc_xla_compiles_total": "A.12.e",
-}
+#: by the ROADMAP item that brings them: none since the capture watchdog
+#: (graph_introspect.py, A.12.e) exports the JAX compile watchdog's
+NOT_PORTED_FAMILIES = {}
+#: the compile watchdog's families for a ladder of (16, 512), (64, 2048),
+#: in both servers' pages
+XLA_FAMILIES = {"dmlc_xla_cache_hits_total", "dmlc_xla_compile_r16x512_total",
+                "dmlc_xla_compile_r64x2048_total", "dmlc_xla_compile_seconds",
+                "dmlc_xla_compiles_total"}
 #: the port's client bounds its first connect and counts the retries; the
 #: JAX client has no such counter
 PORT_ONLY_FAMILIES = {"dmlc_retry_serving_connect_retries_total"}
@@ -559,8 +559,10 @@ def test_servers_export_the_jax_families_and_health(monkeypatch):
     assert health["port"][1] == health["jax"][1]
     assert health["port"][1]["status"] == "ok"
     port, jax_ = _families(pages["port"]), _families(pages["jax"])
-    assert jax_ - port == set(NOT_PORTED_FAMILIES)
+    assert jax_ - port == set(NOT_PORTED_FAMILIES) == set()
     assert port - jax_ == PORT_ONLY_FAMILIES
+    assert {f for f in port if f.startswith("dmlc_xla_")} == \
+        {f for f in jax_ if f.startswith("dmlc_xla_")} == XLA_FAMILIES
     assert "dmlc_telemetry_timeline_samples_total" in port
     assert "dmlc_serving_latency_s" in port
     for line in ("dmlc_serving_batcher_requests_total 24",

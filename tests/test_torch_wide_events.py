@@ -16,9 +16,10 @@ package on the CPU.
   fed the same seeded frames (untraced, traced under seeded ids, one
   debug-marked, two shed by the fault): ``/events`` serves equal docs,
   ``ts``, ``dur_ms``, ``queue_ms`` and ``conn`` aside and ``seq``
-  counted from the first; ``/flight`` answers 200 with a bundle and
-  ``/profile``, ``/analyze`` and ``/diagnose`` 501 naming A.12.e; each
-  package's flight directory holds one ``injected_fault`` bundle.
+  counted from the first; ``/flight`` answers 200 with a bundle, and
+  ``/profile``, ``/analyze`` and ``/diagnose`` answer with the JAX
+  statuses, content types and document keys; each package's flight
+  directory holds one ``injected_fault`` bundle.
 
 The ``history`` fixture (from ``tests/test_torch_exposition.py``) stops
 both history samplers and puts back both packages' installed samplers,
@@ -29,6 +30,7 @@ import importlib
 import json
 import os
 import socket
+import time
 
 import numpy as np
 import pytest
@@ -261,17 +263,27 @@ def _frames(seed):
     return out
 
 
-def _one_by_one(addr, frames):
+def _one_by_one(addr, frames, log):
     """Each frame sent once the last answer came back (one request a
-    batch), on one connection; returns the statuses."""
+    batch) and its wide event is in ``log``, on one connection; returns
+    the statuses.  A server emits a request's event just after its
+    answer, so without the wait a shed request's event (emitted on the
+    reader's thread at once) could land before its predecessor's."""
     statuses = []
     with socket.create_connection(addr, timeout=30) as s:
         for frame in frames:
+            req_id = tserver.REQ_HEADER.unpack_from(frame)[0]
+            since = log.doc()["last_seq"]
             s.sendall(frame)
             head = _recv(s, tserver.RSP_HEADER.size)
             _, status, k = tserver.RSP_HEADER.unpack(head)
             _recv(s, 4 * k if status == 0 else k)
             statuses.append(status)
+            deadline = time.monotonic() + 30.0
+            while not any(e.get("req_id") == req_id
+                          for e in log.snapshot(since=since)):
+                assert time.monotonic() < deadline, f"no event for {req_id}"
+                time.sleep(0.001)
     return statuses
 
 
@@ -294,11 +306,16 @@ def test_servers_serve_equal_events(monkeypatch, tmp_path):
                    metrics_port=0),
                "jax": lambda: jserver.PredictionServer(
                    _jax_fm(params, LADDER), metrics_port=0)}
-    docs, statuses = {}, {}
+    docs, statuses, a12e = {}, {}, {}
     for name, make in servers.items():
         wide, samp, tr, m, _ = PACKAGES[name]
         samp.uninstall()
         tr.recorder.clear()
+        # what earlier tests of the process left: events that would be
+        # evicted (``dropped``) and root latencies that would set the
+        # sampler's adaptive slow threshold (``sampled``)
+        wide.wide_log.reset()
+        m.reset()
         flight_dir = tmp_path / name
         monkeypatch.setenv("DMLC_FLIGHT_DIR", str(flight_dir))
         rec = importlib.import_module(
@@ -310,7 +327,8 @@ def test_servers_serve_equal_events(monkeypatch, tmp_path):
         srv = make().start()
         try:
             assert samp.get_sampler() is not None and rec.armed
-            statuses[name] = _one_by_one((srv.host, srv.port), frames)
+            statuses[name] = _one_by_one((srv.host, srv.port), frames,
+                                         wide.wide_log)
             port = srv.telemetry.port
             code, ctype, body = scrape(port, f"/events?since={first}")
             assert (code, ctype) == (200, "application/json")
@@ -321,10 +339,10 @@ def test_servers_serve_equal_events(monkeypatch, tmp_path):
             assert bundle["schema"] == "dmlc.flight.incident/1"
             assert bundle["reason"] == "endpoint"
             assert bundle["dumped_to"].startswith(str(flight_dir))
-            for path in ("/profile", "/analyze", "/diagnose"):
-                code, _, body = scrape(port, path)
-                if name == "port":
-                    assert code == 501 and "A.12.e" in body
+            for path in ("/profile?seconds=0.05", "/analyze", "/diagnose"):
+                code, ctype, body = scrape(port, path)
+                a12e[name, path] = (code, ctype, None if path.startswith(
+                    "/profile") else sorted(json.loads(body)))
         finally:
             srv.stop()
             for mod in (tfaults, jfaults):
@@ -334,6 +352,9 @@ def test_servers_serve_equal_events(monkeypatch, tmp_path):
         assert sorted(reasons) == ["endpoint", "injected_fault"], reasons
     assert statuses["port"] == statuses["jax"]
     assert statuses["port"].count(tserver.STATUS_OVERLOADED) == 2
+    for path in ("/profile?seconds=0.05", "/analyze", "/diagnose"):
+        assert a12e["port", path] == a12e["jax", path]
+        assert a12e["port", path][0] == 200
 
     def norm(doc):
         evs = doc["events"]
