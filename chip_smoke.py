@@ -254,6 +254,36 @@ Phases, in order; any failure exits non-zero and prints no result:
    steady state with v2 and v3 and with put_threads 1 and 2, in turns.
    Launch counts are read around the training from workers.  Every
    earlier phase's loaders run at the defaults: the v3 wire on the card.
+   mesh    — data-parallel training (fit_stream(mesh=)) at full width:
+   FM and DCNv2 flat (nnz_cap 131072) and DeepFM and DCNv2 row-major
+   (k_cap 64; DCNv2's row-major path is the embed bag's), 2^20 x 32,
+   Adam 1e-3, 4096-row global batches, on the training text.  (a) World
+   1 over NCCL in this process: every collective on card tensors against
+   numpy; 8 steps through the sharded loader against the no-mesh steps
+   on the same batches (phase 5's limits: the backward kernels add with
+   atomics, so two no-mesh runs differ too, and both gaps are printed;
+   on the plain path with deterministic algorithms the mesh's steps are
+   array_equal to the no-mesh ones), the k = 8 mesh form of
+   make_train_step_kbatch (one captured graph, its all-reduces inside)
+   against the 8 mesh steps, evaluate_stream with and without the mesh,
+   steps/s over the 8 steps and in steady state with and without the
+   mesh, and the all-reduce's ms for the step's bytes.  (b) World 2 over
+   gloo: two processes of this script (--mesh-rank), both on cuda:0
+   (NCCL refuses two ranks on one card), each reading its partition of
+   the training and eval files (2048-row batches, nnz_cap 65536): every
+   collective on card tensors (gloo lacks all_to_all there: the line
+   says so); each path's parameters array_equal across the ranks, within
+   phase 5's limits of one process's steps on the ranks' concatenated
+   batches, learning (the eval AUC of the change in score, at least
+   LEARN_AUC_MIN), evaluate_stream(mesh=) over both partitions; steps/s
+   and the all-reduce's ms.  Both must launch every kernel of the paths;
+   probe   — the transfer probe (pipeline/probe.py) over the training
+   file 4 times (32 batches a pass): DeviceLoader batches/s for
+   put_threads 1 and 2 x v2 and v3 in 5 alternating rounds after a warm
+   pass of each wire, the winner persisted (DMLC_TUNED_CONFIG in the data
+   directory) and what resolve("cuda", "auto", "auto") returns; then
+   FusedTrainer(k=8) of FM flat on the resolved wire and on the other,
+   epoch by epoch in turns (steps/s).
    trace   — last, since a torch.profiler capture leaves every later
    launch of the process slower: spans and traces.  (a) 64 predicts from
    one PredictClient to an in-process PredictionServer (FM 2^20 x 32,
@@ -288,6 +318,19 @@ every path.
 
 runs phases 1, 2, 4, the server, the exporter, the incidents and the
 diagnosis only, and prints their numbers as its last line.
+
+    python3 chip_smoke.py --mesh
+
+runs phases 1, 2, [mesh] and [probe] only, and prints their launch
+counts as its last line.
+
+    python3 chip_smoke.py --mesh-nccl 4
+
+runs phases 1, 2 and [mesh] (b) over NCCL on 4 cards, rank r on cuda:r
+(1024-row batches a rank, nnz_cap 32768), and needs them; there each
+path's steps also run as one captured make_train_step_kbatch call (its
+all-reduces across the ranks inside the graph), held to phase 5's limits
+of the mesh steps and array_equal across the ranks.
 
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
 directory (by default they go with the data directory).
@@ -6415,6 +6458,728 @@ def phase_kstep(torch, power: str, train_file: str, eval_file: str) -> dict:
     return total
 
 
+# -- [mesh]: data-parallel training over a process mesh -----------------------
+
+MESH_PATHS = (             # (name, model, layout, nnz_cap or k_cap)
+    ("fm_flat", "fm", "flat", CAP_TR),
+    ("dcn_flat", "dcn", "flat", CAP_TR),
+    ("deepfm_rowmajor", "deepfm", "rowmajor", K_TR),
+    ("dcn_rowmajor", "dcn", "rowmajor", K_TR),    # the embed bag's path
+)
+MESH_WORLD = 2             # [mesh] (b): gloo ranks, both on cuda:0
+MESH_TIMEOUT = 300         # s: any collective of a rank, and the ranks' run
+ALLREDUCE_REPS = 5         # all-reduces of a step's gradient bytes, timed
+# every kernel of the [mesh] paths (the flat ones decode the v3 wire)
+MESH_KERNELS = ("ragged_gather_fm", "ragged_gather_embed",
+                "ragged_gather_grad_fm", "ragged_gather_grad_embed",
+                "fm_terms", "fm_terms_grad", "embed_bag", "embed_bag_grad",
+                "adam", "wire_decode")
+
+
+class _Recorder:
+    """A dp rank's loader that keeps every batch it hands over (on the
+    card), for the references run on the same batches."""
+
+    def __init__(self, loader):
+        self.inner, self.seen = loader, []
+        self.emit, self.layout = loader.emit, loader.layout
+        self.sharding = loader.sharding
+
+    def __iter__(self):
+        for b in self.inner:
+            self.seen.append(b)
+            yield b
+
+    def before_first(self):
+        self.inner.before_first()
+
+
+def _mesh_loader(path, layout, cap, rows, mesh, part=0, parts=1):
+    """The native loader of partition ``part`` of ``parts``; with a mesh,
+    sharded to its rank."""
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    from dmlc_core_tpu_torch.models import batch_sharding
+    return DeviceLoader(
+        create_parser(path, part, parts, "libsvm", engine="native"), rows,
+        cap, layout=layout, engine="native",
+        sharding=batch_sharding(mesh) if mesh is not None else None,
+        device=None if mesh is not None else "cuda")
+
+
+def _flat_params(torch, model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def _agree(torch, lk, lp, model, ref, p_init) -> list:
+    """Phase 5's loss and parameter checks of a run against a reference
+    on the same batches, as ``(check, reading, limit, ok)`` rows."""
+    fin = bool(np.isfinite(lk).all())
+    rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
+    drift = float(np.max(np.abs(lp - lp[0])))
+    share = float(np.max(np.abs(lk - lp))) / max(drift, 1e-30)
+    ratios = {}
+    got = dict(model.named_parameters())
+    for k, p in ref.named_parameters():
+        moved = float((p.detach() - p_init[k]).norm())
+        ratios[k] = float((got[k].detach() - p.detach()).norm()) / max(
+            moved, 1e-30)
+    worst = max(ratios, key=ratios.get)
+    return [("losses max rel err", rel, 1e-4, fin and rel <= 1e-4),
+            (f"losses max|diff|/drift (drift {drift:.3g})", share,
+             LOSS_DRIFT_TOL, fin and share <= LOSS_DRIFT_TOL),
+            (f"parameters ||a-b||/||b-b0|| ({worst})", ratios[worst],
+             PARAM_TOL, ratios[worst] <= PARAM_TOL)]
+
+
+def _checked(tag: str, rows: list) -> None:
+    log(f"[mesh] {tag} checks: " + "; ".join(
+        f"{c} {r:.3g} (limit {lim:g}{'' if ok else ', FAILED'})"
+        for c, r, lim, ok in rows))
+    failed = [c for c, _, _, ok in rows if not ok]
+    if failed:
+        raise RuntimeError(f"[mesh] {tag} fails {failed}")
+
+
+def _same_shapes(torch, batches) -> list:
+    """Flat batches padded to one nnz (padding: id 0, value 0, the
+    scratch row), so that k of them stack for the k-step call."""
+    if batches[0]["ids"].dim() == 2:
+        return batches
+    nnz = max(int(b["ids"].shape[0]) for b in batches)
+    out = []
+    for b in batches:
+        pad = nnz - int(b["ids"].shape[0])
+        rows = int(b["labels"].shape[0])
+        out.append({**b,
+                    "ids": _pad(torch, b["ids"], pad, 0),
+                    "vals": _pad(torch, b["vals"], pad, 0),
+                    "segments": _pad(torch, b["segments"], pad, rows)})
+    return out
+
+
+def _pad(torch, t, n: int, value):
+    """``t`` with ``n`` more entries of ``value``."""
+    return torch.cat([t, torch.full((n,), value, dtype=t.dtype,
+                                    device=t.device)])
+
+
+def _union(torch, batches: list) -> dict:
+    """One process's batch of the ranks' batches of one step: rows in
+    rank order, each flat batch's live entries in rank order, then the
+    padding (on the union's scratch row)."""
+    if batches[0]["ids"].dim() == 2:
+        return {k: torch.cat([b[k] for b in batches])
+                for k in ("ids", "vals", "labels", "weights")}
+    rows = sum(int(b["labels"].shape[0]) for b in batches)
+    ids, vals, segs, rps, pads, at, nnz = [], [], [], [], [], 0, 0
+    for b in batches:
+        n = int(b["row_ptr"][-1])
+        ids.append(b["ids"][:n])
+        vals.append(b["vals"][:n])
+        segs.append(b["segments"][:n] + at)
+        rps.append(b["row_ptr"][1:] + nnz)
+        pads.append(int(b["ids"].shape[0]) - n)
+        at += int(b["labels"].shape[0])
+        nnz += n
+    pad = sum(pads)
+    dev = batches[0]["ids"].device
+    return {"ids": _pad(torch, torch.cat(ids), pad, 0),
+            "vals": _pad(torch, torch.cat(vals), pad, 0),
+            "segments": _pad(torch, torch.cat(segs), pad, rows),
+            "row_ptr": torch.cat([torch.zeros(1, dtype=torch.int32,
+                                              device=dev)] + rps),
+            "labels": torch.cat([b["labels"] for b in batches]),
+            "weights": torch.cat([b["weights"] for b in batches])}
+
+
+def _collectives_check(torch, mesh) -> dict:
+    """Every collective of the port over ``mesh`` on card tensors,
+    against numpy; ``{"lacks": why}`` where the backend has none."""
+    from dmlc_core_tpu_torch.parallel import MeshCollectives, reduce_scatter
+    from dmlc_core_tpu_torch.utils import DMLCError
+    W, r = mesh.world, mesh.rank
+    per = np.random.default_rng(SEED + 7).standard_normal(
+        (W, W, 16)).astype(np.float32)        # per[r]: rank r's block
+    coll = MeshCollectives(mesh)
+    x = torch.from_numpy(per[r]).to(mesh.device)
+    cases = {
+        "allreduce_sum": (lambda: coll.allreduce(x), per.sum(0)),
+        "allreduce_max": (lambda: coll.allreduce(x, "max"), per.max(0)),
+        "allreduce_min": (lambda: coll.allreduce(x, "min"), per.min(0)),
+        "broadcast": (lambda: coll.broadcast(x, root=W - 1), per[W - 1]),
+        "allgather": (lambda: coll.allgather(x), per),
+        "reduce_scatter": (lambda: reduce_scatter(x, mesh),
+                           per.sum(0)[r:r + 1]),
+        "all_to_all": (lambda: coll.all_to_all(x), per[:, r]),
+    }
+    out = {}
+    for name, (fn, want) in cases.items():
+        try:
+            got = fn().cpu().numpy()
+        except DMLCError as e:
+            out[name] = {"lacks": str(e)}
+            continue
+        out[name] = {"max_abs_err": float(np.abs(got - want).max()),
+                     "ok": bool(got.shape == want.shape and np.allclose(
+                         got, want, rtol=1e-6, atol=1e-6))}
+    return out
+
+
+def _allreduce_ms(torch, mesh, elements: int) -> float:
+    """Median ms of an all-reduce of ``elements`` float32 on the card
+    (a step's gradients and loss), host clock around a synchronize."""
+    import torch.distributed as dist
+    buf = torch.ones(elements, device=mesh.device)
+    dist.all_reduce(buf, group=mesh.group())
+    times = []
+    for _ in range(ALLREDUCE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.all_reduce(buf, group=mesh.group())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _dp_run(torch, mesh, kind, layout, cap, rows, path, part, parts):
+    """fit_stream(mesh=) of a seeded kernel model over its partition of
+    ``path``: ``(model, initial parameters, batches, losses, wall s,
+    launches)``."""
+    from dmlc_core_tpu_torch import adam, fit_stream
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    model = _model(torch, kind, "kernel")
+    p_init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    with _mesh_loader(path, layout, cap, rows, mesh, part, parts) as ld:
+        rec = _Recorder(ld)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        hist = fit_stream(model, rec, optimizer=adam(model, LR), mesh=mesh,
+                          log_every=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    return model, p_init, rec.seen, np.array(hist), wall, launches
+
+
+def _ref_run(torch, kind, engine, batches, mesh=None):
+    """The same seeded model stepped over ``batches`` by make_train_step
+    (with ``mesh`` or none): ``(model, losses)``."""
+    from dmlc_core_tpu_torch import adam, make_train_step
+    ref = _model(torch, kind, engine)
+    step = make_train_step(ref, adam(ref, LR, engine=engine), mesh)
+    losses = torch.stack([step(b) for b in batches]).cpu().numpy()
+    return ref, losses
+
+
+def _grad_bytes(model) -> int:
+    """Bytes of a dp step's gradient all-reduce: every gradient and the
+    loss, float32."""
+    return (sum(p.numel() for p in model.parameters()) + 1) * 4
+
+
+def _add(total: dict, launches: dict) -> dict:
+    for k, n in launches.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def _mesh_world1_path(torch, power, mesh, name, kind, layout, cap,
+                      train_file, eval_file) -> dict:
+    """[mesh] (a), one path: fit_stream over a world-1 NCCL mesh against
+    the no-mesh path (the kernels: phase 5's limits, their atomics order
+    varying from run to run; the plain path with deterministic
+    algorithms: array_equal), the captured k-step mesh form against the
+    mesh steps, and evaluate_stream with and without the mesh."""
+    from dmlc_core_tpu_torch import adam, evaluate_stream, fit_stream
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.models import (make_train_step_kbatch,
+                                            stack_batches)
+    model, p_init, batches, lk, wall, launches = _dp_run(
+        torch, mesh, kind, layout, cap, ROWS_TR, train_file, 0, 1)
+    if len(batches) != TRAIN_STEPS:
+        raise RuntimeError(f"[mesh] {name}: {len(batches)} batches, "
+                           f"expected {TRAIN_STEPS}")
+    ref, lp = _ref_run(torch, kind, "kernel", batches)
+    ref2, _ = _ref_run(torch, kind, "kernel", batches)
+    rows = _agree(torch, lk, lp, model, ref, p_init)
+    mine, theirs = _flat_params(torch, model), _flat_params(torch, ref)
+    diff = float((mine - theirs).abs().max())
+    floor = float((theirs - _flat_params(torch, ref2)).abs().max())
+    del ref2
+    # the plain path, deterministic: the mesh adds nothing at world 1
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        a, la = _ref_run(torch, kind, "torch", batches, mesh)
+        b, lb = _ref_run(torch, kind, "torch", batches)
+        exact = bool(torch.equal(_flat_params(torch, a),
+                                 _flat_params(torch, b))
+                     and np.array_equal(la, lb))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del a, b
+    rows.append(("plain path, deterministic: mesh array_equal to no mesh",
+                 float(exact), 1, exact))
+    # the k-step mesh form: the 8 steps as one captured graph
+    km = _model(torch, kind, "kernel")
+    kstep = make_train_step_kbatch(km, adam(km, LR), mesh)
+    stacked = stack_batches(_same_shapes(torch, batches))
+    reset_launch_counts()
+    lkb = kstep(stacked).cpu().numpy()
+    torch.cuda.synchronize()
+    kb_launches = launch_counts()
+    rows += [(f"k-step vs mesh steps: {c}", r, lim, ok)
+             for c, r, lim, ok in _agree(torch, lkb, lk, km, model, p_init)]
+    rows.append(("k-step route is the captured graph",
+                 float(kstep.route == "graph"), 1, kstep.route == "graph"))
+    kb_diff = float((_flat_params(torch, km) - mine).abs().max())
+    # evaluation with the mesh and without
+    with _mesh_loader(eval_file, layout, cap, ROWS_TR, mesh) as ev_ld:
+        ev_mesh = evaluate_stream(model, ev_ld, mesh=mesh)
+        ev_ld.before_first()
+        ev = evaluate_stream(model, ev_ld)
+    acc_rows = abs(ev_mesh["accuracy"] - ev["accuracy"]) * ev["weight"]
+    rows.append(("eval accuracy |diff| in rows", acc_rows, 1.0,
+                 acc_rows <= 1.0 + 1e-6 and ev_mesh["weight"] == EVAL_ROWS))
+    rows.append(("eval auc |diff|", abs(ev_mesh["auc"] - ev["auc"]), 1e-4,
+                 abs(ev_mesh["auc"] - ev["auc"]) <= 1e-4))
+    _checked(f"world 1 {name}", rows)
+    nbytes = _grad_bytes(model)
+    ar_ms = _allreduce_ms(torch, mesh, nbytes // 4)
+    # steady state, STEADY_EPOCHS passes, with the mesh and without
+    steady = {}
+    for tag, m, msh in (("mesh", model, mesh), ("no mesh", ref, None)):
+        with _mesh_loader(train_file, layout, cap, ROWS_TR, msh) as ld:
+            t0 = time.perf_counter()
+            fit_stream(m, ld, optimizer=adam(m, LR), mesh=msh,
+                       epochs=STEADY_EPOCHS, log_every=0)
+            torch.cuda.synchronize()
+            steady[tag] = STEADY_EPOCHS * TRAIN_STEPS / (
+                time.perf_counter() - t0)
+    log(f"[mesh] world 1 (nccl) {name}: {len(batches)} steps of {ROWS_TR} "
+        f"rows in {wall:.4f} s: {len(batches) / wall:.3f} steps/s; "
+        f"all-reduce of the step's {nbytes} bytes {ar_ms:.4f} ms; loss "
+        f"{lk[0]:.6f} -> {lk[-1]:.6f} (no mesh {lp[-1]:.6f}); max|p - p "
+        f"no mesh| {diff:.3g} (two no-mesh runs: {floor:.3g}, the "
+        f"backward kernels' atomics; array_equal "
+        f"{bool(torch.equal(mine, theirs))}); k-step route "
+        f"{kstep.route}, max|p_k - p| {kb_diff:.3g}; eval accuracy "
+        f"{ev_mesh['accuracy']:.6f} auc {ev_mesh['auc']:.6f} [{power}]")
+    log(f"[mesh] world 1 (nccl) {name} steady state, {STEADY_EPOCHS} "
+        f"epochs of {TRAIN_STEPS} steps: mesh {steady['mesh']:.3f} steps/s, "
+        f"no mesh {steady['no mesh']:.3f} steps/s [{power}]")
+    log(f"[mesh] world 1 {name} kernel launches: {launches}; k-step "
+        f"{kb_launches}")
+    return _add(dict(launches), kb_launches)
+
+
+def _mesh_ranks(torch, power, data, world: int, backend: str) -> dict:
+    """[mesh] (b): ``world`` ranks, each a process of this script, each
+    reading its partition of the training and eval files: over gloo all
+    on cuda:0 (NCCL refuses two ranks on one card), over NCCL rank r on
+    cuda:r."""
+    port = _free_port()
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(os.path.join(data, f"mesh_rank{r}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 str(r), "--mesh-world", str(world), "--mesh-port",
+                 str(port), "--mesh-data", data, "--mesh-backend", backend],
+                cwd=ROOT, env=_cli_env(), stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + 2 * MESH_TIMEOUT
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+            f.close()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        for ln in out.splitlines():
+            if ln.startswith("[mesh]"):
+                log(ln)
+        if p.returncode != 0:
+            raise RuntimeError(f"[mesh] rank {r} exited {p.returncode}: "
+                               f"{out[-3000:]}")
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(data, f"mesh_rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    launches: dict = {}
+    for out in ranks:
+        _add(launches, out["launches"])
+        for name, c in out["collectives"].items():
+            if "lacks" in c and (backend == "nccl" or name.startswith(
+                    ("allreduce", "broadcast"))):
+                raise RuntimeError(f"[mesh] {backend} lacks {name}")
+            if "lacks" not in c and not c["ok"]:
+                raise RuntimeError(f"[mesh] {backend} {name} on rank "
+                                   f"{out['rank']}: max|err| "
+                                   f"{c['max_abs_err']:.3g}")
+    for name, c in ranks[0]["collectives"].items():
+        log(f"[mesh] world {world} ({backend}, cuda tensors) {name}: "
+            + (c["lacks"] if "lacks" in c else
+               f"max|err| vs numpy {c['max_abs_err']:.3g} (every rank)"))
+    for name, *_ in MESH_PATHS:
+        per = [out["paths"][name] for out in ranks]
+        if not all(p["ranks_equal"] for p in per):
+            raise RuntimeError(f"[mesh] world {world} {name}: the ranks' "
+                               "parameters differ")
+        rows = [tuple(row) for row in per[0]["reference"]]
+        if backend == "nccl":
+            rows += [tuple(row) for row in per[0]["kstep"]]
+            ok = [all(row[3] for row in p["kstep"]) for p in per]
+            rows.append(("k-step checks pass on every rank", float(sum(ok)),
+                         world, all(ok)))
+        s0 = np.concatenate([np.load(os.path.join(
+            data, f"mesh_eval_r{r}_{name}.npz"))["s0"]
+            for r in range(world)])
+        s1, y = (np.concatenate([np.load(os.path.join(
+            data, f"mesh_eval_r{r}_{name}.npz"))[k]
+            for r in range(world)]) for k in ("s1", "y"))
+        learn = _auc(s1 - s0, y)
+        rows.append(("evaluate_stream(mesh=) weight, the eval rows",
+                     per[0]["weight"], EVAL_ROWS,
+                     all(p["weight"] == EVAL_ROWS for p in per)))
+        rows.append(("learning: eval auc of the change in score, at least",
+                     learn, LEARN_AUC_MIN, learn >= LEARN_AUC_MIN
+                     and len(y) == EVAL_ROWS))
+        _checked(f"world {world} {name}", rows)
+        log(f"[mesh] world {world} ({backend}) {name}: steps "
+            f"{[p['steps'] for p in per]} (batches "
+            f"{[p['batches'] for p in per]}) of {ROWS_TR // world} rows "
+            f"a rank: " + ", ".join(
+                f"rank {r} {p['steps'] / p['wall_s']:.3f} steps/s"
+                for r, p in enumerate(per))
+            + f"; all-reduce of the step's {per[0]['bytes']} bytes "
+            f"{per[0]['allreduce_ms']:.3f} ms; ranks array_equal; "
+            f"evaluate_stream(mesh=) accuracy {per[0]['accuracy']:.6f} "
+            f"auc {per[0]['auc']:.6f}; auc of the change in score "
+            f"{learn:.6f} [{power}]")
+    log(f"[mesh] world {world} ({backend}) kernel launches (every rank): "
+        f"{launches}")
+    return {"launches": launches, "ranks": ranks}
+
+
+def _free_port() -> int:
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def phase_mesh(torch, power: str, data: str, train_file: str,
+               eval_file: str) -> dict:
+    """Data-parallel training at full width: (a) world 1 over NCCL in
+    this process, (b) world 2 over gloo in two processes, (c) every
+    collective on card tensors in both.  Returns the launch counts of
+    (a) and of (b) (both ranks)."""
+    from dmlc_core_tpu_torch.parallel import make_mesh
+    t0 = time.monotonic()
+    mesh = make_mesh("dp=-1", timeout_s=MESH_TIMEOUT)
+    try:
+        coll = _collectives_check(torch, mesh)
+        for name, c in coll.items():
+            if "lacks" in c or not c["ok"]:
+                raise RuntimeError(f"[mesh] nccl {name}: {c}")
+            log(f"[mesh] world 1 (nccl) {name}: max|err| vs numpy "
+                f"{c['max_abs_err']:.3g}")
+        world1: dict = {}
+        for name, kind, layout, cap in MESH_PATHS:
+            try:
+                got = _mesh_world1_path(torch, power, mesh, name, kind,
+                                        layout, cap, train_file, eval_file)
+            finally:
+                torch.cuda.empty_cache()
+            _add(world1, got)
+    finally:
+        mesh.close()
+    world2 = _mesh_ranks(torch, power, data, MESH_WORLD,
+                         "gloo")["launches"]
+    for tag, launches in (("world 1", world1),
+                          (f"world {MESH_WORLD}", world2)):
+        missing = [k for k in MESH_KERNELS if launches.get(k, 0) < 1]
+        if missing:
+            raise RuntimeError(f"[mesh] {tag} never launched {missing}")
+    log(f"[mesh] done in {time.monotonic() - t0:.1f} s")
+    return {"world1": world1, "world2": world2}
+
+
+def _save_batches(path: str, batches: list) -> None:
+    np.savez(path, **{f"b{i}/{k}": v.cpu().numpy()
+                      for i, b in enumerate(batches) for k, v in b.items()})
+
+
+def _load_batches(torch, path: str) -> list:
+    got = np.load(path)
+    out: dict = {}
+    for key in got.files:
+        i, k = key.split("/")
+        out.setdefault(int(i[1:]), {})[k] = torch.from_numpy(
+            got[key]).cuda()
+    return [out[i] for i in sorted(out)]
+
+
+def _ranks_equal(torch, mesh, model) -> bool:
+    """Whether every rank's parameters are array_equal to rank 0's."""
+    import torch.distributed as dist
+    mine = _flat_params(torch, model)
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0, group=mesh.group())
+    flag = torch.tensor([float(torch.equal(mine, theirs))],
+                        device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.group())
+    return bool(flag.item() == 1.0)
+
+
+def _mesh_kstep(torch, mesh, kind, batches, lk, model, p_init):
+    """[mesh] (b) over NCCL: every step of the mesh run as one captured
+    k-step call on this rank's batches (zero-weight copies of its last
+    where its slice ran out first, as fit_stream steps), held to phase
+    5's limits of the rank's mesh steps, its route and its parameters
+    across ranks: ``(check rows, launches)``."""
+    from dmlc_core_tpu_torch import adam
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.models import (make_train_step_kbatch,
+                                            stack_batches)
+    idle = {**batches[-1], "weights": torch.zeros_like(
+        batches[-1]["weights"])}
+    steps = list(batches) + [idle] * (len(lk) - len(batches))
+    km = _model(torch, kind, "kernel")
+    kstep = make_train_step_kbatch(km, adam(km, LR), mesh)
+    stacked = stack_batches(_same_shapes(torch, steps))
+    reset_launch_counts()
+    lkb = kstep(stacked).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    rows = [(f"k = {len(lk)} captured vs mesh steps: {c}", r, lim, ok)
+            for c, r, lim, ok in _agree(torch, lkb, lk, km, model, p_init)]
+    rows.append(("k-step route is the captured graph",
+                 float(kstep.route == "graph"), 1, kstep.route == "graph"))
+    equal = _ranks_equal(torch, mesh, km)
+    rows.append(("k-step ranks array_equal", float(equal), 1, equal))
+    del km, stacked
+    return rows, launches
+
+
+def main_mesh_rank(rank: int, world: int, port: int, data: str,
+                   backend: str) -> int:
+    """``--mesh-rank R``: one rank of [mesh] (b).  Trains each path over
+    its partitions under a ``backend`` mesh (gloo: on cuda:0; NCCL: on
+    cuda:R), checks that the ranks' parameters are array_equal (over
+    NCCL, also the captured k-step form's, against the mesh steps),
+    times the gradient's all-reduce and saves its batches and eval
+    scores; rank 0 then runs one process's steps on the ranks'
+    concatenated batches.  Writes ``mesh_rank<R>.json`` in ``data``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dmlc_core_tpu_torch import evaluate_stream
+    from dmlc_core_tpu_torch.parallel import make_mesh
+    mesh = make_mesh(device=f"cuda:{rank if backend == 'nccl' else 0}",
+                     backend=backend,
+                     init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                     world_size=world, timeout_s=MESH_TIMEOUT)
+    train_file = os.path.join(data, "train.libsvm")
+    eval_file = os.path.join(data, "eval.libsvm")
+    rows = ROWS_TR // world
+    out = {"rank": rank, "collectives": _collectives_check(torch, mesh),
+           "paths": {}, "launches": {}}
+    for name, kind, layout, cap in MESH_PATHS:
+        cap = cap // world if layout == "flat" else cap
+        fresh = _model(torch, kind, "kernel")
+        with _mesh_loader(eval_file, layout, cap, rows, mesh, rank,
+                          world) as ev_ld:
+            s0, y = _eval_scores(torch, fresh, ev_ld)
+        del fresh
+        model, p_init, batches, lk, wall, launches = _dp_run(
+            torch, mesh, kind, layout, cap, rows, train_file, rank, world)
+        _add(out["launches"], launches)
+        with _mesh_loader(eval_file, layout, cap, rows, mesh, rank,
+                          world) as ev_ld:
+            s1, _ = _eval_scores(torch, model, ev_ld)
+            ev_ld.before_first()
+            ev = evaluate_stream(model, ev_ld, mesh=mesh)
+        np.savez(os.path.join(data, f"mesh_eval_r{rank}_{name}.npz"),
+                 s0=s0, s1=s1, y=y)
+        equal = _ranks_equal(torch, mesh, model)
+        kstep = None
+        if backend == "nccl":
+            kstep, kb_launches = _mesh_kstep(torch, mesh, kind, batches, lk,
+                                             model, p_init)
+            _add(out["launches"], kb_launches)
+        nbytes = _grad_bytes(model)
+        ar_ms = _allreduce_ms(torch, mesh, nbytes // 4)
+        _save_batches(os.path.join(data, f"mesh_r{rank}_{name}.npz"),
+                      batches)
+        dist.barrier(group=mesh.group())
+        reference = []
+        if rank == 0:
+            # one process's steps on the ranks' concatenated batches
+            per = [batches] + [_load_batches(torch, os.path.join(
+                data, f"mesh_r{r}_{name}.npz")) for r in range(1, world)]
+            unions = [_union(torch, [b[i] for b in per if i < len(b)])
+                      for i in range(len(lk))]
+            ref, lp = _ref_run(torch, kind, "kernel", unions)
+            reference = _agree(torch, lk, lp, model, ref, p_init)
+            del ref, unions, per
+        out["paths"][name] = {
+            "steps": len(lk), "batches": len(batches), "wall_s": wall,
+            "ranks_equal": equal, "kstep": kstep, "bytes": nbytes,
+            "allreduce_ms": ar_ms, "accuracy": ev["accuracy"],
+            "auc": ev["auc"], "weight": ev["weight"],
+            "reference": reference}
+        del model, batches
+        torch.cuda.empty_cache()
+        dist.barrier(group=mesh.group())
+    with open(os.path.join(data, f"mesh_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    mesh.close()
+    return 0
+
+
+# -- [probe]: the transfer probe (ROADMAP A.14) -------------------------------
+
+PROBE_COPIES = 4           # the training file 4 times: 32 batches a pass
+PROBE_ROUNDS = 5           # alternating rounds of the 4 configurations
+PROBE_EPOCHS = 3           # timed FusedTrainer(k=8) epochs a wire, in turns
+
+
+def phase_probe(torch, power: str, data: str, train_file: str) -> dict:
+    """The port's probe over the training file repeated PROBE_COPIES
+    times (4096-row batches, nnz_cap 131072) with DMLC_TUNED_CONFIG in
+    the data directory: batches/s per configuration, the winner
+    persisted and resolved, then FusedTrainer(k=8) of FM on the resolved
+    wire and on the other, epoch by epoch in turns.  Returns the launch
+    counts of the FusedTrainer epochs."""
+    from dmlc_core_tpu_torch import (DeviceLoader, FusedTrainer, adam,
+                                     create_parser)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.pipeline import probe, tuned
+    big = os.path.join(data, "probe.libsvm")
+    with open(train_file, "rb") as f:
+        text = f.read()
+    with open(big, "wb") as f:
+        f.write(text * PROBE_COPIES)
+    saved = {k: os.environ.pop(k, None)
+             for k in ("DMLC_TUNED_CONFIG",) + probe.PIN_KNOBS}
+    os.environ["DMLC_TUNED_CONFIG"] = os.path.join(data, "tuned.json")
+    try:
+        res = probe.measure(big, batch_rows=ROWS_TR, nnz_cap=CAP_TR,
+                            rounds=PROBE_ROUNDS)
+        for cfg, runs in res.runs.items():
+            log(f"[probe] put_threads {cfg[0]} {'v3' if cfg[1] else 'v2'}: "
+                f"{res.score(cfg):.2f} batches/s median of {len(runs)} "
+                f"({', '.join(f'{v:.2f}' for v in runs)}); {res.batches} "
+                f"batches a pass [{power}]")
+        if not probe.persist(res):
+            raise RuntimeError("[probe] the winner was not persisted")
+        got = tuned.resolve("cuda", "auto", "auto")
+        if got != res.winner:
+            raise RuntimeError(f"[probe] resolve gives {got}, the probe's "
+                               f"winner is {res.winner}")
+        log(f"[probe] winner put_threads {got[0]} "
+            f"{'v3' if got[1] else 'v2'}, persisted and resolved")
+        trainers = {}
+        reset_launch_counts()
+        for wire in (got[1], not got[1]):
+            model = _model(torch, "fm", "kernel")
+            loader = DeviceLoader(create_parser(big, engine="native"),
+                                  ROWS_TR, CAP_TR, engine="native",
+                                  emit="host", device="cuda",
+                                  wire_compact="auto" if wire == got[1]
+                                  else wire)
+            tr = FusedTrainer(model, adam(model, LR), loader, k=KSTEP)
+            tr.run_epoch()                     # the captures
+            loader.before_first()
+            trainers[wire] = (tr, loader, [])
+        try:
+            for _ in range(PROBE_EPOCHS):
+                for wire, (tr, loader, rates) in trainers.items():
+                    steps = tr.steps
+                    t0 = time.perf_counter()
+                    tr.run_epoch()
+                    rates.append((tr.steps - steps)
+                                 / (time.perf_counter() - t0))
+                    loader.before_first()
+        finally:
+            for tr, loader, _ in trainers.values():
+                loader.close()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for wire, (tr, loader, rates) in trainers.items():
+            log(f"[probe] FusedTrainer(k={KSTEP}) FM flat on "
+                f"{'v3' if wire else 'v2'}"
+                f"{' (resolved)' if wire == got[1] else ''}: "
+                f"{', '.join(f'{r:.2f}' for r in rates)} steps/s by epoch "
+                f"({tr.steps // (PROBE_EPOCHS + 1)} steps an epoch, graphs "
+                f"{len(tr.graph_keys)}) [{power}]")
+        log(f"[probe] kernel launches: {launches}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return launches
+
+
+def main_mesh_nccl(world: int) -> int:
+    """``--mesh-nccl W``: phases 1 and 2, then [mesh] (b) over NCCL with
+    rank r on cuda:r, W cards."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    if torch.cuda.device_count() < world:
+        print(f"chip_smoke: --mesh-nccl {world} needs {world} cards, found "
+              f"{torch.cuda.device_count()}", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    power = phase_device(torch)
+    phase_build()
+    with _data_files() as (data, _, _):
+        got = _mesh_ranks(torch, power, data, world, "nccl")
+    missing = [k for k in MESH_KERNELS if got["launches"].get(k, 0) < 1]
+    if missing:
+        raise RuntimeError(f"[mesh] nccl world {world} never launched "
+                           f"{missing}")
+    print(power)
+    print(json.dumps({"mesh_nccl": {"world": world,
+                                    "launches": got["launches"]}}))
+    return 0
+
+
+def main_mesh() -> int:
+    """``--mesh``: phases 1, 2, [mesh] and [probe] only."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    power = phase_device(torch)
+    phase_build()
+    with _data_files() as (data, train_file, eval_file):
+        mesh = phase_mesh(torch, power, data, train_file, eval_file)
+        probe = phase_probe(torch, power, data, train_file)
+    print(power)
+    print(json.dumps({"mesh": mesh, "probe": probe}))
+    return 0
+
+
 # -- phase 6 ----------------------------------------------------------------
 
 CLI_TOL = 2e-6             # printed scores ('%.6f') vs the in-process ones
@@ -6954,6 +7719,8 @@ def main() -> int:
         remote = phase_remote(torch, power, data, train_file, eval_file)
         ingest = phase_ingest(torch, timer, power, data, train_file,
                               eval_file)
+        mesh = phase_mesh(torch, power, data, train_file, eval_file)
+        probe = phase_probe(torch, power, data, train_file)
         # last: once torch.profiler has run, every later launch of this
         # process pays for it (PERF.md)
         trace = phase_trace(torch, power, train_file)["launches"]
@@ -7045,6 +7812,12 @@ def main() -> int:
     missing += [f"wire_decode ({name})" for name, path in (
         ("training", training), ("kstep", kstep), ("io", io),
         ("remote", remote)) if path.get("wire_decode", 0) < 1]
+    # [mesh] checks its own paths' kernels (MESH_KERNELS); the probe's
+    # FusedTrainer runs both wires
+    missing += [f"{k} (probe)" for k in (
+        "ragged_gather_fm", "ragged_gather_embed", "ragged_gather_grad_fm",
+        "ragged_gather_grad_embed", "adam", "wire_decode")
+        if probe.get(k, 0) < 1]
     if missing:
         raise RuntimeError(f"main path never launched: {missing}")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -7084,6 +7857,17 @@ def main() -> int:
         if trace.get(name, 0):
             # [trace]: the traced requests and the profiled FM step
             row["trace"] = {"launches": trace[name]}
+        if name in MESH_KERNELS:
+            # [mesh]: dp training, world 1 over NCCL in this process
+            # (fit_stream and the captured k-step form), world 2 over gloo
+            # (both ranks' processes)
+            row["mesh"] = {"world1": {"launches": mesh["world1"].get(name,
+                                                                     0)},
+                           "world2": {"launches": mesh["world2"].get(name,
+                                                                     0)}}
+        if probe.get(name, 0):
+            # [probe]: FusedTrainer(k=8) on the resolved wire and the other
+            row["probe"] = {"launches": probe[name]}
         if name == "wire_decode":
             # the flat paths of the other phases, v3 on the card
             row["paths"] = {n: p.get(name, 0) for n, p in (
@@ -7136,10 +7920,30 @@ if __name__ == "__main__":
     ap.add_argument("--serving", action="store_true",
                     help="run the serving phases only (4, 4a, [exporter], "
                          "[incident] and [diagnose])")
+    ap.add_argument("--mesh", action="store_true",
+                    help="run [mesh] and [probe] only (after phases 1-2)")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # [mesh] (b)'s rank processes
+    ap.add_argument("--mesh-world", type=int, default=MESH_WORLD,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-port", type=int, default=0,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-data", default="", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-backend", default="gloo",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-nccl", type=int, default=0, metavar="W",
+                    help="run [mesh] (b) over NCCL on W cards, one rank a "
+                         "card, only (after phases 1-2)")
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None
               else main_serving() if args.serving
+              else main_mesh_rank(args.mesh_rank, args.mesh_world,
+                                  args.mesh_port, args.mesh_data,
+                                  args.mesh_backend)
+              if args.mesh_rank is not None
+              else main_mesh_nccl(args.mesh_nccl) if args.mesh_nccl
+              else main_mesh() if args.mesh
               else main())
     except Exception as e:  # noqa: BLE001 — any failed phase fails
         import traceback

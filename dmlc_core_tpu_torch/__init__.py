@@ -33,6 +33,19 @@ k steps a dispatch, each dispatch one replay of a captured CUDA graph::
                           nnz_cap=131072, emit="host")
     fit_stream(model, loader, optimizer=adam(model, 1e-3), kstep=8)
 
+data-parallel over W processes, one card each (torchrun, or the
+reference's ``DMLC_TASK_ID``/``DMLC_NUM_WORKER`` with ``MASTER_ADDR`` and
+``MASTER_PORT``), each rank reading its partition::
+
+    from dmlc_core_tpu_torch.models import batch_sharding
+    from dmlc_core_tpu_torch.parallel import make_mesh
+    mesh = make_mesh("dp=-1")
+    loader = DeviceLoader(create_parser("train.libsvm", mesh.rank,
+                                        mesh.world),
+                          batch_rows=4096, nnz_cap=131072,
+                          sharding=batch_sharding(mesh))
+    fit_stream(model, loader, optimizer=adam(model, 1e-3), mesh=mesh)
+
 or from the command line, as the JAX package's ``dmlc-train``::
 
     python -m dmlc_core_tpu_torch.models.cli model=deepfm data=train.libsvm
@@ -58,8 +71,8 @@ or from the command line::
     python -m dmlc_core_tpu_torch.serving.client 127.0.0.1:9200 requests=2000 concurrency=8
 """
 
-from . import (data, io, kernels, models, ops, pipeline,  # noqa: F401
-               serving, telemetry, transport, utils)
+from . import (data, io, kernels, models, ops, parallel,  # noqa: F401
+               pipeline, serving, telemetry, transport, utils)
 from .data import create_parser  # noqa: F401
 from .models import (FTRL, Adam, DCNv2, DeepFM,  # noqa: F401
                      FactorizationMachine, FieldAwareFM, FusedTrainer,

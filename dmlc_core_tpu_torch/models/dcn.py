@@ -107,6 +107,8 @@ class DCNv2(nn.Module):
         xL = self._cross(x0)
         return self.w0 + linear + xL @ self.head.w + self.head.b
 
-    def loss(self, batch: Batch) -> torch.Tensor:
+    def loss(self, batch: Batch, wsum: Optional[torch.Tensor] = None,
+             reg_scale: float = 1.0) -> torch.Tensor:
         return task_loss(self(batch), batch, self.task, self.l2, self.w,
-                         self.v, self.cross.w, self.head.w)
+                         self.v, self.cross.w, self.head.w,
+                         wsum=wsum, reg_scale=reg_scale)

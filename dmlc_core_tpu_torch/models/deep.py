@@ -106,6 +106,8 @@ class DeepFM(nn.Module):
         deep = self._tower(s1) @ self.head.w + self.head.b
         return self.w0 + linear + fm_reduce(s1, s2) + deep
 
-    def loss(self, batch: Batch) -> torch.Tensor:
+    def loss(self, batch: Batch, wsum: Optional[torch.Tensor] = None,
+             reg_scale: float = 1.0) -> torch.Tensor:
         return task_loss(self(batch), batch, self.task, self.l2, self.w,
-                         self.v, self.tower.w, self.head.w)
+                         self.v, self.tower.w, self.head.w,
+                         wsum=wsum, reg_scale=reg_scale)

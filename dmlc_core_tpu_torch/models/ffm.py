@@ -152,6 +152,8 @@ class FieldAwareFM(nn.Module):
                                       num_rows)
         return self.w0 + linear + 0.5 * (cross - diag)
 
-    def loss(self, batch: Batch) -> torch.Tensor:
+    def loss(self, batch: Batch, wsum: Optional[torch.Tensor] = None,
+             reg_scale: float = 1.0) -> torch.Tensor:
         return task_loss(self(batch), batch, self.task, self.l2, self.w,
-                         self.v)
+                         self.v,
+                         wsum=wsum, reg_scale=reg_scale)

@@ -45,31 +45,45 @@ def _rowmajor_matvec(batch: Batch, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bk,bk->b", batch["vals"], picked)
 
 
+def _denominator(weights: torch.Tensor,
+                 wsum: Optional[torch.Tensor]) -> torch.Tensor:
+    return torch.clamp(weights.sum(), min=1e-9) if wsum is None else wsum
+
+
 def weighted_bce(logits: torch.Tensor, labels: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
+                 weights: torch.Tensor,
+                 wsum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-example-weighted binary cross-entropy on {0,1} or {-1,1}
-    labels; rows of weight 0 drop out of numerator and count."""
+    labels; rows of weight 0 drop out of numerator and count.  ``wsum``
+    replaces the batch's clamped weight sum as the denominator (a
+    data-parallel rank divides by the global batch's)."""
     y = (labels > 0).to(logits.dtype)
     per = -(y * F.logsigmoid(logits) + (1.0 - y) * F.logsigmoid(-logits))
-    wsum = torch.clamp(weights.sum(), min=1e-9)
-    return (per * weights).sum() / wsum
+    return (per * weights).sum() / _denominator(weights, wsum)
 
 
 def weighted_mse(pred: torch.Tensor, labels: torch.Tensor,
-                 weights: torch.Tensor) -> torch.Tensor:
-    wsum = torch.clamp(weights.sum(), min=1e-9)
-    return (weights * (pred - labels) ** 2).sum() / wsum
+                 weights: torch.Tensor,
+                 wsum: Optional[torch.Tensor] = None) -> torch.Tensor:
+    return ((weights * (pred - labels) ** 2).sum()
+            / _denominator(weights, wsum))
 
 
 def task_loss(out: torch.Tensor, batch: Batch, task: str, l2: float,
-              *regs: torch.Tensor) -> torch.Tensor:
-    """Binary BCE or regression MSE, plus l2 on the given tensors."""
+              *regs: torch.Tensor, wsum: Optional[torch.Tensor] = None,
+              reg_scale: float = 1.0) -> torch.Tensor:
+    """Binary BCE or regression MSE, plus l2 on the given tensors.
+
+    A data-parallel rank passes ``wsum``, the global batch's clamped
+    weight sum, and ``reg_scale`` = 1 / world: summed over the ranks,
+    the losses (and gradients) are the global batch's, l2 counted
+    once."""
     if task == "binary":
-        base = weighted_bce(out, batch["labels"], batch["weights"])
+        base = weighted_bce(out, batch["labels"], batch["weights"], wsum)
     else:
-        base = weighted_mse(out, batch["labels"], batch["weights"])
+        base = weighted_mse(out, batch["labels"], batch["weights"], wsum)
     if l2:
-        base = base + l2 * sum(torch.sum(r ** 2) for r in regs)
+        base = base + (l2 * reg_scale) * sum(torch.sum(r ** 2) for r in regs)
     return base
 
 
@@ -94,10 +108,12 @@ class SparseLogReg(nn.Module):
                              self.w, num_rows, engine=self.engine)
         return z + self.b
 
-    def loss(self, batch: Batch) -> torch.Tensor:
-        reg = self.l2 * torch.sum(self.w ** 2) if self.l2 else 0.0
+    def loss(self, batch: Batch, wsum: Optional[torch.Tensor] = None,
+             reg_scale: float = 1.0) -> torch.Tensor:
+        reg = ((self.l2 * reg_scale) * torch.sum(self.w ** 2) if self.l2
+               else 0.0)
         return weighted_bce(self(batch), batch["labels"],
-                            batch["weights"]) + reg
+                            batch["weights"], wsum) + reg
 
 
 class FactorizationMachine(nn.Module):
@@ -140,6 +156,7 @@ class FactorizationMachine(nn.Module):
                            self.v, num_rows, engine=self.engine)
         return self.w0 + linear + pair
 
-    def loss(self, batch: Batch) -> torch.Tensor:
+    def loss(self, batch: Batch, wsum: Optional[torch.Tensor] = None,
+             reg_scale: float = 1.0) -> torch.Tensor:
         return task_loss(self(batch), batch, self.task, self.l2, self.w,
-                         self.v)
+                         self.v, wsum=wsum, reg_scale=reg_scale)

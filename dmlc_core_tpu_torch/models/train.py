@@ -1,10 +1,13 @@
 """Training and evaluation loops, per step and k steps at a time.
 
-Counterpart of ``dmlc_core_tpu/models/train.py``, for one card:
+Counterpart of ``dmlc_core_tpu/models/train.py``, for one card or a
+``dp`` mesh of them:
 ``make_train_step``, ``make_eval_step``, ``streaming_auc``,
 ``auc_from_histograms``, ``evaluate_stream``, ``fit_stream``, and the
 k-step trainer: ``make_train_step_fused``, ``FusedTrainer``,
-``make_train_step_kbatch`` and ``stack_batches``.  A model is an
+``make_train_step_kbatch`` and ``stack_batches``, each with the JAX
+function's ``mesh=`` (data parallelism, below), and ``batch_sharding``,
+``param_shardings`` and ``shard_params``.  A model is an
 ``nn.Module`` with ``forward(batch)`` and ``loss(batch)``; the optimizer
 is one of the port's (:class:`.optim.Adam`, the port's ``optax.adam``,
 or :class:`.ftrl.FTRL`), or anything with ``zero_grad`` and ``step``.
@@ -24,8 +27,19 @@ optimizer state and the static inputs are never reallocated, since the
 graph holds their addresses.  The graphs of one trainer share one memory
 pool and run one after another on the caller's stream.  Launch counts of
 the kernels (:func:`..kernels.launch_counts`) are recorded at capture and
-added at each replay.  On the CPU the same k steps run eagerly.  Mesh
-shardings stay with the JAX package for now.
+added at each replay.  On the CPU the same k steps run eagerly.
+
+Data parallelism (``mesh=``, a ``dp`` mesh of :mod:`..parallel.mesh`,
+one process a device): each rank steps on its slice of the global batch
+and computes what the JAX dp-mesh step computes on the whole of it.
+Before the forward, one all-reduce of ``[weight sum, has data]`` gives
+the global batch's weight sum, by which each rank divides its local
+loss numerator, l2 entering at ``1 / world`` a rank; after the backward,
+one all-reduce of every gradient (and the loss) laid end to end sums
+them, and every rank runs the same optimizer update on the same sums,
+so the ranks' parameters stay bit-equal.  DDP's divide-by-world is not
+used: it is wrong when ranks hold unequal weights.  Every parameter is
+replicated; ``mp`` and ``pp`` wait for ROADMAP A.7.a2.
 """
 
 from __future__ import annotations
@@ -38,15 +52,17 @@ import numpy as np
 import torch
 
 from ..kernels.common import add_launches, record_launches
+from ..parallel.mesh import DataSharding, Mesh, refuse_axes
 from ..pipeline.loader import _fused_words_meta, make_decoder
 from ..utils.device import resolve_device
-from ..utils.logging import DMLCError, log_info
+from ..utils.logging import DMLCError, check, log_info
 from .optim import Adam
 
 __all__ = ["make_train_step", "make_eval_step", "streaming_auc",
            "auc_from_histograms", "evaluate_stream", "fit_stream", "adam",
            "make_train_step_fused", "FusedTrainer", "make_train_step_kbatch",
-           "stack_batches"]
+           "stack_batches", "batch_sharding", "param_shardings",
+           "shard_params", "DataParallelStep"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -58,10 +74,110 @@ def adam(model: torch.nn.Module, lr: float = 1e-3,
     return Adam(model.parameters(), lr=lr, engine=engine)
 
 
-def make_train_step(model: torch.nn.Module, optimizer
+def batch_sharding(mesh: Optional[Mesh]) -> Optional[DataSharding]:
+    """Batches shard their leading (row / nnz) axis over ``dp``: this
+    rank's slice, on its device (``DeviceLoader(sharding=)``)."""
+    if mesh is None:
+        return None
+    return DataSharding(mesh.rank, mesh.world, mesh.device)
+
+
+def param_shardings(model: torch.nn.Module, mesh: Optional[Mesh]
+                    ) -> Optional[Dict[str, str]]:
+    """Each parameter's placement: ``"replicated"`` over a ``dp`` mesh.
+    The JAX recipe's ``mp`` placements (its ``table_shard``) wait for
+    ROADMAP A.7.a2, and a mesh with another axis is refused."""
+    if mesh is None:
+        return None
+    refuse_axes(mesh.axis_names)
+    return {name: "replicated" for name, _ in model.named_parameters()}
+
+
+def _dp_params(model: torch.nn.Module) -> List[torch.Tensor]:
+    params = [p for p in model.parameters() if p.requires_grad]
+    dtypes = {p.dtype for p in params}
+    check(len(dtypes) == 1, f"data-parallel training wants one parameter "
+          f"dtype, got {sorted(map(str, dtypes))}")
+    return params
+
+
+def shard_params(model: torch.nn.Module, mesh: Optional[Mesh]) -> None:
+    """Place ``model``'s parameters on ``mesh``: every one replicated,
+    rank 0's values broadcast in place (one collective), so every rank
+    starts from the same parameters."""
+    if mesh is None:
+        return
+    import torch.distributed as dist
+    refuse_axes(mesh.axis_names)
+    params = _dp_params(model)
+    with torch.no_grad():
+        flat = torch.cat([p.reshape(-1) for p in params])
+        dist.broadcast(flat, src=0, group=mesh.group("dp"))
+        at = 0
+        for p in params:
+            p.copy_(flat[at:at + p.numel()].view_as(p))
+            at += p.numel()
+
+
+class DataParallelStep:
+    """``step(batch, stats=None) -> loss``: one gradient step of a ``dp``
+    rank (see the module's docstring); the loss returned is the global
+    batch's, the same on every rank.  :meth:`agree` is the step's first
+    all-reduce, ``[global weight sum, ranks with data]``, which a loop
+    over uneven partitions takes first and hands to the step."""
+
+    def __init__(self, model: torch.nn.Module, optimizer,
+                 mesh: Mesh) -> None:
+        refuse_axes(mesh.axis_names)
+        self.model, self.optimizer = model, optimizer
+        self.group = mesh.group("dp")
+        self.reg_scale = 1.0 / mesh.size("dp")
+        self.params = _dp_params(model)
+        check(self.params[0].device == mesh.device,
+              f"the model is on {self.params[0].device}, this rank's "
+              f"device is {mesh.device}")
+
+    def agree(self, batch: Batch, live: bool = True) -> torch.Tensor:
+        import torch.distributed as dist
+        w = batch["weights"]
+        # a fill, not a copy from the host: the step may be captured
+        stats = torch.stack([w.sum(), torch.full((), float(live),
+                                                 dtype=w.dtype,
+                                                 device=w.device)])
+        dist.all_reduce(stats, group=self.group)
+        return stats
+
+    def __call__(self, batch: Batch,
+                 stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        import torch.distributed as dist
+        if stats is None:
+            stats = self.agree(batch)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss = self.model.loss(batch, wsum=torch.clamp(stats[0], min=1e-9),
+                               reg_scale=self.reg_scale)
+        loss.backward()
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        flat = torch.cat([g.reshape(-1) for g in grads]
+                         + [loss.detach().reshape(1)])
+        dist.all_reduce(flat, group=self.group)
+        at = 0
+        for p in self.params:
+            p.grad = flat[at:at + p.numel()].view_as(p)
+            at += p.numel()
+        self.optimizer.step()
+        return flat[at]
+
+
+def make_train_step(model: torch.nn.Module, optimizer,
+                    mesh: Optional[Mesh] = None
                     ) -> Callable[[Batch], torch.Tensor]:
     """``step(batch) -> loss``: one gradient step; the loss is a 0-d
-    tensor on the model's device (no host sync)."""
+    tensor on the model's device (no host sync).  With a ``dp`` mesh, a
+    :class:`DataParallelStep` (the loss then the global batch's)."""
+    if mesh is not None:
+        return DataParallelStep(model, optimizer, mesh)
+
     def step(batch: Batch) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
         loss = model.loss(batch)
@@ -71,13 +187,29 @@ def make_train_step(model: torch.nn.Module, optimizer
     return step
 
 
-def make_eval_step(model: torch.nn.Module
+def _mesh_sum(mesh: Optional[Mesh], parts: List[torch.Tensor]
+              ) -> List[torch.Tensor]:
+    """``parts`` summed over the mesh's ranks, in one all-reduce."""
+    if mesh is None:
+        return parts
+    import torch.distributed as dist
+    flat = torch.cat([p.reshape(-1) for p in parts])
+    dist.all_reduce(flat, group=mesh.group("dp"))
+    out, at = [], 0
+    for p in parts:
+        out.append(flat[at:at + p.numel()].view_as(p))
+        at += p.numel()
+    return out
+
+
+def make_eval_step(model: torch.nn.Module, mesh: Optional[Mesh] = None
                    ) -> Callable[[Batch], Tuple[torch.Tensor, torch.Tensor]]:
     """``evaluate(batch) -> (correct, total)``: weighted count of rows
-    whose sign of the score matches the label, and the weight."""
+    whose sign of the score matches the label, and the weight; with a
+    mesh, summed over the ranks' slices of the global batch."""
     @torch.no_grad()
     def evaluate(batch: Batch):
-        return _accuracy(model(batch), batch)
+        return tuple(_mesh_sum(mesh, list(_accuracy(model(batch), batch))))
     return evaluate
 
 
@@ -88,8 +220,12 @@ def _accuracy(out: torch.Tensor, batch: Batch):
     return (w * (pred == y).to(w.dtype)).sum(), w.sum()
 
 
+#: bins of :func:`streaming_auc`'s histograms
+AUC_BINS = 1024
+
+
 def streaming_auc(scores: torch.Tensor, labels: torch.Tensor,
-                  weights: torch.Tensor, num_bins: int = 1024
+                  weights: torch.Tensor, num_bins: int = AUC_BINS
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batch's weighted positive / negative histograms over fixed
     ``[0, 1]`` bins of ``sigmoid(score)``; batches add up.  Combine with
@@ -115,10 +251,13 @@ def auc_from_histograms(pos: torch.Tensor, neg: torch.Tensor
 
 
 def evaluate_stream(model: torch.nn.Module, loader, *,
+                    mesh: Optional[Mesh] = None,
                     auc: bool = True) -> Dict[str, float]:
     """One pass over ``loader``: weighted accuracy and, with ``auc``, the
     streaming binned ROC-AUC, from one forward per batch.  Sums stay on
-    the device until the end."""
+    the device until the end; with a mesh, ``correct``, ``total`` and
+    the AUC histograms are summed over the ranks (one all-reduce) before
+    the AUC is taken, and a rank whose slice is empty adds zeros."""
     correct = total = pos = neg = None
     with torch.no_grad():
         for batch in loader:
@@ -130,6 +269,18 @@ def evaluate_stream(model: torch.nn.Module, loader, *,
                 a, b = streaming_auc(out, batch["labels"], batch["weights"])
                 pos = a if pos is None else pos + a
                 neg = b if neg is None else neg + b
+    if mesh is not None:
+        zero = torch.zeros((), device=_model_device(model))
+        parts = [zero if correct is None else correct,
+                 zero if total is None else total]
+        if auc:
+            bins = zero.new_zeros(AUC_BINS)
+            parts += [bins if pos is None else pos,
+                      bins if neg is None else neg]
+        got = _mesh_sum(mesh, parts)
+        correct, total = got[:2]
+        if auc:
+            pos, neg = got[2:]
     if correct is None:
         out = {"accuracy": 0.0, "weight": 0.0}
         if auc:
@@ -141,8 +292,6 @@ def evaluate_stream(model: torch.nn.Module, loader, *,
     if auc:
         out["auc"] = float(auc_from_histograms(pos, neg))
     return out
-
-
 
 
 # -- k steps a dispatch --------------------------------------------------------
@@ -177,15 +326,21 @@ class KSteps:
     and replayed at every call; :meth:`run` replays over whatever
     ``static`` holds and returns the static losses (overwritten by the
     next replay).  ``__call__`` copies its inputs in and returns a copy of
-    the losses.  On the CPU the steps run eagerly."""
+    the losses.  On the CPU, or with ``capture=False``, the steps run
+    eagerly.  ``step`` is one step (:func:`make_train_step`'s, by
+    default)."""
 
     def __init__(self, model: torch.nn.Module, optimizer, k: int,
                  static: Inputs, batch_of: Callable[[Inputs, int], Batch],
-                 pool=None) -> None:
+                 pool=None, step: Optional[Callable[[Batch],
+                                                    torch.Tensor]] = None,
+                 capture: bool = True) -> None:
         if k < 1:
             raise DMLCError(f"k must be >= 1, got {k}")
         self.model, self.optimizer, self.k = model, optimizer, int(k)
         self.device = _model_device(model)
+        self.step = step or make_train_step(model, optimizer)
+        self.capture = bool(capture) and self.device.type == "cuda"
         self.static = static
         self.batch_of = batch_of
         self.pool = pool
@@ -196,11 +351,7 @@ class KSteps:
 
     def _steps(self, inputs: Inputs, losses: torch.Tensor) -> None:
         for i in range(self.k):
-            self.optimizer.zero_grad(set_to_none=True)
-            loss = self.model.loss(self.batch_of(inputs, i))
-            loss.backward()
-            self.optimizer.step()
-            losses[i].copy_(loss.detach())
+            losses[i].copy_(self.step(self.batch_of(inputs, i)))
 
     def _capture(self) -> None:
         t0 = time.perf_counter()
@@ -230,9 +381,9 @@ class KSteps:
     def run(self) -> torch.Tensor:
         """Replay the k steps over the static inputs (capturing them at
         the first call); returns the static losses."""
-        if self.device.type != "cuda":
-            raise DMLCError("run() replays a CUDA graph; on the CPU call "
-                            "kstep(inputs)")
+        if not self.capture:
+            raise DMLCError("run() replays a CUDA graph; eager k steps "
+                            "(the CPU, capture=False) take kstep(inputs)")
         if self.graph is None:
             self._capture()
         self.graph.replay()
@@ -240,7 +391,7 @@ class KSteps:
         return self.losses
 
     def __call__(self, inputs: Inputs) -> torch.Tensor:
-        if self.device.type != "cuda":
+        if not self.capture:
             losses = torch.empty(self.k, device=self.device)
             self._steps(inputs, losses)
             return losses
@@ -411,18 +562,26 @@ class FusedTrainer:
         return self.finish()
 
 
-def make_train_step_kbatch(model: torch.nn.Module, optimizer
+def make_train_step_kbatch(model: torch.nn.Module, optimizer,
+                           mesh: Optional[Mesh] = None
                            ) -> Callable[[Dict[str, torch.Tensor]],
                                          torch.Tensor]:
     """k steps a dispatch over device batches stacked leaf-wise
     (``batches[leaf].shape == (k, ...)``, see :func:`stack_batches`):
     ``kstep(batches) -> losses[k]``, step ``i`` on ``{leaf: v[i]}``.  On
     the card one CUDA graph per set of leaf shapes and dtypes, captured at
-    its first call; on the CPU the steps run eagerly.  The single-card
-    form of the JAX function (its mesh form is not ported)."""
+    its first call; on the CPU the steps run eagerly.
+
+    With a ``dp`` mesh each step is a :class:`DataParallelStep` over this
+    rank's slices: over NCCL its two all-reduces are captured inside the
+    graph; over gloo (which cannot be captured) or on the CPU the k
+    steps run eagerly.  ``kstep.route`` says which: ``"graph"`` or
+    ``"eager"``."""
     graphs: Dict[tuple, KSteps] = {}
     dev = _model_device(model)
-    pool = torch.cuda.graph_pool_handle() if dev.type == "cuda" else None
+    step = None if mesh is None else DataParallelStep(model, optimizer, mesh)
+    capture = dev.type == "cuda" and (mesh is None or mesh.capturable)
+    pool = torch.cuda.graph_pool_handle() if capture else None
 
     def batch_of(batches: Dict[str, torch.Tensor], i: int) -> Batch:
         return {key: v[i] for key, v in batches.items()}
@@ -437,20 +596,29 @@ def make_train_step_kbatch(model: torch.nn.Module, optimizer
         if fn is None:
             static = ({name: torch.empty_like(v, device=dev)
                        for name, v in batches.items()}
-                      if pool is not None else None)
+                      if capture else None)
             fn = graphs[key] = KSteps(model, optimizer, k.pop(), static,
-                                      batch_of, pool)
+                                      batch_of, pool, step=step,
+                                      capture=capture)
         return fn(batches)
+    kstep.route = "graph" if capture else "eager"
     return kstep
 
 
 def stack_batches(batches: Sequence[Dict[str, Any]],
-                  device: Optional[Union[str, torch.device]] = None
+                  device: Optional[Union[str, torch.device]] = None,
+                  sharding: Optional[DataSharding] = None
                   ) -> Dict[str, torch.Tensor]:
     """Stack same-shaped batch dicts leaf-wise along a new leading k axis,
     for :func:`make_train_step_kbatch`.  Numpy leaves stack on the host
-    and cross to ``device`` (the card unless ``"cpu"`` is given) in one
-    copy; tensor leaves stack where they are."""
+    and cross to ``device`` (the card unless ``"cpu"`` is given; with a
+    ``sharding``, this rank's device) in one copy; tensor leaves stack
+    where they are."""
+    if sharding is not None:
+        if device is not None and resolve_device(device) != sharding.device:
+            raise DMLCError(f"device {device} is not the sharding's "
+                            f"{sharding.device}")
+        device = sharding.device
     out = {}
     for key in batches[0]:
         leaves = [b[key] for b in batches]
@@ -462,8 +630,69 @@ def stack_batches(batches: Sequence[Dict[str, Any]],
     return out
 
 
+def _idle_batch(template: Optional[Batch], layout: str,
+                dev: torch.device) -> Batch:
+    """What a ``dp`` rank whose slice has run out steps on: its last
+    batch with every weight 0, or (no batch at all) one empty row of
+    ``layout`` on ``dev``.  Either adds nothing to the global batch."""
+    if template is not None:
+        return {**template, "weights": torch.zeros_like(template["weights"])}
+    zf = torch.zeros(1, device=dev)
+    zi = torch.zeros(1, dtype=torch.int32, device=dev)
+    if layout == "rowmajor":
+        return {"ids": zi.view(1, 1), "vals": zf.view(1, 1),
+                "labels": zf, "weights": zf.clone()}
+    # the one entry points at the scratch row past the batch's one row
+    return {"ids": zi, "vals": zf, "segments": zi + 1,
+            "row_ptr": torch.zeros(2, dtype=torch.int32, device=dev),
+            "labels": zf, "weights": zf.clone()}
+
+
+def _check_loader_sharding(loader, mesh: Mesh) -> None:
+    sharding = getattr(loader, "sharding", None)
+    if sharding is None:
+        if mesh.world > 1:
+            raise DMLCError(
+                f"a mesh of {mesh.world} ranks needs a loader built with "
+                "sharding=batch_sharding(mesh): each rank must read its "
+                "own partition")
+        return
+    if (sharding.rank, sharding.world, sharding.device) != (
+            mesh.rank, mesh.world, mesh.device):
+        raise DMLCError(f"the loader's sharding {sharding} is not this "
+                        f"rank's: {mesh}")
+
+
+def _dp_epoch(step_fn: DataParallelStep, loader, epoch: int, step: int,
+              log_every: int, history: List[float]) -> int:
+    """One epoch of ``dp`` steps.  Each step the ranks agree, in the
+    step's first all-reduce, on whether any of them still has a batch
+    (a host read each step); one that has run out steps on an idle
+    batch, so no rank waits on a collective the others never reach, and
+    no step of the others is lost."""
+    it = iter(loader)
+    template = None
+    while True:
+        batch = next(it, None)
+        live = batch is not None
+        if live:
+            template = batch
+        else:
+            batch = _idle_batch(template, getattr(loader, "layout", "flat"),
+                                step_fn.params[0].device)
+        stats = step_fn.agree(batch, live)
+        if float(stats[1]) == 0:
+            return step
+        loss = step_fn(batch, stats)
+        step += 1
+        if log_every and step % log_every == 0:
+            history.append(float(loss))
+            log_info("epoch %d step %d loss %.5f", epoch, step, history[-1])
+
+
 def fit_stream(model: torch.nn.Module, loader, *, epochs: int = 1,
-               optimizer=None, log_every: int = 100,
+               optimizer=None, mesh: Optional[Mesh] = None,
+               log_every: int = 100,
                kstep: Optional[int] = None) -> List[float]:
     """Streaming training, one pass of the loader per epoch.  The
     optimizer defaults to Adam(1e-2), as the JAX package's
@@ -472,13 +701,25 @@ def fit_stream(model: torch.nn.Module, loader, *, epochs: int = 1,
     A loader built with ``emit="host"`` trains through
     :class:`FusedTrainer`, ``kstep`` steps a dispatch (default 16); the
     history then holds one end-of-epoch loss per epoch when
-    ``log_every`` is nonzero.  A device-emitting loader runs one step a
-    batch and samples the loss every ``log_every`` steps (reading one
-    back syncs the host); ``kstep`` there raises rather than being
-    ignored."""
+    ``log_every`` is nonzero.  That path is single-card: with a ``mesh``
+    it raises, as the JAX function does.  A device-emitting loader runs
+    one step a batch and samples the loss every ``log_every`` steps
+    (reading one back syncs the host); ``kstep`` there raises rather
+    than being ignored.
+
+    With a ``dp`` mesh, rank 0's parameters are broadcast first
+    (:func:`shard_params`), the loader must read this rank's partition
+    (``sharding=batch_sharding(mesh)``; at world 1 any loader), and each
+    step is a :class:`DataParallelStep`; ranks whose partition ends
+    early step on idle batches until every rank is done, and the
+    history holds the global batch's losses."""
     optimizer = optimizer or adam(model, 1e-2)
     history: List[float] = []
     if getattr(loader, "emit", "device") == "host":
+        if mesh is not None:
+            raise DMLCError("fused k-step training over the host wire is "
+                            "single-card; use a device-emitting loader "
+                            "with mesh")
         trainer = FusedTrainer(model, optimizer, loader,
                                k=16 if kstep is None else kstep)
         for epoch in range(epochs):
@@ -495,17 +736,24 @@ def fit_stream(model: torch.nn.Module, loader, *, epochs: int = 1,
             "kstep requires a loader built with emit='host' (the fused "
             "wire); this loader emits device batches, so the k-step "
             "dispatch cannot engage")
-    step_fn = make_train_step(model, optimizer)
+    if mesh is not None:
+        _check_loader_sharding(loader, mesh)
+        shard_params(model, mesh)
+    step_fn = make_train_step(model, optimizer, mesh)
     step = 0
     for epoch in range(epochs):
         t0 = time.monotonic()
-        for batch in loader:
-            loss = step_fn(batch)
-            step += 1
-            if log_every and step % log_every == 0:
-                history.append(float(loss))
-                log_info("epoch %d step %d loss %.5f", epoch, step,
-                         history[-1])
+        if mesh is not None:
+            step = _dp_epoch(step_fn, loader, epoch, step, log_every,
+                             history)
+        else:
+            for batch in loader:
+                loss = step_fn(batch)
+                step += 1
+                if log_every and step % log_every == 0:
+                    history.append(float(loss))
+                    log_info("epoch %d step %d loss %.5f", epoch, step,
+                             history[-1])
         loader.before_first()
         log_info("epoch %d done in %.2fs (%d steps)", epoch,
                  time.monotonic() - t0, step)

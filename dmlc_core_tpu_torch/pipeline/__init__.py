@@ -2,9 +2,11 @@
 ``dmlc_core_tpu/pipeline``): fixed-shape and ragged packing, the device
 loader with its pack and transfer threads and the fused wire (v2 and the
 v3 compact layout), disaggregated ingest (:mod:`.ingest_service`), the
-persisted transfer tuning (:mod:`.tuned`) and the closed-loop autotuner
-(:mod:`.autotune`).  The data service waits for the port's telemetry
-(ROADMAP A.9, after A.12)."""
+persisted transfer tuning (:mod:`.tuned`), the transfer probe that
+persists it (:mod:`.probe`, ``python -m
+dmlc_core_tpu_torch.pipeline.probe``) and the closed-loop autotuner
+(:mod:`.autotune`).  The data service (ROADMAP A.9) waits for the
+tracker and the serving fleet's transport (A.7.b, A.11)."""
 
 from .autotune import (Autotuner, Knob, ingest_knob_space,  # noqa: F401
                        maybe_autotuner, serving_knob_space)

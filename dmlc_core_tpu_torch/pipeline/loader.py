@@ -109,6 +109,7 @@ from ..kernels.common import ENGINES as KERNEL_ENGINES
 from ..kernels.wire_decode import (v3_layout, wire_decode,
                                    wire_decode_reference)
 from ..native import fused_words
+from ..parallel.mesh import DataSharding
 from ..telemetry import trace as teltrace
 from ..telemetry.anomaly import StallDetector
 from ..utils.device import resolve_device
@@ -529,6 +530,38 @@ class _TransferStage:
 
 # -- the loader --------------------------------------------------------------
 
+def _sharded_device(source, sharding: DataSharding, device, ragged: bool,
+                    fields: bool, emit: str) -> torch.device:
+    """The device of a data-parallel rank's loader, once its options and
+    its source's partition are checked against ``sharding``."""
+    check(not ragged, "ragged=True cannot shard over a batch axis (the "
+          "nnz_used and rows_used words are the whole batch's)")
+    check(not fields, "fields=True is not ported with a sharding")
+    check(emit == "device", "emit='host' requires the fused path with no "
+          "sharding (single-card k-step training)")
+    if device is not None and resolve_device(device) != sharding.device:
+        raise DMLCError(f"device {device} is not the sharding's "
+                        f"{sharding.device}: a rank's batches stay on its "
+                        "own device")
+    split = fingerprint_mod.find_file_split(source)
+    want = (sharding.rank, sharding.world)
+    if split is None or not hasattr(split, "part_index"):
+        if sharding.world > 1:
+            raise DMLCError(
+                f"cannot tell which partition the source reads, and rank "
+                f"{sharding.rank} of {sharding.world} must read partition "
+                f"{want}: open it with create_parser(uri, {want[0]}, "
+                f"{want[1]})")
+    else:
+        got = (int(split.part_index), int(split.num_parts))
+        if got != want:
+            raise DMLCError(
+                f"the source reads partition {got}, but this is rank "
+                f"{want[0]} of {want[1]}: open it with "
+                f"create_parser(uri, {want[0]}, {want[1]})")
+    return sharding.device
+
+
 class DeviceLoader(_TransferStage):
     """Stream fixed-shape device batches from a parser.
 
@@ -581,6 +614,14 @@ class DeviceLoader(_TransferStage):
                     the page writer's queue and the reader's
                     ``MADV_WILLNEED`` window, in pages (0 / None: 8 and
                     2).
+    sharding:       a data-parallel rank's
+                    :class:`~..parallel.mesh.DataSharding`
+                    (``models.batch_sharding(mesh)``): the batches stay
+                    on its device, and the source must read partition
+                    ``(rank, world)`` of the input (the reference's
+                    ``ResetPartition`` contract; a source whose
+                    partition cannot be read is refused above world 1).
+                    Not with ``ragged``, ``fields`` or ``emit="host"``.
     """
 
     def __init__(self, source, batch_rows: int, nnz_cap: int,
@@ -592,7 +633,8 @@ class DeviceLoader(_TransferStage):
                  ragged: bool = False, engine: str = "auto",
                  streampack: bool = True, fields: bool = False,
                  cache="auto", cache_queue_pages: int = 0,
-                 cache_readahead: Optional[int] = None) -> None:
+                 cache_readahead: Optional[int] = None,
+                 sharding: Optional[DataSharding] = None) -> None:
         check(layout in ("flat", "rowmajor"), f"bad layout {layout!r}")
         check(emit in ("device", "host"), f"bad emit {emit!r}")
         check(engine in ENGINES, f"bad engine {engine!r}")
@@ -607,6 +649,10 @@ class DeviceLoader(_TransferStage):
             check(layout == "flat" and not fields,
                   "emit='host' requires the fused path (flat layout, no "
                   "fields)")
+        if sharding is not None:
+            device = _sharded_device(source, sharding, device, ragged,
+                                     fields, emit)
+        self.sharding = sharding
         device = resolve_device(device)
         put_threads, wire_compact = tuned.resolve(
             device.type, put_threads, wire_compact)

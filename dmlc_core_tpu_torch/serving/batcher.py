@@ -286,10 +286,12 @@ class MicroBatcher:
                     "batch_rows": batch_rows,
                     "batch_nnz": len(ids),
                 }
-                p.future.set_result(scores[r0:r0 + p.rows])
-                r0 += p.rows
+                # counted before the answer is out: a client holding its
+                # answer finds its request in the metrics
                 self._m_latency.observe(done_t - p.t_enq)
                 self._m_reqs.add(1)
+                p.future.set_result(scores[r0:r0 + p.rows])
+                r0 += p.rows
 
     # -- knobs -------------------------------------------------------------
     def apply_knobs(self, *, max_delay_s: Optional[float] = None,

@@ -1652,3 +1652,97 @@ def test_profile_trace_names_the_ragged_gather_kernel(dev, tmp_path):
                and "ragged_gather_kernel" in e.get("name", "")]
     assert len(kernels) == 1, sorted({e.get("name") for e in events})
     assert any(e.get("name") == "test.forward" for e in events)
+
+
+# -- data parallelism over a world-1 NCCL mesh -------------------------------
+
+def _flat_batches(dev, n, rows=16, cap=128, seed=4):
+    from dmlc_core_tpu_torch.data import RowBlock, parse_libsvm
+    from dmlc_core_tpu_torch.pipeline import pack_flat
+    rng = np.random.default_rng(seed)
+    lines = b"\n".join(b"%d " % (i & 1) + b" ".join(
+        b"%d:%.3f" % (j, rng.random()) for j in
+        np.sort(rng.choice(F, 6, replace=False)).tolist())
+        for i in range(rows * n)) + b"\n"
+    d = parse_libsvm(lines)
+    blk = RowBlock(d["offsets"], d["labels"], d["indices"], d["values"],
+                   d["weights"])
+    return [{k: torch.from_numpy(v).to(dev) for k, v in
+             pack_flat(blk.slice(lo, lo + rows), rows, cap).items()}
+            for lo in range(0, rows * n, rows)]
+
+
+@pytest.fixture
+def nccl_mesh(dev):
+    import torch.distributed as dist
+
+    from dmlc_core_tpu_torch.parallel import make_mesh
+    if dist.is_initialized():
+        pytest.skip("this process already has a process group")
+    mesh = make_mesh("dp=-1")
+    yield mesh
+    mesh.close()
+
+
+def _fm(dev, engine):
+    from dmlc_core_tpu_torch import FactorizationMachine
+    return FactorizationMachine(F, 8, l2=1e-3, engine=engine, device=dev,
+                                generator=torch.Generator(dev).manual_seed(1))
+
+
+def _params(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+
+
+def test_nccl_world1_steps_are_the_no_mesh_steps(dev, nccl_mesh):
+    """At world 1 the dp step adds nothing: on the plain path with
+    deterministic algorithms its parameters and losses are array_equal
+    to the no-mesh step's (the kernels' atomics vary from run to run)."""
+    from dmlc_core_tpu_torch.models import make_train_step
+    batches = _flat_batches(dev, 4)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = []
+        for mesh in (nccl_mesh, None):
+            m = _fm(dev, "torch")
+            step = make_train_step(m, adam(m, 1e-2, engine="torch"), mesh)
+            runs.append((torch.stack([step(b) for b in batches]),
+                         _params(m)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert torch.equal(runs[0][1], runs[1][1])
+
+
+def test_nccl_world1_kbatch_captures_the_all_reduces(dev, nccl_mesh):
+    """Over NCCL the k-step mesh form is one captured graph (its two
+    all-reduces a step inside it) and follows the per-step mesh steps."""
+    from dmlc_core_tpu_torch.models import (make_train_step,
+                                            make_train_step_kbatch,
+                                            stack_batches)
+    batches = _flat_batches(dev, 4)
+    a, b = _fm(dev, "kernel"), _fm(dev, "kernel")
+    kstep = make_train_step_kbatch(a, adam(a, 1e-2), nccl_mesh)
+    assert kstep.route == "graph"
+    before = _counts().get("ragged_gather_fm", 0)
+    got = torch.cat([kstep(stack_batches(batches[:2])),
+                     kstep(stack_batches(batches[2:]))])
+    assert _counts().get("ragged_gather_fm", 0) - before == 5  # 4 + warm-up
+    step = make_train_step(b, adam(b, 1e-2), nccl_mesh)
+    want = torch.stack([step(x) for x in batches])
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(_params(a), _params(b), rtol=1e-5, atol=1e-6)
+
+
+def test_nccl_collectives_on_card_tensors(dev, nccl_mesh):
+    from dmlc_core_tpu_torch.parallel import (MeshCollectives, allgather,
+                                              reduce_scatter)
+    coll = MeshCollectives(nccl_mesh)
+    x = torch.arange(12, dtype=torch.float32, device=dev).view(1, 12)
+    for op in ("sum", "max", "min"):
+        assert torch.equal(coll.allreduce(x, op), x)
+    assert torch.equal(coll.broadcast(x), x)
+    assert torch.equal(coll.allgather(x), x.view(1, 1, 12))
+    assert torch.equal(allgather(x, nccl_mesh), x)
+    assert torch.equal(reduce_scatter(x, nccl_mesh), x)
+    assert torch.equal(coll.all_to_all(x), x)

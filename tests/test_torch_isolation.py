@@ -146,3 +146,53 @@ def test_diagnosis_modules_stand_alone(name):
         and isinstance(node.args[0], ast.Constant)]
     assert all(m.startswith("dmlc_core_tpu_torch.") or m == "torch"
                for m in looked_up), looked_up
+
+
+#: the data-parallel modules (ROADMAP A.7.a's dp half) and the transfer
+#: probe (A.14), and what each names as its counterpart
+DP_MODULES = {"parallel/__init__.py": "dmlc_core_tpu/parallel",
+              "parallel/mesh.py": "dmlc_core_tpu/parallel/mesh.py",
+              "parallel/collectives.py":
+                  "dmlc_core_tpu/parallel/collectives.py",
+              "pipeline/probe.py": "bench.py"}
+
+_DP_PROBE = r"""
+import sys, threading
+import dmlc_core_tpu_torch.parallel
+import dmlc_core_tpu_torch.pipeline.probe
+import torch.distributed as dist
+assert not dist.is_initialized()
+assert threading.active_count() == 1, threading.enumerate()
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "dmlc_core_tpu")))
+"""
+
+
+@pytest.mark.parametrize("name", sorted(DP_MODULES))
+def test_dp_modules_stand_alone(name):
+    """Each module is among the checked sources, imports nothing of JAX
+    or the JAX package, and names its counterpart."""
+    path = os.path.join(PKG, *name.split("/"))
+    assert path in _sources()
+    test_source_imports_nothing_of_jax(path)
+    test_no_module_lookup_names_the_jax_package(path)
+    doc = ast.get_docstring(ast.parse(open(path).read())) or ""
+    assert DP_MODULES[name] in doc
+
+
+def test_dp_imports_pull_in_no_jax_and_start_nothing():
+    """Importing the mesh, the collectives and the probe alone pulls in
+    no JAX, starts no thread and joins no process group."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _DP_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_dp_worker_imports_nothing_of_jax():
+    """The ranks of the CPU dp tests import only torch, numpy and the
+    port: the JAX side runs in the pytest process."""
+    test_source_imports_nothing_of_jax(
+        os.path.join(REPO, "tests", "torch_dp_worker.py"))
