@@ -16,7 +16,9 @@ Phases, in order; any failure exits non-zero and prints no result:
    gather forward and backward at 4096 rows in the native packer's nnz
    bucket of cap 131072 (as the flat training batches come), with
    out-of-range ids and padding; the ragged-gather forward also with
-   the batch's entries shuffled and with all of them in one row), held
+   the batch's entries shuffled and with all of them in one row; the
+   ragged fm forward and backward at the sharded FM paths' shard shapes,
+   D = 16 for mp dim and rows 0..2^19 of a remapped batch for mp rows), held
    against its plain PyTorch version (rtol = atol = 1e-5; zero fill must
    give exact zeros, every ragged backward with nnz_used = 0 also in a
    freed NaN-filled block; two fm-terms or embed-bag calls must be
@@ -276,7 +278,19 @@ Phases, in order; any failure exits non-zero and prints no result:
    phase 5's limits of one process's steps on the ranks' concatenated
    batches, learning (the eval AUC of the change in score, at least
    LEARN_AUC_MIN), evaluate_stream(mesh=) over both partitions; steps/s
-   and the all-reduce's ms.  Both must launch every kernel of the paths;
+   and the all-reduce's ms.  Then, over the same two processes, the
+   sharded paths (4096-row batches, each rank reading all of them):
+   mp=2 dim (FM flat, DCNv2 row-major, FFM flat at [ffm]'s shape through
+   a sharded fields=True loader), mp=2 rows (FM flat, DeepFM row-major)
+   and pp=2 (DeepFM row-major, its tower pipelined in 4 microbatches),
+   each placed by shard_params and trained by fit_stream(mesh=): the
+   gathered parameters (the replicas among them) array_equal across the
+   ranks and within phase 5's limits of one process's no-mesh steps on
+   the same batches (both gaps printed), learning at least
+   LEARN_AUC_MIN, evaluate_stream(mesh=), each path launching every
+   kernel of its model and layout, steps/s, and the bytes and ms of the
+   forward's collectives, each timed alone.  Both must launch every
+   kernel of the paths;
    probe   — the transfer probe (pipeline/probe.py) over the training
    file 4 times (32 batches a pass): DeviceLoader batches/s for
    put_threads 1 and 2 x v2 and v3 in 5 alternating rounds after a warm
@@ -330,7 +344,10 @@ runs phases 1, 2 and [mesh] (b) over NCCL on 4 cards, rank r on cuda:r
 (1024-row batches a rank, nnz_cap 32768), and needs them; there each
 path's steps also run as one captured make_train_step_kbatch call (its
 all-reduces across the ranks inside the graph), held to phase 5's limits
-of the mesh steps and array_equal across the ranks.
+of the mesh steps and array_equal across the ranks.  Its sharded paths
+are dp=2,mp=2 in both modes (FM flat, DeepFM row-major) and dp=2,pp=2
+(DeepFM row-major), 2048-row batches a dp slice, with the same checks
+and the captured k-step form.
 
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
 directory (by default they go with the data directory).
@@ -621,7 +638,11 @@ def phase_kernels(torch, timer: Timer, power: str) -> dict:
                                    bound_by=b_by, library_ms=None,
                                    max_abs_err=err, floor_ms=floor_ms)
     results.update(_training_kernels(torch, timer, power, rng))
+    results.update(_shard_kernels(torch, timer, power, rng))
     results.update(_ffm_kernels(torch, timer, power, rng))
+    # FFM's G on a rank's columns over mp = 2 (d = 2: D = 80)
+    results.update(_ffm_kernels(torch, timer, power, rng, DIM_FFM // 2,
+                                "ffm_mp_dim"))
     results.update(_cli_ffm_grad(torch, timer, power, rng))
     results.update(_optimizer_kernels(torch, timer, power))
     return results
@@ -883,6 +904,78 @@ def _training_fm_terms(torch, timer: Timer, power: str, ids, vals, table,
     return results
 
 
+def _shard_kernels(torch, timer: Timer, power: str, rng) -> dict:
+    """The ragged-gather fm kernels (forward and backward) at the shard
+    shapes the sharded FM paths give them, on the flat training batch:
+    dim mode over mp = 2 (``v`` is [2^20, 16]: every entry at D = 16)
+    and rows mode over mp = 2 (``v`` is [2^19, 32]: rank 0's rows, the
+    batch remapped as ``ShardPlan.local`` remaps it, the other rank's
+    entries inert on the scratch row).  Each against its plain version,
+    with its floor and its bound on what this batch needs.  Returns
+    ``ragged_gather_fm_mp_dim``, ``ragged_gather_fm_mp_rows`` and the
+    ``ragged_gather_grad_fm_`` twins."""
+    from dmlc_core_tpu_torch.kernels import (ragged_gather_grad,
+                                             ragged_gather_grad_reference)
+    from dmlc_core_tpu_torch.kernels.common import clamp_ids
+    from dmlc_core_tpu_torch.models.sharding import ShardPlan
+    results = {}
+    F, D = F_FEATURES, DIM
+    table = torch.from_numpy(rng.standard_normal(
+        (F, D), dtype=np.float32) * 0.05).cuda()
+    fids, fvals, fsegs, nnz, counts = _flat_train_batch(torch, rng)
+    foffsets = torch.from_numpy(np.concatenate(
+        [[0], np.cumsum(counts)[:-1]]).astype(np.int32)).cuda()
+    plan = ShardPlan(None, "rows", {"v": "mp:0"}, F, (0, F // 2))
+    rids, rvals, rsegs = plan.local(fids, fvals, fsegs, ROWS_TR)
+    owned = int(((rsegs[:nnz] < ROWS_TR) & (rvals[:nnz] != 0)).sum())
+    cases = (("mp_dim", "mp dim D=16", fids, fvals, fsegs,
+              table[:, :D // 2].contiguous(), nnz),
+             ("mp_rows", "mp rows F=2^19", rids, rvals, rsegs,
+              table[:F // 2].contiguous(), owned))
+    with torch.no_grad():
+        for key, label, ids, vals, segs, tab, live in cases:
+            Ft, Dg = tab.shape
+            keep = segs[:nnz] < ROWS_TR
+            rows_read = int(torch.unique(clamp_ids(ids[:nnz][keep],
+                                                   Ft)).numel())
+            results[f"ragged_gather_fm_{key}"] = _gather_case(
+                torch, timer, power, label, ids, vals, segs, tab, True, live,
+                rows_read, foffsets)
+            g1, g2 = (torch.from_numpy(rng.standard_normal(
+                (ROWS_TR + 1, Dg), dtype=np.float32)).cuda()
+                for _ in range(2))
+            floor_ms = _zero_work_grad(
+                torch, timer, power,
+                lambda nnz_used: ragged_gather_grad(
+                    ids, vals, segs, nnz_used, tab, g1, g2, ROWS_TR,
+                    need_dvals=False, engine="kernel")[1],
+                tab.shape, f"fm {label}")
+            run = lambda: ragged_gather_grad(  # noqa: E731
+                ids, vals, segs, None, tab, g1, g2, ROWS_TR,
+                need_dvals=False, engine="kernel")
+            plain = lambda: ragged_gather_grad_reference(  # noqa: E731
+                ids, vals, segs, None, tab, g1, g2, ROWS_TR,
+                need_dvals=False)
+            got, want = run()[1], plain()[1]
+            torch.cuda.synchronize()
+            err = _close(f"ragged_gather_grad_fm ({label})", got, want)
+            ms, plain_ms = timer.ms(run), timer.ms(plain)
+            b_ms, b_by = bound(12 * ids.shape[0] + 2 * (ROWS_TR + 1) * Dg * 4
+                               + Ft * Dg * 4 + rows_read * Dg * 4,
+                               6 * live * Dg)
+            results[f"ragged_gather_grad_fm_{key}"] = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, max_abs_err=err, floor_ms=floor_ms)
+            log(f"[kernels] ragged_gather_grad_fm ({label}) cap="
+                f"{ids.shape[0]} live={live} rows={ROWS_TR} F={Ft} D={Dg}: "
+                f"kernel {ms:.4f} ms (nnz_used=0: {floor_ms:.4f} ms), plain "
+                f"{plain_ms:.4f} ms, no library call computes both terms, "
+                f"bound {b_ms:.4f} ms ({b_by}), max|err| {err:.3g} "
+                f"[{power}]")
+            del g1, g2, got, want
+    return results
+
+
 def _zero_work_grad(torch, timer: Timer, power: str, call, shape,
                     label: str) -> float:
     """``call(nnz_used) -> dtable``, one ragged backward at a path's
@@ -1130,20 +1223,22 @@ def _sparse_rows(torch, rows, cols, vals, shape):
     return coo.coalesce().to_sparse_csr()
 
 
-def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
-    """The ragged-gather forward and backward at FFM's shape (D = 160,
-    163,840 segments, F 2^18, unsorted segments within a row, padding
-    on the scratch row, out-of-range ids) against their plain versions,
-    timed, with the sparse product that computes the same function
-    (built beforehand, ids clamped or dropped as each kernel's rule
-    says).  Returns ``<name>_ffm`` numbers."""
+def _ffm_kernels(torch, timer: Timer, power: str, rng, dim: int = DIM_FFM,
+                 key: str = "ffm") -> dict:
+    """The ragged-gather forward and backward at FFM's shape (D = 40 ·
+    ``dim``: 160, or 80 for a rank's columns over mp = 2; 163,840
+    segments, F 2^18, unsorted segments within a row, padding on the
+    scratch row, out-of-range ids) against their plain versions, timed,
+    with the sparse product that computes the same function (built
+    beforehand, ids clamped or dropped as each kernel's rule says).
+    Returns ``<name>_<key>`` numbers."""
     from dmlc_core_tpu_torch.kernels import (ragged_gather,
                                              ragged_gather_grad,
                                              ragged_gather_grad_reference,
                                              ragged_gather_reference)
     from dmlc_core_tpu_torch.kernels.common import clamp_ids, grad_rows
     results = {}
-    D, S = NF_FFM * DIM_FFM, ROWS_TR * NF_FFM
+    D, S = NF_FFM * dim, ROWS_TR * NF_FFM
     table = torch.from_numpy(rng.standard_normal(
         (F_FFM, D), dtype=np.float32) * 0.05).cuda()
     fids, fvals, fsegs, nnz = _ffm_batch(torch, rng)
@@ -1158,7 +1253,7 @@ def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
             fids, fvals, fsegs, None, table, S, fm=False)[0]
         got, want = run(), plain()
         torch.cuda.synchronize()
-        err = _close("ragged_gather_embed (ffm) D=160", got, want)
+        err = _close(f"ragged_gather_embed ({key}) D={D}", got, want)
         ms, plain_ms = timer.ms(run), timer.ms(plain)
         b_ms, b_by = bound(rows_read * D * 4 + 12 * cap + (S + 1) * D * 4,
                            2 * nnz * D)
@@ -1166,19 +1261,19 @@ def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
                              clamp_ids(live_ids, F_FFM), fvals[:nnz],
                              (S + 1, F_FFM))
         lib = lambda: fwd_m @ table  # noqa: E731
-        _close("sparse CSR @ table (ffm)", lib(), want)
+        _close(f"sparse CSR @ table ({key})", lib(), want)
         lib_ms = timer.ms(lib)
         # the floor: the same call with nnz_used = 0 (exact zeros)
         zero = torch.zeros(1, dtype=torch.int32, device="cuda")
         none = lambda: ragged_gather(  # noqa: E731
             fids, fvals, fsegs, zero, table, S, fm=False, engine="kernel")[0]
-        _close("ragged_gather_embed (ffm) nnz_used=0", none(), want,
+        _close(f"ragged_gather_embed ({key}) nnz_used=0", none(), want,
                exact_zero=True)
         floor_ms = timer.ms(none)
-        results["ragged_gather_embed_ffm"] = dict(
+        results[f"ragged_gather_embed_{key}"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, max_abs_err=err, floor_ms=floor_ms)
-        log(f"[kernels] ragged_gather_embed (ffm) cap={cap} nnz={nnz} "
+        log(f"[kernels] ragged_gather_embed ({key}) cap={cap} nnz={nnz} "
             f"segments={S} D={D} F={F_FFM}: kernel {ms:.4f} ms (nnz_used=0:"
             f" {floor_ms:.4f} ms), plain {plain_ms:.4f} ms, sparse CSR "
             f"product {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
@@ -1195,7 +1290,7 @@ def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
             need_dvals=False)[1]
         got, want = run(), plain()
         torch.cuda.synchronize()
-        err = _close("ragged_gather_grad_embed (ffm) D=160", got, want)
+        err = _close(f"ragged_gather_grad_embed ({key}) D={D}", got, want)
         ms, plain_ms = timer.ms(run), timer.ms(plain)
         b_ms, b_by = bound(12 * cap + segs_hit * D * 4 + F_FFM * D * 4,
                            2 * nnz * D)
@@ -1204,17 +1299,17 @@ def _ffm_kernels(torch, timer: Timer, power: str, rng) -> dict:
                              fsegs[:nnz].long()[keep], fvals[:nnz][keep],
                              (F_FFM, S + 1))
         lib = lambda: bwd_m @ g1  # noqa: E731
-        _close("sparse CSR @ g1 (ffm)", lib(), want)
+        _close(f"sparse CSR @ g1 ({key})", lib(), want)
         lib_ms = timer.ms(lib)
         del got, want, bwd_m
         floor_ms = _zero_work_grad(
             torch, timer, power, lambda z: ragged_gather_grad(
                 fids, fvals, fsegs, z, table, g1, None, S, need_dvals=False,
-                engine="kernel")[1], table.shape, f"ffm D={D}")
-        results["ragged_gather_grad_embed_ffm"] = dict(
+                engine="kernel")[1], table.shape, f"{key} D={D}")
+        results[f"ragged_gather_grad_embed_{key}"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
             library_ms=lib_ms, max_abs_err=err, floor_ms=floor_ms)
-        log(f"[kernels] ragged_gather_grad_embed (ffm) cap={cap} nnz={nnz} "
+        log(f"[kernels] ragged_gather_grad_embed ({key}) cap={cap} nnz={nnz} "
             f"segments={S} D={D} dtable [{F_FFM}, {D}]: kernel {ms:.4f} ms "
             f"(nnz_used=0: {floor_ms:.4f} ms), plain {plain_ms:.4f} ms, "
             f"sparse CSR product {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
@@ -6483,7 +6578,7 @@ class _Recorder:
     def __init__(self, loader):
         self.inner, self.seen = loader, []
         self.emit, self.layout = loader.emit, loader.layout
-        self.sharding = loader.sharding
+        self.sharding, self.batch_rows = loader.sharding, loader.batch_rows
 
     def __iter__(self):
         for b in self.inner:
@@ -6512,14 +6607,17 @@ def _flat_params(torch, model):
 
 def _agree(torch, lk, lp, model, ref, p_init) -> list:
     """Phase 5's loss and parameter checks of a run against a reference
-    on the same batches, as ``(check, reading, limit, ok)`` rows."""
+    on the same batches, as ``(check, reading, limit, ok)`` rows; the
+    runs' parameters as modules or as ``{name: whole tensor}`` (a
+    sharded model's, gathered)."""
     fin = bool(np.isfinite(lk).all())
     rel = float(np.max(np.abs(lk - lp) / np.abs(lp)))
     drift = float(np.max(np.abs(lp - lp[0])))
     share = float(np.max(np.abs(lk - lp))) / max(drift, 1e-30)
     ratios = {}
-    got = dict(model.named_parameters())
-    for k, p in ref.named_parameters():
+    got = model if isinstance(model, dict) else dict(model.named_parameters())
+    want = ref if isinstance(ref, dict) else dict(ref.named_parameters())
+    for k, p in want.items():
         moved = float((p.detach() - p_init[k]).norm())
         ratios[k] = float((got[k].detach() - p.detach()).norm()) / max(
             moved, 1e-30)
@@ -6865,7 +6963,15 @@ def _mesh_ranks(torch, power, data, world: int, backend: str) -> dict:
             f"{learn:.6f} [{power}]")
     log(f"[mesh] world {world} ({backend}) kernel launches (every rank): "
         f"{launches}")
-    return {"launches": launches, "ranks": ranks}
+    _check_shard_paths(ranks, world, backend, data, power)
+    shard: dict = {}
+    for out in ranks:
+        for group, got in out["shard_launches"].items():
+            _add(shard.setdefault(group, {}), got)
+    log(f"[mesh] world {world} ({backend}) sharded paths in "
+        f"{max(out['shard_s'] for out in ranks):.1f} s; kernel launches "
+        f"(every rank): {shard}")
+    return {"launches": launches, "ranks": ranks, "shard": shard}
 
 
 def _free_port() -> int:
@@ -6903,15 +7009,15 @@ def phase_mesh(torch, power: str, data: str, train_file: str,
             _add(world1, got)
     finally:
         mesh.close()
-    world2 = _mesh_ranks(torch, power, data, MESH_WORLD,
-                         "gloo")["launches"]
+    got = _mesh_ranks(torch, power, data, MESH_WORLD, "gloo")
+    world2 = got["launches"]
     for tag, launches in (("world 1", world1),
                           (f"world {MESH_WORLD}", world2)):
         missing = [k for k in MESH_KERNELS if launches.get(k, 0) < 1]
         if missing:
             raise RuntimeError(f"[mesh] {tag} never launched {missing}")
     log(f"[mesh] done in {time.monotonic() - t0:.1f} s")
-    return {"world1": world1, "world2": world2}
+    return {"world1": world1, "world2": world2, "shard": got["shard"]}
 
 
 def _save_batches(path: str, batches: list) -> None:
@@ -6969,6 +7075,306 @@ def _mesh_kstep(torch, mesh, kind, batches, lk, model, p_init):
     rows.append(("k-step ranks array_equal", float(equal), 1, equal))
     del km, stacked
     return rows, launches
+
+
+# -- [mesh] (b): the sharded paths, mp table sharding and the pp tower ------
+
+PP_MICROBATCHES = 4        # the pipelined tower's microbatches a batch
+# (mesh, table_shard, name, model, layout), run after the dp paths; the
+# one-card gloo run's meshes have no dp (each rank reads every batch)
+SHARD_PATHS = {
+    "gloo": (("mp=2", "dim", "fm_flat_mp_dim", "fm", "flat"),
+             ("mp=2", "dim", "dcn_rowmajor_mp_dim", "dcn", "rowmajor"),
+             ("mp=2", "dim", "ffm_flat_mp_dim", "ffm", "flat"),
+             ("mp=2", "rows", "fm_flat_mp_rows", "fm", "flat"),
+             ("mp=2", "rows", "deepfm_rowmajor_mp_rows", "deepfm",
+              "rowmajor"),
+             ("pp=2", "dim", "deepfm_rowmajor_pp", "deepfm", "rowmajor")),
+    "nccl": (("dp=2,mp=2", "dim", "fm_flat_mp_dim", "fm", "flat"),
+             ("dp=2,mp=2", "dim", "deepfm_rowmajor_mp_dim", "deepfm",
+              "rowmajor"),
+             ("dp=2,mp=2", "rows", "fm_flat_mp_rows", "fm", "flat"),
+             ("dp=2,mp=2", "rows", "deepfm_rowmajor_mp_rows", "deepfm",
+              "rowmajor"),
+             ("dp=2,pp=2", "dim", "deepfm_rowmajor_pp", "deepfm",
+              "rowmajor")),
+}
+# every kernel of a model and layout, each of which a sharded path must
+# launch (the flat FM paths decode the v3 wire; FFM's fields take the
+# python packs' v2 wire)
+PATH_KERNELS = {
+    ("fm", "flat"): ("ragged_gather_fm", "ragged_gather_embed",
+                     "ragged_gather_grad_fm", "ragged_gather_grad_embed",
+                     "adam", "wire_decode"),
+    ("dcn", "rowmajor"): ("embed_bag", "embed_bag_grad", "adam"),
+    ("deepfm", "rowmajor"): ("fm_terms", "fm_terms_grad", "adam"),
+    ("ffm", "flat"): ("ragged_gather_embed", "ragged_gather_grad_embed",
+                      "adam"),
+}
+
+
+def _shard_group(name: str) -> str:
+    """A sharded path's group in the launch counts: mp_dim, mp_rows or
+    pp."""
+    return "pp" if name.endswith("_pp") else name.rsplit("_", 2)[-2] + "_" \
+        + name.rsplit("_", 1)[-1]
+
+
+def _shard_loader(path, layout, cap, rows, mesh, ffm: bool):
+    """The native parser of this rank's dp partition of ``path`` (libfm
+    with fields for FFM, hashed into F_FFM), sharded to the rank."""
+    from dmlc_core_tpu_torch import DeviceLoader, create_parser
+    from dmlc_core_tpu_torch.models import batch_sharding
+    return DeviceLoader(
+        create_parser(path, mesh.coord("dp"), mesh.size("dp"),
+                      "libfm" if ffm else "libsvm", engine="native"),
+        rows, cap, layout=layout, engine="native", fields=ffm,
+        id_mod=F_FFM if ffm else 0, sharding=batch_sharding(mesh))
+
+
+def _sharded_model(torch, kind, mesh, mode):
+    """The seeded kernel model, placed on ``mesh`` (DeepFM's tower
+    pipelined where the mesh has pp)."""
+    from dmlc_core_tpu_torch.models import shard_params
+    model = _model(torch, kind, "kernel")
+    if "pp" in mesh.axis_names:
+        model = model.with_pipelined_tower(mesh, "pp", PP_MICROBATCHES)
+    shard_params(model, mesh, mode)
+    return model
+
+
+def _full_equal(torch, mesh, full: dict) -> bool:
+    """Whether every rank's gathered parameters (the replicas among
+    them) are array_equal to rank 0's."""
+    import torch.distributed as dist
+    mine = torch.cat([t.reshape(-1) for t in full.values()])
+    theirs = mine.clone()
+    dist.broadcast(theirs, 0, group=mesh.world_group)
+    flag = torch.tensor([float(torch.equal(mine, theirs))],
+                        device=mesh.device)
+    dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=mesh.world_group)
+    return bool(flag.item() == 1.0)
+
+
+def _collective_ms(torch, mesh, kind: str, axis: str, elements: int
+                   ) -> float:
+    """Median ms of one collective of ``elements`` float32 a rank over
+    ``axis`` (an all-reduce or an all-gather), host clock around a
+    synchronize."""
+    import torch.distributed as dist
+    buf = torch.ones(elements, device=mesh.device)
+    group = mesh.group(axis)
+    parts = [torch.empty_like(buf) for _ in range(mesh.size(axis))]
+
+    def run():
+        if kind == "allgather":
+            dist.all_gather(parts, buf, group=group)
+        else:
+            dist.all_reduce(buf, group=group)
+    run()
+    times = []
+    for _ in range(ALLREDUCE_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _shard_kstep(torch, mesh, kind, mode, batches, lk, full, p_init):
+    """Over NCCL: the sharded path's steps as one captured k-step call
+    (zero-weight copies of the last batch where this dp slice ran out
+    first), held to phase 5's limits of the mesh steps, its route and its
+    gathered parameters across ranks: ``(check rows, launches)``."""
+    from dmlc_core_tpu_torch import adam
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.models import (gather_params,
+                                            make_train_step_kbatch,
+                                            stack_batches)
+    idle = {**batches[-1], "weights": torch.zeros_like(
+        batches[-1]["weights"])}
+    steps = list(batches) + [idle] * (len(lk) - len(batches))
+    km = _sharded_model(torch, kind, mesh, mode)
+    kstep = make_train_step_kbatch(km, adam(km, LR), mesh)
+    stacked = stack_batches(_same_shapes(torch, steps))
+    reset_launch_counts()
+    lkb = kstep(stacked).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    kfull = gather_params(km)
+    rows = [(f"k = {len(lk)} captured vs mesh steps: {c}", r, lim, ok)
+            for c, r, lim, ok in _agree(torch, lkb, lk, kfull, full, p_init)]
+    rows.append(("k-step route is the captured graph",
+                 float(kstep.route == "graph"), 1, kstep.route == "graph"))
+    equal = _full_equal(torch, mesh, kfull)
+    rows.append(("k-step ranks array_equal", float(equal), 1, equal))
+    del km, stacked, kfull
+    return rows, launches
+
+
+def _shard_path(torch, mesh, backend, spec, mode, name, kind, layout,
+                data) -> tuple:
+    """One sharded path on this rank: fit_stream(mesh=) of the seeded
+    kernel model placed by shard_params, then the forward's collectives
+    recorded and timed, eval scores through the mesh's forward and a
+    fresh no-mesh model's, evaluate_stream(mesh=), the gathered
+    parameters across ranks, and over NCCL the captured k-step form.
+    Saves the batches and eval scores of the rank that leads its dp
+    slice; rank 0 then runs one process's no-mesh steps on the dp
+    slices' batches.  Returns ``(result, launches)``."""
+    import torch.distributed as dist
+    from dmlc_core_tpu_torch import adam, evaluate_stream, fit_stream
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.models import gather_params
+    from dmlc_core_tpu_torch.parallel.collectives import record_collectives
+    ffm = kind == "ffm"
+    dp = mesh.size("dp")
+    rows = ROWS_TR // dp
+    cap = CAP_TR // dp if layout == "flat" else K_TR
+    if ffm:
+        train_file, eval_file = _libfm_files(data)
+    else:
+        train_file = os.path.join(data, "train.libsvm")
+        eval_file = os.path.join(data, "eval.libsvm")
+    lead = all(mesh.coord(a) == 0 for a in mesh.axis_names if a != "dp")
+    model = _sharded_model(torch, kind, mesh, mode)
+    p_init = {k: t.clone() for k, t in gather_params(model).items()}
+    with _shard_loader(train_file, layout, cap, rows, mesh, ffm) as ld:
+        rec = _Recorder(ld)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        lk = np.array(fit_stream(model, rec, optimizer=adam(model, LR),
+                                 mesh=mesh, log_every=1))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+    batches = rec.seen
+    # the forward's collectives at one training batch, each timed alone
+    with torch.no_grad(), record_collectives() as coll:
+        model(batches[0])
+    coll_bytes = sum(n * 4 for _, _, n in coll)
+    coll_ms = sum(_collective_ms(torch, mesh, k, a, n) for k, a, n in coll)
+    with _shard_loader(eval_file, layout, cap, rows, mesh, ffm) as ev_ld:
+        s1, y = _eval_scores(torch, model, ev_ld)
+        ev_ld.before_first()
+        ev = evaluate_stream(model, ev_ld, mesh=mesh)
+        ev_ld.before_first()
+        fresh = _model(torch, kind, "kernel")
+        s0, _ = _eval_scores(torch, fresh, ev_ld)
+        del fresh
+    full = gather_params(model)
+    equal = _full_equal(torch, mesh, full)
+    kstep, kb_launches = None, {}
+    if backend == "nccl":
+        kstep, kb_launches = _shard_kstep(torch, mesh, kind, mode, batches,
+                                          lk, full, p_init)
+    if lead:
+        np.savez(os.path.join(data, f"shard_eval_d{mesh.coord('dp')}_"
+                              f"{name}.npz"), s0=s0, s1=s1, y=y)
+        _save_batches(os.path.join(data, f"shard_d{mesh.coord('dp')}_"
+                                   f"{name}.npz"), batches)
+    dist.barrier(group=mesh.world_group)
+    reference = []
+    if mesh.rank == 0:
+        per = [batches] + [_load_batches(torch, os.path.join(
+            data, f"shard_d{d}_{name}.npz")) for d in range(1, dp)]
+        steps = ([b[i] for b in per if i < len(b)] for i in range(len(lk)))
+        unions = [s[0] if len(s) == 1 else _union(torch, s) for s in steps]
+        ref, lp = _ref_run(torch, kind, "kernel", unions)
+        ref2, _ = _ref_run(torch, kind, "kernel", unions)
+        reference = _agree(torch, lk, lp, full, ref, p_init)
+        mine = torch.cat([full[k].reshape(-1) for k, _ in
+                          ref.named_parameters()])
+        theirs = _flat_params(torch, ref)
+        gap = float((mine - theirs).abs().max())
+        floor = float((theirs - _flat_params(torch, ref2)).abs().max())
+        del ref, ref2, unions, per, mine, theirs
+        reference.append(("gap to no mesh, max|p - p no mesh|", gap,
+                          float("inf"), True))
+        reference.append(("two no-mesh runs, max|p - p| (atomics)", floor,
+                          float("inf"), True))
+    shapes = {k: list(p.shape) for k, p in model.named_parameters()}
+    result = {
+        "spec": spec, "mode": mode, "steps": len(lk),
+        "batches": len(batches), "wall_s": wall, "ranks_equal": equal,
+        "kstep": kstep, "collective_bytes": coll_bytes,
+        "collective_ms": coll_ms,
+        "collectives": [list(c) for c in coll], "accuracy": ev["accuracy"],
+        "auc": ev["auc"], "weight": ev["weight"], "reference": reference,
+        "shapes": shapes, "kernels": PATH_KERNELS[(kind, layout)],
+        "launches": launches, "loss": [float(lk[0]), float(lk[-1])]}
+    del model, batches, full, p_init
+    torch.cuda.empty_cache()
+    dist.barrier(group=mesh.world_group)
+    return result, _add(dict(launches), kb_launches)
+
+
+def _shard_paths(torch, backend: str, device: str, data: str) -> tuple:
+    """[mesh] (b)'s sharded paths on this rank, each mesh built over the
+    existing process group: ``(results by path, launches by group)``."""
+    from dmlc_core_tpu_torch.parallel import make_mesh
+    results, launches, meshes = {}, {}, {}
+    for spec, mode, name, kind, layout in SHARD_PATHS[backend]:
+        if spec not in meshes:
+            meshes[spec] = make_mesh(spec, device=device, backend=backend)
+        results[name], got = _shard_path(torch, meshes[spec], backend, spec,
+                                         mode, name, kind, layout, data)
+        _add(launches.setdefault(_shard_group(name), {}), got)
+    for m in meshes.values():
+        m.close()
+    return results, launches
+
+
+def _check_shard_paths(ranks: list, world: int, backend: str, data: str,
+                       power: str) -> None:
+    """The parent's checks of the sharded paths, from every rank's
+    results: the replicas array_equal, rank 0's reference rows, the
+    k-step rows over NCCL, each path's kernels launched, learning, and
+    evaluate_stream's weight."""
+    for spec, mode, name, kind, layout in SHARD_PATHS[backend]:
+        per = [out["shard"][name] for out in ranks]
+        rows = [tuple(row) for row in per[0]["reference"]]
+        rows.append(("replicas array_equal on every rank (gathered)",
+                     float(all(p["ranks_equal"] for p in per)), 1,
+                     all(p["ranks_equal"] for p in per)))
+        if backend == "nccl":
+            rows += [tuple(row) for row in per[0]["kstep"]]
+            ok = [all(row[3] for row in p["kstep"]) for p in per]
+            rows.append(("k-step checks pass on every rank", float(sum(ok)),
+                         world, all(ok)))
+        miss = sorted({k for p in per for k in p["kernels"]
+                       if p["launches"].get(k, 0) < 1})
+        rows.append((f"kernels of {kind} {layout} launched on every rank "
+                     f"(missing {miss})", float(not miss), 1, not miss))
+        dp = max(int(s.split("=")[1]) for s in spec.split(",")
+                 if s.startswith("dp")) if "dp=" in spec else 1
+        ev = [np.load(os.path.join(data, f"shard_eval_d{d}_{name}.npz"))
+              for d in range(dp)]
+        s0, s1, y = (np.concatenate([e[k] for e in ev])
+                     for k in ("s0", "s1", "y"))
+        learn = _auc(s1 - s0, y)
+        rows.append(("evaluate_stream(mesh=) weight, the eval rows",
+                     per[0]["weight"], EVAL_ROWS,
+                     all(p["weight"] == EVAL_ROWS for p in per)))
+        rows.append(("learning: eval auc of the change in score, at least",
+                     learn, LEARN_AUC_MIN, learn >= LEARN_AUC_MIN
+                     and len(y) == EVAL_ROWS))
+        _checked(f"world {world} {spec} {mode} {name}", rows)
+        colls = ", ".join(f"{k} over {a} of {n * 4} bytes"
+                          for k, a, n in per[0]["collectives"])
+        log(f"[mesh] world {world} ({backend}) {spec} {mode} {name}: "
+            f"steps {[p['steps'] for p in per]} of {ROWS_TR} global rows: "
+            + ", ".join(f"rank {r} {p['steps'] / p['wall_s']:.3f} steps/s"
+                        for r, p in enumerate(per))
+            + f"; loss {per[0]['loss'][0]:.6f} -> {per[0]['loss'][1]:.6f}; "
+            f"the forward's collectives a step: {colls}; "
+            f"{per[0]['collective_bytes']} bytes a rank, "
+            f"{per[0]['collective_ms']:.3f} ms (each timed alone); "
+            f"rank 0's parameters {per[0]['shapes']}; evaluate_stream("
+            f"mesh=) accuracy {per[0]['accuracy']:.6f} auc "
+            f"{per[0]['auc']:.6f}; auc of the change in score "
+            f"{learn:.6f} [{power}]")
 
 
 def main_mesh_rank(rank: int, world: int, port: int, data: str,
@@ -7043,6 +7449,11 @@ def main_mesh_rank(rank: int, world: int, port: int, data: str,
         del model, batches
         torch.cuda.empty_cache()
         dist.barrier(group=mesh.group())
+    # the sharded paths, each mesh over the same process group
+    t0 = time.perf_counter()
+    out["shard"], out["shard_launches"] = _shard_paths(
+        torch, backend, str(mesh.device), data)
+    out["shard_s"] = time.perf_counter() - t0
     with open(os.path.join(data, f"mesh_rank{rank}.json"), "w") as f:
         json.dump(out, f)
     mesh.close()
@@ -7157,7 +7568,8 @@ def main_mesh_nccl(world: int) -> int:
                            f"{missing}")
     print(power)
     print(json.dumps({"mesh_nccl": {"world": world,
-                                    "launches": got["launches"]}}))
+                                    "launches": got["launches"],
+                                    "shard": got["shard"]}}))
     return 0
 
 
@@ -7865,6 +8277,25 @@ def main() -> int:
                                                                      0)},
                            "world2": {"launches": mesh["world2"].get(name,
                                                                      0)}}
+            # [mesh] (b)'s sharded paths, both ranks: mp dim, mp rows, pp
+            row["mesh"]["world2_sharded"] = {
+                group: {"launches": got.get(name, 0)}
+                for group, got in mesh["shard"].items()}
+        if name + "_ffm_mp_dim" in kern:
+            # FFM's G at a rank's columns over mp = 2 (D = 80), with the
+            # mp dim group's launches (FFM is among its paths)
+            row["ffm_mp_dim"] = {
+                "launches": mesh["shard"].get("mp_dim", {}).get(name, 0),
+                **{key: kern[name + "_ffm_mp_dim"][key]
+                   for key in keys + ("floor_ms",)}}
+        for group in ("mp_dim", "mp_rows"):
+            if f"{name}_{group}" in kern:
+                # the same kernel at the sharded FM path's shard shape
+                # (dim: D = 16; rows: F = 2^19, the other rank's entries
+                # inert), with that group's launches (both ranks)
+                row[group] = {"launches": mesh["shard"].get(group, {}).get(
+                    name, 0), **{key: kern[f"{name}_{group}"][key]
+                                 for key in keys + ("floor_ms",)}}
         if probe.get(name, 0):
             # [probe]: FusedTrainer(k=8) on the resolved wire and the other
             row["probe"] = {"launches": probe[name]}

@@ -10,12 +10,13 @@ from .ftrl import FTRL  # noqa: F401
 from .optim import Adam  # noqa: F401
 from .sparse import (FactorizationMachine, SparseLogReg,  # noqa: F401
                      task_loss, weighted_bce, weighted_mse)
-from .train import (DataParallelStep, FusedTrainer, adam,  # noqa: F401
+from .sharding import ShardPlan  # noqa: F401
+from .train import (FusedTrainer, MeshStep, adam,  # noqa: F401
                     auc_from_histograms, batch_sharding, evaluate_stream,
-                    fit_stream, make_eval_step, make_train_step,
-                    make_train_step_fused, make_train_step_kbatch,
-                    param_shardings, shard_params, stack_batches,
-                    streaming_auc)
+                    fit_stream, gather_params, make_eval_step,
+                    make_train_step, make_train_step_fused,
+                    make_train_step_kbatch, param_shardings, shard_params,
+                    stack_batches, streaming_auc)
 
 __all__ = ["SparseLogReg", "FactorizationMachine", "FieldAwareFM", "DCNv2",
            "DeepFM",
@@ -26,4 +27,4 @@ __all__ = ["SparseLogReg", "FactorizationMachine", "FieldAwareFM", "DCNv2",
            "auc_from_histograms", "evaluate_stream", "fit_stream", "adam",
            "make_train_step_fused", "FusedTrainer", "make_train_step_kbatch",
            "stack_batches", "batch_sharding", "param_shardings",
-           "shard_params", "DataParallelStep"]
+           "shard_params", "gather_params", "ShardPlan", "MeshStep"]

@@ -8,7 +8,9 @@ names, a sub-tree becoming a sub-module, so ``cross.w`` in
 ``state_dict()`` is ``params["cross"]["w"]`` in the JAX tree.
 ``params_from_jax`` / ``params_to_numpy`` move such a tree across as
 numpy, so both packages can compute with the same weights and share
-checkpoints.
+checkpoints.  A model placed on a mesh (:mod:`.sharding`) takes its own
+slice of each whole leaf (``params_from_jax(tree, model=model)``), and
+gives its whole tree back through :func:`.sharding.gather_params`.
 
 ``adam_state_to_optax`` / ``adam_state_from_optax`` do the same for the
 optimizer: the port's :class:`.optim.Adam` against the state of
@@ -35,6 +37,7 @@ from ..utils.device import resolve_device
 from ..utils.logging import DMLCError
 from .ftrl import FTRL
 from .optim import Adam
+from .sharding import local_shard
 
 __all__ = ["params_from_jax", "params_to_numpy", "params_tree",
            "adam_state_to_optax",
@@ -43,12 +46,15 @@ __all__ = ["params_from_jax", "params_to_numpy", "params_tree",
 
 
 def params_from_jax(params: Mapping[str, Any],
-                    device: Optional[Union[str, torch.device]] = None
+                    device: Optional[Union[str, torch.device]] = None,
+                    model: Optional[nn.Module] = None
                     ) -> Dict[str, torch.Tensor]:
     """A param tree (``{name: array or sub-tree}``; arrays as numpy or
     anything ``np.asarray`` takes) → ``{dotted.name: tensor}`` on
     ``device``, shapes and dtypes kept (a 0-d bias stays 0-d).  The
-    result loads with ``module.load_state_dict``."""
+    result loads with ``module.load_state_dict``.  With ``model``, a
+    model placed on a mesh, each whole leaf is cut to this rank's slice
+    of it, so the result loads into that model."""
     dev = resolve_device(device)
     out: Dict[str, torch.Tensor] = {}
 
@@ -66,6 +72,9 @@ def params_from_jax(params: Mapping[str, Any],
                 out[key] = torch.from_numpy(np.array(value)).to(dev)
 
     walk(params, "")
+    if model is not None:
+        out = {k: local_shard(model, k, v).contiguous()
+               for k, v in out.items()}
     return out
 
 

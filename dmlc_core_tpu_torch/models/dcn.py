@@ -13,6 +13,11 @@ The sparse gather is the only kernel work: the embed-bag kernels
 (forward and backward) on row-major batches, the ragged-gather kernels
 on flat batches.  The cross layers are a loop of ``torch.matmul`` over
 the ``[L, D, D]`` stack, as the JAX package leaves them to XLA.
+
+Placed on a mesh with ``mp`` (:mod:`.sharding`), each rank gathers with
+its shard of ``v`` and ``x0`` is made whole before the cross network:
+all-gathered over ``mp`` in dim mode (each rank holds ``x0``'s columns),
+summed with the linear term's partials in rows mode.
 """
 
 from __future__ import annotations
@@ -23,11 +28,10 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.csr import csr_dense_matvec, csr_embed_sum
-from ..ops.embed import embed_bag
 from ..utils.device import resolve_device
 from ..utils.logging import check
-from .sparse import Batch, Device, _is_rowmajor, _rowmajor_matvec, task_loss
+from .sparse import (Batch, Device, l2_tensors, sparse_terms, task_loss,
+                     whole_terms)
 
 __all__ = ["DCNv2"]
 
@@ -50,6 +54,8 @@ class DCNv2(nn.Module):
     ``init_scale·N(0,1)`` and ``N(0,1)/√dim``.  ``engine`` picks kernel
     or plain PyTorch for the sparse gather, as in
     :mod:`dmlc_core_tpu_torch.kernels.common`."""
+
+    l2_names = ("w", "v", "cross.w", "head.w")
 
     def __init__(self, num_features: int, dim: int = 16, layers: int = 3,
                  l2: float = 0.0, init_scale: float = 0.01,
@@ -83,17 +89,8 @@ class DCNv2(nn.Module):
 
     def _embed(self, batch: Batch):
         """``(linear[B], x0[B, D])`` for either batch layout."""
-        if _is_rowmajor(batch):
-            linear = _rowmajor_matvec(batch, self.w)
-            x0 = embed_bag(batch["ids"], batch["vals"], self.v,
-                           engine=self.engine)
-            return linear, x0
-        num_rows = batch["labels"].shape[0]
-        ids, vals, segs = batch["ids"], batch["vals"], batch["segments"]
-        linear = csr_dense_matvec(ids, vals, segs, self.w, num_rows,
-                                  engine=self.engine)
-        x0 = csr_embed_sum(ids, vals, segs, self.v, num_rows,
-                           engine=self.engine)
+        linear, x0, _ = sparse_terms(self, batch, fm=False)
+        linear, _, x0 = whole_terms(self, linear, x0, None, need_s1=True)
         return linear, x0
 
     def _cross(self, x0: torch.Tensor) -> torch.Tensor:
@@ -109,6 +106,5 @@ class DCNv2(nn.Module):
 
     def loss(self, batch: Batch, wsum: Optional[torch.Tensor] = None,
              reg_scale: float = 1.0) -> torch.Tensor:
-        return task_loss(self(batch), batch, self.task, self.l2, self.w,
-                         self.v, self.cross.w, self.head.w,
-                         wsum=wsum, reg_scale=reg_scale)
+        return task_loss(self(batch), batch, self.task, self.l2,
+                         *l2_tensors(self), wsum=wsum, reg_scale=reg_scale)

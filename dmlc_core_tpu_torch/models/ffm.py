@@ -27,6 +27,14 @@ row-major matvec.
 Field ids are clipped into ``[0, nf - 1]``; ids follow XLA's two rules
 (:mod:`..kernels.common`): the forward reads row ``clamp(id)``, the
 backward drops an out-of-range id.
+
+Placed on a mesh with ``mp`` (:mod:`.sharding`): in dim mode each rank
+holds ``v[F, nf, d/mp]``, so ``G`` is the same kernel at ``D = nf·d/mp``
+and the cross and diagonal terms are sums over the rank's ``d/mp``
+columns, summed over ``mp``.  In rows mode each rank's ``G`` is a
+partial sum over its rows' entries; the cross term is quadratic in
+``G``, so ``G`` itself is summed over ``mp`` (``B·nf²·d`` floats, in one
+all-reduce with the diagonal and linear partials) before it.
 """
 
 from __future__ import annotations
@@ -41,7 +49,8 @@ from ..ops.csr import csr_dense_matvec, csr_embed_sum
 from ..ops.ragged_csr import ragged_segment_sum
 from ..utils.device import resolve_device
 from ..utils.logging import check
-from .sparse import _is_rowmajor, _rowmajor_matvec, task_loss
+from .sharding import mp_plan
+from .sparse import _is_rowmajor, _rowmajor_matvec, l2_tensors, task_loss
 
 __all__ = ["FieldAwareFM"]
 
@@ -90,6 +99,8 @@ class FieldAwareFM(nn.Module):
     ``engine`` picks kernel or plain PyTorch as in
     :mod:`dmlc_core_tpu_torch.kernels.common`."""
 
+    l2_names = ("w", "v")
+
     def __init__(self, num_features: int, num_fields: int, dim: int = 4,
                  l2: float = 0.0, init_scale: float = 0.01,
                  task: str = "binary", engine: str = "auto",
@@ -117,16 +128,15 @@ class FieldAwareFM(nn.Module):
               target: torch.Tensor, num_rows: int
               ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The pairwise term's two parts from flat ``[n]`` entries whose
-        bucket is ``target = row·nf + f``: the cross term per row
-        (``[num_rows]``) and the diagonal term per entry (``[n]``)."""
-        nf, d = self.num_fields, self.dim
-        G = csr_embed_sum(ids, vals, target,
-                          self.v.view(self.num_features, nf * d),
+        bucket is ``target = row·nf + f``: the field-bucket sums ``G``
+        (``[num_rows, nf, nf, d]``, of this rank's shard of ``v``) and
+        the diagonal term per entry (``[n]``)."""
+        Fl, nf, d = self.v.shape
+        G = csr_embed_sum(ids, vals, target, self.v.view(Fl, nf * d),
                           num_rows * nf, engine=self.engine)
-        G = G.view(num_rows, nf, nf, d)
-        cross = (G * G.transpose(1, 2)).sum(dim=(1, 2, 3))
         own = _FieldRows.apply(self.v, ids, f)               # [n, d]
-        return cross, vals * vals * (own * own).sum(dim=-1)
+        return (G.view(num_rows, nf, nf, d),
+                vals * vals * (own * own).sum(dim=-1))
 
     def forward(self, batch: Batch) -> torch.Tensor:
         fields = _check_fields(batch)
@@ -134,26 +144,35 @@ class FieldAwareFM(nn.Module):
         ids, vals = batch["ids"], batch["vals"]
         f = fields.clamp(0, nf - 1).to(torch.int32)
         num_rows = batch["labels"].shape[0]
-        if _is_rowmajor(batch):
-            linear = _rowmajor_matvec(batch, self.w)
+        plan = mp_plan(self)
+        segments = batch.get("segments")
+        if plan is not None:
+            ids, vals, segments = plan.local(ids, vals, segments, num_rows)
+        if ids.dim() == 2:
+            linear = _rowmajor_matvec({"ids": ids, "vals": vals}, self.w)
             rows = torch.arange(num_rows, dtype=torch.int32,
                                 device=ids.device)[:, None]
-            cross, diag = self._pair(ids.reshape(-1), vals.reshape(-1),
-                                     f.reshape(-1),
-                                     (rows * nf + f).reshape(-1), num_rows)
+            G, diag = self._pair(ids.reshape(-1), vals.reshape(-1),
+                                 f.reshape(-1),
+                                 (rows * nf + f).reshape(-1), num_rows)
             diag = diag.view(ids.shape).sum(dim=1)
         else:
-            segments = batch["segments"]
             linear = csr_dense_matvec(ids, vals, segments, self.w, num_rows,
                                       engine=self.engine)
-            cross, diag = self._pair(ids, vals, f, segments * nf + f,
-                                     num_rows)
+            G, diag = self._pair(ids, vals, f, segments * nf + f, num_rows)
             diag = ragged_segment_sum(diag, segments, ids.shape[0],
                                       num_rows)
-        return self.w0 + linear + 0.5 * (cross - diag)
+        if plan is not None and plan.mode == "rows":
+            got = plan.sum(torch.cat([G.reshape(num_rows, -1),
+                                      diag[:, None], linear[:, None]], 1))
+            G = got[:, :-2].view(G.shape)
+            diag, linear = got[:, -2], got[:, -1]
+        pair = 0.5 * ((G * G.transpose(1, 2)).sum(dim=(1, 2, 3)) - diag)
+        if plan is not None and plan.mode == "dim":
+            pair = plan.sum(pair)
+        return self.w0 + linear + pair
 
     def loss(self, batch: Batch, wsum: Optional[torch.Tensor] = None,
              reg_scale: float = 1.0) -> torch.Tensor:
-        return task_loss(self(batch), batch, self.task, self.l2, self.w,
-                         self.v,
-                         wsum=wsum, reg_scale=reg_scale)
+        return task_loss(self(batch), batch, self.task, self.l2,
+                         *l2_tensors(self), wsum=wsum, reg_scale=reg_scale)

@@ -29,17 +29,22 @@ pool and run one after another on the caller's stream.  Launch counts of
 the kernels (:func:`..kernels.launch_counts`) are recorded at capture and
 added at each replay.  On the CPU the same k steps run eagerly.
 
-Data parallelism (``mesh=``, a ``dp`` mesh of :mod:`..parallel.mesh`,
-one process a device): each rank steps on its slice of the global batch
-and computes what the JAX dp-mesh step computes on the whole of it.
-Before the forward, one all-reduce of ``[weight sum, has data]`` gives
-the global batch's weight sum, by which each rank divides its local
-loss numerator, l2 entering at ``1 / world`` a rank; after the backward,
-one all-reduce of every gradient (and the loss) laid end to end sums
-them, and every rank runs the same optimizer update on the same sums,
-so the ranks' parameters stay bit-equal.  DDP's divide-by-world is not
-used: it is wrong when ranks hold unequal weights.  Every parameter is
-replicated; ``mp`` and ``pp`` wait for ROADMAP A.7.a2.
+Training on a mesh (``mesh=``, a mesh of :mod:`..parallel.mesh`, one
+process a device; the model placed by :func:`.sharding.shard_params`):
+each rank steps on its ``dp`` slice of the global batch and computes
+what the JAX mesh step computes on the whole of it (:class:`MeshStep`).
+Before the forward, one all-reduce over ``dp`` of ``[weight sum, has
+data]`` gives the global batch's weight sum, by which each rank divides
+its local loss numerator, l2 entering at ``1 / dp`` a rank.  Over
+``dp`` the ranks see different rows, so gradients are summed.  Over
+``mp`` and ``pp`` every rank computes the same loss, so a replicated
+parameter's gradient is already whole on each of them, and differs only
+in the last bits (the kernels add with atomics): one all-reduce over
+every rank, scaled by ``1 / (mp·pp)``, makes it the dp sum and the same
+bits everywhere, so the replicas stay bit-equal.  A split parameter's
+gradient (a shard of the table, a pipeline stage) is summed over ``dp``
+alone.  DDP's divide-by-world is not used: it is wrong when ranks hold
+unequal weights.
 """
 
 from __future__ import annotations
@@ -52,17 +57,19 @@ import numpy as np
 import torch
 
 from ..kernels.common import add_launches, record_launches
-from ..parallel.mesh import DataSharding, Mesh, refuse_axes
+from ..parallel.mesh import DataSharding, Mesh
 from ..pipeline.loader import _fused_words_meta, make_decoder
 from ..utils.device import resolve_device
-from ..utils.logging import DMLCError, check, log_info
+from ..utils.logging import DMLCError, log_info
 from .optim import Adam
+from .sharding import (_params, gather_params, mesh_plan,  # noqa: F401
+                       param_shardings, shard_params, unplaced_splits)
 
 __all__ = ["make_train_step", "make_eval_step", "streaming_auc",
            "auc_from_histograms", "evaluate_stream", "fit_stream", "adam",
            "make_train_step_fused", "FusedTrainer", "make_train_step_kbatch",
            "stack_batches", "batch_sharding", "param_shardings",
-           "shard_params", "DataParallelStep"]
+           "shard_params", "gather_params", "MeshStep"]
 
 Batch = Dict[str, torch.Tensor]
 
@@ -76,107 +83,150 @@ def adam(model: torch.nn.Module, lr: float = 1e-3,
 
 def batch_sharding(mesh: Optional[Mesh]) -> Optional[DataSharding]:
     """Batches shard their leading (row / nnz) axis over ``dp``: this
-    rank's slice, on its device (``DeviceLoader(sharding=)``)."""
+    rank's ``dp`` slice, on its device (``DeviceLoader(sharding=)``).
+    The ranks of a line along ``mp`` or ``pp`` read the same slice."""
     if mesh is None:
         return None
-    return DataSharding(mesh.rank, mesh.world, mesh.device)
+    return DataSharding(mesh.coord("dp"), mesh.size("dp"), mesh.device)
 
 
-def param_shardings(model: torch.nn.Module, mesh: Optional[Mesh]
-                    ) -> Optional[Dict[str, str]]:
-    """Each parameter's placement: ``"replicated"`` over a ``dp`` mesh.
-    The JAX recipe's ``mp`` placements (its ``table_shard``) wait for
-    ROADMAP A.7.a2, and a mesh with another axis is refused."""
-    if mesh is None:
-        return None
-    refuse_axes(mesh.axis_names)
-    return {name: "replicated" for name, _ in model.named_parameters()}
+def _all_reduce(t: torch.Tensor, group) -> None:
+    """Sum ``t`` in place over ``group`` (None: a line of one rank)."""
+    if group is not None:
+        import torch.distributed as dist
+        dist.all_reduce(t, group=group)
 
 
-def _dp_params(model: torch.nn.Module) -> List[torch.Tensor]:
-    params = [p for p in model.parameters() if p.requires_grad]
-    dtypes = {p.dtype for p in params}
-    check(len(dtypes) == 1, f"data-parallel training wants one parameter "
-          f"dtype, got {sorted(map(str, dtypes))}")
-    return params
+def _check_optimizer(model: torch.nn.Module, optimizer) -> None:
+    """Refuse an optimizer that holds a tensor the model no longer has:
+    :func:`shard_params` replaces each split parameter by its shard, and
+    an optimizer built before it would step the old whole tensors, whose
+    gradients stay None, while the shards never move."""
+    held = getattr(optimizer, "params", None)
+    if held is None:
+        held = [p for g in getattr(optimizer, "param_groups", ())
+                for p in g["params"]]
+    mine = {id(p) for p in model.parameters()}
+    if any(id(p) not in mine for p in held):
+        raise DMLCError("the optimizer holds tensors that are not the "
+                        "model's parameters (shard_params replaced the "
+                        "split ones by their shards): build it after "
+                        "placing the model")
 
 
-def shard_params(model: torch.nn.Module, mesh: Optional[Mesh]) -> None:
-    """Place ``model``'s parameters on ``mesh``: every one replicated,
-    rank 0's values broadcast in place (one collective), so every rank
-    starts from the same parameters."""
-    if mesh is None:
-        return
-    import torch.distributed as dist
-    refuse_axes(mesh.axis_names)
-    params = _dp_params(model)
-    with torch.no_grad():
-        flat = torch.cat([p.reshape(-1) for p in params])
-        dist.broadcast(flat, src=0, group=mesh.group("dp"))
-        at = 0
-        for p in params:
-            p.copy_(flat[at:at + p.numel()].view_as(p))
-            at += p.numel()
-
-
-class DataParallelStep:
-    """``step(batch, stats=None) -> loss``: one gradient step of a ``dp``
-    rank (see the module's docstring); the loss returned is the global
-    batch's, the same on every rank.  :meth:`agree` is the step's first
-    all-reduce, ``[global weight sum, ranks with data]``, which a loop
-    over uneven partitions takes first and hands to the step."""
+class MeshStep:
+    """``step(batch, stats=None) -> loss``: one gradient step of a rank
+    of a mesh (see the module's docstring); the loss returned is the
+    global batch's, the same on every rank, l2 counted once for every
+    parameter however it is split.  :meth:`agree` is the step's first
+    all-reduce, ``[global weight sum, dp ranks with data]``, which a
+    loop over uneven partitions takes first and hands to the step.  A
+    model that the mesh would split (``mp``, a pipelined tower) must be
+    placed on it first (:func:`shard_params`), and the optimizer built
+    after: both are refused otherwise.  A model the mesh only replicates
+    (a ``dp`` mesh) needs no placing."""
 
     def __init__(self, model: torch.nn.Module, optimizer,
                  mesh: Mesh) -> None:
-        refuse_axes(mesh.axis_names)
-        self.model, self.optimizer = model, optimizer
+        plan = mesh_plan(model)
+        if plan is not None and plan.mesh is not mesh:
+            raise DMLCError("the model is placed on another mesh")
+        split = unplaced_splits(model, mesh)
+        if split:
+            raise DMLCError(
+                f"{', '.join(split)} split on this mesh but the model "
+                "holds them whole: place it with shard_params(model, mesh, "
+                "table_shard=) and build its optimizer after")
+        _check_optimizer(model, optimizer)
+        self.model, self.optimizer, self.mesh = model, optimizer, mesh
         self.group = mesh.group("dp")
-        self.reg_scale = 1.0 / mesh.size("dp")
-        self.params = _dp_params(model)
-        check(self.params[0].device == mesh.device,
-              f"the model is on {self.params[0].device}, this rank's "
-              f"device is {mesh.device}")
+        dp = mesh.size("dp")
+        self.reg_scale = 1.0 / dp
+        self.copies = mesh.world // dp          # mp·pp: a replica's copies
+        names = {id(p): n for n, p in model.named_parameters()}
+        self.params = _params(model)
+        dev = self.params[0].device
+        if dev != mesh.device:
+            raise DMLCError(f"the model is on {dev}, this rank's device "
+                            f"is {mesh.device}")
+        shards = {n: (plan.shards(n) if plan is not None else 1)
+                  for n in names.values()}
+        self.replicated = [p for p in self.params if shards[names[id(p)]]
+                           == 1]
+        self.split = [p for p in self.params if shards[names[id(p)]] > 1]
+        # the split parameters' l2, counted once a shard: see _report
+        l2 = float(getattr(model, "l2", 0.0) or 0.0)
+        regs = set(getattr(model, "l2_names", ()))
+        self.split_l2 = [(model.get_parameter(n), l2 * (k - 1) / mesh.world)
+                         for n, k in shards.items() if k > 1 and n in regs
+                         and l2]
 
     def agree(self, batch: Batch, live: bool = True) -> torch.Tensor:
-        import torch.distributed as dist
         w = batch["weights"]
         # a fill, not a copy from the host: the step may be captured
         stats = torch.stack([w.sum(), torch.full((), float(live),
                                                  dtype=w.dtype,
                                                  device=w.device)])
-        dist.all_reduce(stats, group=self.group)
+        _all_reduce(stats, self.group)
         return stats
+
+    def _report(self, loss: torch.Tensor) -> torch.Tensor:
+        """This rank's share of the global loss: summed over every rank
+        it is the global batch's loss.  Each rank's loss holds its dp
+        slice's data term, once a copy over mp·pp, and the l2 of what it
+        holds at 1/dp: a replica's l2 is counted once a copy, a shard's
+        once a shard, so split parameters add their other shards' share
+        here."""
+        out = loss.detach() / self.copies
+        for p, scale in self.split_l2:
+            out = out + scale * torch.sum(p.detach() ** 2)
+        return out.reshape(1)
 
     def __call__(self, batch: Batch,
                  stats: Optional[torch.Tensor] = None) -> torch.Tensor:
-        import torch.distributed as dist
         if stats is None:
             stats = self.agree(batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss = self.model.loss(batch, wsum=torch.clamp(stats[0], min=1e-9),
                                reg_scale=self.reg_scale)
         loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.params]
-        flat = torch.cat([g.reshape(-1) for g in grads]
-                         + [loss.detach().reshape(1)])
-        dist.all_reduce(flat, group=self.group)
+
+        def flat(params):
+            return [p.grad.reshape(-1) if p.grad is not None
+                    else torch.zeros(p.numel(), dtype=p.dtype,
+                                     device=p.device) for p in params]
+        rep = torch.cat(flat(self.replicated) + [self._report(loss)])
+        _all_reduce(rep, self.mesh.world_group)
+        n = rep.numel() - 1
+        if self.copies > 1:
+            rep[:n] *= 1.0 / self.copies
         at = 0
-        for p in self.params:
-            p.grad = flat[at:at + p.numel()].view_as(p)
+        for p in self.replicated:
+            p.grad = rep[at:at + p.numel()].view_as(p)
             at += p.numel()
+        if self.split and self.group is None:
+            for p in self.split:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+        elif self.split:
+            sh = torch.cat(flat(self.split))
+            _all_reduce(sh, self.group)
+            at = 0
+            for p in self.split:
+                p.grad = sh[at:at + p.numel()].view_as(p)
+                at += p.numel()
         self.optimizer.step()
-        return flat[at]
+        return rep[n]
 
 
 def make_train_step(model: torch.nn.Module, optimizer,
                     mesh: Optional[Mesh] = None
                     ) -> Callable[[Batch], torch.Tensor]:
     """``step(batch) -> loss``: one gradient step; the loss is a 0-d
-    tensor on the model's device (no host sync).  With a ``dp`` mesh, a
-    :class:`DataParallelStep` (the loss then the global batch's)."""
+    tensor on the model's device (no host sync).  With a mesh, a
+    :class:`MeshStep` (the loss then the global batch's)."""
     if mesh is not None:
-        return DataParallelStep(model, optimizer, mesh)
+        return MeshStep(model, optimizer, mesh)
 
     def step(batch: Batch) -> torch.Tensor:
         optimizer.zero_grad(set_to_none=True)
@@ -189,12 +239,12 @@ def make_train_step(model: torch.nn.Module, optimizer,
 
 def _mesh_sum(mesh: Optional[Mesh], parts: List[torch.Tensor]
               ) -> List[torch.Tensor]:
-    """``parts`` summed over the mesh's ranks, in one all-reduce."""
+    """``parts`` summed over the ``dp`` ranks, in one all-reduce (the
+    ranks along ``mp`` and ``pp`` hold the same sums)."""
     if mesh is None:
         return parts
-    import torch.distributed as dist
     flat = torch.cat([p.reshape(-1) for p in parts])
-    dist.all_reduce(flat, group=mesh.group("dp"))
+    _all_reduce(flat, mesh.group("dp"))
     out, at = [], 0
     for p in parts:
         out.append(flat[at:at + p.numel()].view_as(p))
@@ -206,7 +256,9 @@ def make_eval_step(model: torch.nn.Module, mesh: Optional[Mesh] = None
                    ) -> Callable[[Batch], Tuple[torch.Tensor, torch.Tensor]]:
     """``evaluate(batch) -> (correct, total)``: weighted count of rows
     whose sign of the score matches the label, and the weight; with a
-    mesh, summed over the ranks' slices of the global batch."""
+    mesh, summed over the ``dp`` ranks' slices of the global batch
+    (every rank of the mesh calls it: a sharded forward has
+    collectives)."""
     @torch.no_grad()
     def evaluate(batch: Batch):
         return tuple(_mesh_sum(mesh, list(_accuracy(model(batch), batch))))
@@ -256,8 +308,10 @@ def evaluate_stream(model: torch.nn.Module, loader, *,
     """One pass over ``loader``: weighted accuracy and, with ``auc``, the
     streaming binned ROC-AUC, from one forward per batch.  Sums stay on
     the device until the end; with a mesh, ``correct``, ``total`` and
-    the AUC histograms are summed over the ranks (one all-reduce) before
-    the AUC is taken, and a rank whose slice is empty adds zeros."""
+    the AUC histograms are summed over the ``dp`` ranks (one all-reduce)
+    before the AUC is taken, and a rank whose slice is empty adds
+    zeros.  Every rank of a line along ``mp`` or ``pp`` reads the same
+    slice, so their sharded forwards run in step."""
     correct = total = pos = neg = None
     with torch.no_grad():
         for batch in loader:
@@ -572,14 +626,14 @@ def make_train_step_kbatch(model: torch.nn.Module, optimizer,
     the card one CUDA graph per set of leaf shapes and dtypes, captured at
     its first call; on the CPU the steps run eagerly.
 
-    With a ``dp`` mesh each step is a :class:`DataParallelStep` over this
-    rank's slices: over NCCL its two all-reduces are captured inside the
-    graph; over gloo (which cannot be captured) or on the CPU the k
-    steps run eagerly.  ``kstep.route`` says which: ``"graph"`` or
-    ``"eager"``."""
+    With a mesh each step is a :class:`MeshStep` over this rank's
+    slices: over NCCL its collectives (and those of a sharded forward and
+    backward) are captured inside the graph; over gloo (which cannot be
+    captured) or on the CPU the k steps run eagerly.  ``kstep.route``
+    says which: ``"graph"`` or ``"eager"``."""
     graphs: Dict[tuple, KSteps] = {}
     dev = _model_device(model)
-    step = None if mesh is None else DataParallelStep(model, optimizer, mesh)
+    step = None if mesh is None else MeshStep(model, optimizer, mesh)
     capture = dev.type == "cuda" and (mesh is None or mesh.capturable)
     pool = torch.cuda.graph_pool_handle() if capture else None
 
@@ -631,39 +685,40 @@ def stack_batches(batches: Sequence[Dict[str, Any]],
 
 
 def _idle_batch(template: Optional[Batch], layout: str,
-                dev: torch.device) -> Batch:
+                dev: torch.device, rows: int = 1) -> Batch:
     """What a ``dp`` rank whose slice has run out steps on: its last
-    batch with every weight 0, or (no batch at all) one empty row of
-    ``layout`` on ``dev``.  Either adds nothing to the global batch."""
+    batch with every weight 0, or (no batch at all) ``rows`` empty rows
+    of ``layout`` on ``dev`` (the loader's batch rows: a pipelined tower
+    splits them into microbatches).  Either adds nothing to the global
+    batch."""
     if template is not None:
         return {**template, "weights": torch.zeros_like(template["weights"])}
-    zf = torch.zeros(1, device=dev)
+    zf = torch.zeros(rows, device=dev)
     zi = torch.zeros(1, dtype=torch.int32, device=dev)
     if layout == "rowmajor":
-        return {"ids": zi.view(1, 1), "vals": zf.view(1, 1),
-                "labels": zf, "weights": zf.clone()}
-    # the one entry points at the scratch row past the batch's one row
-    return {"ids": zi, "vals": zf, "segments": zi + 1,
-            "row_ptr": torch.zeros(2, dtype=torch.int32, device=dev),
+        return {"ids": zi.expand(rows, 1).contiguous(),
+                "vals": zf.view(rows, 1), "labels": zf, "weights": zf.clone()}
+    # the one entry points at the scratch row past the batch's rows
+    return {"ids": zi, "vals": zf[:1], "segments": zi + rows,
+            "row_ptr": torch.zeros(rows + 1, dtype=torch.int32, device=dev),
             "labels": zf, "weights": zf.clone()}
 
 
 def _check_loader_sharding(loader, mesh: Mesh) -> None:
     sharding = getattr(loader, "sharding", None)
     if sharding is None:
-        if mesh.world > 1:
+        if mesh.size("dp") > 1:
             raise DMLCError(
-                f"a mesh of {mesh.world} ranks needs a loader built with "
-                "sharding=batch_sharding(mesh): each rank must read its "
-                "own partition")
+                f"a mesh of {mesh.size('dp')} dp ranks needs a loader built "
+                "with sharding=batch_sharding(mesh): each rank must read "
+                "its own partition")
         return
-    if (sharding.rank, sharding.world, sharding.device) != (
-            mesh.rank, mesh.world, mesh.device):
+    if sharding != batch_sharding(mesh):
         raise DMLCError(f"the loader's sharding {sharding} is not this "
                         f"rank's: {mesh}")
 
 
-def _dp_epoch(step_fn: DataParallelStep, loader, epoch: int, step: int,
+def _dp_epoch(step_fn: MeshStep, loader, epoch: int, step: int,
               log_every: int, history: List[float]) -> int:
     """One epoch of ``dp`` steps.  Each step the ranks agree, in the
     step's first all-reduce, on whether any of them still has a batch
@@ -679,7 +734,8 @@ def _dp_epoch(step_fn: DataParallelStep, loader, epoch: int, step: int,
             template = batch
         else:
             batch = _idle_batch(template, getattr(loader, "layout", "flat"),
-                                step_fn.params[0].device)
+                                step_fn.params[0].device,
+                                getattr(loader, "batch_rows", 1))
         stats = step_fn.agree(batch, live)
         if float(stats[1]) == 0:
             return step
@@ -707,19 +763,36 @@ def fit_stream(model: torch.nn.Module, loader, *, epochs: int = 1,
     (reading one back syncs the host); ``kstep`` there raises rather
     than being ignored.
 
-    With a ``dp`` mesh, rank 0's parameters are broadcast first
-    (:func:`shard_params`), the loader must read this rank's partition
-    (``sharding=batch_sharding(mesh)``; at world 1 any loader), and each
-    step is a :class:`DataParallelStep`; ranks whose partition ends
-    early step on idle batches until every rank is done, and the
+    With a mesh, a model not yet placed on it is placed first
+    (:func:`shard_params`, dim mode: rank 0's parameters broadcast, each
+    rank keeping its shards; place it yourself for ``table_shard=
+    "rows"``), and then the default optimizer is built.  An optimizer
+    passed in must be built after the placing, so where the mesh splits
+    a parameter of an unplaced model it is refused (before anything is
+    placed).  The loader must read this rank's ``dp`` partition
+    (``sharding=batch_sharding(mesh)``; with one ``dp`` rank any
+    loader), and each step is a :class:`MeshStep`; ranks whose partition
+    ends early step on idle batches until every rank is done, and the
     history holds the global batch's losses."""
-    optimizer = optimizer or adam(model, 1e-2)
     history: List[float] = []
-    if getattr(loader, "emit", "device") == "host":
-        if mesh is not None:
-            raise DMLCError("fused k-step training over the host wire is "
-                            "single-card; use a device-emitting loader "
-                            "with mesh")
+    host = getattr(loader, "emit", "device") == "host"
+    if host and mesh is not None:
+        raise DMLCError("fused k-step training over the host wire is "
+                        "single-card; use a device-emitting loader with "
+                        "mesh")
+    if mesh is not None:
+        _check_loader_sharding(loader, mesh)
+        if optimizer is not None and unplaced_splits(model, mesh):
+            raise DMLCError(
+                "the mesh splits parameters of this unplaced model, and "
+                "placing it would replace the tensors the optimizer "
+                "holds: place it (shard_params(model, mesh, table_shard=))"
+                " before building the optimizer, or let fit_stream build "
+                "it")
+        if mesh_plan(model) is None:
+            shard_params(model, mesh)
+    optimizer = optimizer or adam(model, 1e-2)
+    if host:
         trainer = FusedTrainer(model, optimizer, loader,
                                k=16 if kstep is None else kstep)
         for epoch in range(epochs):
@@ -736,9 +809,6 @@ def fit_stream(model: torch.nn.Module, loader, *, epochs: int = 1,
             "kstep requires a loader built with emit='host' (the fused "
             "wire); this loader emits device batches, so the k-step "
             "dispatch cannot engage")
-    if mesh is not None:
-        _check_loader_sharding(loader, mesh)
-        shard_params(model, mesh)
     step_fn = make_train_step(model, optimizer, mesh)
     step = 0
     for epoch in range(epochs):

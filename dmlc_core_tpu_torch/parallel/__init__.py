@@ -1,19 +1,26 @@
 """Distributed layer of the port (counterpart of
-``dmlc_core_tpu/parallel``): named process meshes and their collectives.
+``dmlc_core_tpu/parallel``): named process meshes, their collectives and
+the pipeline schedule.
 
-Only the data-parallel half is ported (ROADMAP A.7.a): :mod:`.mesh` and
-:mod:`.collectives`.  The tracker, rabit, reshard and elastic modules
-wait for A.7.b–c, and no name of theirs is exported here.
+:mod:`.mesh` (the ``dp``, ``mp`` and ``pp`` axes), :mod:`.collectives`
+and :mod:`.pipeline` are ported (ROADMAP A.7.a).  The tracker, rabit,
+reshard and elastic modules wait for A.7.b–c, and no name of theirs is
+exported here.
 """
 
 from .collectives import (OPS, MeshCollectives, all_to_all,  # noqa: F401
-                          allgather, allreduce, broadcast, reduce_scatter)
-from .mesh import (DataSharding, Mesh, make_mesh,  # noqa: F401
-                   parse_mesh_spec, process_mesh_info, remap_deltas,
-                   remap_rows, row_owners, row_partition)
+                          allgather, allreduce, broadcast, gather_dim,
+                          reduce_scatter, sum_partials)
+from .mesh import (DataSharding, Mesh, axis_lines,  # noqa: F401
+                   make_mesh, parse_mesh_spec, process_mesh_info,
+                   remap_deltas, remap_rows, row_owners, row_partition)
+from .pipeline import (make_pipeline, split_microbatches,  # noqa: F401
+                       stack_stage_params, stage_sharding)
 
 __all__ = ["Mesh", "DataSharding", "make_mesh", "parse_mesh_spec",
-           "process_mesh_info", "row_partition",
+           "process_mesh_info", "row_partition", "axis_lines",
            "remap_rows", "remap_deltas", "row_owners", "allreduce",
            "broadcast", "allgather", "reduce_scatter", "all_to_all",
-           "MeshCollectives", "OPS"]
+           "sum_partials", "gather_dim", "MeshCollectives", "OPS",
+           "make_pipeline", "split_microbatches", "stack_stage_params",
+           "stage_sharding"]

@@ -14,6 +14,16 @@ Two tiers, as in the JAX module:
   with the semantics of the JAX in-jit functions under ``shard_map``;
 * :class:`MeshCollectives`, the literal rabit API.
 
+Two more are differentiable, for the sharded models
+(:mod:`..models.sharding`): :func:`sum_partials` (forward an all-reduce,
+backward the identity) and :func:`gather_dim` (forward an all-gather,
+backward this rank's slice).  Both are the transposes ``shard_map``
+gives a value that is replicated over the axis: every rank computes the
+same loss from the result, so the cotangent each rank holds is already
+the whole one, and summing it over the ranks would count it once a
+rank.  Any axis's group serves; along an axis of one rank every function
+returns its input's value without a collective.
+
 Where the JAX functions see one process holding every rank's block, the
 port is SPMD: each process passes its own block and gets its own
 result, on the device its block is on.  A backend that lacks a
@@ -24,7 +34,9 @@ nothing is staged through the host behind the caller's back.
 
 from __future__ import annotations
 
-from typing import List, Union
+import contextlib
+import threading
+from typing import Iterator, List, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,7 +45,8 @@ from ..utils.logging import DMLCError, check
 from .mesh import Mesh
 
 __all__ = ["allreduce", "broadcast", "allgather", "reduce_scatter",
-           "all_to_all", "MeshCollectives", "OPS"]
+           "all_to_all", "sum_partials", "gather_dim", "MeshCollectives",
+           "OPS", "record_collectives"]
 
 #: the reductions of :func:`allreduce`
 OPS = ("sum", "max", "min")
@@ -49,9 +62,37 @@ def _op(op: str):
             "min": dist.ReduceOp.MIN}[op]
 
 
-def _run(kind: str, mesh: Mesh, x: torch.Tensor, fn) -> None:
-    """Call the collective; a backend without it for ``x``'s device
-    raises, saying which."""
+#: ``.rec``: while :func:`record_collectives` is open on a thread, the
+#: ``(kind, axis, elements of the rank's input)`` of every collective
+#: that thread runs here
+_recording = threading.local()
+
+
+@contextlib.contextmanager
+def record_collectives() -> Iterator[List[Tuple[str, str, int]]]:
+    """Around a call on this thread (a sharded forward, say): yields the
+    list of the ``(kind, axis, elements)`` of every collective this
+    module runs meanwhile on the same thread, in order; other threads'
+    (autograd's backward on the card, say) are not seen.  A measuring
+    aid for tests and the card's smoke run; one recording a thread at a
+    time (a nested one raises)."""
+    if getattr(_recording, "rec", None) is not None:
+        raise DMLCError("record_collectives is open on this thread "
+                        "already")
+    rec: List[Tuple[str, str, int]] = []
+    _recording.rec = rec
+    try:
+        yield rec
+    finally:
+        _recording.rec = None
+
+
+def _run(kind: str, mesh: Mesh, x: torch.Tensor, fn, axis: str) -> None:
+    """Call the collective over ``axis``; a backend without it for
+    ``x``'s device raises, saying which."""
+    rec = getattr(_recording, "rec", None)
+    if rec is not None:
+        rec.append((kind, axis, int(x.numel())))
     try:
         fn()
     except RuntimeError as e:
@@ -71,14 +112,27 @@ def _chunks(x: torch.Tensor, world: int, axis: int) -> List[torch.Tensor]:
     return [c.contiguous() for c in torch.chunk(x, world, dim=axis)]
 
 
+def _gather(mesh: Mesh, axis_name: str, x: torch.Tensor
+            ) -> List[torch.Tensor]:
+    """Every rank's ``x`` (contiguous) along the axis, in its order."""
+    import torch.distributed as dist
+    if mesh.size(axis_name) == 1:
+        return [x]
+    parts = [torch.empty_like(x) for _ in range(mesh.size(axis_name))]
+    _run("allgather", mesh, x, lambda: dist.all_gather(
+        parts, x, group=mesh.group(axis_name)), axis_name)
+    return parts
+
+
 def allreduce(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
               op: str = "sum") -> torch.Tensor:
     """The ranks' blocks reduced by ``op``; the same on every rank."""
     import torch.distributed as dist
     out = x.clone()
     red = _op(op)
-    _run("allreduce", mesh, out, lambda: dist.all_reduce(
-        out, op=red, group=mesh.group(axis_name)))
+    if mesh.size(axis_name) > 1:
+        _run("allreduce", mesh, out, lambda: dist.all_reduce(
+            out, op=red, group=mesh.group(axis_name)), axis_name)
     return out
 
 
@@ -88,8 +142,10 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
     import torch.distributed as dist
     check(0 <= root < mesh.size(axis_name), f"bad root {root}")
     out = x.clone()
-    _run("broadcast", mesh, out, lambda: dist.broadcast(
-        out, src=root, group=mesh.group(axis_name)))
+    if mesh.size(axis_name) > 1:
+        src = mesh.line(axis_name)[root]
+        _run("broadcast", mesh, out, lambda: dist.broadcast(
+            out, src=src, group=mesh.group(axis_name)), axis_name)
     return out
 
 
@@ -97,11 +153,8 @@ def allgather(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
               axis: int = 0, tiled: bool = True) -> torch.Tensor:
     """Every rank's block, in rank order: concatenated along ``axis``
     (``tiled``) or stacked on a new ``axis``."""
-    import torch.distributed as dist
     x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(mesh.size(axis_name))]
-    _run("allgather", mesh, x, lambda: dist.all_gather(
-        parts, x, group=mesh.group(axis_name)))
+    parts = _gather(mesh, axis_name, x)
     return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
 
 
@@ -111,9 +164,11 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
     the ranks of their chunk ``r`` (JAX's tiled ``psum_scatter``)."""
     import torch.distributed as dist
     chunks = _chunks(x, mesh.size(axis_name), axis)
+    if len(chunks) == 1:
+        return chunks[0]
     out = torch.empty_like(chunks[0])
     _run("reduce_scatter", mesh, x, lambda: dist.reduce_scatter(
-        out, chunks, group=mesh.group(axis_name)))
+        out, chunks, group=mesh.group(axis_name)), axis_name)
     return out
 
 
@@ -124,10 +179,62 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
     ``concat_axis`` (JAX's tiled ``all_to_all``)."""
     import torch.distributed as dist
     ins = _chunks(x, mesh.size(axis_name), split_axis)
+    if len(ins) == 1:
+        return torch.cat(ins, concat_axis)
     outs = [torch.empty_like(c) for c in ins]
     _run("all_to_all", mesh, x, lambda: dist.all_to_all(
-        outs, ins, group=mesh.group(axis_name)))
+        outs, ins, group=mesh.group(axis_name)), axis_name)
     return torch.cat(outs, concat_axis)
+
+
+class _SumPartials(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name):
+        import torch.distributed as dist
+        out = x.clone()
+        _run("allreduce", mesh, out, lambda: dist.all_reduce(
+            out, group=mesh.group(axis_name)), axis_name)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def sum_partials(x: torch.Tensor, mesh: Mesh, axis_name: str = "mp"
+                 ) -> torch.Tensor:
+    """The sum over ``axis_name``'s ranks of each rank's partial ``x``,
+    the same on every rank (an all-reduce).  Differentiable: the
+    gradient of each rank's partial is the result's own, as the
+    transpose of JAX's ``psum`` to a replicated value gives it."""
+    if mesh.size(axis_name) == 1:
+        return x
+    return _SumPartials.apply(x, mesh, axis_name)
+
+
+class _GatherDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name, dim):
+        ctx.dim, ctx.width = dim, x.shape[dim]
+        ctx.index = mesh.coord(axis_name)
+        return torch.cat(_gather(mesh, axis_name, x.contiguous()), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g.narrow(ctx.dim, ctx.index * ctx.width, ctx.width),
+                None, None, None)
+
+
+def gather_dim(x: torch.Tensor, mesh: Mesh, axis_name: str = "mp",
+               dim: int = -1) -> torch.Tensor:
+    """Every rank's ``x`` along ``axis_name``, concatenated along ``dim``
+    in rank order, the same on every rank (an all-gather).
+    Differentiable: the gradient of this rank's ``x`` is its own slice
+    of the result's, not a reduce-scatter (the result is replicated, so
+    that would count it once a rank)."""
+    if mesh.size(axis_name) == 1:
+        return x
+    return _GatherDim.apply(x, mesh, axis_name, dim % x.dim())
 
 
 class MeshCollectives:

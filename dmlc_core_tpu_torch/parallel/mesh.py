@@ -6,11 +6,15 @@ drives every device of a host from one process, as a named
 process a device, joined by a ``torch.distributed`` process group.  A
 rank is the reference's ``DMLC_TASK_ID``, the world its
 ``DMLC_NUM_WORKER``, and the input is cut by ``ResetPartition(rank,
-world)``.
+world)`` over the ``dp`` axis.
 
-Only the ``dp`` axis (data parallelism: each rank a slice of the global
-batch, the gradients all-reduced) is ported.  ``mp`` and ``pp`` wait for
-ROADMAP A.7.a2 and ``sp`` for A.10; a spec naming them is refused.
+Three axes are ported: ``dp`` (data parallelism: each rank a slice of
+the global batch, the gradients all-reduced), ``mp`` (the factor table
+sharded by its factor dim or by its rows) and ``pp`` (DeepFM's tower,
+one stage a rank).  Ranks are laid out row-major over the spec's axis
+order, as the JAX package reshapes its device list, and each line of
+ranks along an axis has a process group of its own.  ``sp`` waits for
+ROADMAP A.10; a spec naming it is refused.
 
 The pure layout helpers (:func:`parse_mesh_spec`, :func:`row_partition`,
 :func:`row_owners`, :func:`remap_rows`, :func:`remap_deltas`) are copies
@@ -23,7 +27,7 @@ import datetime
 import os
 import tempfile
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,15 +37,16 @@ from ..utils.logging import DMLCError, check, log_info
 __all__ = ["Mesh", "DataSharding", "make_mesh", "parse_mesh_spec",
            "process_mesh_info", "row_partition",
            "row_owners", "remap_rows", "remap_deltas", "refuse_axes",
-           "DEFAULT_TIMEOUT_S"]
+           "axis_lines", "AXES", "DEFAULT_TIMEOUT_S"]
 
 #: seconds any collective of a mesh may wait before it fails
 DEFAULT_TIMEOUT_S = 300.0
 
+#: the axes a mesh may have
+AXES = ("dp", "mp", "pp")
+
 #: the queue item that ports each axis the port refuses
-_LATER = {"mp": "ROADMAP A.7.a2 (mp table sharding)",
-          "pp": "ROADMAP A.7.a2 (the pp tower, parallel/pipeline.py)",
-          "sp": "ROADMAP A.10 (ring attention and ulysses)"}
+_LATER = {"sp": "ROADMAP A.10 (ring attention and ulysses)"}
 
 
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
@@ -60,13 +65,13 @@ def parse_mesh_spec(spec: str) -> Dict[str, int]:
 
 
 def refuse_axes(axes) -> None:
-    """Raise for any axis but ``dp``, naming the queue item that ports
-    it."""
+    """Raise for any axis but ``dp``, ``mp`` and ``pp``, naming the queue
+    item that ports it."""
     for axis in axes:
-        if axis != "dp":
+        if axis not in AXES:
             later = _LATER.get(axis, "no queue item: unknown axis")
-            raise DMLCError(f"mesh axis {axis!r} is not ported (only 'dp' "
-                            f"is); it waits for {later}")
+            raise DMLCError(f"mesh axis {axis!r} is not ported (only "
+                            f"{', '.join(AXES)} are); it waits for {later}")
 
 
 def row_partition(n_rows: int, parts: int) -> List[Tuple[int, int]]:
@@ -158,15 +163,28 @@ class DataSharding:
     axis: str = "dp"
 
 
+def axis_lines(axes: Dict[str, int], axis: str) -> List[List[int]]:
+    """Every line of ranks along ``axis`` of a mesh of ``axes`` (ranks
+    row-major over the axes' order, the last axis fastest), each in the
+    order of its coordinate along ``axis``."""
+    shape = tuple(axes.values())
+    grid = np.arange(int(np.prod(shape))).reshape(shape)
+    at = list(axes).index(axis)
+    lines = np.moveaxis(grid, at, -1).reshape(-1, shape[at])
+    return [[int(r) for r in line] for line in lines]
+
+
 class Mesh:
     """A named mesh of processes, one device each: this process's
-    ``rank`` of ``world``, its ``device``, and the process group of each
-    axis.  Built by :func:`make_mesh`; only ``dp`` is an axis.
+    ``rank`` of ``world``, its ``device``, its coordinate along each axis
+    and the process group of its line of ranks along each axis.  Built
+    by :func:`make_mesh`.  An axis the mesh does not name has size 1.
     ``timeout_s`` is the group's collective timeout, None where the mesh
     joined a group made elsewhere (whose own timeout applies)."""
 
     def __init__(self, axes: Dict[str, int], rank: int, world: int,
-                 device: torch.device, backend: str, group,
+                 device: torch.device, backend: str,
+                 groups: Optional[Dict[str, Any]],
                  timeout_s: Optional[float], owns_group: bool,
                  store_path: Optional[str] = None) -> None:
         self.axis_names = tuple(axes)
@@ -174,19 +192,54 @@ class Mesh:
         self.rank, self.world = rank, world
         self.device, self.backend = device, backend
         self.timeout_s = timeout_s
-        self._group = group
+        coords = np.unravel_index(rank, tuple(axes.values())) if axes else ()
+        self._coords = {a: int(c) for a, c in zip(axes, coords)}
+        self._groups = dict(groups or {})
         self._owns_group = owns_group
         self._store_path = store_path
 
     def size(self, axis: str = "dp") -> int:
-        check(axis in self.shape, f"axis {axis!r} not in mesh "
-              f"{self.axis_names}")
-        return self.shape[axis]
+        """The number of ranks along ``axis`` (1 for an axis the mesh
+        does not name)."""
+        check(axis in AXES or axis in self.shape,
+              f"unknown mesh axis {axis!r}")
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis: str = "dp") -> int:
+        """This rank's index along ``axis`` (0 for an axis the mesh does
+        not name)."""
+        self.size(axis)
+        return self._coords.get(axis, 0)
+
+    def line(self, axis: str = "dp") -> List[int]:
+        """The ranks of this rank's line along ``axis``, in the order of
+        their coordinate."""
+        if axis not in self.shape:
+            self.size(axis)
+            return [self.rank]
+        return axis_lines(self.shape, axis)[self._line_index(axis)]
+
+    def _line_index(self, axis: str) -> int:
+        others = [a for a in self.shape if a != axis]
+        sizes = [self.shape[a] for a in others]
+        return int(np.ravel_multi_index([self._coords[a] for a in others],
+                                        sizes)) if others else 0
 
     def group(self, axis: str = "dp"):
-        """The process group of ``axis`` (every rank, for ``dp``)."""
+        """The process group of this rank's line along ``axis``: the
+        default group where the line is every rank, None where the line
+        is this rank alone in a larger world (nothing to reduce)."""
         self.size(axis)
-        return self._group
+        if axis in self._groups:
+            return self._groups[axis]
+        import torch.distributed as dist
+        return dist.group.WORLD if self.world == 1 else None
+
+    @property
+    def world_group(self):
+        """The group of every rank of the mesh."""
+        import torch.distributed as dist
+        return dist.group.WORLD
 
     @property
     def capturable(self) -> bool:
@@ -195,11 +248,17 @@ class Mesh:
         return self.backend == "nccl" and self.device.type == "cuda"
 
     def close(self) -> None:
-        """Destroy the process group, and the file of its store, if
-        :func:`make_mesh` created them."""
+        """Destroy the process groups, and the file of the store, that
+        :func:`make_mesh` created."""
         import torch.distributed as dist
-        if self._owns_group and dist.is_initialized():
-            dist.destroy_process_group()
+        if dist.is_initialized():
+            if self._owns_group:
+                dist.destroy_process_group()
+            else:
+                for g in set(self._groups.values()) - {dist.group.WORLD,
+                                                        None}:
+                    dist.destroy_process_group(g)
+        self._groups = {}
         self._owns_group = False
         if self._store_path is not None:
             try:
@@ -285,6 +344,28 @@ def _axis_sizes(axes: Dict[str, int], n: int) -> Dict[str, int]:
     return axes
 
 
+def _axis_groups(sizes: Dict[str, int], me: int, world: int,
+                 timeout_s: Optional[float]) -> Dict[str, Any]:
+    """This rank's group along each axis longer than 1: the default group
+    where the line is every rank, else a new group.  Every rank calls
+    ``new_group`` for every line, in the same order, as it must."""
+    import torch.distributed as dist
+    kw = ({} if timeout_s is None else
+          {"timeout": datetime.timedelta(seconds=float(timeout_s))})
+    groups: Dict[str, Any] = {}
+    for axis, n in sizes.items():
+        if n == world:
+            groups[axis] = dist.group.WORLD
+            continue
+        if n == 1:
+            continue
+        for line in axis_lines(sizes, axis):
+            g = dist.new_group(ranks=line, **kw)
+            if me in line:
+                groups[axis] = g
+    return groups
+
+
 def make_mesh(spec: str = "dp=-1", *,
               device: Optional[Union[str, torch.device]] = None,
               backend: Optional[str] = None,
@@ -311,13 +392,16 @@ def make_mesh(spec: str = "dp=-1", *,
     timeout applies, so a ``timeout_s`` passed with it is refused.
 
     ``device`` defaults to ``cuda:LOCAL_RANK`` (else ``rank`` modulo the
-    cards); the mesh's first collective, a one-element all-reduce on it,
-    runs here, so a hung rendezvous fails in this call and NCCL's
-    communicator exists before any graph capture."""
+    cards).  Every rank makes the group of every line of every axis
+    longer than 1 (:func:`axis_lines`), in one order, and keeps its own.
+    The mesh's first collectives, a one-element all-reduce over every
+    rank and then over each of this rank's groups, run here, so a hung
+    rendezvous fails in this call and NCCL's communicators exist before
+    any graph capture."""
     import torch.distributed as dist
     axes = parse_mesh_spec(spec)
     refuse_axes(axes)
-    check("dp" in axes, f"mesh spec {spec!r} names no axis")
+    check(len(axes) > 0, f"mesh spec {spec!r} names no axis")
     if not dist.is_available():
         raise DMLCError("this torch has no torch.distributed")
     dev = torch.device("cuda" if device is None else device)
@@ -356,13 +440,16 @@ def make_mesh(spec: str = "dp=-1", *,
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     sizes = _axis_sizes(axes, world)
-    group = dist.group.WORLD
-    probe = torch.ones(1, device=dev)
-    dist.all_reduce(probe, group=group)
-    if float(probe) != world:
-        raise DMLCError(f"the mesh's first all-reduce gave {float(probe)}, "
-                        f"not {world}")
-    mesh = Mesh(sizes, me, world, dev, backend, group,
+    groups = _axis_groups(sizes, me, world, timeout_s if owns else None)
+    for name, group in [("every rank", dist.group.WORLD)] + [
+            (a, g) for a, g in groups.items() if g is not dist.group.WORLD]:
+        probe = torch.ones(1, device=dev)
+        dist.all_reduce(probe, group=group)
+        want = world if group is dist.group.WORLD else sizes[name]
+        if float(probe) != want:
+            raise DMLCError(f"the mesh's first all-reduce over {name} gave "
+                            f"{float(probe)}, not {want}")
+    mesh = Mesh(sizes, me, world, dev, backend, groups,
                 None if timeout_s is None else float(timeout_s), owns,
                 store_path)
     log_info("mesh %s: rank %d of %d on %s over %s", sizes, me, world, dev,

@@ -531,12 +531,11 @@ class _TransferStage:
 # -- the loader --------------------------------------------------------------
 
 def _sharded_device(source, sharding: DataSharding, device, ragged: bool,
-                    fields: bool, emit: str) -> torch.device:
+                    emit: str) -> torch.device:
     """The device of a data-parallel rank's loader, once its options and
     its source's partition are checked against ``sharding``."""
     check(not ragged, "ragged=True cannot shard over a batch axis (the "
           "nnz_used and rows_used words are the whole batch's)")
-    check(not fields, "fields=True is not ported with a sharding")
     check(emit == "device", "emit='host' requires the fused path with no "
           "sharding (single-card k-step training)")
     if device is not None and resolve_device(device) != sharding.device:
@@ -621,7 +620,7 @@ class DeviceLoader(_TransferStage):
                     ``(rank, world)`` of the input (the reference's
                     ``ResetPartition`` contract; a source whose
                     partition cannot be read is refused above world 1).
-                    Not with ``ragged``, ``fields`` or ``emit="host"``.
+                    Not with ``ragged`` or ``emit="host"``.
     """
 
     def __init__(self, source, batch_rows: int, nnz_cap: int,
@@ -651,7 +650,7 @@ class DeviceLoader(_TransferStage):
                   "fields)")
         if sharding is not None:
             device = _sharded_device(source, sharding, device, ragged,
-                                     fields, emit)
+                                     emit)
         self.sharding = sharding
         device = resolve_device(device)
         put_threads, wire_compact = tuned.resolve(

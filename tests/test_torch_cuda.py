@@ -474,6 +474,81 @@ def test_ragged_grad_owner_writes_replay_in_a_cuda_graph(dev, fm):
         _sums_close(out, want, _term_sizes(new, nnz, table, g1, g2, rows))
 
 
+def _shard_plan(mode):
+    """Rank 1's plan of two over mp in ``mode``: rows mode owns rows
+    [F/2, F); dim mode keeps every row (its columns are the table's)."""
+    from dmlc_core_tpu_torch.models import ShardPlan
+    rows = (F // 2, F) if mode == "rows" else (0, F)
+    return ShardPlan(None, mode, {"v": "mp:0" if mode == "rows"
+                                  else "mp:1"}, F, rows)
+
+
+@pytest.mark.parametrize("mode", ["dim", "rows"])
+@pytest.mark.parametrize("fm", [False, True])
+@pytest.mark.parametrize("D", [8, 16, 80])
+def test_ragged_kernels_at_shard_shapes_match_plain(dev, D, fm, mode):
+    """The ragged gather forward and backward as a sharded model calls
+    them: dim mode at D = 16 (FM's 32 over mp = 2), 8 and 80 (FFM's
+    nf·d/mp); rows mode on rows [F/2, F) of the table, the batch
+    remapped by ``ShardPlan.local`` (the other rank's entries inert on
+    the scratch row, ids past the table kept for the forward only)."""
+    rng = np.random.default_rng(300 + D + fm)
+    rows, cap = 64, 4096
+    ids = rng.integers(0, F, cap).astype(np.int32)
+    ids[:4] = BAD_IDS_GRAD
+    vals = rng.normal(size=cap).astype(np.float32)
+    segs = np.sort(rng.integers(0, rows + 1, cap)).astype(np.int32)
+    a = [torch.from_numpy(x).to(dev) for x in (ids, vals, segs)]
+    plan = _shard_plan(mode)
+    a = list(plan.local(*a, rows))
+    Ft = plan.rows[1] - plan.rows[0]
+    tab = torch.from_numpy(rng.normal(size=(Ft, D)).astype(np.float32)
+                           ).to(dev)
+    got = ragged_gather(*a, None, tab, rows, fm=fm)
+    want = ragged_gather_reference(*a, None, tab, rows, fm=fm)
+    for g, w in zip(got, want):
+        if g is not None:
+            torch.testing.assert_close(g, w, **TOL)
+    g1, g2 = (torch.from_numpy(rng.normal(size=(rows + 1, D)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    g2 = g2 if fm else None
+    got = ragged_gather_grad(*a, None, tab, g1, g2, rows, False)
+    want = ragged_gather_grad_reference(*a, None, tab, g1, g2, rows, False)
+    torch.testing.assert_close(got[1], want[1], **TOL)
+
+
+@pytest.mark.parametrize("mode", ["dim", "rows"])
+@pytest.mark.parametrize("D", [8, 16])
+def test_rowmajor_kernels_at_shard_shapes_match_plain(dev, D, mode):
+    """The fm-terms and embed-bag kernels, forward and backward, as a
+    sharded row-major model calls them (dim mode: D = 16 or 8; rows
+    mode: rows [F/2, F), the other rank's entries of value 0)."""
+    rng = np.random.default_rng(400 + D)
+    B, K = 256, 64
+    ids = torch.from_numpy(rng.integers(0, F, (B, K)).astype(
+        np.int32)).to(dev)
+    vals = torch.from_numpy(rng.random((B, K), dtype=np.float32)).to(dev)
+    plan = _shard_plan(mode)
+    ids, vals, _ = plan.local(ids, vals)
+    Ft = plan.rows[1] - plan.rows[0]
+    tab = torch.from_numpy(rng.normal(size=(Ft, D)).astype(np.float32)
+                           ).to(dev)
+    for g, w in zip(fm_terms(ids, vals, tab), fm_terms_reference(ids, vals,
+                                                                 tab)):
+        torch.testing.assert_close(g, w, **TOL)
+    torch.testing.assert_close(embed_bag_forward(ids, vals, tab),
+                               embed_bag_reference(ids, vals, tab), **TOL)
+    g1, g2 = (torch.from_numpy(rng.normal(size=(B, D)).astype(
+        np.float32)).to(dev) for _ in range(2))
+    torch.testing.assert_close(
+        fm_terms_grad(ids, vals, tab, g1, g2, False)[1],
+        fm_terms_grad_reference(ids, vals, tab, g1, g2, False)[1], **TOL)
+    torch.testing.assert_close(
+        embed_bag_grad(ids, vals, tab, g1, False, False)[1],
+        embed_bag_grad_reference(ids, vals, tab, g1, False, False)[1],
+        **TOL)
+
+
 def test_ragged_embed_grad_kernel_matches_plain(dev):
     rng = np.random.default_rng(3)
     rows, cap, n, D = 8, 64, 40, 32

@@ -154,11 +154,16 @@ DP_MODULES = {"parallel/__init__.py": "dmlc_core_tpu/parallel",
               "parallel/mesh.py": "dmlc_core_tpu/parallel/mesh.py",
               "parallel/collectives.py":
                   "dmlc_core_tpu/parallel/collectives.py",
-              "pipeline/probe.py": "bench.py"}
+              "pipeline/probe.py": "bench.py",
+              # model and pipeline parallelism (A.7.a2)
+              "parallel/pipeline.py": "dmlc_core_tpu/parallel/pipeline.py",
+              "models/sharding.py": "dmlc_core_tpu/models/train.py"}
 
 _DP_PROBE = r"""
 import sys, threading
 import dmlc_core_tpu_torch.parallel
+import dmlc_core_tpu_torch.parallel.pipeline
+import dmlc_core_tpu_torch.models.sharding
 import dmlc_core_tpu_torch.pipeline.probe
 import torch.distributed as dist
 assert not dist.is_initialized()

@@ -68,11 +68,22 @@ def test_row_owners_refuses_rows_outside():
 
 
 @pytest.mark.parametrize("spec,item", [
-    ("dp=2,mp=2", "A.7.a2"), ("mp=2", "A.7.a2"), ("dp=-1,pp=2", "A.7.a2"),
-    ("sp=4", "A.10"), ("dp=2,xx=2", "unknown axis")])
+    ("dp=2,mp=2", None), ("mp=2", None), ("dp=-1,pp=2", None),
+    ("sp=4", "A.10"), ("dp=2,xx=2", "unknown axis"), ("dp=2,sp=2", "A.10"),
+    ("mp=2,sp=-1", "A.10"), ("pp=2,sp=2", "A.10")])
 def test_make_mesh_refuses_axes_not_ported(spec, item):
-    with pytest.raises(DMLCError, match=item):
-        tmesh.make_mesh(spec, device="cpu")
+    """``sp`` and unknown axes are refused, naming their queue item;
+    ``mp`` and ``pp`` are taken, with JAX's axis sizes (over the
+    processes the spec needs)."""
+    if item is not None:
+        with pytest.raises(DMLCError, match=item):
+            tmesh.make_mesh(spec, device="cpu")
+        return
+    axes = tmesh.parse_mesh_spec(spec)
+    tmesh.refuse_axes(axes)
+    n = 4
+    want = dict(jmesh.make_mesh(spec, jax.devices()[:n]).shape)
+    assert tmesh._axis_sizes(dict(axes), n) == want
 
 
 def test_make_mesh_refuses_nccl_on_the_cpu():
@@ -87,17 +98,40 @@ def test_make_mesh_never_falls_back_to_the_cpu():
         tmesh.make_mesh()
 
 
+def _jax_spec(sharding) -> str:
+    """A JAX NamedSharding as the port's placement string."""
+    spec = tuple(sharding.spec)
+    split = [(i, a) for i, a in enumerate(spec) if a is not None]
+    return "replicated" if not split else f"{split[0][1]}:{split[0][0]}"
+
+
 def test_param_shardings_replicate_on_dp_and_refuse_mp():
+    """Replicated on a dp mesh; on an mp mesh, the JAX recipe's
+    placements in both table modes; a bad mode and an uneven rows split
+    refused."""
+    from dmlc_core_tpu.models import sparse as jsparse
+    from dmlc_core_tpu.models import train as jtrain
+    from jax.sharding import Mesh as JMesh
     model = FactorizationMachine(64, 4, device="cpu")
     dp = tmesh.Mesh({"dp": 1}, 0, 1, torch.device("cpu"), "gloo", None,
                     60.0, False)
     assert param_shardings(model, dp) == {
         "w0": "replicated", "w": "replicated", "v": "replicated"}
     assert param_shardings(model, None) is None
-    mp = tmesh.Mesh({"dp": 1, "mp": 2}, 0, 1, torch.device("cpu"), "gloo",
+    mp = tmesh.Mesh({"dp": 1, "mp": 2}, 0, 2, torch.device("cpu"), "gloo",
                     None, 60.0, False)
-    with pytest.raises(DMLCError, match="A.7.a2"):
-        param_shardings(model, mp)
+    jm = JMesh(np.array(jax.devices()[:2]).reshape(1, 2), ("dp", "mp"))
+    jmodel = jsparse.FactorizationMachine(64, 4)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    for mode in ("dim", "rows"):
+        want = jtrain.param_shardings(jmodel, jparams, jm, table_shard=mode)
+        assert param_shardings(model, mp, mode) == {
+            k: _jax_spec(v) for k, v in want.items()}
+    with pytest.raises(ValueError):
+        param_shardings(model, mp, "bogus")
+    with pytest.raises(DMLCError, match="pad num_features"):
+        param_shardings(FactorizationMachine(63, 4, device="cpu"), mp,
+                        "rows")
 
 
 @pytest.mark.parametrize("world,spec", [(4, "dp=-1"), (4, "dp=2"),
@@ -161,17 +195,55 @@ def refusals(tmp_path_factory):
 @pytest.mark.parametrize("what,reason", [
     ("wrong_partition", r"reads partition \(1, 2\), but this is rank 0"),
     ("ragged", "ragged=True cannot shard"),
-    ("fields", "fields=True is not ported with a sharding"),
+    ("fields", None),
     ("blocks", "cannot tell which partition"),
     ("emit_host", "single-card"),
     ("unsharded", "needs a loader built with sharding"),
     ("nccl_on_cpu", "NCCL runs on CUDA"),
     ("timeout_again", "its own timeout applies")])
 def test_refusals_name_their_reason(refusals, what, reason):
+    """Each refusal names its reason; ``fields`` (None) is taken now: a
+    sharded libfm loader with fields builds on every rank."""
     import re
     said = str(refusals[0][what])
+    if reason is None:
+        assert said == "" and str(refusals[1][what]) == "", said
+        return
     assert re.search(reason, said), said
     assert str(refusals[1][what]), f"rank 1 did not refuse {what}"
+
+
+@pytest.mark.parametrize("spec", ["dp=2,mp=2", "dp=2,pp=2", "mp=4",
+                                  "pp=2,mp=2"])
+def test_axis_lines_follow_the_jax_device_layout(spec):
+    """Ranks lie row-major over the spec's axes, as the JAX package
+    reshapes its device list: each line along an axis is a row of the
+    JAX mesh's device ids moved to that axis."""
+    jm = jmesh.make_mesh(spec, jax.devices()[:4])
+    ids = np.vectorize(lambda d: d.id)(jm.devices)
+    sizes = tmesh._axis_sizes(tmesh.parse_mesh_spec(spec), 4)
+    for at, axis in enumerate(jm.axis_names):
+        want = np.moveaxis(ids, at, -1).reshape(-1, ids.shape[at])
+        assert tmesh.axis_lines(sizes, axis) == want.tolist()
+
+
+@pytest.mark.parametrize("spec", ["dp=2,mp=2", "dp=2,pp=2"])
+def test_each_axis_reduces_over_its_line(tmp_path, spec):
+    """On a 4-rank mesh every rank's coordinates, line and group along
+    each axis: the sum and the gather of the ranks over the group."""
+    ranks = run_cohort(tmp_path, 4, "axes,info", spec=spec)
+    sizes = tmesh._axis_sizes(tmesh.parse_mesh_spec(spec), 4)
+    for out in ranks:
+        r = int(out["rank"])
+        coords = json.loads(str(out["coords"]))
+        assert list(coords.values()) == list(
+            np.unravel_index(r, tuple(sizes.values())))
+        for axis in sizes:
+            line = [ln for ln in tmesh.axis_lines(sizes, axis) if r in ln][0]
+            assert out[f"axis/{axis}/line"].tolist() == line
+            assert float(out[f"axis/{axis}/sum"][0]) == sum(line)
+            assert out[f"axis/{axis}/gather"].tolist() == [float(x)
+                                                           for x in line]
 
 
 def test_a_sharded_loader_stays_on_its_device(tmp_path):

@@ -16,6 +16,7 @@ JAX package on the CPU.
 """
 
 import collections
+import gc
 import importlib
 import json
 import shutil
@@ -62,6 +63,10 @@ def _clean(monkeypatch, tmp_path):
     monkeypatch.delenv("DMLC_FAULT_SPEC", raising=False)
     monkeypatch.delenv("DMLC_AUTOTUNE", raising=False)
     monkeypatch.setenv("DMLC_TUNED_CONFIG", str(tmp_path / "tuned.json"))
+    # an earlier test's abandoned page-replay generator, closed when the
+    # collector next runs, would end its span (GeneratorExit) in this
+    # test's rings: close them all before the rings are cleared
+    gc.collect()
     teltrace.recorder.clear()
     jtrace.recorder.clear()
     yield

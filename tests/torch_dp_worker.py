@@ -1,12 +1,16 @@
-"""One rank of the port's data-parallel CPU tests.
+"""One rank of the port's mesh CPU tests (dp, mp and pp).
 
     python tests/torch_dp_worker.py JOB.json
 
 ``JOB.json`` holds ``rank``, ``world``, ``init`` (``tcp://host:port``),
-``task``, ``inputs`` (an ``.npz``) and ``out`` (where this rank writes
-its ``.npz``).  The process imports torch, numpy and the port, and
-nothing of JAX: the tests hold what it writes against the JAX package
-in their own process.  Each task runs over a gloo mesh on the CPU.
+``spec`` (the mesh, ``dp=-1`` by default), ``task``, ``inputs`` (an
+``.npz``) and ``out`` (where this rank writes its ``.npz``).  The
+process imports torch, numpy and the port, and nothing of JAX: the
+tests hold what it writes against the JAX package in their own process.
+Each task runs over a gloo mesh on the CPU.  A training case may name
+``table_shard`` (``"dim"`` or ``"rows"``) and ``microbatches`` (DeepFM's
+tower pipelined over ``pp``); parameters are written whole
+(``gather_params``), each rank's own shapes beside them.
 """
 
 import json
@@ -24,25 +28,34 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 from dmlc_core_tpu_torch.data import create_parser  # noqa: E402
 from dmlc_core_tpu_torch.models import (DCNv2, DeepFM,  # noqa: E402
-                                        FactorizationMachine, adam,
-                                        batch_sharding, evaluate_stream,
-                                        fit_stream, make_eval_step,
+                                        FactorizationMachine, FieldAwareFM,
+                                        adam, batch_sharding,
+                                        evaluate_stream, fit_stream,
+                                        gather_params, make_eval_step,
                                         make_train_step,
                                         make_train_step_kbatch,
+                                        params_from_jax, params_to_numpy,
                                         shard_params, stack_batches)
 from dmlc_core_tpu_torch.parallel import (MeshCollectives,  # noqa: E402
                                           allgather, allreduce, all_to_all,
                                           broadcast, make_mesh,
                                           process_mesh_info, reduce_scatter)
 from dmlc_core_tpu_torch.pipeline import DeviceLoader  # noqa: E402
-from dmlc_core_tpu_torch.utils import DMLCError  # noqa: E402
+from dmlc_core_tpu_torch.parallel.collectives import (  # noqa: E402
+    record_collectives)
+from dmlc_core_tpu_torch.parallel.pipeline import (  # noqa: E402
+    make_pipeline)
+from dmlc_core_tpu_torch.utils import (CheckpointManager,  # noqa: E402
+                                       DMLCError)
 
 MODELS = {"fm": lambda c: FactorizationMachine(c["F"], c["D"], l2=c["l2"],
                                                device="cpu"),
           "dcn": lambda c: DCNv2(c["F"], c["D"], c["L"], l2=c["l2"],
                                  device="cpu"),
           "deepfm": lambda c: DeepFM(c["F"], c["D"], c["L"], l2=c["l2"],
-                                     device="cpu")}
+                                     device="cpu"),
+          "ffm": lambda c: FieldAwareFM(c["F"], c["nf"], c["D"], l2=c["l2"],
+                                        device="cpu")}
 
 
 def _batch(inp, prefix: str) -> dict:
@@ -51,11 +64,11 @@ def _batch(inp, prefix: str) -> dict:
 
 
 def _params(model) -> dict:
-    return {k: v.detach().numpy().copy()
-            for k, v in model.state_dict().items()}
+    """The whole parameters, gathered over the mesh."""
+    return {k: v.numpy().copy() for k, v in gather_params(model).items()}
 
 
-def _model(inp, case: dict, mesh, rank: int):
+def _model(inp, case: dict, mesh, rank: int, place: bool = True):
     model = MODELS[case["model"]](case)
     init = {k[len(case["name"]) + 6:]: torch.from_numpy(inp[k].copy())
             for k in inp.files if k.startswith(case["name"] + "/init/")}
@@ -65,8 +78,35 @@ def _model(inp, case: dict, mesh, rank: int):
         with torch.no_grad():
             for p in model.parameters():
                 p.add_(1.0)
-    shard_params(model, mesh)
+    if case.get("microbatches"):
+        model = model.with_pipelined_tower(mesh, "pp",
+                                           case["microbatches"])
+    if place:
+        shard_params(model, mesh, case.get("table_shard", "dim"))
     return model
+
+
+class _Batches:
+    """A device loader's surface over a list of batches."""
+    emit = "device"
+
+    def __init__(self, batches, layout: str, sharding) -> None:
+        self.batches, self.layout, self.sharding = batches, layout, sharding
+
+    def __iter__(self):
+        return iter(self.batches)
+
+    def before_first(self) -> None:
+        pass
+
+
+def _said(fn) -> str:
+    """``fn``'s refusal message, or '' where nothing was refused."""
+    try:
+        fn()
+    except DMLCError as e:
+        return str(e)
+    return ""
 
 
 def task_collectives(job, mesh, inp, out):
@@ -95,6 +135,7 @@ def task_collectives(job, mesh, inp, out):
 
 def task_train(job, mesh, inp, out):
     me = mesh.rank
+    part = mesh.coord("dp")        # the ranks of a dp slice share its batches
     for case in job["cases"]:
         name, steps = case["name"], case["steps"]
         model = _model(inp, case, mesh, me)
@@ -102,18 +143,34 @@ def task_train(job, mesh, inp, out):
             [v.reshape(-1) for v in _params(model).values()])
         opt = adam(model, case["lr"], engine="torch")
         step = make_train_step(model, opt, mesh)
-        losses = [float(step(_batch(inp, f"{name}/r{me}/s{s}/")))
+        losses = [float(step(_batch(inp, f"{name}/r{part}/s{s}/")))
                   for s in range(steps)]
         out[f"{name}/losses"] = np.array(losses, np.float32)
         for k, v in _params(model).items():
             out[f"{name}/params/{k}"] = v
+        out[f"{name}/shapes"] = np.array(json.dumps(
+            {k: list(p.shape) for k, p in model.named_parameters()}))
+        if case.get("checkpoint"):
+            # the whole tree, from every rank's gather, saved by rank 0
+            tree = params_to_numpy(gather_params(model), nested=True)
+            if me == 0:
+                CheckpointManager(case["checkpoint"]).save(
+                    steps, {"params": tree, "step": steps})
+        if case.get("restore"):
+            # a whole tree the JAX package saved, cut to this rank's slices
+            _, got = CheckpointManager(case["restore"]).restore()
+            fresh = _model(inp, case, mesh, me)
+            fresh.load_state_dict(params_from_jax(got["params"], "cpu",
+                                                  model=fresh))
+            for k, v in fresh.state_dict().items():
+                out[f"{name}/restored/{k}"] = v.numpy().copy()
         if case.get("kbatch"):
             # the same steps again from the same start, as one k-step call
             model2 = _model(inp, case, mesh, me)
             opt2 = adam(model2, case["lr"], engine="torch")
             kstep = make_train_step_kbatch(model2, opt2, mesh)
             batches = [{k: v.numpy() for k, v in
-                        _batch(inp, f"{name}/r{me}/s{s}/").items()}
+                        _batch(inp, f"{name}/r{part}/s{s}/").items()}
                        for s in range(steps)]
             got = kstep(stack_batches(batches,
                                       sharding=batch_sharding(mesh)))
@@ -121,8 +178,25 @@ def task_train(job, mesh, inp, out):
             out[f"{name}/kbatch_losses"] = got.numpy()
             for k, v in _params(model2).items():
                 out[f"{name}/kbatch/{k}"] = v
+        if case.get("fit"):
+            # fit_stream on an unplaced model: an optimizer built before
+            # the placing is refused, the model left as it was; with none
+            # it places the model, builds Adam(1e-2), and steps
+            model3 = _model(inp, case, mesh, me, place=False)
+            loader = _Batches([_batch(inp, f"{name}/r{part}/s{s}/")
+                               for s in range(steps)], case["layout"],
+                              batch_sharding(mesh))
+            early = adam(model3, case["lr"])
+            out[f"{name}/fit/refused"] = np.array(_said(lambda: fit_stream(
+                model3, loader, optimizer=early, mesh=mesh)))
+            out[f"{name}/fit/placed_after_refusal"] = np.array(
+                getattr(model3, "_mesh_plan", None) is not None)
+            out[f"{name}/fit/losses"] = np.array(fit_stream(
+                model3, loader, mesh=mesh, log_every=1), np.float32)
+            for k, v in _params(model3).items():
+                out[f"{name}/fit/params/{k}"] = v
         if case.get("eval"):
-            batches = [_batch(inp, f"{name}/r{me}/s{s}/")
+            batches = [_batch(inp, f"{name}/r{part}/s{s}/")
                        for s in range(steps)]
             ev = evaluate_stream(model, batches, mesh=mesh)
             out[f"{name}/eval"] = np.array([ev["accuracy"], ev["weight"],
@@ -171,12 +245,7 @@ def task_fit(job, mesh, inp, out):
 
 def task_refusals(job, mesh, inp, out):
     """Each refusal's message, or '' where nothing was refused."""
-    def said(fn):
-        try:
-            fn()
-        except DMLCError as e:
-            return str(e)
-        return ""
+    said = _said
     me, world = mesh.rank, mesh.world
     uri = job["uri"]
     sh = batch_sharding(mesh)
@@ -209,6 +278,36 @@ def task_refusals(job, mesh, inp, out):
     again = make_mesh("dp=-1", device="cpu")   # the existing group
     out["again"] = np.array(json.dumps([again.rank, again.world,
                                         again.backend, again.timeout_s]))
+
+
+def task_pipeline(job, mesh, inp, out):
+    """``make_pipeline`` over the ``pp`` axis: the forward of the stacked
+    stages on ``xs`` and the gradients of ``sum(ys ** 2)`` with respect
+    to this rank's stage and to ``xs``."""
+    s = mesh.coord("pp")
+    stage = {k: torch.from_numpy(inp[k][s:s + 1].copy()).requires_grad_()
+             for k in ("w", "b")}
+    xs = torch.from_numpy(inp["xs"].copy()).requires_grad_()
+    run = make_pipeline(mesh, "pp",
+                        lambda p, x: torch.tanh(x @ p["w"] + p["b"]))
+    with record_collectives() as forward:
+        ys = run(stage, xs)
+    out["forward_collectives"] = np.array(json.dumps(forward))
+    (ys ** 2).sum().backward()
+    out["ys"] = ys.detach().numpy()
+    out["gw"] = stage["w"].grad.numpy()
+    out["gb"] = stage["b"].grad.numpy()
+    out["gxs"] = xs.grad.numpy()
+
+
+def task_axes(job, mesh, inp, out):
+    """Along each axis: the sum and the gather of the ranks, over the
+    axis's group."""
+    x = torch.tensor([float(mesh.rank)])
+    for axis in mesh.axis_names:
+        out[f"axis/{axis}/sum"] = allreduce(x, mesh, axis).numpy()
+        out[f"axis/{axis}/gather"] = allgather(x, mesh, axis).numpy()
+        out[f"axis/{axis}/line"] = np.array(mesh.line(axis))
 
 
 def task_info(job, mesh, inp, out):
@@ -291,7 +390,9 @@ def main(path: str) -> int:
                          timeout_s=60)
     inp = np.load(job["inputs"]) if job.get("inputs") else None
     out = {"rank": np.array(mesh.rank), "world": np.array(mesh.world),
-           "shape": np.array(json.dumps(mesh.shape))}
+           "shape": np.array(json.dumps(mesh.shape)),
+           "coords": np.array(json.dumps({a: mesh.coord(a)
+                                          for a in mesh.axis_names}))}
     for task in job["task"].split(","):
         globals()[f"task_{task}"](job, mesh, inp, out)
     np.savez(os.path.join(job["out"], f"rank{mesh.rank}.npz"), **out)
