@@ -291,6 +291,32 @@ Phases, in order; any failure exits non-zero and prints no result:
    kernel of its model and layout, steps/s, and the bytes and ms of the
    forward's collectives, each timed alone.  Both must launch every
    kernel of the paths;
+   tracker — the reference's distributed flow (the JAX
+   examples/distributed_logreg.py) on the card: python -m
+   dmlc_core_tpu_torch.parallel.tracker with a journal and its fleet
+   pages, two ranks (processes of this script, gloo on cuda:0) that take
+   their ranks from it through RabitContext.from_env() (heartbeats every
+   0.25 s, telemetry pushes every 0.5 s), rank 0 broadcasting the mesh's
+   rendezvous and the seed over rabit; each rank trains FM flat at full
+   width over its partition (2048 rows a rank) with fit_stream(mesh=)
+   for three epochs, and after each all-reduces [sum of w * bce, sum of
+   w, batches] over rabit (equal to the mesh's all-reduce of the same,
+   relative 1e-6) and all-gathers a digest of its parameters (equal on
+   every rank); after epoch 1 the same steps as one
+   make_train_step_kbatch(mesh=) call (over gloo, eager) and one captured
+   call with no mesh, while a thread pushes telemetry (a push in flight
+   during the captured call).  The tracker's /metrics (the merged loader counter the sum
+   of its rank series), /stragglers, /timeline and /diagnose are read
+   while the ranks train; then it is SIGKILLed during epoch 2, kept down
+   at least 4 heartbeats and restarted on its port and journal: it must
+   have replayed at least 3 records, re-admit each rank from its
+   unchanged listener at its rank and generation 0, and get both ranks'
+   pushes; each rank counts heartbeat failures, epoch 3 runs, both
+   shutdown() against it, and SIGTERM stops it with exit 0 and a
+   compacted journal.  Learning (at least LEARN_AUC_MIN), rank 0's AUC
+   broadcast, one process's steps on the union batches within phase 5's
+   limits, every kernel of the path launched on every rank; rendezvous
+   seconds, rabit's ms, the downtime, steps/s;
    probe   — the transfer probe (pipeline/probe.py) over the training
    file 4 times (32 batches a pass): DeviceLoader batches/s for
    put_threads 1 and 2 x v2 and v3 in 5 alternating rounds after a warm
@@ -338,16 +364,24 @@ diagnosis only, and prints their numbers as its last line.
 runs phases 1, 2, [mesh] and [probe] only, and prints their launch
 counts as its last line.
 
+    python3 chip_smoke.py --tracker
+
+runs phases 1, 2 and [tracker] only (with ``--mesh-nccl W``, its cohort
+over NCCL on W cards).
+
     python3 chip_smoke.py --mesh-nccl 4
 
-runs phases 1, 2 and [mesh] (b) over NCCL on 4 cards, rank r on cuda:r
-(1024-row batches a rank, nnz_cap 32768), and needs them; there each
+runs phases 1, 2, [mesh] (b) and [tracker] over NCCL on 4 cards, rank r
+on cuda:r (1024-row batches a rank, nnz_cap 32768), and needs them; there
+each
 path's steps also run as one captured make_train_step_kbatch call (its
 all-reduces across the ranks inside the graph), held to phase 5's limits
 of the mesh steps and array_equal across the ranks.  Its sharded paths
 are dp=2,mp=2 in both modes (FM flat, DeepFM row-major) and dp=2,pp=2
 (DeepFM row-major), 2048-row batches a dp slice, with the same checks
-and the captured k-step form.
+and the captured k-step form.  [tracker]'s cohort is then four ranks,
+its make_train_step_kbatch(mesh=) call captured, and /stragglers must
+judge every rank (its board needs three).
 
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
 directory (by default they go with the data directory).
@@ -6629,13 +6663,13 @@ def _agree(torch, lk, lp, model, ref, p_init) -> list:
              PARAM_TOL, ratios[worst] <= PARAM_TOL)]
 
 
-def _checked(tag: str, rows: list) -> None:
-    log(f"[mesh] {tag} checks: " + "; ".join(
+def _checked(tag: str, rows: list, phase: str = "[mesh]") -> None:
+    log(f"{phase} {tag} checks: " + "; ".join(
         f"{c} {r:.3g} (limit {lim:g}{'' if ok else ', FAILED'})"
         for c, r, lim, ok in rows))
     failed = [c for c, _, _, ok in rows if not ok]
     if failed:
-        raise RuntimeError(f"[mesh] {tag} fails {failed}")
+        raise RuntimeError(f"{phase} {tag} fails {failed}")
 
 
 def _same_shapes(torch, batches) -> list:
@@ -6876,7 +6910,7 @@ def _mesh_ranks(torch, power, data, world: int, backend: str) -> dict:
     on cuda:0 (NCCL refuses two ranks on one card), over NCCL rank r on
     cuda:r."""
     port = _free_port()
-    procs, logs = [], []
+    procs, logs, hung = [], [], None
     try:
         for r in range(world):
             logs.append(open(os.path.join(data, f"mesh_rank{r}.log"), "w+"))
@@ -6889,6 +6923,8 @@ def _mesh_ranks(torch, power, data, world: int, backend: str) -> dict:
         deadline = time.monotonic() + 2 * MESH_TIMEOUT
         for p in procs:
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired as e:
+        hung = e
     finally:
         for p in procs:
             if p.poll() is None:
@@ -6899,6 +6935,11 @@ def _mesh_ranks(torch, power, data, world: int, backend: str) -> dict:
             f.seek(0)
             outs.append(f.read())
             f.close()
+    if hung is not None:
+        raise RuntimeError(f"[mesh] the ranks outlived {2 * MESH_TIMEOUT} "
+                           "s; their output's tails: " + " | ".join(
+                               f"rank {r}: {out[-1500:]}"
+                               for r, out in enumerate(outs))) from hung
     for r, (p, out) in enumerate(zip(procs, outs)):
         for ln in out.splitlines():
             if ln.startswith("[mesh]"):
@@ -7460,6 +7501,603 @@ def main_mesh_rank(rank: int, world: int, port: int, data: str,
     return 0
 
 
+# -- [tracker]: a dp cohort bootstrapped by the port's tracker (A.7.b) -----
+
+TRACKER_WORLD = 2          # [tracker]: gloo ranks, both on cuda:0
+TRACKER_HB = 0.25          # the ranks' DMLC_HEARTBEAT_INTERVAL, s
+TRACKER_TEL = 0.5          # the ranks' DMLC_TELEMETRY_INTERVAL, s
+TRACKER_HB_TIMEOUT = 10.0  # the tracker's heartbeat_timeout, s
+TRACKER_DOWN = 4           # heartbeat intervals the tracker stays down
+RABIT_REPS = 20            # timed rabit collectives of each kind
+RABIT_TOL = 1e-6           # rabit's sums vs the mesh's, relative
+PUSH_GAP = 0.005           # s between the pushes beside the k-step call
+TRACKER_COUNTER = "dmlc_device_loader_batches_total"
+# every kernel of FM flat over the v3 wire: forwards, backwards, Adam
+TRACKER_KERNELS = ("ragged_gather_fm", "ragged_gather_embed",
+                   "ragged_gather_grad_fm", "ragged_gather_grad_embed",
+                   "adam", "wire_decode")
+
+
+def _tracker_proc(data: str, world: int, journal: str, port: int,
+                  metrics_port: int, tag: str):
+    """``python -m dmlc_core_tpu_torch.parallel.tracker`` for ``world``
+    workers on 127.0.0.1:``port`` (0: any) with ``journal``, its fleet
+    pages on ``metrics_port``: ``(process, (host, port), seconds to the
+    bind line)``."""
+    import select
+    err = open(os.path.join(data, f"tracker_{tag}.log"), "w")
+    env = _cli_env()
+    env.update(DMLC_TRACKER_METRICS_PORT=str(metrics_port),
+               DMLC_TIMELINE_INTERVAL="0.25")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "dmlc_core_tpu_torch.parallel.tracker",
+         "host=127.0.0.1", f"port={port}", f"workers={world}",
+         f"journal={journal}", f"heartbeat_timeout={TRACKER_HB_TIMEOUT}"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err)
+    err.close()
+    ready, _, _ = select.select([proc.stdout], [], [], 120)
+    line = proc.stdout.readline() if ready else b""
+    if not line:
+        proc.kill()
+        proc.wait()
+        with open(os.path.join(data, f"tracker_{tag}.log")) as f:
+            raise RuntimeError(f"[tracker] the {tag} tracker never bound: "
+                               f"{f.read()[-2000:]}")
+    doc = json.loads(line)
+    return proc, (doc["host"], int(doc["port"])), time.perf_counter() - t0
+
+
+def _tracker_cmd(addr, msg: dict) -> dict:
+    """One JSON-line command to the tracker and its reply."""
+    from dmlc_core_tpu_torch.parallel.tracker import recv_json, send_json
+    from dmlc_core_tpu_torch.parallel.rabit import _connect
+    with _connect(addr, 30.0) as s:
+        s.settimeout(30.0)
+        send_json(s, msg)
+        return recv_json(s.makefile("r"))
+
+
+def _wait_files(paths: list, procs: list, logs: list, what: str,
+                timeout: float = MESH_TIMEOUT) -> None:
+    """Wait until every path exists; fail at once, with its output, if a
+    process died."""
+    deadline = time.monotonic() + timeout
+    while not all(os.path.exists(p) for p in paths):
+        for p, f in zip(procs, logs):
+            if p.poll() is not None:
+                f.seek(0)
+                raise RuntimeError(f"[tracker] a rank exited "
+                                   f"{p.returncode} before {what}: "
+                                   f"{f.read()[-3000:]}")
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"[tracker] {what}: timed out")
+        time.sleep(0.05)
+
+
+def _fleet_pages(mport: int, world: int, backend: str) -> dict:
+    """[tracker] (4): the tracker's pages while the cohort trains:
+    ``/metrics``' merged loader batches equal to the sum of its rank
+    series, every rank pushed, ``/stragglers`` (the JAX document; its
+    stages listing every rank from three ranks on, the board's
+    ``min_ranks``), ``/timeline`` points of the merged counter,
+    ``/diagnose`` over the merged stores."""
+    deadline = time.monotonic() + 60
+    while True:
+        code, _, page, _ = _scrape(mport, "/metrics")
+        got = _parse_exposition(page)
+        per = [got.get(f'{TRACKER_COUNTER}{{rank="{r}"}}', 0.0)
+               for r in range(world)]
+        merged = got.get(TRACKER_COUNTER, 0.0)
+        if code == 200 and all(v > 0 for v in per):
+            break
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"[tracker] /metrics never had every rank's "
+                               f"{TRACKER_COUNTER}: {per}")
+        time.sleep(0.1)
+    if merged != sum(per):
+        raise RuntimeError(f"[tracker] merged {TRACKER_COUNTER} {merged} is "
+                           f"not the ranks' sum {per}")
+    code, _, body, _ = _scrape(mport, "/stragglers")
+    board = json.loads(body)
+    seen = {r for st in board.get("stages", {}).values() for r in st}
+    if code != 200 or set(board) != {"z_threshold", "min_ranks", "stages",
+                                     "stragglers"}:
+        raise RuntimeError(f"[tracker] /stragglers: {code} {body[:300]}")
+    if world >= board["min_ranks"] and seen != {str(r)
+                                                for r in range(world)}:
+        raise RuntimeError(f"[tracker] /stragglers lists {sorted(seen)}")
+    points = 0
+    while time.monotonic() < deadline and not points:
+        code, _, body, _ = _scrape(mport, "/timeline?metric="
+                                   "device_loader.batches")
+        points = sum(len(t["points"]) for s in json.loads(body).get(
+            "series", {}).values() for t in s["tiers"])
+        time.sleep(0.1)
+    if not points:
+        raise RuntimeError("[tracker] /timeline has no points")
+    code, _, body, _ = _scrape(mport, "/diagnose?since=60")
+    doc = json.loads(body)
+    if code != 200 or doc.get("schema") != "dmlc.diagnosis/1":
+        raise RuntimeError(f"[tracker] /diagnose: {code} {body[:300]}")
+    log(f"[tracker] /metrics: merged {TRACKER_COUNTER} {merged:g} = ranks "
+        f"{[f'{v:g}' for v in per]}; /stragglers min_ranks "
+        f"{board['min_ranks']}, ranks judged {sorted(seen)} (world "
+        f"{world}, {backend}); /timeline {points} points; /diagnose 200, "
+        f"{len(doc.get('suspects', []))} suspects")
+    return {"merged": merged, "per_rank": per, "stragglers": sorted(seen),
+            "timeline_points": points}
+
+
+def phase_tracker(torch, power: str, data: str, world: int,
+                  backend: str) -> dict:
+    """[tracker]: the JAX examples/distributed_logreg.py flow on the card.
+    The port's tracker as a process, ``world`` ranks (each a process of
+    this script: gloo on cuda:0, or NCCL with rank r on cuda:r) that take
+    their ranks from it, agree over rabit and train FM flat over a dp
+    mesh rank 0's rendezvous builds; the tracker SIGKILLed mid-run and
+    restarted on its port and journal.  Returns the launch counts (every
+    rank) and the numbers."""
+    import signal
+    t_phase = time.monotonic()
+    tdir = os.path.join(data, "tracker")
+    shutil.rmtree(tdir, ignore_errors=True)
+    os.makedirs(tdir)
+    journal = os.path.join(tdir, "journal")
+    mport = _free_port()
+    tracker, addr, _ = _tracker_proc(tdir, world, journal, 0, mport,
+                                     "first")
+    procs, logs = [], []
+    try:
+        for task in range(world):
+            env = _cli_env()
+            env.update(DMLC_TRACKER_URI=addr[0],
+                       DMLC_TRACKER_PORT=str(addr[1]),
+                       DMLC_NUM_WORKER=str(world), DMLC_TASK_ID=str(task),
+                       DMLC_HEARTBEAT_INTERVAL=str(TRACKER_HB),
+                       DMLC_TELEMETRY_INTERVAL=str(TRACKER_TEL))
+            logs.append(open(os.path.join(tdir, f"task{task}.log"), "w+"))
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--tracker-worker", "--mesh-world", str(world),
+                 "--mesh-data", data, "--mesh-backend", backend],
+                cwd=ROOT, env=env, stdout=logs[-1],
+                stderr=subprocess.STDOUT))
+        marks = [os.path.join(tdir, f"epoch1_task{t}.json")
+                 for t in range(world)]
+        _wait_files(marks, procs, logs, "the end of epoch 1")
+        pages = _fleet_pages(mport, world, backend)
+        ranks1 = []
+        for m in marks:
+            with open(m) as f:
+                ranks1.append(json.load(f))
+        # (5) the HA drill: SIGKILL while the ranks train on
+        t_kill = time.perf_counter()
+        tracker.kill()
+        tracker.wait()
+        time.sleep(TRACKER_DOWN * TRACKER_HB * 1.5)
+        mport2 = _free_port()
+        tracker, addr2, boot = _tracker_proc(tdir, world, journal, addr[1],
+                                             mport2, "restarted")
+        downtime = time.perf_counter() - t_kill
+        if addr2 != addr:
+            raise RuntimeError(f"[tracker] restarted at {addr2}, not {addr}")
+        code, _, page, _ = _scrape(mport2, "/metrics")
+        replayed = _parse_exposition(page).get(
+            'dmlc_tracker_journal_replayed_total{rank="tracker"}', 0.0)
+        for mark in ranks1:
+            r = _tracker_cmd(addr, {"cmd": "recover",
+                                    "jobid": mark["jobid"],
+                                    "host": "127.0.0.1",
+                                    "port": mark["listen_port"]})
+            if r.get("rank") != mark["rank"] or r.get("generation") != 0:
+                raise RuntimeError(f"[tracker] recover of {mark['jobid']} "
+                                   f"from its address gave {r}")
+        with open(os.path.join(tdir, "back"), "w") as f:
+            f.write(json.dumps({"downtime_s": downtime}))
+        deadline = time.monotonic() + 2 * MESH_TIMEOUT
+        hung = None
+        try:
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+        except subprocess.TimeoutExpired as e:
+            hung = e
+        outs = []
+        for f in logs:
+            f.seek(0)
+            outs.append(f.read())
+        if hung is not None:
+            raise RuntimeError(
+                f"[tracker] the ranks outlived {2 * MESH_TIMEOUT} s; their "
+                "output's tails: " + " | ".join(
+                    f"task {t}: {out[-1500:]}"
+                    for t, out in enumerate(outs))) from hung
+        for t, (p, out) in enumerate(zip(procs, outs)):
+            for ln in out.splitlines():
+                if ln.startswith("[tracker]"):
+                    log(ln)
+            if p.returncode != 0:
+                raise RuntimeError(f"[tracker] task {t} exited "
+                                   f"{p.returncode}: {out[-3000:]}")
+        # pushes reached the restarted tracker from every rank
+        code, _, page, _ = _scrape(mport2, "/metrics")
+        got = _parse_exposition(page)
+        after = [got.get(f'{TRACKER_COUNTER}{{rank="{r}"}}', 0.0)
+                 for r in range(world)]
+        if not all(v > 0 for v in after):
+            raise RuntimeError(f"[tracker] the restarted tracker's /metrics "
+                               f"lacks a rank's pushes: {after}")
+        tracker.send_signal(signal.SIGTERM)
+        rc = tracker.wait(timeout=60)
+        with open(journal + ".snap") as f:
+            snap = json.load(f)
+        log_bytes = os.path.getsize(journal + ".log")
+        if rc != 0 or log_bytes != 0 or snap.get("schema") != \
+                "dmlc.tracker.snapshot/1":
+            raise RuntimeError(f"[tracker] SIGTERM: exit {rc}, log "
+                               f"{log_bytes} bytes, snapshot {snap}")
+        want = {m["jobid"]: m["rank"] for m in ranks1}
+        if {j: w["rank"] for j, w in snap["workers"].items()} != want \
+                or snap["generation"] != 0:
+            raise RuntimeError(f"[tracker] the compacted journal holds "
+                               f"{snap}, the ranks are {want}")
+    finally:
+        for p in procs + [tracker]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(tdir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return _tracker_checks(ranks, world, backend, data, power, pages,
+                           downtime, boot, replayed, after,
+                           time.monotonic() - t_phase)
+
+
+def _tracker_checks(outs, world, backend, data, power, pages, downtime,
+                    boot, replayed, after, seconds) -> dict:
+    """The ranks' results against [tracker]'s limits; logs the numbers."""
+    launches: dict = {}
+    for out in outs:
+        missing = [k for k in TRACKER_KERNELS
+                   if out["launches"].get(k, 0) < 1]
+        if missing:
+            raise RuntimeError(f"[tracker] rank {out['rank']} never "
+                               f"launched {missing}")
+        _add(launches, out["launches"])
+    rows = []
+    for out in outs:
+        for ep in out["epochs"]:
+            rows.append((f"rank {out['rank']} {ep['name']}: rabit sums vs "
+                         "the mesh's, max rel err", ep["rel"], RABIT_TOL,
+                         ep["rel"] <= RABIT_TOL))
+            rows.append((f"rank {out['rank']} {ep['name']}: rabit digests "
+                         "equal", float(ep["digests_equal"]), 1,
+                         ep["digests_equal"]))
+        rows += [tuple(r) for r in out["kstep"]]
+        rows.append((f"rank {out['rank']}: broadcast auc is its own",
+                     float(out["auc_equal"]), 1, out["auc_equal"]))
+        hb = out["heartbeat_failures"]
+        rows.append((f"rank {out['rank']}: rabit.heartbeat.failures, at "
+                     "least", hb, 1, hb >= 1))
+        rows.append((f"rank {out['rank']}: shutdown() on the restarted "
+                     "tracker", float(out["shutdown"]), 1, out["shutdown"]))
+    rows += [tuple(r) for r in outs[0]["reference"]]
+    s0, s1, y = (np.concatenate([np.load(os.path.join(
+        data, "tracker", f"eval_r{r}.npz"))[k] for r in range(world)])
+        for k in ("s0", "s1", "y"))
+    learn = _auc(s1 - s0, y)
+    rows.append(("learning: eval auc of the change in score, at least",
+                 learn, LEARN_AUC_MIN,
+                 learn >= LEARN_AUC_MIN and len(y) == EVAL_ROWS))
+    rows.append(("restarted tracker's tracker.journal.replayed, at least",
+                 replayed, 3, replayed >= 3))
+    _checked(f"world {world} ({backend})", rows, "[tracker]")
+    t0 = min(o["t_register"][0] for o in outs)
+    t1 = max(o["t_register"][1] for o in outs)
+    r0 = outs[0]["rabit_ms"]
+    log(f"[tracker] world {world} ({backend}): rendezvous {t1 - t0:.4f} s "
+        f"(first registration to last assignment); rabit median of "
+        f"{RABIT_REPS}: allreduce of 3 float64 "
+        f"{r0['allreduce_3'] * 1e3:.1f} µs, of 1 MiB "
+        f"{r0['allreduce_1MiB']:.3f} ms, broadcast "
+        f"{r0['broadcast'] * 1e3:.1f} µs (rank 0; every rank "
+        + ", ".join(f"{o['rabit_ms']['allreduce_1MiB']:.3f}" for o in outs)
+        + f" ms a 1 MiB allreduce) [{power}]")
+    log(f"[tracker] world {world} ({backend}): tracker down {downtime:.3f} "
+        f"s (restart's bind {boot:.3f} s), heartbeat failures "
+        f"{[o['heartbeat_failures'] for o in outs]}, telemetry failures "
+        f"{[o['telemetry_failures'] for o in outs]}; pushes after the "
+        f"restart {[f'{v:g}' for v in after]}; steps/s a rank by epoch "
+        + "; ".join(f"rank {o['rank']} " + ", ".join(
+            f"{e['steps'] / e['wall_s']:.3f}" for e in o["epochs"])
+            for o in outs)
+        + f" ({ROWS_TR // world} rows a rank); the captured k-step call "
+        f"and the pushes during it {[o['kstep_pushes'] for o in outs]}; "
+        f"learning "
+        f"{learn:.6f}; auc {outs[0]['auc']:.6f}; {seconds:.1f} s [{power}]")
+    log(f"[tracker] world {world} ({backend}) kernel launches (every "
+        f"rank): {launches}")
+    return {"launches": launches, "seconds": seconds,
+            "downtime_s": downtime, "pages": pages,
+            "rendezvous_s": t1 - t0, "rabit_ms": r0}
+
+
+def _rabit_times(rc) -> dict:
+    """Median ms of ``RABIT_REPS`` rabit collectives of each kind after
+    one untimed call, each result checked."""
+    small = np.arange(3, dtype=np.float64)
+    big = np.ones(1 << 17)                       # 1 MiB of float64
+    obj = {"seed": SEED, "init": "tcp://127.0.0.1:0"}
+    cases = {
+        "allreduce_3": (lambda: rc.allreduce(small),
+                        lambda got: np.array_equal(got,
+                                                   small * rc.world_size)),
+        "allreduce_1MiB": (lambda: rc.allreduce(big),
+                           lambda got: bool((got == rc.world_size).all())),
+        "broadcast": (lambda: rc.broadcast(obj if rc.rank == 0 else None),
+                      lambda got: got == obj),
+    }
+    out = {}
+    for name, (fn, ok) in cases.items():
+        if not ok(fn()):
+            raise RuntimeError(f"[tracker] rabit {name} is wrong")
+        times = []
+        for _ in range(RABIT_REPS):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = float(np.median(times))
+    return out
+
+
+def _wbce_sums(torch, model, batches) -> np.ndarray:
+    """``[sum of w * bce, sum of w, batches]`` of ``model`` over
+    ``batches``, float64."""
+    import torch.nn.functional as F
+    loss = wsum = 0.0
+    with torch.no_grad():
+        for b in batches:
+            z = model(b).double()
+            y = (b["labels"] > 0).double()
+            w = b["weights"].double()
+            per = -(y * F.logsigmoid(z) + (1.0 - y) * F.logsigmoid(-z))
+            loss += float((per * w).sum())
+            wsum += float(w.sum())
+    return np.array([loss, wsum, float(len(batches))])
+
+
+def _digest(torch, model) -> np.ndarray:
+    flat = _flat_params(torch, model).double()
+    return np.array([float(flat.sum()), float(flat.abs().sum()),
+                     float((flat * flat).sum())])
+
+
+def _rabit_agreement(torch, rc, mesh, model, name, batches, hist,
+                     wall) -> dict:
+    """(3): this rank's sums over its epoch's batches, all-reduced by
+    rabit and by the mesh; the parameters' digest all-gathered."""
+    from dmlc_core_tpu_torch.parallel import allreduce
+    mine = _wbce_sums(torch, model, batches)
+    by_rabit = rc.allreduce(mine)
+    by_mesh = allreduce(torch.from_numpy(mine).to(mesh.device),
+                        mesh).cpu().numpy()
+    rel = float(np.max(np.abs(by_rabit - by_mesh) / np.abs(by_mesh)))
+    rows = rc.allgather(_digest(torch, model))
+    return {"name": name, "rabit": by_rabit.tolist(),
+            "mesh": by_mesh.tolist(), "rel": rel,
+            "digests_equal": bool((rows == rows[0]).all()),
+            "steps": len(hist), "batches": len(batches), "wall_s": wall}
+
+
+def _pushing(rc):
+    """A thread calling ``rc.push_telemetry()`` (its ``sample_memory``
+    first) every ``PUSH_GAP`` s: ``(thread, stop event, [(start, end,
+    ok)])``."""
+    stop, pushes = threading.Event(), []
+
+    def run():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                rc.push_telemetry()
+                ok = True
+            except Exception as e:  # noqa: BLE001 — counted, then shown
+                ok = f"{type(e).__name__}: {e}"
+            pushes.append((t0, time.perf_counter(), ok))
+            stop.wait(PUSH_GAP)
+
+    th = threading.Thread(target=run, name="tracker-pushes", daemon=True)
+    th.start()
+    return th, stop, pushes
+
+
+def _tracker_kstep(torch, rc, mesh, batches, lk, model, p_init) -> tuple:
+    """(2): epoch 1's steps again as one make_train_step_kbatch(mesh=)
+    call from the same start, while a thread pushes telemetry; over gloo,
+    whose mesh form runs eagerly, also one captured call with no mesh on
+    this rank's batches, against those steps one at a time.  Returns
+    ``(check rows, the captured call's ms and the pushes beside it)``."""
+    from dmlc_core_tpu_torch import adam
+    from dmlc_core_tpu_torch.models import (make_train_step_kbatch,
+                                            stack_batches)
+    idle = {**batches[-1], "weights": torch.zeros_like(
+        batches[-1]["weights"])}
+    steps = list(batches) + [idle] * (len(lk) - len(batches))
+    stacked = stack_batches(_same_shapes(torch, steps))
+    th, stop, pushes = _pushing(rc)
+    calls = []
+    try:
+        km = _model(torch, "fm", "kernel")
+        kstep = make_train_step_kbatch(km, adam(km, LR), mesh)
+        t0 = time.perf_counter()
+        lkb = kstep(stacked).cpu().numpy()
+        calls.append((kstep.route, t0, time.perf_counter()))
+        rows = [(f"k-step ({kstep.route}) vs mesh steps: {c}", r, lim, ok)
+                for c, r, lim, ok in _agree(torch, lkb, lk, km, model,
+                                            p_init)]
+        d = rc.allgather(_digest(torch, km))
+        rows.append(("k-step replicas' digests equal over rabit",
+                     float((d == d[0]).all()), 1, bool((d == d[0]).all())))
+        del km
+        if kstep.route != "graph":
+            km = _model(torch, "fm", "kernel")
+            solo = make_train_step_kbatch(km, adam(km, LR))
+            own = stack_batches(_same_shapes(torch, batches))
+            t0 = time.perf_counter()
+            lks = solo(own).cpu().numpy()
+            calls.append((solo.route, t0, time.perf_counter()))
+            ref, lp = _ref_run(torch, "fm", "kernel", batches)
+            rows += [(f"k-step no mesh ({solo.route}) vs its steps: {c}", r,
+                      lim, ok) for c, r, lim, ok in _agree(
+                          torch, lks, lp, km, ref, p_init)]
+            del km, ref
+    finally:
+        stop.set()
+        th.join(timeout=60)
+    _, t0, t1 = next(c for c in calls if c[0] == "graph")
+    # pushes (each its sample_memory, then the send) that began and ended
+    # inside the captured call, and those in flight at some time of it
+    inside = sum(1 for a, b, ok in pushes
+                 if ok is True and a >= t0 and b <= t1)
+    during = sum(1 for a, b, ok in pushes if ok is True and a < t1 and b > t0)
+    pushed = sum(1 for *_, ok in pushes if ok is True)
+    rows.append(("pushes wholly inside the captured k-step call, at least",
+                 float(inside), 1, inside >= 1))
+    return [list(r) for r in rows], {
+        "call_ms": (t1 - t0) * 1e3, "inside": inside, "during": during,
+        "pushes": pushed, "failed": len(pushes) - pushed,
+        "errors": sorted({ok for *_, ok in pushes if ok is not True})[:3]}
+
+
+def main_tracker_worker(world: int, data: str, backend: str) -> int:
+    """``--tracker-worker``: one rank of [tracker].  Takes its rank from
+    the tracker (``RabitContext.from_env()``), builds the dp mesh at the
+    rendezvous rank 0 broadcasts, trains FM flat over its partition for
+    three epochs (the tracker killed during the second, back for the
+    third), agrees each epoch over rabit, and writes ``rank<R>.json``."""
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dmlc_core_tpu_torch import adam, evaluate_stream, fit_stream
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.parallel import RabitContext, make_mesh
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+    tdir = os.path.join(data, "tracker")
+    t_reg = [time.time()]
+    rc = RabitContext.from_env()
+    t_reg.append(time.time())
+    if rc.world_size != world:
+        raise RuntimeError(f"[tracker] the tracker's world is "
+                           f"{rc.world_size}, not {world}")
+    cfg = rc.broadcast({"init": f"tcp://127.0.0.1:{_free_port()}",
+                        "seed": SEED} if rc.rank == 0 else None, root=0)
+    mesh = make_mesh(device=f"cuda:{rc.rank if backend == 'nccl' else 0}",
+                     backend=backend, init_method=cfg["init"], rank=rc.rank,
+                     world_size=rc.world_size, timeout_s=MESH_TIMEOUT)
+    part = mesh.coord("dp")
+    if (mesh.rank, part, cfg["seed"]) != (rc.rank, rc.rank, SEED):
+        raise RuntimeError(f"[tracker] mesh rank {mesh.rank} dp {part}, "
+                           f"tracker rank {rc.rank}, seed {cfg['seed']}")
+    train_file = os.path.join(data, "train.libsvm")
+    eval_file = os.path.join(data, "eval.libsvm")
+    rows, cap = ROWS_TR // world, CAP_TR // world
+    out = {"rank": rc.rank, "jobid": rc.jobid, "t_register": t_reg,
+           "epochs": [], "rabit_ms": _rabit_times(rc)}
+    fresh = _model(torch, "fm", "kernel")
+    with _mesh_loader(eval_file, "flat", cap, rows, mesh, part,
+                      world) as ev_ld:
+        s0, y = _eval_scores(torch, fresh, ev_ld)
+    del fresh
+    model = _model(torch, "fm", "kernel")
+    p_init = {k: p.detach().clone() for k, p in model.named_parameters()}
+    opt = adam(model, LR)
+    seen, losses, launches = [], [], {}
+
+    def epoch(name):
+        # the launches of the cohort's training only: not the k-step
+        # calls, the agreement's forwards, the reference or evaluation
+        with _mesh_loader(train_file, "flat", cap, rows, mesh, part,
+                          world) as ld:
+            rec = _Recorder(ld)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            hist = fit_stream(model, rec, optimizer=opt, mesh=mesh,
+                              log_every=1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            _add(launches, launch_counts())
+        seen.append(rec.seen)
+        losses.extend(hist)
+        out["epochs"].append(_rabit_agreement(torch, rc, mesh, model, name,
+                                              rec.seen, hist, wall))
+        return rec.seen, hist
+
+    batches, hist = epoch("epoch 1")
+    out["kstep"], out["kstep_pushes"] = _tracker_kstep(
+        torch, rc, mesh, batches, np.array(hist), model, p_init)
+    log(f"[tracker] rank {rc.rank} captured k-step call and its pushes: "
+        f"{out['kstep_pushes']}")
+    mark = os.path.join(tdir, f"epoch1_task{rc.jobid}.json")
+    with open(mark + ".tmp", "w") as f:
+        json.dump({"rank": rc.rank, "jobid": rc.jobid,
+                   "listen_port": rc._listen_port}, f)
+    os.replace(mark + ".tmp", mark)
+    epoch("epoch 2 (tracker killed)")
+    deadline = time.monotonic() + MESH_TIMEOUT
+    while not os.path.exists(os.path.join(tdir, "back")):
+        if time.monotonic() > deadline:
+            raise RuntimeError("[tracker] the tracker never came back")
+        time.sleep(0.05)
+    epoch("epoch 3 (tracker restarted)")
+    with _mesh_loader(eval_file, "flat", cap, rows, mesh, part,
+                      world) as ev_ld:
+        s1, _ = _eval_scores(torch, model, ev_ld)
+        ev_ld.before_first()
+        ev = evaluate_stream(model, ev_ld, mesh=mesh)
+    out["launches"] = launches
+    np.savez(os.path.join(tdir, f"eval_r{rc.rank}.npz"), s0=s0, s1=s1, y=y)
+    auc0 = rc.broadcast(ev["auc"] if rc.rank == 0 else None, root=0)
+    out["auc"], out["auc_equal"] = auc0, auc0 == ev["auc"]
+    for e, batches in enumerate(seen):
+        _save_batches(os.path.join(tdir, f"batches_r{rc.rank}_e{e}.npz"),
+                      batches)
+    rc.allreduce(np.zeros(1))            # every rank's batches are saved
+    out["reference"] = []
+    if rc.rank == 0:
+        # one process's steps on the ranks' concatenated batches, epoch
+        # by epoch (a rank whose slice ran out adds nothing to a step)
+        unions = []
+        for e, ep in enumerate(out["epochs"]):
+            per = [seen[e]] + [_load_batches(torch, os.path.join(
+                tdir, f"batches_r{r}_e{e}.npz")) for r in range(1, world)]
+            unions += [_union(torch, [b[i] for b in per if i < len(b)])
+                       for i in range(ep["steps"])]
+        ref, lp = _ref_run(torch, "fm", "kernel", unions)
+        out["reference"] = [list(r) for r in _agree(
+            torch, np.array(losses), lp, model, ref, p_init)]
+        del ref, unions, per
+    out["heartbeat_failures"] = metrics.counter(
+        "rabit.heartbeat.failures").value
+    out["telemetry_failures"] = metrics.counter(
+        "rabit.telemetry.failures").value
+    mesh.close()
+    rc.shutdown()
+    out["shutdown"] = True
+    for ep in out["epochs"]:
+        log(f"[tracker] rank {rc.rank} {ep['name']}: {ep['steps']} steps "
+            f"({ep['batches']} batches) in {ep['wall_s']:.4f} s; rabit sums "
+            f"{ep['rabit']} (mesh {ep['mesh']}, rel {ep['rel']:.3g}); "
+            f"digests equal {ep['digests_equal']}")
+    with open(os.path.join(tdir, f"rank{rc.rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 # -- [probe]: the transfer probe (ROADMAP A.14) -------------------------------
 
 PROBE_COPIES = 4           # the training file 4 times: 32 batches a pass
@@ -7547,8 +8185,8 @@ def phase_probe(torch, power: str, data: str, train_file: str) -> dict:
 
 
 def main_mesh_nccl(world: int) -> int:
-    """``--mesh-nccl W``: phases 1 and 2, then [mesh] (b) over NCCL with
-    rank r on cuda:r, W cards."""
+    """``--mesh-nccl W``: phases 1 and 2, then [mesh] (b) and the
+    [tracker] cohort over NCCL with rank r on cuda:r, W cards."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -7562,6 +8200,7 @@ def main_mesh_nccl(world: int) -> int:
     phase_build()
     with _data_files() as (data, _, _):
         got = _mesh_ranks(torch, power, data, world, "nccl")
+        tracker = phase_tracker(torch, power, data, world, "nccl")
     missing = [k for k in MESH_KERNELS if got["launches"].get(k, 0) < 1]
     if missing:
         raise RuntimeError(f"[mesh] nccl world {world} never launched "
@@ -7569,7 +8208,24 @@ def main_mesh_nccl(world: int) -> int:
     print(power)
     print(json.dumps({"mesh_nccl": {"world": world,
                                     "launches": got["launches"],
-                                    "shard": got["shard"]}}))
+                                    "shard": got["shard"],
+                                    "tracker": tracker}}))
+    return 0
+
+
+def main_tracker() -> int:
+    """``--tracker``: phases 1, 2 and [tracker] only."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    power = phase_device(torch)
+    phase_build()
+    with _data_files() as (data, _, _):
+        tracker = phase_tracker(torch, power, data, TRACKER_WORLD, "gloo")
+    print(power)
+    print(json.dumps({"tracker": tracker}))
     return 0
 
 
@@ -8132,6 +8788,8 @@ def main() -> int:
         ingest = phase_ingest(torch, timer, power, data, train_file,
                               eval_file)
         mesh = phase_mesh(torch, power, data, train_file, eval_file)
+        tracker = phase_tracker(torch, power, data, TRACKER_WORLD,
+                                "gloo")["launches"]
         probe = phase_probe(torch, power, data, train_file)
         # last: once torch.profiler has run, every later launch of this
         # process pays for it (PERF.md)
@@ -8224,6 +8882,10 @@ def main() -> int:
     missing += [f"wire_decode ({name})" for name, path in (
         ("training", training), ("kstep", kstep), ("io", io),
         ("remote", remote)) if path.get("wire_decode", 0) < 1]
+    # the tracker-bootstrapped cohort: every kernel of FM flat (each rank
+    # is checked in [tracker] too)
+    missing += [f"{k} (tracker)" for k in TRACKER_KERNELS
+                if tracker.get(k, 0) < 1]
     # [mesh] checks its own paths' kernels (MESH_KERNELS); the probe's
     # FusedTrainer runs both wires
     missing += [f"{k} (probe)" for k in (
@@ -8296,6 +8958,10 @@ def main() -> int:
                 row[group] = {"launches": mesh["shard"].get(group, {}).get(
                     name, 0), **{key: kern[f"{name}_{group}"][key]
                                  for key in keys + ("floor_ms",)}}
+        if name in TRACKER_KERNELS:
+            # [tracker]: the dp cohort the port's tracker bootstrapped
+            # (both ranks' processes)
+            row["tracker"] = {"launches": tracker.get(name, 0)}
         if probe.get(name, 0):
             # [probe]: FusedTrainer(k=8) on the resolved wire and the other
             row["probe"] = {"launches": probe[name]}
@@ -8363,8 +9029,12 @@ if __name__ == "__main__":
     ap.add_argument("--mesh-backend", default="gloo",
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-nccl", type=int, default=0, metavar="W",
-                    help="run [mesh] (b) over NCCL on W cards, one rank a "
-                         "card, only (after phases 1-2)")
+                    help="run [mesh] (b) and [tracker] over NCCL on W "
+                         "cards, one rank a card, only (after phases 1-2)")
+    ap.add_argument("--tracker", action="store_true",
+                    help="run [tracker] only (after phases 1-2)")
+    ap.add_argument("--tracker-worker", action="store_true",
+                    help=argparse.SUPPRESS)   # [tracker]'s rank processes
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None
@@ -8373,7 +9043,12 @@ if __name__ == "__main__":
                                   args.mesh_port, args.mesh_data,
                                   args.mesh_backend)
               if args.mesh_rank is not None
-              else main_mesh_nccl(args.mesh_nccl) if args.mesh_nccl
+              else main_tracker_worker(args.mesh_world, args.mesh_data,
+                                       args.mesh_backend)
+              if args.tracker_worker
+              else main_mesh_nccl(args.mesh_nccl)
+              if args.mesh_nccl
+              else main_tracker() if args.tracker
               else main_mesh() if args.mesh
               else main())
     except Exception as e:  # noqa: BLE001 — any failed phase fails

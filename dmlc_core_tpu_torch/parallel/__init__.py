@@ -1,26 +1,31 @@
 """Distributed layer of the port (counterpart of
 ``dmlc_core_tpu/parallel``): named process meshes, their collectives and
-the pipeline schedule.
-
-:mod:`.mesh` (the ``dp``, ``mp`` and ``pp`` axes), :mod:`.collectives`
-and :mod:`.pipeline` are ported (ROADMAP A.7.a).  The tracker, rabit,
-reshard and elastic modules wait for A.7.b–c, and no name of theirs is
-exported here.
+the pipeline schedule (ROADMAP A.7.a), and the control plane of
+``dmlc-submit`` (A.7.b): the rendezvous tracker (:mod:`.tracker`,
+``python -m dmlc_core_tpu_torch.parallel.tracker``) and the rabit client
+(:mod:`.rabit`), whose tree collectives run between processes over
+sockets.  The elastic, reshard and launcher modules wait for A.7.c, and
+no name of theirs is exported here.
 """
 
 from .collectives import (OPS, MeshCollectives, all_to_all,  # noqa: F401
                           allgather, allreduce, broadcast, gather_dim,
                           reduce_scatter, sum_partials)
 from .mesh import (DataSharding, Mesh, axis_lines,  # noqa: F401
-                   make_mesh, parse_mesh_spec, process_mesh_info,
-                   remap_deltas, remap_rows, row_owners, row_partition)
+                   data_parallel_mesh, make_mesh, parse_mesh_spec,
+                   process_mesh_info, remap_deltas, remap_rows, row_owners,
+                   row_partition)
 from .pipeline import (make_pipeline, split_microbatches,  # noqa: F401
                        stack_stage_params, stage_sharding)
+from .rabit import RabitContext  # noqa: F401
+from .tracker import (PSTracker, RabitTracker, compute_ring,  # noqa: F401
+                      compute_tree)
 
-__all__ = ["Mesh", "DataSharding", "make_mesh", "parse_mesh_spec",
-           "process_mesh_info", "row_partition", "axis_lines",
-           "remap_rows", "remap_deltas", "row_owners", "allreduce",
-           "broadcast", "allgather", "reduce_scatter", "all_to_all",
-           "sum_partials", "gather_dim", "MeshCollectives", "OPS",
-           "make_pipeline", "split_microbatches", "stack_stage_params",
-           "stage_sharding"]
+__all__ = ["Mesh", "DataSharding", "make_mesh", "data_parallel_mesh",
+           "parse_mesh_spec", "process_mesh_info", "row_partition",
+           "axis_lines", "remap_rows", "remap_deltas", "row_owners",
+           "allreduce", "broadcast", "allgather", "reduce_scatter",
+           "all_to_all", "sum_partials", "gather_dim", "MeshCollectives",
+           "OPS", "make_pipeline", "split_microbatches",
+           "stack_stage_params", "stage_sharding", "RabitTracker",
+           "PSTracker", "compute_tree", "compute_ring", "RabitContext"]

@@ -34,8 +34,8 @@ import torch
 
 from ..utils.logging import DMLCError, check, log_info
 
-__all__ = ["Mesh", "DataSharding", "make_mesh", "parse_mesh_spec",
-           "process_mesh_info", "row_partition",
+__all__ = ["Mesh", "DataSharding", "make_mesh", "data_parallel_mesh",
+           "parse_mesh_spec", "process_mesh_info", "row_partition",
            "row_owners", "remap_rows", "remap_deltas", "refuse_axes",
            "axis_lines", "AXES", "DEFAULT_TIMEOUT_S"]
 
@@ -455,6 +455,11 @@ def make_mesh(spec: str = "dp=-1", *,
     log_info("mesh %s: rank %d of %d on %s over %s", sizes, me, world, dev,
              backend)
     return mesh
+
+
+def data_parallel_mesh(**kw: Any) -> Mesh:
+    """``make_mesh("dp=-1", **kw)``: every rank on the ``dp`` axis."""
+    return make_mesh("dp=-1", **kw)
 
 
 def process_mesh_info() -> Dict[str, int]:

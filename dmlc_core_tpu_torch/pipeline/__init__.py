@@ -6,7 +6,8 @@ persisted transfer tuning (:mod:`.tuned`), the transfer probe that
 persists it (:mod:`.probe`, ``python -m
 dmlc_core_tpu_torch.pipeline.probe``) and the closed-loop autotuner
 (:mod:`.autotune`).  The data service (ROADMAP A.9) waits for the
-tracker and the serving fleet's transport (A.7.b, A.11)."""
+serving fleet's transport (A.11); the tracker's liveness board and
+``utils/durable.py`` it also needs are ported (A.7.b)."""
 
 from .autotune import (Autotuner, Knob, ingest_knob_space,  # noqa: F401
                        maybe_autotuner, serving_knob_space)

@@ -1,9 +1,11 @@
 """The frame wire and the sanctioned raw send.
 
 Counterpart of ``dmlc_core_tpu/transport/frames.py``, reduced to what the
-serving server and client and the ingest service use: :func:`send_all`,
-the one blocking send they write through, and the ingest stream's
-frames.  A frame is a 16-byte little-endian header :data:`FRAME`
+serving server and client, the ingest service and rabit use:
+:func:`send_all`, the one blocking send they write through, the ingest
+stream's frames, and :func:`pack_obj` / :func:`unpack_obj`, the pickles
+of rabit's broadcast payloads (a cohort of both packages' workers reads
+either's).  A frame is a 16-byte little-endian header :data:`FRAME`
 ``<QII`` (meta u64, words u32, rows u32) and ``words * 4`` bytes of
 fused int32 payload; ``words == 0`` ends a stream, and ``rows ==``
 :data:`NO_ROWS` means the row count is not tracked.  :class:`FrameWriter`
@@ -17,13 +19,15 @@ and of fd passing (``CTRL_FDPASS``) are ROADMAP queue A.11.
 
 from __future__ import annotations
 
+import pickle
 import socket
 import struct
 from typing import List
 
 from ..utils.metrics import metrics
 
-__all__ = ["FRAME", "NO_ROWS", "FrameWriter", "send_all"]
+__all__ = ["FRAME", "NO_ROWS", "FrameWriter", "send_all", "pack_obj",
+           "unpack_obj"]
 
 #: (meta u64, words u32, rows u32): the frame header.
 FRAME = struct.Struct("<QII")
@@ -34,6 +38,17 @@ NO_ROWS = 0xFFFFFFFF
 def send_all(sock: socket.socket, data) -> None:
     """Send every byte of ``data``: the one choke point for sends."""
     sock.sendall(data)
+
+
+def pack_obj(obj) -> bytes:
+    """Serialize a control-plane object for the wire (rabit broadcast
+    payloads): one choke point instead of scattered ``pickle.dumps``."""
+    return pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+
+
+def unpack_obj(data: bytes):
+    """Inverse of :func:`pack_obj` (trusted peers of one cohort only)."""
+    return pickle.loads(data)
 
 
 class FrameWriter:

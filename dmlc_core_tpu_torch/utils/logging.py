@@ -2,13 +2,16 @@
 
 Counterpart of ``dmlc_core_tpu/utils/logging.py``, reduced to what the
 port uses: :class:`DMLCError`, :class:`IdOverflowError`, :func:`check`,
-:func:`log_info`, :func:`log_warning` and :func:`get_log_tail`.  The
-port keeps its own copy so that it never imports the JAX package.
+:func:`log_info`, :func:`log_warning`, :func:`set_log_context` and
+:func:`get_log_tail`.  The port keeps its own copy so that it never
+imports the JAX package.
 
-A record logged while a trace is live on its thread carries the trace
-id: ``[trace_id=<hex>]`` after the text, or a ``trace_id`` key with
-``DMLC_LOG_FORMAT=json``, where each record is one JSON line (``ts``,
-``level``, ``msg``).
+Every record carries the process's log context (:func:`set_log_context`:
+``rank`` once the tracker assigned one, seeded from ``DMLC_RANK`` at
+import) and, while a trace is live on its thread, the trace id: `` [k=v
+... trace_id=<hex>]`` after the text, the trace id last, or the fields
+as keys with ``DMLC_LOG_FORMAT=json``, where each record is one JSON
+line (``ts``, ``level``, ``msg``, the context, ``trace_id``).
 
 Every emitted line also lands in an in-process tail ring of the last
 ``DMLC_LOG_TAIL`` lines (256 by default), as the JAX module keeps one:
@@ -22,12 +25,13 @@ import json
 import logging as _pylogging
 import os
 import sys
+import threading
 import time
 from collections import deque
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 __all__ = ["DMLCError", "IdOverflowError", "check", "log_info",
-           "log_warning", "get_log_tail"]
+           "log_warning", "set_log_context", "get_log_tail"]
 
 
 class DMLCError(RuntimeError):
@@ -66,6 +70,32 @@ _log_tail: deque = deque(
     maxlen=max(1, int(os.environ.get("DMLC_LOG_TAIL", "256") or 256)))
 
 
+# the process's correlation fields: swapped whole under the lock by
+# set_log_context, read by one reference per record, so a record never
+# sees half an update
+_log_ctx: Dict[str, Any] = {}
+_log_ctx_lock = threading.Lock()
+_r = os.environ.get("DMLC_RANK")
+if _r is not None and _r.lstrip("-").isdigit():
+    _log_ctx["rank"] = int(_r)
+del _r
+
+
+def set_log_context(**fields: Any) -> None:
+    """Attach correlation fields (``rank=...``) to every later record;
+    ``None`` removes a field.  The context is replaced wholesale, never
+    mutated in place, so concurrent threads are safe."""
+    global _log_ctx
+    with _log_ctx_lock:
+        ctx = dict(_log_ctx)
+        for k, v in fields.items():
+            if v is None:
+                ctx.pop(k, None)
+            else:
+                ctx[k] = v
+        _log_ctx = ctx
+
+
 def get_log_tail() -> List[str]:
     """The last N emitted log lines (N = ``DMLC_LOG_TAIL``, default 256),
     oldest first: what the flight recorder writes into a bundle."""
@@ -92,21 +122,28 @@ def _live_trace_id() -> Optional[str]:
         return None
 
 
-def _emit(level: int, msg: str) -> None:
+def _record_fields(name: str, msg: str) -> Dict[str, Any]:
+    rec: Dict[str, Any] = {"ts": time.time(), "level": name, "msg": msg}
+    rec.update(_log_ctx)           # one read: the dict is swapped whole
     trace_id = _live_trace_id()
-    ts = time.time()
+    if trace_id is not None:
+        rec["trace_id"] = trace_id
+    return rec
+
+
+def _emit(level: int, msg: str) -> None:
     name = _pylogging.getLevelName(level)
+    rec = _record_fields(name, msg)
     if os.environ.get("DMLC_LOG_FORMAT", "").lower() == "json":
-        rec = {"ts": ts, "level": name, "msg": msg}
-        if trace_id is not None:
-            rec["trace_id"] = trace_id
         line = json.dumps(rec, default=str)
         _log_tail.append(line)
         _logger.log(level, line, extra={"dmlc_json": True})
         return
-    if trace_id is not None:
-        msg = f"{msg} [trace_id={trace_id}]"
-    _log_tail.append(time.strftime("%H:%M:%S", time.localtime(ts))
+    suffix = " ".join(f"{k}={v}" for k, v in rec.items()
+                      if k not in ("ts", "level", "msg"))
+    if suffix:
+        msg = f"{msg} [{suffix}]"
+    _log_tail.append(time.strftime("%H:%M:%S", time.localtime(rec["ts"]))
                      + f" {name} {msg}")
     _logger.log(level, msg)
 

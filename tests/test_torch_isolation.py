@@ -37,7 +37,10 @@ new = ("dmlc_core_tpu_torch.native", "dmlc_core_tpu_torch.native.build",
        "dmlc_core_tpu_torch.utils.memory_io",
        "dmlc_core_tpu_torch.utils.faults",
        "dmlc_core_tpu_torch.io.remote_filesys",
-       "dmlc_core_tpu_torch.io.fscli")
+       "dmlc_core_tpu_torch.io.fscli",
+       "dmlc_core_tpu_torch.parallel.tracker",
+       "dmlc_core_tpu_torch.parallel.rabit",
+       "dmlc_core_tpu_torch.utils.durable")
 assert all(n in sys.modules for n in new), new
 import threading
 assert threading.active_count() == 1, threading.enumerate()

@@ -11,6 +11,12 @@ Each task runs over a gloo mesh on the CPU.  A training case may name
 ``table_shard`` (``"dim"`` or ``"rows"``) and ``microbatches`` (DeepFM's
 tower pipelined over ``pp``); parameters are written whole
 (``gather_params``), each rank's own shapes beside them.
+
+With ``launcher="tracker"`` the ranks come from the port's rabit
+tracker instead: each process registers with ``RabitContext.from_env()``
+(``DMLC_TASK_ID`` its job id), rank 0 broadcasts the gloo rendezvous over
+rabit, and the mesh is ``data_parallel_mesh`` at the tracker's rank and
+world; the ``rabit`` task then agrees over rabit what ``train`` did.
 """
 
 import json
@@ -22,6 +28,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -37,9 +44,11 @@ from dmlc_core_tpu_torch.models import (DCNv2, DeepFM,  # noqa: E402
                                         params_from_jax, params_to_numpy,
                                         shard_params, stack_batches)
 from dmlc_core_tpu_torch.parallel import (MeshCollectives,  # noqa: E402
+                                          RabitContext, RabitTracker,
                                           allgather, allreduce, all_to_all,
-                                          broadcast, make_mesh,
-                                          process_mesh_info, reduce_scatter)
+                                          broadcast, data_parallel_mesh,
+                                          make_mesh, process_mesh_info,
+                                          reduce_scatter)
 from dmlc_core_tpu_torch.pipeline import DeviceLoader  # noqa: E402
 from dmlc_core_tpu_torch.parallel.collectives import (  # noqa: E402
     record_collectives)
@@ -84,6 +93,10 @@ def _model(inp, case: dict, mesh, rank: int, place: bool = True):
     if place:
         shard_params(model, mesh, case.get("table_shard", "dim"))
     return model
+
+
+#: each training case's trained model, by name, for the ``rabit`` task
+_TRAINED: dict = {}
 
 
 class _Batches:
@@ -148,6 +161,7 @@ def task_train(job, mesh, inp, out):
         out[f"{name}/losses"] = np.array(losses, np.float32)
         for k, v in _params(model).items():
             out[f"{name}/params/{k}"] = v
+        _TRAINED[name] = model
         out[f"{name}/shapes"] = np.array(json.dumps(
             {k: list(p.shape) for k, p in model.named_parameters()}))
         if case.get("checkpoint"):
@@ -203,6 +217,42 @@ def task_train(job, mesh, inp, out):
                                             ev["auc"]])
             c, t = make_eval_step(model, mesh)(batches[0])
             out[f"{name}/eval_step"] = np.array([float(c), float(t)])
+
+
+def task_rabit(job, mesh, inp, out):
+    """After ``train``, over the tracker's rabit links: each case's
+    ``[sum of w * bce, sum of w, steps]`` over this rank's batches at the
+    trained parameters (float64), all-reduced by rabit and by the mesh;
+    a float64 digest of the parameters, all-gathered; rank 0's digest
+    and a picklable object broadcast."""
+    rc = job["rabit"]
+    part = mesh.coord("dp")
+    for case in job["cases"]:
+        name = case["name"]
+        model = _TRAINED[name]
+        loss = wsum = 0.0
+        with torch.no_grad():
+            for s in range(case["steps"]):
+                b = _batch(inp, f"{name}/r{part}/s{s}/")
+                z = model(b).double()
+                y = (b["labels"] > 0).double()
+                w = b["weights"].double()
+                per = -(y * F.logsigmoid(z) + (1.0 - y) * F.logsigmoid(-z))
+                loss += float((per * w).sum())
+                wsum += float(w.sum())
+        mine = np.array([loss, wsum, float(case["steps"])])
+        out[f"{name}/rabit_sums"] = rc.allreduce(mine)
+        out[f"{name}/mesh_sums"] = allreduce(torch.from_numpy(mine),
+                                             mesh).numpy()
+        flat = np.concatenate([v.reshape(-1) for v in
+                               _params(model).values()]).astype(np.float64)
+        digest = np.array([flat.sum(), np.abs(flat).sum(),
+                           (flat * flat).sum()])
+        out[f"{name}/digests"] = rc.allgather(digest)
+        out[f"{name}/root_digest"] = rc.broadcast(
+            digest if rc.rank == 0 else None, root=0)
+    out["rabit_rank"] = np.array(rc.rank)
+    out["rabit_world"] = np.array(rc.world_size)
 
 
 def task_fit(job, mesh, inp, out):
@@ -315,8 +365,9 @@ def task_info(job, mesh, inp, out):
 
 
 #: how a cohort's ranks find each other: an explicit ``init_method``,
-#: torchrun's environment, the reference launcher's, or none (world 1)
-LAUNCHERS = ("tcp", "torchrun", "dmlc", "alone")
+#: torchrun's environment, the reference launcher's, none (world 1), or
+#: the port's rabit tracker
+LAUNCHERS = ("tcp", "torchrun", "dmlc", "alone", "tracker")
 
 
 def _launch_env(launcher: str, rank: int, world: int, port: int) -> dict:
@@ -326,6 +377,8 @@ def _launch_env(launcher: str, rank: int, world: int, port: int) -> dict:
     if launcher == "dmlc":
         return {"DMLC_TASK_ID": str(rank), "DMLC_NUM_WORKER": str(world),
                 **master}
+    if launcher == "tracker":
+        return {"DMLC_TASK_ID": str(rank)}
     return {}
 
 
@@ -344,13 +397,19 @@ def run_cohort(tmp, world: int, task: str, timeout: float = 240.0,
             if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
                          "MASTER_PORT", "DMLC_TASK_ID", "DMLC_NUM_WORKER")}
     base.update(OMP_NUM_THREADS="1", MKL_NUM_THREADS="1")
+    tracker = None
+    if launcher == "tracker":
+        tracker = RabitTracker(num_workers=world, host_ip="127.0.0.1")
+        tracker.start()
+        base.update(tracker.worker_envs())
     procs = []
     for r in range(world):
         path = os.path.join(str(tmp), f"job{r}.json")
         init = f"tcp://127.0.0.1:{port}" if launcher == "tcp" else None
         with open(path, "w") as f:
             json.dump({"rank": r, "world": world, "task": task,
-                       "init": init, "out": str(tmp), **job}, f)
+                       "init": init, "out": str(tmp), "launcher": launcher,
+                       **job}, f)
         env = dict(base, **_launch_env(launcher, r, world, port))
         procs.append(subprocess.Popen(
             [sys.executable, os.path.abspath(__file__), path], env=env,
@@ -369,6 +428,9 @@ def run_cohort(tmp, world: int, task: str, timeout: float = 240.0,
             p.communicate()
         raise AssertionError(f"{task} on world {world} outlived "
                              f"{timeout:.0f}s")
+    finally:
+        if tracker is not None:
+            tracker.stop()
     bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
     if bad:
         raise AssertionError(f"{task} on world {world}: ranks failed "
@@ -378,10 +440,30 @@ def run_cohort(tmp, world: int, task: str, timeout: float = 240.0,
             for r in range(world)]
 
 
+def _tracker_mesh(job):
+    """The tracker's rank and world, then the gloo rendezvous that rank 0
+    broadcasts over rabit: ``(rabit context, mesh)``."""
+    rc = RabitContext.from_env(heartbeat_interval=0)
+    init = None
+    if rc.rank == 0:
+        s = socket.socket()
+        s.bind(("127.0.0.1", 0))
+        init = f"tcp://127.0.0.1:{s.getsockname()[1]}"
+        s.close()
+    init = rc.broadcast(init, root=0)
+    mesh = data_parallel_mesh(device="cpu", init_method=init, rank=rc.rank,
+                              world_size=rc.world_size, timeout_s=60)
+    return rc, mesh
+
+
 def main(path: str) -> int:
     with open(path) as f:
         job = json.load(f)
-    if job.get("init"):
+    rc = None
+    if job.get("launcher") == "tracker":
+        rc, mesh = _tracker_mesh(job)
+        job["rabit"] = rc
+    elif job.get("init"):
         mesh = make_mesh(job.get("spec", "dp=-1"), device="cpu",
                          init_method=job["init"], rank=job["rank"],
                          world_size=job["world"], timeout_s=60)
@@ -397,6 +479,8 @@ def main(path: str) -> int:
         globals()[f"task_{task}"](job, mesh, inp, out)
     np.savez(os.path.join(job["out"], f"rank{mesh.rank}.npz"), **out)
     mesh.close()
+    if rc is not None:
+        rc.shutdown()
     return 0
 
 
