@@ -317,6 +317,29 @@ Phases, in order; any failure exits non-zero and prints no result:
    broadcast, one process's steps on the union batches within phase 5's
    limits, every kernel of the path launched on every rank; rendezvous
    seconds, rabit's ms, the downtime, steps/s;
+   elastic — the JAX examples/elastic_train.py flow on the card: the
+   port's launcher as a process (python -m
+   dmlc_core_tpu_torch.parallel.launcher.submit --cluster gpu -n 3
+   --elastic --max-attempts 2), three ranks (processes of this script,
+   gloo on cuda:0) running the port's examples/elastic_train.py at full
+   width (FM 2^20 x 32, Adam, FusedTrainer(k=8) over
+   DeviceLoader(emit="host"), 4096-row batches of its partition, three
+   epochs, the state averaged over rabit at each sync point) with
+   ElasticTorchMesh; rank 2 exits 7 after epoch 1's compute and the
+   launcher respawns it, the cohort rebuilds its process group at
+   generation 1 and the reborn rank receives the whole state from the
+   survivors through the resharder.  After each sync point every rank
+   all-reduces and all-gathers known vectors over the generation's mesh.
+   Checks, each beside its limit: the launcher exits 0, the victim
+   exited 7 once; every epoch once on every rank, one loss and one
+   state digest an epoch, generation 1 from epoch 1's sync; no
+   checkpoint read, the reborn rank's leaves and bytes from peers the
+   state's; the data plane's sums exact in both generations; learning
+   (at least LEARN_AUC_MIN) of the final averaged model; every kernel of
+   the path launched on every rank's last incarnation.  Numbers: the
+   reshard's s, MB and MB/s, s from the victim's exit to generation 1
+   on every rank, the data plane's teardown and init s, the averaging s
+   of a sync point, steps/s a rank by epoch, the phase's s;
    probe   — the transfer probe (pipeline/probe.py) over the training
    file 4 times (32 batches a pass): DeviceLoader batches/s for
    put_threads 1 and 2 x v2 and v3 in 5 alternating rounds after a warm
@@ -369,9 +392,14 @@ counts as its last line.
 runs phases 1, 2 and [tracker] only (with ``--mesh-nccl W``, its cohort
 over NCCL on W cards).
 
+    python3 chip_smoke.py --elastic
+
+runs phases 1, 2 and [elastic] only.
+
     python3 chip_smoke.py --mesh-nccl 4
 
-runs phases 1, 2, [mesh] (b) and [tracker] over NCCL on 4 cards, rank r
+runs phases 1, 2, [mesh] (b), [tracker] and [elastic] over NCCL on 4
+cards, rank r
 on cuda:r (1024-row batches a rank, nnz_cap 32768), and needs them; there
 each
 path's steps also run as one captured make_train_step_kbatch call (its
@@ -381,10 +409,14 @@ are dp=2,mp=2 in both modes (FM flat, DeepFM row-major) and dp=2,pp=2
 (DeepFM row-major), 2048-row batches a dp slice, with the same checks
 and the captured k-step form.  [tracker]'s cohort is then four ranks,
 its make_train_step_kbatch(mesh=) call captured, and /stragglers must
-judge every rank (its board needs three).
+judge every rank (its board needs three).  [elastic]'s cohort is four NCCL ranks
+(8192 rows a rank), the victim still rank 2: the survivors' generation 0
+communicators, which hold the dead rank, are aborted.
 
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
 directory (by default they go with the data directory).
+``CHIP_SMOKE_ELASTIC_DIR`` keeps [elastic]'s launcher output and the
+ranks' records in that directory.
 ``tools/trace_ab.py`` measures what the spans cost against another
 checkout.
 """
@@ -8098,6 +8130,278 @@ def main_tracker_worker(world: int, data: str, backend: str) -> int:
     return 0
 
 
+# -- [elastic]: elastic rejoin and live resharding (A.7.c1) ------------------
+
+ELASTIC_WORLD = 3          # [elastic]: gloo ranks, all on cuda:0
+ELASTIC_EPOCHS = 3
+ELASTIC_CRASH = (2, 1)     # (rank, epoch): exits 7 after that epoch's compute
+ELASTIC_TIMEOUT = 600      # s: the launcher's whole run
+ELASTIC_VECTOR = 1 << 20   # elements of the data plane's known all-reduce
+# every kernel of FM flat over the v3 wire, as [tracker]'s
+ELASTIC_KERNELS = TRACKER_KERNELS
+
+
+def _elastic_state_bytes() -> tuple:
+    """``(leaves, bytes)`` of the example's state at chip_smoke's width:
+    w0, w, v and Adam's count, mu and nu of each."""
+    params = 4 + F_FEATURES * 4 + F_FEATURES * DIM * 4
+    return 10, 3 * params + 4
+
+
+def phase_elastic(torch, power: str, data: str, world: int,
+                  backend: str) -> dict:
+    """[elastic]: the JAX ``examples/elastic_train.py`` flow on the card,
+    through the port's launcher as a process: ``--cluster gpu -n world
+    --elastic --max-attempts 2``, each rank a process of this script
+    (``--elastic-worker``) running the port's example at full width (FM
+    2^20 x 32, 4096-row batches, its partition of the training file,
+    three epochs) with ``ElasticTorchMesh`` over gloo on cuda:0 (or NCCL,
+    rank r on cuda:r).  Rank 2 exits 7 after epoch 1's compute and is
+    respawned; after each sync point every rank all-reduces a known
+    vector over the generation's mesh.  Returns the launch counts (every
+    rank's last incarnation) and the numbers."""
+    t_phase = time.monotonic()
+    edir = os.path.join(data, "elastic")
+    shutil.rmtree(edir, ignore_errors=True)
+    os.makedirs(os.path.join(edir, "ckpt"))
+    cmd = [sys.executable, "-m",
+           "dmlc_core_tpu_torch.parallel.launcher.submit", "--cluster", "gpu",
+           "-n", str(world), "--elastic", "--max-attempts", "2",
+           "--host-ip", "127.0.0.1",
+           "--env", f"DMLC_CHECKPOINT_DIR={os.path.join(edir, 'ckpt')}",
+           "--", sys.executable, os.path.abspath(__file__),
+           "--elastic-worker", "--mesh-world", str(world), "--mesh-data",
+           data, "--mesh-backend", backend]
+    env = _cli_env()
+    env.pop("DMLC_FAULT_SPEC", None)
+    with open(os.path.join(edir, "launcher.out"), "w+") as out, \
+            open(os.path.join(edir, "launcher.err"), "w+") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                stderr=err, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=ELASTIC_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            # the launcher and every rank it started
+            try:
+                os.killpg(proc.pid, 9)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    keep = os.environ.get("CHIP_SMOKE_ELASTIC_DIR")
+    if keep:
+        # the launcher's and the ranks' output and records, kept
+        shutil.copytree(edir, os.path.join(keep, f"w{world}_{backend}"),
+                        ignore=shutil.ignore_patterns("ckpt"),
+                        dirs_exist_ok=True)
+    if rc != 0:
+        raise RuntimeError(f"[elastic] the launcher exited {rc}: "
+                           f"{stderr[-3000:]} | {stdout[-1500:]}")
+    seconds = time.monotonic() - t_phase
+    return _elastic_checks(edir, world, backend, power, stdout, stderr,
+                           seconds)
+
+
+def _elastic_checks(edir, world, backend, power, stdout, stderr,
+                    seconds) -> dict:
+    """The cohort's records against [elastic]'s limits; logs the
+    numbers."""
+    victim, crash_epoch = ELASTIC_CRASH
+    recs = [json.loads(ln[6:]) for ln in stdout.splitlines()
+            if ln.startswith("EPOCH ")]
+    outs = []
+    for r in range(world):
+        with open(os.path.join(edir, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    syncs = []
+    for r in range(world):
+        with open(os.path.join(edir, f"sync_r{r}.jsonl")) as f:
+            syncs += [json.loads(ln) for ln in f if ln.strip()]
+    with open(os.path.join(edir, f"crash_r{victim}.json")) as f:
+        crash = json.load(f)
+    exits = [ln for ln in stderr.splitlines() if "exited rc=" in ln]
+    leaves, nbytes = _elastic_state_bytes()
+    ok = (len(exits) == 1
+          and f"gpu worker {victim} exited rc=7 (attempt 1/2)" in exits[0]
+          and [o["attempt"] for o in outs] == [int(r == victim)
+                                               for r in range(world)])
+    rows = [("launcher exit code", 0, 0, True),
+            (f"the victim's first attempt exited 7 and was respawned once "
+             f"({len(exits)} exits)", float(len(exits)), 1, ok)]
+    by_rank: dict = {}
+    for rec in recs:
+        by_rank.setdefault(rec["rank"], []).append(rec)
+    once = all([x["epoch"] for x in by_rank.get(r, [])] ==
+               list(range(ELASTIC_EPOCHS)) for r in range(world))
+    rows.append(("each epoch once on every rank", float(once), 1, once))
+    for e in range(ELASTIC_EPOCHS):
+        at = [x for x in recs if x["epoch"] == e]
+        losses = {x["loss"] for x in at}
+        digests = {x["digest"] for x in at}
+        rows.append((f"epoch {e}: losses across ranks", float(len(losses)),
+                     1, len(losses) == 1 and len(at) == world))
+        rows.append((f"epoch {e}: state digests across ranks",
+                     float(len(digests)), 1, len(digests) == 1))
+        gen = 0 if e < crash_epoch else 1
+        ok = all(x["gen"] == gen for x in at)
+        rows.append((f"epoch {e}: every rank at generation {gen}",
+                     float(ok), 1, ok))
+    ckpt = sum(x["from_ckpt"] for x in recs)
+    rows.append(("checkpoint reads (from_ckpt), all records", float(ckpt), 0,
+                 ckpt == 0))
+    join = [x for x in recs if not x["contributed"]]
+    ok = (len(join) == 1 and join[0]["rank"] == victim
+          and join[0]["epoch"] == crash_epoch and join[0]["rebuilt"])
+    rows.append(("one join epoch, the victim's, rebuilt", float(ok), 1, ok))
+    j = join[0] if join else {"from_peers": 0, "bytes_moved": 0}
+    rows.append(("the reborn rank's leaves from peers", j["from_peers"],
+                 leaves, j["from_peers"] == leaves))
+    rows.append(("the reborn rank's bytes moved", j["bytes_moved"], nbytes,
+                 j["bytes_moved"] == nbytes))
+    sums = {(s["rank"], s["attempt"], s["epoch"]): s for s in syncs}
+    gens = sorted({s["gen"] for s in syncs})
+    bad = [k for k, s in sums.items() if not s["sums_ok"]]
+    ok = all(s["backend"] == backend for s in syncs)
+    rows.append((f"every generation's mesh over {backend}", float(ok), 1,
+                 ok))
+    rows.append((f"data-plane all-reduce and all-gather exact in "
+                 f"generations {gens}", float(len(bad)), 0,
+                 not bad and gens == [0, 1] and len(sums) == len(syncs)
+                 == world * ELASTIC_EPOCHS))
+    auc = outs[0]["auc"]
+    rows.append(("learning: eval auc of the change in score of the final "
+                 "averaged model, at least", auc, LEARN_AUC_MIN,
+                 auc >= LEARN_AUC_MIN and outs[0]["eval_rows"] == EVAL_ROWS))
+    launches: dict = {}
+    for o in outs:
+        missing = [k for k in ELASTIC_KERNELS if o["launches"].get(k, 0) < 1]
+        rows.append((f"rank {o['rank']} (attempt {o['attempt']}) kernels "
+                     f"never launched {missing}", float(len(missing)), 0,
+                     not missing))
+        _add(launches, o["launches"])
+    _checked(f"world {world} ({backend})", rows, "[elastic]")
+    # the numbers
+    reborn = sums[(victim, 1, crash_epoch)]
+    st = reborn["stats"]
+    mb = st["bytes_moved"] / 1e6
+    to_gen1 = {s["rank"]: s["joined_at"] - crash["time"] for s in syncs
+               if s["epoch"] == crash_epoch}
+    rebuild = [s for s in syncs if s["epoch"] == crash_epoch]
+    log(f"[elastic] world {world} ({backend}): reshard on the reborn rank "
+        f"{st['wall_s']:.4f} s, {mb:.3f} MB from peers, "
+        f"{mb / max(st['wall_s'], 1e-9):.1f} MB/s ({st['leaves_from_peers']} "
+        f"leaves; survivors' rounds "
+        + ", ".join(f"{s['stats']['wall_s']:.4f}" for s in rebuild
+                    if s["rank"] != victim)
+        + f" s); s from the victim's exit to generation 1 "
+        + ", ".join(f"rank {r} {v:.3f}" for r, v in sorted(to_gen1.items()))
+        + " [" + power + "]")
+    log(f"[elastic] world {world} ({backend}): data plane teardown s "
+        + ", ".join(f"rank {s['rank']} {s['times']['teardown_s']:.4f}"
+                    for s in sorted(rebuild, key=lambda s: s["rank"]))
+        + "; init s "
+        + ", ".join(f"rank {s['rank']} {s['times']['init_s']:.4f}"
+                    for s in sorted(rebuild, key=lambda s: s["rank"]))
+        + "; averaging s a sync point "
+        + "; ".join(f"rank {r} " + ", ".join(
+            f"{sums[k]['times']['average_s']:.3f}" for k in sorted(sums)
+            if k[0] == r) for r in range(world))
+        + f" [{power}]")
+    rate = {k: v["times"]["steps"] / v["times"]["train_s"]
+            for k, v in sums.items() if v["times"]["steps"]}
+    log(f"[elastic] world {world} ({backend}): steps/s a rank by epoch "
+        + "; ".join(f"rank {r} " + ", ".join(
+            f"e{k[2]} {rate[k]:.3f}" for k in sorted(rate) if k[0] == r)
+            for r in range(world))
+        + f" ({ROWS_TR}-row batches); learning {auc:.6f}; "
+        f"{seconds:.1f} s [{power}]")
+    log(f"[elastic] world {world} ({backend}) kernel launches (every rank's "
+        f"last incarnation): {launches}")
+    return {"launches": launches, "seconds": seconds,
+            "reshard_s": st["wall_s"], "reshard_mb": mb,
+            "to_generation1_s": to_gen1, "auc": auc}
+
+
+def main_elastic_worker(world: int, data: str, backend: str) -> int:
+    """``--elastic-worker``: one rank of [elastic], started (and, for the
+    victim, restarted) by the port's launcher.  Runs the port's
+    ``examples/elastic_train.py`` at full width; after each sync point
+    all-reduces and all-gathers known vectors over the generation's
+    mesh; writes ``sync_r<R>.jsonl`` (a line a sync point, every
+    incarnation), ``crash_r<R>.json`` (the victim, just before it exits)
+    and ``rank<R>.json`` (its launches, and on rank 0 the final model's
+    learning)."""
+    import torch
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from dmlc_core_tpu_torch.examples import elastic_train as example
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.parallel import allgather, allreduce
+    edir = os.path.join(data, "elastic")
+    attempt = int(os.environ.get("DMLC_NUM_ATTEMPT", "0"))
+    rank = int(os.environ["DMLC_TASK_ID"])
+    victim, crash_epoch = ELASTIC_CRASH
+    args = example.build_parser().parse_args([
+        "file://" + os.path.join(data, "train.libsvm"), "--features",
+        str(F_FEATURES), "--dim", str(DIM), "--epochs", str(ELASTIC_EPOCHS),
+        "--batch-rows", str(ROWS_TR), "--nnz-cap", str(CAP_TR),
+        "--crash-rank", str(victim), "--crash-epoch", str(crash_epoch),
+        "--device", "cuda"])
+
+    def hook(event, **info):
+        if event == "crash":
+            with open(os.path.join(edir, f"crash_r{rank}.json"), "w") as f:
+                json.dump({"time": time.time(), "epoch": info["epoch"]}, f)
+            return
+        emesh, res = info["mesh"], info["result"]
+        mesh, gen = emesh.mesh, emesh.generation
+        x = torch.full((ELASTIC_VECTOR,), float((rank + 1) * (gen + 1)),
+                       device=mesh.device)
+        total = allreduce(x, mesh)
+        ranks = allgather(x[:1], mesh)
+        want = world * (world + 1) / 2 * (gen + 1)
+        ok = (bool((total == want).all()) and ranks.tolist()
+              == [float((r + 1) * (gen + 1)) for r in range(world)])
+        with open(os.path.join(edir, f"sync_r{rank}.jsonl"), "a") as f:
+            f.write(json.dumps({
+                "rank": rank, "attempt": attempt, "epoch": info["epoch"],
+                "gen": gen, "mesh_generation": mesh.generation,
+                "backend": mesh.backend,
+                "sums_ok": ok and mesh.generation == gen,
+                "joined_at": emesh.joined_at, "times": info["times"],
+                "stats": (res.stats.as_dict() if res.stats is not None
+                          else None)}) + "\n")
+
+    reset_launch_counts()
+    got = example.train(args, hook=hook)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "attempt": attempt,
+           "launches": dict(launch_counts()), "auc": None, "eval_rows": 0}
+    if rank == 0:
+        from dmlc_core_tpu_torch import (DeviceLoader, FactorizationMachine,
+                                         create_parser)
+        model = got["model"]
+        dev = next(model.parameters()).device
+        fresh = FactorizationMachine(F_FEATURES, DIM, device=dev)
+        # ids hashed as the example's loaders hash them (id_mod)
+        with DeviceLoader(create_parser(os.path.join(data, "eval.libsvm"),
+                                        0, 1, "libsvm", engine="native"),
+                          ROWS_TR, CAP_TR, id_mod=F_FEATURES,
+                          engine="native", device=dev) as ld:
+            s0, y = _eval_scores(torch, fresh, ld)
+            ld.before_first()
+            s1, _ = _eval_scores(torch, model, ld)
+        out["auc"], out["eval_rows"] = _auc(s1 - s0, y), len(y)
+    with open(os.path.join(edir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 # -- [probe]: the transfer probe (ROADMAP A.14) -------------------------------
 
 PROBE_COPIES = 4           # the training file 4 times: 32 batches a pass
@@ -8185,8 +8489,9 @@ def phase_probe(torch, power: str, data: str, train_file: str) -> dict:
 
 
 def main_mesh_nccl(world: int) -> int:
-    """``--mesh-nccl W``: phases 1 and 2, then [mesh] (b) and the
-    [tracker] cohort over NCCL with rank r on cuda:r, W cards."""
+    """``--mesh-nccl W``: phases 1 and 2, then [mesh] (b), the [tracker]
+    cohort and the [elastic] cohort over NCCL with rank r on cuda:r, W
+    cards."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -8201,6 +8506,7 @@ def main_mesh_nccl(world: int) -> int:
     with _data_files() as (data, _, _):
         got = _mesh_ranks(torch, power, data, world, "nccl")
         tracker = phase_tracker(torch, power, data, world, "nccl")
+        elastic = phase_elastic(torch, power, data, world, "nccl")
     missing = [k for k in MESH_KERNELS if got["launches"].get(k, 0) < 1]
     if missing:
         raise RuntimeError(f"[mesh] nccl world {world} never launched "
@@ -8209,7 +8515,8 @@ def main_mesh_nccl(world: int) -> int:
     print(json.dumps({"mesh_nccl": {"world": world,
                                     "launches": got["launches"],
                                     "shard": got["shard"],
-                                    "tracker": tracker}}))
+                                    "tracker": tracker,
+                                    "elastic": elastic}}, default=str))
     return 0
 
 
@@ -8226,6 +8533,22 @@ def main_tracker() -> int:
         tracker = phase_tracker(torch, power, data, TRACKER_WORLD, "gloo")
     print(power)
     print(json.dumps({"tracker": tracker}))
+    return 0
+
+
+def main_elastic() -> int:
+    """``--elastic``: phases 1, 2 and [elastic] only."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    power = phase_device(torch)
+    phase_build()
+    with _data_files() as (data, _, _):
+        elastic = phase_elastic(torch, power, data, ELASTIC_WORLD, "gloo")
+    print(power)
+    print(json.dumps({"elastic": elastic}, default=str))
     return 0
 
 
@@ -8790,6 +9113,8 @@ def main() -> int:
         mesh = phase_mesh(torch, power, data, train_file, eval_file)
         tracker = phase_tracker(torch, power, data, TRACKER_WORLD,
                                 "gloo")["launches"]
+        elastic = phase_elastic(torch, power, data, ELASTIC_WORLD,
+                                "gloo")["launches"]
         probe = phase_probe(torch, power, data, train_file)
         # last: once torch.profiler has run, every later launch of this
         # process pays for it (PERF.md)
@@ -8886,6 +9211,10 @@ def main() -> int:
     # is checked in [tracker] too)
     missing += [f"{k} (tracker)" for k in TRACKER_KERNELS
                 if tracker.get(k, 0) < 1]
+    # the elastic cohort: every kernel of FM flat on every rank, the
+    # reborn one included (checked per rank in [elastic] too)
+    missing += [f"{k} (elastic)" for k in ELASTIC_KERNELS
+                if elastic.get(k, 0) < 1]
     # [mesh] checks its own paths' kernels (MESH_KERNELS); the probe's
     # FusedTrainer runs both wires
     missing += [f"{k} (probe)" for k in (
@@ -8962,6 +9291,10 @@ def main() -> int:
             # [tracker]: the dp cohort the port's tracker bootstrapped
             # (both ranks' processes)
             row["tracker"] = {"launches": tracker.get(name, 0)}
+        if name in ELASTIC_KERNELS:
+            # [elastic]: the elastic cohort through the port's launcher
+            # (every rank's last incarnation: the reborn rank's epoch 2)
+            row["elastic"] = {"launches": elastic.get(name, 0)}
         if probe.get(name, 0):
             # [probe]: FusedTrainer(k=8) on the resolved wire and the other
             row["probe"] = {"launches": probe[name]}
@@ -9029,12 +9362,17 @@ if __name__ == "__main__":
     ap.add_argument("--mesh-backend", default="gloo",
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-nccl", type=int, default=0, metavar="W",
-                    help="run [mesh] (b) and [tracker] over NCCL on W "
-                         "cards, one rank a card, only (after phases 1-2)")
+                    help="run [mesh] (b), [tracker] and [elastic] over "
+                         "NCCL on W cards, one rank a card, only (after "
+                         "phases 1-2)")
     ap.add_argument("--tracker", action="store_true",
                     help="run [tracker] only (after phases 1-2)")
     ap.add_argument("--tracker-worker", action="store_true",
                     help=argparse.SUPPRESS)   # [tracker]'s rank processes
+    ap.add_argument("--elastic", action="store_true",
+                    help="run [elastic] only (after phases 1-2)")
+    ap.add_argument("--elastic-worker", action="store_true",
+                    help=argparse.SUPPRESS)   # [elastic]'s rank processes
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None
@@ -9046,9 +9384,13 @@ if __name__ == "__main__":
               else main_tracker_worker(args.mesh_world, args.mesh_data,
                                        args.mesh_backend)
               if args.tracker_worker
+              else main_elastic_worker(args.mesh_world, args.mesh_data,
+                                       args.mesh_backend)
+              if args.elastic_worker
               else main_mesh_nccl(args.mesh_nccl)
               if args.mesh_nccl
               else main_tracker() if args.tracker
+              else main_elastic() if args.elastic
               else main_mesh() if args.mesh
               else main())
     except Exception as e:  # noqa: BLE001 — any failed phase fails

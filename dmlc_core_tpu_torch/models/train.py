@@ -162,6 +162,7 @@ class MeshStep:
                          and l2]
 
     def agree(self, batch: Batch, live: bool = True) -> torch.Tensor:
+        self.mesh.check_open()
         w = batch["weights"]
         # a fill, not a copy from the host: the step may be captured
         stats = torch.stack([w.sum(), torch.full((), float(live),
@@ -184,6 +185,7 @@ class MeshStep:
 
     def __call__(self, batch: Batch,
                  stats: Optional[torch.Tensor] = None) -> torch.Tensor:
+        self.mesh.check_open()
         if stats is None:
             stats = self.agree(batch)
         self.optimizer.zero_grad(set_to_none=True)
@@ -431,6 +433,19 @@ class KSteps:
         opt.zero_grad(set_to_none=True)
         self.graph, self.launches = graph, launches
         self.capture_s = time.perf_counter() - t0
+        mesh = getattr(self.step, "mesh", None)
+        if mesh is not None:
+            # the graph holds the mesh's NCCL communicators: closing the
+            # mesh releases it first
+            mesh.hold_graph(self)
+
+    def release(self) -> None:
+        """Free the captured graph (after the device's queued work); the
+        next :meth:`run` captures again."""
+        if self.graph is not None:
+            torch.cuda.synchronize(self.device)
+            self.graph.reset()
+            self.graph = None
 
     def run(self) -> torch.Tensor:
         """Replay the k steps over the static inputs (capturing them at
@@ -438,6 +453,11 @@ class KSteps:
         if not self.capture:
             raise DMLCError("run() replays a CUDA graph; eager k steps "
                             "(the CPU, capture=False) take kstep(inputs)")
+        mesh = getattr(self.step, "mesh", None)
+        if mesh is not None:
+            # a graph captured over a torn-down generation's NCCL
+            # communicators must never replay
+            mesh.check_open()
         if self.graph is None:
             self._capture()
         self.graph.replay()

@@ -22,7 +22,9 @@ gives a value that is replicated over the axis: every rank computes the
 same loss from the result, so the cotangent each rank holds is already
 the whole one, and summing it over the ranks would count it once a
 rank.  Any axis's group serves; along an axis of one rank every function
-returns its input's value without a collective.
+returns its input's value without a collective.  Every function raises on a
+closed mesh (:meth:`~.mesh.Mesh.check_open`: a torn-down elastic
+generation), whatever the axis's size.
 
 Where the JAX functions see one process holding every rank's block, the
 port is SPMD: each process passes its own block and gets its own
@@ -116,6 +118,7 @@ def _gather(mesh: Mesh, axis_name: str, x: torch.Tensor
             ) -> List[torch.Tensor]:
     """Every rank's ``x`` (contiguous) along the axis, in its order."""
     import torch.distributed as dist
+    mesh.check_open()
     if mesh.size(axis_name) == 1:
         return [x]
     parts = [torch.empty_like(x) for _ in range(mesh.size(axis_name))]
@@ -128,6 +131,7 @@ def allreduce(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
               op: str = "sum") -> torch.Tensor:
     """The ranks' blocks reduced by ``op``; the same on every rank."""
     import torch.distributed as dist
+    mesh.check_open()
     out = x.clone()
     red = _op(op)
     if mesh.size(axis_name) > 1:
@@ -140,6 +144,7 @@ def broadcast(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
               root: int = 0) -> torch.Tensor:
     """Rank ``root``'s block, on every rank."""
     import torch.distributed as dist
+    mesh.check_open()
     check(0 <= root < mesh.size(axis_name), f"bad root {root}")
     out = x.clone()
     if mesh.size(axis_name) > 1:
@@ -163,6 +168,7 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
     """``axis`` cut into one chunk a rank; rank ``r`` gets the sum over
     the ranks of their chunk ``r`` (JAX's tiled ``psum_scatter``)."""
     import torch.distributed as dist
+    mesh.check_open()
     chunks = _chunks(x, mesh.size(axis_name), axis)
     if len(chunks) == 1:
         return chunks[0]
@@ -178,6 +184,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis_name: str = "dp",
     ``d``; the chunks received, in rank order, concatenated along
     ``concat_axis`` (JAX's tiled ``all_to_all``)."""
     import torch.distributed as dist
+    mesh.check_open()
     ins = _chunks(x, mesh.size(axis_name), split_axis)
     if len(ins) == 1:
         return torch.cat(ins, concat_axis)
@@ -207,6 +214,7 @@ def sum_partials(x: torch.Tensor, mesh: Mesh, axis_name: str = "mp"
     the same on every rank (an all-reduce).  Differentiable: the
     gradient of each rank's partial is the result's own, as the
     transpose of JAX's ``psum`` to a replicated value gives it."""
+    mesh.check_open()
     if mesh.size(axis_name) == 1:
         return x
     return _SumPartials.apply(x, mesh, axis_name)
@@ -232,6 +240,7 @@ def gather_dim(x: torch.Tensor, mesh: Mesh, axis_name: str = "mp",
     Differentiable: the gradient of this rank's ``x`` is its own slice
     of the result's, not a reduce-scatter (the result is replicated, so
     that would count it once a rank)."""
+    mesh.check_open()
     if mesh.size(axis_name) == 1:
         return x
     return _GatherDim.apply(x, mesh, axis_name, dim % x.dim())

@@ -26,6 +26,7 @@ from __future__ import annotations
 import datetime
 import os
 import tempfile
+import weakref
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -180,7 +181,14 @@ class Mesh:
     and the process group of its line of ranks along each axis.  Built
     by :func:`make_mesh`.  An axis the mesh does not name has size 1.
     ``timeout_s`` is the group's collective timeout, None where the mesh
-    joined a group made elsewhere (whose own timeout applies)."""
+    joined a group made elsewhere (whose own timeout applies).
+    ``generation`` is the elastic generation the mesh belongs to
+    (:class:`~.elastic.ElasticTorchMesh`), None outside one.  Once
+    :meth:`close` has run, every call that would reach the mesh's groups
+    (:meth:`group`, :attr:`world_group`, :meth:`check_open`, so every
+    collective, step and k-step call built on it) raises a
+    :class:`DMLCError`; it never runs on a destroyed group, nor on the
+    group of a later generation."""
 
     def __init__(self, axes: Dict[str, int], rank: int, world: int,
                  device: torch.device, backend: str,
@@ -197,6 +205,29 @@ class Mesh:
         self._groups = dict(groups or {})
         self._owns_group = owns_group
         self._store_path = store_path
+        self.generation: Optional[int] = None
+        self.closed = False
+        # holders of CUDA graphs captured over this mesh's groups
+        self._graphs: "weakref.WeakSet[Any]" = weakref.WeakSet()
+
+    def hold_graph(self, holder: Any) -> None:
+        """Record ``holder`` (with a ``release()``) of a CUDA graph captured
+        over this mesh's groups: :meth:`close` releases the graph before
+        it ends the groups, whose NCCL communicators the graph holds."""
+        self._graphs.add(holder)
+
+    def check_open(self) -> None:
+        """Raise if the mesh was closed: its groups are gone, and the
+        default group may be a later generation's."""
+        if self.closed:
+            which = ("this mesh" if self.generation is None else
+                     f"mesh generation {self.generation}")
+            raise DMLCError(
+                f"{which} is closed: its process groups were torn down"
+                + ("" if self.generation is None else
+                   "; build again on ElasticTorchMesh.mesh (steps, "
+                   "k-step graphs and models placed on the old generation "
+                   "included)"))
 
     def size(self, axis: str = "dp") -> int:
         """The number of ranks along ``axis`` (1 for an axis the mesh
@@ -230,6 +261,7 @@ class Mesh:
         default group where the line is every rank, None where the line
         is this rank alone in a larger world (nothing to reduce)."""
         self.size(axis)
+        self.check_open()
         if axis in self._groups:
             return self._groups[axis]
         import torch.distributed as dist
@@ -239,6 +271,7 @@ class Mesh:
     def world_group(self):
         """The group of every rank of the mesh."""
         import torch.distributed as dist
+        self.check_open()
         return dist.group.WORLD
 
     @property
@@ -247,13 +280,28 @@ class Mesh:
         (NCCL can; gloo and the CPU cannot)."""
         return self.backend == "nccl" and self.device.type == "cuda"
 
-    def close(self) -> None:
+    def close(self, abort: bool = False) -> None:
         """Destroy the process groups, and the file of the store, that
-        :func:`make_mesh` created."""
+        :func:`make_mesh` created; the mesh is closed from here on.
+        ``abort`` ends an NCCL group with ``ncclCommAbort``
+        (``torch.distributed``'s ``_abort_process_group``, where this
+        torch has it), which waits on no peer: the teardown of a
+        generation with a dead rank.  Gloo's destroy is local already.
+        CUDA graphs captured over the mesh (:meth:`hold_graph`) are
+        released first."""
         import torch.distributed as dist
+        self.closed = True
+        for holder in list(self._graphs):
+            holder.release()
+        self._graphs = weakref.WeakSet()
         if dist.is_initialized():
             if self._owns_group:
-                dist.destroy_process_group()
+                c10d = dist.distributed_c10d
+                if (abort and self.backend == "nccl"
+                        and hasattr(c10d, "_abort_process_group")):
+                    c10d._abort_process_group()
+                else:
+                    dist.destroy_process_group()
             else:
                 for g in set(self._groups.values()) - {dist.group.WORLD,
                                                         None}:
@@ -268,8 +316,11 @@ class Mesh:
             self._store_path = None
 
     def __repr__(self) -> str:
+        gen = ("" if self.generation is None
+               else f", generation={self.generation}")
         return (f"Mesh({self.shape}, rank={self.rank}, device={self.device}, "
-                f"backend={self.backend})")
+                f"backend={self.backend}{gen}"
+                f"{', closed' if self.closed else ''})")
 
 
 def _env_rank_world() -> Optional[Tuple[int, int]]:

@@ -36,7 +36,12 @@ One difference by design: every connect to the tracker is bounded by
 ``DMLC_IO_CONNECT_TIMEOUT`` (10 s) a try, and a try that timed out is
 made again (``retry.rabit.connect.*``, four tries): about one loopback
 connect in 1,300 never completes on some hosts.  A refused connect
-raises at once.
+raises at once.  A second: a link dropped by the reset push (or replaced
+by a newer dial) is shut down at once but closed only by the
+collective's own thread, before its next collective: closed under a
+recv blocked in it, its file descriptor could go to the next accepted
+peer, and the recv would wait on that peer's link (a rejoin that hung in
+one of the port's CPU cohorts; the JAX client closes at once).
 """
 
 from __future__ import annotations
@@ -180,6 +185,11 @@ class RabitContext:
         self._listener.listen(16)
         self._listen_port = self._listener.getsockname()[1]
         self._peer_socks: Dict[int, socket.socket] = {}
+        # links shut down by another thread, closed by the collective's
+        # own thread (_ensure_links): closing one under a blocked recv
+        # would free its fd for the next accept, and the recv would then
+        # wait on the new peer's socket
+        self._stale: List[socket.socket] = []
         self._sock_gen: Dict[int, int] = {}
         # populated by _register's reply; must EXIST before the accept
         # thread starts — a tracker reset_links push can race ahead of
@@ -309,10 +319,7 @@ class RabitContext:
                             # already established: reject it
                             conn.close()
                             continue
-                        try:
-                            old.close()
-                        except OSError:
-                            pass
+                        self._retire(old)
                     self._peer_socks[peer_rank] = conn
                     self._sock_gen[peer_rank] = gen
             except (DMLCError, OSError, struct.error):
@@ -344,24 +351,35 @@ class RabitContext:
             for r in list(self._addresses):
                 if r in addrs:
                     self._addresses[r] = addrs[r]
-            # drop every pre-reset socket — shutdown(SHUT_RDWR) first, which
-            # (unlike close alone) interrupts a recv blocked in another
-            # thread with EOF/error; guarantees no stale half-blob survives
-            # into the repaired topology
+            # drop every pre-reset socket — shutdown(SHUT_RDWR), which
+            # (unlike close) interrupts a recv blocked in another thread
+            # with EOF; guarantees no stale half-blob survives into the
+            # repaired topology
             for r, s in list(self._peer_socks.items()):
                 if self._sock_gen.get(r, -1) < gen:
-                    try:
-                        s.shutdown(socket.SHUT_RDWR)
-                    except OSError:
-                        pass
-                    try:
-                        s.close()
-                    except OSError:
-                        pass
+                    self._retire(s)
                     del self._peer_socks[r]
                     self._sock_gen.pop(r, None)
         log_warning("rabit rank %d: link reset to generation %d", self.rank, gen)
         self._reset_event.set()
+
+    def _retire(self, sock: socket.socket) -> None:
+        """Shut a link down now and close it later (caller holds the peer
+        lock): the collective's thread may be blocked in it."""
+        try:
+            sock.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._stale.append(sock)
+
+    def _close_stale(self) -> None:
+        with self._peer_lock:
+            stale, self._stale = self._stale, []
+        for sock in stale:
+            try:
+                sock.close()
+            except OSError:
+                pass
 
     def _connect_links(self) -> None:
         """Dial peers with rank < ours; accept from ranks > ours (a
@@ -432,7 +450,9 @@ class RabitContext:
         """Repair links when a tracker reset moved the target generation.
         Loops: a newer reset arriving during a repair triggers another
         round (the event is cleared BEFORE the target is read, so a
-        concurrent notification is never lost)."""
+        concurrent notification is never lost).  Links retired since the
+        last collective are closed here, on the thread that used them."""
+        self._close_stale()
         while True:
             self._reset_event.clear()
             with self._peer_lock:
@@ -663,6 +683,7 @@ class RabitContext:
                     pass
             self._peer_socks.clear()
             self._sock_gen.clear()
+        self._close_stale()
 
     def _tracker_cmd(self, obj: dict) -> None:
         sock = _connect(self.tracker_addr, 10.0)

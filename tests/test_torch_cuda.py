@@ -1821,3 +1821,160 @@ def test_nccl_collectives_on_card_tensors(dev, nccl_mesh):
     assert torch.equal(allgather(x, nccl_mesh), x)
     assert torch.equal(reduce_scatter(x, nccl_mesh), x)
     assert torch.equal(coll.all_to_all(x), x)
+
+
+# -- elastic rejoin on the card (ROADMAP A.7.c1) ------------------------------
+
+def test_snapshot_tree_copies_card_tensors_to_the_host(dev):
+    from dmlc_core_tpu_torch.parallel import snapshot_tree
+    t = {"v": torch.arange(12, dtype=torch.float32, device=dev).view(4, 3),
+         "n": torch.tensor(5, dtype=torch.int32, device=dev)}
+    snap = snapshot_tree(t)
+    (_, _, v), = snap.pieces["v"]
+    (_, _, n), = snap.pieces["n"]
+    t["v"].add_(1)
+    assert isinstance(v, np.ndarray)
+    np.testing.assert_array_equal(v, np.arange(12, dtype=np.float32)
+                                  .reshape(4, 3))
+    assert snap.schema == {"v": ((4, 3), "float32"), "n": ((), "int32")}
+    assert n.tolist() == [5]
+
+
+NCCL_ELASTIC_WORKER = r'''
+import faulthandler, json, os, sys
+faulthandler.dump_traceback_later(150, exit=True)   # a hang shows its stacks
+import numpy as np
+import torch
+from dmlc_core_tpu_torch import FactorizationMachine, adam
+from dmlc_core_tpu_torch.models import make_train_step_kbatch
+from dmlc_core_tpu_torch.parallel import (ElasticTorchMesh, RabitContext,
+                                          StateHandle, allgather, allreduce)
+from dmlc_core_tpu_torch.utils.logging import DMLCError
+
+attempt = int(os.environ["DMLC_NUM_ATTEMPT"])
+victim = int(os.environ["VICTIM"])
+ctx = RabitContext.from_env(heartbeat_interval=0)
+if attempt:
+    assert ctx.load_checkpoint() == {"phase": 1}
+dev = torch.device("cuda", ctx.rank)
+state = {"w": np.arange(8, dtype=np.float32)}
+box = {"state": None if attempt else state}
+mesh = ElasticTorchMesh(ctx, device=dev)
+mesh.register_state(StateHandle(lambda: box["state"], template=state))
+out = {"rank": ctx.rank}
+if attempt == 0:
+    mesh.initialize()
+    g0 = mesh.mesh
+    assert g0.backend == "nccl" and g0.capturable
+    # a k-step graph captured over generation 0's communicators
+    model = FactorizationMachine(64, 4, device=dev)
+    kstep = make_train_step_kbatch(model, adam(model, 1e-2), g0)
+    assert kstep.route == "graph"
+    i32 = dict(dtype=torch.int32, device=dev)
+    batch = {"ids": torch.tensor([[1, 3, 5, 0]], **i32),
+             "vals": torch.ones(1, 4, device=dev),
+             "segments": torch.tensor([[0, 0, 1, 2]], **i32),
+             "row_ptr": torch.tensor([[0, 2, 3]], **i32),
+             "labels": torch.tensor([[0.0, 1.0]], device=dev),
+             "weights": torch.ones(1, 2, device=dev)}
+    kstep(batch)
+    x = allreduce(torch.ones(4, device=dev), g0)
+    assert x.tolist() == [float(ctx.world_size)] * 4
+    torch.cuda.synchronize()
+    ctx.checkpoint({"phase": 1})
+    if ctx.rank == victim:
+        os._exit(7)
+    res = mesh.resync()
+    assert res
+    for name, call in (("allreduce", lambda: allreduce(x, g0)),
+                       ("kstep", lambda: kstep(batch))):
+        try:
+            call()
+            out[name] = "ran"
+        except DMLCError as e:
+            out[name] = str(e)
+else:
+    res = mesh.resync()
+g1 = mesh.mesh
+assert mesh.generation == 1 and g1.generation == 1 and g1.backend == "nccl"
+y = torch.full((5,), float(ctx.rank + 1), device=dev)
+out["sum"] = allreduce(y, g1).tolist()
+out["gather"] = allgather(y[:1], g1).tolist()
+out["restored"] = np.array_equal(res.state["w"], state["w"])
+out["timings"] = mesh.timings
+mesh.close()
+ctx.shutdown()
+print("RESULT " + json.dumps(out), flush=True)
+'''
+
+
+def test_nccl_rebuild_after_a_rank_is_killed(dev, tmp_path):
+    """A card a rank, NCCL: the last rank exits 7 after a collective and
+    a captured k-step call of generation 0, is respawned with attempt 1,
+    and every rank rebuilds at generation 1 (the survivors' generation 0
+    communicators, which hold the dead rank, aborted within the
+    teardown's bound), where an all-reduce and an all-gather over the
+    new communicators are exact; the old generation's collective and
+    its captured graph raise instead of running; the reborn rank gets
+    the state from peers."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    from dmlc_core_tpu_torch.parallel import tracker
+    world = min(torch.cuda.device_count(), 4)
+    if world < 2:
+        pytest.skip("needs two or more cards")
+    script = tmp_path / "worker.py"
+    script.write_text(NCCL_ELASTIC_WORKER)
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    base = s.getsockname()[1]
+    s.close()
+    t = tracker.RabitTracker(num_workers=world, host_ip="127.0.0.1")
+    t.start()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {**os.environ, **t.worker_envs(), "PYTHONPATH": repo,
+           "DMLC_ELASTIC_BASE_PORT": str(base), "VICTIM": str(world - 1),
+           "DMLC_CHECKPOINT_DIR": str(tmp_path)}
+
+    def spawn(rank, attempt):
+        log = open(tmp_path / f"r{rank}_a{attempt}.log", "w+")
+        return subprocess.Popen(
+            [sys.executable, str(script)], env=dict(
+                env, DMLC_TASK_ID=str(rank), DMLC_NUM_ATTEMPT=str(attempt)),
+            stdout=log, stderr=subprocess.STDOUT, text=True), log
+
+    procs = {r: spawn(r, 0) for r in range(world)}
+    try:
+        assert procs[world - 1][0].wait(timeout=180) == 7
+        procs[world - 1] = spawn(world - 1, 1)
+        for p, _ in procs.values():
+            p.wait(timeout=200)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        t.stop()
+    texts = {}
+    for r, (p, log) in procs.items():
+        log.seek(0)
+        texts[r] = log.read()
+        log.close()
+    bad = {r: p.returncode for r, (p, _) in procs.items() if p.returncode}
+    assert not bad, (bad, {r: texts[r][-2500:] for r in texts})
+    outs = {r: json.loads(next(ln for ln in texts[r].splitlines()
+                               if ln.startswith("RESULT "))[7:])
+            for r in texts}
+    total = world * (world + 1) / 2
+    for r, o in outs.items():
+        assert o["sum"] == [total] * 5
+        assert o["gather"] == [float(i + 1) for i in range(world)]
+        assert o["restored"]
+        if r < world - 1:
+            assert "mesh generation 0 is closed" in o["allreduce"]
+            assert "mesh generation 0 is closed" in o["kstep"]
+            assert o["timings"]["teardown_s"] < 10

@@ -251,6 +251,42 @@ def test_topology_never_rolls_back(pkg):
     assert ctx._addresses == {0: ("new-host", 3)}
 
 
+def test_a_reset_leaves_a_dropped_link_open_until_the_next_collective():
+    """The reset push shuts a stale link down, so a recv blocked in it
+    wakes with EOF, but only the collective's thread closes it (at its
+    next ``_ensure_links``): closed at once, its file descriptor could go
+    to the next accepted peer under that recv."""
+    ctx = _bare(rabit.RabitContext)
+    ctx.rank, ctx.generation = 0, 0
+    ctx._peer_socks, ctx._sock_gen, ctx._stale = {}, {}, []
+    ctx._reset_event = threading.Event()
+    link, far = socket.socketpair()
+    ctx._peer_socks[1], ctx._sock_gen[1] = link, 0
+    woke = []
+
+    def blocked():
+        try:
+            rabit._recv_exact(link, 16)
+        except DMLCError as e:
+            woke.append(str(e))
+
+    th = threading.Thread(target=blocked)
+    th.start()
+    time.sleep(0.05)
+    ctrl, push = socket.socketpair()
+    push.sendall(b'{"cmd": "reset_links", "generation": 1, '
+                 b'"addresses": {}}\n')
+    ctx._handle_ctrl(ctrl)
+    th.join(timeout=10)
+    assert not th.is_alive() and woke == ["rabit: peer closed connection"]
+    assert ctx._peer_socks == {} and ctx._stale == [link]
+    assert link.fileno() != -1                   # shut down, not closed
+    ctx._close_stale()
+    assert link.fileno() == -1 and ctx._stale == []
+    for s in (far, push):
+        s.close()
+
+
 def test_topology_is_applied_under_the_peer_lock():
     ctx = _bare(rabit.RabitContext)
 
