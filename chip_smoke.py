@@ -340,6 +340,35 @@ Phases, in order; any failure exits non-zero and prints no result:
    reshard's s, MB and MB/s, s from the victim's exit to generation 1
    on every rank, the data plane's teardown and init s, the averaging s
    of a sync point, steps/s a rank by epoch, the phase's s;
+   embed   — the JAX examples/train_embed_shard.py flow on the card: the
+   port's launcher as a process over its ssh backend (python -m
+   dmlc_core_tpu_torch.parallel.launcher.submit --cluster ssh -n 3
+   --max-attempts 2, DMLC_ELASTIC_BASE_PORT by --env), with a fake ssh
+   and rsync first on its PATH that run a remote command here, and a
+   host file whose first host, deadhost, answers ssh with 255; three
+   ranks of the port's examples/train_embed_shard.py (gloo on cuda:0)
+   over a ShardedEmbeddingTable of 2^20 x 32 float32 (128 MiB, one
+   replica a shard: 89 MB a rank), 4096-row ragged batches of each
+   rank's partition of the training file, three epochs, each lookup and
+   backward through the ragged-gather kernels over the table's compacted
+   unique-row matrix; rank 2 exits 7 entering epoch 1, is respawned, and
+   rejoins at generation 1 with its shard from the survivors.  Checks,
+   each beside its limit: the launcher exits 0; deadhost blacklisted
+   once and its task placed on another host; every (rank, epoch)
+   recorded once; no checkpoint read; every rank's resident bytes above
+   0 and below the whole table; the reborn rank rebuilt at generation 1
+   with leaves and bytes from peers; after the last flush every holder
+   of each shard, primary and replica, holds the same bits; the loss
+   falls; both kernels launched on every rank's last incarnation.  Then
+   one batch through a world-1 table at the same width: its pooled
+   lookup and row gradients through the kernels against the plain
+   version on the card (rtol = atol = 1e-5; a gradient row against the
+   size of its terms, as its sum's order is the atomics'), and both
+   kernels timed at
+   the table's shapes beside the plain version, nnz_used = 0 and
+   embedding_bag.  Numbers: lookups/s and ids/s a rank, the dedup ratio,
+   the cache hit rate, exchange MB, the flush's s, the reshard's MB/s,
+   s from the victim's death to generation 1 on every rank;
    probe   — the transfer probe (pipeline/probe.py) over the training
    file 4 times (32 batches a pass): DeviceLoader batches/s for
    put_threads 1 and 2 x v2 and v3 in 5 alternating rounds after a warm
@@ -396,6 +425,10 @@ over NCCL on W cards).
 
 runs phases 1, 2 and [elastic] only.
 
+    python3 chip_smoke.py --embed
+
+runs phases 1, 2 and [embed] only.
+
     python3 chip_smoke.py --mesh-nccl 4
 
 runs phases 1, 2, [mesh] (b), [tracker] and [elastic] over NCCL on 4
@@ -416,7 +449,7 @@ communicators, which hold the dead rank, are aborted.
 ``CHIP_SMOKE_TRACE_DIR`` keeps [trace]'s Chrome traces in that
 directory (by default they go with the data directory).
 ``CHIP_SMOKE_ELASTIC_DIR`` keeps [elastic]'s launcher output and the
-ranks' records in that directory.
+ranks' records in that directory, ``CHIP_SMOKE_EMBED_DIR`` [embed]'s.
 ``tools/trace_ab.py`` measures what the spans cost against another
 checkout.
 """
@@ -8402,6 +8435,361 @@ def main_elastic_worker(world: int, data: str, backend: str) -> int:
     return 0
 
 
+# -- [embed]: the sharded embedding table over the ssh launcher (A.8) --------
+
+EMBED_WORLD = 3            # [embed]: gloo ranks, all on cuda:0
+EMBED_EPOCHS = 3
+EMBED_CRASH = (2, 1)       # (rank, epoch): exits 7 entering that epoch
+EMBED_TIMEOUT = 600        # s: the launcher's whole run
+EMBED_HOSTS = ("deadhost", "127.0.0.1", "localhost")
+EMBED_TOL = 1e-5           # kernel vs plain: rtol = atol, one batch
+EMBED_KERNELS = ("ragged_gather_embed", "ragged_gather_grad_embed")
+# the example's SGD steps (--lr 0.1, --embed-lr 0.05) are set for its
+# 128-row batches and its loss sums over a batch's rows: at 4096 rows
+# they are scaled by 128 / 4096, or the tower diverges
+EMBED_LR = (0.1 * 128 / ROWS_TR, 0.05 * 128 / ROWS_TR)
+
+
+def _fake_ssh(bin_dir: str, dead: str) -> None:
+    """A fake ``ssh`` and ``rsync`` first on the launcher's PATH (the JAX
+    ``tests/test_launchers.py`` fakes): a remote command runs here, and
+    ``ssh <dead>`` exits 255, as a host that does not answer."""
+    os.makedirs(bin_dir, exist_ok=True)
+    with open(os.path.join(bin_dir, "ssh"), "w") as f:
+        f.write("#!/bin/bash\n"
+                'while [[ "$1" == -* ]]; do [[ "$1" == -o || "$1" == -p ]] '
+                "&& shift; shift; done\n"
+                'host="$1"; shift\n'
+                f'[[ "$host" == {dead} ]] && exit 255\n'
+                'exec bash -c "$*"\n')
+    with open(os.path.join(bin_dir, "rsync"), "w") as f:
+        f.write("#!/bin/bash\nargs=()\n"
+                'for a in "$@"; do case "$a" in -*) ;; *) args+=("$a");; '
+                "esac; done\n"
+                'unset "args[0]" 2>/dev/null\n'
+                'args=("${args[@]}")\n'
+                'dest="${args[-1]}"\n'
+                f'[[ "$dest" == {dead}:* ]] && exit 255\n'
+                'dest="${dest#*:}"\nunset "args[-1]"\n'
+                'exec cp -f "${args[@]}" "$dest"\n')
+    for name in ("ssh", "rsync"):
+        os.chmod(os.path.join(bin_dir, name), 0o755)
+
+
+def _embed_batch(train_file: str):
+    """The first ragged batch of the training file as the example packs
+    it (4096 rows, nnz_cap 16 a row, ids hashed into the table)."""
+    from dmlc_core_tpu_torch.data import create_parser
+    from dmlc_core_tpu_torch.pipeline.packing import (pack_ragged,
+                                                      ragged_slices)
+    with create_parser(train_file, 0, 1, "libsvm") as parser:
+        block = next(iter(parser))
+        sl = next(ragged_slices(block, ROWS_TR, ROWS_TR * 16))
+        return pack_ragged(sl, ROWS_TR, ROWS_TR * 16, id_mod=F_FEATURES)
+
+
+def _embed_kernels(torch, timer: Timer, power: str, train_file: str) -> dict:
+    """One batch of the training file through a world-1 table at
+    [embed]'s width (2^20 x 32) on the card: its pooled lookup and its
+    row gradients through the ragged kernels against the plain version
+    (``engine="torch"``) on the same card, then both kernels timed at
+    the shapes the table gives them (the bucketed unique-row matrix, the
+    batch's position ids), beside the plain version, the call with
+    ``nnz_used = 0`` and ``embedding_bag`` (forward and backward)."""
+    from torch.nn import functional as Fn
+
+    from dmlc_core_tpu_torch.embed import ShardedEmbeddingTable
+    from dmlc_core_tpu_torch.embed.table import _bucket as ubucket
+    from dmlc_core_tpu_torch.kernels import (ragged_gather,
+                                             ragged_gather_reference)
+    from dmlc_core_tpu_torch.ops.ragged_csr import ragged_embed_grad
+    from dmlc_core_tpu_torch.pipeline.packing import dedup_ids
+    batch = _embed_batch(train_file)
+    nnz, rows = int(batch["nnz_used"]), int(batch["rows_used"])
+    kern = ShardedEmbeddingTable(F_FEATURES, DIM, seed=SEED, device="cuda")
+    plain = ShardedEmbeddingTable(F_FEATURES, DIM, seed=SEED, device="cuda",
+                                  engine="torch")
+    def excess(a, b, size):
+        """max |a - b| / (atol + rtol size): at most 1 is within the
+        tolerance."""
+        return float((np.abs(a - b) / (EMBED_TOL + EMBED_TOL * size))
+                     .max()) if a.size else 0.0
+
+    got, want = kern.lookup(batch), plain.lookup(batch)
+    fwd = excess(got, want, np.abs(want))
+    g = np.random.default_rng(SEED + 5).standard_normal(
+        (ROWS_TR, DIM)).astype(np.float32)
+    kern.backward(batch, g)
+    plain.backward(batch, g)
+    # a row's gradient sums its entries in the order the atomics set: its
+    # error is held against the size of its terms, a plain backward over
+    # |vals| and |g| (the card tests' rule), not of its (cancelling) sum
+    sizes = ShardedEmbeddingTable(F_FEATURES, DIM, seed=SEED,
+                                  device="cuda", engine="torch")
+    sizes.backward(dict(batch, vals=np.abs(batch["vals"])), np.abs(g))
+    keys = sorted(plain._pending)
+    bwd = (excess(*(np.stack([t._pending[k] for k in keys])
+                    for t in (kern, plain, sizes)))
+           if sorted(kern._pending) == keys else np.inf)
+    del sizes
+    _checked("one batch on the card", [
+        (f"pooled lookup kernel vs plain, max |err| over (atol + rtol "
+         f"|plain|), rtol = atol = {EMBED_TOL:g}", fwd, 1, fwd <= 1),
+        (f"row gradients kernel vs plain ({len(keys)} rows), max |err| "
+         "over (atol + rtol x the size of the row's terms)", bwd, 1,
+         bwd <= 1)], "[embed]")
+    # the kernels at the shapes the table gives them
+    uniq, pos = dedup_ids(batch["ids"], nnz)
+    ucap = ubucket(uniq.size)
+    mat = torch.zeros((ucap, DIM), device="cuda")
+    mat[:uniq.size] = torch.from_numpy(kern._gather_unique(uniq)).cuda()
+    pos_ids = np.zeros(batch["ids"].shape[0], np.int32)
+    pos_ids[:nnz] = pos
+    ids = torch.from_numpy(pos_ids).cuda()
+    vals = torch.from_numpy(batch["vals"]).cuda()
+    segs = torch.from_numpy(batch["segments"]).cuda()
+    n_t = torch.tensor([nnz], dtype=torch.int32, device="cuda")
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    gt = torch.from_numpy(g).cuda()
+    offsets = torch.from_numpy(batch["row_ptr"][:ROWS_TR].copy()).cuda()
+    del kern, plain
+    out = {}
+    run = lambda n: ragged_gather(  # noqa: E731
+        ids, vals, segs, n, mat, ROWS_TR, fm=False, engine="kernel")[0]
+    ref = ragged_gather_reference(ids, vals, segs, n_t, mat, ROWS_TR,
+                                  fm=False)[0]
+    err = _close("ragged_gather_embed ([embed])", run(n_t), ref)
+    _close("ragged_gather_embed ([embed]) nnz_used=0", run(zero),
+           ragged_gather_reference(ids, vals, segs, zero, mat, ROWS_TR,
+                                   fm=False)[0], exact_zero=True)
+    lib = lambda: Fn.embedding_bag(  # noqa: E731
+        ids[:nnz], mat, offsets, mode="sum", per_sample_weights=vals[:nnz])
+    _close("embedding_bag ([embed])", lib(), ref[:ROWS_TR])
+    b_ms, b_by = bound(uniq.size * DIM * 4 + 12 * nnz
+                       + (ROWS_TR + 1) * DIM * 4, 2 * nnz * DIM)
+    out["ragged_gather_embed"] = dict(
+        ms=timer.ms(lambda: run(n_t)), plain_ms=timer.ms(
+            lambda: ragged_gather_reference(ids, vals, segs, n_t, mat,
+                                            ROWS_TR, fm=False)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer.ms(lib),
+        max_abs_err=err, floor_ms=timer.ms(lambda: run(zero)))
+    grad = lambda n: ragged_embed_grad(  # noqa: E731
+        ids, vals, segs, n, gt, ucap, engine="kernel")
+    gref = ragged_embed_grad(ids, vals, segs, n_t, gt, ucap, engine="torch")
+    err = _close("ragged_gather_grad_embed ([embed])", grad(n_t), gref)
+    _close("ragged_gather_grad_embed ([embed]) nnz_used=0", grad(zero),
+           torch.zeros_like(gref), exact_zero=True)
+    b_ms, b_by = bound(12 * nnz + (ROWS_TR + 1) * DIM * 4 + ucap * DIM * 4,
+                       nnz * DIM)
+    out["ragged_gather_grad_embed"] = dict(
+        ms=timer.ms(lambda: grad(n_t)), plain_ms=timer.ms(
+            lambda: ragged_embed_grad(ids, vals, segs, n_t, gt, ucap,
+                                      engine="torch")),
+        bound_ms=b_ms, bound_by=b_by, library_ms=timer.ms(_library_grad(
+            torch, ids[:nnz], vals[:nnz], offsets, mat, gt)),
+        max_abs_err=err, floor_ms=timer.ms(lambda: grad(zero)))
+    for name, r in out.items():
+        log(f"[embed] {name} at the table's shapes (cap "
+            f"{batch['ids'].shape[0]}, nnz {nnz}, {uniq.size} unique rows "
+            f"in a [{ucap}, {DIM}] matrix, {rows} rows): kernel "
+            f"{r['ms']:.4f} ms (nnz_used=0: {r['floor_ms']:.4f} ms), plain "
+            f"{r['plain_ms']:.4f} ms, embedding_bag"
+            f"{' backward' if 'grad' in name else ''} "
+            f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), max|err| {r['max_abs_err']:.3g} [{power}]")
+    return out
+
+
+def phase_embed(torch, timer: Timer, power: str, data: str,
+                train_file: str) -> dict:
+    """[embed]: the JAX ``examples/train_embed_shard.py`` flow on the
+    card through the port's ssh launcher (fake ``ssh`` and ``rsync``, a
+    dead host first in the host file): three ranks of the port's example
+    (gloo on cuda:0) over a 2^20 x 32 sharded table, one replica a
+    shard, three epochs of 4096-row ragged batches of their partitions;
+    rank 2 exits 7 entering epoch 1, the launcher respawns it and it
+    rejoins at generation 1 with its shard from peers.  Then one batch
+    through a world-1 table, kernels against the plain version, and the
+    kernels timed at the table's shapes.  Returns the launch counts
+    (every rank's last incarnation) and the numbers."""
+    from dmlc_core_tpu_torch.parallel.launcher.gpu import _free_port_run
+    t_phase = time.monotonic()
+    edir = os.path.join(data, "embed")
+    shutil.rmtree(edir, ignore_errors=True)
+    report = os.path.join(edir, "report")
+    os.makedirs(os.path.join(edir, "ckpt"))
+    hosts = os.path.join(edir, "hosts")
+    with open(hosts, "w") as f:
+        f.write("\n".join(EMBED_HOSTS) + "\n")
+    _fake_ssh(os.path.join(edir, "bin"), EMBED_HOSTS[0])
+    victim, crash_epoch = EMBED_CRASH
+    cmd = [sys.executable, "-m",
+           "dmlc_core_tpu_torch.parallel.launcher.submit", "--cluster", "ssh",
+           "-n", str(EMBED_WORLD), "--host-file", hosts, "--max-attempts",
+           "2", "--host-ip", "127.0.0.1",
+           "--env", f"DMLC_ELASTIC_BASE_PORT={_free_port_run(8)}",
+           "--env", f"PYTHONPATH={ROOT}",
+           "--env", f"DMLC_CHECKPOINT_DIR={os.path.join(edir, 'ckpt')}",
+           "--", sys.executable, "-m",
+           "dmlc_core_tpu_torch.examples.train_embed_shard",
+           "file://" + train_file, "--features", str(F_FEATURES), "--dim",
+           str(DIM), "--batch-rows", str(ROWS_TR), "--epochs",
+           str(EMBED_EPOCHS), "--lr", str(EMBED_LR[0]), "--embed-lr",
+           str(EMBED_LR[1]), "--crash-rank", str(victim), "--crash-epoch",
+           str(crash_epoch), "--report", report]
+    env = _cli_env()
+    env.pop("DMLC_FAULT_SPEC", None)
+    env["PATH"] = os.path.join(edir, "bin") + os.pathsep + env["PATH"]
+    with open(os.path.join(edir, "launcher.out"), "w+") as out, \
+            open(os.path.join(edir, "launcher.err"), "w+") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=out,
+                                stderr=err, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=EMBED_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            rc = None
+        finally:
+            # the launcher and every rank it started
+            try:
+                os.killpg(proc.pid, 9)
+            except ProcessLookupError:
+                pass
+            proc.wait()
+        out.seek(0)
+        err.seek(0)
+        stdout, stderr = out.read(), err.read()
+    keep = os.environ.get("CHIP_SMOKE_EMBED_DIR")
+    if keep:
+        shutil.copytree(edir, keep, dirs_exist_ok=True,
+                        ignore=shutil.ignore_patterns("ckpt", "bin"))
+    if rc != 0:
+        raise RuntimeError(f"[embed] the launcher exited {rc}: "
+                           f"{stderr[-3000:]} | {stdout[-1500:]}")
+    cohort_s = time.monotonic() - t_phase
+    got = _embed_checks(report, power, stdout, stderr, cohort_s)
+    got["kernels"] = _embed_kernels(torch, timer, power, train_file)
+    got["seconds"] = time.monotonic() - t_phase
+    log(f"[embed] {got['seconds']:.1f} s (the cohort {cohort_s:.1f} s) "
+        f"[{power}]")
+    return got
+
+
+def _embed_checks(report, power, stdout, stderr, seconds) -> dict:
+    """The cohort's records and reports against [embed]'s limits; logs
+    the numbers."""
+    victim, crash_epoch = EMBED_CRASH
+    world, dead = EMBED_WORLD, EMBED_HOSTS[0]
+    recs = [json.loads(ln[6:]) for ln in stdout.splitlines()
+            if ln.startswith("EPOCH ")]
+    lines = []
+    for r in range(world):
+        with open(os.path.join(report, f"embed_r{r}.jsonl")) as f:
+            lines += [json.loads(ln) for ln in f if ln.strip()]
+    outs = []
+    for r in range(world):
+        with open(os.path.join(report, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    with open(os.path.join(report, f"crash_r{victim}.json")) as f:
+        crash = json.load(f)
+    black = f"host {dead}:22 blacklisted after 1 failure(s) (unreachable)"
+    dead_runs = [ln for ln in stderr.splitlines()
+                 if f"on {dead} exited rc=255" in ln]
+    rows = [("launcher exit code", 0, 0, True),
+            (f"{dead} blacklisted once, its task placed again "
+             f"({len(dead_runs)} tries there)", float(stderr.count(black)), 1,
+             stderr.count(black) == 1 and len(dead_runs) == 1
+             and [o["attempt"] for o in outs] == [int(r == victim)
+                                                  for r in range(world)])]
+    keys = sorted((x["rank"], x["epoch"]) for x in recs)
+    want = [(r, e) for r in range(world) for e in range(EMBED_EPOCHS)]
+    rows.append(("(rank, epoch) records, each exactly once",
+                 float(len(recs)), len(want), keys == want))
+    ckpt = sum(x["from_ckpt"] for x in recs)
+    rows.append(("checkpoint reads (from_ckpt), all records", float(ckpt), 0,
+                 ckpt == 0))
+    whole = F_FEATURES * DIM * 4
+    res = [x["resident"] for x in recs]
+    rows.append(("largest resident bytes a rank, below the whole table",
+                 float(max(res)), whole, 0 < min(res) and max(res) < whole))
+    by = {(x["rank"], x["epoch"]): x for x in recs}
+    j = by.get((victim, crash_epoch), {})
+    ok = bool(j.get("rebuilt")) and j.get("gen") == 1
+    rows.append(("the reborn rank rebuilt at generation 1", float(ok), 1, ok))
+    rows.append(("the reborn rank's leaves from peers, at least",
+                 float(j.get("from_peers", 0)), 1,
+                 j.get("from_peers", 0) >= 1))
+    rows.append(("the reborn rank's bytes moved, above",
+                 float(j.get("bytes_moved", 0)), 0,
+                 j.get("bytes_moved", 0) > 0))
+    last = {}
+    for ln in lines:
+        if ln["epoch"] == EMBED_EPOCHS - 1:
+            last[ln["rank"]] = ln
+    held: dict = {}
+    for ln in last.values():
+        for iv, d in ln["blocks"].items():
+            held.setdefault(iv, set()).add(d)
+    ok = (len(last) == world and len(held) == world
+          and all(len(v) == 1 for v in held.values()))
+    rows.append(("shards whose holders differ after the last flush",
+                 float(sum(len(v) > 1 for v in held.values())), 0, ok))
+    losses = [by[(0, e)]["loss"] for e in range(EMBED_EPOCHS)
+              if (0, e) in by]
+    ok = len(losses) == EMBED_EPOCHS and losses[-1] < losses[0]
+    rows.append(("last epoch's loss, below the first's",
+                 losses[-1] if losses else np.nan,
+                 losses[0] if losses else np.nan, ok))
+    launches: dict = {}
+    for o in outs:
+        missing = [k for k in EMBED_KERNELS if o["launches"].get(k, 0) < 1]
+        rows.append((f"rank {o['rank']} (attempt {o['attempt']}) kernels "
+                     f"never launched {missing}", float(len(missing)), 0,
+                     not missing))
+        _add(launches, o["launches"])
+    _checked(f"world {world} (ssh, gloo)", rows, "[embed]")
+    # the numbers
+    st = next(ln["stats"] for ln in lines if ln["rank"] == victim
+              and ln["attempt"] == 1 and ln["epoch"] == crash_epoch)
+    mb = st["bytes_moved"] / 1e6
+    to_gen1 = {ln["rank"]: ln["joined_at"] - crash["time"] for ln in lines
+               if ln["epoch"] == crash_epoch}
+    log(f"[embed] losses by epoch {losses}; resident MB a rank "
+        + ", ".join(f"{r}: {last[r]['resident'] / 1e6:.1f}"
+                    for r in sorted(last))
+        + f" of {whole / 1e6:.1f} [{power}]")
+    for ln in sorted(lines, key=lambda x: (x["rank"], x["attempt"],
+                                           x["epoch"])):
+        c, t = ln["counters"], ln["times"]
+        uniq = c["lookup_ids"] - c["dedup_saved"]
+        log(f"[embed] rank {ln['rank']} attempt {ln['attempt']} epoch "
+            f"{ln['epoch']}: {ln['steps']} lookups, "
+            f"{ln['steps'] / max(t['lookup_s'], 1e-9):.2f} lookups/s "
+            f"({c['lookup_ids'] / max(t['lookup_s'], 1e-9):,.0f} ids/s; "
+            f"lookup {t['lookup_s']:.3f} s, tower {t['tower_s']:.3f} s, "
+            f"backward {t['backward_s']:.3f} s); dedup ratio "
+            f"{c['lookup_ids'] / max(uniq, 1):.3f} ({c['lookup_ids']} ids, "
+            f"{uniq} unique); cache hit rate "
+            f"{c['cache_hits'] / max(c['cache_hits'] + c['cache_misses'], 1):.4f}"
+            f" ({c['cache_hits']} hits, {c['cache_misses']} misses); "
+            f"exchange {c['exchange_bytes'] / 1e6:.3f} MB; flush "
+            f"{t['flush_s']:.3f} s; averaging {t['average_s']:.3f} s; resync "
+            f"{t['resync_s']:.3f} s; replicas {t['rebuild_s']:.3f} s; "
+            f"launches fwd {ln['launches'].get('ragged_gather_embed', 0)} "
+            f"bwd {ln['launches'].get('ragged_gather_grad_embed', 0)} "
+            f"[{power}]")
+    log(f"[embed] reshard on the reborn rank {st['wall_s']:.4f} s, "
+        f"{mb:.3f} MB from peers, {mb / max(st['wall_s'], 1e-9):.1f} MB/s "
+        f"({st['leaves_from_peers']} leaves); s from the victim's death to "
+        "generation 1 "
+        + ", ".join(f"rank {r} {v:.3f}" for r, v in sorted(to_gen1.items()))
+        + f"; the cohort {seconds:.1f} s [{power}]")
+    log(f"[embed] kernel launches (every rank's last incarnation): "
+        f"{launches}")
+    return {"launches": launches, "reshard_s": st["wall_s"],
+            "reshard_mb": mb, "to_generation1_s": to_gen1,
+            "losses": losses}
+
+
 # -- [probe]: the transfer probe (ROADMAP A.14) -------------------------------
 
 PROBE_COPIES = 4           # the training file 4 times: 32 batches a pass
@@ -8549,6 +8937,24 @@ def main_elastic() -> int:
         elastic = phase_elastic(torch, power, data, ELASTIC_WORLD, "gloo")
     print(power)
     print(json.dumps({"elastic": elastic}, default=str))
+    return 0
+
+
+def main_embed() -> int:
+    """``--embed``: phases 1, 2 and [embed] only."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    power = phase_device(torch)
+    phase_build()
+    with _data_files() as (data, train_file, _):
+        embed = phase_embed(torch, Timer(torch), power, data, train_file)
+    print(power)
+    print(json.dumps({"embed": embed}, default=str))
     return 0
 
 
@@ -9115,6 +9521,7 @@ def main() -> int:
                                 "gloo")["launches"]
         elastic = phase_elastic(torch, power, data, ELASTIC_WORLD,
                                 "gloo")["launches"]
+        embed = phase_embed(torch, timer, power, data, train_file)
         probe = phase_probe(torch, power, data, train_file)
         # last: once torch.profiler has run, every later launch of this
         # process pays for it (PERF.md)
@@ -9215,6 +9622,11 @@ def main() -> int:
     # reborn one included (checked per rank in [elastic] too)
     missing += [f"{k} (elastic)" for k in ELASTIC_KERNELS
                 if elastic.get(k, 0) < 1]
+    # the sharded-table cohort over the ssh launcher: the table's lookup
+    # and backward on every rank, the reborn one included (checked per
+    # rank in [embed] too)
+    missing += [f"{k} (embed)" for k in EMBED_KERNELS
+                if embed["launches"].get(k, 0) < 1]
     # [mesh] checks its own paths' kernels (MESH_KERNELS); the probe's
     # FusedTrainer runs both wires
     missing += [f"{k} (probe)" for k in (
@@ -9295,6 +9707,12 @@ def main() -> int:
             # [elastic]: the elastic cohort through the port's launcher
             # (every rank's last incarnation: the reborn rank's epoch 2)
             row["elastic"] = {"launches": elastic.get(name, 0)}
+        if name in EMBED_KERNELS:
+            # [embed]: the sharded table's cohort through the ssh launcher
+            # (every rank's last incarnation), and the kernel at the
+            # table's shapes (the bucketed unique-row matrix)
+            row["embed"] = {"launches": embed["launches"].get(name, 0),
+                            **embed["kernels"][name]}
         if probe.get(name, 0):
             # [probe]: FusedTrainer(k=8) on the resolved wire and the other
             row["probe"] = {"launches": probe[name]}
@@ -9373,6 +9791,8 @@ if __name__ == "__main__":
                     help="run [elastic] only (after phases 1-2)")
     ap.add_argument("--elastic-worker", action="store_true",
                     help=argparse.SUPPRESS)   # [elastic]'s rank processes
+    ap.add_argument("--embed", action="store_true",
+                    help="run [embed] only (after phases 1-2)")
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None
@@ -9391,6 +9811,7 @@ if __name__ == "__main__":
               if args.mesh_nccl
               else main_tracker() if args.tracker
               else main_elastic() if args.elastic
+              else main_embed() if args.embed
               else main_mesh() if args.mesh
               else main())
     except Exception as e:  # noqa: BLE001 — any failed phase fails

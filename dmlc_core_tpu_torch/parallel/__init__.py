@@ -9,8 +9,8 @@ generation-addressed mesh (:mod:`.elastic`), the resharder
 (:mod:`.reshard`, with ``transport/plan.py``) and the launcher
 (:mod:`.launcher`: ``python -m
 dmlc_core_tpu_torch.parallel.launcher.submit``, clusters ``local`` and
-``gpu``).  The launcher's cluster backends without a card (ssh, slurm,
-sge, mpi, yarn, mesos) wait for A.7.c2.
+``gpu``); and the launcher's cluster backends without a card (A.7.c2:
+ssh, slurm, sge, mpi, yarn, mesos).
 """
 
 from .collectives import (OPS, MeshCollectives, all_to_all,  # noqa: F401

@@ -1,8 +1,9 @@
 """Cluster launchers of the port (counterpart of
 ``dmlc_core_tpu/parallel/launcher``; reference ``tracker/dmlc_tracker``):
-the ``local`` and ``gpu`` backends behind one submit CLI, ``python -m
-dmlc_core_tpu_torch.parallel.launcher.submit``.  The backends without a
-card (ssh, slurm, sge, mpi, yarn, mesos) wait for ROADMAP A.7.c2."""
+the ``local``, ``ssh``, ``slurm``, ``sge``, ``mpi``, ``yarn``, ``mesos``
+and ``gpu`` backends behind one submit CLI, ``python -m
+dmlc_core_tpu_torch.parallel.launcher.submit``, and the in-container
+bootstrap, ``python -m dmlc_core_tpu_torch.parallel.launcher.bootstrap``."""
 
 from .opts import build_parser, get_opts  # noqa: F401
 from .submit import main, refuse_cluster, submit  # noqa: F401

@@ -4,7 +4,8 @@ reference's file cache (``tracker/dmlc_tracker/opts.py:6-36``
 auto-cached executable).
 
 Counterpart of ``dmlc_core_tpu/parallel/launcher/filecache.py``, copied
-as it is (the shell staging serves the backends of ROADMAP A.7.c2).
+as it is (the shell staging serves the ssh, slurm, sge, mpi, yarn and
+mesos backends).
 
 Three pieces:
 

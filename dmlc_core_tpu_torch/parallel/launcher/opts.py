@@ -5,7 +5,7 @@ Counterpart of ``dmlc_core_tpu/parallel/launcher/opts.py``: the whole
 parser, so that every JAX command line parses here to the same
 namespace.  The clusters are the JAX package's plus ``gpu`` (this
 host's cards, the counterpart of ``tpu``); :mod:`.submit` refuses
-``tpu`` and the clusters that wait for ROADMAP A.7.c2."""
+``tpu``."""
 
 from __future__ import annotations
 

@@ -5,10 +5,10 @@ tracker, dispatch to the cluster backend, join until shutdown
 
 Counterpart of ``dmlc_core_tpu/parallel/launcher/submit.py``:
 ``python -m dmlc_core_tpu_torch.parallel.launcher.submit --cluster
-local|gpu -n N [options] -- command``.  The cluster backends with no
-card in them (ssh, slurm, sge, mpi, yarn, mesos) wait for ROADMAP
-A.7.c2, and ``tpu`` is ``gpu`` here: each is refused with a
-:class:`DMLCError` before the tracker starts, on a dry run too."""
+local|ssh|slurm|sge|mpi|yarn|mesos|gpu -n N [options] -- command``.  The
+backends are the JAX package's (``gpu`` in ``tpu``'s place), with its
+dispatch and dry runs; ``tpu`` is refused with a :class:`DMLCError`
+naming ``gpu`` before the tracker starts, on a dry run too."""
 
 from __future__ import annotations
 
@@ -19,23 +19,16 @@ from ...utils.logging import DMLCError, log_info
 from ..tracker import RabitTracker
 from .opts import get_opts
 
-__all__ = ["main", "submit", "refuse_cluster", "PORTED"]
-
-#: the clusters this package launches
-PORTED = ("local", "gpu")
+__all__ = ["main", "submit", "refuse_cluster"]
 
 
 def refuse_cluster(cluster: str) -> None:
-    """Raise for a cluster the port does not launch, naming where it is."""
+    """Raise for the one cluster of the parser the port does not launch,
+    ``tpu``, naming its counterpart."""
     if cluster == "tpu":
         raise DMLCError("--cluster tpu launches JAX processes onto TPU "
                         "hosts; the port's counterpart is --cluster gpu "
                         "(torch.distributed over this host's cards)")
-    if cluster not in PORTED:
-        raise DMLCError(f"--cluster {cluster} is not ported: it waits for "
-                        "ROADMAP A.7.c2 (the launcher's cluster backends "
-                        "without a card); the port launches "
-                        + " and ".join(PORTED))
 
 
 def submit(argv: Optional[List[str]] = None) -> int:
@@ -62,8 +55,12 @@ def submit(argv: Optional[List[str]] = None) -> int:
 
 def _submit_job(args) -> int:
     refuse_cluster(args.cluster)
-    # both clusters are one host's: rendezvous over loopback unless told
-    host_ip = args.host_ip or "127.0.0.1"
+    # a single-host job must rendezvous over loopback: the auto-detected
+    # "routable" address may not be reachable from inside containers or
+    # network namespaces
+    host_ip = args.host_ip or ("127.0.0.1" if args.cluster in ("local",
+                                                                "gpu")
+                               else None)
     tracker = RabitTracker(num_workers=args.num_workers, host_ip=host_ip)
     tracker.start()
     envs = tracker.worker_envs()
@@ -77,7 +74,7 @@ def _submit_job(args) -> int:
         # without a scheduler the PS root port has no listener and
         # server/worker rendezvous hangs
         from ..tracker import PSTracker
-        ps_tracker = PSTracker(host_ip=host_ip,
+        ps_tracker = PSTracker(host_ip=host_ip or tracker.host_ip,
                                pscmd=list(args.command),
                                extra_env={
                                    "DMLC_NUM_WORKER": str(args.num_workers),
@@ -86,7 +83,7 @@ def _submit_job(args) -> int:
                                })
         envs.update(ps_tracker.worker_envs())
 
-    if args.dry_run:
+    if args.dry_run and args.cluster in ("local", "ssh", "gpu"):
         # direct-spawn backends have no scheduler command to preview:
         # show the resolved job spec and stop before launching anything
         # (incl. the PS scheduler — ps_tracker.start() runs user code)
@@ -103,9 +100,28 @@ def _submit_job(args) -> int:
 
     if args.cluster == "local":
         from . import local as backend
+        rc = backend.submit(args, envs)
+    elif args.cluster == "ssh":
+        from . import ssh as backend
+        rc = backend.submit(args, envs)
+    elif args.cluster == "slurm":
+        from .batch import submit_slurm
+        rc = submit_slurm(args, envs)
+    elif args.cluster == "sge":
+        from .batch import submit_sge
+        rc = submit_sge(args, envs)
+    elif args.cluster == "mpi":
+        from .batch import submit_mpi
+        rc = submit_mpi(args, envs)
+    elif args.cluster == "yarn":
+        from .yarn import submit_yarn
+        rc = submit_yarn(args, envs)
+    elif args.cluster == "mesos":
+        from .mesos import submit_mesos
+        rc = submit_mesos(args, envs)
     else:
         from . import gpu as backend
-    rc = backend.submit(args, envs)
+        rc = backend.submit(args, envs)
 
     tracker.stop()
     if ps_tracker is not None:

@@ -15,12 +15,12 @@ from .fingerprint import autotune_key, host_shape  # noqa: F401
 from .ingest_service import (RemoteIngestLoader,  # noqa: F401
                              ingest_worker_main, serve_ingest)
 from .loader import DeviceLoader, fused_words, make_decoder  # noqa: F401
-from .packing import (PackStats, batch_slices, pack_flat,  # noqa: F401
-                      pack_ragged, pack_rowmajor, ragged_slices)
+from .packing import (PackStats, batch_slices, dedup_ids,  # noqa: F401
+                      pack_flat, pack_ragged, pack_rowmajor, ragged_slices)
 
 __all__ = ["DeviceLoader", "make_decoder", "fused_words", "PackStats",
            "batch_slices", "pack_flat", "pack_rowmajor", "pack_ragged",
-           "ragged_slices", "serve_ingest", "RemoteIngestLoader",
+           "ragged_slices", "dedup_ids", "serve_ingest", "RemoteIngestLoader",
            "ingest_worker_main", "Autotuner", "Knob", "ingest_knob_space",
            "serving_knob_space", "maybe_autotuner", "autotune_key",
            "host_shape"]

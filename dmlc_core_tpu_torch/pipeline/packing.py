@@ -2,8 +2,8 @@
 
 Counterpart of ``dmlc_core_tpu/pipeline/packing.py`` (``batch_slices``,
 ``pack_flat`` with its water-fill truncation, ``pack_rowmajor``,
-``ragged_slices`` and ``pack_ragged``, ``_ids32`` with ``id_mod``,
-``PackStats``).  Pure numpy, and bit-equal to
+``ragged_slices`` and ``pack_ragged``, ``dedup_ids``, ``_ids32`` with
+``id_mod``, ``PackStats``).  Pure numpy, and bit-equal to
 the JAX package's packing on the same blocks:
 
 * :func:`pack_flat` — flat CSR: ``ids[nnz_cap]``, ``vals[nnz_cap]``,
@@ -31,7 +31,7 @@ from __future__ import annotations
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -277,6 +277,22 @@ def ragged_slices(block: RowBlock, batch_rows: int,
                 f"truncates — raise the capacity")
         yield block.slice(start, end)
         start = end
+
+
+def dedup_ids(ids: np.ndarray, nnz_used: int
+              ) -> Tuple[np.ndarray, np.ndarray]:
+    """Dedup a ragged batch's live id prefix for the sharded-embedding
+    wire: returns ``(uniq, pos)`` where ``uniq`` is the sorted unique
+    int64 id set of ``ids[:nnz_used]`` and ``pos`` (int32, ``nnz_used``
+    long) remaps each live entry into ``uniq``-space
+    (``uniq[pos[i]] == ids[i]``).  A batch that references a hot id a
+    thousand times then ships (and caches) its row once; the pooled
+    gather runs over the compacted row matrix with ``pos`` as the id
+    array.  Tail entries past ``nnz_used`` are garbage by the ragged
+    contract and never inspected."""
+    live = np.asarray(ids[:int(nnz_used)], dtype=np.int64)
+    uniq, pos = np.unique(live, return_inverse=True)
+    return uniq, pos.astype(np.int32, copy=False)
 
 
 def pack_ragged(block: RowBlock, batch_rows: int, nnz_cap: int,

@@ -25,6 +25,14 @@ port never imports the JAX package:
   host, and the card's kernels and copies when CUDA is up) written as a
   Chrome trace into a directory: the JAX package's ``jax.profiler``
   trace.
+
+One difference from the JAX module: a finalizer may record a metric.
+The collector runs a finalizer on whatever thread it interrupts, inside
+any critical section of this module, so every lock here is re-entrant,
+the registry builds a metric outside its lock and calls no metric's
+``snapshot()`` under it.  The JAX registry holds its plain lock across
+each metric's ``snapshot()``: a finalizer that records a counter there
+deadlocks its thread (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -50,7 +58,7 @@ class Counter:
 
     def __init__(self) -> None:
         self._v = 0
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
 
     def add(self, n: int = 1) -> None:
         with self._lock:
@@ -62,7 +70,8 @@ class Counter:
 
     def snapshot(self) -> Dict[str, Any]:
         with self._lock:
-            return {"type": "counter", "value": self._v}
+            v = self._v
+        return {"type": "counter", "value": v}
 
     def state(self) -> Dict[str, Any]:
         return self.snapshot()
@@ -143,7 +152,7 @@ class Histogram:
         self._max = -math.inf
         self._rng = random.Random(seed)
         self._exemplars: List[Any] = [None] * _EXEMPLAR_SLOTS
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
 
     def observe(self, v: float) -> None:
         v = float(v)
@@ -336,7 +345,7 @@ class ThroughputMeter:
         self._win_rate = 0.0
         self._win_closed = False
         self._window = window_sec
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
 
     def add(self, n: int) -> None:
         with self._lock:
@@ -405,7 +414,7 @@ class StageTimer:
         self._clock = clock
         self._count = 0
         self._total = 0.0
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
 
     @contextlib.contextmanager
     def time(self) -> Iterator[None]:
@@ -460,7 +469,7 @@ class MetricsRegistry:
 
     def __init__(self) -> None:
         self._m: Dict[str, Any] = {}
-        self._lock = threading.Lock()
+        self._lock = threading.RLock()
         #: bumped by reset(); hot paths that cache metric handles compare
         #: it (one int read, no lock) and re-fetch when it changes
         self.generation = 0
@@ -468,10 +477,13 @@ class MetricsRegistry:
     def _get(self, name: str, cls, **kw):
         with self._lock:
             m = self._m.get(name)
-            if m is None:
-                m = cls(**kw)
-                self._m[name] = m
-            return m
+        if m is None:
+            # built outside the lock: a finalizer that runs while it
+            # allocates may itself fetch a metric
+            made = cls(**kw)
+            with self._lock:
+                m = self._m.setdefault(name, made)
+        return m
 
     def counter(self, name: str) -> Counter:
         return self._get(name, Counter)
@@ -490,8 +502,11 @@ class MetricsRegistry:
         return self._get(name, StageTimer)
 
     def snapshot(self) -> Dict[str, Dict[str, Any]]:
+        # each metric's snapshot() runs after the lock is released, as in
+        # state(): a finalizer it triggers may record a metric
         with self._lock:
-            return {k: v.snapshot() for k, v in sorted(self._m.items())}
+            items = sorted(self._m.items())
+        return {k: v.snapshot() for k, v in items}
 
     def state(self) -> Dict[str, Dict[str, Any]]:
         """Serialized mergeable view of every metric."""
@@ -508,8 +523,9 @@ class MetricsRegistry:
 
     def reset(self) -> None:
         with self._lock:
-            self._m.clear()
+            dropped, self._m = self._m, {}
             self.generation += 1
+        del dropped
 
 
 #: process-global registry (modules grab sub-metrics by name)

@@ -1978,3 +1978,95 @@ def test_nccl_rebuild_after_a_rank_is_killed(dev, tmp_path):
             assert "mesh generation 0 is closed" in o["allreduce"]
             assert "mesh generation 0 is closed" in o["kstep"]
             assert o["timings"]["teardown_s"] < 10
+
+
+# -- the sharded embedding table (ROADMAP A.8) --------------------------------
+
+def _embed_batch(rng, n, rows, nnz, cap):
+    """A ragged batch dict with garbage tails and a hot id (many entries
+    land on one unique row, as dedup_ids makes them)."""
+    ids = rng.integers(0, n, cap).astype(np.int32)
+    ids[:nnz // 4] = 7                                   # the hot id
+    ids[nnz:] = rng.integers(-9, 10 ** 6, cap - nnz)     # garbage tail
+    vals = rng.standard_normal(cap).astype(np.float32)
+    segs = np.full(cap, rows + 3, np.int32)
+    segs[:nnz] = np.sort(rng.integers(0, rows - 2, nnz))
+    return {"ids": ids, "vals": vals, "segments": segs,
+            "row_ptr": np.zeros(rows + 1, np.int32),
+            "labels": np.zeros(rows, np.float32),
+            "weights": np.ones(rows, np.float32),
+            "nnz_used": np.int32(nnz), "rows_used": np.int32(rows - 2)}
+
+
+@pytest.mark.parametrize("D", [1, 8, 32])
+@pytest.mark.parametrize("n,rows,nnz,cap", [(4096, 64, 1500, 2048),
+                                            (1 << 16, 512, 20000, 24576)])
+def test_embed_table_lookup_and_backward_match_plain(dev, D, n, rows, nnz,
+                                                     cap):
+    """The table's pooled gather and row gradients through the ragged
+    kernels (``engine="auto"`` on the card) against the plain version on
+    the same card, the same unique-row matrix and the same batch.  The
+    hot id's row sums thousands of entries in an order the atomics set:
+    its gradient is held within rtol = atol = 1e-5 of its terms' sizes
+    (``_sums_close``'s rule), from a plain backward over ``|vals|`` and
+    ``|g|``."""
+    from dmlc_core_tpu_torch.embed import ShardedEmbeddingTable
+    from dmlc_core_tpu_torch.kernels import reset_launch_counts
+    batch = _embed_batch(np.random.default_rng(D + n), n, rows, nnz, cap)
+    kern = ShardedEmbeddingTable(n, D, seed=3, device=dev)
+    plain = ShardedEmbeddingTable(n, D, seed=3, device=dev, engine="torch")
+    reset_launch_counts()
+    got = kern.lookup(batch)
+    want = plain.lookup(batch)
+    np.testing.assert_allclose(got, want, **TOL)
+    assert (got[rows - 2:] == 0).all()
+    g = np.random.default_rng(1).standard_normal((rows, D)).astype(
+        np.float32)
+    assert kern.backward(batch, torch.from_numpy(g).to(dev)) == \
+        plain.backward(batch, g)
+    assert sorted(kern._pending) == sorted(plain._pending)
+    sizes = ShardedEmbeddingTable(n, D, seed=3, device=dev, engine="torch")
+    sizes.backward(dict(batch, vals=np.abs(batch["vals"])), np.abs(g))
+    for k, v in plain._pending.items():
+        err = np.abs(kern._pending[k] - v)
+        assert (err <= TOL["atol"] + TOL["rtol"] * sizes._pending[k]).all(), k
+    counts = launch_counts()
+    assert counts.get("ragged_gather_embed", 0) == 1
+    assert counts.get("ragged_gather_grad_embed", 0) == 1
+    # the plain table launched nothing: one of each, the kernel table's
+    assert plain.lookup(batch, engine="torch").shape == (rows, D)
+    assert launch_counts() == counts
+
+
+def test_embed_kill_and_no_kill_agree_on_the_card(dev, tmp_path):
+    """Three gloo ranks on this card run the port's example with a kill
+    and without one.  The ragged backward adds a hot row's entries with
+    atomics, so the two runs agree to rounding only: losses within
+    rtol 1e-5 (atol 1e-6).  Within each run every interval's holders,
+    primary and replica, hold the same bits after every flush, and each
+    rank launched both ragged kernels."""
+    from test_torch_embed_train import (WORLD, _holders_agree, _libsvm,
+                                        _report_lines, run_cohort)
+    uri = _libsvm(tmp_path)
+    extra = ("--device", "cuda")
+    nk, nk_dir = run_cohort(uri, tmp_path, "nk", kill=False, extra=extra)
+    kk, kk_dir = run_cohort(uri, tmp_path, "k", kill=True, extra=extra)
+    a = {(r["rank"], r["epoch"]): r for r in nk}
+    b = {(r["rank"], r["epoch"]): r for r in kk}
+    assert sorted(a) == sorted(b) == [(r, e) for r in range(WORLD)
+                                      for e in range(3)]
+    for key in a:
+        np.testing.assert_allclose(b[key]["loss"], a[key]["loss"],
+                                   rtol=1e-5, atol=1e-6, err_msg=str(key))
+    assert b[(2, 1)]["rebuilt"] and b[(2, 1)]["from_peers"] >= 1
+    assert all(r["from_ckpt"] == 0 for r in kk)
+    for rdir in (nk_dir, kk_dir):
+        lines = _report_lines(rdir)
+        for ivs in _holders_agree(lines).values():
+            assert all(n == 1 for n in ivs.values()), ivs
+        last = {}
+        for ln in lines:
+            last[ln["rank"]] = ln["launches"]
+        for r, launches in last.items():
+            assert launches.get("ragged_gather_embed", 0) > 0, r
+            assert launches.get("ragged_gather_grad_embed", 0) > 0, r

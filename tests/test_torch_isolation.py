@@ -40,7 +40,17 @@ new = ("dmlc_core_tpu_torch.native", "dmlc_core_tpu_torch.native.build",
        "dmlc_core_tpu_torch.io.fscli",
        "dmlc_core_tpu_torch.parallel.tracker",
        "dmlc_core_tpu_torch.parallel.rabit",
-       "dmlc_core_tpu_torch.utils.durable")
+       "dmlc_core_tpu_torch.utils.durable",
+       "dmlc_core_tpu_torch.parallel.launcher.wrapper",
+       "dmlc_core_tpu_torch.parallel.launcher.bootstrap",
+       "dmlc_core_tpu_torch.parallel.launcher.batch",
+       "dmlc_core_tpu_torch.parallel.launcher.ssh",
+       "dmlc_core_tpu_torch.parallel.launcher.mesos",
+       "dmlc_core_tpu_torch.parallel.launcher.yarn",
+       "dmlc_core_tpu_torch.parallel.launcher.yarn_am",
+       "dmlc_core_tpu_torch.embed", "dmlc_core_tpu_torch.embed.exchange",
+       "dmlc_core_tpu_torch.embed.table",
+       "dmlc_core_tpu_torch.examples.train_embed_shard")
 assert all(n in sys.modules for n in new), new
 import threading
 assert threading.active_count() == 1, threading.enumerate()
