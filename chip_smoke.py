@@ -134,6 +134,23 @@ Phases, in order; any failure exits non-zero and prints no result:
    over TCP and in process are held against the plain path (rtol = atol
    = 1e-5).  Launch counts are read around it and must be one a call of
    each ragged-gather forward plus one a capture's warm-up;
+   fleet   — the port's registry CLI as its own process (a journal in a
+   temporary directory, its port drawn below the ephemeral range) and
+   three replicas of the same model, each a PredictionServer (every
+   bucket a captured graph) joined through DMLC_ROUTER_REGISTRY, two in
+   this process and one through the server's CLI; four client threads
+   send fixed requests to every replica throughout, each answer held
+   against the plain FM at a checkpoint (rtol = atol = 1e-5), none may
+   fail and no replica may go back a version: (a) join at v1; (b) v2
+   staged on one canary of three (fraction 0.3) with a 1 s bake and
+   promoted; (c) a checkpoint of dim 16 staged: the canary's engine
+   refuses it, the journaled ack says ok false, the rollout rolls back
+   naming the reload, the canary answers v2 throughout; (d) v3 staged
+   with a 3 s bake, the registry SIGKILLed after the canary's ack and
+   restarted on the same port and journal: the agents re-attach, the
+   bake resumes, one promote, all answer v3.  The phase must take at
+   most 60 s; launch counts are read around it (the in-process
+   replicas) and must be one a call plus one a capture's warm-up;
    feed    — the host feed's stages apart over the training file: python
    and native parse, streampack, python and native pack (ms per
    4096-row batch), the H2D copy and device decode of each fused batch
@@ -428,6 +445,10 @@ runs phases 1, 2 and [elastic] only.
     python3 chip_smoke.py --embed
 
 runs phases 1, 2 and [embed] only.
+
+    python3 chip_smoke.py --fleet
+
+runs phases 1, 2 and [fleet] only.
 
     python3 chip_smoke.py --mesh-nccl 4
 
@@ -3847,6 +3868,604 @@ def phase_diagnose(torch, power: str) -> dict:
         f"and {eng.compile_count} warm-ups; phase "
         f"{time.monotonic() - t_phase:.1f} s")
     return {"launches": launches, "stats": out}
+
+
+# -- phase 4e: the fleet's registry and canary rollouts -----------------------
+
+FLEET_HB = 0.1             # DMLC_ROUTER_HEARTBEAT of every replica, s
+FLEET_HB_TIMEOUT = 10.0    # the registry's heartbeat_timeout, s: above
+                           # an agent's 5 s fleet_rpc timeout, which one
+                           # hung loopback connect takes whole
+FLEET_FRACTION = 0.3       # stage_rollout's: ceil(0.3 x 3 alive) = 1 canary
+FLEET_BAKE = 1.0           # (b)'s and (c)'s bake, s
+FLEET_KILL_BAKE = 3.0      # (d)'s bake: the registry dies inside it, s
+FLEET_CLIENTS = 4          # client threads, each to every replica in turn
+FLEET_REQS = 8             # fixed requests the clients cycle through
+FLEET_BAD_DIM = 16         # (c)'s checkpoint: an FM of another width
+FLEET_RPC_REPS = 50        # heartbeat round trips timed
+FLEET_LIMIT_S = 60.0       # the phase's bound, set-up included
+FLEET_WAIT_S = 30.0        # the bound of each wait inside it
+FLEET_RPC_TIMEOUT = 3.0    # each of the smoke's own registry calls, s
+# DMLC_CANARY_P99_RATIO of the registry: two replicas share this process
+# (and its four clients) and the third has a process of its own, so their
+# p99s differ by where they run, not by checkpoint
+FLEET_P99_RATIO = 100.0
+FLEET_ENV = {"DMLC_ROUTER_HEARTBEAT": str(FLEET_HB),
+             # short breaker cooldowns: the agents re-attach soon after a
+             # registry restart instead of waiting out a 5 s open circuit
+             "DMLC_ROUTER_BREAKER_COOLDOWN": "0.3",
+             "DMLC_ROUTER_BREAKER_THRESHOLD": "3",
+             "DMLC_METRICS_PORT": "0"}
+
+
+def _wait(what: str, cond, timeout: float = FLEET_WAIT_S,
+          interval: float = 0.02):
+    """Poll ``cond`` until it returns something true; raise naming
+    ``what`` after ``timeout`` s.  Returns (its value, the seconds)."""
+    t0 = time.monotonic()
+    while True:
+        got = cond()
+        if got:
+            return got, time.monotonic() - t0
+        if time.monotonic() - t0 > timeout:
+            raise RuntimeError(f"[fleet] {what}: not within {timeout} s")
+        time.sleep(interval)
+
+
+def _line_of(proc, what: str, prefix: str, timeout: float) -> str:
+    """The first stdout line of ``proc`` that starts with ``prefix``."""
+    import select
+    t0 = time.monotonic()
+    while True:
+        left = t0 + timeout - time.monotonic()
+        if left <= 0 or proc.poll() is not None:
+            raise RuntimeError(f"[fleet] {what} did not come up "
+                               f"(exit {proc.poll()})")
+        if select.select([proc.stdout], [], [], left)[0]:
+            line = proc.stdout.readline()
+            if line.startswith(prefix):
+                return line
+
+
+def _spawn_registry(fdir: str, port: int, n: int):
+    """Start ``python -m dmlc_core_tpu_torch.serving.fleet.registry`` on
+    ``port`` over the journal under ``fdir``; returns the process and its
+    start time."""
+    with open(os.path.join(fdir, f"registry{n}.log"), "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m",
+             "dmlc_core_tpu_torch.serving.fleet.registry", "host=127.0.0.1",
+             f"port={port}",
+             f"journal={os.path.join(fdir, 'journal', 'registry')}",
+             f"heartbeat_timeout={FLEET_HB_TIMEOUT}"],
+            cwd=ROOT, env=dict(_cli_env(),
+                               DMLC_CANARY_P99_RATIO=str(FLEET_P99_RATIO)),
+            stdout=subprocess.PIPE, stderr=log_file, text=True)
+    return proc, time.monotonic()
+
+
+def _registry_bound(proc, t0: float, port: int) -> float:
+    """Wait for the registry's bind line; the seconds from its start."""
+    doc = json.loads(_line_of(proc, "the registry", "{", 120))
+    if (doc["host"], doc["port"]) != ("127.0.0.1", port):
+        raise RuntimeError(f"[fleet] the registry bound {doc}, not {port}")
+    return time.monotonic() - t0
+
+
+class _FleetLoad:
+    """FLEET_CLIENTS threads, each with one PredictClient a replica,
+    sending the fixed requests to every replica in turn until stopped.
+    Each answer is classified by the version whose plain scores it
+    matches (rtol = atol = RTOL); a failed request, or an answer of no
+    version (or of two), is kept as a failure."""
+
+    def __init__(self, addrs, reqs, refs):
+        self.addrs, self.reqs, self.refs = addrs, reqs, refs
+        self.answers = []      # (thread, replica, version, t_sent, t_done)
+        self.failures = []
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._threads = [threading.Thread(target=self._run, args=(k,),
+                                          daemon=True)
+                         for k in range(FLEET_CLIENTS)]
+        for t in self._threads:
+            t.start()
+
+    def version(self, j: int, got) -> int:
+        hits = [v for v, ref in self.refs.items()
+                if got.shape == ref[j].shape
+                and np.allclose(got, ref[j], rtol=RTOL, atol=ATOL)]
+        return hits[0] if len(hits) == 1 else 0
+
+    def _run(self, k: int) -> None:
+        from dmlc_core_tpu_torch import PredictClient
+        clients = [PredictClient(h, p) for h, p in self.addrs]
+        try:
+            n = k
+            while not self._stop.is_set():
+                for r, c in enumerate(clients):
+                    j = n % len(self.reqs)
+                    t0 = time.time()
+                    try:
+                        got = c.predict(*self.reqs[j], timeout=60)
+                    except Exception as e:  # noqa: BLE001 — a failure
+                        with self._lock:
+                            self.failures.append(f"replica {r}: {e!r}")
+                        continue
+                    t1 = time.time()
+                    v = self.version(j, got)
+                    with self._lock:
+                        if v == 0 or not np.isfinite(got).all():
+                            self.failures.append(
+                                f"replica {r}: request {j} answered with "
+                                f"scores of no version")
+                        self.answers.append((k, r, v, t0, t1))
+                n += 1
+        finally:
+            for c in clients:
+                c.close()
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self.answers)
+
+    def first(self, r: int, v: int):
+        """When replica ``r`` first answered with version ``v`` (None
+        before it did)."""
+        with self._lock:
+            return min((a[4] for a in self.answers
+                        if a[1] == r and a[2] == v), default=None)
+
+    def last(self, r: int, v: int):
+        with self._lock:
+            return max((a[4] for a in self.answers
+                        if a[1] == r and a[2] == v), default=None)
+
+    def versions_since(self, t: float) -> set:
+        with self._lock:
+            return {a[2] for a in self.answers if a[4] >= t}
+
+    def stop(self) -> bool:
+        """Stop the threads; False if one did not end."""
+        self._stop.set()
+        for t in self._threads:
+            t.join(timeout=120)
+        return not any(t.is_alive() for t in self._threads)
+
+
+def _probe(clients, reqs, load) -> list:
+    """Each replica's version now: one request through its own client."""
+    return [load.version(0, c.predict(*reqs[0], timeout=60))
+            for c in clients]
+
+
+class _Registry:
+    """The smoke's own calls to the registry.  About one loopback connect
+    in 1,300 never completes on the card's machine (PERF.md), so each
+    call has a short timeout, and a call that timed out is made again:
+    at once where the command changes nothing or sets what it already
+    set; a ``stage_rollout`` only when the ledger shows that the first
+    never arrived."""
+
+    def __init__(self, addr):
+        self.addr = addr
+        self.retries = 0
+
+    def __call__(self, msg: dict) -> dict:
+        from dmlc_core_tpu_torch.serving.fleet import fleet_rpc
+        for _ in range(3):
+            try:
+                return fleet_rpc(self.addr, msg, timeout=FLEET_RPC_TIMEOUT)
+            except TimeoutError:
+                self.retries += 1
+        raise RuntimeError(f"[fleet] the registry did not answer "
+                           f"{msg['cmd']!r} three times")
+
+    def stage(self, ckpt_dir: str, step: int, bake_s: float):
+        from dmlc_core_tpu_torch.serving.fleet import fleet_rpc
+        msg = {"cmd": "stage_rollout", "model_id": "default",
+               "ckpt_dir": ckpt_dir, "step": step,
+               "fraction": FLEET_FRACTION, "bake_s": bake_s}
+        seen = {e["rollout_id"] for e in self({"cmd": "rollouts"})["events"]}
+        for _ in range(3):
+            try:
+                return fleet_rpc(self.addr, msg, timeout=FLEET_RPC_TIMEOUT)
+            except TimeoutError:
+                self.retries += 1
+                staged = [e for e in self({"cmd": "rollouts"})["events"]
+                          if e["event"] == "staged"
+                          and e["rollout_id"] not in seen]
+                if staged:
+                    return {"rollout_id": staged[0]["rollout_id"],
+                            "canaries": staged[0]["canaries"]}
+        raise RuntimeError("[fleet] the registry did not answer "
+                           "'stage_rollout' three times")
+
+    def events(self, rid: str) -> list:
+        return [e for e in self({"cmd": "rollouts"})["events"]
+                if e["rollout_id"] == rid]
+
+    def outcome(self, rid: str, kind: str):
+        """The ledger's ``kind`` event of rollout ``rid`` (None while it
+        bakes); raises if the rollout ended the other way."""
+        for e in self.events(rid):
+            if e["event"] == kind:
+                return e
+            if e["event"] in ("promoted", "rolled_back"):
+                raise RuntimeError(f"[fleet] {rid} {e['event']}, not "
+                                   f"{kind}: {e.get('reason')}")
+        return None
+
+
+def phase_fleet(torch, power: str) -> dict:
+    """[fleet]: the port's registry CLI as its own process (a journal
+    under a temporary directory, its port drawn below the ephemeral
+    range) and three replicas of FactorizationMachine(2^20, 32) on the
+    card, each a PredictionServer over its own InferenceEngine (every
+    bucket a captured CUDA graph) joined through DMLC_ROUTER_REGISTRY:
+    two in this process (their launches counted), one through the
+    server's CLI.  Four client threads send fixed requests to every
+    replica throughout, each answer held against the plain FM at one of
+    the checkpoints (rtol = atol = RTOL), and no request may fail.
+    (a) join at v1; (b) v2 staged on one canary of three with a 1 s
+    bake, promoted; (c) a checkpoint of another width staged: the
+    canary's engine refuses it, the ack says so and the rollout rolls
+    back, the canary answering v2 throughout; (d) v3 staged with a 3 s
+    bake, the registry SIGKILLed after the canary's ack and restarted on
+    the same port and journal: the agents re-attach, the bake resumes,
+    the promote lands exactly once and the fleet answers v3.  Returns the
+    launches and the numbers."""
+    import signal
+
+    from dmlc_core_tpu_torch import (CheckpointManager, FactorizationMachine,
+                                     InferenceEngine, PredictClient,
+                                     PredictionServer)
+    from dmlc_core_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmlc_core_tpu_torch.parallel.launcher.gpu import _free_port_run
+    from dmlc_core_tpu_torch.serving.fleet.registry import \
+        REGISTRY_SNAP_SCHEMA
+    from dmlc_core_tpu_torch.telemetry import timeseries
+    from dmlc_core_tpu_torch.utils.durable import StateJournal
+    from dmlc_core_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.monotonic()
+    # no SLO monitor runs here: a breach an earlier phase's left behind
+    # would roll back every in-process canary
+    metrics.gauge("slo.active_breaches").set(0)
+    fdir = os.path.join(ROOT, ".chip_smoke_fleet")
+    shutil.rmtree(fdir, ignore_errors=True)
+    os.makedirs(os.path.join(fdir, "journal"))
+    saved_env = {k: os.environ.get(k) for k in
+                 list(FLEET_ENV) + ["DMLC_ROUTER_REGISTRY"]}
+    procs, servers, clients, load = {}, [], [], None
+    try:
+        # the registry and the CLI replica start first: their interpreters'
+        # start and imports overlap the checkpoints' writing
+        port = _free_port_run(0)
+        procs["registry"], t_reg = _spawn_registry(fdir, port, 0)
+        ck = {v: os.path.join(fdir, f"v{v}") for v in (1, 2, 3)}
+        CheckpointManager(ck[1]).save(1, {"params": _np_params(SEED + 11)},
+                                      meta={"model": "fm"})
+        os.environ.update(FLEET_ENV)
+        os.environ["DMLC_ROUTER_REGISTRY"] = f"127.0.0.1:{port}"
+        t_cli = time.monotonic()
+        with open(os.path.join(fdir, "server.log"), "w") as log_file:
+            procs["cli"] = subprocess.Popen(
+                [sys.executable, "-m", "dmlc_core_tpu_torch.serving.server",
+                 f"ckpt_dir={ck[1]}", "model=fm", f"features={F_FEATURES}",
+                 f"dim={DIM}", "host=127.0.0.1", "port=0"],
+                cwd=ROOT, env=_cli_env(), stdout=subprocess.PIPE,
+                stderr=log_file, text=True)
+        # -- checkpoints: v2, v3 and one of another width ---------------------
+        for v in (2, 3):
+            CheckpointManager(ck[v]).save(
+                v, {"params": _np_params(SEED + 10 + v)},
+                meta={"model": "fm"})
+        bad = _np_params(SEED + 14)
+        bad["v"] = np.ascontiguousarray(bad["v"][:, :FLEET_BAD_DIM])
+        ck_bad = os.path.join(fdir, "bad")
+        CheckpointManager(ck_bad).save(4, {"params": bad},
+                                       meta={"model": "fm"})
+        del bad
+        # the fixed requests and each version's plain scores on the card
+        reqs = _requests(np.random.default_rng(SEED + 15), FLEET_REQS)
+        plain = InferenceEngine(
+            FactorizationMachine(F_FEATURES, DIM, engine="torch",
+                                 device="cuda"),
+            postprocess="sigmoid", device="cuda")
+        refs = {}
+        for v, d in ck.items():
+            plain.reload_from_checkpoint(d, step=v)
+            refs[v] = [plain.predict(*r) for r in reqs]
+        del plain
+        for j in range(FLEET_REQS):
+            gap = min(float(np.abs(refs[a][j] - refs[b][j]).max())
+                      for a, b in ((1, 2), (1, 3), (2, 3)))
+            if gap < 100 * ATOL:
+                raise RuntimeError(f"[fleet] request {j}: two versions' "
+                                   f"scores lie within {gap:.3g}")
+        t_setup = time.monotonic() - t_phase
+
+        # -- the replicas ----------------------------------------------------
+        reg_up_s = _registry_bound(procs["registry"], t_reg, port)
+        rpc = _Registry(("127.0.0.1", port))
+        rpc({"cmd": "set_model", "model_id": "default", "ckpt_dir": ck[1],
+             "step": 1})
+        join_s = {}
+
+        def joined(jobid, t_start):
+            """Wait until ``jobid`` is alive in list_replicas with its
+            health_port; its start to then, in s."""
+            _wait(f"{jobid} alive", lambda: any(
+                r["jobid"] == jobid and r["alive"] and r["health_port"]
+                for r in rpc({"cmd": "list_replicas"})["replicas"]),
+                timeout=120)
+            join_s[jobid] = time.monotonic() - t_start
+
+        reset_launch_counts()                 # the main path starts here
+        for _ in range(2):
+            t1 = time.monotonic()
+            eng = InferenceEngine(FactorizationMachine(F_FEATURES, DIM,
+                                                       device="cuda"),
+                                  postprocess="sigmoid", device="cuda")
+            if eng.reload_from_checkpoint(ck[1], step=1) != 1:
+                raise RuntimeError("[fleet] restored the wrong step")
+            srv = PredictionServer(eng, warmup=True, default_deadline_s=60.0)
+            servers.append(srv.start())
+            if srv._agent is None or srv.telemetry is None:
+                raise RuntimeError("[fleet] the server armed no agent or "
+                                   "no exporter")
+            joined(f"replica-127.0.0.1:{srv.port}", t1)
+        line = _line_of(procs["cli"], "serve_main", "serving on ", 300)
+        cli_port = int(line.split()[-1].rsplit(":", 1)[1])
+        joined(f"replica-127.0.0.1:{cli_port}", t_cli)
+        addrs = [("127.0.0.1", s.port) for s in servers] + [
+            ("127.0.0.1", cli_port)]
+        jobids = [f"replica-127.0.0.1:{p}" for _, p in addrs]
+        listing = rpc({"cmd": "list_replicas"})["replicas"]
+        if sorted(r["jobid"] for r in listing if r["alive"]) != sorted(
+                jobids):
+            raise RuntimeError(f"[fleet] list_replicas: {listing}")
+        clients = [PredictClient(h, p) for h, p in addrs]
+        load = _FleetLoad(addrs, reqs, refs)
+        _wait("the first answers", lambda: load.count() >= 30)
+        if _probe(clients, reqs, load) != [1, 1, 1]:
+            raise RuntimeError("[fleet] (a) a replica does not answer v1")
+        log(f"[fleet] (a) join: 3/3 replicas alive in list_replicas with "
+            f"their health_port (limit 3); start to alive "
+            + ", ".join(f"{'cli' if r == 2 else f'in{r}'} "
+                        f"{join_s[j]:.3f} s" for r, j in enumerate(jobids))
+            + f"; the registry bound in {reg_up_s:.3f} s; all answer v1 "
+            f"[{power}]")
+
+        def stage(d, step, bake):
+            t = time.monotonic()
+            st = rpc.stage(d, step, bake)
+            if len(st["canaries"]) != 1:
+                raise RuntimeError(f"[fleet] {st['canaries']}: not one "
+                                   f"canary of three")
+            return st["rollout_id"], st["canaries"][0], t, time.time()
+
+        def acked(canary):
+            ro = rpc({"cmd": "rollouts"})["active"].get("default")
+            return ro is not None and canary in ro["acked"]
+
+        # -- (b) promote -------------------------------------------------------
+        t_b = time.time()
+        rid, canary, t_stage, wall_stage = stage(ck[2], 2, FLEET_BAKE)
+        c = jobids.index(canary)
+        _, ack_s = _wait("(b) the canary's ack", lambda: acked(canary))
+        during = _probe(clients, reqs, load)
+        still = bool(rpc({"cmd": "rollouts"})["active"])
+        if still and during != [2 if r == c else 1 for r in range(3)]:
+            raise RuntimeError(f"[fleet] (b) during the bake: {during}")
+        promoted, _ = _wait("(b) the promote",
+                            lambda: rpc.outcome(rid, "promoted"))
+        promote_s = time.monotonic() - t_stage
+        _wait("(b) all on v2", lambda: _probe(clients, reqs, load)
+              == [2, 2, 2])
+        # the answers show the bake: the canary served v2 before the
+        # promote, each other replica v1 after that, and v2 only once the
+        # bake was over
+        first2, _ = _wait("(b) the load sees v2 everywhere", lambda: (
+            lambda f: f if None not in f.values() else None)(
+                {r: load.first(r, 2) for r in range(3)}))
+        late1 = {r: load.last(r, 1) for r in range(3) if r != c}
+        if not (first2[c] < promoted["ts"] and all(
+                late1[r] > first2[c] and first2[r] >= wall_stage
+                + FLEET_BAKE - 0.05 for r in late1)):
+            raise RuntimeError(f"[fleet] (b) the answers' versions do not "
+                               f"show the bake: first v2 {first2}, last v1 "
+                               f"{late1}, promoted at {promoted['ts']}")
+        events = [e["event"] for e in rpc({"cmd": "rollouts"})["events"]]
+        pointer = rpc({"cmd": "models"})["models"]["default"]
+        if events != ["staged", "promoted"] or pointer["ckpt_dir"] != ck[2]:
+            raise RuntimeError(f"[fleet] (b) ledger {events}, pointer "
+                               f"{pointer}")
+        log(f"[fleet] (b) promote: {rid} on canary {canary} (1 of 3, limit "
+            f"1); stage to the canary's ack {ack_s * 1e3:.1f} ms; probes "
+            f"after the ack {during} ("
+            + ("rollout active" if still else "rollout already finished")
+            + f"); in the load, the canary's first v2 answer "
+            f"{promoted['ts'] - first2[c]:.3f} s before the promote and the "
+            f"others' {min(first2[r] for r in late1) - wall_stage:.3f} s "
+            f"after the stage (limit >= the {FLEET_BAKE} s bake); stage to "
+            f"promoted {promote_s:.3f} s; ledger {events}; stable pointer "
+            f"v2 [{power}]")
+
+        # -- (c) roll back a checkpoint the engine refuses -------------------
+        t_c = time.time()
+        rid_c, canary_c, t_stage, _ = stage(ck_bad, 4, FLEET_BAKE)
+        rolled, _ = _wait("(c) the rollback",
+                          lambda: rpc.outcome(rid_c, "rolled_back"))
+        rollback_s = time.monotonic() - t_stage
+        _wait("(c) the rollback's reload", lambda: _probe(
+            clients, reqs, load) == [2, 2, 2])
+        _, records = StateJournal(os.path.join(fdir, "journal", "registry"),
+                                  snap_schema=REGISTRY_SNAP_SCHEMA).load()
+        acks = [r for r in records if r.get("op") == "rollout_ack"
+                and r.get("rollout_id") == rid_c]
+        pointer = rpc({"cmd": "models"})["models"]["default"]
+        served_c = load.versions_since(t_c)
+        if not (canary_c == canary and acks and not acks[0]["ok"]
+                and rolled["reason"].startswith(
+                    f"reload failed on ['{canary}']")
+                and served_c == {2} and pointer["ckpt_dir"] == ck[2]):
+            raise RuntimeError(f"[fleet] (c) acks {acks}, {rolled}, "
+                               f"versions served {served_c}, pointer "
+                               f"{pointer}")
+        log(f"[fleet] (c) roll back: {rid_c} on canary {canary_c}: its ack "
+            f"ok={acks[0]['ok']} ({acks[0]['error'].splitlines()[0]}); "
+            f"reason {rolled['reason'].splitlines()[0]!r}; stage to rolled "
+            f"back {rollback_s:.3f} s; every answer since the stage v2 "
+            f"(served {sorted(served_c)}, limit [2]); stable pointer v2 "
+            f"[{power}]")
+
+        # -- (d) the registry SIGKILLed between the ack and the promote -------
+        rid_d, canary_d, t_stage, _ = stage(ck[3], 3, FLEET_KILL_BAKE)
+        _, ack_d_s = _wait("(d) the canary's ack", lambda: acked(canary_d))
+        if not rpc({"cmd": "rollouts"})["active"]:
+            raise RuntimeError("[fleet] (d) promoted before the kill")
+        os.kill(procs["registry"].pid, signal.SIGKILL)
+        procs["registry"].wait(timeout=60)
+        procs["registry"], t_reg = _spawn_registry(fdir, port, 1)
+        restart_s = _registry_bound(procs["registry"], t_reg, port)
+        ro = rpc({"cmd": "rollouts"})["active"]["default"]
+        if ro["id"] != rid_d or ro["acked"] != [canary_d]:
+            raise RuntimeError(f"[fleet] (d) the replayed rollout: {ro}")
+        _, reattach_s = _wait("(d) every agent re-attached", lambda: all(
+            r["health"] != "?"
+            for r in rpc({"cmd": "fleet"})["replicas"].values()))
+        _wait("(d) the promote", lambda: rpc.outcome(rid_d, "promoted"))
+        promote_d_s = time.monotonic() - t_stage
+        _wait("(d) all on v3", lambda: _probe(clients, reqs, load)
+              == [3, 3, 3])
+        n_promoted = sum(e["event"] == "promoted" for e in rpc.events(rid_d))
+        events = [e["event"] for e in rpc({"cmd": "rollouts"})["events"]]
+        pointer = rpc({"cmd": "models"})["models"]["default"]
+        if (n_promoted != 1 or pointer["ckpt_dir"] != ck[3] or events != [
+                "staged", "promoted", "staged", "rolled_back", "staged",
+                "promoted"]):
+            raise RuntimeError(f"[fleet] (d) promoted {n_promoted} times, "
+                               f"ledger {events}, pointer {pointer}")
+        log(f"[fleet] (d) registry kill: {rid_d} on canary {canary_d}, "
+            f"acked {ack_d_s * 1e3:.1f} ms after the stage, then SIGKILL; "
+            f"the restarted registry bound in {restart_s:.3f} s and replayed"
+            f" the rollout with its ack; all 3 agents re-attached "
+            f"{reattach_s:.3f} s after it bound; promoted {n_promoted} time "
+            f"(limit 1), stage to promoted {promote_d_s:.3f} s (the "
+            f"{FLEET_KILL_BAKE} s bake restarted at the replay); all answer "
+            f"v3; ledger {events} [{power}]")
+        t_end = time.time()
+        n0 = load.count()
+        _wait("answers after the last check",
+              lambda: load.count() >= n0 + 3 * FLEET_CLIENTS)
+        if not load.stop():
+            raise RuntimeError("[fleet] a client thread wedged")
+        torch.cuda.synchronize()
+        launches = launch_counts()            # the main path ends here
+
+        # -- throughout: no failed request, versions only move forward -------
+        if load.failures:
+            raise RuntimeError(f"[fleet] {len(load.failures)} failed "
+                               f"requests: {load.failures[:3]}")
+        steps = collections.defaultdict(list)
+        for k, r, v, _, _ in load.answers:
+            steps[(k, r)].append(v)
+        back = [key for key, vs in steps.items() if vs != sorted(vs)]
+        if back:
+            raise RuntimeError(f"[fleet] a replica's answers went back a "
+                               f"version: {back}")
+        window = t_end - t_b
+        per = {}
+        for r, j in enumerate(jobids):
+            lat = [(a[4] - a[3]) * 1e3 for a in load.answers
+                   if a[1] == r and a[3] >= t_b and a[4] <= t_end]
+            per["cli" if r == 2 else f"in{r}"] = {
+                "jobid": j, "qps": len(lat) / window,
+                "p50_ms": float(np.percentile(lat, 50)),
+                "p99_ms": float(np.percentile(lat, 99))}
+        # a heartbeat's round trip: an agent's whole report (the metrics
+        # state push included) under a jobid of its own
+        report_ms, rpc_ms = [], []
+        for _ in range(FLEET_RPC_REPS):
+            t1 = time.perf_counter()
+            report = servers[0]._agent._report()
+            report_ms.append((time.perf_counter() - t1) * 1e3)
+        report["jobid"] = "chip-smoke-probe"
+        for _ in range(FLEET_RPC_REPS):
+            t1 = time.perf_counter()
+            rpc({"cmd": "heartbeat", **report})
+            rpc_ms.append((time.perf_counter() - t1) * 1e3)
+        rpc({"cmd": "deregister_replica", "jobid": "chip-smoke-probe"})
+        batches = sum(s.batcher.batches for s in servers)
+        graphs = sum(s.engine.compile_count for s in servers)
+        for name in ("ragged_gather_fm", "ragged_gather_embed"):
+            if launches.get(name, 0) != batches + graphs:
+                raise RuntimeError(f"[fleet] {name}: {launches.get(name, 0)}"
+                                   f" launches, expected one a call and one "
+                                   f"a warm-up ({batches + graphs})")
+        phase_s = time.monotonic() - t_phase
+        out = {"join_s": join_s, "registry_up_s": reg_up_s,
+               "stage_to_ack_ms": ack_s * 1e3,
+               "stage_to_promoted_s": promote_s,
+               "stage_to_rolled_back_s": rollback_s,
+               "kill_stage_to_ack_ms": ack_d_s * 1e3,
+               "restart_bind_s": restart_s, "reattach_s": reattach_s,
+               "kill_stage_to_promoted_s": promote_d_s,
+               "heartbeat_rpc_ms": {"p50": float(np.percentile(rpc_ms, 50)),
+                                    "p99": float(np.percentile(rpc_ms, 99))},
+               "report_ms": float(np.median(report_ms)),
+               "report_bytes": len(json.dumps(report, default=str)),
+               "registry_retries": rpc.retries,
+               "replicas": per, "answers": len(load.answers),
+               "setup_s": t_setup, "phase_s": phase_s}
+        log(f"[fleet] throughout (a)-(d): {len(load.answers)} answers to "
+            f"{FLEET_CLIENTS} client threads, 0 failed (limit 0), each a "
+            f"version's plain scores within rtol=atol={RTOL}, no replica "
+            f"went back a version; (b)-(d) over {window:.3f} s: "
+            + ", ".join(f"{k} {v['qps']:.1f} qps p50 {v['p50_ms']:.3f} ms "
+                        f"p99 {v['p99_ms']:.3f} ms" for k, v in per.items())
+            + f"; heartbeat fleet_rpc round trip p50 "
+            f"{out['heartbeat_rpc_ms']['p50']:.3f} ms p99 "
+            f"{out['heartbeat_rpc_ms']['p99']:.3f} ms ({out['report_bytes']}"
+            f" bytes; the report built in {out['report_ms']:.3f} ms); "
+            f"{rpc.retries} registry calls made again after a timeout "
+            f"[{power}]")
+        log(f"[fleet] kernel launches: {launches} over {batches} engine "
+            f"calls of the two in-process replicas and {graphs} warm-ups; "
+            f"set-up {t_setup:.1f} s; phase {phase_s:.1f} s (limit "
+            f"{FLEET_LIMIT_S:.0f} s)")
+        if phase_s > FLEET_LIMIT_S:
+            raise RuntimeError(f"[fleet] took {phase_s:.1f} s, over "
+                               f"{FLEET_LIMIT_S:.0f} s")
+        return {"launches": launches, "stats": out}
+    finally:
+        if load is not None:
+            load.stop()
+        for c in clients:
+            c.close()
+        for s in servers:
+            s.stop()                  # each deregisters from the registry
+        for name, sig in (("cli", signal.SIGINT),
+                          ("registry", signal.SIGTERM)):
+            p = procs.get(name)
+            if p is None:
+                continue
+            p.send_signal(sig)
+            try:
+                if p.wait(timeout=60) != 0:
+                    log(f"[fleet] the {name} process exited {p.returncode}")
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=60)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        timeseries.history.stop()     # the exporters' stop leaves it on
+        shutil.rmtree(fdir, ignore_errors=True)
 
 
 # -- phase 4d: spans and traces ----------------------------------------------
@@ -8958,6 +9577,21 @@ def main_embed() -> int:
     return 0
 
 
+def main_fleet() -> int:
+    """``--fleet``: phases 1, 2 and [fleet] only."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    power = phase_device(torch)
+    phase_build()
+    fleet = phase_fleet(torch, power)
+    print(power)
+    print(json.dumps({"fleet": fleet}, default=str))
+    return 0
+
+
 def main_mesh() -> int:
     """``--mesh``: phases 1, 2, [mesh] and [probe] only."""
     import torch
@@ -9506,6 +10140,7 @@ def main() -> int:
     exporter = phase_exporter(torch, power)["launches"]
     incident = phase_incident(torch, power)["launches"]
     diagnosis = phase_diagnose(torch, power)["launches"]
+    fleet = phase_fleet(torch, power)["launches"]
     with _data_files() as (data, train_file, eval_file):
         phase_feed(torch, power, train_file)
         io = phase_io(torch, power, data, train_file)
@@ -9584,6 +10219,12 @@ def main() -> int:
     missing += [f"{k} (diagnose)" for k in ("ragged_gather_fm",
                                             "ragged_gather_embed")
                 if diagnosis.get(k, 0) < 1]
+    # three replicas of the server behind the fleet's registry, through
+    # promotes, a rollback and the registry's death (the two in-process
+    # replicas)
+    missing += [f"{k} (fleet)" for k in ("ragged_gather_fm",
+                                         "ragged_gather_embed")
+                if fleet.get(k, 0) < 1]
     # FFM's bucket sum G and its gradient, on both of its paths
     missing += [f"{k} (ffm)" for k in ("ragged_gather_embed",
                                        "ragged_gather_grad_embed")
@@ -9659,6 +10300,8 @@ def main() -> int:
             row["exporter"] = {"launches": exporter.get(name, 0)}
             row["incident"] = {"launches": incident.get(name, 0)}
             row["diagnose"] = {"launches": diagnosis.get(name, 0)}
+            # [fleet]: the in-process replicas behind the registry
+            row["fleet"] = {"launches": fleet.get(name, 0)}
         if io.get(name, 0):
             # the I/O layer's training: fed from the page file, and
             # save_async under training
@@ -9793,6 +10436,8 @@ if __name__ == "__main__":
                     help=argparse.SUPPRESS)   # [elastic]'s rank processes
     ap.add_argument("--embed", action="store_true",
                     help="run [embed] only (after phases 1-2)")
+    ap.add_argument("--fleet", action="store_true",
+                    help="run [fleet] only (after phases 1-2)")
     args = ap.parse_args()
     try:
         rc = (main_planted(args.plant) if args.plant is not None
@@ -9812,6 +10457,7 @@ if __name__ == "__main__":
               else main_tracker() if args.tracker
               else main_elastic() if args.elastic
               else main_embed() if args.embed
+              else main_fleet() if args.fleet
               else main_mesh() if args.mesh
               else main())
     except Exception as e:  # noqa: BLE001 — any failed phase fails

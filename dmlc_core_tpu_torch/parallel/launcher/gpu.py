@@ -19,12 +19,13 @@ under ``--elastic``: a plain process group cannot admit a reborn
 process, so without :class:`~..elastic.ElasticTorchMesh` in the worker a
 respawn would hang.  Elastic jobs also get ``DMLC_ELASTIC_BASE_PORT``,
 the first of a run of 8 consecutive free ports (generation ``g`` binds
-``base + g``).
+``base + g``), drawn below the host's ephemeral range.
 """
 
 from __future__ import annotations
 
 import os
+import random
 import socket
 import subprocess
 import threading
@@ -38,11 +39,9 @@ __all__ = ["submit", "torch_rendezvous_env", "initialize_torch_from_env",
 
 
 def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+    """A free port for a store that binds it later (``MASTER_PORT``):
+    drawn below the ephemeral range, as :func:`_free_port_run`."""
+    return _free_port_run(0)
 
 
 def card_count() -> int:
@@ -73,22 +72,44 @@ def initialize_torch_from_env(spec: str = "dp=-1", **kw: Any):
                      world_size=get_env("WORLD_SIZE", 1), **kw)
 
 
+#: where the kernel draws outgoing connections' ports
+_PORT_RANGE_FILE = "/proc/sys/net/ipv4/ip_local_port_range"
+#: the lowest base drawn where the range leaves room (above the ports of
+#: common local services)
+_RUN_FLOOR = 10000
+
+
+def _ephemeral_low() -> int:
+    """The low end of the host's ephemeral port range; Linux's default,
+    32768, where the file cannot be read."""
+    try:
+        with open(_PORT_RANGE_FILE) as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
 def _free_port_run(length: int, tries: int = 50) -> int:
-    """A base port with ``length`` CONSECUTIVE free ports above it:
-    elastic generation g binds base+g, so probing only the base would
-    leave post-crash generations to collide with whatever else is bound
-    in the ephemeral range (the rejoin would wedge at its rendezvous)."""
+    """A base port with ``length`` CONSECUTIVE free ports above it,
+    ``base .. base + length`` all probed free.  Elastic generation g
+    binds base+g seconds or minutes after this returns, so the run is
+    drawn at random BELOW the ephemeral range: a port the kernel hands
+    to any outgoing connection in the meantime (as a port-0 bind's
+    would be) cannot take it."""
+    hi = _ephemeral_low() - length - 1
+    lo = _RUN_FLOOR if hi > 2 * _RUN_FLOOR else 1024
+    if hi < lo:
+        raise OSError(f"no room for a run of {length + 1} ports below the "
+                      f"ephemeral range")
+    rng = random.SystemRandom()
     for _ in range(tries):
+        base = rng.randint(lo, hi)
         socks = []
         try:
-            s0 = socket.socket()
-            s0.bind(("", 0))
-            base = s0.getsockname()[1]
-            socks.append(s0)
-            for i in range(1, length + 1):
+            for i in range(length + 1):
                 s = socket.socket()
-                s.bind(("", base + i))
                 socks.append(s)
+                s.bind(("", base + i))
             return base
         except OSError:
             continue

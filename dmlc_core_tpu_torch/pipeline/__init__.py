@@ -6,8 +6,9 @@ persisted transfer tuning (:mod:`.tuned`), the transfer probe that
 persists it (:mod:`.probe`, ``python -m
 dmlc_core_tpu_torch.pipeline.probe``) and the closed-loop autotuner
 (:mod:`.autotune`).  The data service (ROADMAP A.9) waits for the
-serving fleet's transport (A.11); the tracker's liveness board and
-``utils/durable.py`` it also needs are ported (A.7.b)."""
+serving fleet's reactor (A.11.b); the tracker's liveness board,
+``utils/durable.py`` and the endpoint lists it also needs are ported
+(A.7.b, A.11.a)."""
 
 from .autotune import (Autotuner, Knob, ingest_knob_space,  # noqa: F401
                        maybe_autotuner, serving_knob_space)

@@ -32,7 +32,7 @@ views into its own buffers and never recycles one.
 Left out: the JAX package's ``DMLC_PAGE_CACHE_QUEUE`` /
 ``DMLC_PAGE_CACHE_READAHEAD`` environment knobs (the loader's
 ``cache_queue_pages`` / ``cache_readahead`` arguments remain) and the
-reader's descriptor-passing constructor (ROADMAP A.11).
+reader's descriptor-passing constructor (ROADMAP A.11.b).
 """
 
 from __future__ import annotations

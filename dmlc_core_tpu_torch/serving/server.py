@@ -64,9 +64,14 @@ conn, req_id, rows, nnz, dur_ms, outcome, the batcher's queue_ms,
 batch_rows and batch_nnz, the trace id), an admission shed included;
 the exporter serves them at ``/events`` and a bundle at ``/flight``.
 
-Not ported, refused when asked for (a deployment that sets it must not
-be served silently without it): the fleet agent
-(``DMLC_ROUTER_REGISTRY``, ROADMAP queue A.11).
+Fleet membership: ``DMLC_ROUTER_REGISTRY=host:port`` (or a
+``host:port,host:port`` list, a primary and its standbys) joins the
+replica to a :class:`~.fleet.ReplicaRegistry` through a
+:class:`~.fleet.ReplicaAgent` made at construction, started by
+:meth:`PredictionServer.start` and deregistered by
+:meth:`PredictionServer.stop` before the port goes away; it heartbeats
+every ``DMLC_ROUTER_HEARTBEAT`` s and applies the registry's reload
+directives (canary rollouts).
 
 Autotuning: with ``DMLC_AUTOTUNE`` opted in, :meth:`PredictionServer.
 serve_forever` (and so ``serve_main``) tunes the micro-batcher's cut
@@ -139,22 +144,6 @@ STATUS_NAMES = {0: "OK", 1: "OVERLOADED", 2: "DEADLINE_EXCEEDED",
 _MAX_ROWS = 1 << 20
 _MAX_NNZ = 1 << 26
 
-# what is not ported, by the environment variable that asks for it
-_REFUSED_ENV = {
-    "DMLC_ROUTER_REGISTRY": "the serving fleet's replica agent is not "
-                            "ported yet (ROADMAP queue A.11, serving "
-                            "fleet)",
-}
-
-
-def _refuse_unported() -> None:
-    """Raise for any part of the JAX server that this one lacks and the
-    environment asks for."""
-    for key, why in _REFUSED_ENV.items():
-        if get_env(key, ""):
-            raise DMLCError(f"{key} is set, but {why}")
-
-
 def _recv_exact(sock: socket.socket, n: int) -> Optional[bytes]:
     buf = bytearray(n)
     view = memoryview(buf)
@@ -193,7 +182,6 @@ class PredictionServer:
                  warmup: bool = True, backlog: int = 64,
                  metrics_port: Optional[int] = None,
                  model_id: Optional[str] = None) -> None:
-        _refuse_unported()
         # DMLC_SLO_SPEC compiles first (a bad spec raises before any
         # socket or thread exists); its monitor runs from start() to stop()
         self.slo_monitor: Optional[telanomaly.SloMonitor] = \
@@ -240,6 +228,13 @@ class PredictionServer:
             self.telemetry = TelemetryServer(
                 port=int(metrics_port), host=self.host,
                 health_fn=self.health_doc)
+        # fleet membership: an agent that registers, heartbeats and
+        # applies the registry's reload directives
+        self._agent = None
+        reg = str(get_env("DMLC_ROUTER_REGISTRY", ""))
+        if reg:
+            from .fleet.registry import ReplicaAgent
+            self._agent = ReplicaAgent(self, reg, model_id=self.model_id)
 
     # -- lifecycle -------------------------------------------------------
     def start(self) -> "PredictionServer":
@@ -250,6 +245,8 @@ class PredictionServer:
         self._accept_thread = self._listener.spawn(
             self._on_conn, name="serving-accept",
             stopping=lambda: self._stopping)
+        if self._agent is not None:
+            self._agent.start()
         log_info("serving: listening on %s:%d (%d buckets, queue=%d)",
                  self.host, self.port, len(self.engine.ladder),
                  self.batcher.max_queue)
@@ -260,6 +257,8 @@ class PredictionServer:
         in flight get their answers), then drop the connections."""
         self._stopping = True
         self._watch_stop.set()
+        if self._agent is not None:
+            self._agent.stop()         # deregister before the port goes
         if self.slo_monitor is not None:
             self.slo_monitor.stop()
         if self.telemetry is not None:
@@ -578,10 +577,10 @@ def serve_main(argv=None) -> int:
     features=N [model=fm] [dim=16] [port=N] [watch_s=SEC] [device=cuda]
     ...``: build the model, load the latest checkpoint, serve until
     interrupted.  ``DMLC_METRICS_PORT`` mounts the exporter (its port is
-    printed after the serving one) and ``DMLC_SLO_SPEC`` the SLO
-    monitor, as in the JAX CLI.  The model's weights before the first
-    load come from a ``torch.Generator`` seeded with 0 (the JAX CLI's
-    ``PRNGKey(0)``)."""
+    printed after the serving one), ``DMLC_SLO_SPEC`` the SLO monitor
+    and ``DMLC_ROUTER_REGISTRY`` joins a fleet, as in the JAX CLI.  The
+    model's weights before the first load come from a
+    ``torch.Generator`` seeded with 0 (the JAX CLI's ``PRNGKey(0)``)."""
     args = dict(a.split("=", 1) for a in (sys.argv[1:] if argv is None
                                           else argv))
     if not args.get("ckpt_dir") or not args.get("features"):
@@ -604,7 +603,6 @@ def serve_main(argv=None) -> int:
                 "device": args.get("device", "cuda")})
         if p.model == "ffm":
             raise DMLCError(_FFM_UNSERVABLE)
-        _refuse_unported()
         device = resolve_device(p.device)
     except DMLCError as e:
         print(f"serving.server: {e}", file=sys.stderr)

@@ -14,7 +14,7 @@ one vectored ``sendmsg``.  The bytes are the JAX package's with no codec
 negotiated, so either package's worker feeds the other's loader.
 
 The codecs, the control frames of the negotiation (``CTRL_TRANSPORT``)
-and of fd passing (``CTRL_FDPASS``) are ROADMAP queue A.11.
+and of fd passing (``CTRL_FDPASS``) are ROADMAP queue A.11.b.
 """
 
 from __future__ import annotations

@@ -2,7 +2,7 @@
 
 Counterpart of ``recv_exact_into`` in ``dmlc_core_tpu/transport/lane.py``,
 without descriptors: the fd-passing lane (``SCM_RIGHTS``) and the rest of
-that module are ROADMAP queue A.11.
+that module are ROADMAP queue A.11.b.
 """
 
 from __future__ import annotations

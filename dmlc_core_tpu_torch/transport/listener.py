@@ -1,7 +1,7 @@
 """TCP listener skeleton: bind, accept loop, shutdown wake-up.
 
 Counterpart of ``dmlc_core_tpu/transport/listener.py`` without the
-``SO_REUSEPORT`` group (the reactor's, ROADMAP queue A.11).
+``SO_REUSEPORT`` group (the reactor's, ROADMAP queue A.11.b).
 
 The accept helpers tell the two ``OSError`` kinds of ``accept()`` apart:
 **fd exhaustion** (``EMFILE``/``ENFILE``/``ENOBUFS``/``ENOMEM``) sleeps

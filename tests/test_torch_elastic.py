@@ -27,7 +27,6 @@ no JAX.  Every tracker binds 127.0.0.1 and is stopped."""
 
 import json
 import os
-import socket
 import subprocess
 import sys
 import threading
@@ -47,6 +46,8 @@ from dmlc_core_tpu_torch.parallel import (ElasticTorchMesh,  # noqa: E402
                                           allreduce, make_mesh, rabit,
                                           tracker)
 from dmlc_core_tpu_torch.parallel import elastic  # noqa: E402
+from dmlc_core_tpu_torch.parallel.launcher.gpu import \
+    _free_port_run  # noqa: E402
 from dmlc_core_tpu_torch.utils import logging as tlogging  # noqa: E402
 from dmlc_core_tpu_torch.utils.logging import DMLCError  # noqa: E402
 
@@ -120,19 +121,9 @@ print("RESULT " + json.dumps(out), flush=True)
 
 
 def _free_port_pair():
-    for _ in range(20):
-        s0, s1 = socket.socket(), socket.socket()
-        try:
-            s0.bind(("127.0.0.1", 0))
-            p = s0.getsockname()[1]
-            s1.bind(("127.0.0.1", p + 1))
-            return p
-        except OSError:
-            continue
-        finally:
-            s0.close()
-            s1.close()
-    raise OSError("no two consecutive free ports")
+    """Two consecutive free ports below the ephemeral range (the
+    launcher's draw), for generations 0 and 1."""
+    return _free_port_run(1)
 
 
 @pytest.mark.parametrize("variant", ["overlap", "sequential", "no_reshard"])

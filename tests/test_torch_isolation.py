@@ -50,7 +50,11 @@ new = ("dmlc_core_tpu_torch.native", "dmlc_core_tpu_torch.native.build",
        "dmlc_core_tpu_torch.parallel.launcher.yarn_am",
        "dmlc_core_tpu_torch.embed", "dmlc_core_tpu_torch.embed.exchange",
        "dmlc_core_tpu_torch.embed.table",
-       "dmlc_core_tpu_torch.examples.train_embed_shard")
+       "dmlc_core_tpu_torch.examples.train_embed_shard",
+       "dmlc_core_tpu_torch.transport.endpoints",
+       "dmlc_core_tpu_torch.serving.fleet",
+       "dmlc_core_tpu_torch.serving.fleet.registry",
+       "dmlc_core_tpu_torch.serving.fleet.rollout")
 assert all(n in sys.modules for n in new), new
 import threading
 assert threading.active_count() == 1, threading.enumerate()
@@ -214,3 +218,45 @@ def test_dp_worker_imports_nothing_of_jax():
     port: the JAX side runs in the pytest process."""
     test_source_imports_nothing_of_jax(
         os.path.join(REPO, "tests", "torch_dp_worker.py"))
+
+
+#: the fleet's control plane (ROADMAP A.11.a) and what each names as its
+#: counterpart
+FLEET_MODULES = {
+    "transport/endpoints.py": "dmlc_core_tpu/transport/endpoints.py",
+    "serving/fleet/__init__.py": "dmlc_core_tpu/serving/fleet",
+    "serving/fleet/registry.py": "dmlc_core_tpu/serving/fleet/registry.py",
+    "serving/fleet/rollout.py": "dmlc_core_tpu/serving/fleet/rollout.py"}
+
+_FLEET_PROBE = r"""
+import sys, threading
+import dmlc_core_tpu_torch.serving.fleet
+import dmlc_core_tpu_torch.transport.endpoints
+assert threading.active_count() == 1, threading.enumerate()
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "optax", "dmlc_core_tpu")))
+"""
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_MODULES))
+def test_fleet_modules_stand_alone(name):
+    """Each module is among the checked sources, imports nothing of JAX
+    or the JAX package, and names its counterpart."""
+    path = os.path.join(PKG, *name.split("/"))
+    assert path in _sources()
+    test_source_imports_nothing_of_jax(path)
+    test_no_module_lookup_names_the_jax_package(path)
+    doc = ast.get_docstring(ast.parse(open(path).read())) or ""
+    assert FLEET_MODULES[name] in doc
+
+
+def test_fleet_imports_pull_in_no_jax_and_start_nothing():
+    """Importing the fleet package and the endpoint lists alone pulls in
+    no JAX and starts no thread (the registry, its sweep and the rollout
+    watch start only with ``start()``)."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _FLEET_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=240)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

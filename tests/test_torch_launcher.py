@@ -261,6 +261,30 @@ def test_free_port_run_is_consecutive():
             s.close()
 
 
+def _ephemeral_low():
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            return int(f.read().split()[0])
+    except (OSError, ValueError, IndexError):
+        return 32768
+
+
+@pytest.mark.parametrize("length", [0, 1, 8])
+def test_free_port_run_lies_below_the_ephemeral_range(length):
+    """A run a store binds later must lie wholly below the range the
+    kernel draws outgoing connections' ports from: a port-0 bind's port
+    (the old draw) lies inside it, and any connection made before the
+    store binds may hold it (EADDRINUSE at a rejoin).  ``_free_port``
+    (``MASTER_PORT``) is the run of one."""
+    low = _ephemeral_low()
+    draws = [gpu._free_port_run(length) for _ in range(20)]
+    if length == 0:
+        draws.append(gpu._free_port())
+    for base in draws:
+        assert 1024 <= base and base + length < low, (base, length, low)
+    assert len(set(draws)) > 1          # drawn at random, not one fixed run
+
+
 CRASH_ONCE = (
     "import os, sys\n"
     "attempt = os.environ['DMLC_NUM_ATTEMPT']\n"

@@ -9,10 +9,10 @@ package on the CPU.
   client against a JAX server: scores within ``TOL = rtol 1e-5, atol
   1e-5`` of the JAX engine (float32 sums in different orders).
 * The JAX server tests (``tests/test_serving.py``), replayed on the port.
-* What the port's server does not have is refused, naming its ROADMAP
-  item; ``DMLC_FLIGHT_DIR`` and ``DMLC_TRACE_SAMPLE`` (ported, A.12.d)
-  arm the flight recorder and install the tail sampler at construction,
-  as the JAX server's do.  ``DMLC_FAULT_SPEC`` is honoured: the ``serving.server.admit``
+* ``DMLC_ROUTER_REGISTRY`` (A.11.a) joins a registry through a fleet
+  agent, in both packages' servers; ``DMLC_FLIGHT_DIR`` and
+  ``DMLC_TRACE_SAMPLE`` (A.12.d) arm the flight recorder and install the
+  tail sampler at construction, as the JAX server's do.  ``DMLC_FAULT_SPEC`` is honoured: the ``serving.server.admit``
   fault point sheds an injected burst as ``OVERLOADED``, byte for byte
   as the JAX server does, and the client's retries answer every
   request.
@@ -617,11 +617,15 @@ def test_engine_metrics_equal_the_jax_engines(ragged):
     ("DMLC_TRACE_SAMPLE", "0.5", "A.12"),
 ])
 def test_unported_server_parts_are_refused(monkeypatch, env, value, item):
-    """A.11 is refused.  The A.12.d variables, ported, are taken: the
-    server's construction arms the flight recorder at that directory
-    (created at the first dump only, and none happens here) with its
-    hooks, or installs the tail sampler at that floor, as the JAX
-    server's construction does to the JAX package's."""
+    """Each variable, now ported, is taken as the JAX server takes it.
+    ``DMLC_ROUTER_REGISTRY`` (A.11.a) arms a fleet agent that registers
+    the replica with a registry at ``start()`` and deregisters it at
+    ``stop()``: the port's server with a dead endpoint (``value``) before
+    its registry, the JAX server with its own.  The A.12.d variables arm
+    the flight recorder at that directory (created at the first dump
+    only, and none happens here) with its hooks, or install the tail
+    sampler at that floor, as the JAX server's construction does to the
+    JAX package's."""
     from dmlc_core_tpu.telemetry import flight as jflight
     from dmlc_core_tpu.telemetry import trace as jtrace
     from dmlc_core_tpu_torch.telemetry import flight as tflight
@@ -632,8 +636,7 @@ def test_unported_server_parts_are_refused(monkeypatch, env, value, item):
         monkeypatch.delenv(key, raising=False)
     monkeypatch.setenv(env, value)
     if item == "A.11":
-        with pytest.raises(DMLCError, match=f"ROADMAP queue {item}"):
-            PredictionServer(_Stub(), warmup=False)
+        _fleet_agents_register(monkeypatch, value)
         return
     with incident_state():
         for mod in (ttrace, jtrace):
@@ -658,6 +661,41 @@ def test_unported_server_parts_are_refused(monkeypatch, env, value, item):
         finally:
             srv.stop()
             jsrv.stop()
+
+
+def _fleet_agents_register(monkeypatch, dead):
+    from dmlc_core_tpu.serving.fleet import registry as jregistry
+    from dmlc_core_tpu_torch.serving.fleet import registry as tregistry
+    monkeypatch.setenv("DMLC_ROUTER_HEARTBEAT", "0.05")
+    monkeypatch.setenv("DMLC_ROUTER_BREAKER_COOLDOWN", "0.2")
+    for pkg, reg_cls, srv_cls in (
+            ("port", tregistry.ReplicaRegistry, PredictionServer),
+            ("jax", jregistry.ReplicaRegistry, jserver.PredictionServer)):
+        reg = reg_cls(heartbeat_timeout_s=5.0).start()
+        srv = None
+        try:
+            addr = f"{reg.host}:{reg.port}"
+            monkeypatch.setenv("DMLC_ROUTER_REGISTRY",
+                               f"{dead},{addr}" if pkg == "port" else addr)
+            srv = srv_cls(_Stub(), warmup=False)
+            assert srv._agent is not None, pkg
+            assert reg.replica_records() == {}      # joins at start()
+            srv.start()
+            jobid = f"replica-{srv.host}:{srv.port}"
+            deadline = time.monotonic() + 10
+            while (jobid not in reg.replica_records()
+                   and time.monotonic() < deadline):
+                time.sleep(0.02)
+            rec = reg.replica_records()[jobid]
+            assert rec["alive"] and rec["model_id"] == "default", pkg
+            assert (rec["host"], rec["port"]) == (srv.host, srv.port)
+            srv.stop()
+            srv = None
+            assert reg.replica_records() == {}, pkg     # deregistered
+        finally:
+            if srv is not None:
+                srv.stop()
+            reg.stop()
 
 
 def _healthz(port):
